@@ -1,24 +1,39 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's main path — the flagship condensed phase scan: the
-default 3-leg jacket refined 32x (9,612 DOF), the Fenton N = 18 storm wave
-(H = 17.038 m, T = 9.4 s, d = 50 m, U_c = 1.7 m/s), a full FEM solve at 360
-wave phases in float32 with the fused Morison kernel — and checks it:
+Drives the port's two user paths at the JAX bench's sizes — the flagship
+condensed phase scan (the default 3-leg jacket refined 32x to 9,612 DOF,
+the Fenton N = 18 storm wave H = 17.038 m, T = 9.4 s, d = 50 m,
+U_c = 1.7 m/s, a full FEM solve at 360 wave phases in float32) and the
+condensed storm envelope (10 Fenton cases, H = linspace(8, 17, 10) m, x 360
+phases on the same mesh) — through both hand-written kernels, the fused
+Morison kernel (K1) and the chain-sweep kernel, and checks them:
 
 1. device and toolkit versions; full-f32 matmul settings;
-2. builds the CUDA kernel from the sources in this checkout and times it;
-3. kernel phase: ``morison_phase_batch_cuda`` (f32) against the plain
+2. builds both CUDA kernels from the sources in this checkout (one nvcc
+   per source, started together);
+3. K1 phase: ``morison_phase_batch_cuda`` (f32) against the plain
    ``morison_phase_batch`` in f64 on the same (f32-rounded) inputs, at the
    flagship shapes, for Fenton and Airy waves, Wheeler stretching and a
    member count that is not a multiple of the kernel's member group;
-4. slice phase: ``phase_scan_condensed(kinematics="fused")`` then
-   ``prepare_condensed`` + ``phase_scan_prepared``, with the kernel's launch
-   count read around exactly that run; checked against the separable f64
-   scan of an f64 model, for equilibrium, and prepared == one-shot;
-5. timing with CUDA events (median of 20 synchronised runs after warm-up):
-   the kernel's wrapper (operand packing included) and the kernel alone
-   against the plain f32 version, the fused scan against the separable
-   scan.
+4. sweep phase: ``chain_sweep_cuda`` in f32 and f64 against
+   ``chain_sweep_plain`` in f64 on the flagship chain factors (nested
+   level 1 and 2, thomas), on random loads for 360 and 37 right-hand sides
+   and on the flagship scan's own loads; bit-repeatable (the f64 reference
+   runs below go through the same kernel, so this phase is the sweep's
+   independent check);
+5. scan phase: ``phase_scan_condensed(kinematics="fused")`` then
+   ``prepare_condensed`` + ``phase_scan_prepared``, with both kernels'
+   launch counts read around exactly that run; checked against the
+   separable f64 scan of an f64 model, for equilibrium, and prepared ==
+   one-shot;
+6. envelope phase: ``design_envelope_condensed(kinematics="fused")`` with
+   both launch counts read around exactly that call; checked against the
+   separable f64 envelope of the f64 model and against per-case prepared
+   scans;
+7. timing with CUDA events (median of 20 synchronised runs after warm-up):
+   K1 and its wrapper against the plain f32 version, the sweep kernel
+   against the plain level loop, the fused scan against the separable
+   scan, the envelope; the scan's device launches under torch.profiler.
 
 Prints the kernel record and the card's name and power limit on the lines
 before the last, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -38,7 +53,11 @@ import time
 
 N_SEG = 32
 N_STEPS = 360
-KERNEL_TOL = 1e-5     # K1 (f32) vs plain f64: max |err| / max |value|
+N_CASES = 10          # envelope: H = linspace(8, 17, 10) m (bench.py:178-181)
+KERNEL_TOL = 1e-5     # K1 / sweep (f32) vs plain f64: max |err| / max |value|
+SWEEP_TOL_F64 = 1e-12 # sweep kernel (f64) vs plain f64: sum order only
+ENV_CASE_TOL = 1e-4   # fused f32 envelope vs separable f64: max_util_per_case
+ENV_MEMBER_TOL = 2e-4 # ... member_envelope, relative to its maximum
 UTIL_TOL = 2e-4       # fused f32 scan vs separable f64: per-element utilization
 MAX_UTIL_TOL = 1e-4   # ... governing (max) utilization
 U_TOL = 1e-4          # ... displacements, relative to max |U|
@@ -96,8 +115,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
     import small_fem_solver_tpu_torch as pt
     from small_fem_solver_tpu_torch.ops import hopper_kernels as hk
+    from small_fem_solver_tpu_torch.ops.condense import (ChainFactor,
+                                                         chain_sweep_plain)
     from small_fem_solver_tpu_torch.ops.morison import morison_phase_batch
 
     # ---- 1. device ----
@@ -119,9 +141,10 @@ def main() -> int:
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    hk.build()
-    print(f"[build] morison_phase_batch.cu -> sm_90a in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    hk.build_all()
+    print(f"[build] {', '.join(f'{n}.cu' for n in hk.KERNELS)} -> sm_90a "
+          f"in {time.perf_counter() - t0:.2f} s (one nvcc each, in "
+          f"parallel)", flush=True)
 
     # ---- 3. kernel phase at the flagship shapes ----
     f32, f64 = torch.float32, torch.float64
@@ -147,7 +170,7 @@ def main() -> int:
 
     fields = ("nodal_forces", "F1", "F2", "total_drag", "total_inertia",
               "total_morison")
-    kernel_err = None
+    kernel_err, kernel_rel = None, 0.0
     for label, wave, n_members, stretching in (
             ("fenton", wave32, Mr, "none"),
             ("fenton+wheeler", wave32, Mr, "wheeler"),
@@ -168,27 +191,108 @@ def main() -> int:
         check(max(errs.values()) < KERNEL_TOL,
               f"kernel vs f64 plain ({label}): {max(errs.values()):.2e} "
               f"< {KERNEL_TOL:g}")
+        kernel_rel = max(kernel_rel, max(errs.values()))
         if kernel_err is None:
             kernel_err = max(float((getattr(out, f).double()
                                     - getattr(ref, f)).abs().max())
                              for f in ("F1", "F2"))
 
-    # ---- 4. slice phase: the main path, with the launch count ----
+    # ---- 4. sweep phase at the flagship chain shapes ----
+    prep_th = pt.prepare_condensed(coarse32, refined32, N_SEG,
+                                   chain_solver="thomas", solve_dtype=f32)
+    prep = pt.prepare_condensed(coarse32, refined32, N_SEG, solve_dtype=f32)
+    check(prep.chain_solver == "nested", "flagship chain solver is nested")
+    sweep_facs = {"nested level 1": prep.fac.fac1,
+                  "nested level 2": prep.fac.fac2, "thomas": prep_th.fac}
+
+    def as_dtype(fac, dtype):
+        return ChainFactor(*(t.to(dtype).contiguous() for t in fac))
+
+    def sweep_loads(fac, B, seed):
+        n_int, Mc = fac.Cprime.shape[:2]
+        return torch.tensor(np.random.default_rng(seed).normal(
+            size=(B, n_int, Mc, 6)) * 1e5, dtype=f32, device=dev)
+
+    # the main path's own loads: the sweep inputs of one flagship scan's
+    # nested condensation (level 1, then level 2) and, for thomas, the
+    # scan's chain-layout loads themselves
+    from small_fem_solver_tpu_torch.api import _scan_loads
+    from small_fem_solver_tpu_torch.ops import condense as condense_mod
     case = pt.LoadCase(**CASE)
+    g_scan = _scan_loads(prep, wave32, case, N_STEPS, 15, "fused", "none",
+                         None)[2]
+    scan_sweeps = []
+
+    def recording_sweep(fac, g):
+        scan_sweeps.append((f"flagship scan loads, nested level "
+                            f"{len(scan_sweeps) + 1}", fac, g.contiguous()))
+        return hk.chain_sweep_cuda(fac, g)
+    condense_mod.chain_sweep_cuda = recording_sweep
+    try:
+        condense_mod.condense_loads_nested(prep.fac, g_scan)
+    finally:
+        condense_mod.chain_sweep_cuda = hk.chain_sweep_cuda
+    check(len(scan_sweeps) == 2, "the nested condensation ran two sweeps")
+    sweep_inputs = [(f"{label}, random 1e5 loads", fac, sweep_loads(fac, B,
+                                                                    seed))
+                    for seed, (label, fac) in enumerate(sweep_facs.items())
+                    for B in (N_STEPS, 37)]
+    sweep_inputs += scan_sweeps + [("flagship scan loads, thomas",
+                                    prep_th.fac, g_scan)]
+
+    sweep_err, sweep_rel = 0.0, 0.0
+    for label, fac, g in sweep_inputs:
+        fac64 = as_dtype(fac, f64)
+        ref = chain_sweep_plain(fac64, g.double())
+        out = hk.chain_sweep_cuda(fac, g)
+        torch.cuda.synchronize()
+        plain32 = chain_sweep_plain(fac, g)
+        errs = [rel(a, b) for a, b in zip(out, ref)]
+        perrs = [rel(a, b) for a, b in zip(plain32, ref)]
+        out64 = hk.chain_sweep_cuda(fac64, g.double())
+        errs64 = [rel(a, b) for a, b in zip(out64, ref)]
+        again = hk.chain_sweep_cuda(fac, g)
+        again64 = hk.chain_sweep_cuda(fac64, g.double())
+        torch.cuda.synchronize()
+        B, n_int, Mc = g.shape[0], *fac.Cprime.shape[:2]
+        label = f"{label}, B={B}"
+        print(f"[sweep] {label}: n_int={n_int} chains={Mc} "
+              f"max|v|={float(ref[2].abs().max()):.3e}; max "
+              f"rel err (fI, fJ, v) kernel f32 "
+              + " ".join(f"{e:.2e}" for e in errs)
+              + " | plain f32 " + " ".join(f"{e:.2e}" for e in perrs)
+              + " | kernel f64 " + " ".join(f"{e:.2e}" for e in errs64),
+              flush=True)
+        check(all(torch.isfinite(t).all() for t in out),
+              f"sweep outputs finite ({label})")
+        check(max(errs) <= KERNEL_TOL, f"sweep kernel f32 vs f64 plain "
+              f"({label}): {max(errs):.2e} <= {KERNEL_TOL:g}")
+        check(max(errs64) <= SWEEP_TOL_F64, f"sweep kernel f64 vs f64 "
+              f"plain ({label}): {max(errs64):.2e} <= {SWEEP_TOL_F64:g}")
+        check(all(torch.equal(a, b) for a, b in zip(out, again))
+              and all(torch.equal(a, b) for a, b in zip(out64, again64)),
+              f"sweep kernel bit-repeatable ({label})")
+        sweep_rel = max(sweep_rel, max(errs))
+        sweep_err = max(sweep_err, max(
+            float((a.double() - b).abs().max()) for a, b in zip(out, ref)))
+
+    # ---- 5. scan phase: the flagship scan, with the launch counts ----
     hk.morison_phase_batch_cuda.launches = 0
+    hk.chain_sweep_cuda.launches = 0
     t0 = time.perf_counter()
     scan = pt.phase_scan_condensed(coarse32, refined32, N_SEG, wave32, case,
                                    n_steps=N_STEPS, kinematics="fused",
                                    solve_dtype=f32)
-    prep = pt.prepare_condensed(coarse32, refined32, N_SEG, solve_dtype=f32)
     scan_p = pt.phase_scan_prepared(prep, wave32, case, n_steps=N_STEPS,
                                     kinematics="fused")
     torch.cuda.synchronize()
-    launches = hk.morison_phase_batch_cuda.launches
+    scan_launches = {"morison_phase_batch": hk.morison_phase_batch_cuda.launches,
+                     "chain_sweep": hk.chain_sweep_cuda.launches}
     print(f"[slice] fused f32 one-shot + prepared scans: "
           f"{time.perf_counter() - t0:.2f} s wall (first call), "
-          f"kernel launches={launches}", flush=True)
-    check(launches >= 1, f"main path launched the kernel ({launches}x)")
+          f"kernel launches {scan_launches}", flush=True)
+    for kname, n in scan_launches.items():
+        check(n >= 1, f"scan path launched {kname} ({n}x)")
     check(full_f32(), "matmul settings restored after the scans")
 
     ref = pt.phase_scan_condensed(coarse64, refined64, N_SEG, wave64, case,
@@ -240,7 +344,75 @@ def main() -> int:
           f"{crit} (t = {float(scan.ts[crit]):.4f} s; f64 phase {crit64})",
           flush=True)
 
-    # ---- 5. timing ----
+    # ---- 6. envelope phase: 10 Fenton cases x 360 phases ----
+    Hs = np.linspace(8.0, 17.0, N_CASES)
+    t0 = time.perf_counter()
+    waves32 = pt.make_wave_batch(Hs, 9.4, 50.0, U_c=1.7, model="fenton",
+                                 N=18, n_modes=18, dtype=f32, device=dev)
+    waves64 = pt.make_wave_batch(Hs, 9.4, 50.0, U_c=1.7, model="fenton",
+                                 N=18, n_modes=18, dtype=f64, device=dev)
+    cases = pt.make_case_batch(case, t_analysis=np.zeros(N_CASES))
+    print(f"[envelope] two batched Fenton setups ({N_CASES} cases, N=18): "
+          f"{time.perf_counter() - t0:.2f} s host", flush=True)
+
+    def envelope32():
+        return pt.design_envelope_condensed(
+            coarse32, refined32, N_SEG, waves32, cases, n_steps=N_STEPS,
+            solve_dtype=f32, kinematics="fused")
+    hk.morison_phase_batch_cuda.launches = 0
+    hk.chain_sweep_cuda.launches = 0
+    t0 = time.perf_counter()
+    env = envelope32()
+    torch.cuda.synchronize()
+    env_launches = {"morison_phase_batch": hk.morison_phase_batch_cuda.launches,
+                    "chain_sweep": hk.chain_sweep_cuda.launches}
+    print(f"[envelope] fused f32 envelope: {time.perf_counter() - t0:.2f} s "
+          f"wall (first call), kernel launches {env_launches}", flush=True)
+    for kname, n in env_launches.items():
+        check(n >= 1, f"envelope path launched {kname} ({n}x)")
+
+    env64 = pt.design_envelope_condensed(
+        coarse64, refined64, N_SEG, waves64, cases, n_steps=N_STEPS,
+        solve_dtype=f64, kinematics="separable")
+    C = N_CASES
+    check(tuple(env.ts.shape) == (C, S)
+          and tuple(env.max_util_per_phase.shape) == (C, S)
+          and tuple(env.max_util_per_case.shape) == (C,)
+          and tuple(env.member_envelope.shape) == (Mr,)
+          and tuple(env.total_morison.shape) == (C, S, 3)
+          and env.utilization is None,
+          f"envelope shapes ts {tuple(env.ts.shape)}, member_envelope "
+          f"{tuple(env.member_envelope.shape)}, total_morison "
+          f"{tuple(env.total_morison.shape)}")
+    check(all(torch.isfinite(t).all() for t in
+              (env.ts, env.max_util_per_phase, env.member_envelope,
+               env.total_morison)), "envelope results finite")
+    case_err = rel(env.max_util_per_case, env64.max_util_per_case)
+    member_err = rel(env.member_envelope, env64.member_envelope)
+    check(case_err <= ENV_CASE_TOL, f"fused f32 vs separable f64 envelope "
+          f"max_util_per_case {case_err:.2e} <= {ENV_CASE_TOL:g}")
+    check(member_err <= ENV_MEMBER_TOL, f"fused f32 vs separable f64 "
+          f"member_envelope {member_err:.2e} <= {ENV_MEMBER_TOL:g}")
+    gov, gov64 = int(env.governing_case), int(env64.governing_case)
+    check(gov == gov64, f"governing case {gov} == f64 {gov64}")
+    scan_err = 0.0
+    for i in range(C):
+        sc = pt.phase_scan_prepared(prep, waves32.case(i), cases.case(i),
+                                    n_steps=N_STEPS, kinematics="fused")
+        scan_err = max(scan_err,
+                       rel(env.max_util_per_case[i:i + 1],
+                           sc.utilization.max().reshape(1)),
+                       rel(env.max_util_per_phase[i],
+                           sc.utilization.amax(dim=1)))
+    check(scan_err <= PREP_TOL, f"envelope == per-case prepared scans: "
+          f"{scan_err:.2e} <= {PREP_TOL:g}")
+    print(f"[envelope] {C} cases x {S} phases @ {n_dof} DOF: max "
+          f"utilization per case "
+          + " ".join(f"{float(u):.6f}" for u in env.max_util_per_case)
+          + f"; governing case {gov} (H = {Hs[gov]:.1f} m, f64 "
+          f"{float(env64.max_util_per_case[gov64]):.6f})", flush=True)
+
+    # ---- 7. timing ----
     args32 = kernel_args(wave32, Mr, f32)
     packed = hk.kernel_inputs(*args32, n_gauss=15, current_alpha=None)
     raw_ms = cuda_ms(lambda: hk.launch_packed(packed, Mr, 15, False))
@@ -259,15 +431,86 @@ def main() -> int:
           f"{fused_ms:.3f} ms vs separable {sep_ms:.3f} ms "
           f"(median of 20, CUDA events)", flush=True)
 
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_events(fn):
+        """Device-side operations (kernels, copies) of one ``fn()`` call,
+        recorded by torch.profiler: a list of (name, microseconds)."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def kernel_us(events, name):
+        times = [t for n, t in events if name in n]
+        return sum(times) / len(times) if times else float("nan")
+
+    sweep_ms = {}
+    for label in ("nested level 1", "nested level 2", "thomas"):
+        fac = sweep_facs[label]
+        g = sweep_loads(fac, N_STEPS, 0)
+        sweep_ms[label] = (
+            cuda_ms(lambda: hk.chain_sweep_cuda(fac, g)),
+            cuda_ms(lambda: chain_sweep_plain(fac, g)),
+            kernel_us(device_events(lambda: hk.chain_sweep_cuda(fac, g)),
+                      "chain_sweep_kernel"))
+    print(f"[time] {smi}: chain sweep, B={N_STEPS}, f32: "
+          + "; ".join(f"{k}: kernel {a:.4f} ms through its wrapper "
+                      f"({d:.1f} us on the device) vs plain loop {b:.4f} ms"
+                      for k, (a, b, d) in sweep_ms.items())
+          + " (median of 20, CUDA events; device time from torch.profiler)",
+          flush=True)
+
+    env_ms = cuda_ms(envelope32)
+    print(f"[time] {smi}: fused f32 envelope {C} cases x {S} phases @ "
+          f"{n_dof} DOF: {env_ms:.3f} ms total, {env_ms / C:.3f} ms per "
+          f"360-phase scan (median of 20, CUDA events)", flush=True)
+
+    for label, fn, per in (("one fused f32 flagship scan",
+                            scan_fn("fused"), 1),
+                           (f"the fused f32 envelope ({C} scans)",
+                            envelope32, C)):
+        events = device_events(fn)
+        busy = sum(t for _, t in events) / 1e3
+        n_sweep = sum("chain_sweep_kernel" in n for n, _ in events)
+        print(f"[profile] {smi}: {label}: {len(events)} device operations "
+              f"({len(events) / per:.0f} per scan; {n_sweep} chain-sweep "
+              f"kernels), device busy {busy:.3f} ms ({busy / per:.3f} ms "
+              f"per scan); K1 {kernel_us(events, 'morison_phase_batch'):.1f}"
+              f" us, sweep {kernel_us(events, 'chain_sweep_kernel'):.1f} us "
+              f"per launch (torch.profiler)" if events else
+              f"[profile] {label}: torch.profiler recorded no device "
+              "events: not measured", flush=True)
+
     print(json.dumps({"kernels": [{
         "name": "morison_phase_batch",
         "route": "cuda",
         "source": "small_fem_solver_tpu_torch/csrc/morison_phase_batch.cu",
         "replaces": "small_fem_solver_tpu/ops/pallas_kernels.py:229",
-        "launches": launches,
+        "launches": env_launches["morison_phase_batch"],
+        "launches_by_path": {"scan": scan_launches["morison_phase_batch"],
+                             "envelope": env_launches["morison_phase_batch"]},
         "max_abs_err": kernel_err,
+        "max_rel_err": kernel_rel,
         "ms": k_ms,
         "plain_ms": p_ms,
+    }, {
+        "name": "chain_sweep",
+        "route": "cuda",
+        "source": "small_fem_solver_tpu_torch/csrc/chain_sweep.cu",
+        "replaces": "benchmarks/ab_pallas_sweep.py:106 and "
+                    "benchmarks/ab_pallas_sweep.py:114",
+        "launches": env_launches["chain_sweep"],
+        "launches_by_path": {"scan": scan_launches["chain_sweep"],
+                             "envelope": env_launches["chain_sweep"]},
+        "max_abs_err": sweep_err,
+        "max_rel_err": sweep_rel,
+        "ms": sweep_ms["nested level 1"][0],
+        "plain_ms": sweep_ms["nested level 1"][1],
     }]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -6,11 +6,14 @@ FEM solve of a refined jacket at every wave phase through exact chain
 condensation (``ops/condense.py``): Morison loads for all phases in one
 batch, loads built directly in the chain layout, one multi-RHS condensed
 solve plus iterative refinement, member-end forces and von Mises
-utilization.
+utilization.  :func:`design_envelope_condensed` runs that scan for a batch
+of wave cases on one case-independent factorization and keeps only the
+utilization reductions.
 
-``kinematics='fused'`` (the default) evaluates the loads with the
-hand-written CUDA kernel (``ops/hopper_kernels.py``) and needs CUDA
-tensors; ``'separable'`` uses its plain PyTorch version.
+``kinematics='fused'`` (the default of both entry points) evaluates the
+loads with the hand-written CUDA kernel (``ops/hopper_kernels.py``) and
+needs CUDA tensors; ``'separable'`` uses its plain PyTorch version.  On CUDA tensors
+the condensed solves always run the chain-sweep kernel.
 
 Load application: topside interface loads split equally over the top
 nodes (shear along the wave heading, axial as -Z, torsion and overturning
@@ -89,6 +92,16 @@ class LoadCase:
             for f in dataclasses.fields(self)
             if f.name not in LoadCase._STATIC_FIELDS})
 
+    def case(self, i: int) -> "LoadCase":
+        """Case ``i`` of a batch (see ``parallel.sweep.make_case_batch``):
+        every ``[C]`` numeric field is indexed, scalars stay."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name)[i]
+            for f in dataclasses.fields(self)
+            if f.name not in LoadCase._STATIC_FIELDS
+            and torch.is_tensor(getattr(self, f.name))
+            and getattr(self, f.name).ndim > 0})
+
 
 class CondensedScanResults(NamedTuple):
     """Results of a condensed multi-phase scan (leading axis = phase)."""
@@ -100,6 +113,20 @@ class CondensedScanResults(NamedTuple):
     reactions: torch.Tensor        # [S, n_fixed, 6]
     total_morison: torch.Tensor    # [S, 3] N
     critical_index: torch.Tensor   # argmax_s max_m utilization
+
+
+class EnvelopeResults(NamedTuple):
+    """Design-envelope results over a case batch (leading axis = case)."""
+
+    ts: torch.Tensor                  # [C, S] phase times (periods differ)
+    utilization: torch.Tensor | None  # None: the condensed envelope keeps
+                                      # only the reductions below
+    max_util_per_phase: torch.Tensor  # [C, S]
+    max_util_per_case: torch.Tensor   # [C]
+    critical_phase: torch.Tensor      # [C] phase index of each case's max
+    governing_case: torch.Tensor      # [] argmax over cases
+    member_envelope: torch.Tensor     # [M] max utilization over all cases+phases
+    total_morison: torch.Tensor       # [C, S, 3]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -292,91 +319,94 @@ def _refine_condensed(Kg, n_seg, conn_coarse, fixed_free_mask, solve_once,
     return U_In, v, U_I
 
 
-def _condensed_rows(coarse, n_seg, chain_solver, solve_dtype, refine_steps,
-                    Kg, KT6, fac, dfac, K_I, F_I_nodes, g):
-    """Condensed multi-RHS solve + linear recovery: full displacement
-    vectors, member node-1 end forces and interface reaction rows."""
-    S = F_I_nodes.shape[0]
-    node1, node2 = coarse.conn[:, 0], coarse.conn[:, 1]
-    _condense, _backsub = _chain_fns(chain_solver)[1:]
-    solve_once = partial(_condensed_solve, fac=fac, dfac=dfac,
-                         _condense=_condense, _backsub=_backsub,
-                         node1=node1, node2=node2)
-    U_In, v, F_cond_flat, U_I = solve_once(F_I_nodes, g)
-    if refine_steps > 0:
-        U_In, v, U_I = _refine_condensed(
-            Kg, n_seg, coarse.conn, _refine_mask(coarse, solve_dtype),
-            solve_once, F_I_nodes, g, U_In, v, U_I, refine_steps)
-
-    U = torch.cat([U_In.reshape(S, -1),
-                   v.transpose(1, 2).reshape(S, -1)], dim=1)
-
-    # von Mises needs only the node-1 end forces F1 = -(K_local T u)[:6];
-    # element displacement vectors come straight from the chain layout
-    vext = torch.cat([U_In[:, node1][:, None], v, U_In[:, node2][:, None]],
-                     dim=1)
-    u_e = torch.cat([vext[:, :-1], vext[:, 1:]], dim=-1)
-    u_elem = u_e.transpose(1, 2).reshape(S, -1, 12)        # member-major
-    F1 = matvec12(KT6, u_elem)                             # [S, Mr, 6]
-    R = U_I @ K_I.T - F_cond_flat                          # [S, 6 nc]
-    return U, F1, R
-
-
-def _condensed_tail(coarse, refined, case, n_seg, ts, chain_solver,
-                    solve_dtype, refine_steps, fixed, Kg, KT6, fac, dfac,
-                    K_I, F_I_nodes, g, total_morison):
-    """Condensed solve + recovery from chain-layout loads."""
-    S = ts.shape[0]
-    U, F1, R = _condensed_rows(coarse, n_seg, chain_solver, solve_dtype,
-                               refine_steps, Kg, KT6, fac, dfac, K_I,
-                               F_I_nodes, g)
-    vm = von_mises_8pt(refined.sections.to(solve_dtype), refined.sect_id,
-                       *(F1[..., c] for c in range(6)))
-    util = vm / case.fy
-    return CondensedScanResults(
-        ts=ts, U=U, von_mises=vm, utilization=util,
-        reactions=R[:, fixed].reshape(S, -1, 6),
-        total_morison=total_morison,
-        critical_index=torch.argmax(torch.amax(util, dim=1)))
-
-
-def _condensed_scan_body(coarse, refined, wave: FourierWave, case, n_seg,
-                         n_steps, n_gauss, kinematics, chain_solver,
-                         solve_dtype, refine_steps, stretching,
-                         current_alpha, fixed, Kg, KT6, L_m, fac, dfac, K_I):
-    """Per-scan (wave/case-dependent) work of the condensed phase scan."""
-    ldtype, device = refined.dtype, refined.device
-    ts = (torch.arange(n_steps, dtype=ldtype, device=device)
-          * wave.T.to(ldtype) / n_steps)
-    case_l = case.cast(ldtype, device)
-    if case_l.slam_cs:
+def _check_no_slam(case: LoadCase, path: str) -> None:
+    """The phase-batch kinematics paths cannot carry the slam term."""
+    if case.slam_cs:
         raise ValueError(
-            "slamming (slam_cs > 0) runs on the pointwise kinematics paths "
-            "only — the crossing-band impact term does not separate over the "
-            "phase matmul")
-    conn_h, D_m, Cd_h, Cm_h = hydro_members(refined, case_l.marine_growth_mm,
-                                            case_l.Cd, case_l.Cm)
+            f"{path}: slamming (slam_cs > 0) runs on the pointwise "
+            "kinematics paths only — the crossing-band impact term does not "
+            "separate over the phase matmul")
+
+
+def _morison_batch_fn(kinematics: str):
+    """The phase-batch Morison engine of a ``kinematics`` mode."""
     if kinematics == "fused":
-        batch_fn = morison_phase_batch_cuda
-    elif kinematics == "separable":
-        batch_fn = morison_phase_batch
-    elif kinematics == "pointwise":
+        return morison_phase_batch_cuda
+    if kinematics == "separable":
+        return morison_phase_batch
+    if kinematics == "pointwise":
         raise NotImplementedError(
             "kinematics='pointwise' is not ported yet (ROADMAP.md, Queue A "
             "item 2: pointwise kinematics and analyze)")
-    else:
-        raise ValueError(f"unknown kinematics mode {kinematics!r}")
+    raise ValueError(f"unknown kinematics mode {kinematics!r}")
+
+
+def _scan_loads(prep: "CondensedPrepared", wave: FourierWave, case, n_steps,
+                n_gauss, kinematics, stretching, current_alpha):
+    """Per-scan (wave/case-dependent) loads in the chain layout.
+
+    Returns (ts [S] and total_morison [S, 3] in the model dtype,
+    F_I_nodes [S, nc, 6] and g [S, n_int, Mc, 6] in the solve dtype).
+    """
+    coarse, refined = prep.coarse, prep.refined
+    ldtype, device = refined.dtype, refined.device
+    solve_dtype = prep.K_I.dtype
+    ts = (torch.arange(n_steps, dtype=ldtype, device=device)
+          * wave.T.to(ldtype) / n_steps)
+    case_l = case.cast(ldtype, device)
+    _check_no_slam(case_l, "the condensed phase scan")
+    batch_fn = _morison_batch_fn(kinematics)
+    conn_h, D_m, Cd_h, Cm_h = hydro_members(refined, case_l.marine_growth_mm,
+                                            case_l.Cd, case_l.Cm)
     mb = batch_fn(wave, refined.coords, conn_h, D_m, case_l.wave_dir_deg,
                   case_l.current_dir_deg, Cd_h, Cm_h, case_l.rho_water, ts,
                   n_gauss=n_gauss, current_alpha=current_alpha,
                   stretching=stretching)
     F_I_nodes, g = _chain_layout_loads(coarse, refined, case_l,
                                        mb.F1.to(ldtype), mb.F2.to(ldtype),
-                                       L_m.to(ldtype), n_seg)
-    return _condensed_tail(coarse, refined, case, n_seg, ts, chain_solver,
-                           solve_dtype, refine_steps, fixed, Kg, KT6, fac,
-                           dfac, K_I, F_I_nodes.to(solve_dtype),
-                           g.to(solve_dtype), mb.total_morison.to(ldtype))
+                                       prep.L_m.to(ldtype), prep.n_seg)
+    return (ts, F_I_nodes.to(solve_dtype), g.to(solve_dtype),
+            mb.total_morison.to(ldtype))
+
+
+def _condensed_solution(prep: "CondensedPrepared", F_I_nodes, g,
+                        refine_steps: int):
+    """Condensed multi-RHS solve plus ``refine_steps`` refinement rounds.
+
+    Returns (U_In [S, nc, 6], v [S, n_int, Mc, 6], F_cond_flat [S, 6 nc],
+    U_I [S, 6 nc]).
+    """
+    coarse = prep.coarse
+    node1, node2 = coarse.conn[:, 0], coarse.conn[:, 1]
+    _condense, _backsub = _chain_fns(prep.chain_solver)[1:]
+    solve_once = partial(_condensed_solve, fac=prep.fac, dfac=prep.dfac,
+                         _condense=_condense, _backsub=_backsub,
+                         node1=node1, node2=node2)
+    U_In, v, F_cond_flat, U_I = solve_once(F_I_nodes, g)
+    if refine_steps > 0:
+        U_In, v, U_I = _refine_condensed(
+            prep.Kg, prep.n_seg, coarse.conn,
+            _refine_mask(coarse, prep.K_I.dtype), solve_once, F_I_nodes, g,
+            U_In, v, U_I, refine_steps)
+    return U_In, v, F_cond_flat, U_I
+
+
+def _von_mises(prep: "CondensedPrepared", U_In, v) -> torch.Tensor:
+    """Von Mises stress [S, Mr] (MPa) of every refined element.
+
+    Only the node-1 end forces F1 = -(K_local T u)[:6] are needed; element
+    displacement vectors come straight from the chain layout.
+    """
+    S = U_In.shape[0]
+    node1, node2 = prep.coarse.conn[:, 0], prep.coarse.conn[:, 1]
+    vext = torch.cat([U_In[:, node1][:, None], v, U_In[:, node2][:, None]],
+                     dim=1)
+    u_e = torch.cat([vext[:, :-1], vext[:, 1:]], dim=-1)
+    u_elem = u_e.transpose(1, 2).reshape(S, -1, 12)        # member-major
+    F1 = matvec12(-prep.KT[:, :6, :], u_elem)              # [S, Mr, 6]
+    refined = prep.refined
+    return von_mises_8pt(refined.sections.to(prep.K_I.dtype),
+                         refined.sect_id, *(F1[..., c] for c in range(6)))
 
 
 def prepare_condensed(coarse: JacketModel, refined: JacketModel, n_seg: int,
@@ -412,12 +442,25 @@ def prepare_condensed(coarse: JacketModel, refined: JacketModel, n_seg: int,
 def _scan_prepared(prep: CondensedPrepared, wave, case: LoadCase, n_steps,
                    n_gauss, kinematics, refine_steps, stretching,
                    current_alpha) -> CondensedScanResults:
+    """One condensed scan through a handle; ``case`` is cast to the solve
+    dtype."""
     with _full_f32_matmul():
-        return _condensed_scan_body(
-            prep.coarse, prep.refined, wave, case, prep.n_seg, n_steps,
-            n_gauss, kinematics, prep.chain_solver, prep.K_I.dtype,
-            refine_steps, stretching, current_alpha, prep.fixed, prep.Kg,
-            -prep.KT[:, :6, :], prep.L_m, prep.fac, prep.dfac, prep.K_I)
+        ts, F_I_nodes, g, total_morison = _scan_loads(
+            prep, wave, case, n_steps, n_gauss, kinematics, stretching,
+            current_alpha)
+        U_In, v, F_cond_flat, U_I = _condensed_solution(prep, F_I_nodes, g,
+                                                        refine_steps)
+        S = ts.shape[0]
+        U = torch.cat([U_In.reshape(S, -1),
+                       v.transpose(1, 2).reshape(S, -1)], dim=1)
+        vm = _von_mises(prep, U_In, v)
+        util = vm / case.fy
+        R = U_I @ prep.K_I.T - F_cond_flat                 # [S, 6 nc]
+        return CondensedScanResults(
+            ts=ts, U=U, von_mises=vm, utilization=util,
+            reactions=R[:, prep.fixed].reshape(S, -1, 6),
+            total_morison=total_morison,
+            critical_index=torch.argmax(torch.amax(util, dim=1)))
 
 
 def phase_scan_prepared(prep: CondensedPrepared, wave, case: LoadCase,
@@ -496,3 +539,126 @@ def _cached_prepared(coarse, refined, n_seg, case, chain_solver, solve_dtype,
         hit = (coarse, refined, prep)
         _PREP_CACHE[key] = hit
     return hit[2]
+
+
+# ---------------------------------------------------------------------------
+# Condensed design envelope
+# ---------------------------------------------------------------------------
+
+def _check_shared_material(cases: LoadCase) -> None:
+    """Envelope solvers factor K once, so E/nu must not vary across cases."""
+    for name in ("E", "nu"):
+        v = torch.as_tensor(getattr(cases, name))
+        if v.ndim > 0 and not bool(torch.all(v == v.reshape(-1)[0])):
+            raise ValueError(
+                f"design envelopes share one stiffness factorization: "
+                f"case field {name!r} must be identical across the batch")
+
+
+def _envelope_from_reductions(ts, per_phase, member_envelope, tot):
+    max_per_case = torch.amax(per_phase, dim=-1)
+    return EnvelopeResults(
+        ts=ts, utilization=None,
+        max_util_per_phase=per_phase,
+        max_util_per_case=max_per_case,
+        critical_phase=torch.argmax(per_phase, dim=-1),
+        governing_case=torch.argmax(max_per_case),
+        member_envelope=member_envelope,
+        total_morison=tot)
+
+
+def _condensed_envelope_chunk(prep: CondensedPrepared, waves: FourierWave,
+                              cases: LoadCase, lo: int, hi: int, n_steps,
+                              n_gauss, kinematics, stretching, current_alpha):
+    """The per-case body of the condensed envelope over cases lo..hi-1:
+    each case's loads, then ONE condensed solve of all their phases.
+    Returns the reductions only (ts [c, S], max over members [c, S], max
+    over phases [c, Mr], total Morison [c, S, 3]); no displacement field
+    or reaction is built.  ``cases`` is cast to the solve dtype."""
+    ts, F_I_nodes, g, tot = zip(*(
+        _scan_loads(prep, waves.case(i), cases.case(i), n_steps, n_gauss,
+                    kinematics, stretching, current_alpha)
+        for i in range(lo, hi)))
+    U_In, v, _, _ = _condensed_solution(prep, torch.cat(F_I_nodes),
+                                        torch.cat(g), refine_steps=1)
+    vm = _von_mises(prep, U_In, v).reshape(hi - lo, n_steps, -1)
+    util = vm / cases.fy[lo:hi, None, None]
+    return (torch.stack(ts), torch.amax(util, dim=2), torch.amax(util, dim=1),
+            torch.stack(tot).to(prep.K_I.dtype))
+
+
+def design_envelope_condensed(coarse: JacketModel, refined: JacketModel,
+                              n_seg: int, waves: FourierWave,
+                              cases: LoadCase, n_steps: int = 36,
+                              n_gauss: int = 15,
+                              solve_dtype: torch.dtype = torch.float32,
+                              case_batch: int = 32,
+                              kinematics: str = "fused",
+                              chain_solver: str = "auto",
+                              current_alpha=None, support_stiffness=None,
+                              mesh=None,
+                              stretching: str = "none") -> EnvelopeResults:
+    """Storm envelope on a refined mesh: every case x phase, full FEM.
+
+    ``waves`` is a batched :class:`FourierWave` and ``cases`` a
+    :class:`LoadCase` with ``[C]`` numeric fields (see
+    ``parallel.sweep.make_wave_batch`` / ``make_case_batch``); E and nu
+    must be shared by all cases.  The case-independent factorization
+    (:func:`prepare_condensed`) is built once per call; each case then
+    costs its Morison loads, a condensed solve of its ``n_steps`` phases
+    with one round of iterative refinement, and the recovery, of which
+    only reductions are kept: per-(case, phase) maximum utilization and
+    the member envelope.
+
+    The refinement round is the condensed scan's default; the JAX
+    package's envelope has none, which leaves its float32 chain sweeps
+    ~4e-3 off float64 at the 9,612-DOF flagship mesh.  With it, envelope
+    case ``i`` equals ``phase_scan_prepared`` of case ``i``.
+
+    ``kinematics='fused'`` (the default, as in the scan) runs the loads
+    through the CUDA kernel and streams cases one at a time, so that each
+    case equals its prepared scan bit for bit; ``'separable'`` (its plain
+    version) solves ``case_batch`` cases per condensed solve.  In float64
+    results do not depend on ``case_batch``.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "the case-sharded envelope (mesh=) is not ported yet (ROADMAP.md, "
+            "Queue A item 6: distribution)")
+    _check_shared_material(cases)
+    _check_no_slam(cases, "design_envelope_condensed")
+    _morison_batch_fn(kinematics)
+    if case_batch < 1:
+        raise ValueError(f"case_batch must be >= 1, got {case_batch}")
+    if waves.E.ndim != 2:
+        raise ValueError("waves must be a batch with a leading case axis "
+                         "(parallel.sweep.make_wave_batch / stack_waves)")
+    C = waves.E.shape[0]
+    for f in dataclasses.fields(cases):
+        v = getattr(cases, f.name)
+        if torch.is_tensor(v) and v.ndim > 0 and tuple(v.shape) != (C,):
+            raise ValueError(f"case field {f.name!r} has shape "
+                             f"{tuple(v.shape)}; the wave batch has {C} cases")
+    prep = prepare_condensed(
+        coarse, refined, n_seg, E=torch.as_tensor(cases.E).reshape(-1)[0],
+        nu=torch.as_tensor(cases.nu).reshape(-1)[0],
+        chain_solver=chain_solver, solve_dtype=solve_dtype,
+        support_stiffness=support_stiffness)
+    # every numeric field as [C] in the solve dtype, so each case indexes
+    cases = cases.cast(solve_dtype, refined.device)
+    cases = dataclasses.replace(cases, **{
+        f.name: getattr(cases, f.name).expand(C)
+        for f in dataclasses.fields(cases)
+        if f.name not in LoadCase._STATIC_FIELDS})
+    # One condensed solve of all cases is 1.7-3.2x faster on an H100, but
+    # its float32 interface solve rounds differently from a per-case one:
+    # 5.8e-5 off the per-case scans, though as close to float64 (PERF.md).
+    bs = 1 if kinematics == "fused" else case_batch
+    with _full_f32_matmul():
+        chunks = [_condensed_envelope_chunk(
+            prep, waves, cases, lo, min(lo + bs, C), n_steps, n_gauss,
+            kinematics, stretching, current_alpha)
+            for lo in range(0, C, bs)]
+    ts, per_phase, member_max, tot = (torch.cat(x) for x in zip(*chunks))
+    return _envelope_from_reductions(ts, per_phase,
+                                     torch.amax(member_max, dim=0), tot)

@@ -52,7 +52,8 @@ def model_from_numpy(coords, conn, sect_id, sections: dict, fixed_mask,
 def wave_from_numpy(k, omega, c, d, U_c, H, T, E, U, clamp_z=False,
                     dt_fd=1e-3, model="airy", order=1, device="cpu",
                     dtype: torch.dtype = torch.float64) -> FourierWave:
-    """A :class:`FourierWave` from a JAX wave's leaves."""
+    """A :class:`FourierWave` from a JAX wave's leaves (a batched wave's
+    leaves keep their leading case axis)."""
     arrays = dict(k=k, omega=omega, c=c, d=d, U_c=U_c, H=H, T=T, E=E, U=U)
     return FourierWave(**{n: _float(v, dtype, device)
                           for n, v in arrays.items()},
@@ -61,10 +62,14 @@ def wave_from_numpy(k, omega, c, d, U_c, H, T, E, U, clamp_z=False,
 
 
 def case_from_numpy(**fields) -> LoadCase:
-    """A :class:`LoadCase` from a JAX case's fields (numeric fields become
-    Python floats; cast with :meth:`LoadCase.cast`)."""
+    """A :class:`LoadCase` from a JAX case's fields: scalar numeric fields
+    become Python floats, per-case ``[C]`` fields of a case batch float64
+    tensors; cast with :meth:`LoadCase.cast`."""
+    def numeric(v):
+        a = np.asarray(v, np.float64)
+        return float(a) if a.ndim == 0 else torch.tensor(a)
     return LoadCase(**{
-        name: (v if name in LoadCase._STATIC_FIELDS else float(np.asarray(v)))
+        name: (v if name in LoadCase._STATIC_FIELDS else numeric(v))
         for name, v in fields.items()})
 
 

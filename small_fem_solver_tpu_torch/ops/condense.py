@@ -6,9 +6,12 @@ counterpart of ``small_fem_solver_tpu/ops/condense.py``).
 Eliminating the interior DOFs exactly (block-tridiagonal Gaussian
 elimination, the block Thomas algorithm) reduces the refined system to a
 superelement problem on the original interface nodes — 126 DOF for the
-default jacket at any refinement.  The elimination is batched over members
-(a Python loop over chain levels, all Mc chains per step) and multi-RHS
-(all wave phases ride one sweep).
+default jacket at any refinement.  The factorization is batched over
+members (a Python loop over chain levels, all Mc chains per step).  The
+load sweep is multi-RHS (all wave phases ride one sweep): on the card it is
+one launch of the hand-written kernel ``csrc/chain_sweep.cu``
+(``ops/hopper_kernels.py::chain_sweep_cuda``), on the CPU its plain version
+:func:`chain_sweep_plain`.
 
 Chain block structure for one member (n = n_seg elements, chain nodes
 0..n where 0 and n are interface nodes): element p has K = [[A_p, B_p],
@@ -31,6 +34,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from .hopper_kernels import chain_sweep_cuda
 
 
 def node_sum(values: torch.Tensor, nodes: torch.Tensor,
@@ -113,7 +118,8 @@ def factor_chains(K_elems: torch.Tensor, n_seg: int) -> ChainFactor:
         vn = Znf[p] - Cp[p] @ vn
         Z0b[p], Znb[p] = v0, vn
 
-    B0, Cn = B[:, 0], C[:, -1]
+    # contiguous, so the sweep kernel takes them without a per-call copy
+    B0, Cn = B[:, 0].contiguous(), C[:, -1].contiguous()
     K_super = torch.cat([
         torch.cat([A[:, 0] - B0 @ Z0b[0], -B0 @ Znb[0]], dim=-1),
         torch.cat([-Cn @ Z0b[-1], E[:, -1] - Cn @ Znb[-1]], dim=-1),
@@ -129,11 +135,12 @@ def _bmv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("mij,...mj->...mi", A, x)
 
 
-def condense_loads(fac: ChainFactor, g: torch.Tensor):
-    """Condense interior loads ``g`` [..., n_int, Mc, 6] onto the
-    interfaces.  Returns (f_I_extra, f_J_extra, v) where the extras
-    [..., Mc, 6] are ADDED to the interface loads and ``v`` = T^{-1} g is
-    the particular interior solution for back-substitution."""
+def chain_sweep_plain(fac: ChainFactor, g: torch.Tensor):
+    """Plain PyTorch version of the chain-sweep kernel: forward sweep
+    y_l = Dinv_l g_l - DinvL_l y_{l-1}, backward substitution
+    v_l = y_l - C'_l v_{l+1}, interface extras fI = -B0 v_0,
+    fJ = -Cn v_{n_int-1}.  ``g``: [..., n_int, Mc, 6]; returns
+    (fI [..., Mc, 6], fJ [..., Mc, 6], v [..., n_int, Mc, 6])."""
     g_t = g.movedim(-3, 0)
     n_int = g_t.shape[0]
     y = torch.zeros_like(g_t[0])
@@ -148,6 +155,19 @@ def condense_loads(fac: ChainFactor, g: torch.Tensor):
         vs[p] = v
     return (-_bmv(fac.B0, vs[0]), -_bmv(fac.Cn, vs[-1]),
             torch.stack(vs, dim=-3))
+
+
+def condense_loads(fac: ChainFactor, g: torch.Tensor):
+    """Condense interior loads ``g`` [..., n_int, Mc, 6] onto the
+    interfaces.  Returns (f_I_extra, f_J_extra, v) where the extras
+    [..., Mc, 6] are ADDED to the interface loads and ``v`` = T^{-1} g is
+    the particular interior solution for back-substitution.
+
+    CUDA tensors go through the chain-sweep kernel (one launch), CPU
+    tensors through :func:`chain_sweep_plain`."""
+    if g.is_cuda:
+        return chain_sweep_cuda(fac, g)
+    return chain_sweep_plain(fac, g)
 
 
 def back_substitute(fac: ChainFactor, v_g, u_I, u_J):

@@ -21,7 +21,7 @@ import torch
 
 from ..constants import G_GRAV
 from .dispersion import solve_dispersion
-from .waves import FourierWave
+from .waves import FourierWave, stack_waves
 
 _F64 = torch.float64
 
@@ -70,22 +70,26 @@ def _initial_guess(H, T, d, M: int):
                                            0.5 * B0**2 + G_GRAV * d])])
 
 
-def _solve_fenton(H: float, T: float, d: float, M: int, n_newton: int = 12,
-                  n_cont: int = 10) -> torch.Tensor:
-    """Height-continuation Newton solve (float64, CPU); returns q.
+def _solve_fenton(H: torch.Tensor, T: torch.Tensor, d: torch.Tensor, M: int,
+                  n_newton: int = 12, n_cont: int = 10) -> torch.Tensor:
+    """Height-continuation Newton solve over a case batch ([C] float64 CPU
+    tensors); returns q [C, 2M+5].
 
     Height ramps 0 -> H in ``n_cont`` steps, each running ``n_newton``
-    full Newton iterations with the exact forward-mode Jacobian.
+    full Newton iterations with the exact forward-mode Jacobian (vmapped
+    over the cases, one batched linear solve per iteration).
     """
-    H, T, d = (torch.tensor(float(v), dtype=_F64) for v in (H, T, d))
     g = torch.tensor(G_GRAV, dtype=_F64)
     omega = 2.0 * math.pi / T
-    jac = torch.func.jacfwd(_residual)
-    q = _initial_guess(H / n_cont, T, d, M)
+    residual = torch.func.vmap(_residual, in_dims=(0, 0, 0, 0, None, None))
+    jac = torch.func.vmap(torch.func.jacfwd(_residual),
+                          in_dims=(0, 0, 0, 0, None, None))
+    q = torch.stack([_initial_guess(h / n_cont, t, dd, M)
+                     for h, t, dd in zip(H, T, d)])
     for i in range(n_cont):
         Hi = H * (i + 1.0) / n_cont
         for _ in range(n_newton):
-            r = _residual(q, d, Hi, omega, M, g)
+            r = residual(q, d, Hi, omega, M, g)
             q = q - torch.linalg.solve(jac(q, d, Hi, omega, M, g), r)
     return q
 
@@ -94,26 +98,55 @@ def fenton_wave(H, T, d, U_c=0.0, N: int = 10, n_modes: int | None = None,
                 dtype: torch.dtype = torch.float64, device="cpu",
                 n_newton: int = 12, n_cont: int = 10,
                 check: bool = True) -> FourierWave:
-    """Fully nonlinear stream-function wave in canonical Fourier form.
+    """Fully nonlinear stream-function wave in canonical Fourier form: a
+    batch of one :func:`fenton_wave_batch` case.
 
     ``check=True`` verifies the collocation residual and raises for a
     non-converged (e.g. above-breaking) wave.
     """
+    return fenton_wave_batch(H, T, d, U_c, N=N, n_modes=n_modes, dtype=dtype,
+                             device=device, n_newton=n_newton, n_cont=n_cont,
+                             check=check).case(0)
+
+
+def fenton_wave_batch(H, T, d, U_c=0.0, N: int = 10,
+                      n_modes: int | None = None,
+                      dtype: torch.dtype = torch.float32, device="cpu",
+                      n_newton: int = 12, n_cont: int = 10,
+                      check: bool = True) -> FourierWave:
+    """Batched Fenton setup: one float64 CPU Newton over all (H, T) cases,
+    returning a batched :class:`FourierWave` (leading case axis) on
+    ``device`` in ``dtype``.
+
+    ``T``, ``d`` and ``U_c`` may be scalars or per-case arrays.
+    ``check=True`` evaluates every case's collocation residual in one
+    batched call and raises ``ValueError`` naming the cases that did not
+    converge (e.g. above-breaking waves).
+    """
     M = int(N)
-    q = _solve_fenton(H, T, d, M, n_newton=n_newton, n_cont=n_cont)
+    H = np.atleast_1d(np.asarray(H, np.float64))
+    T, d_b, Uc_b = (np.broadcast_to(np.asarray(v, np.float64), H.shape)
+                    for v in (T, d, U_c))
+    Ht, Tt, dt = (torch.tensor(v, dtype=_F64) for v in (H, T, d_b))
+    q = _solve_fenton(Ht, Tt, dt, M, n_newton=n_newton, n_cont=n_cont)
     if check:
-        r = _residual(q, torch.tensor(float(d), dtype=_F64),
-                      torch.tensor(float(H), dtype=_F64),
-                      2.0 * math.pi / float(T), M,
-                      torch.tensor(G_GRAV, dtype=_F64)).numpy()
-        if not np.isfinite(r).all() or \
-                np.abs(r).max() > 1e-6 * max(G_GRAV * float(d), 1.0):
+        res = torch.func.vmap(_residual, in_dims=(0, 0, 0, 0, None, None))(
+            q, dt, Ht, 2.0 * math.pi / Tt, M,
+            torch.tensor(G_GRAV, dtype=_F64)).numpy()
+        scale = np.maximum(G_GRAV * d_b, 1.0)
+        bad = ~(np.isfinite(res).all(axis=1)
+                & (np.abs(res).max(axis=1) <= 1e-6 * scale))
+        if bad.any():
+            idx = np.flatnonzero(bad)
             raise ValueError(
-                f"Fenton stream-function solve did not converge for H={H}, "
-                f"T={T}, d={d} (residual {np.abs(r).max():.2e}); the wave "
-                f"may exceed the breaking limit")
-    return fenton_wave_from_solution(q.to(dtype=dtype, device=device), H, T,
-                                     d, U_c, M, n_modes=n_modes)
+                f"Fenton stream-function solve did not converge for "
+                f"{idx.size} of {H.size} cases (indices {idx[:10].tolist()}, "
+                f"e.g. H={H[idx[0]]}, T={T[idx[0]]}, d={d_b[idx[0]]}); the "
+                f"waves may exceed the breaking limit")
+    q = q.to(dtype=dtype, device=device)
+    return stack_waves(fenton_wave_from_solution(
+        q[i], H[i], T[i], d_b[i], Uc_b[i], M, n_modes=n_modes)
+        for i in range(H.size))
 
 
 def fenton_wave_from_solution(q: torch.Tensor, H, T, d, U_c, M: int,

@@ -1,16 +1,26 @@
 """Hand-written Hopper (sm_90a) kernels and their PyTorch wrappers.
 
-``morison_phase_batch_cuda`` launches the fused phase-batch Morison kernel
-in ``csrc/morison_phase_batch.cu``, the port of the Pallas TPU kernel
-``small_fem_solver_tpu/ops/pallas_kernels.py::morison_phase_batch_pallas``.
-Its plain PyTorch version is ``ops/morison.py::morison_phase_batch``; the
-wrapper never falls back to it.
+- ``morison_phase_batch_cuda`` launches the fused phase-batch Morison
+  kernel in ``csrc/morison_phase_batch.cu``, the port of the Pallas TPU
+  kernel ``small_fem_solver_tpu/ops/pallas_kernels.py::
+  morison_phase_batch_pallas``.  Its plain PyTorch version is
+  ``ops/morison.py::morison_phase_batch``.
+- ``chain_sweep_cuda`` launches the chain-sweep kernel in
+  ``csrc/chain_sweep.cu`` (forward RHS sweep + backward substitution), the
+  port of the two Pallas TPU kernels of
+  ``benchmarks/ab_pallas_sweep.py::pallas_sweep``.  Its plain PyTorch
+  version is ``ops/condense.py::chain_sweep_plain``.
 
-Build: at first use the source is compiled by ``nvcc`` into a shared
+The wrappers never fall back to the plain versions: they raise for
+tensors that are not on a CUDA device and when a build or launch fails.
+
+Build: at first use each source is compiled by ``nvcc`` into a shared
 library with a plain C interface under ``small_fem_solver_tpu_torch/_build/``
-(keyed by a hash of the source, so an edited kernel is rebuilt) and loaded
-with ``ctypes``; the launch takes raw device pointers and PyTorch's current
-stream.  Nothing is built or imported when this module is imported.
+(keyed by a hash of the source and flags, so an edited kernel is rebuilt)
+and loaded with ``ctypes``; a launch takes raw device pointers and
+PyTorch's current stream.  :func:`build_all` starts one ``nvcc`` per
+source, all at once.  Nothing is built or imported when this module is
+imported.
 """
 from __future__ import annotations
 
@@ -29,14 +39,33 @@ from .morison import MorisonPhaseBatch, gauss_legendre_01, nodal_scatter
 from .waves import FourierWave
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "morison_phase_batch.cu"
+_CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-Xcompiler", "-fPIC", "-shared")
-MAX_MODES = 32     # wave modes the kernel takes
+MAX_MODES = 32     # wave modes the Morison kernel takes
 MAX_GAUSS = 16     # quadrature points per member (one 16-lane half-warp)
 
-_lib = None
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+# C entry points of each kernel library: name -> (argtypes, restype)
+_SIGNATURES = {
+    "morison_phase_batch": {
+        "morison_phase_batch_launch": (
+            [_PTR] * 5 + [_I32] * 5 + [_PTR] * 5, _I32),
+        "morison_members_per_block": ([], _I32),
+        "morison_error_string": ([_I32], ctypes.c_char_p),
+    },
+    "chain_sweep": {
+        "chain_sweep_launch_f32": ([_PTR] * 6 + [_I32] * 3 + [_PTR] * 4,
+                                   _I32),
+        "chain_sweep_launch_f64": ([_PTR] * 6 + [_I32] * 3 + [_PTR] * 4,
+                                   _I32),
+        "chain_sweep_error_string": ([_I32], ctypes.c_char_p),
+    },
+}
+KERNELS = tuple(_SIGNATURES)
+
+_libs: dict = {}
 
 
 def nvcc_path() -> str:
@@ -49,41 +78,55 @@ def nvcc_path() -> str:
     return path
 
 
-def build() -> ctypes.CDLL:
-    """Compile (if needed) and load the kernel library; returns it.
-
-    The library file is named by the source hash and written atomically,
-    so concurrent first uses cannot load a half-written file.
-    """
-    global _lib
-    if _lib is not None:
-        return _lib
-    src = _SOURCE.read_bytes()
+def _library_path(name: str) -> pathlib.Path:
+    src = (_CSRC / f"{name}.cu").read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = _BUILD_DIR / f"libmorison_phase_batch_{tag}.so"
-    if not so.exists():
+    return _BUILD_DIR / f"lib{name}_{tag}.so"
+
+
+def build_all(names=KERNELS) -> dict:
+    """Compile (if needed) and load the named kernel libraries; returns
+    {name: ctypes.CDLL}.
+
+    Missing libraries are compiled concurrently, one ``nvcc`` per source.
+    Each file is named by its source hash and written atomically, so
+    concurrent first uses cannot load a half-written file.
+    """
+    todo = {n: _library_path(n) for n in names if n not in _libs}
+    jobs = {}
+    for name, so in todo.items():
+        if so.exists():
+            continue
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(_SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(_CSRC / f"{name}.cu")]
+        jobs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True))
+    failed = []
+    for name, (tmp, proc) in jobs.items():
+        out = proc.communicate()[0]
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.morison_phase_batch_launch.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
-        ptr, ptr, ptr, ptr, ptr]
-    lib.morison_phase_batch_launch.restype = i32
-    lib.morison_members_per_block.argtypes = []
-    lib.morison_members_per_block.restype = i32
-    lib.morison_error_string.argtypes = [i32]
-    lib.morison_error_string.restype = ctypes.c_char_p
-    _lib = lib
-    return lib
+            failed.append(f"{name}.cu: nvcc failed ({proc.returncode}):\n"
+                          f"{out}")
+        else:
+            os.replace(tmp, todo[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name, so in todo.items():
+        lib = ctypes.CDLL(str(so))
+        for fn, (argtypes, restype) in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        _libs[name] = lib
+    return {n: _libs[n] for n in names}
+
+
+def build(name: str) -> ctypes.CDLL:
+    """Compile (if needed) and load one kernel library."""
+    return _libs.get(name) or build_all((name,))[name]
 
 
 def kernel_inputs(wave: FourierWave, coords, conn, D_m, wave_dir_deg,
@@ -160,7 +203,7 @@ def launch_packed(k: dict, M: int, n_gauss: int, wheeler: bool):
     """Launch the kernel on operands packed by :func:`kernel_inputs` (all
     on one CUDA device); returns (F1 [S, M, 3], F2 [S, M, 3], totals
     [S, 6] = drag xyz | inertia xyz), float32."""
-    lib = build()
+    lib = build("morison_phase_batch")
     S, N = k["ctst"].shape[0], k["modes"].shape[0]
     dev, f32 = k["rows"].device, torch.float32
     F1 = torch.empty(S, M, 3, dtype=f32, device=dev)
@@ -218,3 +261,63 @@ def morison_phase_batch_cuda(wave: FourierWave, coords: torch.Tensor,
 
 
 morison_phase_batch_cuda.launches = 0
+
+
+def chain_sweep_cuda(fac, g: torch.Tensor):
+    """Kernel :func:`..condense.chain_sweep_plain`: same contract, one
+    launch for the forward sweep and the backward substitution.
+
+    ``fac``: a ``ChainFactor`` whose ``Dinv``/``DinvL``/``Cprime``
+    [n_int, Mc, 6, 6] and ``B0``/``Cn`` [Mc, 6, 6] are contiguous;
+    ``g``: [..., n_int, Mc, 6] of the same dtype (float32 or float64) on
+    the same CUDA device (leading dims flatten to one right-hand-side axis;
+    a non-contiguous ``g`` is copied).  Returns (fI [..., Mc, 6],
+    fJ [..., Mc, 6], v [..., n_int, Mc, 6]).  Raises for CPU tensors,
+    mismatched operands and any CUDA error.
+    ``chain_sweep_cuda.launches`` counts kernel launches.
+    """
+    if not g.is_cuda:
+        raise RuntimeError("chain_sweep_cuda needs CUDA tensors (got "
+                           f"{g.device}); the plain version is "
+                           "ops.condense.chain_sweep_plain")
+    if g.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"chain_sweep_cuda takes float32 or float64, got "
+                        f"{g.dtype}")
+    n_int, Mc = fac.Cprime.shape[:2]
+    if tuple(g.shape[-3:]) != (n_int, Mc, 6):
+        raise ValueError(f"g {tuple(g.shape)} does not end in the factor's "
+                         f"(n_int, Mc, 6) = ({n_int}, {Mc}, 6)")
+    shapes = dict(Dinv=(n_int, Mc, 6, 6), DinvL=(n_int, Mc, 6, 6),
+                  Cprime=(n_int, Mc, 6, 6), B0=(Mc, 6, 6), Cn=(Mc, 6, 6))
+    for name, shape in shapes.items():
+        t = getattr(fac, name)
+        if (t.device != g.device or t.dtype != g.dtype
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(
+                f"factor {name} must be a contiguous {shape} tensor "
+                f"of {g.dtype} on {g.device} (got {tuple(t.shape)} "
+                f"{t.dtype} on {t.device}, contiguous={t.is_contiguous()})")
+    batch = g.shape[:-3]
+    g4 = g.contiguous().reshape(-1, n_int, Mc, 6)
+    B = g4.shape[0]
+    v = torch.empty_like(g4)
+    fI = g4.new_empty(B, Mc, 6)
+    fJ = g4.new_empty(B, Mc, 6)
+    lib = build("chain_sweep")
+    launch = (lib.chain_sweep_launch_f32 if g.dtype == torch.float32
+              else lib.chain_sweep_launch_f64)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        err = launch(fac.Dinv.data_ptr(), fac.DinvL.data_ptr(),
+                     fac.Cprime.data_ptr(), g4.data_ptr(), fac.B0.data_ptr(),
+                     fac.Cn.data_ptr(), B, n_int, Mc, v.data_ptr(),
+                     fI.data_ptr(), fJ.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("chain_sweep kernel launch failed: "
+                           + lib.chain_sweep_error_string(err).decode())
+    chain_sweep_cuda.launches += 1
+    return (fI.reshape(*batch, Mc, 6), fJ.reshape(*batch, Mc, 6),
+            v.reshape(*batch, n_int, Mc, 6))
+
+
+chain_sweep_cuda.launches = 0

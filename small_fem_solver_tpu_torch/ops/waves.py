@@ -27,7 +27,9 @@ from .dispersion import solve_dispersion
 @dataclasses.dataclass(frozen=True)
 class FourierWave:
     """Canonical steady-wave representation.  Scalars are 0-d tensors;
-    ``E`` and ``U`` are ``[N]`` (N Fourier modes, zero-padded)."""
+    ``E`` and ``U`` are ``[N]`` (N Fourier modes, zero-padded).  A batch of
+    waves (:func:`stack_waves`) carries a leading case axis on every
+    tensor field: scalars ``[C]``, ``E``/``U`` ``[C, N]``."""
 
     k: torch.Tensor       # wavenumber [1/m]
     omega: torch.Tensor   # angular frequency [rad/s]
@@ -47,12 +49,33 @@ class FourierWave:
     def n_modes(self) -> int:
         return self.E.shape[-1]
 
-    def to(self, dtype: torch.dtype, device=None) -> "FourierWave":
-        """Every coefficient tensor cast to ``dtype`` (and moved)."""
+    def _map(self, fn) -> "FourierWave":
         return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(dtype=dtype, device=device)
+            f.name: fn(getattr(self, f.name))
             for f in dataclasses.fields(self)
             if isinstance(getattr(self, f.name), torch.Tensor)})
+
+    def to(self, dtype: torch.dtype, device=None) -> "FourierWave":
+        """Every coefficient tensor cast to ``dtype`` (and moved)."""
+        return self._map(lambda t: t.to(dtype=dtype, device=device))
+
+    def case(self, i: int) -> "FourierWave":
+        """Wave ``i`` of a batch (see :func:`stack_waves`)."""
+        return self._map(lambda t: t[i])
+
+
+def stack_waves(waves) -> FourierWave:
+    """Stack same-shaped waves along a new leading case axis."""
+    waves = list(waves)
+    if len({w.n_modes for w in waves}) != 1:
+        raise ValueError("pad waves to a common n_modes before stacking")
+    if len({(w.clamp_z, w.dt_fd, w.model, w.order) for w in waves}) != 1:
+        raise ValueError("waves of one batch share clamp_z, dt_fd, model "
+                         "and order; rebuild them uniformly")
+    return dataclasses.replace(waves[0], **{
+        f.name: torch.stack([getattr(w, f.name) for w in waves])
+        for f in dataclasses.fields(FourierWave)
+        if isinstance(getattr(waves[0], f.name), torch.Tensor)})
 
 
 def airy_wave(H, T, d, U_c=0.0, n_modes: int = 1,
