@@ -8,7 +8,8 @@ and Fenton waves (single and batched), the default jacket and its
 refinements, the fused Morison kernel and the chain-sweep kernel (CUDA C++)
 with their plain PyTorch versions, and the exact chain-condensation
 solver.  The package imports no JAX; ``convert`` carries state over from
-the JAX package.
+the JAX package.  Entry points run on the CUDA card unless the caller
+passes ``device="cpu"`` (:func:`resolve_device`).
 """
 
 from .api import (CondensedPrepared, CondensedScanResults, EnvelopeResults,
@@ -16,6 +17,7 @@ from .api import (CondensedPrepared, CondensedScanResults, EnvelopeResults,
                   phase_scan_prepared, prepare_condensed)
 from .constants import (DEFAULT_E, DEFAULT_FY, DEFAULT_NU, DEFAULT_RHO_STEEL,
                         DEFAULT_RHO_WATER, G_GRAV)
+from .device import resolve_device
 from .models.model import JacketModel, build_model, refine_model
 from .models.presets import DEFAULT_STORM, default_3leg_jacket
 from .ops.dispersion import solve_dispersion

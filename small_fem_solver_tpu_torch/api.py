@@ -11,9 +11,11 @@ of wave cases on one case-independent factorization and keeps only the
 utilization reductions.
 
 ``kinematics='fused'`` (the default of both entry points) evaluates the
-loads with the hand-written CUDA kernel (``ops/hopper_kernels.py``) and
-needs CUDA tensors; ``'separable'`` uses its plain PyTorch version.  On CUDA tensors
-the condensed solves always run the chain-sweep kernel.
+loads with the hand-written CUDA kernel (``ops/hopper_kernels.py``) on CUDA
+tensors and with its plain PyTorch version on the CPU, where it equals
+``'separable'`` (the plain version everywhere).  On CUDA tensors the
+condensed solves always run the chain-sweep kernel.  The loads stop at the
+member end forces: the condensed paths never build nodal forces.
 
 Load application: topside interface loads split equally over the top
 nodes (shear along the wave heading, axial as -Z, torsion and overturning
@@ -40,8 +42,8 @@ from .ops import condense as condense_mod
 from .ops import solve as solve_mod
 from .ops.assembly import assemble_dense
 from .ops.beams import element_stiffness, matvec12
-from .ops.hopper_kernels import morison_phase_batch_cuda
-from .ops.morison import hydro_members, morison_phase_batch
+from .ops.hopper_kernels import morison_end_forces_cuda
+from .ops.morison import hydro_members, morison_end_forces
 from .ops.sections import von_mises_8pt
 from .ops.waves import FourierWave
 
@@ -329,11 +331,12 @@ def _check_no_slam(case: LoadCase, path: str) -> None:
 
 
 def _morison_batch_fn(kinematics: str):
-    """The phase-batch Morison engine of a ``kinematics`` mode."""
+    """The phase-batch Morison engine of a ``kinematics`` mode: member end
+    forces and totals, ``(F1, F2, total_drag, total_inertia)``."""
     if kinematics == "fused":
-        return morison_phase_batch_cuda
+        return morison_end_forces_cuda
     if kinematics == "separable":
-        return morison_phase_batch
+        return morison_end_forces
     if kinematics == "pointwise":
         raise NotImplementedError(
             "kinematics='pointwise' is not ported yet (ROADMAP.md, Queue A "
@@ -358,15 +361,15 @@ def _scan_loads(prep: "CondensedPrepared", wave: FourierWave, case, n_steps,
     batch_fn = _morison_batch_fn(kinematics)
     conn_h, D_m, Cd_h, Cm_h = hydro_members(refined, case_l.marine_growth_mm,
                                             case_l.Cd, case_l.Cm)
-    mb = batch_fn(wave, refined.coords, conn_h, D_m, case_l.wave_dir_deg,
-                  case_l.current_dir_deg, Cd_h, Cm_h, case_l.rho_water, ts,
-                  n_gauss=n_gauss, current_alpha=current_alpha,
-                  stretching=stretching)
+    F1, F2, drag, inertia = batch_fn(
+        wave, refined.coords, conn_h, D_m, case_l.wave_dir_deg,
+        case_l.current_dir_deg, Cd_h, Cm_h, case_l.rho_water, ts,
+        n_gauss=n_gauss, current_alpha=current_alpha, stretching=stretching)
     F_I_nodes, g = _chain_layout_loads(coarse, refined, case_l,
-                                       mb.F1.to(ldtype), mb.F2.to(ldtype),
+                                       F1.to(ldtype), F2.to(ldtype),
                                        prep.L_m.to(ldtype), prep.n_seg)
     return (ts, F_I_nodes.to(solve_dtype), g.to(solve_dtype),
-            mb.total_morison.to(ldtype))
+            (drag + inertia).to(ldtype))
 
 
 def _condensed_solution(prep: "CondensedPrepared", F_I_nodes, g,

@@ -1,7 +1,7 @@
 """Carry state from the JAX package into this one.
 
 Each function takes the leaves of a JAX object as numpy arrays (the caller
-does ``np.asarray``) and returns the port's object on ``device`` with
+does ``np.asarray``) and returns the port's object on ``device`` (``None``: the CUDA card) with
 floating-point tensors of ``dtype``.  Nested factor objects are passed as
 dicts of their fields (``namedtuple._asdict()`` with arrays converted).
 This module imports no JAX.
@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from .api import CondensedPrepared, LoadCase
+from .device import resolve_device
 from .models.model import JacketModel
 from .ops.condense import ChainFactor, NestedChainFactor
 from .ops.sections import TubeSections
@@ -30,10 +31,11 @@ def _index(a, device) -> torch.Tensor:
 def model_from_numpy(coords, conn, sect_id, sections: dict, fixed_mask,
                      top_mask, node_names=(), member_names=(),
                      member_types=(), app_conn=None, release=None,
-                     device="cpu",
+                     device=None,
                      dtype: torch.dtype = torch.float64) -> JacketModel:
     """A :class:`JacketModel` from a JAX model's leaves; ``sections`` maps
     each ``TubeSections`` field name to its array."""
+    device = resolve_device(device)
     return JacketModel(
         coords=_float(coords, dtype, device),
         conn=_index(conn, device),
@@ -50,10 +52,11 @@ def model_from_numpy(coords, conn, sect_id, sections: dict, fixed_mask,
 
 
 def wave_from_numpy(k, omega, c, d, U_c, H, T, E, U, clamp_z=False,
-                    dt_fd=1e-3, model="airy", order=1, device="cpu",
+                    dt_fd=1e-3, model="airy", order=1, device=None,
                     dtype: torch.dtype = torch.float64) -> FourierWave:
     """A :class:`FourierWave` from a JAX wave's leaves (a batched wave's
     leaves keep their leading case axis)."""
+    device = resolve_device(device)
     arrays = dict(k=k, omega=omega, c=c, d=d, U_c=U_c, H=H, T=T, E=E, U=U)
     return FourierWave(**{n: _float(v, dtype, device)
                           for n, v in arrays.items()},
@@ -80,7 +83,7 @@ def _chain_factor(f: dict, dtype, device) -> ChainFactor:
 
 def prepared_from_numpy(coarse: JacketModel, refined: JacketModel, Kg, KT,
                         L_m, fac: dict, dfac: dict, K_I, free, fixed, E, nu,
-                        n_seg: int, chain_solver: str, device="cpu",
+                        n_seg: int, chain_solver: str, device=None,
                         dtype: torch.dtype = torch.float64
                         ) -> CondensedPrepared:
     """A :class:`CondensedPrepared` from a JAX handle's leaves.
@@ -89,6 +92,7 @@ def prepared_from_numpy(coarse: JacketModel, refined: JacketModel, Kg, KT,
     ``K_super``, ``fac1`` and ``fac2`` (each a ``ChainFactor`` dict);
     ``dfac`` holds the ``DenseFactor`` fields.
     """
+    device = resolve_device(device)
     if "fac1" in fac:
         factor = NestedChainFactor(
             K_super=_float(fac["K_super"], dtype, device),

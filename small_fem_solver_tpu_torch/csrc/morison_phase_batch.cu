@@ -3,233 +3,354 @@
 // Replaces the Pallas TPU kernel small_fem_solver_tpu/ops/pallas_kernels.py
 // (morison_phase_batch_pallas, body _make_kernel._kernel).  Computes what
 // ops/morison.py::morison_phase_batch computes, for every wave phase s and
-// quadrature point p of every member m:
+// quadrature point q of every member m:
 //
 //   1. the five kinematic fields (eta, u along the wave heading, w, du/dt,
-//      dw/dt) as sums over the N Fourier modes, with the phase factors
-//      cos/sin(j omega t_s) read from a small [S, 2N] table and the spatial
-//      factors cos/sin(j k x), U_j C_j(z), U_j S_j(z) built once per block;
+//      dw/dt) as sums over the N Fourier modes of spatial factors
+//      cos/sin(j k x), U_j C_j(z), U_j S_j(z) times phase factors
+//      cos/sin(j omega t_s);
 //   2. optionally the frozen-stretch Wheeler correction (second-order Taylor
 //      of each field about z with dz = -(z + d) eta / (d + eta), clipped to
 //      +-d) from the d/dz and d^2/dz^2 fields of the same mode sums;
 //   3. the submergence mask z <= eta, the projection normal to the member
 //      axis, drag cd |u_n| u_n (gated at |u_n| > 1e-10) and inertia ci a_n;
-//   4. the lever-rule reduction over each member's quadrature points into
-//      the node-1 / node-2 end forces F1 = sum (1 - s_q) f, F2 = sum s_q f,
-//      plus per-phase drag and inertia totals.
+//   4. the lever-rule sums over each member's points into the node-1 /
+//      node-2 end forces F1 = sum (1 - s_q) f, F2 = sum s_q f, plus
+//      per-phase drag and inertia totals.
 //
-// Layout.  One thread block owns MEMBERS_PER_BLOCK members x PHASE_TILE
-// phases.  A member takes QLANES = 16 lanes (lane q = quadrature point,
-// q >= n_gauss idle), so a warp holds two whole members and the reduction
-// over quadrature points is four xor-shuffles inside 16-lane halves.  The
-// block's 256 threads are 128 point lanes x 2 phase lanes; each thread keeps
-// its point and walks PHASE_TILE / 2 phases.  Idle lanes (q >= n_gauss,
-// m >= M) compute nothing and contribute exact zeros, so no padding value
-// can produce inf or NaN.
+// Operands.  The kernel takes the member arrays as the model holds them
+// (coords, conn, D), Cd / Cm and the scalars (headings, rho, power-law
+// exponent) each as a device pointer or a value, the wave's E, U, k, omega,
+// d, U_c as device pointers, the phase times and the Gauss rule (by value).
+// Its prologue builds each member's axis and per-point elevation, wave-frame
+// x, current and drag / inertia coefficients, then the spatial factors of
+// every (point, mode) into shared memory, so the wrapper issues no device
+// work besides the output allocations.
 //
-// Bounds.  Per (phase, point) the mode loop costs ~10 f32 FMAs per mode
-// (18 modes at the flagship) against four shared-memory reads of the
-// point's spatial factors and two broadcast reads of the phase table; the
-// only device-memory traffic is the per-point rows (read once per block)
-// and the [S, M, 3] end forces written once, so the kernel is bound by
-// FMA issue and shared-memory bandwidth, not by HBM.  Every sum is plain
-// f32 in registers (no tensor cores, no TF32).
+// Layout.  Phases run on the lanes: a thread owns two phases (s and
+// s + 192 of a 384-phase tile, which holds the flagship's 360).  Persistent
+// blocks (two per SM) walk the members one at a time.  For every (point,
+// mode) all lanes of the block read the same record cos(jkx), sin(jkx),
+// U_j C_j, U_j S_j (one LDS.128) and (E_j, j omega) (one LDS.64):
+// broadcasts, 24 bytes a lane, feeding ~28 FP32 instructions over the two
+// phases.  Each phase's cos/sin(j omega t) come from cos/sin(omega t)
+// (sincosf once per block) by angle addition along the mode loop (4 FP32
+// instructions a mode; its rounding grows with j, ~1e-6 relative at 32
+// modes), which keeps a thread within 168 registers: tables of
+// cos/sin(j omega t) in registers (4 NMAX of them) spill there.  The modes
+// are zero-padded to a multiple of 4 (NMAX), so the unrolled mode loop has
+// no branch and its loads issue ahead of the arithmetic (a branch per mode
+// ends a basic block and each mode then waits for its own loads).  Shared
+// memory delivers 128 bytes of lane data a clock, whatever the broadcast,
+// so one phase a thread with 32-byte records would be bound by it above
+// the FP32 time; two phases a thread halve the bytes per FMA.  The lever-rule
+// sums, the drag and inertia sums and the per-phase totals are register
+// accumulators (F1 = sum f - F2): no shuffles, no float atomics and no
+// barrier inside a member.  Each thread writes its phases' F1 / F2 rows
+// (3 values a phase and member) itself: a staged tile would not lengthen
+// the runs along m, which one member per work item fixes at 3.
 //
-// Totals.  Each block writes per-phase partial drag/inertia sums
-// [n_groups, S, 6]; a second kernel adds the groups in a fixed order.  No
-// float atomics anywhere, so results are bit-repeatable.
+// Bounds.  The function is 2 x 2N x 5 FLOP per (phase, point) for the mode
+// sums plus ~60 for the epilogue: 3.7 GFLOP at the flagship shapes (S 360,
+// M 1632, Q 15, N 18), 55 us at the H100's 67 TFLOP/s of FP32; device
+// memory sees the 14 MB of F1 / F2 (~4 us).  The kernel issues ~14 FP32
+// instructions per (phase, point, mode) with the padding and the angle
+// addition, so its own floor is ~95 us; it measured ~150 us (H100 80GB
+// HBM3, 700 W), 12 warps an SM hiding the shared-load latency.
+// Every sum is plain f32 in registers (no tensor cores, no TF32).
+//
+// Totals.  Each block accumulates per-phase drag / inertia sums over the
+// members it walks, in order, and writes them once [G, S, 6]; a second
+// kernel adds the blocks in a fixed order.  The grid depends only on the
+// card and the shapes: results are bit-repeatable.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int QLANES = 16;
-constexpr int MEMBERS_PER_BLOCK = 8;
-constexpr int POINTS = MEMBERS_PER_BLOCK * QLANES;   // 128 point lanes
-constexpr int PHASE_LANES = 2;
-constexpr int THREADS = POINTS * PHASE_LANES;        // 256
-constexpr int PHASE_TILE = 32;
-constexpr int N_COEF = 4;   // cos(jkx), sin(jkx), U_j C_j(z), U_j S_j(z)
+constexpr int MAX_GAUSS = 16;
+constexpr int THREADS = 192;                 // two phases per thread
+constexpr int PHASE_TILE = 2 * THREADS;      // 384 phases per work item
+constexpr float kPi = 3.14159265358979323846f;
 
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int off = QLANES / 2; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+}  // namespace
+
+// A coefficient given either as device memory (ptr, element m at
+// ptr[stride * m]; stride 0 for a 0-d tensor) or, when ptr is null, by value.
+struct Operand {
+  const float* ptr;
+  long long stride;
+  float value;
+};
+
+// Everything one launch reads and writes; passed to the kernel by value.
+struct MorisonParams {
+  const float* coords;     // [n_nodes, 3]
+  const long long* conn;   // [M, 2]
+  const float* D;          // [M] hydrodynamic diameter [m]
+  Operand Cd, Cm;          // per member or scalar
+  Operand wave_dir, current_dir, rho, alpha;   // scalars
+  const float* E;          // [N]
+  const float* U;          // [N]
+  const float* k;          // wave scalars (device, 0-d)
+  const float* omega;
+  const float* d;
+  const float* Uc;
+  const float* ts;         // [S]
+  float s[MAX_GAUSS];      // Gauss abscissae on [0, 1]
+  float w[MAX_GAUSS];      // Gauss weights (sum 1)
+  int M, S, N, n_gauss, power_law;
+  float* F1;               // [S, M, 3]
+  float* F2;               // [S, M, 3]
+  float* partials;         // [G, S, 6]
+  float* totals;           // [S, 6] drag xyz | inertia xyz
+};
+
+namespace {
+
+__device__ __forceinline__ float operand(const Operand& o, int m) {
+  return o.ptr ? __ldg(o.ptr + o.stride * m) : o.value;
 }
 
+// The kinematic mode sums of one (phase, point).
 template <bool WHEELER>
-__global__ void __launch_bounds__(THREADS)
-morison_phase_batch_kernel(const float* __restrict__ rows,   // [9, P]
-                           const float* __restrict__ modes,  // [N, 4]
-                           const float* __restrict__ ctst,   // [S, 2N]
-                           const float* __restrict__ sq,     // [n_gauss]
-                           const float* __restrict__ scal,   // [3]
-                           int M, int n_gauss, int S, int N,
-                           float* __restrict__ F1,           // [S, M, 3]
-                           float* __restrict__ F2,           // [S, M, 3]
-                           float* __restrict__ partials) {   // [G, S, 6]
-  extern __shared__ float smem[];
-  float* coef = smem;                          // [N][N_COEF][POINTS]
-  float* phase = smem + N * N_COEF * POINTS;   // [PHASE_TILE][2N]
-  __shared__ float red[PHASE_LANES][MEMBERS_PER_BLOCK][6];
+struct Fields {
+  float eta = 0.f, u = 0.f, w = 0.f, du = 0.f, dw = 0.f;
+  float u_z = 0.f, w_z = 0.f, du_z = 0.f, dw_z = 0.f;
+  float u_zz = 0.f, w_zz = 0.f, du_zz = 0.f, dw_zz = 0.f;
+};
 
-  const float cosw = scal[0], sinw = scal[1], d = scal[2];
-  const int P = M * n_gauss;
+// One member's sums at one phase: drag, inertia, and the node-2 share.
+struct MemberSums {
+  float fdx = 0.f, fdy = 0.f, fdz = 0.f, fix = 0.f, fiy = 0.f, fiz = 0.f;
+  float f2x = 0.f, f2y = 0.f, f2z = 0.f;
+};
+
+// Adds mode j of one point at one phase.  r: cos(jkx), sin(jkx),
+// U_j C_j(z), U_j S_j(z); ucw = j omega U_j C_j, nusw = -j omega U_j S_j.
+template <bool WHEELER>
+__device__ __forceinline__ void add_mode(Fields<WHEELER>& f, const float4 r,
+                                         float E, float ucw, float nusw,
+                                         float jk, float ct, float st) {
+  // cos / sin of (j k x - j omega t)
+  const float cp = fmaf(r.x, ct, r.y * st);
+  const float sp = fmaf(r.y, ct, -r.x * st);
+  f.eta = fmaf(E, cp, f.eta);
+  f.u = fmaf(r.z, cp, f.u);
+  f.w = fmaf(r.w, sp, f.w);
+  f.du = fmaf(ucw, sp, f.du);
+  f.dw = fmaf(nusw, cp, f.dw);
+  if (WHEELER) {
+    // d/dz: C' = jk S, S' = jk C; d^2/dz^2: C'' = jk^2 C, S'' = jk^2 S
+    const float t1 = jk * cp, t2 = jk * sp;
+    f.u_z = fmaf(r.w, t1, f.u_z);
+    f.w_z = fmaf(r.z, t2, f.w_z);
+    f.du_z = fmaf(-nusw, t2, f.du_z);
+    f.dw_z = fmaf(-ucw, t1, f.dw_z);
+    const float t3 = jk * t1, t4 = jk * t2;
+    f.u_zz = fmaf(r.z, t3, f.u_zz);
+    f.w_zz = fmaf(r.w, t4, f.w_zz);
+    f.du_zz = fmaf(ucw, t4, f.du_zz);
+    f.dw_zz = fmaf(nusw, t3, f.dw_zz);
+  }
+}
+
+// Wheeler, submergence, normal projection, drag and inertia of one point
+// at one phase, added to the member's sums.  pa: z, wave-frame x, current
+// x / y; pb: cd, ci, s_q; e: member axis.
+template <bool WHEELER>
+__device__ __forceinline__ void add_point(MemberSums& a, Fields<WHEELER> f,
+                                          const float4 pa, const float4 pb,
+                                          const float4 e, float cos_w,
+                                          float sin_w, float d) {
+  const float z = pa.x;
+  if (WHEELER) {
+    float dz = -(z + d) * f.eta / (d + f.eta);
+    dz = fminf(fmaxf(dz, -d), d);
+    const float h2 = 0.5f * dz * dz;
+    f.u = f.u + dz * f.u_z + h2 * f.u_zz;
+    f.w = f.w + dz * f.w_z + h2 * f.w_zz;
+    f.du = f.du + dz * f.du_z + h2 * f.du_zz;
+    f.dw = f.dw + dz * f.dw_z + h2 * f.dw_zz;
+  }
+  if (z <= f.eta) {
+    const float Ux = f.u * cos_w + pa.z, Uy = f.u * sin_w + pa.w, Uz = f.w;
+    const float Ax = f.du * cos_w, Ay = f.du * sin_w, Az = f.dw;
+    const float Ue = Ux * e.x + Uy * e.y + Uz * e.z;
+    const float Ae = Ax * e.x + Ay * e.y + Az * e.z;
+    const float Upx = Ux - Ue * e.x, Upy = Uy - Ue * e.y, Upz = Uz - Ue * e.z;
+    const float Umag = sqrtf(Upx * Upx + Upy * Upy + Upz * Upz);
+    const float cdf = (Umag > 1e-10f) ? pb.x * Umag : 0.f;
+    const float gx = cdf * Upx, gy = cdf * Upy, gz = cdf * Upz;
+    const float ix = pb.y * (Ax - Ae * e.x), iy = pb.y * (Ay - Ae * e.y),
+                iz = pb.y * (Az - Ae * e.z);
+    a.fdx += gx; a.fdy += gy; a.fdz += gz;
+    a.fix += ix; a.fiy += iy; a.fiz += iz;
+    a.f2x = fmaf(pb.z, gx + ix, a.f2x);
+    a.f2y = fmaf(pb.z, gy + iy, a.f2y);
+    a.f2z = fmaf(pb.z, gz + iz, a.f2z);
+  }
+}
+
+// Two blocks of THREADS per SM: 168 registers a thread, which the flagship
+// instance (NMAX 20) uses without spilling; three blocks (113) would spill.
+template <int NMAX, bool WHEELER>
+__global__ void __launch_bounds__(THREADS, 2)
+morison_phase_batch_kernel(const MorisonParams p) {
+  extern __shared__ float4 smem4[];
+  const int N = p.N, Q = p.n_gauss, M = p.M, S = p.S;
+  // modes j >= N are zero-padded to NMAX, so the mode loop has no branch
+  // and the compiler can issue its shared loads ahead of the arithmetic
+  float4* rec = smem4;                          // [Q * NMAX] point x mode
+  float4* pt = rec + Q * NMAX;                  // [Q][2] point data
+  float2* modes = reinterpret_cast<float2*>(pt + 2 * Q);   // [NMAX] E, jw
+  float* jks = reinterpret_cast<float*>(modes + NMAX);     // [NMAX] j k
   const int tid = threadIdx.x;
-  const int lp = tid % POINTS;
-  const int sub = tid / POINTS;
-  const int lm = lp / QLANES;
-  const int q = lp % QLANES;
-  const int m = blockIdx.x * MEMBERS_PER_BLOCK + lm;
-  const bool valid = (m < M) && (q < n_gauss);
-  const int p = m * n_gauss + q;
-  const int s0 = blockIdx.y * PHASE_TILE;
-  const int ns = min(PHASE_TILE, S - s0);
 
-  // ---- per-block spatial factors of every (mode, point) ----
-  for (int idx = tid; idx < N * POINTS; idx += THREADS) {
-    const int j = idx / POINTS, pt = idx % POINTS;
-    const int mm = blockIdx.x * MEMBERS_PER_BLOCK + pt / QLANES;
-    const int qq = pt % QLANES;
-    float cjx = 0.f, sjx = 0.f, uc = 0.f, us = 0.f;
-    if (mm < M && qq < n_gauss) {
-      const int pp = mm * n_gauss + qq;
-      const float z = rows[pp];
-      const float xw = rows[8 * P + pp];
-      const float U = modes[j * 4 + 1];
-      const float jk = modes[j * 4 + 3];
+  const float d = __ldg(p.d), kk = __ldg(p.k), omega = __ldg(p.omega);
+  // compass to math heading: theta = (90 - dir) degrees
+  float sin_w, cos_w, sin_c, cos_c;
+  sincospif((90.f - operand(p.wave_dir, 0)) / 180.f, &sin_w, &cos_w);
+  sincospif((90.f - operand(p.current_dir, 0)) / 180.f, &sin_c, &cos_c);
+  for (int j = tid; j < NMAX; j += THREADS) {
+    modes[j] = j < N ? make_float2(__ldg(p.E + j), (j + 1) * omega)
+                     : make_float2(0.f, 0.f);
+    jks[j] = j < N ? (j + 1) * kk : 0.f;
+  }
+  // with several phase tiles a block may skip one: its rows start at zero
+  const int n_ptiles = (S + PHASE_TILE - 1) / PHASE_TILE;
+  if (n_ptiles > 1)
+    for (int i = tid; i < S * 6; i += THREADS)
+      p.partials[(size_t)blockIdx.x * S * 6 + i] = 0.f;
+
+  float c1[2], s1[2];
+  float tot[2][6];
+  int cur_tile = -1, s_ph[2] = {0, 0};
+
+  // persistent blocks walk the (phase tile, member) items, phase-tile major
+  for (int item = blockIdx.x; item < n_ptiles * M; item += gridDim.x) {
+    const int tile = item / M, m = item - tile * M;
+    if (tile != cur_tile) {
+      if (cur_tile >= 0) {   // flush the previous tile's totals
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (s_ph[h] < S) {
+            float* o = p.partials + ((size_t)blockIdx.x * S + s_ph[h]) * 6;
+#pragma unroll
+            for (int c = 0; c < 6; ++c) o[c] = tot[h][c];
+          }
+      }
+      cur_tile = tile;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        s_ph[h] = tile * PHASE_TILE + h * THREADS + tid;
+        const float t = (s_ph[h] < S) ? __ldg(p.ts + s_ph[h]) : 0.f;
+        sincosf(omega * t, &s1[h], &c1[h]);
+#pragma unroll
+        for (int c = 0; c < 6; ++c) tot[h][c] = 0.f;
+      }
+    }
+    __syncthreads();   // the previous item's records are read
+
+    // ---- prologue 1: the member's geometry, points, current, cd / ci ----
+    const long long n1 = p.conn[2 * m], n2 = p.conn[2 * m + 1];
+    const float x1 = p.coords[3 * n1], y1 = p.coords[3 * n1 + 1],
+                z1 = p.coords[3 * n1 + 2];
+    const float dx = p.coords[3 * n2] - x1, dy = p.coords[3 * n2 + 1] - y1,
+                dz = p.coords[3 * n2 + 2] - z1;
+    const float L = sqrtf(dx * dx + dy * dy + dz * dz);
+    const float4 e = make_float4(dx / L, dy / L, dz / L, 0.f);
+    for (int q = tid; q < Q; q += THREADS) {
+      const float s = p.s[q];
+      const float x = x1 + s * dx, y = y1 + s * dy, z = z1 + s * dz;
+      float uc = __ldg(p.Uc);
+      if (p.power_law) {
+        const float frac = fminf(fmaxf((z + d) / d, 0.f), 1.f);
+        uc *= powf(frac, operand(p.alpha, 0));
+      }
+      const float D = p.D[m], rho = operand(p.rho, 0), Lw = L * p.w[q];
+      const float cd = 0.5f * rho * operand(p.Cd, m) * D * Lw;
+      const float ci = rho * operand(p.Cm, m) * (kPi * D * D / 4.f) * Lw;
+      pt[2 * q] = make_float4(z, x * cos_w + y * sin_w, uc * cos_c,
+                              uc * sin_c);
+      pt[2 * q + 1] = make_float4(cd, ci, s, 0.f);
+    }
+    __syncthreads();
+
+    // ---- prologue 2: spatial factors of every (point, mode) ----
+    for (int i = tid; i < Q * NMAX; i += THREADS) {
+      const int q = i / NMAX, j = i % NMAX;
+      if (j >= N) {   // padding: adds exact zeros
+        rec[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        continue;
+      }
+      const float4 a = pt[2 * q];
+      const float z = a.x, xw = a.y, jk = jks[j];
+      const float U = __ldg(p.U + j);
+      float sjx, cjx;
       sincosf(jk * xw, &sjx, &cjx);
       // overflow-safe cosh(A)/cosh(B), sinh(A)/cosh(B), A = jk (z + d)
       const float A = jk * (z + d), B = jk * d, Aa = fabsf(A);
       const float scale = expf(Aa - B) / (1.f + expf(-2.f * B));
       const float e2 = expf(-2.f * Aa);
       const float sgn = (A > 0.f) ? 1.f : ((A < 0.f) ? -1.f : 0.f);
-      uc = U * scale * (1.f + e2);
-      us = U * sgn * scale * (1.f - e2);
+      rec[i] = make_float4(cjx, sjx, U * scale * (1.f + e2),
+                           U * sgn * scale * (1.f - e2));
     }
-    float* c = coef + j * N_COEF * POINTS + pt;
-    c[0] = cjx;
-    c[POINTS] = sjx;
-    c[2 * POINTS] = uc;
-    c[3 * POINTS] = us;
-  }
-  for (int idx = tid; idx < ns * 2 * N; idx += THREADS)
-    phase[idx] = ctst[s0 * 2 * N + idx];
-  __syncthreads();
+    __syncthreads();
 
-  float z = 0.f, ex = 0.f, ey = 0.f, ez = 0.f, cd = 0.f, ci = 0.f;
-  float ucx = 0.f, ucy = 0.f, s_q = 0.f;
-  if (valid) {
-    z = rows[p];
-    ex = rows[P + p];
-    ey = rows[2 * P + p];
-    ez = rows[3 * P + p];
-    cd = rows[4 * P + p];
-    ci = rows[5 * P + p];
-    ucx = rows[6 * P + p];
-    ucy = rows[7 * P + p];
-    s_q = sq[q];
-  }
-
-  const int n_steps = (ns + PHASE_LANES - 1) / PHASE_LANES;  // block-uniform
-  for (int k = 0; k < n_steps; ++k) {
-    const int ls = k * PHASE_LANES + sub;
-    float fdx = 0.f, fdy = 0.f, fdz = 0.f, fix = 0.f, fiy = 0.f, fiz = 0.f;
-    if (valid && ls < ns) {
-      const float* ct = phase + ls * 2 * N;
-      const float* st = ct + N;
-      float eta = 0.f, u = 0.f, w = 0.f, du = 0.f, dw = 0.f;
-      float u_z = 0.f, w_z = 0.f, du_z = 0.f, dw_z = 0.f;
-      float u_zz = 0.f, w_zz = 0.f, du_zz = 0.f, dw_zz = 0.f;
-      for (int j = 0; j < N; ++j) {
-        const float* c = coef + j * N_COEF * POINTS + lp;
-        const float cjx = c[0], sjx = c[POINTS];
-        const float uc = c[2 * POINTS], us = c[3 * POINTS];
-        const float E = modes[j * 4 + 0];
-        const float jw = modes[j * 4 + 2];
-        // cos / sin of (j k x - j omega t)
-        const float cp = fmaf(cjx, ct[j], sjx * st[j]);
-        const float sp = fmaf(sjx, ct[j], -cjx * st[j]);
-        eta = fmaf(E, cp, eta);
-        u = fmaf(uc, cp, u);
-        w = fmaf(us, sp, w);
-        du = fmaf(uc * jw, sp, du);
-        dw = fmaf(-us * jw, cp, dw);
-        if (WHEELER) {
-          // d/dz: C' = jk S, S' = jk C; d^2/dz^2: C'' = jk^2 C, S'' = jk^2 S
-          const float jk = modes[j * 4 + 3];
-          const float uz = jk * us, wz = jk * uc;
-          const float uzz = jk * wz, wzz = jk * uz;
-          u_z = fmaf(uz, cp, u_z);
-          w_z = fmaf(wz, sp, w_z);
-          du_z = fmaf(uz * jw, sp, du_z);
-          dw_z = fmaf(-wz * jw, cp, dw_z);
-          u_zz = fmaf(uzz, cp, u_zz);
-          w_zz = fmaf(wzz, sp, w_zz);
-          du_zz = fmaf(uzz * jw, sp, du_zz);
-          dw_zz = fmaf(-wzz * jw, cp, dw_zz);
+    // ---- main loop: both phases of this thread over points and modes ----
+    MemberSums acc[2];
+    for (int q = 0; q < Q; ++q) {
+      const float4* r = rec + q * NMAX;
+      Fields<WHEELER> f[2];
+      float cj[2] = {c1[0], c1[1]}, sj[2] = {s1[0], s1[1]};
+#pragma unroll
+      for (int j = 0; j < NMAX; ++j) {
+        const float4 a = r[j];
+        const float2 mj = modes[j];
+        const float jk = WHEELER ? jks[j] : 0.f;
+        const float ucw = mj.y * a.z, nusw = -mj.y * a.w;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          add_mode(f[h], a, mj.x, ucw, nusw, jk, cj[h], sj[h]);
+          // cos / sin ((j + 2) omega t) by angle addition
+          const float cn = fmaf(cj[h], c1[h], -sj[h] * s1[h]);
+          sj[h] = fmaf(sj[h], c1[h], cj[h] * s1[h]);
+          cj[h] = cn;
         }
       }
-      if (WHEELER) {
-        float dz = -(z + d) * eta / (d + eta);
-        dz = fminf(fmaxf(dz, -d), d);
-        const float h2 = 0.5f * dz * dz;
-        u = u + dz * u_z + h2 * u_zz;
-        w = w + dz * w_z + h2 * w_zz;
-        du = du + dz * du_z + h2 * du_zz;
-        dw = dw + dz * dw_z + h2 * dw_zz;
-      }
-      if (z <= eta) {
-        const float Ux = u * cosw + ucx, Uy = u * sinw + ucy, Uz = w;
-        const float Ax = du * cosw, Ay = du * sinw, Az = dw;
-        const float Ue = Ux * ex + Uy * ey + Uz * ez;
-        const float Ae = Ax * ex + Ay * ey + Az * ez;
-        const float Upx = Ux - Ue * ex, Upy = Uy - Ue * ey,
-                    Upz = Uz - Ue * ez;
-        const float Umag = sqrtf(Upx * Upx + Upy * Upy + Upz * Upz);
-        const float cdf = (Umag > 1e-10f) ? cd * Umag : 0.f;
-        fdx = cdf * Upx;
-        fdy = cdf * Upy;
-        fdz = cdf * Upz;
-        fix = ci * (Ax - Ae * ex);
-        fiy = ci * (Ay - Ae * ey);
-        fiz = ci * (Az - Ae * ez);
-      }
-    }
-    const float fx = fdx + fix, fy = fdy + fiy, fz = fdz + fiz;
-    const float w1 = 1.f - s_q;
-    const float a0 = half_warp_sum(w1 * fx), a1 = half_warp_sum(w1 * fy),
-                a2 = half_warp_sum(w1 * fz);
-    const float b0 = half_warp_sum(s_q * fx), b1 = half_warp_sum(s_q * fy),
-                b2 = half_warp_sum(s_q * fz);
-    const float t0 = half_warp_sum(fdx), t1 = half_warp_sum(fdy),
-                t2 = half_warp_sum(fdz), t3 = half_warp_sum(fix),
-                t4 = half_warp_sum(fiy), t5 = half_warp_sum(fiz);
-    if (q == 0) {
-      if (m < M && ls < ns) {
-        const size_t o = ((size_t)(s0 + ls) * M + m) * 3;
-        F1[o] = a0; F1[o + 1] = a1; F1[o + 2] = a2;
-        F2[o] = b0; F2[o + 1] = b1; F2[o + 2] = b2;
-      }
-      float* r = red[sub][lm];
-      r[0] = t0; r[1] = t1; r[2] = t2; r[3] = t3; r[4] = t4; r[5] = t5;
-    }
-    __syncthreads();
-    if (tid < PHASE_LANES * 6) {
-      const int sb = tid / 6, c = tid % 6;
-      const int ls2 = k * PHASE_LANES + sb;
-      if (ls2 < ns) {
-        float acc = 0.f;
+      const float4 pa = pt[2 * q], pb = pt[2 * q + 1];
 #pragma unroll
-        for (int mm = 0; mm < MEMBERS_PER_BLOCK; ++mm) acc += red[sb][mm][c];
-        partials[((size_t)blockIdx.x * S + s0 + ls2) * 6 + c] = acc;
-      }
+      for (int h = 0; h < 2; ++h)
+        add_point(acc[h], f[h], pa, pb, e, cos_w, sin_w, d);
     }
-    __syncthreads();
+    // F1 = sum f - F2; each phase's 3 + 3 values go straight out
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const MemberSums& a = acc[h];
+      if (s_ph[h] < S) {
+        const size_t o = ((size_t)s_ph[h] * M + m) * 3;
+        p.F1[o] = (a.fdx + a.fix) - a.f2x;
+        p.F1[o + 1] = (a.fdy + a.fiy) - a.f2y;
+        p.F1[o + 2] = (a.fdz + a.fiz) - a.f2z;
+        p.F2[o] = a.f2x; p.F2[o + 1] = a.f2y; p.F2[o + 2] = a.f2z;
+      }
+      tot[h][0] += a.fdx; tot[h][1] += a.fdy; tot[h][2] += a.fdz;
+      tot[h][3] += a.fix; tot[h][4] += a.fiy; tot[h][5] += a.fiz;
+    }
+  }
+  if (cur_tile >= 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (s_ph[h] < S) {
+        float* o = p.partials + ((size_t)blockIdx.x * S + s_ph[h]) * 6;
+#pragma unroll
+        for (int c = 0; c < 6; ++c) o[c] = tot[h][c];
+      }
   }
 }
 
-// totals[s, c] = sum over member groups g (in order) of partials[g, s, c]
+// totals[s, c] = sum over blocks g (in order) of partials[g, s, c]
 __global__ void morison_totals_kernel(const float* __restrict__ partials,
                                       int G, int S,
                                       float* __restrict__ totals) {
@@ -240,55 +361,93 @@ __global__ void morison_totals_kernel(const float* __restrict__ partials,
   totals[i] = acc;
 }
 
-template <bool WHEELER>
-cudaError_t launch(const float* rows, const float* modes, const float* ctst,
-                   const float* sq, const float* scal, int M,
-                   int n_gauss, int S, int N, float* F1, float* F2,
-                   float* partials, float* totals, cudaStream_t stream) {
-  const int G = (M + MEMBERS_PER_BLOCK - 1) / MEMBERS_PER_BLOCK;
-  const size_t smem =
-      sizeof(float) * ((size_t)N * N_COEF * POINTS + PHASE_TILE * 2 * N);
-  cudaError_t err = cudaFuncSetAttribute(
-      morison_phase_batch_kernel<WHEELER>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int NMAX>
+size_t smem_bytes(const MorisonParams& p) {
+  return sizeof(float4) * (size_t)p.n_gauss * (NMAX + 2)
+         + (sizeof(float2) + sizeof(float)) * NMAX;
+}
+
+// Blocks of the persistent grid: as many as fit the card at once, at most
+// one per work item.  The grid depends only on the card and the shapes, so
+// the fixed-order totals are bit-repeatable.
+template <int NMAX, bool WHEELER>
+int grid_blocks(const MorisonParams& p) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, morison_phase_batch_kernel<NMAX, WHEELER>, THREADS,
+        smem_bytes<NMAX>(p));
+  if (err != cudaSuccess) return -(int)err;
+  const long long items =
+      (long long)((p.S + PHASE_TILE - 1) / PHASE_TILE) * p.M;
+  return (int)(items < (long long)sms * per_sm ? items
+                                               : (long long)sms * per_sm);
+}
+
+template <int NMAX, bool WHEELER>
+cudaError_t launch(const MorisonParams& p, int G, cudaStream_t stream) {
+  morison_phase_batch_kernel<NMAX, WHEELER>
+      <<<G, THREADS, smem_bytes<NMAX>(p), stream>>>(p);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid(G, (S + PHASE_TILE - 1) / PHASE_TILE);
-  morison_phase_batch_kernel<WHEELER><<<grid, THREADS, smem, stream>>>(
-      rows, modes, ctst, sq, scal, M, n_gauss, S, N, F1, F2,
-      partials);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  morison_totals_kernel<<<(S * 6 + 255) / 256, 256, 0, stream>>>(
-      partials, G, S, totals);
+  morison_totals_kernel<<<(p.S * 6 + 255) / 256, 256, 0, stream>>>(
+      p.partials, G, p.S, p.totals);
   return cudaGetLastError();
+}
+
+// The kernel instance for N modes (NMAX = 4, 8, ..., 32) and stretching.
+struct Instance {
+  int (*grid)(const MorisonParams&);
+  cudaError_t (*launch)(const MorisonParams&, int, cudaStream_t);
+};
+
+template <int NMAX, bool WHEELER>
+constexpr Instance instance() {
+  return {grid_blocks<NMAX, WHEELER>, launch<NMAX, WHEELER>};
+}
+
+Instance pick(int N, bool wheeler) {
+  static const Instance table[2][8] = {
+      {instance<4, false>(), instance<8, false>(), instance<12, false>(),
+       instance<16, false>(), instance<20, false>(), instance<24, false>(),
+       instance<28, false>(), instance<32, false>()},
+      {instance<4, true>(), instance<8, true>(), instance<12, true>(),
+       instance<16, true>(), instance<20, true>(), instance<24, true>(),
+       instance<28, true>(), instance<32, true>()}};
+  return table[wheeler ? 1 : 0][(N + 3) / 4 - 1];
+}
+
+bool valid(const MorisonParams* p) {
+  return p->M > 0 && p->S > 0 && p->N > 0 && p->N <= 32 && p->n_gauss > 0 &&
+         p->n_gauss <= MAX_GAUSS;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Members per block: the wrapper sizes the partial-sum buffer with it.
-int morison_members_per_block() { return MEMBERS_PER_BLOCK; }
+// Blocks the launch uses for these shapes (the rows of the partial-sum
+// buffer the wrapper allocates); negative on a CUDA error.
+int morison_grid_blocks(const MorisonParams* p, int wheeler) {
+  if (!valid(p)) return -(int)cudaErrorInvalidValue;
+  return pick(p->N, wheeler != 0).grid(*p);
+}
 
-// Launches the fused kernel and the fixed-order totals reduction on
-// ``stream``.  All pointers are device f32, contiguous; returns the CUDA
-// error code (0 on success).
-int morison_phase_batch_launch(const float* rows, const float* modes,
-                               const float* ctst, const float* sq,
-                               const float* scal, int M,
-                               int n_gauss, int S, int N, int wheeler,
-                               float* F1, float* F2, float* partials,
-                               float* totals, void* stream) {
-  if (M <= 0 || S <= 0 || N <= 0 || N > 32 || n_gauss <= 0 ||
-      n_gauss > QLANES)
-    return (int)cudaErrorInvalidValue;
+// sizeof(MorisonParams): the wrapper checks its ctypes mirror against it.
+int morison_params_size() { return (int)sizeof(MorisonParams); }
+
+// Launches the fused kernel on G blocks (morison_grid_blocks) and the
+// fixed-order totals reduction on ``stream``.  ``p`` is host memory
+// (copied into the kernel's parameters); every pointer in it is device
+// memory, partials [G, S, 6].  Returns the CUDA error code (0 on success).
+int morison_phase_batch_launch(const MorisonParams* p, int wheeler, int G,
+                               void* stream) {
+  if (!valid(p) || G <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      wheeler ? launch<true>(rows, modes, ctst, sq, scal, M, n_gauss, S, N,
-                             F1, F2, partials, totals, st)
-              : launch<false>(rows, modes, ctst, sq, scal, M, n_gauss, S, N,
-                              F1, F2, partials, totals, st);
-  return (int)err;
+  return (int)pick(p->N, wheeler != 0).launch(*p, G, st);
 }
 
 const char* morison_error_string(int code) {

@@ -17,6 +17,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops.sections import TubeSections, tube_sections
 
 # Options of the JAX model that this package does not carry yet.
@@ -84,15 +85,17 @@ def build_model(nodes: dict, members: Sequence[dict],
                 leg_section=(2000.0, 75.0), brace_section=(800.0, 30.0),
                 rho_steel: float = 7850.0,
                 dtype: torch.dtype = torch.float64,
-                device="cpu") -> JacketModel:
+                device=None) -> JacketModel:
     """Build a packed model from reference-style inputs: ``nodes`` maps
     name -> (x, y, z) in metres; each member dict has name/node1/node2/type;
     'leg' members use ``leg_section`` (D_mm, t_mm), all others
     ``brace_section``.  A member with a ``release`` other than 'none' is
-    refused (:data:`NOT_PORTED_OPTIONS`)."""
+    refused (:data:`NOT_PORTED_OPTIONS`).  ``device=None`` is the CUDA card
+    (:func:`..device.resolve_device`)."""
     if any(str(m.get("release", "none")).lower() not in ("none", "")
            for m in members):
         raise NotImplementedError(NOT_PORTED_OPTIONS)
+    device = resolve_device(device)
     node_names = tuple(nodes.keys())
     index = {n: i for i, n in enumerate(node_names)}
     coords = np.array([nodes[n] for n in node_names], dtype=np.float64)

@@ -74,9 +74,10 @@ def default_3leg_jacket_geometry(z_water_ref: float = 47.0):
 
 
 def default_3leg_jacket(z_water_ref: float = 47.0,
-                        dtype: torch.dtype = torch.float64, device="cpu",
+                        dtype: torch.dtype = torch.float64, device=None,
                         **kw) -> JacketModel:
-    """Packed :class:`JacketModel` of the default 3-leg jacket."""
+    """Packed :class:`JacketModel` of the default 3-leg jacket, on the CUDA
+    card unless ``device`` says otherwise."""
     nodes, members, fixed, top = default_3leg_jacket_geometry(z_water_ref)
     return build_model(nodes, members, fixed, top, dtype=dtype,
                        device=device, **kw)

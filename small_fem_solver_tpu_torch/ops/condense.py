@@ -157,16 +157,20 @@ def chain_sweep_plain(fac: ChainFactor, g: torch.Tensor):
             torch.stack(vs, dim=-3))
 
 
-def condense_loads(fac: ChainFactor, g: torch.Tensor):
+def condense_loads(fac: ChainFactor, g: torch.Tensor, split: bool = False):
     """Condense interior loads ``g`` [..., n_int, Mc, 6] onto the
     interfaces.  Returns (f_I_extra, f_J_extra, v) where the extras
     [..., Mc, 6] are ADDED to the interface loads and ``v`` = T^{-1} g is
-    the particular interior solution for back-substitution.
+    the particular interior solution for back-substitution.  With
+    ``split``, ``g`` is a view [..., n_int, Mc', Q, 6] of the chains
+    c = m' Q + q (the nested level-1 layout).
 
-    CUDA tensors go through the chain-sweep kernel (one launch), CPU
-    tensors through :func:`chain_sweep_plain`."""
+    CUDA tensors go through the chain-sweep kernel (one launch, reading
+    ``g`` in its own layout), CPU tensors through :func:`chain_sweep_plain`."""
     if g.is_cuda:
-        return chain_sweep_cuda(fac, g)
+        return chain_sweep_cuda(fac, g, split)
+    if split:
+        g = g.reshape(*g.shape[:-3], g.shape[-3] * g.shape[-2], 6)
     return chain_sweep_plain(fac, g)
 
 
@@ -260,21 +264,20 @@ def condense_loads_nested(fac: NestedChainFactor, g: torch.Tensor):
     (v_g1, v_g2) pair); ``g``: [..., n_int, Mc, 6] in chain-position order."""
     Mc, n_outer, n_sub = _nested_dims(fac)
     batch = g.shape[:-3]
-    # position 0 (the member interface) carries no interior load; view
-    # positions k = q * n_sub + p as (q, p)
-    gfull = torch.cat([g.new_zeros(*batch, 1, Mc, 6), g], dim=-3)
-    gqp = gfull.reshape(*batch, n_outer, n_sub, Mc, 6)
-
-    # level 1: interiors p = 1..n_sub-1, chain index c = m * n_outer + q
-    g1 = gqp[..., :, 1:, :, :].movedim(-4, -2)
-    g1 = g1.reshape(*batch, n_sub - 1, Mc * n_outer, 6)
-    fI1, fJ1, v_g1 = condense_loads(fac.fac1, g1)
+    # chain position k = q * n_sub + p (k = 1..n_seg-1) is g[..., k - 1]
+    # level 1: interiors p = 1..n_sub-1 of sub-chain q, chain index
+    # c = m * n_outer + q, as a strided view of g (no copy on the card)
+    sP, sM, sK = g.stride()[-3:]
+    g1 = g.as_strided((*batch, n_sub - 1, Mc, n_outer, 6),
+                      (*g.stride()[:-3], sP, sM, n_sub * sP, sK),
+                      g.storage_offset())
+    fI1, fJ1, v_g1 = condense_loads(fac.fac1, g1, split=True)
     fI1 = fI1.reshape(*batch, Mc, n_outer, 6)
     fJ1 = fJ1.reshape(*batch, Mc, n_outer, 6)
 
-    # level 2: sub-chain boundaries j = 1..n_outer-1 take their direct load
-    # plus both neighbours' condensates
-    g2 = (gqp[..., 1:, 0, :, :] + fJ1[..., :-1, :].movedim(-2, -3)
+    # level 2: sub-chain boundaries j = 1..n_outer-1 (positions j * n_sub)
+    # take their direct load plus both neighbours' condensates
+    g2 = (g[..., n_sub - 1::n_sub, :, :] + fJ1[..., :-1, :].movedim(-2, -3)
           + fI1[..., 1:, :].movedim(-2, -3))
     fI2, fJ2, v_g2 = condense_loads(fac.fac2, g2)
     return fI1[..., 0, :] + fI2, fJ1[..., -1, :] + fJ2, (v_g1, v_g2)

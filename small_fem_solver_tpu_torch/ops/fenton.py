@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..constants import G_GRAV
+from ..device import resolve_device
 from .dispersion import solve_dispersion
 from .waves import FourierWave, stack_waves
 
@@ -95,7 +96,7 @@ def _solve_fenton(H: torch.Tensor, T: torch.Tensor, d: torch.Tensor, M: int,
 
 
 def fenton_wave(H, T, d, U_c=0.0, N: int = 10, n_modes: int | None = None,
-                dtype: torch.dtype = torch.float64, device="cpu",
+                dtype: torch.dtype = torch.float64, device=None,
                 n_newton: int = 12, n_cont: int = 10,
                 check: bool = True) -> FourierWave:
     """Fully nonlinear stream-function wave in canonical Fourier form: a
@@ -111,18 +112,19 @@ def fenton_wave(H, T, d, U_c=0.0, N: int = 10, n_modes: int | None = None,
 
 def fenton_wave_batch(H, T, d, U_c=0.0, N: int = 10,
                       n_modes: int | None = None,
-                      dtype: torch.dtype = torch.float32, device="cpu",
+                      dtype: torch.dtype = torch.float32, device=None,
                       n_newton: int = 12, n_cont: int = 10,
                       check: bool = True) -> FourierWave:
     """Batched Fenton setup: one float64 CPU Newton over all (H, T) cases,
     returning a batched :class:`FourierWave` (leading case axis) on
-    ``device`` in ``dtype``.
+    ``device`` (``None``: the CUDA card) in ``dtype``.
 
     ``T``, ``d`` and ``U_c`` may be scalars or per-case arrays.
     ``check=True`` evaluates every case's collocation residual in one
     batched call and raises ``ValueError`` naming the cases that did not
     converge (e.g. above-breaking waves).
     """
+    device = resolve_device(device)
     M = int(N)
     H = np.atleast_1d(np.asarray(H, np.float64))
     T, d_b, Uc_b = (np.broadcast_to(np.asarray(v, np.float64), H.shape)

@@ -1,18 +1,22 @@
 """Hand-written Hopper (sm_90a) kernels and their PyTorch wrappers.
 
-- ``morison_phase_batch_cuda`` launches the fused phase-batch Morison
-  kernel in ``csrc/morison_phase_batch.cu``, the port of the Pallas TPU
-  kernel ``small_fem_solver_tpu/ops/pallas_kernels.py::
-  morison_phase_batch_pallas``.  Its plain PyTorch version is
-  ``ops/morison.py::morison_phase_batch``.
+- ``morison_end_forces_cuda`` (member end forces and totals, what the
+  condensed paths read) and ``morison_phase_batch_cuda`` (plus the nodal
+  scatter) launch the fused phase-batch Morison kernel in
+  ``csrc/morison_phase_batch.cu``, the port of the Pallas TPU kernel
+  ``small_fem_solver_tpu/ops/pallas_kernels.py::
+  morison_phase_batch_pallas``.  Its plain PyTorch versions are
+  ``ops/morison.py::morison_end_forces`` / ``morison_phase_batch``.
 - ``chain_sweep_cuda`` launches the chain-sweep kernel in
   ``csrc/chain_sweep.cu`` (forward RHS sweep + backward substitution), the
   port of the two Pallas TPU kernels of
   ``benchmarks/ab_pallas_sweep.py::pallas_sweep``.  Its plain PyTorch
   version is ``ops/condense.py::chain_sweep_plain``.
 
-The wrappers never fall back to the plain versions: they raise for
-tensors that are not on a CUDA device and when a build or launch fails.
+On CUDA tensors the wrappers launch their kernel or raise (a failed
+build or launch is never replaced by the plain version); tensors on the
+CPU run the plain version (the chain sweep's dispatch is
+``ops/condense.py::condense_loads``).
 
 Build: at first use each source is compiled by ``nvcc`` into a shared
 library with a plain C interface under ``small_fem_solver_tpu_torch/_build/``
@@ -26,16 +30,17 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import math
 import os
 import pathlib
 import shutil
 import subprocess
 import tempfile
 
+import numpy as np
 import torch
 
-from .morison import MorisonPhaseBatch, gauss_legendre_01, nodal_scatter
+from .morison import (MorisonPhaseBatch, gauss_legendre_01, morison_end_forces,
+                      nodal_scatter)
 from .waves import FourierWave
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
@@ -46,20 +51,21 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
 MAX_MODES = 32     # wave modes the Morison kernel takes
 MAX_GAUSS = 16     # quadrature points per member (one 16-lane half-warp)
 
-_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+_PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points of each kernel library: name -> (argtypes, restype)
 _SIGNATURES = {
     "morison_phase_batch": {
-        "morison_phase_batch_launch": (
-            [_PTR] * 5 + [_I32] * 5 + [_PTR] * 5, _I32),
-        "morison_members_per_block": ([], _I32),
+        "morison_phase_batch_launch": ([_PTR, _I32, _I32, _PTR], _I32),
+        "morison_grid_blocks": ([_PTR, _I32], _I32),
+        "morison_params_size": ([], _I32),
         "morison_error_string": ([_I32], ctypes.c_char_p),
     },
     "chain_sweep": {
-        "chain_sweep_launch_f32": ([_PTR] * 6 + [_I32] * 3 + [_PTR] * 4,
-                                   _I32),
-        "chain_sweep_launch_f64": ([_PTR] * 6 + [_I32] * 3 + [_PTR] * 4,
-                                   _I32),
+        "chain_sweep_launch_f32": ([_PTR] * 6 + [_I64] * 4 + [_I32] * 5
+                                   + [_PTR] * 4, _I32),
+        "chain_sweep_launch_f64": ([_PTR] * 6 + [_I64] * 4 + [_I32] * 5
+                                   + [_PTR] * 4, _I32),
+        "chain_sweep_chains_per_block": ([_I32, _I32], _I32),
         "chain_sweep_error_string": ([_I32], ctypes.c_char_p),
     },
 }
@@ -120,6 +126,10 @@ def build_all(names=KERNELS) -> dict:
         for fn, (argtypes, restype) in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype
+        if (name == "morison_phase_batch" and lib.morison_params_size()
+                != ctypes.sizeof(_MorisonParams)):
+            raise RuntimeError("MorisonParams in morison_phase_batch.cu and "
+                               "its ctypes mirror differ in size")
         _libs[name] = lib
     return {n: _libs[n] for n in names}
 
@@ -129,95 +139,123 @@ def build(name: str) -> ctypes.CDLL:
     return _libs.get(name) or build_all((name,))[name]
 
 
-def kernel_inputs(wave: FourierWave, coords, conn, D_m, wave_dir_deg,
-                  current_dir_deg, Cd, Cm, rho_water, ts, n_gauss: int,
-                  current_alpha) -> dict:
-    """Pack the kernel's f32 operands on ``coords``' device:
+class _Operand(ctypes.Structure):
+    """ctypes mirror of ``Operand`` in ``csrc/morison_phase_batch.cu``."""
 
-    - ``rows`` [9, P] per quadrature point (P = M n_gauss, member-major):
-      z, ex, ey, ez, cd = 0.5 rho Cd D L w_q, ci = rho Cm pi D^2/4 L w_q,
-      current x / y (uniform or power-law), wave-frame x;
-    - ``modes`` [N, 4]: E_j, U_j, j omega, j k;
-    - ``ctst`` [S, 2N]: cos(j omega t_s) | sin(j omega t_s);
-    - ``sq`` [n_gauss]: Gauss abscissae s_q;
-    - ``scal`` [3]: cos / sin of the wave heading and the depth d.
+    _fields_ = [("ptr", ctypes.c_void_p), ("stride", ctypes.c_longlong),
+                ("value", ctypes.c_float)]
 
-    All of it is float32 whatever the caller's dtype (the TPU kernel's
-    contract); the results are cast back by the caller.
+
+class _MorisonParams(ctypes.Structure):
+    """ctypes mirror of ``MorisonParams`` in ``csrc/morison_phase_batch.cu``
+    (checked against the library's ``sizeof`` at build)."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("coords", "conn", "D")]
+                + [(n, _Operand) for n in ("Cd", "Cm", "wave_dir",
+                                           "current_dir", "rho", "alpha")]
+                + [(n, ctypes.c_void_p) for n in ("E", "U", "k", "omega", "d",
+                                                  "Uc", "ts")]
+                + [("s", ctypes.c_float * MAX_GAUSS),
+                   ("w", ctypes.c_float * MAX_GAUSS)]
+                + [(n, ctypes.c_int) for n in ("M", "S", "N", "n_gauss",
+                                               "power_law")]
+                + [(n, ctypes.c_void_p) for n in ("F1", "F2", "partials",
+                                                  "totals")])
+
+
+def kernel_operands(wave: FourierWave, coords, conn, D_m, wave_dir_deg,
+                    current_dir_deg, Cd, Cm, rho_water, ts, n_gauss: int,
+                    current_alpha) -> dict:
+    """The kernel's operands, as it reads them, on ``coords``' device:
+
+    - ``coords`` [n_nodes, 3], ``conn`` [M, 2] (int64), ``D`` [M], ``ts``
+      [S] and the wave's ``E``, ``U`` [N], ``k``, ``omega``, ``d``, ``Uc``
+      (0-d): float32 tensors;
+    - ``Cd``, ``Cm`` (per member [M] or scalar), ``wave_dir``,
+      ``current_dir``, ``rho`` and ``alpha`` (``None``: uniform current):
+      each a float32 tensor or a Python float;
+    - ``s``, ``w``: the n_gauss-point Gauss rule on [0, 1] (host numpy
+      float32, passed to the kernel by value).
+
+    The kernel's prologue expands member -> point from these.  On the
+    port's own path every tensor is already float32 on the device, so this
+    issues no device operation: no host-to-device copy, no synchronisation.
     """
     f32, dev = torch.float32, coords.device
 
-    def t(v):
-        return torch.as_tensor(v, dtype=f32, device=dev)
+    def dev_f32(v):
+        return v.to(device=dev, dtype=f32).contiguous()
 
-    theta_w = torch.deg2rad(t(90.0) - t(wave_dir_deg))
-    theta_c = torch.deg2rad(t(90.0) - t(current_dir_deg))
-    cos_w, sin_w = torch.cos(theta_w), torch.sin(theta_w)
-    cos_c, sin_c = torch.cos(theta_c), torch.sin(theta_c)
+    def value(v):
+        if isinstance(v, torch.Tensor):
+            return dev_f32(v)
+        if np.ndim(v) > 0:
+            return torch.as_tensor(np.asarray(v), dtype=f32, device=dev)
+        return float(v)
 
-    coords = coords.to(f32)
-    c1 = coords[conn[:, 0]]
-    dL = coords[conn[:, 1]] - c1
-    L = torch.linalg.norm(dL, dim=-1)
-    e = dL / L[:, None]
-    M = conn.shape[0]
-    s_np, w_np = gauss_legendre_01(n_gauss)
-    s, wq = t(s_np), t(w_np)
-    pos = c1[:, None, :] + s[None, :, None] * dL[:, None, :]   # [M, Q, 3]
-
-    x_wave = (pos[..., 0] * cos_w + pos[..., 1] * sin_w).reshape(-1)
-    z = pos[..., 2].reshape(-1)
-    Lw = L[:, None] * wq[None, :]
-    D = D_m.to(f32)[:, None]
-
-    def per_member(v):
-        v = t(v)
-        return v[:, None] if v.ndim == 1 else v
-
-    rho = t(rho_water)
-    cd_row = 0.5 * rho * per_member(Cd) * D * Lw
-    ci_row = rho * per_member(Cm) * (math.pi * D**2 / 4.0) * Lw
-    wave = wave.to(f32, dev)
-    if current_alpha is None:
-        Uc_pt = wave.U_c.expand(z.shape)
-    else:
-        frac = torch.clip((z + wave.d) / wave.d, 0.0, 1.0)
-        Uc_pt = wave.U_c * frac ** t(current_alpha)
-    rows = torch.stack([
-        z, *(e[:, c:c + 1].expand(M, n_gauss).reshape(-1) for c in range(3)),
-        cd_row.expand(M, n_gauss).reshape(-1),
-        ci_row.expand(M, n_gauss).reshape(-1),
-        Uc_pt * cos_c, Uc_pt * sin_c, x_wave]).contiguous()
-
-    N = wave.n_modes
-    j = torch.arange(1, N + 1, dtype=f32, device=dev)
-    modes = torch.stack([wave.E, wave.U, j * wave.omega, j * wave.k],
-                        dim=1).contiguous()
-    jt = (j * wave.omega)[None, :] * ts.to(f32)[:, None]
-    ctst = torch.cat([torch.cos(jt), torch.sin(jt)], dim=1).contiguous()
-    return dict(rows=rows, modes=modes, ctst=ctst, sq=s.contiguous(),
-                scal=torch.stack([cos_w, sin_w, wave.d]))
+    s, w = (a.astype(np.float32) for a in gauss_legendre_01(n_gauss))
+    return dict(
+        coords=dev_f32(coords), conn=conn.to(device=dev,
+                                              dtype=torch.int64).contiguous(),
+        D=dev_f32(D_m), ts=dev_f32(ts),
+        **{n: dev_f32(getattr(wave, n)) for n in ("E", "U", "k", "omega",
+                                                   "d")},
+        Uc=dev_f32(wave.U_c), Cd=value(Cd), Cm=value(Cm),
+        wave_dir=value(wave_dir_deg), current_dir=value(current_dir_deg),
+        rho=value(rho_water),
+        alpha=None if current_alpha is None else value(current_alpha),
+        s=s, w=w)
 
 
-def launch_packed(k: dict, M: int, n_gauss: int, wheeler: bool):
-    """Launch the kernel on operands packed by :func:`kernel_inputs` (all
-    on one CUDA device); returns (F1 [S, M, 3], F2 [S, M, 3], totals
-    [S, 6] = drag xyz | inertia xyz), float32."""
+def _operand(v, M: int, name: str) -> _Operand:
+    """A value or a float32 tensor (0-d, or [M] per member) as an Operand."""
+    if not isinstance(v, torch.Tensor):
+        return _Operand(None, 0, v)
+    if v.ndim == 0:
+        return _Operand(v.data_ptr(), 0, 0.0)
+    if tuple(v.shape) != (M,):
+        raise ValueError(f"{name} must be a scalar or per-member [{M}], got "
+                         f"shape {tuple(v.shape)}")
+    return _Operand(v.data_ptr(), 1, 0.0)
+
+
+def launch_morison(k: dict, wheeler: bool):
+    """Launch the kernel on operands from :func:`kernel_operands` (all on
+    one CUDA device); returns (F1 [S, M, 3], F2 [S, M, 3], totals [S, 6] =
+    drag xyz | inertia xyz), float32.  Raises for CPU tensors."""
+    dev = k["coords"].device
+    if dev.type != "cuda":
+        raise RuntimeError("the Morison kernel needs CUDA tensors (got "
+                           f"{dev}); the plain version is "
+                           "ops.morison.morison_phase_batch")
     lib = build("morison_phase_batch")
-    S, N = k["ctst"].shape[0], k["modes"].shape[0]
-    dev, f32 = k["rows"].device, torch.float32
+    M, S, N = k["conn"].shape[0], k["ts"].shape[0], k["E"].shape[0]
+    n_gauss, f32 = len(k["s"]), torch.float32
     F1 = torch.empty(S, M, 3, dtype=f32, device=dev)
     F2 = torch.empty(S, M, 3, dtype=f32, device=dev)
-    mpb = lib.morison_members_per_block()
-    partials = torch.empty(-(-M // mpb), S, 6, dtype=f32, device=dev)
     totals = torch.empty(S, 6, dtype=f32, device=dev)
+    p = _MorisonParams(
+        *(k[n].data_ptr() for n in ("coords", "conn", "D")),
+        *(_operand(k[n], M, n) for n in ("Cd", "Cm", "wave_dir",
+                                          "current_dir", "rho")),
+        _operand(0.0 if k["alpha"] is None else k["alpha"], M, "alpha"),
+        *(k[n].data_ptr() for n in ("E", "U", "k", "omega", "d", "Uc",
+                                    "ts")),
+        (ctypes.c_float * MAX_GAUSS)(*k["s"]),
+        (ctypes.c_float * MAX_GAUSS)(*k["w"]),
+        M, S, N, n_gauss, int(k["alpha"] is not None),
+        F1.data_ptr(), F2.data_ptr(), None, totals.data_ptr())
     with torch.cuda.device(dev):
+        G = lib.morison_grid_blocks(ctypes.byref(p), int(wheeler))
+        if G <= 0:
+            raise RuntimeError("morison_phase_batch grid query failed: "
+                               + lib.morison_error_string(-G).decode())
+        # the kernel's per-block partial totals [G, S, 6]
+        partials = torch.empty(G, S, 6, dtype=f32, device=dev)
+        p.partials = partials.data_ptr()
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.morison_phase_batch_launch(
-            k["rows"].data_ptr(), k["modes"].data_ptr(), k["ctst"].data_ptr(),
-            k["sq"].data_ptr(), k["scal"].data_ptr(), M, n_gauss, S, N,
-            int(wheeler), F1.data_ptr(), F2.data_ptr(), partials.data_ptr(),
-            totals.data_ptr(), stream)
+        err = lib.morison_phase_batch_launch(ctypes.byref(p), int(wheeler),
+                                             G, stream)
     if err != 0:
         raise RuntimeError("morison_phase_batch kernel launch failed: "
                            + lib.morison_error_string(err).decode())
@@ -225,18 +263,17 @@ def launch_packed(k: dict, M: int, n_gauss: int, wheeler: bool):
     return F1, F2, totals
 
 
-def morison_phase_batch_cuda(wave: FourierWave, coords: torch.Tensor,
-                             conn: torch.Tensor, D_m: torch.Tensor,
-                             wave_dir_deg, current_dir_deg, Cd, Cm,
-                             rho_water, ts: torch.Tensor, n_gauss: int = 15,
-                             current_alpha=None,
-                             stretching: str = "none") -> MorisonPhaseBatch:
-    """Fused-kernel :func:`..morison.morison_phase_batch` (float32 results).
+def morison_end_forces_cuda(wave: FourierWave, coords: torch.Tensor,
+                            conn: torch.Tensor, D_m: torch.Tensor,
+                            wave_dir_deg, current_dir_deg, Cd, Cm, rho_water,
+                            ts: torch.Tensor, n_gauss: int = 15,
+                            current_alpha=None, stretching: str = "none"):
+    """Fused-kernel :func:`..morison.morison_end_forces`: (F1, F2,
+    total_drag, total_inertia), float32 on a CUDA device.
 
-    Same signature, semantics and result type; raises ``RuntimeError`` for
-    tensors that are not on a CUDA device and when the build or the launch
-    fails.  ``morison_phase_batch_cuda.launches`` counts kernel launches
-    (:func:`launch_packed` adds one per successful launch).
+    CUDA tensors launch the kernel (or raise when the build or the launch
+    fails); CPU tensors run the plain version in their own dtype.
+    Kernel launches count on ``morison_phase_batch_cuda.launches``.
     """
     if n_gauss > MAX_GAUSS:
         raise ValueError(f"n_gauss must be <= {MAX_GAUSS}")
@@ -245,15 +282,31 @@ def morison_phase_batch_cuda(wave: FourierWave, coords: torch.Tensor,
     if stretching not in ("none", "wheeler"):
         raise ValueError(f"unknown stretching mode {stretching!r}")
     if coords.device.type != "cuda":
-        raise RuntimeError("morison_phase_batch_cuda needs CUDA tensors "
-                           f"(got {coords.device}); the plain version is "
-                           "ops.morison.morison_phase_batch")
-    k = kernel_inputs(wave, coords, conn, D_m, wave_dir_deg,
-                      current_dir_deg, Cd, Cm, rho_water, ts, n_gauss,
-                      current_alpha)
-    F1, F2, totals = launch_packed(k, conn.shape[0], n_gauss,
-                                   stretching == "wheeler")
-    total_drag, total_inertia = totals[:, :3], totals[:, 3:]
+        return morison_end_forces(wave, coords, conn, D_m, wave_dir_deg,
+                                  current_dir_deg, Cd, Cm, rho_water, ts,
+                                  n_gauss, current_alpha, stretching)
+    k = kernel_operands(wave, coords, conn, D_m, wave_dir_deg,
+                        current_dir_deg, Cd, Cm, rho_water, ts, n_gauss,
+                        current_alpha)
+    F1, F2, totals = launch_morison(k, stretching == "wheeler")
+    return F1, F2, totals[:, :3], totals[:, 3:]
+
+
+
+def morison_phase_batch_cuda(wave: FourierWave, coords: torch.Tensor,
+                             conn: torch.Tensor, D_m: torch.Tensor,
+                             wave_dir_deg, current_dir_deg, Cd, Cm,
+                             rho_water, ts: torch.Tensor, n_gauss: int = 15,
+                             current_alpha=None,
+                             stretching: str = "none") -> MorisonPhaseBatch:
+    """Fused-kernel :func:`..morison.morison_phase_batch`: same signature,
+    semantics and result type (float32 on a CUDA device; CPU tensors run
+    the plain version).  ``morison_phase_batch_cuda.launches`` counts the
+    K1 launches of both wrappers (:func:`launch_morison` adds one per
+    launch)."""
+    F1, F2, total_drag, total_inertia = morison_end_forces_cuda(
+        wave, coords, conn, D_m, wave_dir_deg, current_dir_deg, Cd, Cm,
+        rho_water, ts, n_gauss, current_alpha, stretching)
     return MorisonPhaseBatch(
         nodal_forces=nodal_scatter(F1, F2, conn, coords.shape[0]),
         total_drag=total_drag, total_inertia=total_inertia,
@@ -263,18 +316,71 @@ def morison_phase_batch_cuda(wave: FourierWave, coords: torch.Tensor,
 morison_phase_batch_cuda.launches = 0
 
 
-def chain_sweep_cuda(fac, g: torch.Tensor):
+SWEEP_LANES = 32            # right-hand sides per sweep block (one a lane)
+SWEEP_MAX_CHAINS = 8        # chains per sweep block (one a warp)
+SWEEP_TILE_BUDGET = 80 * 1024
+H100_SMEM_OPTIN = 232448    # shared memory a block may opt in to (sm_90)
+
+
+def sweep_chains_per_block(n_int: int, itemsize: int,
+                           smem_optin: int = H100_SMEM_OPTIN) -> int:
+    """Chains per block of the sweep kernel's tile (its launch's rule,
+    ``csrc/chain_sweep.cu``): the largest of 8, 4, 2, 1 whose tile of
+    factors and g / v fits ``SWEEP_TILE_BUDGET``; 0 when even one chain
+    exceeds ``smem_optin`` (the untiled form)."""
+    def tile_bytes(ct):
+        return itemsize * (n_int * ct * 108 + ct * 72
+                           + max(n_int, 2) * ct * 6 * (SWEEP_LANES + 1))
+    ct = SWEEP_MAX_CHAINS
+    while ct > 1 and tile_bytes(ct) > SWEEP_TILE_BUDGET:
+        ct //= 2
+    return ct if tile_bytes(ct) <= smem_optin else 0
+
+
+def sweep_operand(g: torch.Tensor, split: bool = False):
+    """How the sweep kernel reads ``g``: (g3, B, (sb, sl, sm, sq), Q,
+    levels_inner) with ``g3`` the tensor whose storage it reads.
+
+    ``g`` is [..., n_int, C, 6], or with ``split`` a view [..., n_int, Mc,
+    Q, 6] whose chain index is c = m Q + q; element (b, l, c, k) lies at
+    ``g3.data_ptr()`` + b sb + l sl + m sm + q sq + k elements;
+    ``levels_inner`` says the kernel's tile loads walk l before c.  Leading
+    dims flatten to b (a copy only when they do not flatten to one stride),
+    and only a ``g`` whose last axis is not contiguous is copied.
+    """
+    tail = 4 if split else 3
+    if g.stride(-1) != 1:
+        g = g.contiguous()
+    g3 = g.reshape(-1, *g.shape[g.dim() - tail:])
+    if split:
+        _, _, _, Q, _ = g3.shape
+        sb, sl, sm, sq, _ = g3.stride()
+        chain_stride = min(sm, sq)
+    else:
+        Q, sq = 1, 0
+        sb, sl, sm, _ = g3.stride()
+        chain_stride = sm
+    # walk the levels innermost when they are the contiguous axis and a
+    # chain's levels fill three warp-wide rounds of loads (the flagship
+    # thomas depth); shorter chains (the nested levels) load faster a row of
+    # the tile's chains at a time, each load instruction using all 32 lanes
+    levels_inner = sl < chain_stride and g3.shape[1] * 6 >= 3 * SWEEP_LANES
+    return g3, g3.shape[0], (sb, sl, sm, sq), Q, int(levels_inner)
+
+
+def chain_sweep_cuda(fac, g: torch.Tensor, split: bool = False):
     """Kernel :func:`..condense.chain_sweep_plain`: same contract, one
     launch for the forward sweep and the backward substitution.
 
     ``fac``: a ``ChainFactor`` whose ``Dinv``/``DinvL``/``Cprime``
-    [n_int, Mc, 6, 6] and ``B0``/``Cn`` [Mc, 6, 6] are contiguous;
-    ``g``: [..., n_int, Mc, 6] of the same dtype (float32 or float64) on
-    the same CUDA device (leading dims flatten to one right-hand-side axis;
-    a non-contiguous ``g`` is copied).  Returns (fI [..., Mc, 6],
-    fJ [..., Mc, 6], v [..., n_int, Mc, 6]).  Raises for CPU tensors,
-    mismatched operands and any CUDA error.
-    ``chain_sweep_cuda.launches`` counts kernel launches.
+    [n_int, C, 6, 6] and ``B0``/``Cn`` [C, 6, 6] are contiguous;
+    ``g``: [..., n_int, C, 6] (or, with ``split``, a view [..., n_int, Mc,
+    Q, 6] of the chains c = m Q + q) of the same dtype (float32 or float64)
+    on the same CUDA device, in any strided layout (see
+    :func:`sweep_operand`).  Returns (fI [..., C, 6], fJ [..., C, 6],
+    v [..., n_int, C, 6]), contiguous.  Raises for CPU tensors, mismatched
+    operands and any CUDA error.  ``chain_sweep_cuda.launches`` counts
+    kernel launches.
     """
     if not g.is_cuda:
         raise RuntimeError("chain_sweep_cuda needs CUDA tensors (got "
@@ -283,41 +389,46 @@ def chain_sweep_cuda(fac, g: torch.Tensor):
     if g.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"chain_sweep_cuda takes float32 or float64, got "
                         f"{g.dtype}")
-    n_int, Mc = fac.Cprime.shape[:2]
-    if tuple(g.shape[-3:]) != (n_int, Mc, 6):
-        raise ValueError(f"g {tuple(g.shape)} does not end in the factor's "
-                         f"(n_int, Mc, 6) = ({n_int}, {Mc}, 6)")
-    shapes = dict(Dinv=(n_int, Mc, 6, 6), DinvL=(n_int, Mc, 6, 6),
-                  Cprime=(n_int, Mc, 6, 6), B0=(Mc, 6, 6), Cn=(Mc, 6, 6))
+    n_int, C = fac.Cprime.shape[:2]
+    tail = (tuple(g.shape[-4:-3]) + (g.shape[-3] * g.shape[-2],
+                                     g.shape[-1])
+            if split and g.dim() >= 4 else tuple(g.shape[-3:]))
+    if tail != (n_int, C, 6):
+        raise ValueError(f"g {tuple(g.shape)} (split={split}) does not end "
+                         f"in the factor's (n_int, C, 6) = ({n_int}, {C}, 6)")
+    shapes = dict(Dinv=(n_int, C, 6, 6), DinvL=(n_int, C, 6, 6),
+                  Cprime=(n_int, C, 6, 6), B0=(C, 6, 6), Cn=(C, 6, 6))
     for name, shape in shapes.items():
         t = getattr(fac, name)
         if (t.device != g.device or t.dtype != g.dtype
-                or tuple(t.shape) != shape or not t.is_contiguous()):
+                or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.data_ptr() % 16):
             raise ValueError(
-                f"factor {name} must be a contiguous {shape} tensor "
-                f"of {g.dtype} on {g.device} (got {tuple(t.shape)} "
-                f"{t.dtype} on {t.device}, contiguous={t.is_contiguous()})")
-    batch = g.shape[:-3]
-    g4 = g.contiguous().reshape(-1, n_int, Mc, 6)
-    B = g4.shape[0]
-    v = torch.empty_like(g4)
-    fI = g4.new_empty(B, Mc, 6)
-    fJ = g4.new_empty(B, Mc, 6)
+                f"factor {name} must be a contiguous, 16-byte aligned "
+                f"{shape} tensor of {g.dtype} on {g.device} (got "
+                f"{tuple(t.shape)} {t.dtype} on {t.device}, "
+                f"contiguous={t.is_contiguous()})")
+    batch = g.shape[:g.dim() - (4 if split else 3)]
+    g3, B, (sb, sl, sm, sq), Q, levels_inner = sweep_operand(g, split)
+    v = g.new_empty(B, n_int, C, 6)
+    fI = g.new_empty(B, C, 6)
+    fJ = g.new_empty(B, C, 6)
     lib = build("chain_sweep")
     launch = (lib.chain_sweep_launch_f32 if g.dtype == torch.float32
               else lib.chain_sweep_launch_f64)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         err = launch(fac.Dinv.data_ptr(), fac.DinvL.data_ptr(),
-                     fac.Cprime.data_ptr(), g4.data_ptr(), fac.B0.data_ptr(),
-                     fac.Cn.data_ptr(), B, n_int, Mc, v.data_ptr(),
-                     fI.data_ptr(), fJ.data_ptr(), stream)
+                     fac.Cprime.data_ptr(), fac.B0.data_ptr(),
+                     fac.Cn.data_ptr(), g3.data_ptr(), sb, sl, sm, sq, Q, B,
+                     n_int, C, levels_inner, v.data_ptr(), fI.data_ptr(),
+                     fJ.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("chain_sweep kernel launch failed: "
                            + lib.chain_sweep_error_string(err).decode())
     chain_sweep_cuda.launches += 1
-    return (fI.reshape(*batch, Mc, 6), fJ.reshape(*batch, Mc, 6),
-            v.reshape(*batch, n_int, Mc, 6))
+    return (fI.reshape(*batch, C, 6), fJ.reshape(*batch, C, 6),
+            v.reshape(*batch, n_int, C, 6))
 
 
 chain_sweep_cuda.launches = 0

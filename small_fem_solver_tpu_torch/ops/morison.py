@@ -96,6 +96,24 @@ def morison_phase_batch(wave: FourierWave, coords: torch.Tensor,
     ``current_alpha`` gives the power-law current profile
     U_c ((z + d) / d)^alpha; ``Cd``/``Cm`` are scalars or per-member [M].
     """
+    F1, F2, total_drag, total_inertia = morison_end_forces(
+        wave, coords, conn, D_m, wave_dir_deg, current_dir_deg, Cd, Cm,
+        rho_water, ts, n_gauss, current_alpha, stretching)
+    return MorisonPhaseBatch(
+        nodal_forces=nodal_scatter(F1, F2, conn, coords.shape[0]),
+        total_drag=total_drag, total_inertia=total_inertia,
+        total_morison=total_drag + total_inertia, F1=F1, F2=F2)
+
+
+def morison_end_forces(wave: FourierWave, coords: torch.Tensor,
+                       conn: torch.Tensor, D_m: torch.Tensor, wave_dir_deg,
+                       current_dir_deg, Cd, Cm, rho_water, ts: torch.Tensor,
+                       n_gauss: int = 15, current_alpha=None,
+                       stretching: str = "none"):
+    """:func:`morison_phase_batch` without the nodal scatter, for the
+    condensed paths (they read the member end forces in their chain layout):
+    returns (F1 [S, M, 3], F2 [S, M, 3], total_drag [S, 3],
+    total_inertia [S, 3])."""
     dtype = coords.dtype
     wave = wave.to(dtype, coords.device)
     j = torch.arange(1, wave.n_modes + 1, dtype=dtype, device=coords.device)
@@ -186,7 +204,8 @@ def _morison_batch_core(kv, wv, phiv, E, U, d, U_c, coords, conn, D_m,
                         ts, n_gauss: int, current_alpha, stretching: str):
     """Separable Morison engine over an arbitrary mode set (per-mode [N]
     wavenumbers ``kv``, frequencies ``wv``, phase offsets ``phiv``, surface
-    and velocity coefficients ``E``/``U``)."""
+    and velocity coefficients ``E``/``U``); returns (F1, F2, total_drag,
+    total_inertia)."""
     dtype = coords.dtype
     mc = _mode_spatial_coeffs(kv, wv, phiv, E, U, d, coords, conn,
                               wave_dir_deg, current_dir_deg, n_gauss,
@@ -247,9 +266,4 @@ def _morison_batch_core(kv, wv, phiv, E, U, d, U_c, coords, conn, D_m,
 
     F1 = torch.einsum("q,smqc->smc", 1.0 - s, f)
     F2 = torch.einsum("q,smqc->smc", s, f)
-    total_drag = fd.sum(dim=1)
-    total_inertia = fi.sum(dim=1)
-    return MorisonPhaseBatch(
-        nodal_forces=nodal_scatter(F1, F2, conn, coords.shape[0]),
-        total_drag=total_drag, total_inertia=total_inertia,
-        total_morison=total_drag + total_inertia, F1=F1, F2=F2)
+    return F1, F2, fd.sum(dim=1), fi.sum(dim=1)

@@ -16,6 +16,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 
 class TubeSections(NamedTuple):
     """Stacked thin-wall tube properties; every field has shape ``[S]``."""
@@ -46,10 +48,13 @@ class TubeSections(NamedTuple):
 
 def tube_sections(D_outer_mm, t_mm, rho_steel=7850.0,
                   dtype: torch.dtype = torch.float64,
-                  device="cpu") -> TubeSections:
+                  device=None) -> TubeSections:
     """Build stacked tube section properties (scalars or 1-D inputs, all
     broadcast to a common ``[S]`` shape): annular area, I = pi/64 (D^4 -
-    d^4), J = pi/32 (D^4 - d^4), shear areas A/2."""
+    d^4), J = pi/32 (D^4 - d^4), shear areas A/2.  ``device=None`` is the
+    CUDA card."""
+    device = resolve_device(device)
+
     def vec(v):
         return torch.atleast_1d(torch.as_tensor(v, dtype=dtype,
                                                 device=device))

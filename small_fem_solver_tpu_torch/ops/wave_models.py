@@ -15,9 +15,9 @@ from .waves import FourierWave, airy_wave
 
 def make_wave(H, T, d, U_c=0.0, model: str = "auto", N: int = 10,
               n_modes: int | None = None,
-              dtype: torch.dtype = torch.float64, device="cpu") -> FourierWave:
+              dtype: torch.dtype = torch.float64, device=None) -> FourierWave:
     """Build a wave of the requested theory; ``n_modes`` zero-pads the
-    coefficients to a fixed size."""
+    coefficients to a fixed size; ``device=None`` is the CUDA card."""
     model = model.lower()
     if model == "airy":
         return airy_wave(H, T, d, U_c, n_modes=n_modes or 1, dtype=dtype,

@@ -21,6 +21,7 @@ import math
 
 import torch
 
+from ..device import resolve_device
 from .dispersion import solve_dispersion
 
 
@@ -79,9 +80,12 @@ def stack_waves(waves) -> FourierWave:
 
 
 def airy_wave(H, T, d, U_c=0.0, n_modes: int = 1,
-              dtype: torch.dtype = torch.float64, device="cpu") -> FourierWave:
+              dtype: torch.dtype = torch.float64, device=None) -> FourierWave:
     """First-order (linear) wave: eta = (H/2) cos(theta), canonical
-    U_1 = (H/2) omega / tanh(k d); ``n_modes`` zero-pads the coefficients."""
+    U_1 = (H/2) omega / tanh(k d); ``n_modes`` zero-pads the coefficients;
+    ``device=None`` is the CUDA card."""
+    device = resolve_device(device)
+
     def scal(v):
         return torch.as_tensor(v, dtype=dtype, device=device)
 

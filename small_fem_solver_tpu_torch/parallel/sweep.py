@@ -25,12 +25,13 @@ __all__ = ["make_case_batch", "make_wave_batch", "stack_waves"]
 
 def make_wave_batch(H, T, d, U_c=0.0, model: str = "stokes", N: int = 5,
                     n_modes: int = 20, dtype: torch.dtype = torch.float32,
-                    device="cpu") -> FourierWave:
+                    device=None) -> FourierWave:
     """A batched FourierWave from arrays of (H, T) [and scalar d, U_c].
 
     'airy' builds each case and stacks them; 'fenton' runs one batched
     float64 Newton over all cases on the CPU
-    (:func:`..ops.fenton.fenton_wave_batch`).
+    (:func:`..ops.fenton.fenton_wave_batch`).  ``device=None`` is the CUDA
+    card.
     """
     H = np.atleast_1d(np.asarray(H, dtype=np.float64))
     T = np.broadcast_to(np.asarray(T, dtype=np.float64), H.shape)

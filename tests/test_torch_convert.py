@@ -35,7 +35,7 @@ def port_model(m, dtype=torch.float64):
         np.asarray(m.coords), np.asarray(m.conn), np.asarray(m.sect_id),
         leaves(m.sections), np.asarray(m.fixed_mask), np.asarray(m.top_mask),
         node_names=m.node_names, member_names=m.member_names,
-        member_types=m.member_types, dtype=dtype)
+        member_types=m.member_types, device="cpu", dtype=dtype)
 
 
 def port_wave(w, dtype=torch.float64):
@@ -43,7 +43,7 @@ def port_wave(w, dtype=torch.float64):
         *(np.asarray(getattr(w, f)) for f in ("k", "omega", "c", "d", "U_c",
                                               "H", "T", "E", "U")),
         clamp_z=w.clamp_z, dt_fd=w.dt_fd, model=w.model, order=w.order,
-        dtype=dtype)
+        device="cpu", dtype=dtype)
 
 
 def port_case(case):
@@ -58,13 +58,13 @@ def port_prepared(prep, coarse, refined, dtype=torch.float64):
         np.asarray(prep.L_m), leaves(prep.fac), leaves(prep.dfac),
         np.asarray(prep.K_I), np.asarray(prep.free), np.asarray(prep.fixed),
         np.asarray(prep.E), np.asarray(prep.nu), prep.n_seg,
-        prep.chain_solver, dtype=dtype)
+        prep.chain_solver, device="cpu", dtype=dtype)
 
 
 @pytest.mark.parametrize("n_seg", [1, 3])
 def test_converted_model_equals_port_model(n_seg):
     jm = sf.refine_model(sf.default_3leg_jacket(), n_seg)
-    tm = pt.refine_model(pt.default_3leg_jacket(), n_seg)
+    tm = pt.refine_model(pt.default_3leg_jacket(device="cpu"), n_seg)
     cm = port_model(jm)
     for name in ("coords", "conn", "sect_id", "fixed_mask", "top_mask"):
         assert torch.equal(getattr(cm, name), getattr(tm, name)), name
@@ -96,4 +96,4 @@ def test_converting_unported_model_options_raises():
             np.asarray(jm.coords), np.asarray(jm.conn),
             np.asarray(jm.sect_id), leaves(jm.sections),
             np.asarray(jm.fixed_mask), np.asarray(jm.top_mask),
-            release=np.zeros(jm.n_members, np.int32))
+            device="cpu", release=np.zeros(jm.n_members, np.int32))

@@ -13,8 +13,8 @@ import numpy as np
 
 import small_fem_solver_tpu_torch as pt
 from small_fem_solver_tpu_torch.ops import hopper_kernels as hk
-from small_fem_solver_tpu_torch.ops.condense import (ChainFactor,
-                                                     chain_sweep_plain)
+from small_fem_solver_tpu_torch.ops.condense import (
+    ChainFactor, chain_sweep_plain, condense_loads, condense_loads_nested)
 from small_fem_solver_tpu_torch.ops.morison import morison_phase_batch
 
 FIELDS = ("nodal_forces", "total_drag", "total_inertia", "total_morison",
@@ -37,29 +37,39 @@ def _rel(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("model,N,stretching,alpha,n_members", [
-    ("fenton", 12, "none", None, None),
-    ("fenton", 12, "wheeler", None, 13),
-    ("airy", 1, "none", 1.0 / 7.0, 29),
+@pytest.mark.parametrize("model,N,stretching,alpha,n_members,S,scalars", [
+    ("fenton", 12, "none", None, None, 24, "numbers"),
+    ("fenton", 12, "wheeler", None, 13, 37, "numbers"),
+    ("airy", 1, "none", 1.0 / 7.0, 29, 24, "tensors"),
+    ("fenton", 18, "none", None, 201, 129, "tensors"),
+    ("airy", 26, "wheeler", 1.0 / 7.0, 37, 37, "numbers"),
 ])
-def test_kernel_matches_plain_f64(model, N, stretching, alpha, n_members):
+def test_kernel_matches_plain_f64(model, N, stretching, alpha, n_members, S,
+                                  scalars):
     """The f32 kernel against the plain version in f64 on the same
-    (f32-rounded) inputs, with per-member Cd."""
+    (f32-rounded) inputs, with per-member Cd: phase counts off the kernel's
+    128-phase tile, member counts off its 4-member tile, 1 to 26 modes
+    (airy zero-padded to 26), and the scalars as numbers or as 0-d tensors
+    on the card (as the scan passes them)."""
     dev = _device()
     refined = pt.refine_model(pt.default_3leg_jacket(dtype=torch.float32,
                                                      device=dev), 4)
     M = n_members or refined.n_members
     wave = pt.make_wave(12.0, 9.4, 50.0, U_c=1.2, model=model, N=N,
+                        n_modes=N if model == "airy" else None,
                         dtype=torch.float32, device=dev)
     gen = torch.Generator(device="cpu").manual_seed(0)
     Cd = (0.6 + 0.5 * torch.rand(M, generator=gen)).to(dev)
     D = refined.sections.D_outer[refined.sect_id][:M] / 1000.0
-    ts = torch.arange(24, dtype=torch.float32, device=dev) * wave.T / 24
+    ts = torch.arange(S, dtype=torch.float32, device=dev) * wave.T / S
 
     def args(dtype):
+        nums = (38.0, 120.0, Cd.to(dtype), 2.0, 1025.0)
+        if scalars == "tensors":
+            nums = tuple(torch.as_tensor(v, dtype=dtype, device=dev)
+                         for v in nums)
         return (wave.to(dtype, dev), refined.coords.to(dtype),
-                refined.conn[:M], D.to(dtype), 38.0, 120.0, Cd.to(dtype),
-                2.0, 1025.0, ts.to(dtype))
+                refined.conn[:M], D.to(dtype), *nums, ts.to(dtype))
 
     before = hk.morison_phase_batch_cuda.launches
     out = hk.morison_phase_batch_cuda(*args(torch.float32),
@@ -205,3 +215,65 @@ def test_fused_envelope_matches_separable_f64():
     assert _rel(fused.max_util_per_case, ref.max_util_per_case) < 1e-4
     assert _rel(fused.member_envelope, ref.member_envelope) < 2e-4
     assert int(fused.governing_case) == int(ref.governing_case)
+
+
+@pytest.mark.cuda
+def test_chain_sweep_tiling_rule_matches_the_library():
+    """The wrapper-side tile rule (used by the CPU emulation) is the
+    launch's own."""
+    _device()
+    lib = hk.build("chain_sweep")
+    for n_int in (1, 3, 7, 31, 100, 200):
+        for size in (4, 8):
+            assert lib.chain_sweep_chains_per_block(n_int, size) == \
+                hk.sweep_chains_per_block(n_int, size), (n_int, size)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [37, 360])
+def test_chain_sweep_strided_layouts(B):
+    """The sweep kernel reads g in the caller's layout: the scan's
+    transposed chain layout (thomas, levels innermost) and the nested
+    level-1 (m, q) view, in f32 and f64, against the plain sweep in f64 on
+    a copy; and an untiled depth (n_int = 199, f64: one chain exceeds the
+    tile budget) on random factors."""
+    dev = _device()
+    rng = np.random.default_rng(B)
+    fac_t = _sweep_factor(dev, "thomas", 0)
+    n_int, Mc = fac_t.Cprime.shape[:2]
+    gt = torch.tensor(rng.normal(size=(B, Mc, n_int, 6)) * 1e5,
+                      dtype=torch.float32, device=dev).transpose(1, 2)
+    coarse = pt.default_3leg_jacket(dtype=torch.float32, device=dev)
+    nested = pt.prepare_condensed(coarse, pt.refine_model(coarse, 32), 32,
+                                  solve_dtype=torch.float32).fac
+    for dtype, tol in ((torch.float32, KERNEL_TOL),
+                       (torch.float64, SWEEP_TOL_F64)):
+        out = condense_loads(_as(fac_t, dtype), gt.to(dtype))
+        ref = chain_sweep_plain(_as(fac_t, torch.float64),
+                                gt.double().contiguous())
+        for a, b in zip(out, ref):
+            assert _rel(a, b) < tol, ("thomas transposed", dtype)
+        nested_d = type(nested)(nested.K_super.to(dtype),
+                                _as(nested.fac1, dtype),
+                                _as(nested.fac2, dtype))
+        cpu64 = type(nested)(*(
+            ChainFactor(*(t.double().cpu() for t in f))
+            if isinstance(f, ChainFactor) else f.double().cpu()
+            for f in nested))
+        out = condense_loads_nested(nested_d, gt.to(dtype))
+        ref = condense_loads_nested(cpu64, gt.double().cpu())
+        for a, b in zip((out[0], out[1], *out[2]),
+                        (ref[0], ref[1], *ref[2])):
+            assert _rel(a, b.to(dev)) < tol, ("nested view", dtype)
+    # untiled form: deeper chains than the tile budget holds
+    deep = ChainFactor(*(torch.tensor(rng.normal(size=shape) / 6.0,
+                                      device=dev)
+                         for shape in ((5, 12, 12), (199, 5, 6, 6),
+                                       (199, 5, 6, 6), (199, 5, 6, 6),
+                                       (199, 5, 6, 6), (199, 5, 6, 6),
+                                       (5, 6, 6), (5, 6, 6))))
+    assert hk.sweep_chains_per_block(199, 8) == 0
+    g = torch.tensor(rng.normal(size=(B, 199, 5, 6)), device=dev)
+    for a, b in zip(hk.chain_sweep_cuda(deep, g),
+                    chain_sweep_plain(deep, g)):
+        assert _rel(a, b) < 1e-10

@@ -82,11 +82,11 @@ def test_envelope_matches_jax(jax_waves, solver, precision, wave):
 
 @pytest.fixture(scope="module")
 def port_setup():
-    coarse = pt.default_3leg_jacket()
+    coarse = pt.default_3leg_jacket(device="cpu")
     refined = pt.refine_model(coarse, N_SEG)
     waves = pt.make_wave_batch(HS, [8.0, 9.4, 11.0], 50.0, U_c=1.7,
                                model="fenton", N=8, n_modes=8,
-                               dtype=torch.float64)
+                               dtype=torch.float64, device="cpu")
     cases = pt.make_case_batch(pt.LoadCase(**BASE),
                                wave_dir_deg=np.asarray(HEADINGS))
     return coarse, refined, waves, cases
@@ -152,7 +152,7 @@ def test_envelope_guards(port_setup):
 def test_fenton_wave_batch_matches_jax_and_single_solves():
     Hs, Ts = [6.0, 12.0, 17.0], [8.0, 9.4, 11.0]
     out = pt.fenton_wave_batch(Hs, Ts, 50.0, U_c=1.7, N=8, n_modes=10,
-                               dtype=torch.float64)
+                               dtype=torch.float64, device="cpu")
     ref = j_fenton_batch(Hs, Ts, 50.0, U_c=1.7, N=8, n_modes=10,
                          dtype=jnp.float64)
     assert (out.model, out.order, out.n_modes, out.clamp_z) == \
@@ -160,12 +160,13 @@ def test_fenton_wave_batch_matches_jax_and_single_solves():
     for name in WAVE_FIELDS:
         assert getattr(out, name).shape[0] == 3, name
         assert rel_err(getattr(out, name), getattr(ref, name)) < 1e-10, name
-    single = pt.fenton_wave(Hs[2], Ts[2], 50.0, U_c=1.7, N=8, n_modes=10)
+    single = pt.fenton_wave(Hs[2], Ts[2], 50.0, U_c=1.7, N=8, n_modes=10,
+                            device="cpu")
     for name in WAVE_FIELDS:
         assert rel_err(getattr(out.case(2), name),
                        getattr(single, name)) < 1e-10, name
     with pytest.raises(ValueError, match=r"indices \[1\]"):
-        pt.fenton_wave_batch([6.0, 40.0], 9.4, 50.0, N=8)
+        pt.fenton_wave_batch([6.0, 40.0], 9.4, 50.0, N=8, device="cpu")
 
 
 def test_chain_sweep_dispatch_on_cpu():

@@ -4,9 +4,10 @@
   ``morison_phase_batch`` in f64, 1e-10 relative;
 - the plain port in f32 against JAX's Pallas kernel in interpret mode,
   2e-6 x max (the tolerance of tests/test_pallas.py);
-- the CUDA kernel's operand packing (``kernel_inputs``) through a PyTorch
-  emulation of the kernel's arithmetic against the plain port;
-- the CUDA wrapper's guards (the kernel itself: tests/test_torch_cuda.py).
+- the CUDA kernel's operands (``kernel_operands``) through a PyTorch
+  emulation of the kernel's prologue and arithmetic against the plain port;
+- the CUDA wrapper's CPU dispatch and guards (the kernel itself:
+  tests/test_torch_cuda.py).
 """
 import dataclasses
 
@@ -91,40 +92,76 @@ def test_plain_f32_matches_pallas_kernel(model_name, N, n_members,
                                    err_msg=name)
 
 
-def _emulate_kernel(k, M, n_gauss, wheeler):
-    """The arithmetic of csrc/morison_phase_batch.cu on the packed operands
-    (same formulas, same order of the per-mode terms), in PyTorch f32."""
-    z, ex, ey, ez, cd, ci, ucx, ucy, xw = k["rows"]
-    cosw, sinw, d = k["scal"]
-    E, U, jw, jk = k["modes"].T
-    N = E.shape[0]
-    ct, st = k["ctst"][:, None, :N], k["ctst"][:, None, N:]   # [S, 1, N]
-    sjx, cjx = torch.sin(jk * xw[:, None]), torch.cos(jk * xw[:, None])
-    A = jk * (z[:, None] + d)
+def _emulate_kernel(k, wheeler):
+    """The arithmetic of csrc/morison_phase_batch.cu on its operands, in
+    PyTorch f32: the prologue's member -> point expansion (geometry,
+    current, cd / ci), the spatial records of every (member, point, mode),
+    the phase factors, the same mode-sum formulas and F1 = sum f - F2."""
+    def val(v):
+        return v if isinstance(v, torch.Tensor) else torch.tensor(v)
+    coords, conn, D = k["coords"], k["conn"], k["D"]
+    s, wq = torch.from_numpy(k["s"]), torch.from_numpy(k["w"])
+    d, kk, omega, Uc = k["d"], k["k"], k["omega"], k["Uc"]
+    th_w = torch.pi * (90.0 - val(k["wave_dir"])) / 180.0
+    th_c = torch.pi * (90.0 - val(k["current_dir"])) / 180.0
+    cosw, sinw, cosc, sinc = (torch.cos(th_w), torch.sin(th_w),
+                              torch.cos(th_c), torch.sin(th_c))
+    # prologue 1: per (member, point)
+    x1 = coords[conn[:, 0]]
+    dL = coords[conn[:, 1]] - x1
+    L = torch.sqrt((dL * dL).sum(-1))
+    pos = x1[:, None, :] + s[None, :, None] * dL[:, None, :]   # [M, Q, 3]
+    z = pos[..., 2]
+    xw = pos[..., 0] * cosw + pos[..., 1] * sinw
+    uc_pt = Uc.expand(z.shape)
+    if k["alpha"] is not None:
+        uc_pt = Uc * torch.clip((z + d) / d, 0.0, 1.0) ** val(k["alpha"])
+    rho = val(k["rho"])
+
+    def per_member(v):
+        v = val(v)
+        return v[:, None] if v.ndim == 1 else v
+    Lw = L[:, None] * wq[None, :]
+    cd = 0.5 * rho * per_member(k["Cd"]) * D[:, None] * Lw
+    ci = rho * per_member(k["Cm"]) * (torch.pi * D[:, None] ** 2 / 4.0) * Lw
+    ex, ey, ez = ((dL[:, c] / L)[:, None] for c in range(3))
+    # prologue 2: records of every (member, point, mode)
+    N = k["E"].shape[0]
+    j = torch.arange(1, N + 1, dtype=torch.float32)
+    jk, jw = j * kk, j * omega
+    sjx, cjx = torch.sin(jk * xw[..., None]), torch.cos(jk * xw[..., None])
+    A = jk * (z[..., None] + d)
     B = jk * d
     Aa = torch.abs(A)
     scale = torch.exp(Aa - B) / (1.0 + torch.exp(-2.0 * B))
     e2 = torch.exp(-2.0 * Aa)
-    uc = U * scale * (1.0 + e2)
-    us = U * torch.sign(A) * scale * (1.0 - e2)
-    cp = cjx * ct + sjx * st                                   # [S, P, N]
+    uc = k["U"] * scale * (1.0 + e2)
+    us = k["U"] * torch.sign(A) * scale * (1.0 - e2)
+    # the phase registers and the mode sums: [S, M, Q, N]
+    t = k["ts"][:, None, None, None]
+    ct, st = torch.cos(jw * t), torch.sin(jw * t)
+    cp = cjx * ct + sjx * st
     sp = sjx * ct - cjx * st
-    eta = (E * cp).sum(-1)
+    eta = (k["E"] * cp).sum(-1)
     u, w = (uc * cp).sum(-1), (us * sp).sum(-1)
-    du, dw = (uc * jw * sp).sum(-1), (-us * jw * cp).sum(-1)
+    du, dw = (jw * uc * sp).sum(-1), (-jw * us * cp).sum(-1)
     if wheeler:
-        uz, wz = jk * us, jk * uc
-        uzz, wzz = jk * wz, jk * uz
+        u_z, w_z = (jk * us * cp).sum(-1), (jk * uc * sp).sum(-1)
+        du_z, dw_z = ((jk * jw * us * sp).sum(-1),
+                      (-jk * jw * uc * cp).sum(-1))
+        u_zz, w_zz = (jk**2 * uc * cp).sum(-1), (jk**2 * us * sp).sum(-1)
+        du_zz, dw_zz = ((jk**2 * jw * uc * sp).sum(-1),
+                        (-jk**2 * jw * us * cp).sum(-1))
         dz = torch.clip(-(z + d) * eta / (d + eta), -d, d)
         h2 = 0.5 * dz * dz
-        u = u + dz * (uz * cp).sum(-1) + h2 * (uzz * cp).sum(-1)
-        w = w + dz * (wz * sp).sum(-1) + h2 * (wzz * sp).sum(-1)
-        du = du + dz * (uz * jw * sp).sum(-1) + h2 * (uzz * jw * sp).sum(-1)
-        dw = dw - dz * (wz * jw * cp).sum(-1) - h2 * (wzz * jw * cp).sum(-1)
+        u = u + dz * u_z + h2 * u_zz
+        w = w + dz * w_z + h2 * w_zz
+        du = du + dz * du_z + h2 * du_zz
+        dw = dw + dz * dw_z + h2 * dw_zz
     live = z <= eta
     zero = torch.zeros_like(eta)
-    Ux = torch.where(live, u * cosw + ucx, zero)
-    Uy = torch.where(live, u * sinw + ucy, zero)
+    Ux = torch.where(live, u * cosw + uc_pt * cosc, zero)
+    Uy = torch.where(live, u * sinw + uc_pt * sinc, zero)
     Uz = torch.where(live, w, zero)
     Ax = torch.where(live, du * cosw, zero)
     Ay = torch.where(live, du * sinw, zero)
@@ -134,31 +171,36 @@ def _emulate_kernel(k, M, n_gauss, wheeler):
     Up = torch.stack([Ux - Ue * ex, Uy - Ue * ey, Uz - Ue * ez], -1)
     Umag = torch.sqrt((Up * Up).sum(-1))
     cdf = torch.where(Umag > 1e-10, cd * Umag, zero)
-    fd = cdf[..., None] * Up
-    fi = ci[:, None] * torch.stack([Ax - Ae * ex, Ay - Ae * ey,
-                                    Az - Ae * ez], -1)
-    S = eta.shape[0]
-    f = (fd + fi).reshape(S, M, n_gauss, 3)
-    s = k["sq"][None, None, :, None]
-    return (((1.0 - s) * f).sum(2), (s * f).sum(2), fd.sum(1), fi.sum(1))
+    fd = cdf[..., None] * Up                                  # [S, M, Q, 3]
+    fi = ci[..., None] * torch.stack([Ax - Ae * ex, Ay - Ae * ey,
+                                      Az - Ae * ez], -1)
+    F2 = (s[:, None] * (fd + fi)).sum(2)
+    F1 = fd.sum(2) + fi.sum(2) - F2
+    return F1, F2, fd.sum((1, 2)), fi.sum((1, 2))
 
 
 @pytest.mark.parametrize("stretching,alpha,n_members", [
     ("none", None, None), ("wheeler", 1.0 / 7.0, 13)])
 def test_kernel_operand_packing(stretching, alpha, n_members):
-    """kernel_inputs feeds the kernel's formulas the right per-point rows,
-    mode table and phase table: the emulated kernel equals the plain port."""
+    """kernel_operands hands the kernel the member arrays, coefficients and
+    wave it reads; expanding them as the kernel's prologue does and
+    running its formulas equals the plain port."""
     model, wave, D, ts, tm, tw = _inputs(jnp.float64, torch.float32,
                                          "fenton", 12, n_members)
     Cd = np.random.default_rng(2).uniform(0.6, 1.1, tm.n_members)
     args = (tw, tm.coords, tm.conn, torch.tensor(D, dtype=torch.float32),
             38.0, 120.0, Cd, 2.0, 1025.0,
             torch.tensor(ts, dtype=torch.float32))
-    k = hk.kernel_inputs(*args, n_gauss=15, current_alpha=alpha)
-    assert k["rows"].shape == (9, tm.n_members * 15)
-    assert all(v.dtype == torch.float32 for v in k.values())
-    F1, F2, drag, inertia = _emulate_kernel(k, tm.n_members, 15,
-                                            stretching == "wheeler")
+    k = hk.kernel_operands(*args, n_gauss=15, current_alpha=alpha)
+    assert k["coords"].shape == (tm.n_nodes, 3)
+    assert k["conn"].dtype == torch.int64
+    assert k["Cd"].shape == (tm.n_members,) and k["Cm"] == 2.0
+    assert k["s"].dtype == np.float32 and k["s"].shape == (15,)
+    assert all(v.dtype == torch.float32 for n, v in k.items()
+               if isinstance(v, torch.Tensor) and n != "conn")
+    # on tensors already of the kernel's type and device nothing is copied
+    assert k["coords"].data_ptr() == tm.coords.data_ptr()
+    F1, F2, drag, inertia = _emulate_kernel(k, stretching == "wheeler")
     ref = morison_phase_batch(*args, current_alpha=alpha,
                               stretching=stretching)
     for a, b in ((F1, ref.F1), (F2, ref.F2), (drag, ref.total_drag),
@@ -167,6 +209,9 @@ def test_kernel_operand_packing(stretching, alpha, n_members):
 
 
 def test_cuda_wrapper_refuses_cpu_tensors_and_bad_sizes():
+    """The kernel's launcher refuses CPU tensors and counts no launch; the
+    wrappers run the plain version on them; the TPU kernel's size limits
+    raise."""
     model, wave, D, ts, tm, tw = _inputs(jnp.float64, torch.float32,
                                          "airy", 1)
     args = (tw, tm.coords, tm.conn, torch.tensor(D, dtype=torch.float32),
@@ -174,7 +219,12 @@ def test_cuda_wrapper_refuses_cpu_tensors_and_bad_sizes():
             torch.tensor(ts, dtype=torch.float32))
     before = hk.morison_phase_batch_cuda.launches
     with pytest.raises(RuntimeError, match="CUDA tensors"):
-        hk.morison_phase_batch_cuda(*args)
+        hk.launch_morison(hk.kernel_operands(*args, n_gauss=15,
+                                             current_alpha=None), False)
+    out = hk.morison_phase_batch_cuda(*args)
+    ref = morison_phase_batch(*args)
+    for name in FIELDS:
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name
     assert hk.morison_phase_batch_cuda.launches == before
     # the TPU kernel's limits: n_gauss <= 16 and n_modes <= 32
     with pytest.raises(ValueError, match="n_gauss"):

@@ -1,6 +1,7 @@
 """PyTorch port vs the JAX package: the condensed phase scan end to end
 (default jacket refined 4x, Fenton N = 12 storm wave, 8 phases, separable
-kinematics on the CPU), plus the port's guards."""
+kinematics on the CPU), plus the port's default device, its CPU dispatch
+of the fused kinematics and its guards."""
 import os
 import pathlib
 import shutil
@@ -17,6 +18,7 @@ from small_fem_solver_tpu.api import phase_scan_condensed as j_scan
 from small_fem_solver_tpu.api import phase_scan_prepared as j_scan_prepared
 from small_fem_solver_tpu.api import prepare_condensed as j_prepare
 import small_fem_solver_tpu_torch as pt
+from small_fem_solver_tpu_torch.ops import hopper_kernels as hk
 from test_torch_convert import (port_case, port_model, port_prepared,
                                 port_wave, rel_err)
 
@@ -100,11 +102,75 @@ def test_prepared_scan_matches_one_shot_and_jax_handle(solver):
 
 
 def test_fused_kinematics_refuses_cpu_tensors():
+    """The kernels' launchers refuse CPU tensors (the wrappers hand such
+    tensors to the plain versions instead, next test) and count nothing."""
     _, _, _, tc, tr, tw = _setup(jnp.float64, torch.float32)
+    before = (hk.morison_phase_batch_cuda.launches,
+              hk.chain_sweep_cuda.launches)
+    D = tr.sections.D_outer[tr.sect_id] / 1000.0
+    k = hk.kernel_operands(tw, tr.coords, tr.conn, D, 38.0, 120.0, 0.7, 2.0,
+                           1025.0, torch.zeros(2), 15, None)
     with pytest.raises(RuntimeError, match="CUDA tensors"):
-        pt.phase_scan_condensed(tc, tr, N_SEG, tw, pt.LoadCase(**CASE),
-                                n_steps=2, kinematics="fused",
+        hk.launch_morison(k, False)
+    prep = pt.prepare_condensed(tc, tr, N_SEG, chain_solver="thomas",
                                 solve_dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        hk.chain_sweep_cuda(prep.fac, torch.zeros(2, N_SEG - 1,
+                                                  tc.n_members, 6))
+    assert (hk.morison_phase_batch_cuda.launches,
+            hk.chain_sweep_cuda.launches) == before
+
+
+@pytest.mark.parametrize("precision", ["f64", "f32"])
+def test_fused_kinematics_on_cpu_equals_separable(precision):
+    """On a CPU model the default kinematics="fused" runs the plain
+    version: the scan and the envelope equal kinematics="separable" bit
+    for bit, and no kernel launch is counted."""
+    tdt = {"f64": torch.float64, "f32": torch.float32}[precision]
+    _, _, _, tc, tr, tw = _setup(jnp.float64, tdt)
+    case = pt.LoadCase(**CASE)
+    before = hk.morison_phase_batch_cuda.launches
+    runs = [pt.phase_scan_condensed(tc, tr, N_SEG, tw, case, n_steps=4,
+                                    kinematics=kin, solve_dtype=tdt)
+            for kin in ("fused", "separable")]
+    for name in FIELDS:
+        assert torch.equal(getattr(runs[0], name), getattr(runs[1], name))
+    waves = pt.make_wave_batch([8.0, 12.0], 9.4, 50.0, U_c=1.7,
+                               model="airy", n_modes=1, dtype=tdt,
+                               device="cpu")
+    cases = pt.make_case_batch(case, wave_dir_deg=[0.0, 38.0])
+    envs = [pt.design_envelope_condensed(tc, tr, N_SEG, waves, cases,
+                                         n_steps=4, solve_dtype=tdt,
+                                         kinematics=kin, case_batch=1)
+            for kin in ("fused", "separable")]
+    for name in ("max_util_per_phase", "member_envelope", "total_morison"):
+        assert torch.equal(getattr(envs[0], name), getattr(envs[1], name))
+    assert hk.morison_phase_batch_cuda.launches == before
+
+
+def test_default_device_is_the_card():
+    """Built without ``device``, a model, wave or wave batch lies on the
+    CUDA card; without a card building it raises and names device="cpu"
+    (nothing lands on the CPU silently)."""
+    builders = (lambda: pt.default_3leg_jacket(dtype=torch.float32),
+                lambda: pt.make_wave(8.0, 9.4, 50.0, model="airy"),
+                lambda: pt.fenton_wave(8.0, 9.4, 50.0, N=6),
+                lambda: pt.make_wave_batch([8.0, 9.0], 9.4, 50.0,
+                                           model="airy", n_modes=1),
+                lambda: pt.tube_sections(800.0, 30.0))
+    if torch.cuda.is_available():
+        assert pt.resolve_device(None).type == "cuda"
+        assert builders[0]().device.type == "cuda"
+        assert builders[1]().E.device.type == "cuda"
+        assert builders[2]().E.device.type == "cuda"
+        assert builders[3]().E.device.type == "cuda"
+        assert builders[4]().D_outer.device.type == "cuda"
+    else:
+        for build in builders:
+            with pytest.raises(RuntimeError, match='device="cpu"'):
+                build()
+    assert pt.resolve_device("cpu") == torch.device("cpu")
+    assert pt.default_3leg_jacket(device="cpu").device.type == "cpu"
 
 
 def test_unported_options_raise():

@@ -36,7 +36,7 @@ def test_solve_dispersion_matches_jax():
 @pytest.mark.parametrize("n_modes", [1, 4])
 def test_airy_wave_matches_jax(n_modes):
     args = (17.038, 9.4, 50.0, 1.7)
-    _assert_wave(pt.airy_wave(*args, n_modes=n_modes),
+    _assert_wave(pt.airy_wave(*args, n_modes=n_modes, device="cpu"),
                  sf.airy_wave(*args, n_modes=n_modes))
 
 
@@ -44,7 +44,7 @@ def test_fenton_wave_n18_matches_jax():
     """The flagship storm wave (H = 17.038 m, T = 9.4 s, d = 50 m,
     U_c = 1.7 m/s) at N = 18, through make_wave as the bench builds it."""
     args = (17.038, 9.4, 50.0)
-    tw = pt.make_wave(*args, U_c=1.7, model="fenton", N=18)
+    tw = pt.make_wave(*args, U_c=1.7, model="fenton", N=18, device="cpu")
     jw = sf.make_wave(*args, U_c=1.7, model="fenton", N=18)
     _assert_wave(tw, jw)
 
@@ -52,7 +52,7 @@ def test_fenton_wave_n18_matches_jax():
 def test_fenton_wave_float32_cast_and_padding():
     """The f64 host solve is cast to the requested dtype; n_modes pads."""
     tw = pt.fenton_wave(9.5, 9.4, 50.0, 1.2, N=12, n_modes=16,
-                        dtype=torch.float32)
+                        dtype=torch.float32, device="cpu")
     jw = sf.fenton_wave(9.5, 9.4, 50.0, 1.2, N=12, n_modes=16,
                         dtype=jnp.float32)
     assert tw.E.dtype == torch.float32 and tw.E.shape == (16,)
