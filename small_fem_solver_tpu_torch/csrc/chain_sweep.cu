@@ -182,7 +182,8 @@ chain_sweep_kernel(const SweepArgs<T> a) {
           T* dst = buf + (size_t)l * Ct * 6 * PAD + bb;
 #pragma unroll
           for (int p = 0; p < 2; ++p)
-            if (lane + p * LANES < row) cp_async(dst + s_off[p], src + g_off[p]);
+            if (lane + p * LANES < row)
+              cp_async(dst + s_off[p], src + g_off[p]);
         }
     }
     cp_async_wait_all();
@@ -287,7 +288,8 @@ chain_sweep_kernel(const SweepArgs<T> a) {
       for (int p = 0; p < 2; ++p)
         if (lane + p * LANES < row) {
           a.fI[o + lane + p * LANES] = buf[s_off[p] + bb];
-          a.fJ[o + lane + p * LANES] = buf[(size_t)Ct * 6 * PAD + s_off[p] + bb];
+          a.fJ[o + lane + p * LANES] =
+              buf[(size_t)Ct * 6 * PAD + s_off[p] + bb];
         }
     }
   }
@@ -316,7 +318,8 @@ int launch(const SweepArgs<T>& a, void* stream) {
     const dim3 grid(rhs_tiles, (unsigned)((a.C + Ct - 1) / Ct));
     chain_sweep_kernel<T, true><<<grid, dim3(LANES, Ct), smem, st>>>(a);
   } else {
-    const dim3 grid(rhs_tiles, (unsigned)((a.C + MAX_CHAINS - 1) / MAX_CHAINS));
+    const dim3 grid(rhs_tiles,
+                    (unsigned)((a.C + MAX_CHAINS - 1) / MAX_CHAINS));
     chain_sweep_kernel<T, false><<<grid, dim3(LANES, MAX_CHAINS), 0, st>>>(a);
   }
   return (int)cudaGetLastError();
