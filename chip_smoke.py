@@ -1,12 +1,15 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's two user paths at the JAX bench's sizes — the flagship
+Drives the port's user paths at the JAX bench's sizes — the flagship
 condensed phase scan (the default 3-leg jacket refined 32x to 9,612 DOF,
 the Fenton N = 18 storm wave H = 17.038 m, T = 9.4 s, d = 50 m,
-U_c = 1.7 m/s, a full FEM solve at 360 wave phases in float32) and the
+U_c = 1.7 m/s, a full FEM solve at 360 wave phases in float32), the
 condensed storm envelope (10 Fenton cases, H = linspace(8, 17, 10) m, x 360
-phases on the same mesh) — through both hand-written kernels, the fused
-Morison kernel (K1) and the chain-sweep kernel, and checks them:
+phases on the same mesh), the reference ``analyze`` on the six JSON
+goldens, the dense and pointwise paths at 9,612 DOF in float64 and the
+99,882-DOF ``analyze_condensed`` / ``analyze_prepared`` in float64 —
+through both hand-written kernels, the fused Morison kernel (K1) and the
+chain-sweep kernel, and checks them:
 
 1. device and toolkit versions; full-f32 matmul settings; the port's
    default device is the card (the flagship model and wave are built
@@ -35,13 +38,41 @@ Morison kernel (K1) and the chain-sweep kernel, and checks them:
    both launch counts read around exactly that call; checked against the
    separable f64 envelope of the f64 model and against per-case prepared
    scans;
-7. timing with CUDA events (median of 20 synchronised runs after warm-up):
+7. reference phase: the six goldens of ``tests/golden/`` (read with
+   ``json``) through ``analyze`` on the card in f64, LU and Cholesky: load
+   vector, displacements, reactions, member end forces, von Mises,
+   utilization and the largest displacement at 1e-8 (numpy's allclose
+   form), the singular case's least-squares fallback at 1e-6 with the
+   orphan node's DOFs exactly 0, equilibrium at 1e-9, and the reference's
+   36-step Morison phase scan (totals, critical time); the median
+   ``analyze`` time at 126 DOF;
+8. dense-at-size phase (9,612 DOF, f64; K is 739 MB): ``analyze``
+   Cholesky against LU and against ``analyze_condensed`` (cuSOLVER against
+   the chain-sweep kernel, 1e-9); ``analyze_phase_batch`` against
+   ``phase_scan_condensed(kinematics="pointwise")`` at 36 phases (1e-9);
+   the pointwise 360-phase f64 scan against the separable f64 scan of
+   phase 5 (2e-6 of max |U| and of the Morison totals: the 1 cm clamp
+   band), with the sweep's launch count read around exactly that scan;
+   times and peak device memory;
+9. large phase (n_seg = 327, 99,882 DOF, f64): ``analyze_condensed`` with
+   the checks of ``tests/test_large.py`` (refined residual via
+   ``chain_matvec`` 1e-9, equilibrium 1e-10, interface displacements
+   within 5e-3 of n_seg = 8, total Morison within 5% of the coarse
+   ``analyze``, 0.15 < max utilization < 0.35); ``analyze_prepared``
+   against it (U, reactions, von Mises 1e-12, F2 1e-9); the f64 sweep
+   kernel (untiled at 108 levels) against the plain sweep on this
+   analysis's own factors and loads; the sweep's launch count around
+   exactly one call of each; times, peak memory, and under torch.profiler
+   the device operations and time of ``analyze_prepared`` and the sweep
+   kernel's device time at both levels beside its bound;
+10. timing with CUDA events (median of 20 synchronised runs after warm-up):
    K1 and its wrapper against the plain f32 version, the sweep kernel
    against the plain level loop, the fused scan against the separable
    scan, the envelope; under torch.profiler each kernel's device time
    beside its bound (the larger of its bytes over 3.35 TB/s and its FLOPs
-   over 67 TFLOP/s, the H100 SXM's HBM and FP32 rates, counted from this
-   run's shapes), and the scan's device operations and busy time.
+   over 67 TFLOP/s FP32 or 34 TFLOP/s FP64, the H100 SXM's HBM and
+   non-tensor-core rates, counted from this run's shapes), and the scan's
+   device operations and busy time.
 
 Prints the kernel record and the card's name and power limit on the lines
 before the last, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -72,8 +103,24 @@ U_TOL = 1e-4          # ... displacements, relative to max |U|
 EQ_TOL_F32 = 1e-4     # reactions balance the applied loads (f32 solve)
 EQ_TOL_F64 = 1e-9     # ... (f64 solve)
 PREP_TOL = 1e-6       # prepared scan vs one-shot scan
+N_SEG_LARGE = 327     # 99,882 DOF (bench.py:563-598, tests/test_large.py)
+GOLDENS = ("default", "variant", "shallow", "singular", "custom_tower",
+           "autogen_4leg")
+GOLDEN_TOL = 1e-8     # analyze vs the reference's goldens (allclose_err)
+SINGULAR_TOL = 1e-6   # ... the least-squares fallback (LAPACK gelsd's tail)
+DENSE_TOL = 1e-9      # f64 at 9,612 DOF: Cholesky vs LU vs condensed,
+                      # phase batch vs pointwise condensed scan
+POINTWISE_TOL = 2e-6  # pointwise vs separable f64 scan (the clamp band;
+                      # tests/test_condense.py:103-128)
+RESID_TOL = 1e-9      # 99,882 DOF: refined residual (tests/test_large.py)
+EQ_TOL_LARGE = 1e-10  # ... equilibrium
+INTERFACE_TOL = 5e-3  # ... interface U vs n_seg = 8
+MORISON_TOTAL_TOL = 0.05  # ... total Morison vs the coarse analyze
+PREP_ANALYZE_TOL = 1e-12  # analyze_prepared vs analyze_condensed: U,
+PREP_F2_TOL = 1e-9        # reactions, von Mises; F2 (tests/test_condense.py)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 FP32_FLOP_PER_S = 67e12     # H100 SXM FP32 outside the tensor cores
+FP64_FLOP_PER_S = 34e12     # H100 SXM FP64 outside the tensor cores
 EPILOGUE_FLOP = 60    # K1 per (phase, point): normal projection, drag,
                       # inertia, lever-rule sums
 CASE = dict(wave_dir_deg=38.0, current_dir_deg=38.0, F_axial_kN=25100.0,
@@ -121,12 +168,422 @@ def cuda_ms(fn, n: int = 20, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def bound_us(nbytes: float, flops: float):
+def bound_us(nbytes: float, flops: float, flop_rate=FP32_FLOP_PER_S):
     """(bound in us, what bounds it): the larger of the bytes over the
-    device-memory rate and the FLOPs over the FP32 rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    device-memory rate and the FLOPs over the given rate (FP32 unless
+    said)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return (max(t_bytes, t_ops) * 1e6,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def sweep_bound(itemsize: int, B: int, n_int: int, C: int):
+    """(bound us, by, bytes) of one chain sweep: factors Dinv, DinvL,
+    Cprime and B0, Cn read once, g read and v written once, fI and fJ
+    written once; 36 multiply-adds per 6x6 block product (3 per level
+    and right-hand side, plus the 2 interface products)."""
+    nbytes = itemsize * (2 * B * n_int * C * 6 + 2 * B * C * 6
+                         + 3 * n_int * C * 36 + 2 * C * 36)
+    flops = 2 * B * C * (3 * n_int + 2) * 36
+    return (*bound_us(nbytes, flops, FP32_FLOP_PER_S if itemsize == 4
+                      else FP64_FLOP_PER_S), nbytes)
+
+
+def device_events(fn):
+    """Device-side operations (kernels, copies) of one ``fn()`` call,
+    recorded by torch.profiler: a list of (name, microseconds)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def kernel_us(events, name):
+    times = [t for n, t in events if name in n]
+    return sum(times) / len(times) if times else float("nan")
+
+
+def top_device_ops(events, k: int = 5) -> str:
+    """The ``k`` device operations with the most total time: "name
+    count x total us" each, names cut to 40 characters."""
+    total, count = {}, {}
+    for n, t in events:
+        total[n] = total.get(n, 0.0) + t
+        count[n] = count.get(n, 0) + 1
+    top = sorted(total, key=total.get, reverse=True)[:k]
+    return "; ".join(f"{n[:40]} {count[n]}x {total[n]:.1f} us" for n in top)
+
+
+def record_sweeps(condense_mod, hk, fn):
+    """Run ``fn()`` with every chain sweep of ``ops.condense`` recorded:
+    a list of the kernel's operands (fac, g, split), in call order."""
+    seen = []
+
+    def recording_sweep(fac, g, split=False):
+        seen.append((fac, g, split))
+        return hk.chain_sweep_cuda(fac, g, split)
+    condense_mod.chain_sweep_cuda = recording_sweep
+    try:
+        fn()
+    finally:
+        condense_mod.chain_sweep_cuda = hk.chain_sweep_cuda
+    return seen
+
+
+def peak_mib(fn) -> float:
+    """Peak device memory allocated during ``fn()`` in MiB."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**20
+
+
+def allclose_err(a, b) -> float:
+    """max |a - b| / (|b| + max(max |b|, 1)): ``<= tol`` is numpy's
+    ``assert_allclose(a, b, rtol=tol, atol=tol * max(max |b|, 1))``, the
+    goldens' criterion in ``tests/test_end_to_end.py``."""
+    import torch
+    a = torch.as_tensor(a).double().cpu()
+    b = torch.as_tensor(b, dtype=torch.float64).cpu()
+    return float(((a - b).abs()
+                  / (b.abs() + b.abs().max().clamp(min=1.0))).max())
+
+
+def golden_setup(pt, g, dev):
+    """(model, wave, case) of a reference golden on ``dev``, in f64."""
+    p = g["params"]
+    sections = dict(leg_section=(p["D_leg"], p["t_leg"]),
+                    brace_section=(p["D_brace"], p["t_brace"]),
+                    rho_steel=p["rho_steel"])
+    if "geometry" in g:
+        geom = g["geometry"]
+        model = pt.build_model({k: tuple(v) for k, v in geom["nodes"].items()},
+                               geom["members"], geom["fixed"], geom["top"],
+                               **sections, device=dev)
+    else:
+        model = pt.default_3leg_jacket(**sections, device=dev)
+    case = pt.LoadCase(
+        E=p["E"], nu=p["nu"], fy=p["fy"], rho_water=p["rho_water"],
+        wave_dir_deg=p["wave_dir"], current_dir_deg=p["current_dir"],
+        Cd=p["Cd"], Cm=p["Cm"], F_axial_kN=p["F_axial_kN"],
+        F_shear_kN=p["F_shear_kN"], M_moment_kNm=p["M_moment_kNm"],
+        M_torsion_kNm=p["M_torsion_kNm"],
+        custom_sw_tonnes=p.get("custom_sw_tonnes", 0.0),
+        t_analysis=p["t_analysis"], sw_mode=p["sw_mode"])
+    return (model, pt.airy_wave(p["H"], p["T"], p["d"], p["U_c"],
+                                device=dev), case)
+
+
+def golden_errors(res, model, fem) -> dict:
+    """:func:`allclose_err` of every recorded field of a golden."""
+    import torch
+    ref_if = fem["internal_forces"]
+    errs = {"F_global": allclose_err(res.F_applied, fem["F_global"]),
+            "U": allclose_err(res.U, fem["U"]),
+            "reactions": allclose_err(res.reactions, [
+                fem["reactions"][n] for n in model.fixed_node_names()]),
+            "von_mises": allclose_err(res.von_mises, [
+                m["von_mises_max_MPa"] for m in ref_if]),
+            "utilization": allclose_err(res.utilization, [
+                m["utilization"] for m in ref_if])}
+    for col, key, scale in ((0, "Fx_max_kN", 1e3), (1, "Fy_max_kN", 1e3),
+                            (2, "Fz_max_kN", 1e3), (4, "My_max_kNm", 1e6),
+                            (5, "Mz_max_kNm", 1e6)):
+        ours = torch.maximum(res.F1_local[:, col].abs(),
+                             res.F2_local[:, col].abs()) / scale
+        errs[key] = allclose_err(ours, [m[key] for m in ref_if])
+    disp = torch.tensor(fem["U"], dtype=torch.float64).reshape(-1, 6)[:, :3] \
+        .norm(dim=-1)
+    errs["max_displacement_mm"] = abs(float(res.max_displacement_mm)
+                                      / float(disp.max()) - 1.0)
+    return errs
+
+
+def reference_phase(pt, dev) -> float:
+    """The six reference goldens through ``analyze`` on the card (126-DOF
+    class models, f64): every recorded field at 1e-8 (LU and Cholesky),
+    the singular case's least-squares fallback at 1e-6 with the orphan's
+    DOFs exactly 0, equilibrium, and the reference's 36-step Morison scan.
+    Returns the median ``analyze`` time of the default golden (Cholesky)."""
+    import torch
+    from small_fem_solver_tpu_torch.models import autogen
+    gdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "golden")
+    worst, setups = {}, {}
+    for name in GOLDENS:
+        with open(os.path.join(gdir, f"{name}_case.json")) as f:
+            g = json.load(f)
+        fem, scan_ref, p = g["fem"], g["phase_scan"], g["params"]
+        model, wave, case = setups[name] = golden_setup(pt, g, dev)
+        singular = name == "singular"
+        tol = SINGULAR_TOL if singular else GOLDEN_TOL
+        if name == "autogen_4leg":
+            nodes = g["geometry"]["nodes"]
+            check(autogen.auto_generate_h_braces(
+                nodes, autogen.auto_generate_legs(nodes, []))
+                == [{k: m[k] for k in ("name", "node1", "node2", "type")}
+                    for m in g["geometry"]["members"]],
+                "autogen reproduces the reference's generated members")
+        for solver in ("lu",) if singular else ("lu", "chol"):
+            res = pt.analyze(model, wave, case, solver=solver,
+                             lstsq_fallback=singular)
+            check(res.U.device.type == "cuda" and res.U.dtype
+                  == torch.float64, f"{name} {solver}: f64 on the card")
+            errs = golden_errors(res, model, fem)
+            disp = torch.tensor(fem["U"]).reshape(-1, 6)[:, :3].norm(dim=-1)
+            check(int(res.max_displacement_node) == int(disp.argmax()),
+                  f"{name} {solver}: node of the largest displacement")
+            check(allclose_err(res.length_m, [m["length_m"] for m in
+                                              fem["internal_forces"]])
+                  <= 1e-10, f"{name}: member lengths")
+            field, err = max(errs.items(), key=lambda kv: kv[1])
+            worst[f"{name} {solver}"] = err
+            check(err <= tol, f"golden {name} ({solver}{', lstsq' * singular}"
+                  f"): {len(errs)} fields, worst {field} {err:.2e} <= {tol:g}")
+            if singular:
+                orphan = model.node_index("ZZ_ORPHAN")
+                check(bool((res.U.reshape(-1, 6)[orphan] == 0.0).all()),
+                      "singular: the orphan node's DOFs are exactly 0")
+            else:
+                F = res.F_applied.reshape(-1, 6)[:, :3].sum(dim=0)
+                eq = float((res.total_reaction[:3] + F).abs().max()
+                           / F.abs().max())
+                check(eq <= EQ_TOL_F64, f"{name} {solver}: equilibrium "
+                      f"{eq:.2e} <= {EQ_TOL_F64:g}")
+        D = model.sections.D_outer[model.sect_id] / 1000.0
+        scan = pt.phase_scan(wave, model.coords, model.conn, D,
+                             p["wave_dir"], p["current_dir"], p["Cd"],
+                             p["Cm"], p["rho_water"],
+                             n_steps=len(scan_ref["t"]))
+        err = max(allclose_err(getattr(scan, f), scan_ref[f])
+                  for f in ("total_kN", "drag_kN", "inertia_kN"))
+        crit_t = float(scan.t[int(scan.critical_index)])
+        check(err <= GOLDEN_TOL and abs(crit_t - scan_ref["critical_t"])
+              <= 1e-12, f"golden {name}: {len(scan_ref['t'])}-step phase "
+              f"scan totals {err:.2e}, critical t = {crit_t:.4f} s")
+    print("[reference] worst field per golden and solver: "
+          + ", ".join(f"{k} {v:.1e}" for k, v in worst.items()), flush=True)
+    model, wave, case = setups["default"]
+    return cuda_ms(lambda: pt.analyze(model, wave, case, solver="chol"))
+
+
+def dense_phase(pt, hk, dev, coarse64, refined64, wave64, sep_scan):
+    """9,612 DOF in f64: dense ``analyze`` (Cholesky against LU, both
+    against ``analyze_condensed``), ``analyze_phase_batch`` against the
+    pointwise condensed scan, and the 360-phase pointwise scan against the
+    separable scan ``sep_scan``.  Returns times (ms), peaks (MiB) and the
+    pointwise scan's sweep launches."""
+    import torch
+    case_t = pt.LoadCase(**CASE, t_analysis=0.34)
+    out = {}
+    out["dense_peak_mib"] = peak_mib(lambda: pt.analyze(
+        refined64, wave64, case_t, solver="chol"))
+    chol = pt.analyze(refined64, wave64, case_t, solver="chol")
+    lu = pt.analyze(refined64, wave64, case_t, solver="lu")
+    cond = pt.analyze_condensed(coarse64, refined64, N_SEG, wave64, case_t,
+                                accel="fd")
+    for label, other in (("lu", lu), ("analyze_condensed", cond)):
+        errs = {f: rel(getattr(chol, f), getattr(other, f))
+                for f in ("U", "reactions", "utilization")}
+        check(max(errs.values()) <= DENSE_TOL, f"dense Cholesky vs {label} "
+              f"at {refined64.n_dof} DOF: " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in errs.items())
+              + f" <= {DENSE_TOL:g}")
+    ts, batch = pt.analyze_phase_batch(refined64, wave64, case_t, n_steps=36)
+    pw36 = pt.phase_scan_condensed(coarse64, refined64, N_SEG, wave64,
+                                   case_t, n_steps=36, kinematics="pointwise")
+    errs = {f: rel(getattr(pw36, f), getattr(batch, f))
+            for f in ("U", "utilization", "reactions")}
+    errs["total_morison"] = rel(pw36.total_morison,
+                                batch.morison.total_morison)
+    check(max(errs.values()) <= DENSE_TOL, "analyze_phase_batch vs "
+          "pointwise condensed scan, 36 phases, accel analytic: " + ", ".join(
+              f"{k} {v:.2e}" for k, v in errs.items())
+          + f" <= {DENSE_TOL:g}")
+
+    def pointwise():
+        return pt.phase_scan_condensed(
+            coarse64, refined64, N_SEG, wave64, pt.LoadCase(**CASE),
+            n_steps=N_STEPS, kinematics="pointwise", accel="analytic")
+    hk.chain_sweep_cuda.launches = 0
+    pw = pointwise()
+    torch.cuda.synchronize()
+    out["pointwise_launches"] = hk.chain_sweep_cuda.launches
+    check(out["pointwise_launches"] >= 1, f"pointwise scan launched the "
+          f"chain sweep ({out['pointwise_launches']}x)")
+    errs = {f: rel(getattr(pw, f), getattr(sep_scan, f))
+            for f in ("U", "total_morison")}
+    check(max(errs.values()) <= POINTWISE_TOL, f"pointwise vs separable f64 "
+          f"scan, {N_STEPS} phases: " + ", ".join(
+              f"{k} {v:.2e}" for k, v in errs.items())
+          + f" <= {POINTWISE_TOL:g} (the 1 cm clamp band)")
+    out["pointwise_peak_mib"] = peak_mib(pointwise)
+    out["dense_chol_ms"] = cuda_ms(lambda: pt.analyze(
+        refined64, wave64, case_t, solver="chol"), n=5, warmup=1)
+    out["dense_lu_ms"] = cuda_ms(lambda: pt.analyze(
+        refined64, wave64, case_t, solver="lu"), n=5, warmup=1)
+    out["phase_batch_ms"] = cuda_ms(lambda: pt.analyze_phase_batch(
+        refined64, wave64, case_t, n_steps=36), n=5, warmup=1)
+    out["pointwise_ms"] = cuda_ms(pointwise, n=5, warmup=1)
+    for label, fn in (("dense Cholesky analyze", lambda: pt.analyze(
+            refined64, wave64, case_t, solver="chol")),
+            ("pointwise 360-phase scan", pointwise)):
+        events = device_events(fn)
+        print(f"[profile] {label} at {refined64.n_dof} DOF: {len(events)} "
+              f"device operations, device busy "
+              f"{sum(t for _, t in events) / 1e3:.3f} ms; most time: "
+              f"{top_device_ops(events)} (torch.profiler)", flush=True)
+    print(f"[dense] {refined64.n_dof} DOF f64: max utilization "
+          f"{float(chol.utilization.max()):.6f}; peak device memory: dense "
+          f"analyze {out['dense_peak_mib']:.0f} MiB, pointwise 360-phase scan "
+          f"{out['pointwise_peak_mib']:.0f} MiB", flush=True)
+    return out
+
+
+def large_phase(pt, hk, dev, coarse64, wave64):
+    """``analyze_condensed`` at n_seg = 327 (99,882 DOF, f64) with the checks
+    of ``tests/test_large.py``, ``analyze_prepared`` against it, the sweep
+    kernel against its plain version on this analysis's own operands, the
+    launch counts around exactly one call of each path, times and the
+    device profile."""
+    import torch
+    from small_fem_solver_tpu_torch.ops import condense as condense_mod
+    from small_fem_solver_tpu_torch.ops.beams import element_stiffness
+    from small_fem_solver_tpu_torch.ops.condense import (chain_matvec,
+                                                         chain_sweep_plain)
+    n_seg = N_SEG_LARGE
+    t0 = time.perf_counter()
+    refined = pt.refine_model(coarse64, n_seg)
+    check(refined.n_dof == 99882, f"large model has {refined.n_dof} DOF")
+    case = pt.LoadCase(**CASE, t_analysis=0.34)
+    out = {}
+    hk.chain_sweep_cuda.launches = 0
+    res = pt.analyze_condensed(coarse64, refined, n_seg, wave64, case)
+    torch.cuda.synchronize()
+    out["analyze_condensed_launches"] = hk.chain_sweep_cuda.launches
+    print(f"[large] refine + first analyze_condensed: "
+          f"{time.perf_counter() - t0:.2f} s wall", flush=True)
+    check(out["analyze_condensed_launches"] >= 1, f"analyze_condensed "
+          f"launched the chain sweep ({out['analyze_condensed_launches']}x)")
+    U, F = res.U, res.F_applied
+    check(bool(torch.isfinite(U).all()) and U.shape == (99882,),
+          "large displacements finite, 99,882 of them")
+
+    nc, Mc = coarse64.n_nodes, coarse64.n_members
+    E, G = 210000.0, 210000.0 / 2.6
+    Kg = element_stiffness(refined.coords, refined.conn, refined.sections,
+                           refined.sect_id, E, G)[0]
+    U_In = U[None, :6 * nc].reshape(1, nc, 6)
+    v = U[None, 6 * nc:].reshape(1, Mc, n_seg - 1, 6).transpose(1, 2)
+    y_I, y_int = chain_matvec(Kg, n_seg, coarse64.conn, U_In, v)
+    KU = torch.cat([y_I.reshape(-1), y_int.transpose(1, 2).reshape(-1)])
+    free = torch.logical_not(refined.fixed_mask).repeat_interleave(6)
+    resid = float((F - KU)[free].abs().max() / F.abs().max())
+    check(resid <= RESID_TOL, f"refined residual via chain_matvec "
+          f"{resid:.2e} <= {RESID_TOL:g}")
+    eq = float((res.total_reaction[:3] + F.reshape(-1, 6)[:, :3].sum(0))
+               .abs().max() / F.abs().max())
+    check(eq <= EQ_TOL_LARGE, f"large equilibrium {eq:.2e} <= "
+          f"{EQ_TOL_LARGE:g}")
+    case_sw = pt.LoadCase(**{**CASE, "sw_mode": "calculated"},
+                          t_analysis=0.34)
+    U_l = pt.analyze_condensed(coarse64, refined, n_seg, wave64,
+                               case_sw).U[:6 * nc]
+    U_8 = pt.analyze_condensed(coarse64, pt.refine_model(coarse64, 8), 8,
+                               wave64, case_sw).U[:6 * nc]
+    iface = rel(U_l, U_8)
+    check(iface < INTERFACE_TOL, f"interface U vs n_seg = 8 ('calculated' "
+          f"self-weight) {iface:.2e} < {INTERFACE_TOL:g}")
+    coarse_res = pt.analyze(coarse64, wave64, case, solver="chol",
+                            accel="analytic")
+    mor = rel(res.morison.total_morison, coarse_res.morison.total_morison)
+    check(mor < MORISON_TOTAL_TOL, f"total Morison vs the coarse analyze "
+          f"{mor:.2e} < {MORISON_TOTAL_TOL:g}")
+    umax = float(res.utilization.max())
+    check(0.15 < umax < 0.35, f"max utilization {umax:.6f} in (0.15, 0.35)")
+
+    prep = pt.prepare_condensed(coarse64, refined, n_seg)
+    check(prep.chain_solver == "nested" and tuple(
+        prep.fac.fac1.Cprime.shape[:2]) == (108, 153) and tuple(
+        prep.fac.fac2.Cprime.shape[:2]) == (2, 51),
+        "nested split 327 = 3 x 109: level 1 108 x 153, level 2 2 x 51")
+    hk.chain_sweep_cuda.launches = 0
+    rp = pt.analyze_prepared(prep, wave64, case)
+    torch.cuda.synchronize()
+    out["analyze_prepared_launches"] = hk.chain_sweep_cuda.launches
+    check(out["analyze_prepared_launches"] >= 1, f"analyze_prepared launched "
+          f"the chain sweep ({out['analyze_prepared_launches']}x)")
+    errs = {f: rel(getattr(rp, f), getattr(res, f))
+            for f in ("U", "reactions", "von_mises")}
+    f2 = rel(rp.F2_local, res.F2_local)
+    check(max(errs.values()) <= PREP_ANALYZE_TOL and f2 <= PREP_F2_TOL,
+          "analyze_prepared vs analyze_condensed: " + ", ".join(
+              f"{k} {v:.2e}" for k, v in errs.items())
+          + f" <= {PREP_ANALYZE_TOL:g}, F2 {f2:.2e} <= {PREP_F2_TOL:g}")
+
+    # the sweep kernel on the operands of one analyze_prepared call: the
+    # solve and the refinement round, each nested level 1 then level 2
+    sweeps = record_sweeps(condense_mod, hk,
+                           lambda: pt.analyze_prepared(prep, wave64, case))
+    check(len(sweeps) == 4 and hk.sweep_chains_per_block(108, 8) == 0,
+          "analyze_prepared ran four sweeps (two solves x two levels); "
+          "level 1 (108 levels, f64) runs the untiled form")
+    # the path finds the 16 MB of level-1 factors cold in the 50 MB L2
+    # cache: time each launch after overwriting a 128 MB buffer, and warm
+    l2_flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    levels = {}
+    for i, (fac, gs, split) in enumerate(sweeps):
+        level = f"level {i % 2 + 1}"
+        g_chain = gs.reshape(*gs.shape[:-3], -1, 6) if split else gs
+        ref = chain_sweep_plain(fac, g_chain)
+        got = hk.chain_sweep_cuda(fac, gs, split)
+        err = max(rel(a, b) for a, b in zip(got, ref))
+        check(err <= SWEEP_TOL_F64, f"sweep kernel f64 vs plain, 99,882 DOF "
+              f"{level} ({'solve' if i < 2 else 'refinement round'}): "
+              f"{err:.2e} <= {SWEEP_TOL_F64:g}")
+        if i >= 2:   # the refinement round repeats the solve's shapes
+            continue
+        (n_int, C), B = fac.Cprime.shape[:2], g_chain.shape[0]
+        cold = kernel_us(device_events(lambda: (
+            l2_flush.zero_(), hk.chain_sweep_cuda(fac, gs, split))),
+            "chain_sweep_kernel")
+        warm = kernel_us(device_events(
+            lambda: hk.chain_sweep_cuda(fac, gs, split)),
+            "chain_sweep_kernel")
+        levels[level] = (
+            cuda_ms(lambda: hk.chain_sweep_cuda(fac, gs, split)),
+            cuda_ms(lambda: chain_sweep_plain(fac, g_chain), n=5),
+            cold, *sweep_bound(8, B, n_int, C), err, (B, n_int, C), warm)
+    del l2_flush
+    out["levels"] = levels
+
+    out["peak_mib"] = peak_mib(lambda: pt.analyze_condensed(
+        coarse64, refined, n_seg, wave64, case))
+    out["analyze_condensed_ms"] = cuda_ms(lambda: pt.analyze_condensed(
+        coarse64, refined, n_seg, wave64, case), n=5, warmup=1)
+    out["analyze_prepared_ms"] = cuda_ms(lambda: pt.analyze_prepared(
+        prep, wave64, case), n=10, warmup=2)
+    out["prepare_ms"] = cuda_ms(lambda: pt.prepare_condensed(
+        coarse64, refined, n_seg), n=5, warmup=1)
+    events = device_events(lambda: pt.analyze_prepared(prep, wave64, case))
+    out["prepared_ops"] = len(events)
+    out["prepared_busy_ms"] = sum(t for _, t in events) / 1e3
+    out["prepared_sweeps"] = sum("chain_sweep_kernel" in n for n, _ in events)
+    out["prepared_top"] = top_device_ops(events)
+    print(f"[large] {refined.n_dof} DOF f64: residual {resid:.2e}, "
+          f"equilibrium {eq:.2e}, interface vs n_seg 8 {iface:.2e}, Morison "
+          f"total vs coarse {mor:.2e}, max utilization {umax:.6f}; peak "
+          f"device memory of analyze_condensed {out['peak_mib']:.0f} MiB",
+          flush=True)
+    return out
 
 
 def main() -> int:
@@ -235,11 +692,9 @@ def main() -> int:
             again = hk.morison_phase_batch_cuda(
                 *kernel_args(wave, n_members, f32, S, tensors),
                 stretching=stretching)
-            # the kernel's own outputs (the nodal scatter after it is
-            # PyTorch's index_add_, which adds with atomics on the card)
+            # the kernel's outputs and the fixed-order nodal sum after it
             check(all(torch.equal(getattr(out, f), getattr(again, f))
-                      for f in ("F1", "F2", "total_drag", "total_inertia")),
-                  f"kernel bit-repeatable ({label})")
+                      for f in fields), f"kernel bit-repeatable ({label})")
 
     # ---- 4. sweep phase at the flagship chain shapes ----
     prep_th = pt.prepare_condensed(coarse32, refined32, N_SEG,
@@ -270,17 +725,10 @@ def main() -> int:
     case = pt.LoadCase(**CASE)
     g_scan = _scan_loads(prep, wave32, case, N_STEPS, 15, "fused", "none",
                          None)[2]
-    scan_sweeps = []
-
-    def recording_sweep(fac, g, split=False):
-        scan_sweeps.append((f"flagship scan loads, nested level "
-                            f"{len(scan_sweeps) + 1}", fac, g, split))
-        return hk.chain_sweep_cuda(fac, g, split)
-    condense_mod.chain_sweep_cuda = recording_sweep
-    try:
-        condense_mod.condense_loads_nested(prep.fac, g_scan)
-    finally:
-        condense_mod.chain_sweep_cuda = hk.chain_sweep_cuda
+    scan_sweeps = [(f"flagship scan loads, nested level {i + 1}", *op)
+                   for i, op in enumerate(record_sweeps(
+                       condense_mod, hk, lambda: condense_mod
+                       .condense_loads_nested(prep.fac, g_scan)))]
     check(len(scan_sweeps) == 2, "the nested condensation ran two sweeps")
     check(scan_sweeps[0][3] and not scan_sweeps[0][2].is_contiguous(),
           "level 1 reads the (m, q) view of the scan's loads in place")
@@ -465,7 +913,44 @@ def main() -> int:
           + f"; governing case {gov} (H = {Hs[gov]:.1f} m, f64 "
           f"{float(env64.max_util_per_case[gov64]):.6f})", flush=True)
 
-    # ---- 7. timing ----
+    # ---- 7. reference phase: the six goldens through analyze ----
+    t0 = time.perf_counter()
+    ref_ms = reference_phase(pt, dev)
+    print(f"[reference] phase {time.perf_counter() - t0:.2f} s wall",
+          flush=True)
+
+    # ---- 8. dense-at-size phase: 9,612 DOF in f64 ----
+    t0 = time.perf_counter()
+    dense = dense_phase(pt, hk, dev, coarse64, refined64, wave64, ref)
+    print(f"[dense] phase {time.perf_counter() - t0:.2f} s wall", flush=True)
+
+    # ---- 9. large phase: 99,882 DOF in f64 ----
+    t0 = time.perf_counter()
+    large = large_phase(pt, hk, dev, coarse64, wave64)
+    print(f"[large] phase {time.perf_counter() - t0:.2f} s wall", flush=True)
+    print(f"[time] {smi}: analyze 126 DOF (Cholesky) {ref_ms:.3f} ms; dense "
+          f"analyze 9,612 DOF Cholesky {dense['dense_chol_ms']:.1f} ms, LU "
+          f"{dense['dense_lu_ms']:.1f} ms, analyze_phase_batch (36 phases) "
+          f"{dense['phase_batch_ms']:.1f} ms, pointwise f64 360-phase scan "
+          f"{dense['pointwise_ms']:.1f} ms; 99,882 DOF: analyze_condensed "
+          f"one-shot {large['analyze_condensed_ms']:.1f} ms, "
+          f"prepare_condensed {large['prepare_ms']:.1f} ms, analyze_prepared "
+          f"{large['analyze_prepared_ms']:.1f} ms (medians, CUDA events)",
+          flush=True)
+    print(f"[profile] {smi}: analyze_prepared at 99,882 DOF: "
+          f"{large['prepared_ops']} device operations, device busy "
+          f"{large['prepared_busy_ms']:.3f} ms, {large['prepared_sweeps']} "
+          f"chain-sweep kernels; most time: {large['prepared_top']} "
+          "(torch.profiler)", flush=True)
+    for label, (a, b, d, bd, by, nb, err, shape, warm) in \
+            large["levels"].items():
+        print(f"[bound] {smi}: chain sweep f64 at 99,882 DOF {label} "
+              f"(B, n_int, chains) = {shape}: {d:.1f} us on the device with "
+              f"a cold L2 ({warm:.1f} us warm), bound {bd:.2f} us by {by} "
+              f"({nb / 1e6:.2f} MB): {bd / d:.1%}; wrapper {a:.4f} ms (warm), "
+              f"plain loop {b:.4f} ms, f64 vs plain {err:.1e}", flush=True)
+
+    # ---- 10. timing of the scan and envelope paths ----
     args32 = kernel_args(wave32, Mr, f32)
     k_ops = hk.kernel_operands(*args32, n_gauss=15, current_alpha=None)
     raw_ms = cuda_ms(lambda: hk.launch_morison(k_ops, False))
@@ -483,24 +968,6 @@ def main() -> int:
           f"360-phase scan @ {n_dof} DOF: fused "
           f"{fused_ms:.3f} ms vs separable {sep_ms:.3f} ms "
           f"(median of 20, CUDA events)", flush=True)
-
-    from torch.profiler import ProfilerActivity, profile
-
-    def device_events(fn):
-        """Device-side operations (kernels, copies) of one ``fn()`` call,
-        recorded by torch.profiler: a list of (name, microseconds)."""
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-
-    def kernel_us(events, name):
-        times = [t for n, t in events if name in n]
-        return sum(times) / len(times) if times else float("nan")
 
     # the wrappers on the scan's operands (0-d tensor coefficients on the
     # card, the transposed chain layout): no synchronisation (PyTorch's sync
@@ -549,13 +1016,10 @@ def main() -> int:
         g_chain = (g.reshape(*g.shape[:-3], -1, 6) if split else g)
         us = kernel_us(device_events(
             lambda: hk.chain_sweep_cuda(fac, g, split)), "chain_sweep_kernel")
-        nbytes = 4 * (2 * B * n_int * Mc * 6 + 2 * B * Mc * 6
-                      + 3 * n_int * Mc * 36 + 2 * Mc * 36)
-        flops = 2 * B * Mc * (3 * n_int + 2) * 36
         sweep_ms[label] = (
             cuda_ms(lambda: hk.chain_sweep_cuda(fac, g, split)),
             cuda_ms(lambda: chain_sweep_plain(fac, g_chain)),
-            us, *bound_us(nbytes, flops), nbytes)
+            us, *sweep_bound(4, B, n_int, Mc))
     per_scan = scan_launches["chain_sweep"] // 2
     print(f"[time] {smi}: chain sweep, B={N_STEPS}, f32, the scan's own "
           f"layouts: "
@@ -616,8 +1080,12 @@ def main() -> int:
         "replaces": "benchmarks/ab_pallas_sweep.py:106 and "
                     "benchmarks/ab_pallas_sweep.py:114",
         "launches": env_launches["chain_sweep"],
-        "launches_by_path": {"scan": scan_launches["chain_sweep"],
-                             "envelope": env_launches["chain_sweep"]},
+        "launches_by_path": {
+            "scan": scan_launches["chain_sweep"],
+            "envelope": env_launches["chain_sweep"],
+            "analyze_condensed": large["analyze_condensed_launches"],
+            "analyze_prepared": large["analyze_prepared_launches"],
+            "pointwise_scan": dense["pointwise_launches"]},
         "launches_per_scan": per_scan,
         "max_abs_err": sweep_err,
         "max_rel_err": sweep_rel,
@@ -629,9 +1097,16 @@ def main() -> int:
         "bound_ms": l1[3] / 1e3,
         "bound_by": l1[4],
         "library_ms": None,
-        "by_level": {k: {"ms": a, "plain_ms": b, "device_us": d,
-                         "bound_us": bd, "bound": by}
-                     for k, (a, b, d, bd, by, _) in sweep_ms.items()},
+        "by_level": {
+            **{k: {"ms": a, "plain_ms": b, "device_us": d, "bound_us": bd,
+                   "bound": by}
+               for k, (a, b, d, bd, by, _) in sweep_ms.items()},
+            **{f"99,882 DOF {k} (f64, B={shape[0]}, n_int={shape[1]}, "
+               f"chains={shape[2]})": {"ms": a, "plain_ms": b,
+                                       "device_us": d, "device_us_warm": w,
+                                       "bound_us": bd, "bound": by}
+               for k, (a, b, d, bd, by, _, _, shape, w)
+               in large["levels"].items()}},
     }]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,21 +1,32 @@
-"""Condensed phase-scan entry points: wave -> Morison -> condensed FEM -> stresses.
+"""Analysis entry points: wave -> Morison -> FEM -> stresses (PyTorch
+counterpart of ``small_fem_solver_tpu/api.py``).
 
-PyTorch counterpart of the condensed-scan part of
-``small_fem_solver_tpu/api.py``.  :func:`phase_scan_condensed` runs a full
-FEM solve of a refined jacket at every wave phase through exact chain
-condensation (``ops/condense.py``): Morison loads for all phases in one
-batch, loads built directly in the chain layout, one multi-RHS condensed
-solve plus iterative refinement, member-end forces and von Mises
-utilization.  :func:`design_envelope_condensed` runs that scan for a batch
-of wave cases on one case-independent factorization and keeps only the
-utilization reductions.
+- :func:`analyze` is the reference's single static analysis: pointwise
+  Morison loads at ``case.t_analysis``, dense assembly, LU (with an
+  optional least-squares fallback) or Cholesky solve, reactions, member
+  end forces and von Mises utilization.  :func:`analyze_phase_batch`
+  factors K once and solves every phase of one wave period.
+- :func:`analyze_condensed` (one-shot) and :func:`analyze_prepared`
+  (through a :func:`prepare_condensed` handle) run the same analysis on a
+  refined jacket through exact chain condensation (``ops/condense.py``),
+  the ~100k-DOF path.
+- :func:`phase_scan_condensed` runs a full FEM solve of a refined jacket at
+  every wave phase through the condensation: Morison loads for all phases
+  in one batch, one multi-RHS condensed solve plus iterative refinement,
+  member-end forces and von Mises utilization.
+  :func:`design_envelope_condensed` runs that scan for a batch of wave
+  cases on one case-independent factorization and keeps only the
+  utilization reductions.
 
-``kinematics='fused'`` (the default of both entry points) evaluates the
-loads with the hand-written CUDA kernel (``ops/hopper_kernels.py``) on CUDA
-tensors and with its plain PyTorch version on the CPU, where it equals
-``'separable'`` (the plain version everywhere).  On CUDA tensors the
-condensed solves always run the chain-sweep kernel.  The loads stop at the
-member end forces: the condensed paths never build nodal forces.
+``kinematics='fused'`` (the default of the scan and the envelope)
+evaluates the loads with the hand-written CUDA kernel
+(``ops/hopper_kernels.py``) on CUDA tensors and with its plain PyTorch
+version on the CPU, where it equals ``'separable'`` (the plain version
+everywhere); both build the loads directly in the chain layout.
+``'pointwise'`` evaluates the kinematics per phase with the reference's
+exact semantics (``accel``, the evaluation-height clamp, slamming), as
+:func:`analyze` does.  On CUDA tensors the condensed solves always run the
+chain-sweep kernel.
 
 Load application: topside interface loads split equally over the top
 nodes (shear along the wave heading, axial as -Z, torsion and overturning
@@ -37,14 +48,17 @@ import numpy as np
 import torch
 
 from .constants import G_GRAV
+from .device import resolve_device
 from .models.model import JacketModel
 from .ops import condense as condense_mod
 from .ops import solve as solve_mod
-from .ops.assembly import assemble_dense
-from .ops.beams import element_stiffness, matvec12
+from .ops.assembly import (assemble_dense, element_dof_indices,
+                           node_gather_table, node_sum_ordered)
+from .ops.beams import element_stiffness, internal_forces, matvec12
 from .ops.hopper_kernels import morison_end_forces_cuda
-from .ops.morison import hydro_members, morison_end_forces
-from .ops.sections import von_mises_8pt
+from .ops.morison import (MorisonLoads, hydro_members, morison_end_forces,
+                          morison_loads)
+from .ops.sections import TubeSections, von_mises_8pt
 from .ops.waves import FourierWave
 
 _NOT_PORTED_LOADS = ("is not ported yet (ROADMAP.md, Queue A item 3: model "
@@ -86,8 +100,10 @@ class LoadCase:
                       "wind_dir_deg", "wind_Cs", "wind_topside_area_m2",
                       "wind_topside_Cs")
 
-    def cast(self, dtype: torch.dtype, device="cpu") -> "LoadCase":
-        """Numeric fields as 0-d tensors of ``dtype`` on ``device``."""
+    def cast(self, dtype: torch.dtype, device=None) -> "LoadCase":
+        """Numeric fields as 0-d tensors of ``dtype`` on ``device``
+        (``None``: the CUDA card, :func:`..device.resolve_device`)."""
+        device = resolve_device(device)
         return dataclasses.replace(self, **{
             f.name: torch.as_tensor(getattr(self, f.name), dtype=dtype,
                                     device=device)
@@ -103,6 +119,24 @@ class LoadCase:
             if f.name not in LoadCase._STATIC_FIELDS
             and torch.is_tensor(getattr(self, f.name))
             and getattr(self, f.name).ndim > 0})
+
+
+class AnalysisResults(NamedTuple):
+    """Results of one analysis (units noted per field); a phase batch
+    carries a leading phase axis on every field."""
+
+    U: torch.Tensor                # [n_dof] displacements, mm / rad
+    reactions: torch.Tensor        # [n_fixed_nodes, 6] N / N*mm
+    F_applied: torch.Tensor        # [n_dof] assembled load vector, N / N*mm
+    F1_local: torch.Tensor         # [M, 6] node-1 end forces (local axes)
+    F2_local: torch.Tensor         # [M, 6] node-2 end forces (local axes)
+    von_mises: torch.Tensor        # [M] max over 8 points at node 1, MPa
+    utilization: torch.Tensor      # [M] von_mises / fy
+    length_m: torch.Tensor         # [M]
+    morison: MorisonLoads
+    max_displacement_mm: torch.Tensor
+    max_displacement_node: torch.Tensor   # int index
+    total_reaction: torch.Tensor   # [6] sums of reaction components
 
 
 class CondensedScanResults(NamedTuple):
@@ -185,6 +219,42 @@ def _topside_per_node(case: LoadCase, top_mask, dtype) -> torch.Tensor:
     ])
 
 
+def _check_loads_ported(case: LoadCase) -> None:
+    if case.buoyancy != "none":
+        raise NotImplementedError(f"buoyancy {_NOT_PORTED_LOADS}")
+    if case.wind_speed_ms:
+        raise NotImplementedError(f"wind loading {_NOT_PORTED_LOADS}")
+
+
+def assemble_loads(model: JacketModel, case: LoadCase,
+                   morison_nodal: torch.Tensor,
+                   L_m: torch.Tensor) -> torch.Tensor:
+    """Global load vector [..., n_dof] (N / N*mm) from the Morison nodal
+    forces [..., n_nodes, 3] (a leading phase axis rides along): topside
+    interface loads, Morison forces on the translation DOFs, self-weight.
+    ``case`` must be cast (:meth:`LoadCase.cast`) to the model's dtype and
+    device."""
+    _check_loads_ported(case)
+    dtype, n = model.dtype, model.n_nodes
+    batch = morison_nodal.shape[:-2]
+    top = model.top_mask.to(dtype)
+    per_top = _topside_per_node(case, model.top_mask, dtype)
+    F = (top[:, None] * per_top[None, :]).expand(*batch, n, 6).clone()
+    F[..., :3] += morison_nodal
+    if case.sw_mode == "calculated":
+        half = (model.sections.mass_per_m[model.sect_id] * G_GRAV * L_m
+                / 2.0)                                         # N
+        table = node_gather_table(torch.cat([model.conn[:, 0],
+                                             model.conn[:, 1]]), n)
+        F[..., 2] -= node_sum_ordered(torch.cat([half, half])[:, None],
+                                      table)[:, 0]
+    elif case.sw_mode == "custom":
+        F[..., 2] -= case.custom_sw_tonnes * 1000.0 * G_GRAV / n
+    elif case.sw_mode != "none":
+        raise ValueError(f"unknown self-weight mode {case.sw_mode!r}")
+    return F.reshape(*batch, -1)
+
+
 def _check_refined_layout(coarse: JacketModel, refined: JacketModel,
                           n_seg: int) -> None:
     """The condensation solver requires refine_model's member-major layout."""
@@ -238,10 +308,7 @@ def _chain_layout_loads(coarse: JacketModel, refined: JacketModel,
     end forces (N); ``L_m``: [Mr] refined element lengths (m).
     Returns (F_I_nodes [S, nc, 6], g [S, n_int, Mc, 6]).
     """
-    if case.buoyancy != "none":
-        raise NotImplementedError(f"buoyancy {_NOT_PORTED_LOADS}")
-    if case.wind_speed_ms:
-        raise NotImplementedError(f"wind loading {_NOT_PORTED_LOADS}")
+    _check_loads_ported(case)
     dtype = F1.dtype
     nc, Mc = coarse.n_nodes, coarse.n_members
     S = F1.shape[0]
@@ -326,8 +393,10 @@ def _check_no_slam(case: LoadCase, path: str) -> None:
     if case.slam_cs:
         raise ValueError(
             f"{path}: slamming (slam_cs > 0) runs on the pointwise "
-            "kinematics paths only — the crossing-band impact term does not "
-            "separate over the phase matmul")
+            "kinematics paths only (analyze, analyze_phase_batch, "
+            "analyze_condensed, analyze_prepared, kinematics='pointwise') — "
+            "the crossing-band impact term does not separate over the phase "
+            "matmul")
 
 
 def _morison_batch_fn(kinematics: str):
@@ -337,19 +406,46 @@ def _morison_batch_fn(kinematics: str):
         return morison_end_forces_cuda
     if kinematics == "separable":
         return morison_end_forces
-    if kinematics == "pointwise":
-        raise NotImplementedError(
-            "kinematics='pointwise' is not ported yet (ROADMAP.md, Queue A "
-            "item 2: pointwise kinematics and analyze)")
     raise ValueError(f"unknown kinematics mode {kinematics!r}")
 
 
+def _pointwise_morison(model: JacketModel, wave: FourierWave,
+                       case: LoadCase, t, n_gauss, accel,
+                       stretching="none", current_alpha=None) -> MorisonLoads:
+    """:func:`morison_loads` of a model's members at time(s) ``t`` with the
+    case's coefficients (``case`` cast to the model's dtype)."""
+    conn_h, D_m, Cd_h, Cm_h = hydro_members(model, case.marine_growth_mm,
+                                            case.Cd, case.Cm)
+    return morison_loads(wave, model.coords, conn_h, D_m, case.wave_dir_deg,
+                         case.current_dir_deg, Cd_h, Cm_h, case.rho_water, t,
+                         n_gauss=n_gauss, accel=accel, stretching=stretching,
+                         current_alpha=current_alpha, slam_cs=case.slam_cs)
+
+
+def _global_to_chain(F: torch.Tensor, coarse: JacketModel, n_seg: int):
+    """Refined global vectors [S, n_dof] in ``refine_model``'s layout as
+    views in the chain layout: (F_I_nodes [S, nc, 6], g [S, n_int, Mc, 6])."""
+    S, nc = F.shape[0], coarse.n_nodes
+    Fn = F.reshape(S, -1, 6)
+    return (Fn[:, :nc], Fn[:, nc:].reshape(S, coarse.n_members, n_seg - 1, 6)
+            .transpose(1, 2))
+
+
+def _chain_to_global(U_In: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_global_to_chain` for displacements: [S, n_dof]."""
+    S = U_In.shape[0]
+    return torch.cat([U_In.reshape(S, -1), v.transpose(1, 2).reshape(S, -1)],
+                     dim=1)
+
+
 def _scan_loads(prep: "CondensedPrepared", wave: FourierWave, case, n_steps,
-                n_gauss, kinematics, stretching, current_alpha):
+                n_gauss, kinematics, stretching, current_alpha,
+                accel="analytic"):
     """Per-scan (wave/case-dependent) loads in the chain layout.
 
     Returns (ts [S] and total_morison [S, 3] in the model dtype,
     F_I_nodes [S, nc, 6] and g [S, n_int, Mc, 6] in the solve dtype).
+    ``accel`` applies to ``kinematics='pointwise'`` only.
     """
     coarse, refined = prep.coarse, prep.refined
     ldtype, device = refined.dtype, refined.device
@@ -357,19 +453,32 @@ def _scan_loads(prep: "CondensedPrepared", wave: FourierWave, case, n_steps,
     ts = (torch.arange(n_steps, dtype=ldtype, device=device)
           * wave.T.to(ldtype) / n_steps)
     case_l = case.cast(ldtype, device)
-    _check_no_slam(case_l, "the condensed phase scan")
-    batch_fn = _morison_batch_fn(kinematics)
-    conn_h, D_m, Cd_h, Cm_h = hydro_members(refined, case_l.marine_growth_mm,
-                                            case_l.Cd, case_l.Cm)
-    F1, F2, drag, inertia = batch_fn(
-        wave, refined.coords, conn_h, D_m, case_l.wave_dir_deg,
-        case_l.current_dir_deg, Cd_h, Cm_h, case_l.rho_water, ts,
-        n_gauss=n_gauss, current_alpha=current_alpha, stretching=stretching)
-    F_I_nodes, g = _chain_layout_loads(coarse, refined, case_l,
-                                       F1.to(ldtype), F2.to(ldtype),
-                                       prep.L_m.to(ldtype), prep.n_seg)
+    L_m = prep.L_m.to(ldtype)
+    if kinematics == "pointwise":
+        # the reference's pointwise kinematics: global nodal loads of every
+        # phase, read in the chain layout through strided views
+        mor = _pointwise_morison(refined, wave, case_l, ts, n_gauss, accel,
+                                 stretching, current_alpha)
+        F_I_nodes, g = _global_to_chain(
+            assemble_loads(refined, case_l, mor.nodal_forces, L_m), coarse,
+            prep.n_seg)
+        total = mor.total_morison
+    else:
+        batch_fn = _morison_batch_fn(kinematics)
+        _check_no_slam(case_l, "the condensed phase scan")
+        conn_h, D_m, Cd_h, Cm_h = hydro_members(
+            refined, case_l.marine_growth_mm, case_l.Cd, case_l.Cm)
+        F1, F2, drag, inertia = batch_fn(
+            wave, refined.coords, conn_h, D_m, case_l.wave_dir_deg,
+            case_l.current_dir_deg, Cd_h, Cm_h, case_l.rho_water, ts,
+            n_gauss=n_gauss, current_alpha=current_alpha,
+            stretching=stretching)
+        F_I_nodes, g = _chain_layout_loads(coarse, refined, case_l,
+                                           F1.to(ldtype), F2.to(ldtype),
+                                           L_m, prep.n_seg)
+        total = drag + inertia
     return (ts, F_I_nodes.to(solve_dtype), g.to(solve_dtype),
-            (drag + inertia).to(ldtype))
+            total.to(ldtype))
 
 
 def _condensed_solution(prep: "CondensedPrepared", F_I_nodes, g,
@@ -444,37 +553,29 @@ def prepare_condensed(coarse: JacketModel, refined: JacketModel, n_seg: int,
 
 def _scan_prepared(prep: CondensedPrepared, wave, case: LoadCase, n_steps,
                    n_gauss, kinematics, refine_steps, stretching,
-                   current_alpha) -> CondensedScanResults:
+                   current_alpha, accel) -> CondensedScanResults:
     """One condensed scan through a handle; ``case`` is cast to the solve
     dtype."""
     with _full_f32_matmul():
         ts, F_I_nodes, g, total_morison = _scan_loads(
             prep, wave, case, n_steps, n_gauss, kinematics, stretching,
-            current_alpha)
+            current_alpha, accel)
         U_In, v, F_cond_flat, U_I = _condensed_solution(prep, F_I_nodes, g,
                                                         refine_steps)
         S = ts.shape[0]
-        U = torch.cat([U_In.reshape(S, -1),
-                       v.transpose(1, 2).reshape(S, -1)], dim=1)
         vm = _von_mises(prep, U_In, v)
         util = vm / case.fy
         R = U_I @ prep.K_I.T - F_cond_flat                 # [S, 6 nc]
         return CondensedScanResults(
-            ts=ts, U=U, von_mises=vm, utilization=util,
+            ts=ts, U=_chain_to_global(U_In, v), von_mises=vm,
+            utilization=util,
             reactions=R[:, prep.fixed].reshape(S, -1, 6),
             total_morison=total_morison,
             critical_index=torch.argmax(torch.amax(util, dim=1)))
 
 
-def phase_scan_prepared(prep: CondensedPrepared, wave, case: LoadCase,
-                        n_steps: int = 360, n_gauss: int = 15,
-                        kinematics: str = "fused", refine_steps: int = 1,
-                        stretching: str = "none",
-                        current_alpha=None) -> CondensedScanResults:
-    """Condensed phase scan through a :func:`prepare_condensed` handle:
-    only the wave/case-dependent work runs.  ``case.E``/``case.nu`` must
-    match the handle (raises on mismatch)."""
-    solve_dtype = prep.K_I.dtype
+def _check_material(prep: CondensedPrepared, case: LoadCase) -> None:
+    """``case.E``/``case.nu`` must match the handle's factorization."""
     for name in ("E", "nu"):
         # compare in the handle's dtype (0.3 in f64 against an f32 handle
         # must not trip on representation rounding)
@@ -485,15 +586,28 @@ def phase_scan_prepared(prep: CondensedPrepared, wave, case: LoadCase,
                 f"case.{name} ({float(got)!r}) does not match the prepared "
                 f"factorization's {name} ({float(want)!r}); re-run "
                 "prepare_condensed for a new material")
-    return _scan_prepared(prep, wave, case.cast(solve_dtype,
+
+
+def phase_scan_prepared(prep: CondensedPrepared, wave, case: LoadCase,
+                        n_steps: int = 360, n_gauss: int = 15,
+                        accel: str = "analytic", kinematics: str = "fused",
+                        refine_steps: int = 1, stretching: str = "none",
+                        current_alpha=None) -> CondensedScanResults:
+    """Condensed phase scan through a :func:`prepare_condensed` handle:
+    only the wave/case-dependent work runs.  ``case.E``/``case.nu`` must
+    match the handle (raises on mismatch).  ``accel`` applies to
+    ``kinematics='pointwise'`` only."""
+    _check_material(prep, case)
+    return _scan_prepared(prep, wave, case.cast(prep.K_I.dtype,
                                                 prep.refined.device),
                           n_steps, n_gauss, kinematics, refine_steps,
-                          stretching, current_alpha)
+                          stretching, current_alpha, accel)
 
 
 def phase_scan_condensed(coarse: JacketModel, refined: JacketModel,
                          n_seg: int, wave: FourierWave, case: LoadCase,
                          n_steps: int = 360, n_gauss: int = 15,
+                         accel: str = "analytic",
                          kinematics: str = "fused",
                          chain_solver: str = "auto",
                          solve_dtype: torch.dtype = torch.float64,
@@ -505,7 +619,10 @@ def phase_scan_condensed(coarse: JacketModel, refined: JacketModel,
     Loads are evaluated in the model dtype; the condensation, solve and
     recovery run in ``solve_dtype``.  ``refined`` must come from
     ``refine_model(coarse, n_seg)``.  ``refine_steps`` rounds of iterative
-    refinement follow the direct solve.
+    refinement follow the direct solve.  ``kinematics='pointwise'``
+    evaluates the reference's pointwise kinematics with ``accel``
+    ('analytic' or the reference's finite difference 'fd') and carries the
+    slam term; the other modes ignore ``accel``.
 
     Repeated calls with the same model objects and material reuse the
     case-independent factorization (a bounded identity-keyed cache of
@@ -518,7 +635,7 @@ def phase_scan_condensed(coarse: JacketModel, refined: JacketModel,
                             solve_dtype, support_stiffness)
     return _scan_prepared(prep, wave, case.cast(solve_dtype, refined.device),
                           n_steps, n_gauss, kinematics, refine_steps,
-                          stretching, current_alpha)
+                          stretching, current_alpha, accel)
 
 
 _PREP_CACHE: dict = {}
@@ -542,6 +659,186 @@ def _cached_prepared(coarse, refined, n_seg, case, chain_solver, solve_dtype,
         hit = (coarse, refined, prep)
         _PREP_CACHE[key] = hit
     return hit[2]
+
+
+# ---------------------------------------------------------------------------
+# Single analyses: dense (analyze, analyze_phase_batch) and condensed
+# ---------------------------------------------------------------------------
+
+def _analysis_results(sections: TubeSections, sect_id, fy, U, F, F1, F2,
+                      reactions, L_m, mor: MorisonLoads) -> AnalysisResults:
+    """Stresses, utilization and the displacement / reaction summaries of
+    one solution (a leading phase axis rides along)."""
+    vm = von_mises_8pt(sections, sect_id, *(F1[..., c] for c in range(6)))
+    disp = torch.linalg.norm(U.reshape(*U.shape[:-1], -1, 6)[..., :3],
+                             dim=-1)
+    imax = torch.argmax(disp, dim=-1)
+    return AnalysisResults(
+        U=U, reactions=reactions, F_applied=F, F1_local=F1, F2_local=F2,
+        von_mises=vm, utilization=vm / fy,
+        length_m=L_m.expand(*U.shape[:-1], L_m.shape[-1]), morison=mor,
+        max_displacement_mm=torch.take_along_dim(disp, imax[..., None],
+                                                 dim=-1)[..., 0],
+        max_displacement_node=imax,
+        total_reaction=torch.sum(reactions, dim=-2))
+
+
+def _recover(model: JacketModel, case: LoadCase, K, U, F, fixed_dofs,
+             K_local, T, L_m, mor: MorisonLoads) -> AnalysisResults:
+    """Reactions R = K U - F at the fixed DOFs, member end forces, stresses
+    (von Mises from the node-1 forces, as the reference does); ``U`` and
+    ``F`` are [n_dof] or [S, n_dof]."""
+    F1, F2 = internal_forces(K_local, T, U[..., element_dof_indices(
+        model.conn)])
+    return _analysis_results(model.sections, model.sect_id, case.fy, U, F,
+                             F1, F2,
+                             solve_mod.reactions_dense(K, U, F, fixed_dofs),
+                             L_m, mor)
+
+
+def _dense_system(model: JacketModel, case: LoadCase):
+    """(K [n_dof, n_dof], K_local, T, L_m) of a model in its dtype."""
+    G = case.E / (2.0 * (1.0 + case.nu))
+    Kg, K_local, T, L_m = element_stiffness(model.coords, model.conn,
+                                            model.sections, model.sect_id,
+                                            case.E, G)
+    return assemble_dense(Kg, model.conn, model.n_dof), K_local, T, L_m
+
+
+def analyze(model: JacketModel, wave: FourierWave, case: LoadCase,
+            solver: str = "chol", n_gauss: int = 15, accel: str = "fd",
+            pcg_tol: float = 1e-10, pcg_maxiter: int = 2000,
+            pcg_precond: str = "auto", pcg_chunk: int = 0,
+            lstsq_fallback: bool = False, mesh=None,
+            stretching: str = "none",
+            current_alpha=None) -> AnalysisResults:
+    """Single linear static analysis, the reference's RUN-ANALYSIS
+    pipeline: Morison loads at ``case.t_analysis`` (pointwise kinematics,
+    ``accel`` 'fd' as the reference or 'analytic'), topside and self-weight
+    loads, dense assembly, solve, reactions, member end forces and von
+    Mises utilization, on the model's device in its dtype.
+
+    ``solver``: 'lu' (the reference's dense LU; ``lstsq_fallback`` solves
+    a singular free-free block by minimum-norm least squares, as the
+    reference's except branch does) or 'chol' (Jacobi-scaled Cholesky
+    with one refinement round).  'pcg' and its ``pcg_*`` options, and the
+    distributed ``mesh`` solve, are not ported yet.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "the distributed analyze (mesh=) is not ported yet (ROADMAP.md, "
+            "Queue A item 6: distribution)")
+    if solver == "pcg" or (pcg_tol, pcg_maxiter, pcg_precond,
+                           pcg_chunk) != (1e-10, 2000, "auto", 0):
+        raise NotImplementedError(
+            "solver='pcg' and its pcg_* options are not ported yet "
+            "(ROADMAP.md, Queue A item 5: sparse and iterative tier)")
+    if solver not in ("lu", "chol"):
+        raise ValueError(f"unknown solver {solver!r}")
+    free, fixed = solve_mod.free_fixed_dofs(model.fixed_mask)
+    case = case.cast(model.dtype, model.device)
+    with _full_f32_matmul():
+        mor = _pointwise_morison(model, wave, case, case.t_analysis, n_gauss,
+                                 accel, stretching, current_alpha)
+        K, K_local, T, L_m = _dense_system(model, case)
+        F = assemble_loads(model, case, mor.nodal_forces, L_m)
+        if solver == "lu":
+            U = solve_mod.solve_dense(K, F, free, lstsq_fallback)
+        else:
+            U = solve_mod.solve_factored(solve_mod.factor_dense(K, free), F)
+        return _recover(model, case, K, U, F, fixed, K_local, T, L_m, mor)
+
+
+def analyze_phase_batch(model: JacketModel, wave: FourierWave,
+                        case: LoadCase, n_steps: int = 36, n_gauss: int = 15,
+                        accel: str = "analytic"
+                        ) -> tuple[torch.Tensor, AnalysisResults]:
+    """The full structural problem at every phase t_i = i T / n_steps of
+    one wave period: K is factored once (Cholesky) and all phases are one
+    multi-RHS solve.  ``accel`` defaults to 'analytic': the reference's
+    dt = 1e-3 finite difference gives an O(u / dt) inertia spike at a phase
+    where a quadrature point emerges within dt, which dense phase batches
+    hit; pass 'fd' for the reference's semantics.
+
+    Returns (ts [S], AnalysisResults with a leading phase axis).
+    """
+    free, fixed = solve_mod.free_fixed_dofs(model.fixed_mask)
+    case = case.cast(model.dtype, model.device)
+    with _full_f32_matmul():
+        ts = (torch.arange(n_steps, dtype=model.dtype, device=model.device)
+              * wave.T.to(model.dtype) / n_steps)
+        K, K_local, T, L_m = _dense_system(model, case)
+        fac = solve_mod.factor_dense(K, free)
+        mor = _pointwise_morison(model, wave, case, ts, n_gauss, accel)
+        F = assemble_loads(model, case, mor.nodal_forces, L_m)   # [S, n_dof]
+        U = solve_mod.solve_factored(fac, F)
+        return ts, _recover(model, case, K, U, F, fixed, K_local, T, L_m,
+                            mor)
+
+
+def _analyze_prepared(prep: CondensedPrepared, wave: FourierWave,
+                      case: LoadCase, n_gauss, accel,
+                      refine_steps) -> AnalysisResults:
+    """Single-phase condensed analysis through a handle; ``case`` is cast
+    to the solve dtype.  Loads are evaluated in the model dtype and built
+    as global vectors, then read in the chain layout."""
+    coarse, refined = prep.coarse, prep.refined
+    solve_dtype = prep.K_I.dtype
+    case_l = case.cast(refined.dtype, refined.device)
+    with _full_f32_matmul():
+        mor = _pointwise_morison(refined, wave, case_l, case_l.t_analysis,
+                                 n_gauss, accel)
+        F = assemble_loads(refined, case_l, mor.nodal_forces,
+                           prep.L_m.to(refined.dtype)).to(solve_dtype)
+        F_I_nodes, g = _global_to_chain(F[None], coarse, prep.n_seg)
+        U_In, v, F_cond_flat, U_I = _condensed_solution(prep, F_I_nodes, g,
+                                                        refine_steps)
+        U = _chain_to_global(U_In, v)[0]
+        # recovery through the prepared K_local @ T fold (the reference's
+        # signs: F1 = -(K_local T u)[:6], F2 = +(K_local T u)[6:])
+        F_loc = matvec12(prep.KT, U[element_dof_indices(refined.conn)])
+        R = U_I @ prep.K_I.T - F_cond_flat                 # [1, 6 nc]
+        return _analysis_results(
+            refined.sections.to(solve_dtype), refined.sect_id, case.fy, U, F,
+            -F_loc[:, :6], F_loc[:, 6:], R[0, prep.fixed].reshape(-1, 6),
+            prep.L_m, mor)
+
+
+def analyze_prepared(prep: CondensedPrepared, wave: FourierWave,
+                     case: LoadCase, n_gauss: int = 15,
+                     accel: str = "analytic",
+                     refine_steps: int = 1) -> AnalysisResults:
+    """Single-phase condensed analysis through a :func:`prepare_condensed`
+    handle: loads, condensation, one interface solve plus ``refine_steps``
+    refinement rounds, recovery.  The same results as
+    :func:`analyze_condensed` without its factorization;
+    ``case.E``/``case.nu`` must match the handle (raises on mismatch)."""
+    _check_material(prep, case)
+    return _analyze_prepared(prep, wave, case.cast(prep.K_I.dtype,
+                                                   prep.refined.device),
+                             n_gauss, accel, refine_steps)
+
+
+def analyze_condensed(coarse: JacketModel, refined: JacketModel, n_seg: int,
+                      wave: FourierWave, case: LoadCase, n_gauss: int = 15,
+                      accel: str = "analytic",
+                      solve_dtype: torch.dtype = torch.float64,
+                      refine_steps: int = 1, chain_solver: str = "auto",
+                      support_stiffness=None) -> AnalysisResults:
+    """Full single-phase analysis of a refined jacket through exact chain
+    condensation, the large-mesh counterpart of :func:`analyze` (at
+    ``n_seg = 327`` the default jacket has 99,882 DOF): element stiffness
+    and chain factorization (one shot, no cache), pointwise loads at
+    ``case.t_analysis``, condensed solve plus ``refine_steps`` refinement
+    rounds, recovery, and reactions from the interface system.  ``refined``
+    must come from ``refine_model(coarse, n_seg)``."""
+    prep = prepare_condensed(coarse, refined, n_seg, E=case.E, nu=case.nu,
+                             chain_solver=chain_solver,
+                             solve_dtype=solve_dtype,
+                             support_stiffness=support_stiffness)
+    return _analyze_prepared(prep, wave, case.cast(solve_dtype,
+                                                   refined.device),
+                             n_gauss, accel, refine_steps)
 
 
 # ---------------------------------------------------------------------------
@@ -630,7 +927,7 @@ def design_envelope_condensed(coarse: JacketModel, refined: JacketModel,
             "Queue A item 6: distribution)")
     _check_shared_material(cases)
     _check_no_slam(cases, "design_envelope_condensed")
-    _morison_batch_fn(kinematics)
+    _morison_batch_fn(kinematics)   # 'fused' or 'separable' only
     if case_batch < 1:
         raise ValueError(f"case_batch must be >= 1, got {case_batch}")
     if waves.E.ndim != 2:

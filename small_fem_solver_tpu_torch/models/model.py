@@ -79,6 +79,24 @@ class JacketModel:
     def device(self) -> torch.device:
         return self.coords.device
 
+    def member_geometry(self):
+        """(coord1, coord2, dL, L) for every member; L in metres."""
+        c1 = self.coords[self.conn[:, 0]]
+        c2 = self.coords[self.conn[:, 1]]
+        dL = c2 - c1
+        return c1, c2, dL, torch.linalg.norm(dL, dim=-1)
+
+    def node_index(self, name: str) -> int:
+        return self.node_names.index(name)
+
+    def fixed_node_names(self) -> list:
+        return [n for n, f in zip(self.node_names, self.fixed_mask.tolist())
+                if f]
+
+    def top_node_names(self) -> list:
+        return [n for n, f in zip(self.node_names, self.top_mask.tolist())
+                if f]
+
 
 def build_model(nodes: dict, members: Sequence[dict],
                 fixed_nodes: Sequence[str], top_nodes: Sequence[str],

@@ -140,3 +140,13 @@ def element_stiffness(coords: torch.Tensor, conn: torch.Tensor,
     pat = torch.as_tensor(_KPAT, dtype=L.dtype, device=L.device)
     K_local = (coeffs @ pat).reshape(-1, 12, 12)
     return T.transpose(-1, -2) @ K_local @ T, K_local, T, L
+
+
+def internal_forces(K_local: torch.Tensor, T: torch.Tensor,
+                    u_elem: torch.Tensor):
+    """Local end forces of every member from ``u_elem`` [..., M, 12]
+    (global element displacements, mm / rad): (F1 [..., M, 6],
+    F2 [..., M, 6]) in N and N*mm, with the reference's sign convention
+    (node-1 forces negated)."""
+    F_local = matvec12(K_local, matvec12(T, u_elem))
+    return -F_local[..., :6], F_local[..., 6:]

@@ -1,15 +1,20 @@
-"""Morison-equation member loading over a batch of wave phases (PyTorch
-counterpart of the separable path of ``small_fem_solver_tpu/ops/morison.py``).
+"""Morison-equation member loading (PyTorch counterpart of
+``small_fem_solver_tpu/ops/morison.py``), in two forms:
 
-With theta = k x - omega t every Fourier harmonic factorizes,
-cos(j theta) = cos(jkx) cos(jwt) + sin(jkx) sin(jwt): the spatial factors
-depend only on geometry, so the kinematics of all phases are one
-``[S, N] x [N, P]`` contraction over the quadrature points.  Analytic
-acceleration, no evaluation-height clamp.
-
-:func:`morison_phase_batch` is the plain PyTorch version of the fused CUDA
-kernel in ``ops/hopper_kernels.py``: the tests hold the port against the
-JAX package through it, and ``chip_smoke.py`` holds the kernel against it.
+- :func:`morison_loads` (and the phase scan :func:`phase_scan` over it)
+  evaluates the wave kinematics pointwise at every Gauss point with the
+  reference's exact semantics (``ops/waves.py::kinematics``: finite-
+  difference or analytic acceleration, the evaluation-height clamp,
+  Wheeler stretching) and carries the optional slamming term; a batch of
+  times rides one evaluation, in chunks of phases;
+- :func:`morison_phase_batch` evaluates all phases through the separable
+  harmonic contraction: with theta = k x - omega t every Fourier harmonic
+  factorizes, cos(j theta) = cos(jkx) cos(jwt) + sin(jkx) sin(jwt), so the
+  kinematics of all phases are one ``[S, N] x [N, P]`` contraction over
+  the quadrature points (analytic acceleration, no evaluation-height
+  clamp).  It is the plain PyTorch version of the fused CUDA kernel in
+  ``ops/hopper_kernels.py``: the tests hold the port against the JAX
+  package through it, and ``chip_smoke.py`` holds the kernel against it.
 
 Semantics: compass-to-math heading theta = deg2rad(90 - dir); current split
 onto its own heading; n-point Gauss-Legendre on [0, 1]; normal
@@ -25,7 +30,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .waves import FourierWave
+from .assembly import node_gather_table, node_sum_ordered
+from .waves import FourierWave, kinematics, surface_velocity
+
+# Largest phases x points x modes intermediate of one pointwise evaluation
+# (2^24 elements, 134 MB in float64); longer phase batches run in chunks.
+POINTWISE_CHUNK_ELEMS = 1 << 24
 
 
 def _as(x, ref: torch.Tensor) -> torch.Tensor:
@@ -56,6 +66,193 @@ def gauss_legendre_01(n: int, dtype=np.float64):
     return (xi.astype(dtype) + 1.0) / 2.0, wt.astype(dtype) / 2.0
 
 
+class MorisonLoads(NamedTuple):
+    """One pointwise Morison evaluation (units: N, m).  With a batch of
+    times every field has a leading phase axis."""
+
+    nodal_forces: torch.Tensor     # [n_nodes, 3]
+    total_drag: torch.Tensor       # [3]
+    total_inertia: torch.Tensor    # [3]
+    total_morison: torch.Tensor    # [3]
+    member_drag: torch.Tensor      # [M, 3]
+    member_inertia: torch.Tensor   # [M, 3]
+    member_submerged_length: torch.Tensor  # [M]
+
+
+def morison_loads(wave: FourierWave, coords: torch.Tensor,
+                  conn: torch.Tensor, D_m: torch.Tensor, wave_dir_deg,
+                  current_dir_deg, Cd, Cm, rho_water, t, n_gauss: int = 15,
+                  accel: str = "fd", stretching: str = "none",
+                  current_alpha=None, slam_cs: float = 0.0) -> MorisonLoads:
+    """Morison drag + inertia loads of all members at time ``t`` (a number,
+    a 0-d tensor, or ``[S]`` times: then every result gets a leading phase
+    axis), in ``coords``' dtype on its device.
+
+    ``D_m``: [M] hydrodynamic diameters in metres; ``Cd``/``Cm`` scalars or
+    per-member [M]; ``stretching='wheeler'`` evaluates the kinematics at
+    Wheeler-stretched heights; ``current_alpha`` gives the power-law
+    current profile U_c ((z + d) / d)^alpha.
+
+    ``slam_cs`` > 0 adds a quasi-static slamming line load on splash-zone
+    members (DNV-RP-C205 8.6 form): f_s = 0.5 rho Cs D v_n^2 per unit
+    length, v_n the surface rise velocity d(eta)/dt projected normal to
+    the member axis, active only where the surface lies within D/2 of the
+    point and is rising; it is folded into the drag of the breakdown.
+    """
+    wave = wave.to(coords.dtype, coords.device)
+    t = _as(t, coords)
+    if t.ndim > 1:
+        raise ValueError(f"t must be a time or a 1-D tensor of times, got "
+                         f"shape {tuple(t.shape)}")
+    table = node_gather_table(torch.cat([conn[:, 0], conn[:, 1]]),
+                              coords.shape[0])
+    args = (wave, coords, conn, D_m, wave_dir_deg, current_dir_deg, Cd, Cm,
+            rho_water)
+    opts = (n_gauss, accel, stretching, current_alpha, slam_cs, table)
+    per_phase = conn.shape[0] * n_gauss * wave.n_modes
+    if t.ndim == 1 and t.shape[0] * per_phase > POINTWISE_CHUNK_ELEMS:
+        parts = [_morison_loads(*args, tc, *opts) for tc in
+                 t.split(max(1, POINTWISE_CHUNK_ELEMS // per_phase))]
+        return MorisonLoads(*(torch.cat(f) for f in zip(*parts)))
+    return _morison_loads(*args, t, *opts)
+
+
+def _morison_loads(wave, coords, conn, D_m, wave_dir_deg, current_dir_deg,
+                   Cd, Cm, rho_water, t, n_gauss, accel, stretching,
+                   current_alpha, slam_cs, table) -> MorisonLoads:
+    """:func:`morison_loads` of one time or one chunk of times, the nodal
+    sums in ``table``'s order."""
+    dtype = coords.dtype
+    theta_w = torch.deg2rad(_as(90.0 - wave_dir_deg, coords))
+    theta_c = torch.deg2rad(_as(90.0 - current_dir_deg, coords))
+    cos_w, sin_w = torch.cos(theta_w), torch.sin(theta_w)
+    cos_c, sin_c = torch.cos(theta_c), torch.sin(theta_c)
+
+    c1 = coords[conn[:, 0]]
+    dL = coords[conn[:, 1]] - c1
+    L = torch.linalg.norm(dL, dim=-1)                      # [M]
+    e = dL / L[:, None]
+    s_np, w_np = gauss_legendre_01(n_gauss)
+    s, w = _as(s_np, coords), _as(w_np, coords)
+    pos = c1[:, None, :] + s[None, :, None] * dL[:, None, :]   # [M, Q, 3]
+    x, y, z = pos[..., 0], pos[..., 1], pos[..., 2]
+
+    # 2D kinematics sampled along the wave heading, at [S, M, Q] or [M, Q]
+    x_wave = x * cos_w + y * sin_w
+    tb = t[..., None, None]
+    kin = kinematics(wave, x_wave, z, tb, accel=accel, stretching=stretching)
+    sub = kin.submerged
+    subf = sub.to(dtype)
+
+    # wave and current onto their own headings; the current is uniform or
+    # a power-law profile of the height above the bed
+    if current_alpha is None:
+        Uc_pt = wave.U_c
+    else:
+        frac = torch.clip((z + wave.d) / wave.d, 0.0, 1.0)
+        Uc_pt = wave.U_c * frac ** _as(current_alpha, coords)
+    u_wave_only = kin.u - wave.U_c * subf
+    U = torch.stack([u_wave_only * cos_w + Uc_pt * subf * cos_c,
+                     u_wave_only * sin_w + Uc_pt * subf * sin_c,
+                     kin.w], dim=-1)                        # [..., M, Q, 3]
+    A = torch.stack([kin.du_dt * cos_w, kin.du_dt * sin_w, kin.dw_dt],
+                    dim=-1)
+
+    eb = e[:, None, :]
+    U_perp = U - torch.sum(U * eb, dim=-1, keepdim=True) * eb
+    A_perp = A - torch.sum(A * eb, dim=-1, keepdim=True) * eb
+    # grad-safe norm: U_perp is exactly zero at dry points
+    U_sq = torch.sum(U_perp * U_perp, dim=-1)
+    U_mag = torch.where(U_sq > 0,
+                        torch.sqrt(torch.where(U_sq > 0, U_sq, 1.0)), 0.0)
+
+    D = D_m[:, None]
+    Lw = L[:, None] * w[None, :]                           # [M, Q]
+    A_cross = math.pi * D**2 / 4.0
+    Cd, Cm = _as(Cd, coords), _as(Cm, coords)
+    Cd = Cd[:, None] if Cd.ndim == 1 else Cd
+    Cm = Cm[:, None] if Cm.ndim == 1 else Cm
+    rho = _as(rho_water, coords)
+
+    drag_on = torch.logical_and(sub, U_mag > 1e-10).to(dtype)
+    F_drag = ((0.5 * rho * Cd * D * U_mag * Lw)[..., None] * U_perp
+              * drag_on[..., None])
+    F_inertia = ((rho * Cm * A_cross * Lw)[..., None] * A_perp
+                 * subf[..., None])
+    f = F_drag + F_inertia
+
+    if slam_cs:
+        eta_dot = surface_velocity(wave, x_wave, tb)
+        crossing = torch.abs(z - kin.eta) <= D / 2.0
+        vs = torch.where(torch.logical_and(crossing, eta_dot > 0.0),
+                         eta_dot, 0.0)
+        # normal part of the vertical: z_perp = zhat - e_z e, |z_perp| =
+        # sqrt(1 - e_z^2); the load 0.5 rho Cs D eta_dot^2 |z_perp| z_perp
+        ez = e[:, 2]
+        zp_sq = torch.clamp(1.0 - ez * ez, min=0.0)        # [M]
+        zp_mag = torch.where(zp_sq > 0,
+                             torch.sqrt(torch.where(zp_sq > 0, zp_sq, 1.0)),
+                             0.0)
+        z_perp = torch.stack([-ez * e[:, 0], -ez * e[:, 1], zp_sq], dim=-1)
+        slam_fac = (0.5 * rho * slam_cs * D * vs**2 * Lw
+                    * zp_mag[:, None])                     # [..., M, Q]
+        F_slam = slam_fac[..., None] * z_perp[:, None, :]
+        F_drag = F_drag + F_slam
+        f = f + F_slam
+
+    # lever-rule end split
+    F1 = torch.sum((1.0 - s)[:, None] * f, dim=-2)        # [..., M, 3]
+    F2 = torch.sum(s[:, None] * f, dim=-2)
+    member_drag = torch.sum(F_drag, dim=-2)
+    member_inertia = torch.sum(F_inertia, dim=-2)
+    nodal = node_sum_ordered(torch.cat([F1, F2], dim=-2), table)
+    total_drag = torch.sum(member_drag, dim=-2)
+    total_inertia = torch.sum(member_inertia, dim=-2)
+    return MorisonLoads(
+        nodal_forces=nodal, total_drag=total_drag,
+        total_inertia=total_inertia,
+        total_morison=total_drag + total_inertia,
+        member_drag=member_drag, member_inertia=member_inertia,
+        member_submerged_length=torch.sum(Lw * subf, dim=-1))
+
+
+class PhaseScan(NamedTuple):
+    """Critical-phase scan of one wave period (leading axis = phase)."""
+
+    t: torch.Tensor            # [S]
+    phase_deg: torch.Tensor    # [S]
+    total_kN: torch.Tensor     # [S]
+    drag_kN: torch.Tensor      # [S]
+    inertia_kN: torch.Tensor   # [S]
+    F_kN: torch.Tensor         # [S, 3]
+    critical_index: torch.Tensor
+    nodal_forces: torch.Tensor | None = None   # [S, n_nodes, 3] (optional)
+
+
+def phase_scan(wave: FourierWave, coords, conn, D_m, wave_dir_deg,
+               current_dir_deg, Cd, Cm, rho_water, n_steps: int = 36,
+               n_gauss: int = 15, accel: str = "fd",
+               keep_nodal: bool = False, slam_cs: float = 0.0) -> PhaseScan:
+    """Scan one wave period for the critical phase: the reference's
+    sampling t_i = i T / n_steps and its argmax over |total Morison|, all
+    phases in one batched :func:`morison_loads`."""
+    ts = (torch.arange(n_steps, dtype=coords.dtype, device=coords.device)
+          * _as(wave.T, coords) / n_steps)
+    r = morison_loads(wave, coords, conn, D_m, wave_dir_deg, current_dir_deg,
+                      Cd, Cm, rho_water, ts, n_gauss=n_gauss, accel=accel,
+                      slam_cs=slam_cs)
+    total_kN = torch.linalg.norm(r.total_morison, dim=-1) / 1000.0
+    return PhaseScan(
+        t=ts,
+        phase_deg=torch.rad2deg(_as(wave.omega, coords) * ts) % 360.0,
+        total_kN=total_kN,
+        drag_kN=torch.linalg.norm(r.total_drag, dim=-1) / 1000.0,
+        inertia_kN=torch.linalg.norm(r.total_inertia, dim=-1) / 1000.0,
+        F_kN=r.total_morison / 1000.0,
+        critical_index=torch.argmax(total_kN),
+        nodal_forces=r.nodal_forces if keep_nodal else None)
+
+
 class MorisonPhaseBatch(NamedTuple):
     """Per-phase Morison loads (leading axis = phase). Units: N.
 
@@ -73,12 +270,10 @@ class MorisonPhaseBatch(NamedTuple):
 
 def nodal_scatter(F1: torch.Tensor, F2: torch.Tensor, conn: torch.Tensor,
                   n_nodes: int) -> torch.Tensor:
-    """Member end forces [S, M, 3] summed onto their nodes [S, n_nodes, 3]."""
-    contrib = torch.cat([F1, F2], dim=1)
-    nodes = torch.cat([conn[:, 0], conn[:, 1]])
-    out = torch.zeros(F1.shape[0], n_nodes, 3, dtype=F1.dtype,
-                      device=F1.device)
-    return out.index_add_(1, nodes, contrib)
+    """Member end forces [S, M, 3] summed onto their nodes [S, n_nodes, 3]
+    in a fixed order (bit-repeatable on the card)."""
+    return node_sum_ordered(torch.cat([F1, F2], dim=1), node_gather_table(
+        torch.cat([conn[:, 0], conn[:, 1]]), n_nodes))
 
 
 def morison_phase_batch(wave: FourierWave, coords: torch.Tensor,

@@ -1,11 +1,14 @@
-"""Dense factor-once Cholesky solve (PyTorch counterpart of the dense path
-of ``small_fem_solver_tpu/ops/solve.py``).
+"""Dense LU and factor-once Cholesky solves (PyTorch counterpart of the
+dense path of ``small_fem_solver_tpu/ops/solve.py``).
 
-The free-free block is symmetrically Jacobi-scaled before the Cholesky
-(beam stiffness entries span ~8 orders of magnitude between axial and
-rotational DOFs), and ``solve_factored`` runs iterative refinement rounds
-so float32 solves recover near-working precision.  PCG and the
-matrix-free operators are not ported yet (ROADMAP.md, Queue A item 5).
+``solve_dense`` is the reference's LU solve of the free-free block, with
+an optional minimum-norm least-squares fallback for a singular block.  For
+the Cholesky path the free-free block is symmetrically Jacobi-scaled
+before the factorization (beam stiffness entries span ~8 orders of
+magnitude between axial and rotational DOFs), and ``solve_factored`` runs
+iterative refinement rounds so float32 solves recover near-working
+precision.  PCG and the matrix-free operators are not ported yet
+(ROADMAP.md, Queue A item 5).
 """
 from __future__ import annotations
 
@@ -27,6 +30,58 @@ def free_fixed_dofs(fixed_mask) -> tuple[np.ndarray, np.ndarray]:
 def dof_free_mask(fixed_mask: torch.Tensor) -> torch.Tensor:
     """[n_dof] bool mask: True on free DOFs."""
     return torch.logical_not(fixed_mask).repeat_interleave(6)
+
+
+def _min_norm_lstsq(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Minimum-norm least-squares solution of the symmetric system A x = b.
+
+    Rows and columns that are exactly zero (a DOF no element touches) are
+    decoupled: their unknowns are 0 in the minimum-norm solution, whatever
+    b holds there, and are set so exactly.  The rest is solved through
+    ``eigh`` with LAPACK ``gelsd``'s default cutoff, eigenvalues at most
+    eps * n * max |lambda| dropped.  ``torch.linalg.lstsq`` is not used: on
+    CUDA it offers only the full-rank ``gels`` routine.
+    """
+    live = torch.nonzero(torch.any(A != 0, dim=1)).reshape(-1)
+    A_l = A[live][:, live]
+    lam, V = torch.linalg.eigh(A_l)
+    cut = torch.finfo(A.dtype).eps * A.shape[0] * lam.abs().max()
+    inv = torch.where(lam.abs() > cut, 1.0 / torch.where(lam == 0, 1.0, lam),
+                      0.0)
+    x = torch.zeros_like(b)
+    x[live] = V @ (inv * (V.mT @ b[live]))
+    return x
+
+
+def solve_dense(K: torch.Tensor, F: torch.Tensor, free_dofs,
+                lstsq_fallback: bool = False) -> torch.Tensor:
+    """U (full length, zeros at fixed DOFs) from dense K and the load vector
+    F: LU solve of the free-free block, as the reference's solver does.
+
+    With ``lstsq_fallback`` a singular block (the LU reports a zero pivot or
+    gives a non-finite solution) is solved instead by the minimum-norm
+    least squares of :func:`_min_norm_lstsq`; that check reads the LU's
+    status on the host.
+    """
+    free = torch.as_tensor(free_dofs, device=K.device)
+    K_ff = K[free][:, free]
+    F_f = F[free]
+    U_f, info = torch.linalg.solve_ex(K_ff, F_f)
+    if lstsq_fallback and (int(info) != 0
+                           or not bool(torch.isfinite(U_f).all())):
+        U_f = _min_norm_lstsq(K_ff, F_f)
+    U = torch.zeros_like(F)
+    U[free] = U_f
+    return U
+
+
+def reactions_dense(K: torch.Tensor, U: torch.Tensor, F: torch.Tensor,
+                    fixed_dofs) -> torch.Tensor:
+    """R = K U - F at the fixed DOFs, shaped [..., n_fixed_nodes, 6] for
+    ``U``/``F`` of shape [..., n_dof]."""
+    R = U @ K.mT - F
+    fixed = torch.as_tensor(fixed_dofs, device=K.device)
+    return R[..., fixed].reshape(*U.shape[:-1], -1, 6)
 
 
 class DenseFactor(NamedTuple):

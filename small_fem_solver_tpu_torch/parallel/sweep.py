@@ -6,8 +6,8 @@ case axis on every tensor field; a batch of load cases is one
 :class:`~..api.LoadCase` whose numeric fields are ``[C]`` tensors.  Both
 feed :func:`~..api.design_envelope_condensed`.
 
-``design_sweep`` and ``critical_case`` run the pointwise ``analyze`` path,
-which is not ported yet (ROADMAP.md, Queue A item 2).
+``design_sweep`` and ``critical_case`` are not ported yet (ROADMAP.md,
+Queue A item 4).
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ import torch
 
 from ..api import LoadCase
 from ..ops.fenton import fenton_wave_batch
+from ..ops.stokes import stokes_wave
 from ..ops.waves import FourierWave, airy_wave, stack_waves
 
 __all__ = ["make_case_batch", "make_wave_batch", "stack_waves"]
@@ -28,8 +29,8 @@ def make_wave_batch(H, T, d, U_c=0.0, model: str = "stokes", N: int = 5,
                     device=None) -> FourierWave:
     """A batched FourierWave from arrays of (H, T) [and scalar d, U_c].
 
-    'airy' builds each case and stacks them; 'fenton' runs one batched
-    float64 Newton over all cases on the CPU
+    'airy' and 'stokes' (order min(N, 5)) build each case and stack them;
+    'fenton' runs one batched float64 Newton over all cases on the CPU
     (:func:`..ops.fenton.fenton_wave_batch`).  ``device=None`` is the CUDA
     card.
     """
@@ -40,9 +41,10 @@ def make_wave_batch(H, T, d, U_c=0.0, model: str = "stokes", N: int = 5,
                                      dtype=dtype, device=device)
                            for h, t in zip(H, T))
     if model == "stokes":
-        raise NotImplementedError(
-            "Stokes waves are not ported yet (ROADMAP.md, Queue A item 1: "
-            "Stokes waves and auto selection)")
+        return stack_waves(stokes_wave(h, t, d, U_c, order=min(N, 5),
+                                       n_modes=n_modes, dtype=dtype,
+                                       device=device)
+                           for h, t in zip(H, T))
     if model == "fenton":
         return fenton_wave_batch(H, T, d, U_c, N=N, n_modes=n_modes,
                                  dtype=dtype, device=device)

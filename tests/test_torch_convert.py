@@ -81,7 +81,7 @@ def test_converted_case_and_wave():
     tc = port_case(case)
     assert tc == pt.LoadCase(wave_dir_deg=38.0, F_shear_kN=2900.0,
                              sw_mode="calculated")
-    cast = tc.cast(torch.float32)
+    cast = tc.cast(torch.float32, "cpu")
     assert cast.E.dtype == torch.float32 and cast.sw_mode == "calculated"
     jw = sf.airy_wave(9.5, 9.4, 50.0, 1.2, n_modes=3, dtype=jnp.float32)
     tw = port_wave(jw, torch.float32)

@@ -5,6 +5,8 @@ This file imports no JAX, so it also runs on a GPU host without JAX:
 ``python3 -m pytest --noconftest -q -p no:cacheprovider tests/test_torch_cuda.py``.
 """
 import dataclasses
+import json
+import pathlib
 
 import pytest
 import torch
@@ -23,6 +25,7 @@ KERNEL_TOL = 1e-5   # f32 kernel vs f64 plain, relative to the largest value
 SWEEP_TOL_F64 = 1e-12   # f64 sweep kernel vs f64 plain (sum order only)
 STORM = dict(wave_dir_deg=38.0, current_dir_deg=38.0, F_axial_kN=25100.0,
              F_shear_kN=2900.0, custom_sw_tonnes=1100.0, sw_mode="custom")
+GOLDEN_DIR = pathlib.Path(__file__).parent / "golden"
 
 
 def _device():
@@ -277,3 +280,64 @@ def test_chain_sweep_strided_layouts(B):
     for a, b in zip(hk.chain_sweep_cuda(deep, g),
                     chain_sweep_plain(deep, g)):
         assert _rel(a, b) < 1e-10
+
+
+def _rel_fields(a, b, names):
+    return {n: _rel(getattr(a, n).cpu(), getattr(b, n)) for n in names}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["lu", "chol"])
+def test_analyze_on_card_equals_cpu(solver):
+    """``analyze`` in f64 on the card (cuSOLVER) against the same call on
+    the CPU, and ``analyze_condensed`` (the chain-sweep kernel in f64)
+    against its CPU run, every field within 1e-10."""
+    dev = _device()
+    case = pt.LoadCase(**STORM, t_analysis=0.34)
+    fields = ("U", "reactions", "F_applied", "F1_local", "F2_local",
+              "von_mises", "utilization", "total_reaction")
+    runs = {}
+    for d in ("cpu", dev):
+        coarse = pt.default_3leg_jacket(device=d)
+        wave = pt.make_wave(17.038, 9.4, 50.0, U_c=1.7, model="fenton", N=12,
+                            device=d)
+        runs[str(d)] = (
+            pt.analyze(coarse, wave, case, solver=solver),
+            pt.analyze_condensed(coarse, pt.refine_model(coarse, 8), 8,
+                                 wave, case, accel="fd"))
+    (dense, cond), (dense_c, cond_c) = runs[str(dev)], runs["cpu"]
+    assert dense.U.device.type == "cuda"
+    errs = {**_rel_fields(dense, dense_c, fields),
+            **{f"condensed {k}": v for k, v in
+               _rel_fields(cond, cond_c, fields).items()}}
+    assert max(errs.values()) <= 1e-10, errs
+
+
+@pytest.mark.cuda
+def test_singular_lstsq_fallback_on_card():
+    """The reference's singular golden (an orphan node) on the card: the
+    minimum-norm fallback within 1e-6 of the reference's LAPACK gelsd
+    answer, the orphan's DOFs exactly 0."""
+    dev = _device()
+    g = json.loads((GOLDEN_DIR / "singular_case.json").read_text())
+    p, geom = g["params"], g["geometry"]
+    model = pt.build_model({k: tuple(v) for k, v in geom["nodes"].items()},
+                           geom["members"], geom["fixed"], geom["top"],
+                           leg_section=(p["D_leg"], p["t_leg"]),
+                           brace_section=(p["D_brace"], p["t_brace"]),
+                           rho_steel=p["rho_steel"], device=dev)
+    wave = pt.airy_wave(p["H"], p["T"], p["d"], p["U_c"], device=dev)
+    case = pt.LoadCase(
+        E=p["E"], nu=p["nu"], fy=p["fy"], rho_water=p["rho_water"],
+        wave_dir_deg=p["wave_dir"], current_dir_deg=p["current_dir"],
+        Cd=p["Cd"], Cm=p["Cm"], F_axial_kN=p["F_axial_kN"],
+        F_shear_kN=p["F_shear_kN"], M_moment_kNm=p["M_moment_kNm"],
+        M_torsion_kNm=p["M_torsion_kNm"],
+        custom_sw_tonnes=p.get("custom_sw_tonnes", 0.0),
+        t_analysis=p["t_analysis"], sw_mode=p["sw_mode"])
+    res = pt.analyze(model, wave, case, solver="lu", lstsq_fallback=True)
+    U_ref = torch.tensor(g["fem"]["U"], dtype=torch.float64)
+    assert res.U.device.type == "cuda"
+    assert _rel(res.U.cpu(), U_ref) <= 1e-6
+    orphan = model.node_index("ZZ_ORPHAN")
+    assert torch.all(res.U.reshape(-1, 6)[orphan] == 0.0)

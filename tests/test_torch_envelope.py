@@ -145,8 +145,8 @@ def test_envelope_guards(port_setup):
         run(pt.make_case_batch(pt.LoadCase(**BASE), wave_dir_deg=[0.0, 1.0]))
     with pytest.raises(ValueError, match="unknown kinematics"):
         run(kinematics="magic")
-    with pytest.raises(NotImplementedError, match="Queue A item 1"):
-        pt.make_wave_batch(HS, 9.4, 50.0, model="stokes")
+    with pytest.raises(ValueError, match="unknown wave model"):
+        pt.make_wave_batch(HS, 9.4, 50.0, model="cnoidal", device="cpu")
 
 
 def test_fenton_wave_batch_matches_jax_and_single_solves():

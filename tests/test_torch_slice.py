@@ -177,8 +177,9 @@ def test_unported_options_raise():
     _, _, _, tc, tr, tw = _setup(jnp.float64, torch.float64)
     case = pt.LoadCase(**CASE)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.phase_scan_condensed(tc, tr, N_SEG, tw, case, n_steps=2,
-                                kinematics="pointwise")
+        pt.analyze(tc, tw, case, solver="pcg")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pt.analyze(tc, tw, case, solver="pcg", mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt.prepare_condensed(tc, tr, N_SEG, support_stiffness=[1e9] * 6)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

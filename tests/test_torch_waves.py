@@ -63,9 +63,13 @@ def test_fenton_wave_float32_cast_and_padding():
 
 
 def test_unported_wave_models_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.make_wave(9.5, 9.4, 50.0, model="stokes", N=5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.make_wave(9.5, 9.4, 50.0)
+    """Every wave theory of the JAX package is ported (Stokes and the auto
+    selection since the reference slice); an unknown one raises, and so
+    does a Stokes order outside 1..5."""
+    assert pt.make_wave(9.5, 9.4, 50.0, model="stokes", N=5,
+                        device="cpu").model == "stokes"
+    assert pt.make_wave(2.5, 9.4, 50.0, device="cpu").order == 3
     with pytest.raises(ValueError):
-        pt.make_wave(9.5, 9.4, 50.0, model="cnoidal")
+        pt.make_wave(9.5, 9.4, 50.0, model="cnoidal", device="cpu")
+    with pytest.raises(ValueError, match="order"):
+        pt.stokes_wave(9.5, 9.4, 50.0, order=6, device="cpu")
