@@ -644,10 +644,12 @@ _PREP_CACHE: dict = {}
 def _cached_prepared(coarse, refined, n_seg, case, chain_solver, solve_dtype,
                      support_stiffness) -> CondensedPrepared:
     """prepare_condensed memoized on model identity + material + solver
-    config (bounded; holds strong model references so the id keys stay
-    valid)."""
+    config + foundation springs (bounded; holds strong model references so
+    the id keys stay valid)."""
+    ss_key = None if support_stiffness is None \
+        else np.asarray(support_stiffness, np.float64).tobytes()
     key = (id(coarse), id(refined), n_seg, float(case.E), float(case.nu),
-           chain_solver, str(solve_dtype))
+           chain_solver, str(solve_dtype), ss_key)
     hit = _PREP_CACHE.get(key)
     if hit is None:
         if len(_PREP_CACHE) >= 4:
