@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from functools import partial
 from typing import NamedTuple
 
@@ -60,10 +61,8 @@ from .ops.morison import (MorisonLoads, hydro_members, morison_end_forces,
                           morison_loads)
 from .ops.sections import TubeSections, von_mises_8pt
 from .ops.waves import FourierWave
-
-_NOT_PORTED_LOADS = ("is not ported yet (ROADMAP.md, Queue A item 3: model "
-                     "and load options)")
-
+from .ops.wind import (wind_member_ends, wind_member_forces,
+                       wind_topside_force)
 
 @dataclasses.dataclass(frozen=True)
 class LoadCase:
@@ -88,9 +87,10 @@ class LoadCase:
     marine_growth_mm: float = 0.0  # adds 2 t to the hydrodynamic diameter
     # static:
     sw_mode: str = "custom"        # 'custom' | 'calculated' | 'none'
-    buoyancy: str = "none"         # only 'none' is ported
+    buoyancy: str = "none"         # 'none' | 'sealed' | 'flooded' |
+                                   # 'legs-flooded'
     slam_cs: float = 0.0           # slamming: pointwise paths only
-    wind_speed_ms: float = 0.0     # only 0 (no wind) is ported
+    wind_speed_ms: float = 0.0     # 1-hour mean at 10 m; 0: no wind
     wind_dir_deg: float = 0.0
     wind_Cs: float = 0.5
     wind_topside_area_m2: float = 0.0
@@ -137,6 +137,11 @@ class AnalysisResults(NamedTuple):
     max_displacement_mm: torch.Tensor
     max_displacement_node: torch.Tensor   # int index
     total_reaction: torch.Tensor   # [6] sums of reaction components
+    # iterative-solver and second-order diagnostics of the JAX package's
+    # PCG and P-delta paths (not ported yet: always None here)
+    solver_iters: torch.Tensor | None = None
+    solver_residual: torch.Tensor | None = None
+    pdelta_amplification: torch.Tensor | None = None
 
 
 class CondensedScanResults(NamedTuple):
@@ -168,9 +173,9 @@ class EnvelopeResults(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class CondensedPrepared:
     """Case-independent factorization handle for repeated condensed scans:
-    everything that depends only on (model, E, nu) — the refined element
-    stiffness, the chain factorization, the interface Cholesky and the
-    stress-recovery fold."""
+    everything that depends only on (model, E, nu, foundation springs) —
+    the refined element stiffness, the chain factorization, the interface
+    Cholesky and the stress-recovery fold."""
 
     coarse: JacketModel
     refined: JacketModel
@@ -178,8 +183,9 @@ class CondensedPrepared:
     KT: torch.Tensor         # [Mr, 12, 12] K_local @ T recovery fold
     L_m: torch.Tensor        # [Mr] refined element lengths [m]
     fac: object              # ChainFactor / NestedChainFactor
-    dfac: solve_mod.DenseFactor
-    K_I: torch.Tensor        # [6 nc, 6 nc] interface stiffness
+    dfac: solve_mod.DenseFactor  # of the spring-grounded interface system
+    K_I: torch.Tensor        # [6 nc, 6 nc] springless interface stiffness
+    ks_nodes: torch.Tensor | None  # [nc, 6] foundation springs, or None
     free: torch.Tensor
     fixed: torch.Tensor
     E: torch.Tensor
@@ -219,11 +225,56 @@ def _topside_per_node(case: LoadCase, top_mask, dtype) -> torch.Tensor:
     ])
 
 
-def _check_loads_ported(case: LoadCase) -> None:
-    if case.buoyancy != "none":
-        raise NotImplementedError(f"buoyancy {_NOT_PORTED_LOADS}")
-    if case.wind_speed_ms:
-        raise NotImplementedError(f"wind loading {_NOT_PORTED_LOADS}")
+def _member_buoyancy(coords, conn, sec: TubeSections, sect_id, member_types,
+                     rho_water, mode: str, L_m):
+    """Still-water buoyant uplift per member: (F_b [M] in N, +up; c [M],
+    the wetted span's centroid in [0, 1] from node 1).
+
+    The displaced area is the full pi D^2 / 4 of a 'sealed' member and the
+    steel annulus of a 'flooded' one ('legs-flooded' floods the legs and
+    seals the rest), on the bare steel OD (marine growth earns no credit).
+    """
+    dtype = coords.dtype
+    D_m = sec.D_outer[sect_id] / 1000.0
+    A_sealed = math.pi * D_m**2 / 4.0                      # m^2
+    A_flooded = sec.Ax[sect_id] * 1e-6
+    if mode == "sealed":
+        A = A_sealed
+    elif mode == "flooded":
+        A = A_flooded
+    elif mode == "legs-flooded":
+        types = member_types or ("brace",) * conn.shape[0]
+        is_leg = torch.tensor([t == "leg" for t in types],
+                              device=coords.device)
+        A = torch.where(is_leg, A_flooded, A_sealed)
+    else:
+        raise ValueError(f"unknown buoyancy mode {mode!r}; use "
+                         "'none', 'sealed', 'flooded' or 'legs-flooded'")
+    # wetted parameter span [a, b] of z(t) < 0, t from node 1 to node 2
+    z1, z2 = coords[conn[:, 0], 2], coords[conn[:, 1], 2]
+    slope = z2 - z1
+    near0 = torch.abs(slope) < 1e-9
+    t0 = -z1 / torch.where(near0, torch.ones_like(slope), slope)
+    tc = torch.clamp(t0, 0.0, 1.0)
+    zero, one = torch.zeros_like(slope), torch.ones_like(slope)
+    a = torch.where(near0, zero, torch.where(slope > 0, zero, tc))
+    b = torch.where(near0, (z1 < 0.0).to(dtype),
+                    torch.where(slope > 0, tc, one))
+    wet = torch.clamp(b - a, min=0.0)
+    c = torch.where(wet > 0, (a + b) / 2.0, 0.5 * one)
+    F_b = rho_water * G_GRAV * A * L_m * wet               # N, +up
+    return F_b.to(dtype), c.to(dtype)
+
+
+def _wind_topside(coords, top_mask, case: LoadCase, dtype):
+    """Per-top-node wind block force (Fx, Fy) in N and the top mask."""
+    top = top_mask.to(dtype)
+    n_top = torch.clamp(torch.sum(top), min=1.0)
+    z_top = torch.sum(coords[:, 2].to(dtype) * top) / n_top
+    per = wind_topside_force(case.wind_speed_ms, case.wind_topside_area_m2,
+                             z_top, Cs=case.wind_topside_Cs).to(dtype) / n_top
+    th = math.radians(90.0 - case.wind_dir_deg)
+    return top * per * math.cos(th), top * per * math.sin(th)
 
 
 def assemble_loads(model: JacketModel, case: LoadCase,
@@ -231,27 +282,45 @@ def assemble_loads(model: JacketModel, case: LoadCase,
                    L_m: torch.Tensor) -> torch.Tensor:
     """Global load vector [..., n_dof] (N / N*mm) from the Morison nodal
     forces [..., n_nodes, 3] (a leading phase axis rides along): topside
-    interface loads, Morison forces on the translation DOFs, self-weight.
+    interface loads, Morison forces on the translation DOFs, self-weight,
+    still-water buoyancy and wind (steady: the same for every phase).
     ``case`` must be cast (:meth:`LoadCase.cast`) to the model's dtype and
-    device."""
-    _check_loads_ported(case)
+    device.  Nodal sums run in a fixed order."""
     dtype, n = model.dtype, model.n_nodes
     batch = morison_nodal.shape[:-2]
     top = model.top_mask.to(dtype)
     per_top = _topside_per_node(case, model.top_mask, dtype)
     F = (top[:, None] * per_top[None, :]).expand(*batch, n, 6).clone()
     F[..., :3] += morison_nodal
+    table = None
+    if case.sw_mode == "calculated" or case.buoyancy != "none":
+        table = node_gather_table(torch.cat([model.conn[:, 0],
+                                             model.conn[:, 1]]), n)
     if case.sw_mode == "calculated":
         half = (model.sections.mass_per_m[model.sect_id] * G_GRAV * L_m
                 / 2.0)                                         # N
-        table = node_gather_table(torch.cat([model.conn[:, 0],
-                                             model.conn[:, 1]]), n)
         F[..., 2] -= node_sum_ordered(torch.cat([half, half])[:, None],
                                       table)[:, 0]
     elif case.sw_mode == "custom":
         F[..., 2] -= case.custom_sw_tonnes * 1000.0 * G_GRAV / n
     elif case.sw_mode != "none":
         raise ValueError(f"unknown self-weight mode {case.sw_mode!r}")
+    if case.buoyancy != "none":
+        F_b, c = _member_buoyancy(model.coords, model.conn, model.sections,
+                                  model.sect_id, model.member_types,
+                                  case.rho_water, case.buoyancy, L_m)
+        F[..., 2] += node_sum_ordered(
+            torch.cat([F_b * (1.0 - c), F_b * c])[:, None], table)[:, 0]
+    if case.wind_speed_ms:
+        D_struct = model.sections.D_outer[model.sect_id] / 1000.0
+        F[..., :3] += wind_member_forces(model.coords, model.conn, D_struct,
+                                         case.wind_speed_ms,
+                                         case.wind_dir_deg,
+                                         Cs=case.wind_Cs)[0]
+        if case.wind_topside_area_m2:
+            fx, fy = _wind_topside(model.coords, model.top_mask, case, dtype)
+            F[..., 0] += fx
+            F[..., 1] += fy
     return F.reshape(*batch, -1)
 
 
@@ -304,16 +373,17 @@ def _chain_layout_loads(coarse: JacketModel, refined: JacketModel,
 
     Chain node p joins element p-1's far end and element p's near end, so
     every interior load is a slice sum; only the 2 Mc chain ends go onto
-    the coarse interface nodes.  ``F1``/``F2``: [S, Mr, 3] Morison member
-    end forces (N); ``L_m``: [Mr] refined element lengths (m).
+    the coarse interface nodes.  ``F1``/``F2``: [S, Mr + A, 3] Morison
+    member end forces (N), the A appurtenance rows last (their end forces
+    go to their coarse guide nodes); ``L_m``: [Mr] refined element lengths
+    (m).  Self-weight, buoyancy and wind are spread over the refined mesh.
     Returns (F_I_nodes [S, nc, 6], g [S, n_int, Mc, 6]).
     """
-    _check_loads_ported(case)
     dtype = F1.dtype
     nc, Mc = coarse.n_nodes, coarse.n_members
-    S = F1.shape[0]
-    F1c = F1.reshape(S, Mc, n_seg, 3)
-    F2c = F2.reshape(S, Mc, n_seg, 3)
+    S, Mr = F1.shape[0], Mc * n_seg
+    F1c = F1[:, :Mr].reshape(S, Mc, n_seg, 3)
+    F2c = F2[:, :Mr].reshape(S, Mc, n_seg, 3)
 
     g3 = F2c[:, :, :-1] + F1c[:, :, 1:]                 # [S, Mc, n_int, 3]
     g = torch.cat([g3, torch.zeros_like(g3)], dim=-1)
@@ -323,7 +393,12 @@ def _chain_layout_loads(coarse: JacketModel, refined: JacketModel,
     F_I = (top[:, None] * per_top[None, :]).expand(S, nc, 6).clone()
     nodes = torch.cat([coarse.conn[:, 0], coarse.conn[:, 1]])
     ends = torch.cat([F1c[:, :, 0], F2c[:, :, -1]], dim=1)   # [S, 2Mc, 3]
-    F_I[..., :3] += condense_mod.node_sum(ends, nodes, nc)
+    end_nodes = nodes
+    if F1.shape[1] > Mr:   # appurtenance end forces -> their guide nodes
+        ends = torch.cat([ends, F1[:, Mr:], F2[:, Mr:]], dim=1)
+        end_nodes = torch.cat([nodes, coarse.app_conn[:, 0],
+                               coarse.app_conn[:, 1]])
+    F_I[..., :3] += condense_mod.node_sum(ends, end_nodes, nc)
 
     if case.sw_mode == "calculated":
         mass_per_m = refined.sections.mass_per_m[refined.sect_id]
@@ -339,20 +414,66 @@ def _chain_layout_loads(coarse: JacketModel, refined: JacketModel,
         F_I[..., 2] += -per_node
     elif case.sw_mode != "none":
         raise ValueError(f"unknown self-weight mode {case.sw_mode!r}")
+
+    def add_member_ends(w1, w2, cols):
+        """Refined member end loads w1/w2 [Mc, n_seg, c] onto the chain
+        nodes and the interface nodes (columns ``cols``)."""
+        g[..., cols] += w2[:, :-1] + w1[:, 1:]
+        F_I[..., cols] += condense_mod.node_sum(
+            torch.cat([w1[:, 0], w2[:, -1]]), nodes, nc)
+
+    if case.buoyancy != "none":
+        F_b, cw = _member_buoyancy(refined.coords, refined.conn,
+                                   refined.sections, refined.sect_id,
+                                   refined.member_types, case.rho_water,
+                                   case.buoyancy, L_m)
+        add_member_ends((F_b * (1.0 - cw)).reshape(Mc, n_seg, 1).to(dtype),
+                        (F_b * cw).reshape(Mc, n_seg, 1).to(dtype),
+                        slice(2, 3))
+    if case.wind_speed_ms:
+        D_struct = (refined.sections.D_outer[refined.sect_id]
+                    / 1000.0).to(dtype)
+        F1w, F2w = wind_member_ends(refined.coords.to(dtype), refined.conn,
+                                    D_struct, case.wind_speed_ms,
+                                    case.wind_dir_deg, Cs=case.wind_Cs)
+        add_member_ends(F1w.reshape(Mc, n_seg, 3), F2w.reshape(Mc, n_seg, 3),
+                        slice(0, 3))
+        if case.wind_topside_area_m2:
+            fx, fy = _wind_topside(coarse.coords, coarse.top_mask, case,
+                                   dtype)
+            F_I[..., 0] += fx
+            F_I[..., 1] += fy
     return F_I, g.transpose(1, 2)
 
 
-def _ssi_spring_nodes(coarse: JacketModel, support_stiffness):
-    """(free_np, fixed_np) DOF index arrays of the clamped supports;
-    foundation springs (SSI) are not ported yet."""
-    if support_stiffness is not None:
-        raise NotImplementedError(
-            f"foundation springs (support_stiffness) {_NOT_PORTED_LOADS}")
-    return solve_mod.free_fixed_dofs(coarse.fixed_mask)
+def _ssi_spring_nodes(coarse: JacketModel, support_stiffness, solve_dtype):
+    """Foundation-spring set-up of the spring-supported paths: (ks_nodes,
+    free_np, fixed_np) with ``ks_nodes`` the [nc, 6] spring diagonal on
+    the model's device (zero off the supports; ``None`` when clamped) and
+    the free / fixed DOF index arrays: with springs every DOF is free."""
+    free_np, fixed_np = solve_mod.free_fixed_dofs(coarse.fixed_mask)
+    if support_stiffness is None:
+        return None, free_np, fixed_np
+    ks = solve_mod.support_spring_nodes(coarse.fixed_mask, support_stiffness)
+    return (torch.as_tensor(ks, dtype=solve_dtype, device=coarse.device),
+            np.arange(6 * coarse.n_nodes), fixed_np)
 
 
-def _refine_mask(coarse: JacketModel, solve_dtype):
-    """Free-equation mask [nc, 6] for the refinement residual."""
+def _spring_dfac(K, ks_nodes, free) -> solve_mod.DenseFactor:
+    """Factor K, grounded through the foundation springs when there are
+    any.  K itself stays springless, so the reaction recovery
+    ``R = K U - F`` gives the spring forces exactly."""
+    if ks_nodes is None:
+        return solve_mod.factor_dense(K, free)
+    return solve_mod.factor_dense(K + torch.diag(ks_nodes.reshape(-1)), free)
+
+
+def _refine_mask(coarse: JacketModel, ks_nodes, solve_dtype):
+    """Free-equation mask [nc, 6] for the refinement residual: clamped rows
+    are zeroed; with springs nothing is clamped."""
+    if ks_nodes is not None:
+        return torch.ones(coarse.n_nodes, 6, dtype=solve_dtype,
+                          device=coarse.device)
     return solve_mod.dof_free_mask(coarse.fixed_mask).to(solve_dtype) \
         .reshape(coarse.n_nodes, 6)
 
@@ -376,13 +497,19 @@ def _condensed_solve(F_I_nodes, g, fac, dfac, _condense, _backsub, node1,
 
 
 def _refine_condensed(Kg, n_seg, conn_coarse, fixed_free_mask, solve_once,
-                      F_I_nodes, g, U_In, v, U_I, refine_steps):
+                      F_I_nodes, g, U_In, v, U_I, refine_steps,
+                      ks_nodes=None):
     """Iterative refinement in the chain layout: residual via
-    ``chain_matvec``, one more condensed solve per round."""
+    ``chain_matvec``, one more condensed solve per round.  ``ks_nodes``
+    ([nc, 6] foundation springs) joins the residual: the solved operator
+    is K + diag(ks)."""
     for _ in range(refine_steps):
         y_I, y_int = condense_mod.chain_matvec(Kg, n_seg, conn_coarse,
                                                U_In, v)
-        r_I = (F_I_nodes - y_I) * fixed_free_mask      # fixed rows -> 0
+        r_I = F_I_nodes - y_I
+        if ks_nodes is not None:
+            r_I = r_I - ks_nodes * U_In
+        r_I = r_I * fixed_free_mask                    # fixed rows -> 0
         dU_In, dv, _, dU_I = solve_once(r_I, g - y_int)
         U_In, v, U_I = U_In + dU_In, v + dv, U_I + dU_I
     return U_In, v, U_I
@@ -498,8 +625,8 @@ def _condensed_solution(prep: "CondensedPrepared", F_I_nodes, g,
     if refine_steps > 0:
         U_In, v, U_I = _refine_condensed(
             prep.Kg, prep.n_seg, coarse.conn,
-            _refine_mask(coarse, prep.K_I.dtype), solve_once, F_I_nodes, g,
-            U_In, v, U_I, refine_steps)
+            _refine_mask(coarse, prep.ks_nodes, prep.K_I.dtype), solve_once,
+            F_I_nodes, g, U_In, v, U_I, refine_steps, prep.ks_nodes)
     return U_In, v, F_cond_flat, U_I
 
 
@@ -526,10 +653,15 @@ def prepare_condensed(coarse: JacketModel, refined: JacketModel, n_seg: int,
                       solve_dtype: torch.dtype = torch.float64,
                       support_stiffness=None) -> CondensedPrepared:
     """Factor the case-independent part of the condensed scan once: the
-    refined element stiffness, the chain factorization, the interface
-    Cholesky and the recovery fold depend only on (model, E, nu)."""
+    refined element stiffness (end releases condensed), the chain
+    factorization, the interface Cholesky and the recovery fold depend
+    only on (model, E, nu, springs).  ``support_stiffness`` ([6] or
+    [n_fixed, 6], N/mm and N*mm/rad) puts the supports on foundation
+    springs: they ground the interface factorization, and the handle's
+    reactions are the spring forces."""
     _check_refined_layout(coarse, refined, n_seg)
-    free_np, fixed_np = _ssi_spring_nodes(coarse, support_stiffness)
+    ks_nodes, free_np, fixed_np = _ssi_spring_nodes(coarse, support_stiffness,
+                                                    solve_dtype)
     resolved = _resolve_chain_solver(n_seg, chain_solver)
     device = refined.device
     free = torch.as_tensor(free_np, device=device)
@@ -540,15 +672,16 @@ def prepare_condensed(coarse: JacketModel, refined: JacketModel, n_seg: int,
         G = E / (2.0 * (1.0 + nu))
         Kg, K_local, T, L_m = element_stiffness(
             refined.coords.to(solve_dtype), refined.conn,
-            refined.sections.to(solve_dtype), refined.sect_id, E, G)
+            refined.sections.to(solve_dtype), refined.sect_id, E, G,
+            release=refined.release)
         fac = _chain_fns(resolved)[0](Kg, n_seg)
         K_I = assemble_dense(fac.K_super, coarse.conn, 6 * coarse.n_nodes)
-        dfac = solve_mod.factor_dense(K_I, free)
+        dfac = _spring_dfac(K_I, ks_nodes, free)
         KT = K_local @ T
     return CondensedPrepared(
         coarse=coarse, refined=refined, Kg=Kg, KT=KT, L_m=L_m, fac=fac,
-        dfac=dfac, K_I=K_I, free=free, fixed=fixed, E=E, nu=nu,
-        n_seg=n_seg, chain_solver=resolved)
+        dfac=dfac, K_I=K_I, ks_nodes=ks_nodes, free=free, fixed=fixed, E=E,
+        nu=nu, n_seg=n_seg, chain_solver=resolved)
 
 
 def _scan_prepared(prep: CondensedPrepared, wave, case: LoadCase, n_steps,
@@ -703,7 +836,7 @@ def _dense_system(model: JacketModel, case: LoadCase):
     G = case.E / (2.0 * (1.0 + case.nu))
     Kg, K_local, T, L_m = element_stiffness(model.coords, model.conn,
                                             model.sections, model.sect_id,
-                                            case.E, G)
+                                            case.E, G, release=model.release)
     return assemble_dense(Kg, model.conn, model.n_dof), K_local, T, L_m
 
 
@@ -778,6 +911,31 @@ def analyze_phase_batch(model: JacketModel, wave: FourierWave,
                             mor)
 
 
+def analyze_ssi(model: JacketModel, wave: FourierWave, case: LoadCase,
+                support_stiffness, n_gauss: int = 15, accel: str = "fd",
+                stretching: str = "none",
+                current_alpha=None) -> AnalysisResults:
+    """Linear soil-structure interaction: :func:`analyze` with the rigid
+    support clamp replaced by a 6-DOF linear spring at each support node.
+
+    ``K + diag(k)`` is solved over all DOFs (Cholesky); the reactions are
+    recovered through the springless K, which gives exactly the spring
+    forces ``-k u_support``.  ``support_stiffness`` is [6] (every support
+    alike) or [n_fixed, 6], in N/mm for translations and N*mm/rad for
+    rotations; as k grows the clamped solution is recovered.  A dense
+    path, for the coarse model or mild refinements."""
+    case = case.cast(model.dtype, model.device)
+    ks_nodes, free, fixed = _ssi_spring_nodes(model, support_stiffness,
+                                              model.dtype)
+    with _full_f32_matmul():
+        mor = _pointwise_morison(model, wave, case, case.t_analysis, n_gauss,
+                                 accel, stretching, current_alpha)
+        K, K_local, T, L_m = _dense_system(model, case)
+        F = assemble_loads(model, case, mor.nodal_forces, L_m)
+        U = solve_mod.solve_factored(_spring_dfac(K, ks_nodes, free), F)
+        return _recover(model, case, K, U, F, fixed, K_local, T, L_m, mor)
+
+
 def _analyze_prepared(prep: CondensedPrepared, wave: FourierWave,
                       case: LoadCase, n_gauss, accel,
                       refine_steps) -> AnalysisResults:
@@ -844,7 +1002,7 @@ def analyze_condensed(coarse: JacketModel, refined: JacketModel, n_seg: int,
 
 
 # ---------------------------------------------------------------------------
-# Condensed design envelope
+# Design envelopes: dense and condensed
 # ---------------------------------------------------------------------------
 
 def _check_shared_material(cases: LoadCase) -> None:
@@ -855,6 +1013,97 @@ def _check_shared_material(cases: LoadCase) -> None:
             raise ValueError(
                 f"design envelopes share one stiffness factorization: "
                 f"case field {name!r} must be identical across the batch")
+
+
+def _case_batch(waves: FourierWave, cases: LoadCase, dtype, device):
+    """(C, cases with every numeric field a [C] tensor of ``dtype`` on
+    ``device``) for a wave batch of C cases; raises on a wave without a
+    case axis or a case field of another length."""
+    if waves.E.ndim != 2:
+        raise ValueError("waves must be a batch with a leading case axis "
+                         "(parallel.sweep.make_wave_batch / stack_waves)")
+    C = waves.E.shape[0]
+    for f in dataclasses.fields(cases):
+        v = getattr(cases, f.name)
+        if torch.is_tensor(v) and v.ndim > 0 and tuple(v.shape) != (C,):
+            raise ValueError(f"case field {f.name!r} has shape "
+                             f"{tuple(v.shape)}; the wave batch has {C} cases")
+    cases = cases.cast(dtype, device)
+    return C, dataclasses.replace(cases, **{
+        f.name: getattr(cases, f.name).expand(C)
+        for f in dataclasses.fields(cases)
+        if f.name not in LoadCase._STATIC_FIELDS})
+
+
+def design_envelope(model: JacketModel, waves: FourierWave, cases: LoadCase,
+                    n_steps: int = 36, n_gauss: int = 15, mesh=None,
+                    current_alpha=None, support_stiffness=None,
+                    stretching: str = "none") -> EnvelopeResults:
+    """Full-FEM storm envelope of a model: every case x every wave phase.
+
+    ``waves`` is a batched :class:`FourierWave` and ``cases`` a
+    :class:`LoadCase` with ``[C]`` numeric fields (see
+    ``parallel.sweep.make_wave_batch`` / ``make_case_batch``); E and nu
+    must be shared by all cases.  K is factored once (Cholesky; grounded
+    through ``support_stiffness`` springs, see :func:`analyze_ssi`).  Each
+    case's phase loads come from the separable Morison engine: on CUDA
+    tensors one launch of the Morison kernel per case, which computes in
+    float32 whatever the model's dtype; on the CPU its plain version in
+    the model's dtype.  Everything around those launches runs once for
+    the batch: the hydrodynamic set, the nodal sums and the load assembly
+    (``torch.func.vmap`` over the cases), then all C x S load vectors are
+    one multi-RHS solve, and the recovery is batched.  The result keeps
+    the full utilization field [C, S, M].
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "the case-sharded envelope (mesh=) is not ported yet (ROADMAP.md, "
+            "Queue A item 6: distribution)")
+    _check_shared_material(cases)
+    _check_no_slam(cases, "design_envelope")
+    dtype, dev = model.dtype, model.device
+    C, cases = _case_batch(waves, cases, dtype, dev)
+    ks_nodes, free, _ = _ssi_spring_nodes(model, support_stiffness, dtype)
+    # the kernel reads float32: cast its operands once for the batch, not
+    # once per launch (the plain version keeps the model's dtype)
+    kdt = torch.float32 if dev.type == "cuda" else dtype
+    fields = [f.name for f in dataclasses.fields(cases)
+              if f.name not in LoadCase._STATIC_FIELDS]
+    with _full_f32_matmul():
+        K, K_local, T, L_m = _dense_system(model, cases.case(0))
+        fac = _spring_dfac(K, ks_nodes, free)
+        ts = (torch.arange(n_steps, dtype=dtype, device=dev)
+              * waves.T.to(dtype)[:, None] / n_steps)          # [C, S]
+        conn_h = hydro_members(model, 0.0, 1.0, 1.0)[0]
+        D_h, Cd_h, Cm_h = torch.func.vmap(
+            lambda mg, cd, cm: hydro_members(model, mg, cd, cm)[1:])(
+                cases.marine_growth_mm, cases.Cd, cases.Cm)
+        per_case = [a.to(kdt) for a in (
+            D_h, cases.wave_dir_deg, cases.current_dir_deg, Cd_h, Cm_h,
+            cases.rho_water, ts)]
+        wk, coords = waves.to(kdt, dev), model.coords.to(kdt)
+        ends = [morison_end_forces_cuda(
+            wk.case(i), coords, conn_h, *(a[i] for a in per_case),
+            n_gauss=n_gauss, current_alpha=current_alpha,
+            stretching=stretching) for i in range(C)]
+        F1, F2, drag, inertia = (torch.stack(x) for x in zip(*ends))
+        F12 = torch.cat([F1, F2], dim=2)                   # [C, S, 2M', 3]
+        tot = (drag + inertia).to(dtype)
+        table = node_gather_table(torch.cat([conn_h[:, 0], conn_h[:, 1]]),
+                                  model.n_nodes)
+        nodal = node_sum_ordered(F12.to(dtype), table)     # [C, S, n, 3]
+        F = torch.func.vmap(lambda c, nodal_c: assemble_loads(
+            model, dataclasses.replace(cases, **dict(zip(fields, c))),
+            nodal_c, L_m))(tuple(getattr(cases, n) for n in fields), nodal)
+        U = solve_mod.solve_factored(fac, F.reshape(C * n_steps, -1))
+        F1 = matvec12(-(K_local @ T)[:, :6, :],
+                      U[:, element_dof_indices(model.conn)])
+        vm = von_mises_8pt(model.sections, model.sect_id,
+                           *(F1[..., c] for c in range(6)))
+        util = vm.reshape(C, n_steps, -1) / cases.fy[:, None, None]
+    return _envelope_from_reductions(
+        ts, torch.amax(util, dim=-1), torch.amax(util, dim=(0, 1)),
+        tot)._replace(utilization=util)
 
 
 def _envelope_from_reductions(ts, per_phase, member_envelope, tot):
@@ -932,26 +1181,14 @@ def design_envelope_condensed(coarse: JacketModel, refined: JacketModel,
     _morison_batch_fn(kinematics)   # 'fused' or 'separable' only
     if case_batch < 1:
         raise ValueError(f"case_batch must be >= 1, got {case_batch}")
-    if waves.E.ndim != 2:
-        raise ValueError("waves must be a batch with a leading case axis "
-                         "(parallel.sweep.make_wave_batch / stack_waves)")
-    C = waves.E.shape[0]
-    for f in dataclasses.fields(cases):
-        v = getattr(cases, f.name)
-        if torch.is_tensor(v) and v.ndim > 0 and tuple(v.shape) != (C,):
-            raise ValueError(f"case field {f.name!r} has shape "
-                             f"{tuple(v.shape)}; the wave batch has {C} cases")
+    # every numeric field as [C] in the solve dtype, so each case indexes
+    C, cases_s = _case_batch(waves, cases, solve_dtype, refined.device)
     prep = prepare_condensed(
         coarse, refined, n_seg, E=torch.as_tensor(cases.E).reshape(-1)[0],
         nu=torch.as_tensor(cases.nu).reshape(-1)[0],
         chain_solver=chain_solver, solve_dtype=solve_dtype,
         support_stiffness=support_stiffness)
-    # every numeric field as [C] in the solve dtype, so each case indexes
-    cases = cases.cast(solve_dtype, refined.device)
-    cases = dataclasses.replace(cases, **{
-        f.name: getattr(cases, f.name).expand(C)
-        for f in dataclasses.fields(cases)
-        if f.name not in LoadCase._STATIC_FIELDS})
+    cases = cases_s
     # One condensed solve of all cases is 1.7-3.2x faster on an H100, but
     # its float32 interface solve rounds differently from a per-case one:
     # 5.8e-5 off the per-case scans, though as close to float64 (PERF.md).

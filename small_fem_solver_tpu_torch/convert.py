@@ -30,12 +30,17 @@ def _index(a, device) -> torch.Tensor:
 
 def model_from_numpy(coords, conn, sect_id, sections: dict, fixed_mask,
                      top_mask, node_names=(), member_names=(),
-                     member_types=(), app_conn=None, release=None,
-                     device=None,
+                     member_types=(), app_conn=None, app_D_mm=None,
+                     app_cd_mult=None, app_cm_mult=None, app_names=(),
+                     release=None, device=None,
                      dtype: torch.dtype = torch.float64) -> JacketModel:
     """A :class:`JacketModel` from a JAX model's leaves; ``sections`` maps
-    each ``TubeSections`` field name to its array."""
+    each ``TubeSections`` field name to its array; the appurtenance and
+    release leaves are ``None`` when the model has none."""
     device = resolve_device(device)
+
+    def optional(a, convert):
+        return None if a is None else convert(a)
     return JacketModel(
         coords=_float(coords, dtype, device),
         conn=_index(conn, device),
@@ -47,8 +52,12 @@ def model_from_numpy(coords, conn, sect_id, sections: dict, fixed_mask,
         top_mask=torch.tensor(np.array(top_mask, bool), device=device),
         node_names=tuple(node_names), member_names=tuple(member_names),
         member_types=tuple(member_types),
-        app_conn=None if app_conn is None else _index(app_conn, device),
-        release=None if release is None else _index(release, device))
+        app_conn=optional(app_conn, lambda a: _index(a, device)),
+        app_D_mm=optional(app_D_mm, lambda a: _float(a, dtype, device)),
+        app_cd_mult=optional(app_cd_mult, lambda a: _float(a, dtype, device)),
+        app_cm_mult=optional(app_cm_mult, lambda a: _float(a, dtype, device)),
+        app_names=tuple(app_names),
+        release=optional(release, lambda a: _index(a, device)))
 
 
 def wave_from_numpy(k, omega, c, d, U_c, H, T, E, U, clamp_z=False,
@@ -83,14 +92,15 @@ def _chain_factor(f: dict, dtype, device) -> ChainFactor:
 
 def prepared_from_numpy(coarse: JacketModel, refined: JacketModel, Kg, KT,
                         L_m, fac: dict, dfac: dict, K_I, free, fixed, E, nu,
-                        n_seg: int, chain_solver: str, device=None,
-                        dtype: torch.dtype = torch.float64
+                        n_seg: int, chain_solver: str, ks_nodes=None,
+                        device=None, dtype: torch.dtype = torch.float64
                         ) -> CondensedPrepared:
     """A :class:`CondensedPrepared` from a JAX handle's leaves.
 
     ``fac`` holds the ``ChainFactor`` fields, or for the nested solver
     ``K_super``, ``fac1`` and ``fac2`` (each a ``ChainFactor`` dict);
-    ``dfac`` holds the ``DenseFactor`` fields.
+    ``dfac`` holds the ``DenseFactor`` fields; ``ks_nodes`` the foundation
+    springs (``None``: clamped).
     """
     device = resolve_device(device)
     if "fac1" in fac:
@@ -109,6 +119,8 @@ def prepared_from_numpy(coarse: JacketModel, refined: JacketModel, Kg, KT,
         coarse=coarse, refined=refined, Kg=_float(Kg, dtype, device),
         KT=_float(KT, dtype, device), L_m=_float(L_m, dtype, device),
         fac=factor, dfac=dense, K_I=_float(K_I, dtype, device),
+        ks_nodes=None if ks_nodes is None else _float(ks_nodes, dtype,
+                                                      device),
         free=_index(free, device), fixed=_index(fixed, device),
         E=_float(E, dtype, device), nu=_float(nu, dtype, device),
         n_seg=int(n_seg), chain_solver=str(chain_solver))

@@ -10,9 +10,11 @@ stacked ``[M, 12, 12]`` tensors:
 - Timoshenko shear parameters Phi_y = 12 E Iz / (G Az L^2),
   Phi_z = 12 E Iy / (G Ay L^2);
 - lengths in mm (L_mm = 1000 L_m), E and G in MPa: K is N/mm per
-  translation DOF.
-
-Member end releases are not ported yet (ROADMAP.md, Queue A item 3).
+  translation DOF;
+- member end releases (a 2-bit code per member: bit 0 pins the node-1
+  end, bit 1 the node-2 end) statically condense the two local bending
+  rotations of a pinned end out of K_local before the rotation to global
+  axes.
 """
 from __future__ import annotations
 
@@ -116,10 +118,70 @@ def stiffness_coeffs(L_mm: torch.Tensor, sec: TubeSections, sect_id, E, G,
     ], dim=-1)
 
 
+def local_stiffness(L_mm: torch.Tensor, sec: TubeSections, sect_id, E, G,
+                    include_shear: bool = True) -> torch.Tensor:
+    """Stacked local stiffness ``K_local[M, 12, 12]`` in N/mm units."""
+    coeffs = stiffness_coeffs(L_mm, sec, sect_id, E, G, include_shear)
+    pat = torch.as_tensor(_KPAT, dtype=L_mm.dtype, device=L_mm.device)
+    return (coeffs @ pat).reshape(-1, 12, 12)
+
+
 def matvec12(A: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Batched matvec ``A[m] @ u[..., m, :]`` (``A``: [M, r, 12],
     ``u``: [..., M, 12]; result [..., M, r])."""
     return torch.einsum("mrj,...mj->...mr", A, u)
+
+
+# Member end releases: bit 0 pins the node-1 end, bit 1 the node-2 end.  A
+# pinned end releases its two local bending rotations (ry, rz); axial,
+# shear and torsion stay connected.
+RELEASE_NONE, RELEASE_PIN1, RELEASE_PIN2, RELEASE_PIN_BOTH = 0, 1, 2, 3
+_REL_MASKS = np.zeros((4, 12))
+_REL_MASKS[1, [4, 5]] = 1.0
+_REL_MASKS[2, [10, 11]] = 1.0
+_REL_MASKS[3, [4, 5, 10, 11]] = 1.0
+
+
+def _release_mask(release, ref: torch.Tensor) -> torch.Tensor:
+    """[M, 12] mask, 1 on the released DOFs of each member."""
+    masks = torch.as_tensor(_REL_MASKS, dtype=ref.dtype, device=ref.device)
+    return masks[torch.as_tensor(release, device=ref.device).long()]
+
+
+def release_transform(K_local: torch.Tensor, release) -> torch.Tensor:
+    """Kept-DOF expansion ``W [M, 12, 12]`` of the end releases:
+    ``u_full = W u_kept`` gives the released rotations their zero-moment
+    values ``u_r = -K_rr^{-1} K_rk u_k`` (exact static condensation), so
+    ``W^T K_local W`` is the released element stiffness and ``W^T K_G W``
+    the consistent projection of any other element matrix.
+
+    ``A = P K P + (I - P)`` is SPD for bending-rotation releases, so the
+    batched solve is a Cholesky."""
+    m = _release_mask(release, K_local)
+    eye = torch.eye(12, dtype=K_local.dtype, device=K_local.device)
+    A = K_local * m[:, :, None] * m[:, None, :] + eye * (1.0 - m)[:, :, None]
+    X = torch.cholesky_solve(K_local * m[:, :, None],
+                             torch.linalg.cholesky(A))       # A^-1 P K
+    return (eye - X) * (1.0 - m)[:, None, :]                 # released cols 0
+
+
+def apply_releases(K_local: torch.Tensor, release, W=None) -> torch.Tensor:
+    """Released local stiffness ``W^T K W`` with exact zeros on the released
+    rows and columns (the congruence leaves roundoff there)."""
+    if W is None:
+        W = release_transform(K_local, release)
+    keep = 1.0 - _release_mask(release, K_local)
+    return (W.mT @ K_local @ W) * keep[:, :, None] * keep[:, None, :]
+
+
+def release_W(coords: torch.Tensor, conn: torch.Tensor, sec: TubeSections,
+              sect_id, E, G, release) -> torch.Tensor:
+    """Local-frame release expansion ``W`` from the raw (uncondensed)
+    element stiffness, for projecting companion element matrices (the
+    geometric stiffness) consistently: ``K_G_released = W^T K_G W``."""
+    L = torch.linalg.norm(coords[conn[:, 1]] - coords[conn[:, 0]], dim=-1)
+    return release_transform(local_stiffness(L * 1000.0, sec, sect_id, E, G),
+                             release)
 
 
 def element_stiffness(coords: torch.Tensor, conn: torch.Tensor,
@@ -127,18 +189,17 @@ def element_stiffness(coords: torch.Tensor, conn: torch.Tensor,
                       include_shear: bool = True, release=None):
     """All per-element matrices in one shot:
     (K_global [M,12,12], K_local [M,12,12], T [M,12,12], L_m [M]) with
-    ``K_global = T^T K_local T``."""
-    if release is not None:
-        raise NotImplementedError(
-            "member end releases are not ported yet (ROADMAP.md, Queue A "
-            "item 3: model and load options)")
+    ``K_global = T^T K_local T``.  ``release`` ([M] codes, ``None``: all
+    rigid) condenses pinned end rotations out of K_local before the
+    rotation, so assembly, condensation chains and force recovery all see
+    the released element."""
     c1 = coords[conn[:, 0]]
     dL = coords[conn[:, 1]] - c1
     L = torch.linalg.norm(dL, dim=-1)
     T = transformation_matrices(local_axes(dL, L))
-    coeffs = stiffness_coeffs(L * 1000.0, sec, sect_id, E, G, include_shear)
-    pat = torch.as_tensor(_KPAT, dtype=L.dtype, device=L.device)
-    K_local = (coeffs @ pat).reshape(-1, 12, 12)
+    K_local = local_stiffness(L * 1000.0, sec, sect_id, E, G, include_shear)
+    if release is not None:
+        K_local = apply_releases(K_local, release)
     return T.transpose(-1, -2) @ K_local @ T, K_local, T, L
 
 

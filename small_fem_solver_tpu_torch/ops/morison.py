@@ -52,11 +52,23 @@ def hydro_diameter_m(sections, sect_id, marine_growth_mm=0.0):
 def hydro_members(model, marine_growth_mm, Cd, Cm):
     """Hydrodynamic segment set ``(conn_h, D_m_h, Cd_h, Cm_h)`` of a model.
 
-    The port's :class:`..models.model.JacketModel` refuses appurtenances,
-    so the set is the structural members with the scalar coefficients.
+    The structural members, then the model's appurtenances (hydro-only
+    segments, :func:`..models.model.add_appurtenances`) with their own
+    diameters, and their Cd/Cm multipliers folded into per-member [M + A]
+    coefficients.  Marine growth widens appurtenances like members.  With
+    no appurtenances the scalar ``Cd``/``Cm`` pass through unchanged.
     """
     D_m = hydro_diameter_m(model.sections, model.sect_id, marine_growth_mm)
-    return model.conn, D_m, Cd, Cm
+    if model.n_appurtenances == 0:
+        return model.conn, D_m, Cd, Cm
+    D_app = (model.app_D_mm.to(D_m.dtype) + 2.0 * marine_growth_mm) / 1000.0
+    ones = torch.ones(model.n_members, dtype=D_m.dtype, device=D_m.device)
+
+    def per_member(coef, mult):
+        return _as(coef, D_m) * torch.cat([ones, mult.to(D_m.dtype)])
+    return (torch.cat([model.conn, model.app_conn]), torch.cat([D_m, D_app]),
+            per_member(Cd, model.app_cd_mult),
+            per_member(Cm, model.app_cm_mult))
 
 
 def gauss_legendre_01(n: int, dtype=np.float64):

@@ -32,6 +32,44 @@ def dof_free_mask(fixed_mask: torch.Tensor) -> torch.Tensor:
     return torch.logical_not(fixed_mask).repeat_interleave(6)
 
 
+def support_spring_nodes(fixed_mask, support_stiffness) -> np.ndarray:
+    """Validated foundation-spring diagonal per node ([n_nodes, 6] numpy,
+    zero off the supports), shared by every spring-supported path.
+
+    ``support_stiffness`` is [6] (every support alike) or [n_fixed, 6], in
+    N/mm for translations and N*mm/rad for rotations.  Negative or
+    non-finite entries raise (a non-SPD system would give silent Cholesky
+    NaNs), and so does zero total translational stiffness in a direction
+    (a rigid-body mode).  Zero rotational springs (pinned pile heads) pass
+    unless there is a single support node.  Collinear supports with zero
+    rotational springs are not detected here.
+    """
+    fixed = np.asarray(torch.as_tensor(fixed_mask).cpu())
+    fixed_nodes = np.where(fixed)[0]
+    if fixed_nodes.size == 0:
+        raise ValueError("support_stiffness needs at least one support node")
+    k = np.broadcast_to(np.asarray(support_stiffness, np.float64),
+                        (fixed_nodes.size, 6))
+    if not (np.all(k >= 0) and np.isfinite(k).all()):  # negatives, NaN, inf
+        raise ValueError("support_stiffness entries must be finite and "
+                         f">= 0 (got {np.asarray(support_stiffness)!r})")
+    if np.any(k[:, :3].sum(axis=0) == 0):
+        raise ValueError(
+            "support_stiffness has zero total translational stiffness in "
+            "at least one direction: the structure would float (singular "
+            "system). Use a stiff spring (e.g. 1e13 N/mm) for a rigid "
+            "direction.")
+    if fixed_nodes.size == 1 and np.any(k[0, 3:] == 0):
+        raise ValueError(
+            "a SINGLE support node with a zero rotational spring leaves a "
+            "rigid-body rotation about that point (singular system); "
+            "pinned (zero-rotation) pile heads need >= 2 NON-COLLINEAR "
+            "support nodes or a stiff rotational spring")
+    ks = np.zeros((fixed.shape[0], 6))
+    ks[fixed_nodes] = k
+    return ks
+
+
 def _min_norm_lstsq(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Minimum-norm least-squares solution of the symmetric system A x = b.
 

@@ -1,13 +1,14 @@
-"""Case batches for design envelopes (PyTorch counterpart of the batch
-constructors of ``small_fem_solver_tpu/parallel/sweep.py``).
+"""Case batches and design sweeps (PyTorch counterpart of
+``small_fem_solver_tpu/parallel/sweep.py``).
 
 A batch of waves is one :class:`~..ops.waves.FourierWave` with a leading
 case axis on every tensor field; a batch of load cases is one
 :class:`~..api.LoadCase` whose numeric fields are ``[C]`` tensors.  Both
-feed :func:`~..api.design_envelope_condensed`.
-
-``design_sweep`` and ``critical_case`` are not ported yet (ROADMAP.md,
-Queue A item 4).
+feed the design envelopes (:func:`~..api.design_envelope`,
+:func:`~..api.design_envelope_condensed`) and :func:`design_sweep`, whose
+per-case pointwise loads run as one case-batched evaluation
+(``torch.func.vmap``).  The case-sharded sweep (``mesh=``) is not ported
+yet (ROADMAP.md, Queue A item 6).
 """
 from __future__ import annotations
 
@@ -16,12 +17,19 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..api import LoadCase
+from ..api import (AnalysisResults, LoadCase, _case_batch,
+                   _check_shared_material, _dense_system, _full_f32_matmul,
+                   _pointwise_morison, _recover, _spring_dfac,
+                   _ssi_spring_nodes, assemble_loads)
+from ..models.model import JacketModel
+from ..ops import solve as solve_mod
 from ..ops.fenton import fenton_wave_batch
+from ..ops.morison import POINTWISE_CHUNK_ELEMS
 from ..ops.stokes import stokes_wave
 from ..ops.waves import FourierWave, airy_wave, stack_waves
 
-__all__ = ["make_case_batch", "make_wave_batch", "stack_waves"]
+__all__ = ["critical_case", "design_sweep", "make_case_batch",
+           "make_wave_batch", "stack_waves"]
 
 
 def make_wave_batch(H, T, d, U_c=0.0, model: str = "stokes", N: int = 5,
@@ -29,10 +37,10 @@ def make_wave_batch(H, T, d, U_c=0.0, model: str = "stokes", N: int = 5,
                     device=None) -> FourierWave:
     """A batched FourierWave from arrays of (H, T) [and scalar d, U_c].
 
-    'airy' and 'stokes' (order min(N, 5)) build each case and stack them;
-    'fenton' runs one batched float64 Newton over all cases on the CPU
-    (:func:`..ops.fenton.fenton_wave_batch`).  ``device=None`` is the CUDA
-    card.
+    'airy' builds each case and stacks them; 'stokes' (order min(N, 5))
+    runs its elementwise float64 Newton once over all cases, and 'fenton'
+    one batched float64 Newton (:func:`..ops.fenton.fenton_wave_batch`),
+    both on the CPU.  ``device=None`` is the CUDA card.
     """
     H = np.atleast_1d(np.asarray(H, dtype=np.float64))
     T = np.broadcast_to(np.asarray(T, dtype=np.float64), H.shape)
@@ -40,11 +48,11 @@ def make_wave_batch(H, T, d, U_c=0.0, model: str = "stokes", N: int = 5,
         return stack_waves(airy_wave(h, t, d, U_c, n_modes=n_modes,
                                      dtype=dtype, device=device)
                            for h, t in zip(H, T))
-    if model == "stokes":
-        return stack_waves(stokes_wave(h, t, d, U_c, order=min(N, 5),
-                                       n_modes=n_modes, dtype=dtype,
-                                       device=device)
-                           for h, t in zip(H, T))
+    if model == "stokes":   # elementwise: one solve for the whole batch
+        return stokes_wave(H, T.copy(), np.full(H.shape, np.float64(d)),
+                           np.full(H.shape, np.float64(U_c)),
+                           order=min(N, 5), n_modes=n_modes, dtype=dtype,
+                           device=device)
     if model == "fenton":
         return fenton_wave_batch(H, T, d, U_c, N=N, n_modes=n_modes,
                                  dtype=dtype, device=device)
@@ -72,3 +80,74 @@ def make_case_batch(base: LoadCase, **overrides) -> LoadCase:
                                        dtype=np.float64))
         vals[f.name] = v.expand(B).clone() if v.ndim == 0 else v
     return dataclasses.replace(base, **vals)
+
+
+def _tensor_fields(obj) -> list:
+    """Names of the tensor fields of a wave or case dataclass."""
+    return [f.name for f in dataclasses.fields(obj)
+            if torch.is_tensor(getattr(obj, f.name))]
+
+
+def design_sweep(model: JacketModel, waves: FourierWave, cases: LoadCase,
+                 solver: str = "chol", n_gauss: int = 15,
+                 accel: str = "analytic", mesh=None,
+                 support_stiffness=None) -> AnalysisResults:
+    """:func:`~..api.analyze` of a batch of (wave, case) pairs at each
+    case's ``t_analysis``, with one stiffness factorization.
+
+    E and nu must be shared by the batch, so K is factored once
+    (Cholesky, grounded through ``support_stiffness`` springs when given;
+    'lu' and 'chol' solve the same SPD system); the pointwise Morison and
+    load assembly of all cases run as one case-batched evaluation (in
+    chunks of at most ``POINTWISE_CHUNK_ELEMS`` kinematics elements), then
+    one multi-RHS solve and a batched recovery.  Returns
+    :class:`~..api.AnalysisResults` with a leading case axis.
+    """
+    if solver not in ("chol", "lu"):
+        raise ValueError(f"design_sweep supports dense solvers "
+                         f"('chol'/'lu'); got {solver!r}")
+    if mesh is not None:
+        raise NotImplementedError(
+            "the case-sharded sweep (mesh=) is not ported yet (ROADMAP.md, "
+            "Queue A item 6: distribution)")
+    _check_shared_material(cases)
+    dtype, dev = model.dtype, model.device
+    C, cases = _case_batch(waves, cases, dtype, dev)
+    waves = waves.to(dtype, dev)
+    ks_nodes, free, fixed = _ssi_spring_nodes(model, support_stiffness,
+                                              dtype)
+    wf, cf = _tensor_fields(waves), _tensor_fields(cases)
+
+    def loads(w, c):
+        case = dataclasses.replace(cases, **dict(zip(cf, c)))
+        mor = _pointwise_morison(
+            model, dataclasses.replace(waves, **dict(zip(wf, w))), case,
+            case.t_analysis, n_gauss, accel)
+        return assemble_loads(model, case, mor.nodal_forces, L_m), mor
+
+    per_case = ((model.n_members + model.n_appurtenances) * n_gauss
+                * waves.n_modes)
+    step = max(1, POINTWISE_CHUNK_ELEMS // per_case)
+    with _full_f32_matmul():
+        K, K_local, T, L_m = _dense_system(model, cases.case(0))
+        fac = _spring_dfac(K, ks_nodes, free)
+        parts = [torch.func.vmap(loads)(
+            tuple(getattr(waves, n)[lo:lo + step] for n in wf),
+            tuple(getattr(cases, n)[lo:lo + step] for n in cf))
+            for lo in range(0, C, step)]
+        F = torch.cat([p[0] for p in parts])
+        mor = type(parts[0][1])(*(torch.cat(x) for x in
+                                  zip(*(p[1] for p in parts))))
+        U = solve_mod.solve_factored(fac, F)               # [C, n_dof]
+        return _recover(model, dataclasses.replace(cases,
+                                                   fy=cases.fy[:, None]),
+                        K, U, F, fixed, K_local, T, L_m, mor)
+
+
+def critical_case(results: AnalysisResults) -> dict:
+    """The governing case of a sweep (largest utilization): its index,
+    maximum utilization and largest displacement."""
+    util = torch.amax(results.utilization, dim=-1)          # [C]
+    i = torch.argmax(util)
+    return {"index": i, "max_utilization": util[i],
+            "max_displacement_mm": results.max_displacement_mm[i]}

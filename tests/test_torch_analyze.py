@@ -164,6 +164,8 @@ def _assert_results(out, ref, tol=TOL):
             for g in pt.MorisonLoads._fields:
                 assert rel_err(getattr(out.morison, g),
                                getattr(ref.morison, g)) < tol, g
+        elif getattr(ref, f) is None:
+            assert getattr(out, f) is None, f
         elif f == "max_displacement_node":
             assert torch.equal(out.max_displacement_node, torch.tensor(
                 np.array(ref.max_displacement_node)))
@@ -324,12 +326,16 @@ def test_analyze_guards(storm):
         pt.analyze(tc, tw["fenton"], case, solver="pcg", mesh=object())
     with pytest.raises(ValueError, match="unknown solver"):
         pt.analyze(tc, tw["fenton"], case, solver="qr")
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        pt.analyze(tc, tw["fenton"], dataclasses.replace(case,
-                                                         buoyancy="sealed"))
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
+    # buoyancy and foundation springs are ported: they hold against JAX
+    jc, jr, jw = storm[:3]
+    sealed = sf.LoadCase(**STORM, buoyancy="sealed")
+    _assert_results(pt.analyze(tc, tw["fenton"], port_case(sealed)),
+                    sf.analyze(jc, jw["fenton"], sealed))
+    _assert_results(
         pt.analyze_condensed(tc, tr, 4, tw["fenton"], case,
-                             support_stiffness=[1e9] * 6)
+                             support_stiffness=[1e9] * 6),
+        sf.analyze_condensed(jc, jr, 4, jw["fenton"], sf.LoadCase(**STORM),
+                             support_stiffness=[1e9] * 6))
     with pytest.raises(ValueError, match="accel"):
         pt.analyze(tc, tw["fenton"], case, accel="spline")
     waves = pt.make_wave_batch([8.0, 9.0], 9.4, 50.0, model="airy",

@@ -31,11 +31,19 @@ def leaves(obj):
 
 
 def port_model(m, dtype=torch.float64):
+    """The port's model of a JAX model, appurtenances and releases
+    included."""
+    def opt(name):
+        v = getattr(m, name)
+        return None if v is None else np.asarray(v)
     return convert.model_from_numpy(
         np.asarray(m.coords), np.asarray(m.conn), np.asarray(m.sect_id),
         leaves(m.sections), np.asarray(m.fixed_mask), np.asarray(m.top_mask),
         node_names=m.node_names, member_names=m.member_names,
-        member_types=m.member_types, device="cpu", dtype=dtype)
+        member_types=m.member_types, app_conn=opt("app_conn"),
+        app_D_mm=opt("app_D_mm"), app_cd_mult=opt("app_cd_mult"),
+        app_cm_mult=opt("app_cm_mult"), app_names=m.app_names,
+        release=opt("release"), device="cpu", dtype=dtype)
 
 
 def port_wave(w, dtype=torch.float64):
@@ -58,7 +66,8 @@ def port_prepared(prep, coarse, refined, dtype=torch.float64):
         np.asarray(prep.L_m), leaves(prep.fac), leaves(prep.dfac),
         np.asarray(prep.K_I), np.asarray(prep.free), np.asarray(prep.fixed),
         np.asarray(prep.E), np.asarray(prep.nu), prep.n_seg,
-        prep.chain_solver, device="cpu", dtype=dtype)
+        prep.chain_solver, ks_nodes=None if prep.ks_nodes is None
+        else np.asarray(prep.ks_nodes), device="cpu", dtype=dtype)
 
 
 @pytest.mark.parametrize("n_seg", [1, 3])
@@ -90,10 +99,31 @@ def test_converted_case_and_wave():
 
 
 def test_converting_unported_model_options_raises():
-    jm = sf.default_3leg_jacket()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Model options convert (releases and appurtenances carry over, and
+    refine like the JAX model's); options whose shapes do not fit the
+    model raise."""
+    jm = sf.add_appurtenances(sf.default_3leg_jacket(), [
+        {"name": "C1", "node1": "A1", "node2": "A2", "D_mm": 700.0,
+         "cd_mult": 0.8, "cm_mult": 1.1}])
+    jm = dataclasses.replace(jm, release=jnp.asarray(
+        np.arange(jm.n_members) % 4, jnp.int32))
+    for n_seg in (1, 3):
+        jr, tr = sf.refine_model(jm, n_seg), pt.refine_model(port_model(jm),
+                                                             n_seg)
+        assert tr.n_appurtenances == 1 and tr.app_names == ("C1",)
+        for name in ("release", "app_conn", "app_D_mm", "app_cd_mult",
+                     "app_cm_mult"):
+            np.testing.assert_array_equal(getattr(tr, name).numpy(),
+                                          np.asarray(getattr(jr, name)))
+    with pytest.raises(ValueError, match="release"):
         convert.model_from_numpy(
             np.asarray(jm.coords), np.asarray(jm.conn),
             np.asarray(jm.sect_id), leaves(jm.sections),
             np.asarray(jm.fixed_mask), np.asarray(jm.top_mask),
-            device="cpu", release=np.zeros(jm.n_members, np.int32))
+            device="cpu", release=np.zeros(jm.n_members + 1, np.int32))
+    with pytest.raises(ValueError, match="app_D_mm"):
+        convert.model_from_numpy(
+            np.asarray(jm.coords), np.asarray(jm.conn),
+            np.asarray(jm.sect_id), leaves(jm.sections),
+            np.asarray(jm.fixed_mask), np.asarray(jm.top_mask),
+            device="cpu", app_conn=np.asarray(jm.app_conn))

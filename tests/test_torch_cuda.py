@@ -341,3 +341,104 @@ def test_singular_lstsq_fallback_on_card():
     assert _rel(res.U.cpu(), U_ref) <= 1e-6
     orphan = model.node_index("ZZ_ORPHAN")
     assert torch.all(res.U.reshape(-1, 6)[orphan] == 0.0)
+
+
+# two conductors between leg nodes (as tests/test_torch_options.py)
+APPS = [{"name": "C1", "node1": "A2", "node2": "A3", "D_mm": 700.0,
+         "cd_mult": 0.8, "cm_mult": 1.1},
+        {"name": "RISER-B", "node1": "B1", "node2": "B2", "D_mm": 610.0,
+         "cd_mult": 1.05, "cm_mult": 0.95}]
+SPRINGS = [1e6, 1e6, 1e6, 1e12, 1e12, 1e12]
+
+
+def _options_jacket(device, dtype=torch.float64):
+    """The default jacket with pinned h-braces and the two conductors."""
+    nodes, members, fixed, top = \
+        pt.models.presets.default_3leg_jacket_geometry()
+    members = [{**m, "release": "pinned" if m["type"] == "h_brace"
+                else "none"} for m in members]
+    return pt.add_appurtenances(pt.build_model(nodes, members, fixed, top,
+                                               dtype=dtype, device=device),
+                                APPS)
+
+
+@pytest.mark.cuda
+def test_kernel_per_member_coefficients_with_appurtenances():
+    """K1 on the hydrodynamic set of a refined jacket with appurtenances:
+    M + A members (off the kernel's member tile) and per-member [M + A]
+    Cd/Cm tensors, against the plain version in f64 (1e-5 of max)."""
+    from small_fem_solver_tpu_torch.ops.morison import hydro_members
+    dev = _device()
+    refined = pt.refine_model(_options_jacket(dev, torch.float32), 4)
+    conn, D, Cd, Cm = hydro_members(refined, 50.0, 0.7, 2.0)
+    assert conn.shape[0] == refined.n_members + 2 and Cd.shape == (
+        conn.shape[0],) and float(Cd[-2]) == pytest.approx(0.7 * 0.8)
+    wave = pt.make_wave(17.038, 9.4, 50.0, U_c=1.7, model="fenton", N=18,
+                        dtype=torch.float32, device=dev)
+    ts = torch.arange(37, dtype=torch.float32, device=dev) * wave.T / 37
+
+    def args(dtype):
+        return (wave.to(dtype, dev), refined.coords.to(dtype), conn,
+                D.to(dtype), 38.0, 120.0, Cd.to(dtype), Cm.to(dtype), 1025.0,
+                ts.to(dtype))
+    before = hk.morison_phase_batch_cuda.launches
+    out = hk.morison_phase_batch_cuda(*args(torch.float32))
+    torch.cuda.synchronize()
+    assert hk.morison_phase_batch_cuda.launches == before + 1
+    ref = morison_phase_batch(*args(torch.float64))
+    for name in FIELDS:
+        assert _rel(getattr(out, name), getattr(ref, name)) < KERNEL_TOL, name
+
+
+@pytest.mark.cuda
+def test_design_envelope_on_card_matches_cpu():
+    """The dense envelope on the card (one K1 launch per case, f32 loads)
+    against the same call on the CPU (the plain version in f64), with
+    springs, releases and appurtenances: max_util_per_case 1e-4,
+    member_envelope 2e-4 of its max, the same governing case."""
+    dev = _device()
+    runs = {}
+    for d in ("cpu", dev):
+        waves = pt.make_wave_batch([4.0, 9.0, 13.0], 9.4, 50.0, U_c=1.7,
+                                   model="stokes", N=5, n_modes=8,
+                                   dtype=torch.float64, device=d)
+        cases = pt.make_case_batch(
+            pt.LoadCase(**STORM, buoyancy="sealed", wind_speed_ms=30.0),
+            wave_dir_deg=[0.0, 38.0, 200.0],
+            current_dir_deg=[0.0, 38.0, 200.0])
+        hk.morison_phase_batch_cuda.launches = 0
+        runs[str(d)] = pt.design_envelope(_options_jacket(d), waves, cases,
+                                          n_steps=12,
+                                          support_stiffness=SPRINGS)
+    assert hk.morison_phase_batch_cuda.launches == 3
+    card, cpu = runs[str(dev)], runs["cpu"]
+    assert card.utilization.device.type == "cuda"
+    assert _rel(card.max_util_per_case.cpu(), cpu.max_util_per_case) < 1e-4
+    assert _rel(card.member_envelope.cpu(), cpu.member_envelope) < 2e-4
+    assert int(card.governing_case) == int(cpu.governing_case)
+
+
+@pytest.mark.cuda
+def test_sprung_phase_scan_on_card_matches_cpu():
+    """A separable f64 phase scan on foundation springs with releases,
+    appurtenances, buoyancy and wind: the card (cuSOLVER, the f64 sweep
+    kernel) against the CPU at 1e-10, and spring reactions -k u."""
+    dev = _device()
+    case = pt.LoadCase(**STORM, buoyancy="legs-flooded", wind_speed_ms=40.0,
+                       wind_dir_deg=38.0, wind_topside_area_m2=800.0)
+    runs = {}
+    for d in ("cpu", dev):
+        coarse = _options_jacket(d)
+        wave = pt.make_wave(17.038, 9.4, 50.0, U_c=1.7, model="fenton", N=12,
+                            device=d)
+        runs[str(d)] = pt.phase_scan_condensed(
+            coarse, pt.refine_model(coarse, 4), 4, wave, case, n_steps=8,
+            kinematics="separable", support_stiffness=SPRINGS)
+    card, cpu = runs[str(dev)], runs["cpu"]
+    errs = _rel_fields(card, cpu, ("U", "utilization", "reactions",
+                                   "total_morison"))
+    assert max(errs.values()) <= 1e-10, errs
+    fixed = torch.nonzero(_options_jacket("cpu").fixed_mask).flatten()
+    U_sup = cpu.U.reshape(8, -1, 6)[:, fixed]
+    assert _rel(cpu.reactions, -torch.tensor(SPRINGS, dtype=torch.float64)
+                * U_sup) <= 1e-8

@@ -124,7 +124,7 @@ def test_envelope_equals_per_case_scans_for_any_case_batch(port_setup):
     assert int(env.governing_case) == int(env.max_util_per_case.argmax())
 
 
-def test_envelope_guards(port_setup):
+def test_envelope_guards(port_setup, jax_waves):
     coarse, refined, waves, cases = port_setup
 
     def run(c=cases, **kw):
@@ -139,8 +139,18 @@ def test_envelope_guards(port_setup):
         run(dataclasses.replace(cases, slam_cs=1.0))
     with pytest.raises(NotImplementedError, match="Queue A item 6"):
         run(mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        run(support_stiffness=[1e9] * 6)
+    # foundation springs are ported: the sprung envelope against JAX's
+    jc = sf.default_3leg_jacket()
+    jr = sf.refine_model(jc, N_SEG)
+    ref = j_envelope(jc, jr, N_SEG, jax_waves["airy"], _jax_cases(),
+                     n_steps=2, solve_dtype=jnp.float64,
+                     kinematics="separable", support_stiffness=[1e9] * 6)
+    out = pt.design_envelope_condensed(
+        port_model(jc), port_model(jr), N_SEG, port_wave(jax_waves["airy"]),
+        port_case(_jax_cases()), n_steps=2, solve_dtype=torch.float64,
+        kinematics="separable", support_stiffness=[1e9] * 6)
+    for name in FIELDS:
+        assert rel_err(getattr(out, name), getattr(ref, name)) < 1e-9, name
     with pytest.raises(ValueError, match="case field"):
         run(pt.make_case_batch(pt.LoadCase(**BASE), wave_dir_deg=[0.0, 1.0]))
     with pytest.raises(ValueError, match="unknown kinematics"):

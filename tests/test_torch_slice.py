@@ -180,17 +180,13 @@ def test_unported_options_raise():
         pt.analyze(tc, tw, case, solver="pcg")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt.analyze(tc, tw, case, solver="pcg", mesh=object())
+    waves = pt.make_wave_batch([8.0, 9.0], 9.4, 50.0, model="airy",
+                               dtype=torch.float64, device="cpu")
+    cases = pt.make_case_batch(case, wave_dir_deg=[0.0, 38.0])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.prepare_condensed(tc, tr, N_SEG, support_stiffness=[1e9] * 6)
+        pt.design_envelope(tc, waves, cases, mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.phase_scan_condensed(tc, tr, N_SEG, tw,
-                                pt.LoadCase(**CASE, buoyancy="sealed"),
-                                n_steps=2, kinematics="separable")
-    nodes, members, fixed, top = \
-        pt.models.presets.default_3leg_jacket_geometry()
-    members = [{**members[0], "release": "pinned"}] + members[1:]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.build_model(nodes, members, fixed, top)
+        pt.parallel.sweep.design_sweep(tc, waves, cases, mesh=object())
     with pytest.raises(ValueError):
         pt.phase_scan_condensed(tc, tr, N_SEG, tw, case, n_steps=2,
                                 kinematics="magic")
