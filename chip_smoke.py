@@ -6,8 +6,11 @@ the Fenton N = 18 storm wave H = 17.038 m, T = 9.4 s, d = 50 m,
 U_c = 1.7 m/s, a full FEM solve at 360 wave phases in float32), the
 condensed storm envelope (10 Fenton cases, H = linspace(8, 17, 10) m, x 360
 phases on the same mesh), the reference ``analyze`` on the six JSON
-goldens, the dense and pointwise paths at 9,612 DOF in float64 and the
-99,882-DOF ``analyze_condensed`` / ``analyze_prepared`` in float64 —
+goldens, the dense and pointwise paths at 9,612 DOF in float64, the
+99,882-DOF ``analyze_condensed`` / ``analyze_prepared`` in float64, the
+same storm scan with every model and load option on foundation springs,
+and the dense design tier (``design_envelope``, ``design_sweep`` and the
+resumable envelope over 1,000 Stokes cases) —
 through both hand-written kernels, the fused Morison kernel (K1) and the
 chain-sweep kernel, and checks them:
 
@@ -72,7 +75,27 @@ chain-sweep kernel, and checks them:
    beside its bound (the larger of its bytes over 3.35 TB/s and its FLOPs
    over 67 TFLOP/s FP32 or 34 TFLOP/s FP64, the H100 SXM's HBM and
    non-tensor-core rates, counted from this run's shapes), and the scan's
-   device operations and busy time.
+   device operations and busy time;
+11. options phase (9,612 DOF, f64 model and solve): the default jacket
+   with pinned h-braces and two conductors, legs-flooded buoyancy, 40 m/s
+   wind with an 800 m^2 topside, supports on springs [1e6]*3 + [1e12]*3:
+   ``phase_scan_condensed(kinematics="fused")`` over the 360-phase storm
+   with both launch counts read around exactly that call (K1 once, the
+   sweep 4 times), against the separable f64 scan at the flagship limits,
+   equilibrium 1e-9, reactions == -k u_support 1e-8, and stiff springs
+   [1e13]*3 + [1e19]*3 within 1e-5 of the clamped scan;
+12. dense envelope phase: 1,000 cases (Stokes-5, H = linspace(2, 14, 50)
+   m x 20 headings of wave and current, T = 9.4 s, d = 50 m, U_c = 1.7
+   m/s) x 36 phases through ``design_envelope`` on the default jacket
+   (126 DOF, f64): exactly 1,000 K1 launches, every case against the CPU
+   f64 plain run, the governing case against ``analyze_phase_batch``;
+   time, device operations and busy time, peak memory;
+13. sweep phase: ``design_sweep`` of the same cases at t_analysis = 0 and
+   ``critical_case``; the governing and 4 seeded random cases against a
+   per-case ``analyze`` (1e-10); time;
+14. resume phase: ``design_envelope_resumable`` in chunks of 64 in a
+   temporary directory: a bounded call returns None, the resumed call
+   equals the one-shot envelope (1e-12), a mismatched resume raises.
 
 Prints the kernel record and the card's name and power limit on the lines
 before the last, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -125,6 +148,28 @@ EPILOGUE_FLOP = 60    # K1 per (phase, point): normal projection, drag,
                       # inertia, lever-rule sums
 CASE = dict(wave_dir_deg=38.0, current_dir_deg=38.0, F_axial_kN=25100.0,
             F_shear_kN=2900.0, custom_sw_tonnes=1100.0, sw_mode="custom")
+# options phase: two conductors between leg nodes (tests/test_appurtenances.py
+# specs), legs flooded, 40 m/s wind at 38 deg on an 800 m^2 topside
+# (tests/test_wind.py:83-84), supports on foundation springs
+APPS = [{"name": "C1", "node1": "A2", "node2": "A3", "D_mm": 700.0,
+         "cd_mult": 0.8, "cm_mult": 1.1},
+        {"name": "RISER-B", "node1": "B1", "node2": "B2", "D_mm": 610.0,
+         "cd_mult": 1.05, "cm_mult": 0.95}]
+OPTIONS_CASE = dict(buoyancy="legs-flooded", wind_speed_ms=40.0,
+                    wind_dir_deg=38.0, wind_topside_area_m2=800.0)
+SPRINGS = [1e6] * 3 + [1e12] * 3      # N/mm, N*mm/rad
+STIFF_SPRINGS = [1e13] * 3 + [1e19] * 3   # tests/test_ssi.py:21-31
+SPRING_TOL = 1e-8     # reactions == -k u_support
+STIFF_TOL = 1e-5      # stiff springs vs the clamped scan
+# dense design tier: 50 heights x 20 headings = 1,000 cases (BASELINE.md:31)
+DESIGN_HS = (2.0, 14.0, 50)           # linspace(2, 14, 50) m
+DESIGN_HEADINGS = (0.0, 360.0, 18.0)  # arange: 0-342 deg, wave = current
+DESIGN_STEPS = 36
+GOV_TOL = 2e-5        # governing case vs analyze_phase_batch
+                      # (tests/test_envelope.py:97-102)
+SWEEP_CASE_TOL = 1e-10  # design_sweep vs per-case analyze
+RESUME_TOL = 1e-12    # resumed chunked envelope vs one design_envelope
+RESUME_CHUNK = 64
 
 
 class CheckFailed(RuntimeError):
@@ -584,6 +629,284 @@ def large_phase(pt, hk, dev, coarse64, wave64):
           f"device memory of analyze_condensed {out['peak_mib']:.0f} MiB",
           flush=True)
     return out
+
+
+def options_jacket(pt, dev):
+    """The default jacket (f64) with pinned h-braces and two conductors."""
+    nodes, members, fixed, top = \
+        pt.models.presets.default_3leg_jacket_geometry()
+    members = [{**m, "release": "pinned" if m["type"] == "h_brace"
+                else "none"} for m in members]
+    return pt.add_appurtenances(pt.build_model(nodes, members, fixed, top,
+                                               device=dev), APPS)
+
+
+def options_phase(pt, hk, dev, wave64):
+    """The 9,612-DOF f64 options scan (releases, appurtenances, buoyancy,
+    wind, foundation springs) with ``kinematics="fused"``: launch counts
+    around exactly that call, the separable f64 scan at the flagship
+    limits, equilibrium, spring reactions and stiff springs vs clamped."""
+    import torch
+    from small_fem_solver_tpu_torch import api
+    f64 = torch.float64
+    coarse = options_jacket(pt, dev)
+    refined = pt.refine_model(coarse, N_SEG)
+    n_pinned = sum(m == "h_brace" for m in coarse.member_types)
+    check(refined.n_dof == 9612 and refined.n_appurtenances == 2
+          and int((refined.release > 0).sum()) == 2 * n_pinned,
+          f"options model: {refined.n_dof} DOF, {n_pinned} pinned h-braces "
+          f"(released end segments), {refined.n_appurtenances} conductors")
+    case = pt.LoadCase(**CASE, **OPTIONS_CASE)
+    S, out = N_STEPS, {}
+
+    def scan(kinematics="fused", springs=SPRINGS):
+        return pt.phase_scan_condensed(
+            coarse, refined, N_SEG, wave64, case, n_steps=S,
+            kinematics=kinematics, solve_dtype=f64, support_stiffness=springs)
+    hk.morison_phase_batch_cuda.launches = 0
+    hk.chain_sweep_cuda.launches = 0
+    fused = scan()
+    torch.cuda.synchronize()
+    out["k1_launches"] = hk.morison_phase_batch_cuda.launches
+    out["sweep_launches"] = hk.chain_sweep_cuda.launches
+    check(out["k1_launches"] == 1 and out["sweep_launches"] == 4,
+          f"options scan launched K1 {out['k1_launches']}x (1: M + A = "
+          f"{refined.n_members + 2} members, per-member Cd/Cm) and the chain "
+          f"sweep {out['sweep_launches']}x (4: two solves x two levels)")
+    sep = scan("separable")
+    check(all(torch.isfinite(t).all() for t in fused[1:6]),
+          "options scan results finite")
+    u, u64 = fused.utilization, sep.utilization
+    errs = {"utilization": float((u - u64).abs().max() / u64.max()),
+            "max utilization": float((u.max() - u64.max()).abs() / u64.max()),
+            "U": rel(fused.U, sep.U)}
+    check(errs["utilization"] < UTIL_TOL and errs["max utilization"]
+          < MAX_UTIL_TOL and errs["U"] < U_TOL, "options scan, fused (K1 "
+          "f32 loads) vs separable f64: " + ", ".join(
+              f"{k} {v:.2e}" for k, v in errs.items())
+          + f" < {UTIL_TOL:g} / {MAX_UTIL_TOL:g} / {U_TOL:g}")
+
+    # equilibrium: the separable scan against independently summed loads
+    # (the steady ones through the dense path's assembly, with no wave),
+    # the fused scan against the chain-layout loads its solve was given
+    c64 = case.cast(f64, dev)
+    L_m = torch.linalg.norm(refined.coords[refined.conn[:, 1]]
+                            - refined.coords[refined.conn[:, 0]], dim=-1)
+    steady = api.assemble_loads(
+        refined, c64, torch.zeros(refined.n_nodes, 3, dtype=f64, device=dev),
+        L_m).reshape(-1, 6)[:, :3].sum(dim=0)
+    prep = pt.prepare_condensed(coarse, refined, N_SEG,
+                                support_stiffness=SPRINGS)
+    _, F_I, g, _ = api._scan_loads(prep, wave64, c64, S, 15, "fused", "none",
+                                   None)
+    given = F_I[..., :3].sum(dim=1) + g[..., :3].sum(dim=(1, 2))
+
+    def equilibrium(s, applied):
+        R = s.reactions.sum(dim=1)[:, :3]
+        return float((R + applied).abs().max() / applied.abs().max())
+    eqs = {"separable": equilibrium(sep, steady + sep.total_morison),
+           "fused": equilibrium(fused, given)}
+    check(max(eqs.values()) <= EQ_TOL_F64, "options scan equilibrium: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in eqs.items())
+          + f" <= {EQ_TOL_F64:g}")
+    ks = torch.tensor(SPRINGS, dtype=f64, device=dev)
+    supports = torch.nonzero(coarse.fixed_mask).flatten()
+    spring = {k: rel(s.reactions, -ks * s.U.reshape(S, -1, 6)[:, supports])
+              for k, s in (("fused", fused), ("separable", sep))}
+    check(max(spring.values()) <= SPRING_TOL, "reactions == -k u_support: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in spring.items())
+          + f" <= {SPRING_TOL:g}")
+    stiff, clamped = scan(springs=STIFF_SPRINGS), scan(springs=None)
+    stiff_err = {f: rel(getattr(stiff, f), getattr(clamped, f))
+                 for f in ("U", "utilization", "reactions")}
+    check(max(stiff_err.values()) <= STIFF_TOL, "stiff springs (1e13 / "
+          "1e19) vs the clamped scan: " + ", ".join(
+              f"{k} {v:.2e}" for k, v in stiff_err.items())
+          + f" <= {STIFF_TOL:g}")
+    out["ms"] = cuda_ms(scan, n=10, warmup=2)
+    events = device_events(scan)
+    out["ops"], out["busy_ms"] = len(events), sum(t for _, t in events) / 1e3
+    out["k1_us"] = kernel_us(events, "morison_phase_batch_kernel")
+    print(f"[options] {refined.n_dof} DOF x {S} phases on springs: max "
+          f"utilization {float(u.max()):.6f} (f64 {float(u64.max()):.6f}; "
+          f"clamped {float(clamped.utilization.max()):.6f}), max |U| "
+          f"{float(fused.U.abs().max()):.2f} mm; fused scan "
+          f"{out['ms']:.3f} ms (median of 10, CUDA events), "
+          f"{out['ops']} device operations, device busy "
+          f"{out['busy_ms']:.3f} ms, K1 {out['k1_us']:.1f} us "
+          "(torch.profiler)", flush=True)
+    return out
+
+
+def design_batch(pt):
+    """The 1,000-case design batch on the CPU in f64: Stokes-5 waves of 50
+    heights (8 modes; the wave does not depend on the heading), each under
+    20 headings of wave and current, at t_analysis = 0."""
+    import dataclasses
+    import numpy as np
+    import torch
+    Hs = np.linspace(*DESIGN_HS)
+    heads = np.arange(*DESIGN_HEADINGS)
+    for h in (Hs[0], Hs[-1]):
+        check(not pt.validate_wave(h, 9.4, 50.0), f"validate_wave accepts "
+              f"H = {h:g} m, T = 9.4 s, d = 50 m")
+    w = pt.make_wave_batch(Hs, 9.4, 50.0, U_c=1.7, model="stokes", N=5,
+                           n_modes=8, dtype=torch.float64, device="cpu")
+    idx = torch.arange(len(Hs)).repeat_interleave(len(heads))
+    waves = dataclasses.replace(w, **{
+        f.name: getattr(w, f.name)[idx] for f in dataclasses.fields(w)
+        if torch.is_tensor(getattr(w, f.name))})
+    dirs = np.tile(heads, len(Hs))
+    cases = pt.make_case_batch(pt.LoadCase(**CASE), wave_dir_deg=dirs,
+                               current_dir_deg=dirs,
+                               t_analysis=np.zeros(len(dirs)))
+    return waves, cases, Hs[idx.numpy()], dirs
+
+
+ENV_FIELDS = ("ts", "utilization", "max_util_per_phase", "max_util_per_case",
+              "member_envelope", "total_morison")
+
+
+def dense_envelope_phase(pt, hk, dev, coarse64, waves_cpu, cases):
+    """``design_envelope`` of the 1,000 cases x 36 phases on the default
+    jacket: exactly one K1 launch per case, every case against the CPU f64
+    plain run, the governing case against ``analyze_phase_batch``; time,
+    device operations and peak memory."""
+    import torch
+    waves = waves_cpu.to(torch.float64, dev)
+    C, out = waves.E.shape[0], {}
+
+    def envelope():
+        return pt.design_envelope(coarse64, waves, cases, n_steps=DESIGN_STEPS)
+    hk.morison_phase_batch_cuda.launches = 0
+    t0 = time.perf_counter()
+    env = envelope()
+    torch.cuda.synchronize()
+    out["first_s"] = time.perf_counter() - t0
+    out["launches"] = hk.morison_phase_batch_cuda.launches
+    check(out["launches"] == C, f"design_envelope launched K1 "
+          f"{out['launches']}x (one per case: {C})")
+    check(tuple(env.utilization.shape) == (C, DESIGN_STEPS,
+                                           coarse64.n_members)
+          and all(torch.isfinite(getattr(env, f)).all() for f in ENV_FIELDS),
+          f"dense envelope: utilization {tuple(env.utilization.shape)}, "
+          "all fields finite")
+    t0 = time.perf_counter()
+    ref = pt.design_envelope(pt.default_3leg_jacket(device="cpu"), waves_cpu,
+                             cases, n_steps=DESIGN_STEPS)
+    out["cpu_s"] = time.perf_counter() - t0
+    errs = {f: rel(getattr(env, f).cpu(), getattr(ref, f))
+            for f in ("max_util_per_case", "member_envelope")}
+    gov, gov_cpu = int(env.governing_case), int(ref.governing_case)
+    check(errs["max_util_per_case"] <= ENV_CASE_TOL
+          and errs["member_envelope"] <= ENV_MEMBER_TOL and gov == gov_cpu,
+          f"dense envelope on the card (K1 f32 loads) vs the CPU f64 plain "
+          f"run: max_util_per_case {errs['max_util_per_case']:.2e} <= "
+          f"{ENV_CASE_TOL:g}, member_envelope {errs['member_envelope']:.2e} "
+          f"<= {ENV_MEMBER_TOL:g}, governing case {gov} == {gov_cpu}")
+    _, batch = pt.analyze_phase_batch(coarse64, waves.case(gov),
+                                      cases.case(gov), n_steps=DESIGN_STEPS,
+                                      accel="analytic")
+    gov_err = abs(float(env.max_util_per_case[gov])
+                  / float(batch.utilization.max()) - 1.0)
+    check(gov_err <= GOV_TOL, f"governing case vs analyze_phase_batch "
+          f"(analytic): {gov_err:.2e} <= {GOV_TOL:g}")
+    out["ms"] = cuda_ms(envelope, n=5, warmup=1)
+    out["peak_mib"] = peak_mib(envelope)
+    events = device_events(envelope)
+    out["ops"], out["busy_ms"] = len(events), sum(t for _, t in events) / 1e3
+    out["k1_us"] = kernel_us(events, "morison_phase_batch_kernel")
+    out["top"] = top_device_ops(events)
+    out["errs"], out["gov_err"] = errs, gov_err
+    return env, out
+
+
+def sweep_phase(pt, dev, coarse64, waves_cpu, cases):
+    """``design_sweep`` of the 1,000 cases at t_analysis = 0 and
+    ``critical_case``: the governing case and 4 seeded random cases
+    against a per-case ``analyze``; the time."""
+    import numpy as np
+    import torch
+    from small_fem_solver_tpu_torch.parallel.sweep import (critical_case,
+                                                           design_sweep)
+    waves = waves_cpu.to(torch.float64, dev)
+    C, out = waves.E.shape[0], {}
+
+    def sweep():
+        return design_sweep(coarse64, waves, cases, solver="chol",
+                            accel="analytic")
+    t0 = time.perf_counter()
+    res = sweep()
+    crit = critical_case(res)
+    torch.cuda.synchronize()
+    out["first_s"] = time.perf_counter() - t0
+    check(tuple(res.U.shape) == (C, coarse64.n_dof)
+          and bool(torch.isfinite(res.utilization).all()),
+          f"design_sweep: U {tuple(res.U.shape)}, utilization finite")
+    gov = int(crit["index"])
+    picks = [gov] + [int(i) for i in np.random.default_rng(0).choice(
+        C, 4, replace=False)]
+    worst = 0.0
+    for i in picks:
+        one = pt.analyze(coarse64, waves.case(i), cases.case(i),
+                         solver="chol", accel="analytic")
+        errs = {f: rel(getattr(res, f)[i], getattr(one, f)) for f in (
+            "U", "reactions", "F_applied", "F1_local", "F2_local",
+            "von_mises", "utilization")}
+        worst = max(worst, *errs.values())
+        check(max(errs.values()) <= SWEEP_CASE_TOL, f"design_sweep case {i} "
+              f"vs analyze: worst {max(errs, key=errs.get)} "
+              f"{max(errs.values()):.2e} <= {SWEEP_CASE_TOL:g}")
+        if i == gov:
+            gov_err = abs(float(crit["max_utilization"])
+                          / float(one.utilization.max()) - 1.0)
+            check(gov_err <= SWEEP_CASE_TOL, f"critical_case: case {gov}, "
+                  f"max utilization {float(crit['max_utilization']):.6f} vs "
+                  f"analyze {gov_err:.2e}")
+    out["ms"] = cuda_ms(sweep, n=5, warmup=1)
+    events = device_events(sweep)
+    out["ops"], out["busy_ms"] = len(events), sum(t for _, t in events) / 1e3
+    out["worst"], out["gov"] = worst, gov
+    out["gov_util"] = float(crit["max_utilization"])
+    return out
+
+
+def resume_phase(pt, dev, coarse64, waves_cpu, cases, env):
+    """``design_envelope_resumable`` of the 1,000 cases in chunks of 64 in
+    a temporary directory: a bounded call returns None, the resumed call
+    equals the one-shot envelope ``env``, a mismatched resume raises."""
+    import dataclasses
+    import tempfile
+    import torch
+    waves = waves_cpu.to(torch.float64, dev)
+    kw = dict(chunk_size=RESUME_CHUNK, n_steps=DESIGN_STEPS)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        part = pt.design_envelope_resumable(coarse64, waves, cases, tmp,
+                                            max_chunks=3, **kw)
+        n_files = len([f for f in os.listdir(tmp) if f.startswith("chunk_")])
+        check(part is None and n_files == 3, f"max_chunks=3 returned "
+              f"{type(part).__name__} with {n_files} chunk files")
+        full = pt.design_envelope_resumable(coarse64, waves, cases, tmp, **kw)
+        seconds = time.perf_counter() - t0
+        errs = {f: rel(getattr(full, f), getattr(env, f).cpu())
+                for f in ENV_FIELDS}
+        check(max(errs.values()) <= RESUME_TOL
+              and torch.equal(full.critical_phase, env.critical_phase.cpu())
+              and int(full.governing_case) == int(env.governing_case),
+              f"resumed envelope ({-(-cases.Cd.shape[0] // RESUME_CHUNK)} "
+              f"chunks) == one design_envelope: worst "
+              f"{max(errs, key=errs.get)} {max(errs.values()):.2e} <= "
+              f"{RESUME_TOL:g}")
+        other = dataclasses.replace(cases, Cd=cases.Cd * 1.1)
+        try:
+            pt.design_envelope_resumable(coarse64, waves, other, tmp, **kw)
+            refused = False
+        except ValueError as e:
+            refused = "DIFFERENT sweep" in str(e)
+        check(refused, "a resume with other cases into the same directory "
+              "raises")
+    return seconds
 
 
 def main() -> int:
@@ -1053,6 +1376,52 @@ def main() -> int:
               f"[profile] {label}: torch.profiler recorded no device "
               "events: not measured", flush=True)
 
+    # ---- 11. options phase: 9,612 DOF in f64 on foundation springs ----
+    t0 = time.perf_counter()
+    options = options_phase(pt, hk, dev, wave64)
+    print(f"[options] phase {time.perf_counter() - t0:.2f} s wall", flush=True)
+
+    # ---- 12-14. dense design tier: 1,000 cases on the default jacket ----
+    t0 = time.perf_counter()
+    waves_d, cases_d, H_d, dir_d = design_batch(pt)
+    n_design = len(H_d)
+    print(f"[design] {n_design}-case batch (50 Stokes-5 waves, one host "
+          f"solve): {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    env_d, denv = dense_envelope_phase(pt, hk, dev, coarse64, waves_d,
+                                       cases_d)
+    gov = int(env_d.governing_case)
+    print(f"[design] dense envelope phase {time.perf_counter() - t0:.2f} s "
+          f"wall (CPU f64 reference run {denv['cpu_s']:.2f} s); governing "
+          f"case {gov} (H = {H_d[gov]:.2f} m, heading {dir_d[gov]:.0f} deg), "
+          f"max utilization {float(env_d.max_util_per_case[gov]):.6f}; vs "
+          "CPU f64: " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                  denv["errs"].items())
+          + f"; vs analyze_phase_batch {denv['gov_err']:.2e}", flush=True)
+    t0 = time.perf_counter()
+    sweep = sweep_phase(pt, dev, coarse64, waves_d, cases_d)
+    print(f"[design] sweep phase {time.perf_counter() - t0:.2f} s wall; "
+          f"critical case {sweep['gov']} (max utilization "
+          f"{sweep['gov_util']:.6f}); worst field vs analyze "
+          f"{sweep['worst']:.2e}", flush=True)
+    resume_s = resume_phase(pt, dev, coarse64, waves_d, cases_d, env_d)
+    print(f"[time] {smi}: options scan (9,612 DOF x {N_STEPS} phases, f64 "
+          f"solve on springs) {options['ms']:.3f} ms; design_envelope "
+          f"{n_design} cases x {DESIGN_STEPS} phases @ {coarse64.n_dof} DOF "
+          f"{denv['ms']:.1f} ms ({denv['ms'] / n_design:.3f} ms per case; "
+          f"first call {denv['first_s']:.2f} s); design_sweep {n_design} "
+          f"cases {sweep['ms']:.1f} ms (first call {sweep['first_s']:.2f} "
+          f"s); resumable envelope, {RESUME_CHUNK}-case chunks, bounded "
+          f"call then resume {resume_s:.2f} s (medians, CUDA events; host "
+          "clock for first calls and the resume)", flush=True)
+    print(f"[profile] {smi}: design_envelope ({n_design} cases): "
+          f"{denv['ops']} device operations ({denv['ops'] / n_design:.1f} "
+          f"per case), device busy {denv['busy_ms']:.3f} ms, K1 "
+          f"{denv['k1_us']:.1f} us per launch, peak device memory "
+          f"{denv['peak_mib']:.0f} MiB; most time: {denv['top']}; "
+          f"design_sweep: {sweep['ops']} device operations, device busy "
+          f"{sweep['busy_ms']:.3f} ms (torch.profiler)", flush=True)
+
     l1 = sweep_ms["nested level 1"]
     print(json.dumps({"kernels": [{
         "name": "morison_phase_batch",
@@ -1061,7 +1430,9 @@ def main() -> int:
         "replaces": "small_fem_solver_tpu/ops/pallas_kernels.py:229",
         "launches": env_launches["morison_phase_batch"],
         "launches_by_path": {"scan": scan_launches["morison_phase_batch"],
-                             "envelope": env_launches["morison_phase_batch"]},
+                             "envelope": env_launches["morison_phase_batch"],
+                             "dense_envelope": denv["launches"],
+                             "options_scan": options["k1_launches"]},
         "launches_per_scan": scan_launches["morison_phase_batch"] // 2,
         "max_abs_err": kernel_err,
         "max_rel_err": kernel_rel,
@@ -1085,7 +1456,8 @@ def main() -> int:
             "envelope": env_launches["chain_sweep"],
             "analyze_condensed": large["analyze_condensed_launches"],
             "analyze_prepared": large["analyze_prepared_launches"],
-            "pointwise_scan": dense["pointwise_launches"]},
+            "pointwise_scan": dense["pointwise_launches"],
+            "ssi_scan": options["sweep_launches"]},
         "launches_per_scan": per_scan,
         "max_abs_err": sweep_err,
         "max_rel_err": sweep_rel,

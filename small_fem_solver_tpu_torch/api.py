@@ -1182,13 +1182,11 @@ def design_envelope_condensed(coarse: JacketModel, refined: JacketModel,
     if case_batch < 1:
         raise ValueError(f"case_batch must be >= 1, got {case_batch}")
     # every numeric field as [C] in the solve dtype, so each case indexes
-    C, cases_s = _case_batch(waves, cases, solve_dtype, refined.device)
+    C, cases = _case_batch(waves, cases, solve_dtype, refined.device)
     prep = prepare_condensed(
-        coarse, refined, n_seg, E=torch.as_tensor(cases.E).reshape(-1)[0],
-        nu=torch.as_tensor(cases.nu).reshape(-1)[0],
+        coarse, refined, n_seg, E=cases.E[0], nu=cases.nu[0],
         chain_solver=chain_solver, solve_dtype=solve_dtype,
         support_stiffness=support_stiffness)
-    cases = cases_s
     # One condensed solve of all cases is 1.7-3.2x faster on an H100, but
     # its float32 interface solve rounds differently from a per-case one:
     # 5.8e-5 off the per-case scans, though as close to float64 (PERF.md).
