@@ -17,7 +17,6 @@ from small_fem_solver_tpu.utils import persist as jpersist
 import small_fem_solver_tpu_torch as pt
 from small_fem_solver_tpu_torch.ops import hopper_kernels as hk
 from small_fem_solver_tpu_torch.parallel import sweep as tsweep
-from small_fem_solver_tpu_torch.utils import persist as tpersist
 from test_torch_convert import port_case, port_model, port_wave, rel_err
 
 TOL = 1e-10

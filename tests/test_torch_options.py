@@ -3,7 +3,6 @@ releases, appurtenances, still-water buoyancy, wind, foundation springs)
 on the dense and the condensed paths.  f64 on the CPU, the default jacket
 and refinements of 2-3 segments; max |port - JAX| / max |JAX| <= 1e-10
 per field unless a test says otherwise."""
-import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
