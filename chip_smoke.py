@@ -31,7 +31,10 @@ chain-sweep kernel, and checks them:
    flagship scan's own loads, which the kernel reads in place (the nested
    level-1 (m, q) view, the transposed thomas layout); bit-repeatable (the
    f64 reference runs below go through the same kernel, so this phase is
-   the sweep's independent check);
+   the sweep's independent check); then both wrappers on the scan's
+   operands under PyTorch's sync debug mode (no synchronisation) and,
+   in the run's first torch.profiler sessions, nothing but their kernels
+   on the device;
 5. scan phase: ``phase_scan_condensed(kinematics="fused")`` then
    ``prepare_condensed`` + ``phase_scan_prepared``, with both kernels'
    launch counts read around exactly that run (launches per scan: half);
@@ -88,7 +91,8 @@ chain-sweep kernel, and checks them:
    m x 20 headings of wave and current, T = 9.4 s, d = 50 m, U_c = 1.7
    m/s) x 36 phases through ``design_envelope`` on the default jacket
    (126 DOF, f64): exactly 1,000 K1 launches, every case against the CPU
-   f64 plain run, the governing case against ``analyze_phase_batch``;
+   f64 plain run (the reductions, the full utilization [C, S, M] and the
+   Morison totals), the governing case against ``analyze_phase_batch``;
    time, device operations and busy time, peak memory;
 13. sweep phase: ``design_sweep`` of the same cases at t_analysis = 0 and
    ``critical_case``; the governing and 4 seeded random cases against a
@@ -165,11 +169,16 @@ STIFF_TOL = 1e-5      # stiff springs vs the clamped scan
 DESIGN_HS = (2.0, 14.0, 50)           # linspace(2, 14, 50) m
 DESIGN_HEADINGS = (0.0, 360.0, 18.0)  # arange: 0-342 deg, wave = current
 DESIGN_STEPS = 36
+DENSE_LOAD_TOL = 1e-6 # dense envelope on the card (K1 f32 loads) vs the
+                      # CPU f64 run: total_morison and the full utilization
+                      # [C, S, M], relative to their maxima (K1's f32 error
+                      # against its plain version is ~6e-7, phase 3)
 GOV_TOL = 2e-5        # governing case vs analyze_phase_batch
                       # (tests/test_envelope.py:97-102)
 SWEEP_CASE_TOL = 1e-10  # design_sweep vs per-case analyze
 RESUME_TOL = 1e-12    # resumed chunked envelope vs one design_envelope
 RESUME_CHUNK = 64
+SHORT_REPS = 50       # calls of a short function in one profiler session
 
 
 class CheckFailed(RuntimeError):
@@ -234,16 +243,22 @@ def sweep_bound(itemsize: int, B: int, n_int: int, C: int):
                       else FP64_FLOP_PER_S), nbytes)
 
 
-def device_events(fn):
-    """Device-side operations (kernels, copies) of one ``fn()`` call,
-    recorded by torch.profiler: a list of (name, microseconds)."""
+def device_events(fn, reps: int = 1):
+    """Device-side operations (kernels, copies) of ``reps`` calls of
+    ``fn`` in one torch.profiler session: a list of (name, microseconds).
+
+    On the H100 host the profiler loses a few device records of every
+    session once earlier sessions were traced, more with each session
+    (``profiler_probe.py``): a session of one short call can come back
+    empty, so short calls are recorded ``SHORT_REPS`` times over."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
     return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -598,10 +613,10 @@ def large_phase(pt, hk, dev, coarse64, wave64):
             continue
         (n_int, C), B = fac.Cprime.shape[:2], g_chain.shape[0]
         cold = kernel_us(device_events(lambda: (
-            l2_flush.zero_(), hk.chain_sweep_cuda(fac, gs, split))),
-            "chain_sweep_kernel")
+            l2_flush.zero_(), hk.chain_sweep_cuda(fac, gs, split)),
+            SHORT_REPS), "chain_sweep_kernel")
         warm = kernel_us(device_events(
-            lambda: hk.chain_sweep_cuda(fac, gs, split)),
+            lambda: hk.chain_sweep_cuda(fac, gs, split), SHORT_REPS),
             "chain_sweep_kernel")
         levels[level] = (
             cuda_ms(lambda: hk.chain_sweep_cuda(fac, gs, split)),
@@ -796,7 +811,8 @@ def dense_envelope_phase(pt, hk, dev, coarse64, waves_cpu, cases):
                              cases, n_steps=DESIGN_STEPS)
     out["cpu_s"] = time.perf_counter() - t0
     errs = {f: rel(getattr(env, f).cpu(), getattr(ref, f))
-            for f in ("max_util_per_case", "member_envelope")}
+            for f in ("max_util_per_case", "member_envelope", "utilization",
+                      "total_morison")}
     gov, gov_cpu = int(env.governing_case), int(ref.governing_case)
     check(errs["max_util_per_case"] <= ENV_CASE_TOL
           and errs["member_envelope"] <= ENV_MEMBER_TOL and gov == gov_cpu,
@@ -804,6 +820,16 @@ def dense_envelope_phase(pt, hk, dev, coarse64, waves_cpu, cases):
           f"run: max_util_per_case {errs['max_util_per_case']:.2e} <= "
           f"{ENV_CASE_TOL:g}, member_envelope {errs['member_envelope']:.2e} "
           f"<= {ENV_MEMBER_TOL:g}, governing case {gov} == {gov_cpu}")
+    # K1 at this path's shapes (51 members, 36 phases, 8 modes): its end
+    # forces through every (case, phase, member) utilization, its totals
+    # kernel through total_morison
+    check(errs["utilization"] <= DENSE_LOAD_TOL
+          and errs["total_morison"] <= DENSE_LOAD_TOL,
+          f"dense envelope vs the CPU f64 plain run, every case and phase: "
+          f"utilization {tuple(env.utilization.shape)} "
+          f"{errs['utilization']:.2e}, total_morison "
+          f"{tuple(env.total_morison.shape)} {errs['total_morison']:.2e} "
+          f"<= {DENSE_LOAD_TOL:g} of their maxima")
     _, batch = pt.analyze_phase_batch(coarse64, waves.case(gov),
                                       cases.case(gov), n_steps=DESIGN_STEPS,
                                       accel="analytic")
@@ -1100,6 +1126,27 @@ def main() -> int:
         sweep_err = max(sweep_err, max(
             float((a.double() - b).abs().max()) for a, b in zip(out, ref)))
 
+    # the wrappers on the scan's operands (0-d tensor coefficients on the
+    # card, the transposed chain layout): no synchronisation (PyTorch's sync
+    # debug mode raises on one) and nothing but the kernels on the device,
+    # in the run's first profiler sessions (see device_events)
+    targs = kernel_args(wave32, Mr, f32, tensors=True)
+    calls = {"K1": lambda: hk.morison_end_forces_cuda(*targs),
+             "sweep": lambda: hk.chain_sweep_cuda(prep_th.fac, g_scan)}
+    for kname, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        ops = [n for n, _ in device_events(fn, SHORT_REPS)]
+        check(ops and all("kernel" in n for n in ops), f"{kname} wrapper: "
+              f"{len(ops)} device operations in {SHORT_REPS} calls, all its "
+              f"kernels ({sorted(set(ops))}), no host-to-device copy, no "
+              "synchronisation")
+
     # ---- 5. scan phase: the flagship scan, with the launch counts ----
     hk.morison_phase_batch_cuda.launches = 0
     hk.chain_sweep_cuda.launches = 0
@@ -1292,27 +1339,8 @@ def main() -> int:
           f"{fused_ms:.3f} ms vs separable {sep_ms:.3f} ms "
           f"(median of 20, CUDA events)", flush=True)
 
-    # the wrappers on the scan's operands (0-d tensor coefficients on the
-    # card, the transposed chain layout): no synchronisation (PyTorch's sync
-    # debug mode raises on one) and nothing but the kernels on the device
-    targs = kernel_args(wave32, Mr, f32, tensors=True)
-    calls = {"K1": lambda: hk.morison_end_forces_cuda(*targs),
-             "sweep": lambda: hk.chain_sweep_cuda(prep_th.fac, g_scan)}
-    for kname, fn in calls.items():
-        fn()
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        ops = [n for n, _ in device_events(fn)]
-        check(ops and all("kernel" in n for n in ops), f"{kname} wrapper: "
-              f"{len(ops)} device operations, all its kernels ({ops}), no "
-              "host-to-device copy, no synchronisation")
-
     # K1: its two kernels (fused pass + fixed-order totals) on one launch
-    ev = device_events(lambda: hk.launch_morison(k_ops, False))
+    ev = device_events(lambda: hk.launch_morison(k_ops, False), SHORT_REPS)
     k1_us = (kernel_us(ev, "morison_phase_batch_kernel")
              + kernel_us(ev, "morison_totals_kernel"))
     S_, M_, Q_, N_ = N_STEPS, Mr, 15, wave32.n_modes
@@ -1338,7 +1366,8 @@ def main() -> int:
         B, (n_int, Mc) = N_STEPS, fac.Cprime.shape[:2]
         g_chain = (g.reshape(*g.shape[:-3], -1, 6) if split else g)
         us = kernel_us(device_events(
-            lambda: hk.chain_sweep_cuda(fac, g, split)), "chain_sweep_kernel")
+            lambda: hk.chain_sweep_cuda(fac, g, split), SHORT_REPS),
+            "chain_sweep_kernel")
         sweep_ms[label] = (
             cuda_ms(lambda: hk.chain_sweep_cuda(fac, g, split)),
             cuda_ms(lambda: chain_sweep_plain(fac, g_chain)),

@@ -57,8 +57,8 @@ from .ops.assembly import (assemble_dense, element_dof_indices,
                            node_gather_table, node_sum_ordered)
 from .ops.beams import element_stiffness, internal_forces, matvec12
 from .ops.hopper_kernels import morison_end_forces_cuda
-from .ops.morison import (MorisonLoads, hydro_members, morison_end_forces,
-                          morison_loads)
+from .ops.morison import (POINTWISE_CHUNK_ELEMS, MorisonLoads, hydro_members,
+                          morison_end_forces, morison_loads)
 from .ops.sections import TubeSections, von_mises_8pt
 from .ops.waves import FourierWave
 from .ops.wind import (wind_member_ends, wind_member_forces,
@@ -1035,6 +1035,27 @@ def _case_batch(waves: FourierWave, cases: LoadCase, dtype, device):
         if f.name not in LoadCase._STATIC_FIELDS})
 
 
+def _dense_batch(model: JacketModel, waves: FourierWave, cases: LoadCase,
+                 support_stiffness):
+    """The set-up of the dense design tier (:func:`design_envelope`,
+    :func:`design_sweep`): the case batch in the model's dtype, K of case 0
+    (E and nu are shared) factored once with the springs, if any.  Returns
+    (C, cases, fixed DOFs, (K, K_local, T, L_m), factor); call it under
+    :func:`_full_f32_matmul`."""
+    _check_shared_material(cases)
+    C, cases = _case_batch(waves, cases, model.dtype, model.device)
+    ks_nodes, free, fixed = _ssi_spring_nodes(model, support_stiffness,
+                                              model.dtype)
+    system = _dense_system(model, cases.case(0))
+    return C, cases, fixed, system, _spring_dfac(system[0], ks_nodes, free)
+
+
+def _tensor_fields(obj) -> list:
+    """Names of the tensor fields of a wave or case dataclass."""
+    return [f.name for f in dataclasses.fields(obj)
+            if torch.is_tensor(getattr(obj, f.name))]
+
+
 def design_envelope(model: JacketModel, waves: FourierWave, cases: LoadCase,
                     n_steps: int = 36, n_gauss: int = 15, mesh=None,
                     current_alpha=None, support_stiffness=None,
@@ -1059,19 +1080,15 @@ def design_envelope(model: JacketModel, waves: FourierWave, cases: LoadCase,
         raise NotImplementedError(
             "the case-sharded envelope (mesh=) is not ported yet (ROADMAP.md, "
             "Queue A item 6: distribution)")
-    _check_shared_material(cases)
     _check_no_slam(cases, "design_envelope")
     dtype, dev = model.dtype, model.device
-    C, cases = _case_batch(waves, cases, dtype, dev)
-    ks_nodes, free, _ = _ssi_spring_nodes(model, support_stiffness, dtype)
     # the kernel reads float32: cast its operands once for the batch, not
     # once per launch (the plain version keeps the model's dtype)
     kdt = torch.float32 if dev.type == "cuda" else dtype
-    fields = [f.name for f in dataclasses.fields(cases)
-              if f.name not in LoadCase._STATIC_FIELDS]
     with _full_f32_matmul():
-        K, K_local, T, L_m = _dense_system(model, cases.case(0))
-        fac = _spring_dfac(K, ks_nodes, free)
+        C, cases, _, (K, K_local, T, L_m), fac = _dense_batch(
+            model, waves, cases, support_stiffness)
+        fields = _tensor_fields(cases)
         ts = (torch.arange(n_steps, dtype=dtype, device=dev)
               * waves.T.to(dtype)[:, None] / n_steps)          # [C, S]
         conn_h = hydro_members(model, 0.0, 1.0, 1.0)[0]
@@ -1104,6 +1121,57 @@ def design_envelope(model: JacketModel, waves: FourierWave, cases: LoadCase,
     return _envelope_from_reductions(
         ts, torch.amax(util, dim=-1), torch.amax(util, dim=(0, 1)),
         tot)._replace(utilization=util)
+
+
+def design_sweep(model: JacketModel, waves: FourierWave, cases: LoadCase,
+                 solver: str = "chol", n_gauss: int = 15,
+                 accel: str = "analytic", mesh=None,
+                 support_stiffness=None) -> AnalysisResults:
+    """:func:`analyze` of a batch of (wave, case) pairs at each case's
+    ``t_analysis``, with one stiffness factorization (the JAX package's
+    ``parallel.sweep.design_sweep``; ``parallel.sweep`` re-exports it).
+
+    E and nu must be shared by the batch, so K is factored once
+    (Cholesky, grounded through ``support_stiffness`` springs when given;
+    'lu' and 'chol' solve the same SPD system); the pointwise Morison and
+    load assembly of all cases run as one case-batched evaluation (in
+    chunks of at most ``POINTWISE_CHUNK_ELEMS`` kinematics elements), then
+    one multi-RHS solve and a batched recovery.  Returns
+    :class:`AnalysisResults` with a leading case axis.
+    """
+    if solver not in ("chol", "lu"):
+        raise ValueError(f"design_sweep supports dense solvers "
+                         f"('chol'/'lu'); got {solver!r}")
+    if mesh is not None:
+        raise NotImplementedError(
+            "the case-sharded sweep (mesh=) is not ported yet (ROADMAP.md, "
+            "Queue A item 6: distribution)")
+    waves = waves.to(model.dtype, model.device)
+    per_case = ((model.n_members + model.n_appurtenances) * n_gauss
+                * waves.n_modes)
+    step = max(1, POINTWISE_CHUNK_ELEMS // per_case)
+    with _full_f32_matmul():
+        C, cases, fixed, (K, K_local, T, L_m), fac = _dense_batch(
+            model, waves, cases, support_stiffness)
+        wf, cf = _tensor_fields(waves), _tensor_fields(cases)
+
+        def loads(w, c):
+            case = dataclasses.replace(cases, **dict(zip(cf, c)))
+            mor = _pointwise_morison(
+                model, dataclasses.replace(waves, **dict(zip(wf, w))), case,
+                case.t_analysis, n_gauss, accel)
+            return assemble_loads(model, case, mor.nodal_forces, L_m), mor
+        parts = [torch.func.vmap(loads)(
+            tuple(getattr(waves, n)[lo:lo + step] for n in wf),
+            tuple(getattr(cases, n)[lo:lo + step] for n in cf))
+            for lo in range(0, C, step)]
+        F = torch.cat([p[0] for p in parts])
+        mor = type(parts[0][1])(*(torch.cat(x) for x in
+                                  zip(*(p[1] for p in parts))))
+        U = solve_mod.solve_factored(fac, F)               # [C, n_dof]
+        return _recover(model, dataclasses.replace(cases,
+                                                   fy=cases.fy[:, None]),
+                        K, U, F, fixed, K_local, T, L_m, mor)
 
 
 def _envelope_from_reductions(ts, per_phase, member_envelope, tot):

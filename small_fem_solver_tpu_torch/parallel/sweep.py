@@ -7,8 +7,10 @@ case axis on every tensor field; a batch of load cases is one
 feed the design envelopes (:func:`~..api.design_envelope`,
 :func:`~..api.design_envelope_condensed`) and :func:`design_sweep`, whose
 per-case pointwise loads run as one case-batched evaluation
-(``torch.func.vmap``).  The case-sharded sweep (``mesh=``) is not ported
-yet (ROADMAP.md, Queue A item 6).
+(``torch.func.vmap``).  ``design_sweep`` lives in ``api.py`` beside
+``design_envelope``, whose set-up it shares, and is re-exported here under
+its JAX name.  The case-sharded sweep (``mesh=``) is not ported yet
+(ROADMAP.md, Queue A item 6).
 """
 from __future__ import annotations
 
@@ -17,14 +19,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..api import (AnalysisResults, LoadCase, _case_batch,
-                   _check_shared_material, _dense_system, _full_f32_matmul,
-                   _pointwise_morison, _recover, _spring_dfac,
-                   _ssi_spring_nodes, assemble_loads)
-from ..models.model import JacketModel
-from ..ops import solve as solve_mod
+from ..api import AnalysisResults, LoadCase, design_sweep
 from ..ops.fenton import fenton_wave_batch
-from ..ops.morison import POINTWISE_CHUNK_ELEMS
 from ..ops.stokes import stokes_wave
 from ..ops.waves import FourierWave, airy_wave, stack_waves
 
@@ -80,68 +76,6 @@ def make_case_batch(base: LoadCase, **overrides) -> LoadCase:
                                        dtype=np.float64))
         vals[f.name] = v.expand(B).clone() if v.ndim == 0 else v
     return dataclasses.replace(base, **vals)
-
-
-def _tensor_fields(obj) -> list:
-    """Names of the tensor fields of a wave or case dataclass."""
-    return [f.name for f in dataclasses.fields(obj)
-            if torch.is_tensor(getattr(obj, f.name))]
-
-
-def design_sweep(model: JacketModel, waves: FourierWave, cases: LoadCase,
-                 solver: str = "chol", n_gauss: int = 15,
-                 accel: str = "analytic", mesh=None,
-                 support_stiffness=None) -> AnalysisResults:
-    """:func:`~..api.analyze` of a batch of (wave, case) pairs at each
-    case's ``t_analysis``, with one stiffness factorization.
-
-    E and nu must be shared by the batch, so K is factored once
-    (Cholesky, grounded through ``support_stiffness`` springs when given;
-    'lu' and 'chol' solve the same SPD system); the pointwise Morison and
-    load assembly of all cases run as one case-batched evaluation (in
-    chunks of at most ``POINTWISE_CHUNK_ELEMS`` kinematics elements), then
-    one multi-RHS solve and a batched recovery.  Returns
-    :class:`~..api.AnalysisResults` with a leading case axis.
-    """
-    if solver not in ("chol", "lu"):
-        raise ValueError(f"design_sweep supports dense solvers "
-                         f"('chol'/'lu'); got {solver!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "the case-sharded sweep (mesh=) is not ported yet (ROADMAP.md, "
-            "Queue A item 6: distribution)")
-    _check_shared_material(cases)
-    dtype, dev = model.dtype, model.device
-    C, cases = _case_batch(waves, cases, dtype, dev)
-    waves = waves.to(dtype, dev)
-    ks_nodes, free, fixed = _ssi_spring_nodes(model, support_stiffness,
-                                              dtype)
-    wf, cf = _tensor_fields(waves), _tensor_fields(cases)
-
-    def loads(w, c):
-        case = dataclasses.replace(cases, **dict(zip(cf, c)))
-        mor = _pointwise_morison(
-            model, dataclasses.replace(waves, **dict(zip(wf, w))), case,
-            case.t_analysis, n_gauss, accel)
-        return assemble_loads(model, case, mor.nodal_forces, L_m), mor
-
-    per_case = ((model.n_members + model.n_appurtenances) * n_gauss
-                * waves.n_modes)
-    step = max(1, POINTWISE_CHUNK_ELEMS // per_case)
-    with _full_f32_matmul():
-        K, K_local, T, L_m = _dense_system(model, cases.case(0))
-        fac = _spring_dfac(K, ks_nodes, free)
-        parts = [torch.func.vmap(loads)(
-            tuple(getattr(waves, n)[lo:lo + step] for n in wf),
-            tuple(getattr(cases, n)[lo:lo + step] for n in cf))
-            for lo in range(0, C, step)]
-        F = torch.cat([p[0] for p in parts])
-        mor = type(parts[0][1])(*(torch.cat(x) for x in
-                                  zip(*(p[1] for p in parts))))
-        U = solve_mod.solve_factored(fac, F)               # [C, n_dof]
-        return _recover(model, dataclasses.replace(cases,
-                                                   fy=cases.fy[:, None]),
-                        K, U, F, fixed, K_local, T, L_m, mor)
 
 
 def critical_case(results: AnalysisResults) -> dict:
