@@ -18,11 +18,13 @@ counterpart of ``small_fem_solver_tpu/api.py``).
   cases on one case-independent factorization and keeps only the
   utilization reductions.
 
-``kinematics='fused'`` (the default of the scan and the envelope)
-evaluates the loads with the hand-written CUDA kernel
-(``ops/hopper_kernels.py``) on CUDA tensors and with its plain PyTorch
-version on the CPU, where it equals ``'separable'`` (the plain version
-everywhere); both build the loads directly in the chain layout.
+``kinematics='fused'`` (the default of the scan and the envelope; the
+JAX package's name ``'pallas'`` is an alias) evaluates the loads with the
+hand-written CUDA kernel (``ops/hopper_kernels.py``) in float32 on CUDA
+tensors, as the JAX package's ``'pallas'`` path does, and with its plain
+PyTorch version in the model's dtype on the CPU, where it equals
+``'separable'`` (the plain version everywhere, the JAX package's
+default); both build the loads directly in the chain layout.
 ``'pointwise'`` evaluates the kinematics per phase with the reference's
 exact semantics (``accel``, the evaluation-height clamp, slamming), as
 :func:`analyze` does.  On CUDA tensors the condensed solves always run the
@@ -526,9 +528,15 @@ def _check_no_slam(case: LoadCase, path: str) -> None:
             "matmul")
 
 
+def _resolve_kinematics(kinematics: str) -> str:
+    """``'pallas'``, the JAX package's name of its kernel path, is
+    ``'fused'`` here."""
+    return "fused" if kinematics == "pallas" else kinematics
+
+
 def _morison_batch_fn(kinematics: str):
-    """The phase-batch Morison engine of a ``kinematics`` mode: member end
-    forces and totals, ``(F1, F2, total_drag, total_inertia)``."""
+    """The phase-batch Morison engine of a resolved ``kinematics`` mode:
+    member end forces and totals, ``(F1, F2, total_drag, total_inertia)``."""
     if kinematics == "fused":
         return morison_end_forces_cuda
     if kinematics == "separable":
@@ -595,11 +603,19 @@ def _scan_loads(prep: "CondensedPrepared", wave: FourierWave, case, n_steps,
         _check_no_slam(case_l, "the condensed phase scan")
         conn_h, D_m, Cd_h, Cm_h = hydro_members(
             refined, case_l.marine_growth_mm, case_l.Cd, case_l.Cm)
+        # 'fused' gives the loads in float32 on the card (the kernel's f32
+        # instance), as the JAX package's "pallas" path does; the plain
+        # version computes in the model's dtype
+        kdt = (torch.float32 if kinematics == "fused"
+               and device.type == "cuda" else ldtype)
+
+        def k(x):
+            return x.to(kdt) if torch.is_tensor(x) else x
         F1, F2, drag, inertia = batch_fn(
-            wave, refined.coords, conn_h, D_m, case_l.wave_dir_deg,
-            case_l.current_dir_deg, Cd_h, Cm_h, case_l.rho_water, ts,
-            n_gauss=n_gauss, current_alpha=current_alpha,
-            stretching=stretching)
+            wave.to(kdt, device), k(refined.coords), conn_h, k(D_m),
+            k(case_l.wave_dir_deg), k(case_l.current_dir_deg), k(Cd_h),
+            k(Cm_h), k(case_l.rho_water), k(ts), n_gauss=n_gauss,
+            current_alpha=k(current_alpha), stretching=stretching)
         F_I_nodes, g = _chain_layout_loads(coarse, refined, case_l,
                                            F1.to(ldtype), F2.to(ldtype),
                                            L_m, prep.n_seg)
@@ -733,7 +749,8 @@ def phase_scan_prepared(prep: CondensedPrepared, wave, case: LoadCase,
     _check_material(prep, case)
     return _scan_prepared(prep, wave, case.cast(prep.K_I.dtype,
                                                 prep.refined.device),
-                          n_steps, n_gauss, kinematics, refine_steps,
+                          n_steps, n_gauss, _resolve_kinematics(kinematics),
+                          refine_steps,
                           stretching, current_alpha, accel)
 
 
@@ -767,7 +784,8 @@ def phase_scan_condensed(coarse: JacketModel, refined: JacketModel,
     prep = _cached_prepared(coarse, refined, n_seg, case, chain_solver,
                             solve_dtype, support_stiffness)
     return _scan_prepared(prep, wave, case.cast(solve_dtype, refined.device),
-                          n_steps, n_gauss, kinematics, refine_steps,
+                          n_steps, n_gauss, _resolve_kinematics(kinematics),
+                          refine_steps,
                           stretching, current_alpha, accel)
 
 
@@ -856,18 +874,23 @@ def analyze(model: JacketModel, wave: FourierWave, case: LoadCase,
     ``solver``: 'lu' (the reference's dense LU; ``lstsq_fallback`` solves
     a singular free-free block by minimum-norm least squares, as the
     reference's except branch does) or 'chol' (Jacobi-scaled Cholesky
-    with one refinement round).  'pcg' and its ``pcg_*`` options, and the
-    distributed ``mesh`` solve, are not ported yet.
+    with one refinement round).  'pcg' and the distributed ``mesh`` solve
+    are not ported yet; the dense solvers ignore ``pcg_tol``,
+    ``pcg_maxiter`` and ``pcg_chunk``, and an unknown ``pcg_precond``
+    raises ``ValueError``, as in the JAX package.
     """
+    # the dense solvers ignore pcg_tol / pcg_maxiter / pcg_chunk, as the
+    # JAX package's do; pcg_precond is validated whatever the solver
+    if pcg_precond not in ("auto", "block_jacobi", "two_level"):
+        raise ValueError(f"unknown pcg_precond {pcg_precond!r}")
     if mesh is not None:
         raise NotImplementedError(
             "the distributed analyze (mesh=) is not ported yet (ROADMAP.md, "
             "Queue A item 6: distribution)")
-    if solver == "pcg" or (pcg_tol, pcg_maxiter, pcg_precond,
-                           pcg_chunk) != (1e-10, 2000, "auto", 0):
+    if solver == "pcg":
         raise NotImplementedError(
-            "solver='pcg' and its pcg_* options are not ported yet "
-            "(ROADMAP.md, Queue A item 5: sparse and iterative tier)")
+            "solver='pcg' is not ported yet (ROADMAP.md, Queue A item 5: "
+            "sparse and iterative tier)")
     if solver not in ("lu", "chol"):
         raise ValueError(f"unknown solver {solver!r}")
     free, fixed = solve_mod.free_fixed_dofs(model.fixed_mask)
@@ -1246,6 +1269,7 @@ def design_envelope_condensed(coarse: JacketModel, refined: JacketModel,
             "Queue A item 6: distribution)")
     _check_shared_material(cases)
     _check_no_slam(cases, "design_envelope_condensed")
+    kinematics = _resolve_kinematics(kinematics)
     _morison_batch_fn(kinematics)   # 'fused' or 'separable' only
     if case_batch < 1:
         raise ValueError(f"case_batch must be >= 1, got {case_batch}")

@@ -316,12 +316,29 @@ def test_load_case_cast_resolves_the_default_device():
     assert cast.E.dtype == torch.float32 and cast.E.device.type == "cpu"
 
 
+def test_dense_solvers_ignore_pcg_options(storm):
+    """As in the JAX package, 'lu' / 'chol' ignore pcg_tol, pcg_maxiter and
+    pcg_chunk, and an unknown pcg_precond raises whatever the solver."""
+    _, _, _, tc, _, tw = storm
+    case = pt.LoadCase(**STORM)
+    for solver in ("chol", "lu"):
+        plain = pt.analyze(tc, tw["fenton"], case, solver=solver)
+        opts = pt.analyze(tc, tw["fenton"], case, solver=solver,
+                          pcg_precond="two_level", pcg_tol=1e-6,
+                          pcg_maxiter=10, pcg_chunk=50)
+        for f in ("U", "reactions", "utilization"):
+            assert rel_err(getattr(opts, f), getattr(plain, f)) < 1e-14, f
+    for solver in ("chol", "pcg"):
+        with pytest.raises(ValueError, match="unknown pcg_precond 'bogus'"):
+            pt.analyze(tc, tw["fenton"], case, solver=solver,
+                       pcg_precond="bogus")
+
+
 def test_analyze_guards(storm):
     _, _, _, tc, tr, tw = storm
     case = pt.LoadCase(**STORM)
-    for kw in (dict(solver="pcg"), dict(pcg_tol=1e-8), dict(pcg_chunk=50)):
-        with pytest.raises(NotImplementedError, match="Queue A item 5"):
-            pt.analyze(tc, tw["fenton"], case, **kw)
+    with pytest.raises(NotImplementedError, match="Queue A item 5"):
+        pt.analyze(tc, tw["fenton"], case, solver="pcg")
     with pytest.raises(NotImplementedError, match="Queue A item 6"):
         pt.analyze(tc, tw["fenton"], case, solver="pcg", mesh=object())
     with pytest.raises(ValueError, match="unknown solver"):

@@ -148,6 +148,30 @@ def test_fused_kinematics_on_cpu_equals_separable(precision):
     assert hk.morison_phase_batch_cuda.launches == before
 
 
+def test_pallas_kinematics_is_an_alias_of_fused():
+    """kinematics="pallas" (the JAX package's name of its kernel path) is
+    "fused": the scan, the prepared scan and the condensed envelope equal
+    the default bit for bit."""
+    _, _, _, tc, tr, tw = _setup(jnp.float64, torch.float64)
+    case = pt.LoadCase(**CASE)
+    prep = pt.prepare_condensed(tc, tr, N_SEG)
+    waves = pt.make_wave_batch([8.0, 12.0], 9.4, 50.0, U_c=1.7,
+                               model="airy", n_modes=1, device="cpu")
+    cases = pt.make_case_batch(case, wave_dir_deg=[0.0, 38.0])
+    calls = (
+        lambda kin: pt.phase_scan_condensed(tc, tr, N_SEG, tw, case,
+                                            n_steps=4, kinematics=kin),
+        lambda kin: pt.phase_scan_prepared(prep, tw, case, n_steps=4,
+                                           kinematics=kin),
+        lambda kin: pt.design_envelope_condensed(
+            tc, tr, N_SEG, waves, cases, n_steps=4, kinematics=kin))
+    for call in calls:
+        fused, pallas = call("fused"), call("pallas")
+        for name, a in fused._asdict().items():
+            if a is not None:
+                assert torch.equal(a, getattr(pallas, name)), name
+
+
 def test_default_device_is_the_card():
     """Built without ``device``, a model, wave or wave batch lies on the
     CUDA card; without a card building it raises and names device="cpu"
