@@ -1090,10 +1090,10 @@ def design_envelope(model: JacketModel, waves: FourierWave, cases: LoadCase,
     ``parallel.sweep.make_wave_batch`` / ``make_case_batch``); E and nu
     must be shared by all cases.  K is factored once (Cholesky; grounded
     through ``support_stiffness`` springs, see :func:`analyze_ssi`).  Each
-    case's phase loads come from the separable Morison engine: on CUDA
-    tensors one launch of the Morison kernel per case, which computes in
-    float32 whatever the model's dtype; on the CPU its plain version in
-    the model's dtype.  Everything around those launches runs once for
+    case's phase loads come from the separable Morison engine in the
+    model's dtype, as in the JAX package: on CUDA tensors one launch of
+    the Morison kernel per case (its float32 or float64 instance), on the
+    CPU its plain version.  Everything around those launches runs once for
     the batch: the hydrodynamic set, the nodal sums and the load assembly
     (``torch.func.vmap`` over the cases), then all C x S load vectors are
     one multi-RHS solve, and the recovery is batched.  The result keeps
@@ -1105,9 +1105,6 @@ def design_envelope(model: JacketModel, waves: FourierWave, cases: LoadCase,
             "Queue A item 6: distribution)")
     _check_no_slam(cases, "design_envelope")
     dtype, dev = model.dtype, model.device
-    # the kernel reads float32: cast its operands once for the batch, not
-    # once per launch (the plain version keeps the model's dtype)
-    kdt = torch.float32 if dev.type == "cuda" else dtype
     with _full_f32_matmul():
         C, cases, _, (K, K_local, T, L_m), fac = _dense_batch(
             model, waves, cases, support_stiffness)
@@ -1118,20 +1115,19 @@ def design_envelope(model: JacketModel, waves: FourierWave, cases: LoadCase,
         D_h, Cd_h, Cm_h = torch.func.vmap(
             lambda mg, cd, cm: hydro_members(model, mg, cd, cm)[1:])(
                 cases.marine_growth_mm, cases.Cd, cases.Cm)
-        per_case = [a.to(kdt) for a in (
-            D_h, cases.wave_dir_deg, cases.current_dir_deg, Cd_h, Cm_h,
-            cases.rho_water, ts)]
-        wk, coords = waves.to(kdt, dev), model.coords.to(kdt)
+        per_case = (D_h, cases.wave_dir_deg, cases.current_dir_deg, Cd_h,
+                    Cm_h, cases.rho_water, ts)
+        wk = waves.to(dtype, dev)
         ends = [morison_end_forces_cuda(
-            wk.case(i), coords, conn_h, *(a[i] for a in per_case),
+            wk.case(i), model.coords, conn_h, *(a[i] for a in per_case),
             n_gauss=n_gauss, current_alpha=current_alpha,
             stretching=stretching) for i in range(C)]
         F1, F2, drag, inertia = (torch.stack(x) for x in zip(*ends))
         F12 = torch.cat([F1, F2], dim=2)                   # [C, S, 2M', 3]
-        tot = (drag + inertia).to(dtype)
+        tot = drag + inertia
         table = node_gather_table(torch.cat([conn_h[:, 0], conn_h[:, 1]]),
                                   model.n_nodes)
-        nodal = node_sum_ordered(F12.to(dtype), table)     # [C, S, n, 3]
+        nodal = node_sum_ordered(F12, table)               # [C, S, n, 3]
         F = torch.func.vmap(lambda c, nodal_c: assemble_loads(
             model, dataclasses.replace(cases, **dict(zip(fields, c))),
             nodal_c, L_m))(tuple(getattr(cases, n) for n in fields), nodal)

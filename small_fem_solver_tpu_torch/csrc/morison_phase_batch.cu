@@ -63,6 +63,16 @@
 // members it walks, in order, and writes them once [G, S, 6]; a second
 // kernel adds the blocks in a fixed order.  The grid depends only on the
 // card and the shapes: results are bit-repeatable.
+//
+// Float64.  morison_phase_batch_f64_kernel computes the same function in
+// double precision for float64 models (the dense design envelope and the
+// dynamics loads, which the JAX package evaluates in the model's dtype).
+// It is the simple form: one phase a thread, 64 phases a block, each block
+// walking a fixed stride of members, its records built per member in
+// shared memory as above and cos / sin (j omega t) by angle addition
+// (rounding ~j eps in float64).  Bound at the flagship shapes: 3.7 GFLOP
+// over the H100's 34 TFLOP/s of FP64, ~109 us.  The float32 kernel above
+// is not touched by it.
 #include <cuda_runtime.h>
 
 namespace {
@@ -71,43 +81,51 @@ constexpr int MAX_GAUSS = 16;
 constexpr int THREADS = 192;                 // two phases per thread
 constexpr int PHASE_TILE = 2 * THREADS;      // 384 phases per work item
 constexpr float kPi = 3.14159265358979323846f;
+constexpr double kPi64 = 3.14159265358979323846;
 
 }  // namespace
 
 // A coefficient given either as device memory (ptr, element m at
 // ptr[stride * m]; stride 0 for a 0-d tensor) or, when ptr is null, by value.
-struct Operand {
-  const float* ptr;
+template <typename T>
+struct OperandT {
+  const T* ptr;
   long long stride;
-  float value;
+  T value;
 };
 
 // Everything one launch reads and writes; passed to the kernel by value.
-struct MorisonParams {
-  const float* coords;     // [n_nodes, 3]
+template <typename T>
+struct ParamsT {
+  const T* coords;         // [n_nodes, 3]
   const long long* conn;   // [M, 2]
-  const float* D;          // [M] hydrodynamic diameter [m]
-  Operand Cd, Cm;          // per member or scalar
-  Operand wave_dir, current_dir, rho, alpha;   // scalars
-  const float* E;          // [N]
-  const float* U;          // [N]
-  const float* k;          // wave scalars (device, 0-d)
-  const float* omega;
-  const float* d;
-  const float* Uc;
-  const float* ts;         // [S]
-  float s[MAX_GAUSS];      // Gauss abscissae on [0, 1]
-  float w[MAX_GAUSS];      // Gauss weights (sum 1)
+  const T* D;              // [M] hydrodynamic diameter [m]
+  OperandT<T> Cd, Cm;      // per member or scalar
+  OperandT<T> wave_dir, current_dir, rho, alpha;   // scalars
+  const T* E;              // [N]
+  const T* U;              // [N]
+  const T* k;              // wave scalars (device, 0-d)
+  const T* omega;
+  const T* d;
+  const T* Uc;
+  const T* ts;             // [S]
+  T s[MAX_GAUSS];          // Gauss abscissae on [0, 1]
+  T w[MAX_GAUSS];          // Gauss weights (sum 1)
   int M, S, N, n_gauss, power_law;
-  float* F1;               // [S, M, 3]
-  float* F2;               // [S, M, 3]
-  float* partials;         // [G, S, 6]
-  float* totals;           // [S, 6] drag xyz | inertia xyz
+  T* F1;                   // [S, M, 3]
+  T* F2;                   // [S, M, 3]
+  T* partials;             // [G, S, 6]
+  T* totals;               // [S, 6] drag xyz | inertia xyz
 };
+
+using Operand = OperandT<float>;
+using MorisonParams = ParamsT<float>;
+using MorisonParams64 = ParamsT<double>;
 
 namespace {
 
-__device__ __forceinline__ float operand(const Operand& o, int m) {
+template <typename T>
+__device__ __forceinline__ T operand(const OperandT<T>& o, int m) {
   return o.ptr ? __ldg(o.ptr + o.stride * m) : o.value;
 }
 
@@ -351,12 +369,12 @@ morison_phase_batch_kernel(const MorisonParams p) {
 }
 
 // totals[s, c] = sum over blocks g (in order) of partials[g, s, c]
-__global__ void morison_totals_kernel(const float* __restrict__ partials,
-                                      int G, int S,
-                                      float* __restrict__ totals) {
+template <typename T>
+__global__ void morison_totals_kernel(const T* __restrict__ partials,
+                                      int G, int S, T* __restrict__ totals) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= S * 6) return;
-  float acc = 0.f;
+  T acc = 0;
   for (int g = 0; g < G; ++g) acc += partials[(size_t)g * S * 6 + i];
   totals[i] = acc;
 }
@@ -393,7 +411,204 @@ cudaError_t launch(const MorisonParams& p, int G, cudaStream_t stream) {
       <<<G, THREADS, smem_bytes<NMAX>(p), stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  morison_totals_kernel<<<(p.S * 6 + 255) / 256, 256, 0, stream>>>(
+  morison_totals_kernel<float><<<(p.S * 6 + 255) / 256, 256, 0, stream>>>(
+      p.partials, G, p.S, p.totals);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Float64 instance
+// ---------------------------------------------------------------------------
+
+constexpr int THREADS64 = 64;         // one phase a thread
+constexpr int MEMBER_BLOCKS64 = 512;  // blocks along the members (grid.y)
+
+// The float64 mode sums of one (phase, point); Wheeler adds the d/dz and
+// d^2/dz^2 sums.  r: cos(jkx), sin(jkx), U_j C_j(z), U_j S_j(z).
+template <bool WHEELER>
+struct Fields64 {
+  double eta = 0, u = 0, w = 0, du = 0, dw = 0;
+  double u_z = 0, w_z = 0, du_z = 0, dw_z = 0;
+  double u_zz = 0, w_zz = 0, du_zz = 0, dw_zz = 0;
+};
+
+// Grid: x over 64-phase tiles, y over MEMBER_BLOCKS64 member strides; block
+// (x, y) walks members y, y + gridDim.y, ... in order and writes its
+// per-phase drag / inertia sums to partials[y, s, :].  Shared memory: the
+// member's records [Q * N][4], point data [Q][8] and per-mode E, j k, j w.
+template <bool WHEELER>
+__global__ void __launch_bounds__(THREADS64)
+morison_phase_batch_f64_kernel(const MorisonParams64 p) {
+  extern __shared__ double smem64[];
+  const int N = p.N, Q = p.n_gauss, M = p.M, S = p.S;
+  double* rec = smem64;                 // [Q * N][4]
+  double* pt = rec + 4 * Q * N;         // [Q][8]
+  double* mE = pt + 8 * Q;              // [N]
+  double* mjk = mE + N;                 // [N]
+  double* mjw = mjk + N;                // [N]
+  const int tid = threadIdx.x;
+  const int s_ph = blockIdx.x * THREADS64 + tid;
+  const bool live_ph = s_ph < S;
+
+  const double d = p.d[0], kk = p.k[0], omega = p.omega[0];
+  double sin_w, cos_w, sin_c, cos_c;
+  sincospi((90.0 - operand(p.wave_dir, 0)) / 180.0, &sin_w, &cos_w);
+  sincospi((90.0 - operand(p.current_dir, 0)) / 180.0, &sin_c, &cos_c);
+  for (int j = tid; j < N; j += THREADS64) {
+    mE[j] = p.E[j];
+    mjk[j] = (j + 1) * kk;
+    mjw[j] = (j + 1) * omega;
+  }
+  double s1, c1;
+  sincos(omega * (live_ph ? p.ts[s_ph] : 0.0), &s1, &c1);
+  double tot[6] = {0, 0, 0, 0, 0, 0};
+
+  for (int m = blockIdx.y; m < M; m += gridDim.y) {
+    __syncthreads();   // the previous member's records are read
+    const long long n1 = p.conn[2 * m], n2 = p.conn[2 * m + 1];
+    const double x1 = p.coords[3 * n1], y1 = p.coords[3 * n1 + 1],
+                 z1 = p.coords[3 * n1 + 2];
+    const double dx = p.coords[3 * n2] - x1, dy = p.coords[3 * n2 + 1] - y1,
+                 dz = p.coords[3 * n2 + 2] - z1;
+    const double L = sqrt(dx * dx + dy * dy + dz * dz);
+    const double ex = dx / L, ey = dy / L, ez = dz / L;
+    for (int q = tid; q < Q; q += THREADS64) {
+      const double s = p.s[q];
+      const double x = x1 + s * dx, y = y1 + s * dy, z = z1 + s * dz;
+      double uc = p.Uc[0];
+      if (p.power_law) {
+        const double frac = fmin(fmax((z + d) / d, 0.0), 1.0);
+        uc *= pow(frac, operand(p.alpha, 0));
+      }
+      const double D = p.D[m], rho = operand(p.rho, 0), Lw = L * p.w[q];
+      double* o = pt + 8 * q;
+      o[0] = z;
+      o[1] = x * cos_w + y * sin_w;
+      o[2] = uc * cos_c;
+      o[3] = uc * sin_c;
+      o[4] = 0.5 * rho * operand(p.Cd, m) * D * Lw;
+      o[5] = rho * operand(p.Cm, m) * (kPi64 * D * D / 4.0) * Lw;
+      o[6] = s;
+    }
+    __syncthreads();
+    for (int i = tid; i < Q * N; i += THREADS64) {
+      const int q = i / N, j = i % N;
+      const double z = pt[8 * q], xw = pt[8 * q + 1], jk = mjk[j];
+      const double U = p.U[j];
+      double sjx, cjx;
+      sincos(jk * xw, &sjx, &cjx);
+      // overflow-safe cosh(A)/cosh(B), sinh(A)/cosh(B), A = jk (z + d)
+      const double A = jk * (z + d), B = jk * d, Aa = fabs(A);
+      const double scale = exp(Aa - B) / (1.0 + exp(-2.0 * B));
+      const double e2 = exp(-2.0 * Aa);
+      const double sgn = (A > 0.0) ? 1.0 : ((A < 0.0) ? -1.0 : 0.0);
+      double* r = rec + 4 * i;
+      r[0] = cjx;
+      r[1] = sjx;
+      r[2] = U * scale * (1.0 + e2);
+      r[3] = U * sgn * scale * (1.0 - e2);
+    }
+    __syncthreads();
+    if (!live_ph) continue;
+
+    double fdx = 0, fdy = 0, fdz = 0, fix = 0, fiy = 0, fiz = 0;
+    double f2x = 0, f2y = 0, f2z = 0;
+    for (int q = 0; q < Q; ++q) {
+      const double* r = rec + 4 * q * N;
+      Fields64<WHEELER> f;
+      double cj = c1, sj = s1;   // cos / sin (j omega t), j = 1
+      for (int j = 0; j < N; ++j) {
+        const double cx = r[4 * j], sx = r[4 * j + 1];
+        const double UC = r[4 * j + 2], US = r[4 * j + 3];
+        const double jw = mjw[j];
+        // cos / sin of (j k x - j omega t)
+        const double cp = cx * cj + sx * sj, sp = sx * cj - cx * sj;
+        const double ucw = jw * UC, nusw = -jw * US;
+        f.eta += mE[j] * cp;
+        f.u += UC * cp;
+        f.w += US * sp;
+        f.du += ucw * sp;
+        f.dw += nusw * cp;
+        if (WHEELER) {
+          const double jk = mjk[j];
+          const double t1 = jk * cp, t2 = jk * sp;
+          f.u_z += US * t1;
+          f.w_z += UC * t2;
+          f.du_z += -nusw * t2;
+          f.dw_z += -ucw * t1;
+          const double t3 = jk * t1, t4 = jk * t2;
+          f.u_zz += UC * t3;
+          f.w_zz += US * t4;
+          f.du_zz += ucw * t4;
+          f.dw_zz += nusw * t3;
+        }
+        const double cn = cj * c1 - sj * s1;
+        sj = sj * c1 + cj * s1;
+        cj = cn;
+      }
+      const double* a = pt + 8 * q;
+      const double z = a[0];
+      if (WHEELER) {
+        double dzw = -(z + d) * f.eta / (d + f.eta);
+        dzw = fmin(fmax(dzw, -d), d);
+        const double h2 = 0.5 * dzw * dzw;
+        f.u = f.u + dzw * f.u_z + h2 * f.u_zz;
+        f.w = f.w + dzw * f.w_z + h2 * f.w_zz;
+        f.du = f.du + dzw * f.du_z + h2 * f.du_zz;
+        f.dw = f.dw + dzw * f.dw_z + h2 * f.dw_zz;
+      }
+      if (z <= f.eta) {
+        const double Ux = f.u * cos_w + a[2], Uy = f.u * sin_w + a[3],
+                     Uz = f.w;
+        const double Ax = f.du * cos_w, Ay = f.du * sin_w, Az = f.dw;
+        const double Ue = Ux * ex + Uy * ey + Uz * ez;
+        const double Ae = Ax * ex + Ay * ey + Az * ez;
+        const double Upx = Ux - Ue * ex, Upy = Uy - Ue * ey,
+                     Upz = Uz - Ue * ez;
+        const double Umag = sqrt(Upx * Upx + Upy * Upy + Upz * Upz);
+        const double cdf = (Umag > 1e-10) ? a[4] * Umag : 0.0;
+        const double gx = cdf * Upx, gy = cdf * Upy, gz = cdf * Upz;
+        const double ix = a[5] * (Ax - Ae * ex), iy = a[5] * (Ay - Ae * ey),
+                     iz = a[5] * (Az - Ae * ez);
+        fdx += gx; fdy += gy; fdz += gz;
+        fix += ix; fiy += iy; fiz += iz;
+        f2x += a[6] * (gx + ix);
+        f2y += a[6] * (gy + iy);
+        f2z += a[6] * (gz + iz);
+      }
+    }
+    const size_t o = ((size_t)s_ph * M + m) * 3;
+    p.F1[o] = (fdx + fix) - f2x;
+    p.F1[o + 1] = (fdy + fiy) - f2y;
+    p.F1[o + 2] = (fdz + fiz) - f2z;
+    p.F2[o] = f2x; p.F2[o + 1] = f2y; p.F2[o + 2] = f2z;
+    tot[0] += fdx; tot[1] += fdy; tot[2] += fdz;
+    tot[3] += fix; tot[4] += fiy; tot[5] += fiz;
+  }
+  if (live_ph)
+    for (int c = 0; c < 6; ++c)
+      p.partials[((size_t)blockIdx.y * S + s_ph) * 6 + c] = tot[c];
+}
+
+size_t smem_bytes64(const MorisonParams64& p) {
+  return sizeof(double) * ((size_t)4 * p.n_gauss * p.N + 8 * p.n_gauss
+                           + 3 * p.N);
+}
+
+// The member blocks of the f64 grid (the rows of its partial sums): depends
+// only on the shapes, so the fixed-order totals are bit-repeatable.
+int grid_members64(const MorisonParams64& p) {
+  return p.M < MEMBER_BLOCKS64 ? p.M : MEMBER_BLOCKS64;
+}
+
+template <bool WHEELER>
+cudaError_t launch64(const MorisonParams64& p, int G, cudaStream_t stream) {
+  const dim3 grid((p.S + THREADS64 - 1) / THREADS64, G);
+  morison_phase_batch_f64_kernel<WHEELER>
+      <<<grid, THREADS64, smem_bytes64(p), stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  morison_totals_kernel<double><<<(p.S * 6 + 255) / 256, 256, 0, stream>>>(
       p.partials, G, p.S, p.totals);
   return cudaGetLastError();
 }
@@ -420,7 +635,8 @@ Instance pick(int N, bool wheeler) {
   return table[wheeler ? 1 : 0][(N + 3) / 4 - 1];
 }
 
-bool valid(const MorisonParams* p) {
+template <typename T>
+bool valid(const ParamsT<T>* p) {
   return p->M > 0 && p->S > 0 && p->N > 0 && p->N <= 32 && p->n_gauss > 0 &&
          p->n_gauss <= MAX_GAUSS;
 }
@@ -448,6 +664,25 @@ int morison_phase_batch_launch(const MorisonParams* p, int wheeler, int G,
   if (!valid(p) || G <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)pick(p->N, wheeler != 0).launch(*p, G, st);
+}
+
+// The float64 instance: the same contract on a MorisonParams64 (every
+// pointer to float64 device memory; partials [G, S, 6] with G from
+// morison_grid_blocks_f64, which stretching does not change).
+int morison_grid_blocks_f64(const MorisonParams64* p, int /*wheeler*/) {
+  if (!valid(p)) return -(int)cudaErrorInvalidValue;
+  return grid_members64(*p);
+}
+
+int morison_params_size_f64() { return (int)sizeof(MorisonParams64); }
+
+int morison_phase_batch_launch_f64(const MorisonParams64* p, int wheeler,
+                                   int G, void* stream) {
+  if (!valid(p) || G != grid_members64(*p))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(wheeler ? launch64<true>(*p, G, st)
+                       : launch64<false>(*p, G, st));
 }
 
 const char* morison_error_string(int code) {

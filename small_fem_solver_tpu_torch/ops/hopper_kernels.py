@@ -3,7 +3,8 @@
 - ``morison_end_forces_cuda`` (member end forces and totals, what the
   condensed paths read) and ``morison_phase_batch_cuda`` (plus the nodal
   scatter) launch the fused phase-batch Morison kernel in
-  ``csrc/morison_phase_batch.cu``, the port of the Pallas TPU kernel
+  ``csrc/morison_phase_batch.cu`` (a float32 and a float64 instance,
+  picked by the operands' dtype), the port of the Pallas TPU kernel
   ``small_fem_solver_tpu/ops/pallas_kernels.py::
   morison_phase_batch_pallas``.  Its plain PyTorch versions are
   ``ops/morison.py::morison_end_forces`` / ``morison_phase_batch``.
@@ -59,6 +60,9 @@ _SIGNATURES = {
         "morison_grid_blocks": ([_PTR, _I32], _I32),
         "morison_params_size": ([], _I32),
         "morison_error_string": ([_I32], ctypes.c_char_p),
+        "morison_phase_batch_launch_f64": ([_PTR, _I32, _I32, _PTR], _I32),
+        "morison_grid_blocks_f64": ([_PTR, _I32], _I32),
+        "morison_params_size_f64": ([], _I32),
     },
     "chain_sweep": {
         "chain_sweep_launch_f32": ([_PTR] * 6 + [_I64] * 4 + [_I32] * 5
@@ -126,8 +130,10 @@ def build_all(names=KERNELS) -> dict:
         for fn, (argtypes, restype) in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype
-        if (name == "morison_phase_batch" and lib.morison_params_size()
-                != ctypes.sizeof(_MorisonParams)):
+        if name == "morison_phase_batch" and (
+                lib.morison_params_size() != ctypes.sizeof(_MorisonParams)
+                or lib.morison_params_size_f64()
+                != ctypes.sizeof(_MorisonParams64)):
             raise RuntimeError("MorisonParams in morison_phase_batch.cu and "
                                "its ctypes mirror differ in size")
         _libs[name] = lib
@@ -139,127 +145,155 @@ def build(name: str) -> ctypes.CDLL:
     return _libs.get(name) or build_all((name,))[name]
 
 
-class _Operand(ctypes.Structure):
-    """ctypes mirror of ``Operand`` in ``csrc/morison_phase_batch.cu``."""
+def _params_struct(scalar):
+    """ctypes mirrors of ``OperandT<T>`` and ``ParamsT<T>`` in
+    ``csrc/morison_phase_batch.cu`` for ``scalar`` (c_float or c_double;
+    checked against the library's ``sizeof`` at build)."""
+    class Operand(ctypes.Structure):
+        _fields_ = [("ptr", ctypes.c_void_p), ("stride", ctypes.c_longlong),
+                    ("value", scalar)]
 
-    _fields_ = [("ptr", ctypes.c_void_p), ("stride", ctypes.c_longlong),
-                ("value", ctypes.c_float)]
+    class Params(ctypes.Structure):
+        _fields_ = ([(n, ctypes.c_void_p) for n in ("coords", "conn", "D")]
+                    + [(n, Operand) for n in ("Cd", "Cm", "wave_dir",
+                                              "current_dir", "rho", "alpha")]
+                    + [(n, ctypes.c_void_p) for n in ("E", "U", "k", "omega",
+                                                      "d", "Uc", "ts")]
+                    + [("s", scalar * MAX_GAUSS), ("w", scalar * MAX_GAUSS)]
+                    + [(n, ctypes.c_int) for n in ("M", "S", "N", "n_gauss",
+                                                   "power_law")]
+                    + [(n, ctypes.c_void_p) for n in ("F1", "F2", "partials",
+                                                      "totals")])
+    return Operand, Params
 
 
-class _MorisonParams(ctypes.Structure):
-    """ctypes mirror of ``MorisonParams`` in ``csrc/morison_phase_batch.cu``
-    (checked against the library's ``sizeof`` at build)."""
-
-    _fields_ = ([(n, ctypes.c_void_p) for n in ("coords", "conn", "D")]
-                + [(n, _Operand) for n in ("Cd", "Cm", "wave_dir",
-                                           "current_dir", "rho", "alpha")]
-                + [(n, ctypes.c_void_p) for n in ("E", "U", "k", "omega", "d",
-                                                  "Uc", "ts")]
-                + [("s", ctypes.c_float * MAX_GAUSS),
-                   ("w", ctypes.c_float * MAX_GAUSS)]
-                + [(n, ctypes.c_int) for n in ("M", "S", "N", "n_gauss",
-                                               "power_law")]
-                + [(n, ctypes.c_void_p) for n in ("F1", "F2", "partials",
-                                                  "totals")])
+_Operand, _MorisonParams = _params_struct(ctypes.c_float)
+_Operand64, _MorisonParams64 = _params_struct(ctypes.c_double)
+_INSTANCE_NAMES = {torch.float32: "f32", torch.float64: "f64"}
+# kernel instance by operand dtype: (params, operand, scalar, C suffix)
+_INSTANCES = {
+    torch.float32: (_MorisonParams, _Operand, ctypes.c_float, ""),
+    torch.float64: (_MorisonParams64, _Operand64, ctypes.c_double, "_f64"),
+}
 
 
 def kernel_operands(wave: FourierWave, coords, conn, D_m, wave_dir_deg,
                     current_dir_deg, Cd, Cm, rho_water, ts, n_gauss: int,
                     current_alpha) -> dict:
-    """The kernel's operands, as it reads them, on ``coords``' device:
+    """The kernel's operands, as it reads them, in ``coords``' dtype
+    (float32 or float64: the kernel instance) on its device:
 
     - ``coords`` [n_nodes, 3], ``conn`` [M, 2] (int64), ``D`` [M], ``ts``
       [S] and the wave's ``E``, ``U`` [N], ``k``, ``omega``, ``d``, ``Uc``
-      (0-d): float32 tensors;
+      (0-d): tensors;
     - ``Cd``, ``Cm`` (per member [M] or scalar), ``wave_dir``,
       ``current_dir``, ``rho`` and ``alpha`` (``None``: uniform current):
-      each a float32 tensor or a Python float;
-    - ``s``, ``w``: the n_gauss-point Gauss rule on [0, 1] (host numpy
-      float32, passed to the kernel by value).
+      each a tensor or a Python float (numbers and numpy arrays are taken
+      in the kernel's dtype);
+    - ``s``, ``w``: the n_gauss-point Gauss rule on [0, 1] (host numpy in
+      the kernel's dtype, passed to the kernel by value).
 
-    The kernel's prologue expands member -> point from these.  On the
-    port's own path every tensor is already float32 on the device, so this
-    issues no device operation: no host-to-device copy, no synchronisation.
+    Every tensor operand must already have ``coords``' dtype and device:
+    mixed dtypes raise ``TypeError`` (nothing is cast), another device
+    ``ValueError``.  So this issues no device operation: no host-to-device
+    copy, no synchronisation.  The kernel's prologue expands member ->
+    point from these.
     """
-    f32, dev = torch.float32, coords.device
+    dtype, dev = coords.dtype, coords.device
+    if dtype not in _INSTANCES:
+        raise TypeError("the Morison kernel takes float32 or float64 "
+                        f"operands, got {dtype}")
 
-    def dev_f32(v):
-        return v.to(device=dev, dtype=f32).contiguous()
+    def tensor(v, name):
+        if v.dtype != dtype:
+            raise TypeError(f"Morison kernel operand {name} is {v.dtype}, "
+                            f"coords {dtype}: mixed dtypes (cast them first)")
+        if v.device != dev:
+            raise ValueError(f"Morison kernel operand {name} is on "
+                             f"{v.device}, coords on {dev}")
+        return v.contiguous()
 
-    def value(v):
+    def value(v, name):
         if isinstance(v, torch.Tensor):
-            return dev_f32(v)
+            return tensor(v, name)
         if np.ndim(v) > 0:
-            return torch.as_tensor(np.asarray(v), dtype=f32, device=dev)
+            return torch.as_tensor(np.asarray(v), dtype=dtype, device=dev)
         return float(v)
 
-    s, w = (a.astype(np.float32) for a in gauss_legendre_01(n_gauss))
+    s, w = gauss_legendre_01(n_gauss, np.float32 if dtype == torch.float32
+                             else np.float64)
     return dict(
-        coords=dev_f32(coords), conn=conn.to(device=dev,
-                                              dtype=torch.int64).contiguous(),
-        D=dev_f32(D_m), ts=dev_f32(ts),
-        **{n: dev_f32(getattr(wave, n)) for n in ("E", "U", "k", "omega",
-                                                   "d")},
-        Uc=dev_f32(wave.U_c), Cd=value(Cd), Cm=value(Cm),
-        wave_dir=value(wave_dir_deg), current_dir=value(current_dir_deg),
-        rho=value(rho_water),
-        alpha=None if current_alpha is None else value(current_alpha),
+        coords=tensor(coords, "coords"),
+        conn=conn.to(device=dev, dtype=torch.int64).contiguous(),
+        D=tensor(D_m, "D_m"), ts=tensor(ts, "ts"),
+        **{n: tensor(getattr(wave, n), f"wave.{n}")
+           for n in ("E", "U", "k", "omega", "d")},
+        Uc=tensor(wave.U_c, "wave.U_c"), Cd=value(Cd, "Cd"),
+        Cm=value(Cm, "Cm"), wave_dir=value(wave_dir_deg, "wave_dir_deg"),
+        current_dir=value(current_dir_deg, "current_dir_deg"),
+        rho=value(rho_water, "rho_water"),
+        alpha=(None if current_alpha is None
+               else value(current_alpha, "current_alpha")),
         s=s, w=w)
 
 
-def _operand(v, M: int, name: str) -> _Operand:
-    """A value or a float32 tensor (0-d, or [M] per member) as an Operand."""
+def _operand(v, M: int, name: str, cls=_Operand):
+    """A value or a tensor (0-d, or [M] per member) as an Operand."""
     if not isinstance(v, torch.Tensor):
-        return _Operand(None, 0, v)
+        return cls(None, 0, v)
     if v.ndim == 0:
-        return _Operand(v.data_ptr(), 0, 0.0)
+        return cls(v.data_ptr(), 0, 0.0)
     if tuple(v.shape) != (M,):
         raise ValueError(f"{name} must be a scalar or per-member [{M}], got "
                          f"shape {tuple(v.shape)}")
-    return _Operand(v.data_ptr(), 1, 0.0)
+    return cls(v.data_ptr(), 1, 0.0)
 
 
 def launch_morison(k: dict, wheeler: bool):
-    """Launch the kernel on operands from :func:`kernel_operands` (all on
-    one CUDA device); returns (F1 [S, M, 3], F2 [S, M, 3], totals [S, 6] =
-    drag xyz | inertia xyz), float32.  Raises for CPU tensors."""
-    dev = k["coords"].device
+    """Launch the kernel instance of the operands' dtype on operands from
+    :func:`kernel_operands` (all on one CUDA device); returns (F1 [S, M,
+    3], F2 [S, M, 3], totals [S, 6] = drag xyz | inertia xyz) in that
+    dtype.  Raises for CPU tensors."""
+    dev, dtype = k["coords"].device, k["coords"].dtype
     if dev.type != "cuda":
         raise RuntimeError("the Morison kernel needs CUDA tensors (got "
                            f"{dev}); the plain version is "
                            "ops.morison.morison_phase_batch")
+    params, operand, scalar, suffix = _INSTANCES[dtype]
     lib = build("morison_phase_batch")
     M, S, N = k["conn"].shape[0], k["ts"].shape[0], k["E"].shape[0]
-    n_gauss, f32 = len(k["s"]), torch.float32
-    F1 = torch.empty(S, M, 3, dtype=f32, device=dev)
-    F2 = torch.empty(S, M, 3, dtype=f32, device=dev)
-    totals = torch.empty(S, 6, dtype=f32, device=dev)
-    p = _MorisonParams(
+    n_gauss = len(k["s"])
+    F1 = torch.empty(S, M, 3, dtype=dtype, device=dev)
+    F2 = torch.empty(S, M, 3, dtype=dtype, device=dev)
+    totals = torch.empty(S, 6, dtype=dtype, device=dev)
+    p = params(
         *(k[n].data_ptr() for n in ("coords", "conn", "D")),
-        *(_operand(k[n], M, n) for n in ("Cd", "Cm", "wave_dir",
-                                          "current_dir", "rho")),
-        _operand(0.0 if k["alpha"] is None else k["alpha"], M, "alpha"),
+        *(_operand(k[n], M, n, operand) for n in ("Cd", "Cm", "wave_dir",
+                                                   "current_dir", "rho")),
+        _operand(0.0 if k["alpha"] is None else k["alpha"], M, "alpha",
+                 operand),
         *(k[n].data_ptr() for n in ("E", "U", "k", "omega", "d", "Uc",
                                     "ts")),
-        (ctypes.c_float * MAX_GAUSS)(*k["s"]),
-        (ctypes.c_float * MAX_GAUSS)(*k["w"]),
+        (scalar * MAX_GAUSS)(*k["s"]), (scalar * MAX_GAUSS)(*k["w"]),
         M, S, N, n_gauss, int(k["alpha"] is not None),
         F1.data_ptr(), F2.data_ptr(), None, totals.data_ptr())
     with torch.cuda.device(dev):
-        G = lib.morison_grid_blocks(ctypes.byref(p), int(wheeler))
+        G = getattr(lib, "morison_grid_blocks" + suffix)(ctypes.byref(p),
+                                                         int(wheeler))
         if G <= 0:
             raise RuntimeError("morison_phase_batch grid query failed: "
                                + lib.morison_error_string(-G).decode())
         # the kernel's per-block partial totals [G, S, 6]
-        partials = torch.empty(G, S, 6, dtype=f32, device=dev)
+        partials = torch.empty(G, S, 6, dtype=dtype, device=dev)
         p.partials = partials.data_ptr()
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.morison_phase_batch_launch(ctypes.byref(p), int(wheeler),
-                                             G, stream)
+        err = getattr(lib, "morison_phase_batch_launch" + suffix)(
+            ctypes.byref(p), int(wheeler), G, stream)
     if err != 0:
         raise RuntimeError("morison_phase_batch kernel launch failed: "
                            + lib.morison_error_string(err).decode())
     morison_phase_batch_cuda.launches += 1
+    morison_phase_batch_cuda.instance_launches[_INSTANCE_NAMES[dtype]] += 1
     return F1, F2, totals
 
 
@@ -269,11 +303,14 @@ def morison_end_forces_cuda(wave: FourierWave, coords: torch.Tensor,
                             ts: torch.Tensor, n_gauss: int = 15,
                             current_alpha=None, stretching: str = "none"):
     """Fused-kernel :func:`..morison.morison_end_forces`: (F1, F2,
-    total_drag, total_inertia), float32 on a CUDA device.
+    total_drag, total_inertia) in the operands' dtype.
 
-    CUDA tensors launch the kernel (or raise when the build or the launch
-    fails); CPU tensors run the plain version in their own dtype.
-    Kernel launches count on ``morison_phase_batch_cuda.launches``.
+    CUDA tensors launch the kernel instance of their dtype: float32 or
+    float64 (any other dtype, or operands of mixed dtypes, raise
+    ``TypeError``: nothing is cast), or raise when the build or the launch
+    fails.  CPU tensors run the plain version in their own dtype.  Kernel
+    launches count on ``morison_phase_batch_cuda.launches`` (per instance
+    on ``.instance_launches``).
     """
     if n_gauss > MAX_GAUSS:
         raise ValueError(f"n_gauss must be <= {MAX_GAUSS}")
@@ -292,7 +329,6 @@ def morison_end_forces_cuda(wave: FourierWave, coords: torch.Tensor,
     return F1, F2, totals[:, :3], totals[:, 3:]
 
 
-
 def morison_phase_batch_cuda(wave: FourierWave, coords: torch.Tensor,
                              conn: torch.Tensor, D_m: torch.Tensor,
                              wave_dir_deg, current_dir_deg, Cd, Cm,
@@ -300,10 +336,11 @@ def morison_phase_batch_cuda(wave: FourierWave, coords: torch.Tensor,
                              current_alpha=None,
                              stretching: str = "none") -> MorisonPhaseBatch:
     """Fused-kernel :func:`..morison.morison_phase_batch`: same signature,
-    semantics and result type (float32 on a CUDA device; CPU tensors run
-    the plain version).  ``morison_phase_batch_cuda.launches`` counts the
-    K1 launches of both wrappers (:func:`launch_morison` adds one per
-    launch)."""
+    semantics and result type (in the operands' dtype, float32 or float64,
+    on a CUDA device; CPU tensors run the plain version).
+    ``morison_phase_batch_cuda.launches`` counts the K1 launches of both
+    wrappers and ``.instance_launches`` those of each instance ("f32",
+    "f64"); :func:`launch_morison` adds one per launch."""
     F1, F2, total_drag, total_inertia = morison_end_forces_cuda(
         wave, coords, conn, D_m, wave_dir_deg, current_dir_deg, Cd, Cm,
         rho_water, ts, n_gauss, current_alpha, stretching)
@@ -314,6 +351,7 @@ def morison_phase_batch_cuda(wave: FourierWave, coords: torch.Tensor,
 
 
 morison_phase_batch_cuda.launches = 0
+morison_phase_batch_cuda.instance_launches = {"f32": 0, "f64": 0}
 
 
 SWEEP_LANES = 32            # right-hand sides per sweep block (one a lane)

@@ -94,12 +94,15 @@ def test_plain_f32_matches_pallas_kernel(model_name, N, n_members,
 
 def _emulate_kernel(k, wheeler):
     """The arithmetic of csrc/morison_phase_batch.cu on its operands, in
-    PyTorch f32: the prologue's member -> point expansion (geometry,
-    current, cd / ci), the spatial records of every (member, point, mode),
-    the phase factors, the same mode-sum formulas and F1 = sum f - F2."""
-    def val(v):
-        return v if isinstance(v, torch.Tensor) else torch.tensor(v)
+    PyTorch in the operands' dtype (the kernel instance): the prologue's
+    member -> point expansion (geometry, current, cd / ci), the spatial
+    records of every (member, point, mode), the phase factors, the same
+    mode-sum formulas and F1 = sum f - F2."""
     coords, conn, D = k["coords"], k["conn"], k["D"]
+
+    def val(v):
+        return (v if isinstance(v, torch.Tensor)
+                else torch.tensor(v, dtype=coords.dtype))
     s, wq = torch.from_numpy(k["s"]), torch.from_numpy(k["w"])
     d, kk, omega, Uc = k["d"], k["k"], k["omega"], k["Uc"]
     th_w = torch.pi * (90.0 - val(k["wave_dir"])) / 180.0
@@ -127,7 +130,7 @@ def _emulate_kernel(k, wheeler):
     ex, ey, ez = ((dL[:, c] / L)[:, None] for c in range(3))
     # prologue 2: records of every (member, point, mode)
     N = k["E"].shape[0]
-    j = torch.arange(1, N + 1, dtype=torch.float32)
+    j = torch.arange(1, N + 1, dtype=coords.dtype)
     jk, jw = j * kk, j * omega
     sjx, cjx = torch.sin(jk * xw[..., None]), torch.cos(jk * xw[..., None])
     A = jk * (z[..., None] + d)
@@ -206,6 +209,38 @@ def test_kernel_operand_packing(stretching, alpha, n_members):
     for a, b in ((F1, ref.F1), (F2, ref.F2), (drag, ref.total_drag),
                  (inertia, ref.total_inertia)):
         assert rel_err(a, b) < 2e-5
+
+
+def test_kernel_operand_packing_f64():
+    """float64 operands stay float64 (the kernel's f64 instance): nothing
+    is cast or copied, the Gauss rule is float64, and the emulated kernel
+    arithmetic equals the plain port at 1e-12; mixed dtypes raise."""
+    model, wave, D, ts, tm, tw = _inputs(jnp.float64, torch.float64,
+                                         "fenton", 12)
+    Cd = np.random.default_rng(2).uniform(0.6, 1.1, tm.n_members)
+    args = (tw, tm.coords, tm.conn, torch.tensor(D), 38.0, 120.0, Cd, 2.0,
+            1025.0, torch.tensor(ts))
+    for stretching, alpha in (("none", None), ("wheeler", 1.0 / 7.0)):
+        k = hk.kernel_operands(*args, n_gauss=15, current_alpha=alpha)
+        assert k["s"].dtype == np.float64 and k["w"].dtype == np.float64
+        assert k["Cd"].dtype == torch.float64
+        assert all(v.dtype == torch.float64 for n, v in k.items()
+                   if isinstance(v, torch.Tensor) and n != "conn")
+        assert k["coords"].data_ptr() == tm.coords.data_ptr()
+        assert k["E"].data_ptr() == tw.E.data_ptr()
+        F1, F2, drag, inertia = _emulate_kernel(k, stretching == "wheeler")
+        ref = morison_phase_batch(*args, current_alpha=alpha,
+                                  stretching=stretching)
+        for a, b in ((F1, ref.F1), (F2, ref.F2), (drag, ref.total_drag),
+                     (inertia, ref.total_inertia)):
+            assert rel_err(a, b) < 1e-12
+    with pytest.raises(TypeError, match="mixed dtypes"):
+        hk.kernel_operands(*args[:-1], torch.tensor(ts, dtype=torch.float32),
+                           n_gauss=15, current_alpha=None)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        hk.kernel_operands(tw.to(torch.float16, "cpu"),
+                           tm.coords.to(torch.float16), *args[2:],
+                           n_gauss=15, current_alpha=None)
 
 
 def test_cuda_wrapper_refuses_cpu_tensors_and_bad_sizes():
