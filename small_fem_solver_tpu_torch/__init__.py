@@ -9,9 +9,10 @@ condensed single-phase analyses (``analyze_condensed``,
 ``analyze_prepared``), the condensed phase scan (fused, separable or
 pointwise kinematics), the design envelopes (dense ``design_envelope``,
 ``design_envelope_condensed``, ``parallel.sweep.design_sweep``, resumable
-envelopes with npz persistence), and the model and load options: member
+envelopes with npz persistence), the model and load options (member
 end releases, appurtenances, still-water buoyancy, wind and foundation
-springs.  Waves: Airy, Stokes (orders 1-5) and Fenton with the
+springs), and structural dynamics: modal analysis (dense and
+Craig-Bampton), harmonic and transient response, and fatigue screening.  Waves: Airy, Stokes (orders 1-5) and Fenton with the
 reference's automatic selection.  The fused Morison kernel and the
 chain-sweep kernel (CUDA C++) have plain PyTorch versions beside them.
 The package imports no JAX; ``convert`` carries state over from the JAX
@@ -32,6 +33,14 @@ from .models.model import (JacketModel, add_appurtenances, build_model,
                            refine_model)
 from .models.presets import DEFAULT_STORM, default_3leg_jacket
 from .ops.dispersion import apparent_period, solve_dispersion
+from .ops.dynamics import (HarmonicResponse, ModalResults,
+                           TransientResponse, dynamic_response,
+                           dynamic_response_condensed, mac, modal_analysis,
+                           modal_analysis_condensed,
+                           transient_response_condensed)
+from .ops.eigen import (eigh_general_small, jacobi_eigh, subspace_eigh,
+                        subspace_largest)
+from .ops.fatigue import FatigueScreen, fatigue_screen
 from .ops.fenton import fenton_wave, fenton_wave_batch
 from .ops.morison import MorisonLoads, PhaseScan, morison_loads, phase_scan
 from .ops.sections import TubeSections, tube_sections

@@ -7,8 +7,9 @@ the Cholesky path the free-free block is symmetrically Jacobi-scaled
 before the factorization (beam stiffness entries span ~8 orders of
 magnitude between axial and rotational DOFs), and ``solve_factored`` runs
 iterative refinement rounds so float32 solves recover near-working
-precision.  PCG and the matrix-free operators are not ported yet
-(ROADMAP.md, Queue A item 5).
+precision.  ``ground_with_springs`` grounds K through foundation springs
+for the dynamics paths.  PCG and the matrix-free operators are not ported
+yet (ROADMAP.md, Queue A item 5).
 """
 from __future__ import annotations
 
@@ -68,6 +69,18 @@ def support_spring_nodes(fixed_mask, support_stiffness) -> np.ndarray:
     ks = np.zeros((fixed.shape[0], 6))
     ks[fixed_nodes] = k
     return ks
+
+
+def ground_with_springs(K: torch.Tensor, fixed_mask, support_stiffness,
+                        dtype: torch.dtype):
+    """(K + diag(k), free = all DOFs): ground an assembled K through
+    validated foundation springs (:func:`support_spring_nodes`), the
+    grounding step of the spring-supported eigen and response paths.
+    Reaction-recovering paths keep K springless and add the diagonal only
+    inside the factorization (``api._spring_dfac``)."""
+    ks = support_spring_nodes(fixed_mask, support_stiffness)
+    k = torch.as_tensor(ks.reshape(-1), dtype=dtype, device=K.device)
+    return K + torch.diag(k), torch.arange(K.shape[0], device=K.device)
 
 
 def _min_norm_lstsq(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,7 @@ from small_fem_solver_tpu_torch.ops.morison import morison_phase_batch
 FIELDS = ("nodal_forces", "total_drag", "total_inertia", "total_morison",
           "F1", "F2")
 KERNEL_TOL = 1e-5   # f32 kernel vs f64 plain, relative to the largest value
+KERNEL_TOL_F64 = 1e-12  # f64 kernel vs f64 plain (sum order only)
 SWEEP_TOL_F64 = 1e-12   # f64 sweep kernel vs f64 plain (sum order only)
 STORM = dict(wave_dir_deg=38.0, current_dir_deg=38.0, F_axial_kN=25100.0,
              F_shear_kN=2900.0, custom_sw_tonnes=1100.0, sw_mode="custom")
@@ -85,6 +86,44 @@ def test_kernel_matches_plain_f64(model, N, stretching, alpha, n_members, S,
     for name in FIELDS:
         assert getattr(out, name).dtype == torch.float32
         assert _rel(getattr(out, name), getattr(ref, name)) < KERNEL_TOL, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stretching,alpha,n_members,S", [
+    ("none", None, None, 72), ("wheeler", 1.0 / 7.0, 37, 37)])
+def test_f64_kernel_matches_plain_f64(stretching, alpha, n_members, S):
+    """The kernel's float64 instance against the plain version in f64 on
+    the same inputs, with per-member Cd / Cm: 1e-12 of the largest value,
+    launched once and counted as f64; bit-repeatable."""
+    dev = _device()
+    refined = pt.refine_model(pt.default_3leg_jacket(device=dev), 4)
+    M = n_members or refined.n_members
+    wave = pt.make_wave(17.038, 9.4, 50.0, U_c=1.7, model="fenton", N=18,
+                        device=dev)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    Cd = (0.6 + 0.5 * torch.rand(M, generator=gen, dtype=torch.float64))
+    Cm = (1.6 + 0.5 * torch.rand(M, generator=gen, dtype=torch.float64))
+    D = refined.sections.D_outer[refined.sect_id][:M] / 1000.0
+    ts = torch.arange(S, dtype=torch.float64, device=dev) * wave.T / S
+    args = (wave, refined.coords, refined.conn[:M], D, 38.0, 120.0,
+            Cd.to(dev), Cm.to(dev), 1025.0, ts)
+    before = dict(hk.morison_phase_batch_cuda.instance_launches)
+    out = hk.morison_phase_batch_cuda(*args, current_alpha=alpha,
+                                      stretching=stretching)
+    again = hk.morison_phase_batch_cuda(*args, current_alpha=alpha,
+                                        stretching=stretching)
+    torch.cuda.synchronize()
+    assert hk.morison_phase_batch_cuda.instance_launches == dict(
+        before, f64=before["f64"] + 2)
+    ref = morison_phase_batch(*args, current_alpha=alpha,
+                              stretching=stretching)
+    for name in FIELDS:
+        assert getattr(out, name).dtype == torch.float64
+        assert _rel(getattr(out, name), getattr(ref, name)) \
+            < KERNEL_TOL_F64, name
+        assert torch.equal(getattr(out, name), getattr(again, name)), name
+    with pytest.raises(TypeError, match="mixed dtypes"):
+        hk.morison_phase_batch_cuda(*args[:-1], ts.float())
 
 
 @pytest.mark.cuda
@@ -392,10 +431,11 @@ def test_kernel_per_member_coefficients_with_appurtenances():
 
 @pytest.mark.cuda
 def test_design_envelope_on_card_matches_cpu():
-    """The dense envelope on the card (one K1 launch per case, f32 loads)
-    against the same call on the CPU (the plain version in f64), with
-    springs, releases and appurtenances: max_util_per_case 1e-4,
-    member_envelope 2e-4 of its max, the same governing case."""
+    """The dense f64 envelope on the card (one launch of the kernel's f64
+    instance per case) against the same call on the CPU (the plain version
+    in f64), with springs, releases and appurtenances: the full
+    utilization, the Morison totals and the reductions at 1e-10 of their
+    maxima, the same governing case."""
     dev = _device()
     runs = {}
     for d in ("cpu", dev):
@@ -406,15 +446,16 @@ def test_design_envelope_on_card_matches_cpu():
             pt.LoadCase(**STORM, buoyancy="sealed", wind_speed_ms=30.0),
             wave_dir_deg=[0.0, 38.0, 200.0],
             current_dir_deg=[0.0, 38.0, 200.0])
-        hk.morison_phase_batch_cuda.launches = 0
+        hk.morison_phase_batch_cuda.instance_launches["f64"] = 0
         runs[str(d)] = pt.design_envelope(_options_jacket(d), waves, cases,
                                           n_steps=12,
                                           support_stiffness=SPRINGS)
-    assert hk.morison_phase_batch_cuda.launches == 3
+    assert hk.morison_phase_batch_cuda.instance_launches["f64"] == 3
     card, cpu = runs[str(dev)], runs["cpu"]
     assert card.utilization.device.type == "cuda"
-    assert _rel(card.max_util_per_case.cpu(), cpu.max_util_per_case) < 1e-4
-    assert _rel(card.member_envelope.cpu(), cpu.member_envelope) < 2e-4
+    errs = _rel_fields(card, cpu, ("utilization", "total_morison",
+                                   "max_util_per_case", "member_envelope"))
+    assert max(errs.values()) <= 1e-10, errs
     assert int(card.governing_case) == int(cpu.governing_case)
 
 
@@ -442,3 +483,43 @@ def test_sprung_phase_scan_on_card_matches_cpu():
     U_sup = cpu.U.reshape(8, -1, 6)[:, fixed]
     assert _rel(cpu.reactions, -torch.tensor(SPRINGS, dtype=torch.float64)
                 * U_sup) <= 1e-8
+
+
+@pytest.mark.cuda
+def test_dynamics_on_card_match_cpu():
+    """modal_analysis_condensed (4 chain modes: the subspace iteration,
+    10 launches of the sweep kernel) and dynamic_response_condensed (all
+    18 chain modes; one launch of K1's f64 instance) of the 4x refined
+    jacket in f64: the card against the CPU at 1e-10, mode shapes by the
+    MAC against the span of their (near-)degenerate CPU cluster."""
+    dev = _device()
+    runs = {}
+    for d in ("cpu", dev):
+        coarse = pt.default_3leg_jacket(device=d)
+        refined = pt.refine_model(coarse, 4)
+        wave = pt.make_wave(17.038, 9.4, 50.0, U_c=1.7, model="fenton", N=18,
+                            device=d)
+        hk.morison_phase_batch_cuda.instance_launches["f64"] = 0
+        hk.chain_sweep_cuda.launches = 0
+        runs[str(d)] = (
+            pt.modal_analysis_condensed(coarse, refined, 4, n_modes=8,
+                                        topside_mass_t=1100.0,
+                                        n_chain_modes=4),
+            pt.dynamic_response_condensed(coarse, refined, 4, wave,
+                                          pt.LoadCase(**STORM),
+                                          n_harmonics=4, n_steps=24,
+                                          n_chain_modes=18))
+    assert hk.morison_phase_batch_cuda.instance_launches["f64"] == 1
+    assert hk.chain_sweep_cuda.launches == 10
+    (mc, hc), (mp, hp) = runs[str(dev)], runs["cpu"]
+    assert _rel(mc.frequencies_hz.cpu(), mp.frequencies_hz) <= 1e-10
+    # the sway pair rotates freely inside its plane: each card mode
+    # against the span of its CPU cluster
+    f, a = mp.frequencies_hz, mc.mode_shapes.cpu()
+    for i in range(8):
+        Q = torch.linalg.qr(mp.mode_shapes[(f - f[i]).abs()
+                                           <= 1e-6 * f[i]].T)[0]
+        p = Q.T @ a[i]
+        assert float(p @ p / (a[i] @ a[i])) >= 1.0 - 1e-8, i
+    errs = _rel_fields(hc, hp, ("U_time", "U_static", "utilization", "daf"))
+    assert max(errs.values()) <= 1e-10, errs
