@@ -9,8 +9,10 @@ phases on the same mesh), the reference ``analyze`` on the six JSON
 goldens, the dense and pointwise paths at 9,612 DOF in float64, the
 99,882-DOF ``analyze_condensed`` / ``analyze_prepared`` in float64, the
 same storm scan with every model and load option on foundation springs,
-and the dense design tier (``design_envelope``, ``design_sweep`` and the
-resumable envelope over 1,000 Stokes cases) —
+the dense design tier (``design_envelope``, ``design_sweep`` and the
+resumable envelope over 1,000 Stokes cases), and structural dynamics
+(modal, Craig-Bampton, harmonic and transient response at 9,612 DOF, modal
+at 99,882 DOF, in float64) —
 through both hand-written kernels, the fused Morison kernel (K1) and the
 chain-sweep kernel, and checks them:
 
@@ -23,7 +25,10 @@ chain-sweep kernel, and checks them:
    ``morison_phase_batch`` in f64 on the same (f32-rounded) inputs, at the
    flagship shapes, for Fenton and Airy waves, Wheeler stretching, a
    member count and a phase count off the kernel's tiles, and the scan's
-   0-d tensor coefficients; bit-repeatable;
+   0-d tensor coefficients; bit-repeatable; then K1's float64 instance
+   against the plain version in f64 (1e-12) at the flagship shapes and at
+   the dense envelope's (36 phases, 51 members, Stokes-5 with 8 modes,
+   Wheeler, per-member Cd / Cm), one f64 launch a call, bit-repeatable;
 4. sweep phase: ``chain_sweep_cuda`` in f32 and f64 against
    ``chain_sweep_plain`` in f64 on the flagship chain factors (nested
    level 1 and 2, thomas), on random loads for 360 and 37 right-hand sides
@@ -90,16 +95,37 @@ chain-sweep kernel, and checks them:
 12. dense envelope phase: 1,000 cases (Stokes-5, H = linspace(2, 14, 50)
    m x 20 headings of wave and current, T = 9.4 s, d = 50 m, U_c = 1.7
    m/s) x 36 phases through ``design_envelope`` on the default jacket
-   (126 DOF, f64): exactly 1,000 K1 launches, every case against the CPU
-   f64 plain run (the reductions, the full utilization [C, S, M] and the
-   Morison totals), the governing case against ``analyze_phase_batch``;
-   time, device operations and busy time, peak memory;
+   (126 DOF, f64): exactly 1,000 launches of K1's f64 instance, every case
+   against the CPU f64 plain run at 1e-10 (the reductions, the full
+   utilization [C, S, M] and the Morison totals), the governing case
+   against ``analyze_phase_batch``; time, device operations and busy time,
+   peak memory; then an f32 copy of the model through the same call (1,000
+   launches of the f32 instance, its Morison totals at 1e-6);
 13. sweep phase: ``design_sweep`` of the same cases at t_analysis = 0 and
    ``critical_case``; the governing and 4 seeded random cases against a
    per-case ``analyze`` (1e-10); time;
 14. resume phase: ``design_envelope_resumable`` in chunks of 64 in a
    temporary directory: a bounded call returns None, the resumed call
-   equals the one-shot envelope (1e-12), a mismatched resume raises.
+   equals the one-shot envelope (1e-12), a mismatched resume raises;
+15. dynamics phase (9,612 DOF, f64, 1,100 t topside), every call against
+   the port's CPU f64 run of the same call, with its launch counts read
+   around exactly that call: ``modal_analysis_condensed`` (10 modes, 12
+   chain modes; clamped and dry, then on springs with added mass: 10
+   sweep launches each, frequencies 1e-10, 1 - MAC 1e-8, longer periods);
+   the smallest relative gap of the chain spectrum at the retained count;
+   the dense ``modal_analysis`` on the card at n_seg = 8 against
+   Craig-Bampton with 16 chain modes (2e-6); ``dynamic_response_condensed``
+   of the flagship storm (72 steps, 6 harmonics: one launch of K1's f64
+   instance, 10 sweep launches) and ``fatigue_screen`` on its von Mises
+   history; ``transient_response_condensed`` over 12 periods at T/128
+   ramped over 2 (one K1 launch at S = 1,536) against the harmonic steady
+   state (5e-3 utilization, 2e-2 tip history); the transient with relative
+   drag (2 iterations), free decay from mode 1 (the damping-ratio check)
+   and a seeded ground-acceleration record; each call's host time, device
+   operations, busy time and peak memory;
+16. large modal phase: ``modal_analysis_condensed`` at 99,882 DOF (10
+   sweep launches at depth 326), the first 8 frequencies within 2e-3 of
+   the 9,612-DOF ones; time and peak memory.
 
 Prints the kernel record and the card's name and power limit on the lines
 before the last, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -169,16 +195,44 @@ STIFF_TOL = 1e-5      # stiff springs vs the clamped scan
 DESIGN_HS = (2.0, 14.0, 50)           # linspace(2, 14, 50) m
 DESIGN_HEADINGS = (0.0, 360.0, 18.0)  # arange: 0-342 deg, wave = current
 DESIGN_STEPS = 36
-DENSE_LOAD_TOL = 1e-6 # dense envelope on the card (K1 f32 loads) vs the
-                      # CPU f64 run: total_morison and the full utilization
-                      # [C, S, M], relative to their maxima (K1's f32 error
-                      # against its plain version is ~6e-7, phase 3)
+DENSE_LOAD_TOL = 1e-6 # dense envelope of the f32 model on the card (K1 f32
+                      # loads) vs the CPU f64 run: total_morison, relative to
+                      # its maximum (K1's f32 error against its plain
+                      # version is ~6e-7, phase 3)
 GOV_TOL = 2e-5        # governing case vs analyze_phase_batch
                       # (tests/test_envelope.py:97-102)
 SWEEP_CASE_TOL = 1e-10  # design_sweep vs per-case analyze
 RESUME_TOL = 1e-12    # resumed chunked envelope vs one design_envelope
 RESUME_CHUNK = 64
 SHORT_REPS = 50       # calls of a short function in one profiler session
+KERNEL_TOL_F64 = 1e-12  # K1's f64 instance vs its plain f64 version
+DENSE_F64_TOL = 1e-10 # dense f64 envelope on the card (K1 f64) vs the CPU
+                      # f64 run: utilization, total_morison, reductions
+# dynamics at 9,612 DOF (f64), against the port's CPU f64 run of each call
+TOPSIDE_T = 1100.0    # topside mass (tests/test_dynamics.py)
+CHAIN_MODES = 12      # retained chain modes of the Craig-Bampton basis
+MODAL_FREQ_TOL = 1e-10  # frequencies, relative
+MODAL_MAC_TOL = 1e-8  # 1 - MAC of each card mode against its CPU mode's
+                      # span (the span of a degenerate pair: sway pairs
+                      # rotate freely inside it)
+CB_DENSE_TOL = 2e-6   # Craig-Bampton (16 chain modes) vs dense modal at
+                      # n_seg = 8 (tests/test_dynamics.py:188-205)
+HARMONIC_TOL = 1e-9   # dynamic_response_condensed card vs CPU: U, DAF
+TRANSIENT_TOL = 1e-9  # transient_response_condensed card vs CPU: U, tip
+UTIL_DYN_TOL = 1e-7   # ... their utilization and the fatigue screen on it,
+                      # set from measurement (1.6e-8 harmonic, 2.4e-8
+                      # transient on an H100): the 12-mode chain basis
+                      # splits a degenerate bending pair in some chains
+                      # (relative gap down to 1.3e-10), so LAPACK and
+                      # cuSOLVER keep rotations of it that differ at ~1e-10
+                      # in U, and the recovery on 0.3 m elements amplifies
+                      # that ~100x
+STEADY_UTIL_TOL = 5e-3  # transient last period vs harmonic (n_steps = 128)
+STEADY_TIP_TOL = 2e-2   # ... tip history (tests/test_dynamics.py:329-366)
+DECAY_ZETA_RTOL = 0.01  # free decay: damping ratio, damped period
+DECAY_PERIOD_RTOL = 5e-3  # (tests/test_dynamics.py:248-284)
+MESH_FREQ_TOL = 2e-3  # 99,882 vs 9,612 DOF frequencies
+                      # (tests/test_dynamics.py:207-220)
 
 
 class CheckFailed(RuntimeError):
@@ -243,9 +297,11 @@ def sweep_bound(itemsize: int, B: int, n_int: int, C: int):
                       else FP64_FLOP_PER_S), nbytes)
 
 
-def device_events(fn, reps: int = 1):
+def device_events(fn, reps: int = 1, host: bool = True):
     """Device-side operations (kernels, copies) of ``reps`` calls of
     ``fn`` in one torch.profiler session: a list of (name, microseconds).
+    ``host=False`` traces the device only (cheaper for calls of tens of
+    thousands of operations).
 
     On the H100 host the profiler loses a few device records of every
     session once earlier sessions were traced, more with each session
@@ -255,8 +311,8 @@ def device_events(fn, reps: int = 1):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * host
+                 + [ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -784,23 +840,21 @@ ENV_FIELDS = ("ts", "utilization", "max_util_per_phase", "max_util_per_case",
 
 def dense_envelope_phase(pt, hk, dev, coarse64, waves_cpu, cases):
     """``design_envelope`` of the 1,000 cases x 36 phases on the default
-    jacket: exactly one K1 launch per case, every case against the CPU f64
-    plain run, the governing case against ``analyze_phase_batch``; time,
-    device operations and peak memory."""
+    jacket in f64: exactly one launch of K1's f64 instance per case, every
+    case against the CPU f64 plain run (1e-10), the governing case against
+    ``analyze_phase_batch``; time, device operations and peak memory.  Then
+    an f32 copy of the model through the same call: one launch of the f32
+    instance per case, its Morison totals at K1's f32 limit."""
     import torch
     waves = waves_cpu.to(torch.float64, dev)
     C, out = waves.E.shape[0], {}
 
     def envelope():
         return pt.design_envelope(coarse64, waves, cases, n_steps=DESIGN_STEPS)
-    hk.morison_phase_batch_cuda.launches = 0
-    t0 = time.perf_counter()
-    env = envelope()
-    torch.cuda.synchronize()
-    out["first_s"] = time.perf_counter() - t0
-    out["launches"] = hk.morison_phase_batch_cuda.launches
-    check(out["launches"] == C, f"design_envelope launched K1 "
-          f"{out['launches']}x (one per case: {C})")
+    env, n, out["first_s"] = counted(hk, envelope)
+    out["launches"] = n["f64"]
+    check(n == {"sweep": 0, "f32": 0, "f64": C}, f"design_envelope of the "
+          f"f64 model launched {n} (K1's f64 instance once per case: {C})")
     check(tuple(env.utilization.shape) == (C, DESIGN_STEPS,
                                            coarse64.n_members)
           and all(torch.isfinite(getattr(env, f)).all() for f in ENV_FIELDS),
@@ -814,22 +868,45 @@ def dense_envelope_phase(pt, hk, dev, coarse64, waves_cpu, cases):
             for f in ("max_util_per_case", "member_envelope", "utilization",
                       "total_morison")}
     gov, gov_cpu = int(env.governing_case), int(ref.governing_case)
-    check(errs["max_util_per_case"] <= ENV_CASE_TOL
-          and errs["member_envelope"] <= ENV_MEMBER_TOL and gov == gov_cpu,
-          f"dense envelope on the card (K1 f32 loads) vs the CPU f64 plain "
-          f"run: max_util_per_case {errs['max_util_per_case']:.2e} <= "
-          f"{ENV_CASE_TOL:g}, member_envelope {errs['member_envelope']:.2e} "
-          f"<= {ENV_MEMBER_TOL:g}, governing case {gov} == {gov_cpu}")
-    # K1 at this path's shapes (51 members, 36 phases, 8 modes): its end
-    # forces through every (case, phase, member) utilization, its totals
-    # kernel through total_morison
-    check(errs["utilization"] <= DENSE_LOAD_TOL
-          and errs["total_morison"] <= DENSE_LOAD_TOL,
-          f"dense envelope vs the CPU f64 plain run, every case and phase: "
-          f"utilization {tuple(env.utilization.shape)} "
-          f"{errs['utilization']:.2e}, total_morison "
-          f"{tuple(env.total_morison.shape)} {errs['total_morison']:.2e} "
-          f"<= {DENSE_LOAD_TOL:g} of their maxima")
+    # K1's f64 instance at this path's shapes (51 members, 36 phases, 8
+    # modes): its end forces through every (case, phase, member)
+    # utilization, its totals kernel through total_morison
+    check(max(errs.values()) <= DENSE_F64_TOL and gov == gov_cpu,
+          f"dense f64 envelope on the card (K1 f64 loads) vs the CPU f64 "
+          f"plain run, every case and phase: utilization "
+          f"{tuple(env.utilization.shape)} {errs['utilization']:.2e}, "
+          f"total_morison {tuple(env.total_morison.shape)} "
+          f"{errs['total_morison']:.2e}, max_util_per_case "
+          f"{errs['max_util_per_case']:.2e}, member_envelope "
+          f"{errs['member_envelope']:.2e} <= {DENSE_F64_TOL:g} of their "
+          f"maxima; governing case {gov} == {gov_cpu}")
+    # the same batch on an f32 copy of the model: K1's f32 instance at this
+    # path's shapes, its totals against the f64 run at K1's f32 limit; the
+    # utilization carries the f32 solve and recovery as well
+    coarse32 = pt.default_3leg_jacket(dtype=torch.float32, device=dev)
+    env32, n, _ = counted(hk, lambda: pt.design_envelope(
+        coarse32, waves_cpu.to(torch.float32, dev), cases,
+        n_steps=DESIGN_STEPS))
+    out["launches_f32"] = n["f32"]
+    check(n == {"sweep": 0, "f32": C, "f64": 0}, f"design_envelope of the "
+          f"f32 model launched {n} (K1's f32 instance once per case: {C})")
+    errs32 = {f: rel(getattr(env32, f).cpu(), getattr(ref, f))
+              for f in ("max_util_per_case", "member_envelope", "utilization",
+                        "total_morison")}
+    gov32 = int(env32.governing_case)
+    print(f"[design] dense envelope of the f32 model vs the CPU f64 run: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs32.items())
+          + f"; governing case {gov32}", flush=True)
+    check(errs32["total_morison"] <= DENSE_LOAD_TOL
+          and errs32["max_util_per_case"] <= ENV_CASE_TOL
+          and errs32["member_envelope"] <= ENV_MEMBER_TOL and gov32 == gov_cpu,
+          f"dense envelope of the f32 model (K1 f32) vs the CPU f64 run: "
+          f"total_morison {errs32['total_morison']:.2e} <= "
+          f"{DENSE_LOAD_TOL:g}, max_util_per_case "
+          f"{errs32['max_util_per_case']:.2e} <= {ENV_CASE_TOL:g}, "
+          f"member_envelope {errs32['member_envelope']:.2e} <= "
+          f"{ENV_MEMBER_TOL:g}, governing case {gov32} == {gov_cpu}")
+    out["errs32"] = errs32
     _, batch = pt.analyze_phase_batch(coarse64, waves.case(gov),
                                       cases.case(gov), n_steps=DESIGN_STEPS,
                                       accel="analytic")
@@ -841,7 +918,7 @@ def dense_envelope_phase(pt, hk, dev, coarse64, waves_cpu, cases):
     out["peak_mib"] = peak_mib(envelope)
     events = device_events(envelope)
     out["ops"], out["busy_ms"] = len(events), sum(t for _, t in events) / 1e3
-    out["k1_us"] = kernel_us(events, "morison_phase_batch_kernel")
+    out["k1_us"] = kernel_us(events, "morison_phase_batch_f64_kernel")
     out["top"] = top_device_ops(events)
     out["errs"], out["gov_err"] = errs, gov_err
     return env, out
@@ -933,6 +1010,355 @@ def resume_phase(pt, dev, coarse64, waves_cpu, cases, env):
         check(refused, "a resume with other cases into the same directory "
               "raises")
     return seconds
+
+
+def k1_f64_phase(pt, hk, dev, coarse64, refined64, wave64):
+    """K1's float64 instance against its plain f64 version on the same
+    inputs (F1, F2, the totals and the nodal forces at 1e-12 of their
+    maxima; one f64 launch a call; bit-repeatable): the flagship shapes
+    (360 phases, 1,632 members, Fenton N = 18, 15 Gauss points) and the
+    dense envelope's (36 phases, 51 members, Stokes-5 with 8 modes) with
+    Wheeler stretching and per-member Cd / Cm.  Returns the largest errors
+    and the flagship operands."""
+    import numpy as np
+    import torch
+    from small_fem_solver_tpu_torch.ops.morison import morison_phase_batch
+    f64 = torch.float64
+    D = refined64.sections.D_outer[refined64.sect_id] / 1000.0
+    ts = torch.arange(N_STEPS, dtype=f64, device=dev) * wave64.T / N_STEPS
+    flagship = (wave64, refined64.coords, refined64.conn, D, 38.0, 38.0, 0.7,
+                2.0, 1025.0, ts)
+    rng, M = np.random.default_rng(7), coarse64.n_members
+    stokes = pt.make_wave(14.0, 9.4, 50.0, U_c=1.7, model="stokes", N=5,
+                          n_modes=8, dtype=f64, device=dev)
+    dense = (stokes, coarse64.coords, coarse64.conn,
+             coarse64.sections.D_outer[coarse64.sect_id] / 1000.0, 108.0,
+             108.0, torch.tensor(rng.uniform(0.6, 1.1, M), device=dev),
+             torch.tensor(rng.uniform(1.6, 2.1, M), device=dev), 1025.0,
+             torch.arange(DESIGN_STEPS, dtype=f64, device=dev) * stokes.T
+             / DESIGN_STEPS)
+    fields = ("nodal_forces", "F1", "F2", "total_drag", "total_inertia",
+              "total_morison")
+    out = {"abs": 0.0, "rel": 0.0, "args": flagship}
+    for label, args, kw in (
+            ("flagship", flagship, {}),
+            ("dense envelope shapes, Wheeler, per-member Cd/Cm", dense,
+             dict(stretching="wheeler"))):
+        before = hk.morison_phase_batch_cuda.instance_launches["f64"]
+        res = hk.morison_phase_batch_cuda(*args, **kw)
+        again = hk.morison_phase_batch_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        n = hk.morison_phase_batch_cuda.instance_launches["f64"] - before
+        ref = morison_phase_batch(*args, **kw)
+        errs = {f: rel(getattr(res, f), getattr(ref, f)) for f in fields}
+        S, Mk = res.F1.shape[:2]
+        print(f"[kernel f64] {label}: S={S} M={Mk} N={args[0].n_modes} "
+              "max rel err " + " ".join(f"{f}={e:.2e}" for f, e in
+                                        errs.items()), flush=True)
+        check(n == 2 and res.F1.dtype == f64, f"K1 f64 instance launched "
+              f"({n} launches for 2 calls, {res.F1.dtype}) ({label})")
+        check(all(torch.isfinite(getattr(res, f)).all() for f in fields),
+              f"K1 f64 outputs finite ({label})")
+        check(max(errs.values()) <= KERNEL_TOL_F64, f"K1 f64 vs f64 plain "
+              f"({label}): {max(errs.values()):.2e} <= {KERNEL_TOL_F64:g}")
+        check(all(torch.equal(getattr(res, f), getattr(again, f))
+                  for f in fields), f"K1 f64 bit-repeatable ({label})")
+        out["rel"] = max(out["rel"], max(errs.values()))
+        out["abs"] = max(out["abs"], *(float((getattr(res, f)
+                                             - getattr(ref, f)).abs().max())
+                                       for f in ("F1", "F2")))
+    return out
+
+
+def span_mac_err(a, b, freqs) -> float:
+    """The largest 1 - MAC of a mode of ``a`` [n, dof] against the span of
+    the modes of ``b`` whose frequencies agree with its own within 1e-6
+    (the plain MAC against its counterpart where that mode is simple)."""
+    import torch
+    worst = 0.0
+    for i in range(a.shape[0]):
+        Q = torch.linalg.qr(b[(freqs - freqs[i]).abs()
+                              <= 1e-6 * freqs[i]].T)[0]
+        p = Q.T @ a[i]
+        worst = max(worst, 1.0 - float(p @ p / (a[i] @ a[i])))
+    return worst
+
+
+def freq_err(a, b) -> float:
+    """The largest relative difference of two frequency vectors."""
+    return float(((a.cpu() - b) / b).abs().max())
+
+
+def counted(hk, fn):
+    """(fn(), launch counts, host seconds): every kernel count set to 0
+    just before the call and read just after it."""
+    import torch
+    hk.chain_sweep_cuda.launches = 0
+    hk.morison_phase_batch_cuda.launches = 0
+    hk.morison_phase_batch_cuda.instance_launches.update(f32=0, f64=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return res, {"sweep": hk.chain_sweep_cuda.launches,
+                 **hk.morison_phase_batch_cuda.instance_launches}, seconds
+
+
+def call_record(fn) -> dict:
+    """Two more calls of a path: one for its host-clock time and peak
+    device memory, one for its device operations, busy time and kernel
+    times (torch.profiler, device activity only, which costs less on calls
+    of tens of thousands of operations)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    rec = {"s": time.perf_counter() - t0,
+           "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+    events = device_events(fn, host=False)
+    rec["ops"], rec["busy_ms"] = len(events), sum(t for _, t in events) / 1e3
+    rec["sweep_us"] = kernel_us(events, "chain_sweep_kernel")
+    rec["k1_us"] = kernel_us(events, "morison_phase_batch_f64_kernel")
+    rec["top"] = top_device_ops(events, 3)
+    return rec
+
+
+def dynamics_phase(pt, hk, dev, coarse64, refined64, wave64):
+    """Structural dynamics of the flagship mesh (9,612 DOF, f64, 1,100 t
+    topside), each call against the port's CPU f64 run of the same call,
+    with its launch counts read around exactly that call: modal analysis
+    (clamped and dry; on springs with added mass), Craig-Bampton against
+    the dense modal analysis at n_seg = 8, the harmonic response to the
+    flagship storm and its fatigue screen, the 12-period transient against
+    the harmonic steady state, and the transient variants (relative drag,
+    free decay, ground acceleration).  Returns the records."""
+    import numpy as np
+    import torch
+    from small_fem_solver_tpu_torch.ops import dynamics as dyn
+    cpu_c = pt.default_3leg_jacket(device="cpu")
+    cpu_r = pt.refine_model(cpu_c, N_SEG)
+    wave_cpu = wave64.to(torch.float64, "cpu")
+    case = pt.LoadCase(**CASE)
+    T = float(wave64.T)
+    out, launches, rec = {}, {}, {}
+
+    def on_both(label, fn, want):
+        """``fn(coarse, refined, wave)`` on the card (counted, timed, its
+        peak memory, then profiled once more) and on the CPU; checks the
+        counts against ``want``."""
+        t0 = time.perf_counter()
+        card, n, _ = counted(hk, lambda: fn(coarse64, refined64, wave64))
+        check(n == want, f"{label}: kernel launches {n} == {want}")
+        launches[label] = n
+        rec[label] = call_record(lambda: fn(coarse64, refined64, wave64))
+        t1 = time.perf_counter()
+        cpu = fn(cpu_c, cpu_r, wave_cpu)
+        out[label + " cpu_s"] = time.perf_counter() - t1
+        print(f"[dynamics] {label}: card calls {t1 - t0:.2f} s, CPU f64 run "
+              f"{out[label + ' cpu_s']:.2f} s (host clock)", flush=True)
+        return card, cpu
+
+    # ---- modal ----
+    modal_kw = dict(n_modes=10, n_chain_modes=CHAIN_MODES,
+                    topside_mass_t=TOPSIDE_T)
+    modal = {}
+    for label, kw in (("modal", {}),
+                      ("modal springs + added mass",
+                       dict(support_stiffness=SPRINGS, added_mass_Ca=1.0))):
+        card, cpu = on_both(label, lambda c, r, w: pt.modal_analysis_condensed(
+            c, r, N_SEG, **modal_kw, **kw), {"sweep": 10, "f32": 0, "f64": 0})
+        fe = freq_err(card.frequencies_hz, cpu.frequencies_hz)
+        me = span_mac_err(card.mode_shapes.cpu(), cpu.mode_shapes,
+                          cpu.frequencies_hz)
+        print(f"[dynamics] {label} @ {refined64.n_dof} DOF: periods "
+              + " ".join(f"{float(p):.5f}" for p in card.periods_s)
+              + f" s; vs CPU: frequencies {fe:.2e}, 1 - MAC {me:.2e}",
+              flush=True)
+        check(card.mode_shapes.shape == (10, refined64.n_dof)
+              and bool(torch.isfinite(card.mode_shapes).all()),
+              f"{label}: mode shapes {tuple(card.mode_shapes.shape)} finite")
+        check(fe <= MODAL_FREQ_TOL and me <= MODAL_MAC_TOL, f"{label} card "
+              f"vs CPU: frequencies {fe:.2e} <= {MODAL_FREQ_TOL:g}, 1 - MAC "
+              f"{me:.2e} <= {MODAL_MAC_TOL:g}")
+        modal[label] = card
+        out[label + " errs"] = (fe, me)
+    check(bool((modal["modal springs + added mass"].periods_s[:4]
+                > modal["modal"].periods_s[:4]).all()),
+          "springs and added mass lengthen the first four periods")
+    # the retained chain modes end at a gap of the chain spectrum? (bending
+    # modes come in equal pairs: a count that splits a pair keeps a
+    # rotation of it that the eigensolver picks)
+    cb = dyn._cb_reduce(cpu_c, cpu_r, N_SEG, 210000.0, 0.3, TOPSIDE_T,
+                        CHAIN_MODES + 2)
+    lam = torch.diagonal(cb.K_red)[cb.qdof]
+    gap = (lam[:, CHAIN_MODES] - lam[:, CHAIN_MODES - 1]) \
+        / lam[:, CHAIN_MODES - 1]
+    out["chain_gap"] = (float(gap.min()), float(gap.max()))
+    print(f"[dynamics] chain eigenvalues {CHAIN_MODES + 1} vs {CHAIN_MODES}: "
+          f"relative gap {out['chain_gap'][0]:.3e} .. "
+          f"{out['chain_gap'][1]:.3e} over the {lam.shape[0]} chains",
+          flush=True)
+
+    # ---- physics: Craig-Bampton vs the dense modal analysis, n_seg = 8 ----
+    r8 = pt.refine_model(coarse64, 8)
+    dense = pt.modal_analysis(r8, n_modes=12, topside_mass_t=TOPSIDE_T)
+    cb8 = pt.modal_analysis_condensed(coarse64, r8, 8, n_modes=12,
+                                      topside_mass_t=TOPSIDE_T,
+                                      n_chain_modes=16)
+    out["cb_dense"] = freq_err(cb8.frequencies_hz, dense.frequencies_hz.cpu())
+    out["cb_dense_mass"] = abs(float(cb8.total_mass_t)
+                               / float(dense.total_mass_t) - 1.0)
+    check(out["cb_dense"] <= CB_DENSE_TOL and out["cb_dense_mass"] <= 1e-9,
+          f"Craig-Bampton (16 chain modes) vs dense modal_analysis on the "
+          f"card at n_seg = 8 ({r8.n_dof} DOF): frequencies "
+          f"{out['cb_dense']:.2e} <= {CB_DENSE_TOL:g}, total mass "
+          f"{out['cb_dense_mass']:.1e}")
+
+    # ---- harmonic ----
+    def harmonic(c, r, w, n_steps=72, n_harmonics=6):
+        return pt.dynamic_response_condensed(c, r, N_SEG, w, case,
+                                             n_harmonics=n_harmonics,
+                                             n_steps=n_steps)
+    hc, hp = on_both("dynamic_condensed", harmonic,
+                     {"sweep": 10, "f32": 0, "f64": 1})
+    errs = {f: rel(getattr(hc, f).cpu(), getattr(hp, f))
+            for f in ("U_time", "U_static", "daf", "utilization")}
+    check(tuple(hc.U_time.shape) == (72, refined64.n_dof)
+          and all(bool(torch.isfinite(getattr(hc, f)).all())
+                  for f in ("U_time", "U_static", "utilization")),
+          f"harmonic response: U_time {tuple(hc.U_time.shape)} finite")
+    check(max(errs["U_time"], errs["U_static"], errs["daf"]) <= HARMONIC_TOL
+          and errs["utilization"] <= UTIL_DYN_TOL, "harmonic response card "
+          "vs CPU: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" <= {HARMONIC_TOL:g} (utilization {UTIL_DYN_TOL:g})")
+    fy = float(case.fy)
+    fat = [pt.fatigue_screen(h.utilization * fy, T, 25.0) for h in (hc, hp)]
+    ferr = max(rel(getattr(fat[0], f).cpu(), getattr(fat[1], f))
+               for f in ("stress_range_mpa", "damage"))
+    check(ferr <= UTIL_DYN_TOL, f"fatigue_screen of the harmonic von Mises "
+          f"history, card vs CPU: {ferr:.2e} <= {UTIL_DYN_TOL:g}")
+    out["harmonic_errs"], out["fatigue_err"] = errs, ferr
+    out["daf"] = float(hc.daf)
+    out["max_util"] = float(hc.utilization.max())
+    out["max_damage"] = float(fat[0].damage.max())
+    print(f"[dynamics] harmonic response, flagship storm, 72 steps, 6 "
+          f"harmonics: DAF {out['daf']:.6f}, max utilization "
+          f"{out['max_util']:.6f}, 25-year damage (D curve) "
+          f"{out['max_damage']:.3e}; vs CPU "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()), flush=True)
+
+    # ---- transient: 12 periods at T/128, ramped over 2 ----
+    spp, n_per = 128, 12
+
+    def transient(c, r, w, **kw):
+        return pt.transient_response_condensed(c, r, N_SEG, w, case,
+                                               dt=T / spp, **kw)
+    storm_kw = dict(n_steps=n_per * spp, ramp_periods=2.0)
+    tc, tp = on_both("transient", lambda c, r, w: transient(c, r, w,
+                                                           **storm_kw),
+                     {"sweep": 10, "f32": 0, "f64": 1})
+    terr = {f: rel(getattr(tc, f).cpu(), getattr(tp, f))
+            for f in ("U_time", "utilization", "tip_displacement_mm")}
+    check(max(terr["U_time"], terr["tip_displacement_mm"]) <= TRANSIENT_TOL
+          and terr["utilization"] <= UTIL_DYN_TOL, "transient card vs CPU: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in terr.items())
+          + f" <= {TRANSIENT_TOL:g} (utilization {UTIL_DYN_TOL:g})")
+    h128 = harmonic(coarse64, refined64, wave64, n_steps=spp, n_harmonics=8)
+    u_last = float(tc.utilization[-spp:].max())
+    u_harm = float(h128.utilization.max())
+    tip_h = torch.amax(torch.linalg.norm(
+        h128.U_time.reshape(spp, -1, 6)[:, :, :3], dim=-1), dim=-1)
+    tip_err = float((tc.tip_displacement_mm[-spp:] - tip_h).abs().max()
+                    / tip_h.max())
+    util_err = abs(u_last / u_harm - 1.0)
+    check(util_err <= STEADY_UTIL_TOL and tip_err <= STEADY_TIP_TOL,
+          f"transient last period vs harmonic steady state (128 steps): max "
+          f"utilization {u_last:.6f} vs {u_harm:.6f} ({util_err:.2e} <= "
+          f"{STEADY_UTIL_TOL:g}), tip history {tip_err:.2e} <= "
+          f"{STEADY_TIP_TOL:g}")
+    out["transient_errs"], out["steady"] = terr, (util_err, tip_err)
+    out["steps_per_s"] = storm_kw["n_steps"] / rec["transient"]["s"]
+
+    # ---- transient variants ----
+    T1 = float(modal["modal"].periods_s[0])
+    shape = modal["modal"].mode_shapes[0]
+    u0 = 50.0 * shape / shape.abs().max()
+    n_cycles = 6
+    ag = np.convolve(np.random.default_rng(11).normal(0.0, 1.0, 512),
+                     np.hanning(16) / np.hanning(16).sum(), mode="same")
+    variants = (
+        ("transient relative drag", dict(n_steps=2 * spp, ramp_periods=1.0,
+                                         relative_drag=True,
+                                         drag_iterations=2),
+         {"sweep": 10, "f32": 0, "f64": 1}),
+        ("transient free decay", dict(n_steps=n_cycles * 128 + 1,
+                                      zero_loads=True, dt=T1 / 128.0),
+         {"sweep": 10, "f32": 0, "f64": 0}),
+        ("transient ground accel", dict(n_steps=ag.size, zero_loads=True,
+                                        dt=0.01, ground_dir=(1.0, 0.5, 0.0)),
+         {"sweep": 10, "f32": 0, "f64": 0}))
+    for label, kw, want in variants:
+        def run(c, r, w, kw=kw):
+            extra = {}
+            if "decay" in label:
+                extra["u0"] = u0.to(c.device)
+            if "ground" in label:
+                extra["ground_accel"] = torch.tensor(ag, device=c.device)
+            return pt.transient_response_condensed(
+                c, r, N_SEG, None if kw.get("zero_loads") else w, case,
+                **{"dt": T / spp, **kw, **extra})
+        vc, vp = on_both(label, run, want)
+        verr = rel(vc.U_time.cpu(), vp.U_time)
+        check(bool(torch.isfinite(vc.U_time).all()) and verr <= TRANSIENT_TOL,
+              f"{label} card vs CPU: U_time {verr:.2e} <= {TRANSIENT_TOL:g}")
+        out[label + " err"] = verr
+        if "decay" in label:
+            tip = vc.tip_displacement_mm.cpu().numpy()
+            pk = np.where((tip[1:-1] > tip[:-2]) & (tip[1:-1] > tip[2:]))[0] + 1
+            peaks = tip[pk][::2][:n_cycles]
+            delta = np.log(peaks[:-1] / peaks[1:])
+            zeta = float((delta / np.sqrt(4 * np.pi**2 + delta**2)).mean())
+            T_meas = float(2 * kw["dt"] * np.diff(pk).mean())
+            T_d = T1 / np.sqrt(1 - 0.02**2)
+            out["decay"] = (zeta, T_meas, T_d)
+            check(pk.size >= 2 * n_cycles - 2
+                  and abs(zeta / 0.02 - 1) <= DECAY_ZETA_RTOL
+                  and abs(T_meas / T_d - 1) <= DECAY_PERIOD_RTOL,
+                  f"free decay from mode 1: damping ratio {zeta:.5f} vs "
+                  f"0.02, period {T_meas:.5f} vs {T_d:.5f} s "
+                  f"({pk.size} peaks)")
+    out["launches"], out["rec"] = launches, rec
+    out["modal_freqs"] = modal["modal"].frequencies_hz.cpu()
+    return out
+
+
+def modal_large_phase(pt, hk, coarse64, freqs_9612):
+    """``modal_analysis_condensed`` at n_seg = 327 (99,882 DOF, f64): 10
+    sweep launches at depth 326, the first 8 frequencies within 2e-3 of
+    the 9,612-DOF ones (mesh convergence); time and peak memory."""
+    import torch
+    big = pt.refine_model(coarse64, N_SEG_LARGE)
+
+    def modal():
+        return pt.modal_analysis_condensed(coarse64, big, N_SEG_LARGE,
+                                           n_modes=8,
+                                           n_chain_modes=CHAIN_MODES,
+                                           topside_mass_t=TOPSIDE_T)
+    res, n, _ = counted(hk, modal)
+    check(n == {"sweep": 10, "f32": 0, "f64": 0}, f"99,882-DOF modal: kernel "
+          f"launches {n}")
+    err = freq_err(res.frequencies_hz, freqs_9612[:8])
+    check(res.mode_shapes.shape == (8, big.n_dof)
+          and bool(torch.isfinite(res.mode_shapes).all())
+          and err <= MESH_FREQ_TOL,
+          f"99,882-DOF modal: first 8 frequencies within {err:.2e} <= "
+          f"{MESH_FREQ_TOL:g} of 9,612 DOF")
+    rec = call_record(modal)
+    rec.update(launches=n, err=err, periods=[float(p) for p in res.periods_s])
+    return rec
 
 
 def main() -> int:
@@ -1044,6 +1470,8 @@ def main() -> int:
             # the kernel's outputs and the fixed-order nodal sum after it
             check(all(torch.equal(getattr(out, f), getattr(again, f))
                       for f in fields), f"kernel bit-repeatable ({label})")
+
+    k64 = k1_f64_phase(pt, hk, dev, coarse64, refined64, wave64)
 
     # ---- 4. sweep phase at the flagship chain shapes ----
     prep_th = pt.prepare_condensed(coarse32, refined32, N_SEG,
@@ -1357,6 +1785,26 @@ def main() -> int:
           f"{env_launches['morison_phase_batch']} per envelope call "
           f"(torch.profiler)", flush=True)
 
+    # K1's f64 instance at the flagship shapes: wrapper, plain f64 version,
+    # device time beside the FP64 bound
+    args64 = k64["args"]
+    k_ops64 = hk.kernel_operands(*args64, n_gauss=15, current_alpha=None)
+    k64_ms = cuda_ms(lambda: hk.morison_end_forces_cuda(*args64))
+    p64_ms = cuda_ms(lambda: morison_phase_batch(*args64), n=5)
+    ev = device_events(lambda: hk.launch_morison(k_ops64, False), SHORT_REPS)
+    k64_us = (kernel_us(ev, "morison_phase_batch_f64_kernel")
+              + kernel_us(ev, "morison_totals_kernel"))
+    k64_bytes = 8 * (2 * S_ * M_ * 3 + S_ * 6 + S_ + 2 * N_ + 4
+                     + refined32.n_nodes * 3 + M_) + 8 * 2 * M_
+    k64_bound, k64_by = bound_us(k64_bytes, k1_flops, FP64_FLOP_PER_S)
+    print(f"[bound] {smi}: K1 f64 instance {k64_us:.1f} us on the device "
+          f"(pass {kernel_us(ev, 'morison_phase_batch_f64_kernel'):.1f} + "
+          f"totals {kernel_us(ev, 'morison_totals_kernel'):.1f}); FP64 bound "
+          f"{k64_bound:.1f} us by {k64_by} ({k1_flops / 1e9:.2f} GFLOP, "
+          f"{k64_bytes / 1e6:.1f} MB): {k64_bound / k64_us:.0%} of the "
+          f"bound; wrapper {k64_ms:.3f} ms vs plain f64 {p64_ms:.3f} ms "
+          f"(torch.profiler, CUDA events)", flush=True)
+
     # the sweep at the main path's own operands and layouts
     sweep_runs = {"nested level 1": scan_sweeps[0][1:],
                   "nested level 2": scan_sweeps[1][1:],
@@ -1451,6 +1899,38 @@ def main() -> int:
           f"design_sweep: {sweep['ops']} device operations, device busy "
           f"{sweep['busy_ms']:.3f} ms (torch.profiler)", flush=True)
 
+    # ---- 15. dynamics at 9,612 DOF in f64 ----
+    t0 = time.perf_counter()
+    dyn = dynamics_phase(pt, hk, dev, coarse64, refined64, wave64)
+    print(f"[dynamics] phase {time.perf_counter() - t0:.2f} s wall "
+          f"(CPU f64 reference runs "
+          f"{sum(v for k, v in dyn.items() if k.endswith('cpu_s')):.2f} s)",
+          flush=True)
+
+    # ---- 16. modal analysis at 99,882 DOF ----
+    t0 = time.perf_counter()
+    mlarge = modal_large_phase(pt, hk, coarse64, dyn["modal_freqs"])
+    print(f"[dynamics] 99,882-DOF modal phase {time.perf_counter() - t0:.2f} s "
+          f"wall; periods " + " ".join(f"{p:.5f}" for p in mlarge["periods"])
+          + f" s; vs 9,612 DOF {mlarge['err']:.2e}", flush=True)
+    for label, r in {**dyn["rec"], "modal 99,882 DOF": mlarge}.items():
+        print(f"[time] {smi}: {label}: {r['s'] * 1e3:.1f} ms (host clock, "
+              f"synchronised, one call), {r['ops']} device operations, "
+              f"device busy "
+              f"{r['busy_ms']:.3f} ms, peak device memory "
+              f"{r['peak_mib']:.0f} MiB; sweep {r['sweep_us']:.1f} us, K1 "
+              f"f64 {r['k1_us']:.1f} us per launch; most time: {r['top']} "
+              "(torch.profiler)", flush=True)
+    print(f"[time] {smi}: transient march {dyn['steps_per_s']:.0f} steps/s "
+          "(1,536 steps, host clock)", flush=True)
+    n_int9, n_int99 = N_SEG - 1, N_SEG_LARGE - 1
+    b9, by9, _ = sweep_bound(8, 18, n_int9, coarse64.n_members)
+    b99, by99, _ = sweep_bound(8, 18, n_int99, coarse64.n_members)
+    print(f"[bound] {smi}: chain sweep f64, B=18 (the chain-mode iteration): "
+          f"n_int={n_int9} {dyn['rec']['modal']['sweep_us']:.1f} us vs bound "
+          f"{b9:.2f} us by {by9}; n_int={n_int99} {mlarge['sweep_us']:.1f} us "
+          f"vs bound {b99:.2f} us by {by99} (torch.profiler)", flush=True)
+
     l1 = sweep_ms["nested level 1"]
     print(json.dumps({"kernels": [{
         "name": "morison_phase_batch",
@@ -1458,10 +1938,21 @@ def main() -> int:
         "source": "small_fem_solver_tpu_torch/csrc/morison_phase_batch.cu",
         "replaces": "small_fem_solver_tpu/ops/pallas_kernels.py:229",
         "launches": env_launches["morison_phase_batch"],
-        "launches_by_path": {"scan": scan_launches["morison_phase_batch"],
-                             "envelope": env_launches["morison_phase_batch"],
-                             "dense_envelope": denv["launches"],
-                             "options_scan": options["k1_launches"]},
+        "launches_by_path": {
+            "scan": scan_launches["morison_phase_batch"],
+            "envelope": env_launches["morison_phase_batch"],
+            "dense_envelope": denv["launches"],
+            "dense_envelope_f32_model": denv["launches_f32"],
+            "options_scan": options["k1_launches"],
+            "dynamic_condensed": dyn["launches"]["dynamic_condensed"]["f64"],
+            "transient": dyn["launches"]["transient"]["f64"]},
+        "instances": {"f32": ["scan", "envelope", "dense_envelope_f32_model",
+                              "options_scan"],
+                      "f64": ["dense_envelope", "dynamic_condensed",
+                              "transient"]},
+        "f64": {"max_abs_err": k64["abs"], "max_rel_err": k64["rel"],
+                "ms": k64_ms, "plain_ms": p64_ms, "device_us": k64_us,
+                "bound_ms": k64_bound / 1e3, "bound_by": k64_by},
         "launches_per_scan": scan_launches["morison_phase_batch"] // 2,
         "max_abs_err": kernel_err,
         "max_rel_err": kernel_rel,
@@ -1486,7 +1977,11 @@ def main() -> int:
             "analyze_condensed": large["analyze_condensed_launches"],
             "analyze_prepared": large["analyze_prepared_launches"],
             "pointwise_scan": dense["pointwise_launches"],
-            "ssi_scan": options["sweep_launches"]},
+            "ssi_scan": options["sweep_launches"],
+            "modal_condensed": dyn["launches"]["modal"]["sweep"],
+            "dynamic_condensed": dyn["launches"]["dynamic_condensed"]["sweep"],
+            "transient": dyn["launches"]["transient"]["sweep"],
+            "modal_large": mlarge["launches"]["sweep"]},
         "launches_per_scan": per_scan,
         "max_abs_err": sweep_err,
         "max_rel_err": sweep_rel,
@@ -1507,7 +2002,13 @@ def main() -> int:
                                        "device_us": d, "device_us_warm": w,
                                        "bound_us": bd, "bound": by}
                for k, (a, b, d, bd, by, _, _, shape, w)
-               in large["levels"].items()}},
+               in large["levels"].items()},
+            **{f"chain-mode iteration, f64, B=18, n_int={n}, chains="
+               f"{coarse64.n_members}": {"device_us": us, "bound_us": bd,
+                                         "bound": by}
+               for n, us, bd, by in (
+                   (n_int9, dyn["rec"]["modal"]["sweep_us"], b9, by9),
+                   (n_int99, mlarge["sweep_us"], b99, by99))}},
     }]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
