@@ -1249,6 +1249,19 @@ def dynamics_phase(pt, hk, dev, coarse64, refined64, wave64):
           f"{out['max_util']:.6f}, 25-year damage (D curve) "
           f"{out['max_damage']:.3e}; vs CPU "
           + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()), flush=True)
+    # the card-vs-CPU difference depends on which degenerate chain pairs
+    # the retained count splits: the same call at 10 and 14 chain modes
+    for m in (10, 14):
+        a, b = (pt.dynamic_response_condensed(c, r, N_SEG, w, case,
+                                              n_harmonics=6, n_steps=72,
+                                              n_chain_modes=m)
+                for c, r, w in ((coarse64, refined64, wave64),
+                                (cpu_c, cpu_r, wave_cpu)))
+        e = {f: rel(getattr(a, f).cpu(), getattr(b, f))
+             for f in ("U_time", "utilization")}
+        check(e["U_time"] <= HARMONIC_TOL and e["utilization"] <= UTIL_DYN_TOL,
+              f"harmonic response with {m} chain modes, card vs CPU: U_time "
+              f"{e['U_time']:.2e}, utilization {e['utilization']:.2e}")
 
     # ---- transient: 12 periods at T/128, ramped over 2 ----
     spp, n_per = 128, 12

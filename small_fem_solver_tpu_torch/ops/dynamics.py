@@ -46,7 +46,7 @@ from .assembly import (assemble_dense, element_dof_indices,
 from .beams import (element_stiffness, internal_forces, local_axes,
                     transformation_matrices)
 from .condense import condense_loads, factor_chains
-from .eigen import eigh_general_small, subspace_eigh
+from .eigen import eigh_general_small
 from .hopper_kernels import morison_phase_batch_cuda
 from .morison import gauss_legendre_01, hydro_diameter_m, hydro_members
 from .sections import TubeSections, von_mises_8pt
@@ -214,28 +214,17 @@ def _build_km(model, E, nu, topside_mass_t, added_mass_Ca=None,
     return (K, M, torch.as_tensor(free, device=K.device), (K_local, T, L_m))
 
 
-def _eigh_backend(method: str = "auto") -> str:
-    """'lapack' (LAPACK / cuSOLVER ``eigh``) for 'auto': both devices have
-    it.  'subspace' names ``ops.eigen.subspace_eigh``, which returns the
-    same exact pairs."""
-    return "lapack" if method == "auto" else method
-
-
-def _modal_from_ff(K_ff, M_ff, free, n_dof, n_modes, dtype,
-                   method: str = "auto"):
-    """Lowest generalized eigenpairs of (K_ff, M_ff), expanded to full-DOF
-    mode shapes: (omega [n_modes], shapes [n_modes, n_dof])."""
-    if _eigh_backend(method) == "subspace":
-        w2, phi_f = subspace_eigh(K_ff, M_ff, n_modes)
-    else:
-        Lm = torch.linalg.cholesky(M_ff)
-        Y = torch.linalg.solve_triangular(Lm, K_ff, upper=False)
-        A = torch.linalg.solve_triangular(Lm, Y.mT, upper=False)
-        w2, V = torch.linalg.eigh(0.5 * (A + A.mT))
-        w2 = w2[:n_modes]
-        phi_f = torch.linalg.solve_triangular(Lm.mT, V[:, :n_modes],
-                                              upper=True)
-    omega = torch.sqrt(torch.clamp(w2, min=0.0))
+def _modal_from_ff(K_ff, M_ff, free, n_dof, n_modes, dtype):
+    """Lowest generalized eigenpairs of (K_ff, M_ff) through the Cholesky
+    factor of M_ff and ``eigh`` (LAPACK on the CPU, cuSOLVER on the card;
+    the JAX package's TPU subspace route is not needed), expanded to
+    full-DOF mode shapes: (omega [n_modes], shapes [n_modes, n_dof])."""
+    Lm = torch.linalg.cholesky(M_ff)
+    Y = torch.linalg.solve_triangular(Lm, K_ff, upper=False)
+    A = torch.linalg.solve_triangular(Lm, Y.mT, upper=False)
+    w2, V = torch.linalg.eigh(0.5 * (A + A.mT))
+    phi_f = torch.linalg.solve_triangular(Lm.mT, V[:, :n_modes], upper=True)
+    omega = torch.sqrt(torch.clamp(w2[:n_modes], min=0.0))
     shapes = K_ff.new_zeros(n_modes, n_dof, dtype=dtype)
     shapes[:, free] = phi_f.mT.to(dtype)
     return omega, shapes

@@ -169,11 +169,12 @@ def _params_struct(scalar):
 
 _Operand, _MorisonParams = _params_struct(ctypes.c_float)
 _Operand64, _MorisonParams64 = _params_struct(ctypes.c_double)
-_INSTANCE_NAMES = {torch.float32: "f32", torch.float64: "f64"}
-# kernel instance by operand dtype: (params, operand, scalar, C suffix)
+# kernel instance by operand dtype: (name, params, operand, scalar, C
+# suffix)
 _INSTANCES = {
-    torch.float32: (_MorisonParams, _Operand, ctypes.c_float, ""),
-    torch.float64: (_MorisonParams64, _Operand64, ctypes.c_double, "_f64"),
+    torch.float32: ("f32", _MorisonParams, _Operand, ctypes.c_float, ""),
+    torch.float64: ("f64", _MorisonParams64, _Operand64, ctypes.c_double,
+                    "_f64"),
 }
 
 
@@ -259,7 +260,7 @@ def launch_morison(k: dict, wheeler: bool):
         raise RuntimeError("the Morison kernel needs CUDA tensors (got "
                            f"{dev}); the plain version is "
                            "ops.morison.morison_phase_batch")
-    params, operand, scalar, suffix = _INSTANCES[dtype]
+    name, params, operand, scalar, suffix = _INSTANCES[dtype]
     lib = build("morison_phase_batch")
     M, S, N = k["conn"].shape[0], k["ts"].shape[0], k["E"].shape[0]
     n_gauss = len(k["s"])
@@ -293,7 +294,7 @@ def launch_morison(k: dict, wheeler: bool):
         raise RuntimeError("morison_phase_batch kernel launch failed: "
                            + lib.morison_error_string(err).decode())
     morison_phase_batch_cuda.launches += 1
-    morison_phase_batch_cuda.instance_launches[_INSTANCE_NAMES[dtype]] += 1
+    morison_phase_batch_cuda.instance_launches[name] += 1
     return F1, F2, totals
 
 
