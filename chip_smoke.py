@@ -28,7 +28,9 @@ chain-sweep kernel, and checks them:
    0-d tensor coefficients; bit-repeatable; then K1's float64 instance
    against the plain version in f64 (1e-12) at the flagship shapes and at
    the dense envelope's (36 phases, 51 members, Stokes-5 with 8 modes,
-   Wheeler, per-member Cd / Cm), one f64 launch a call, bit-repeatable;
+   Wheeler, per-member Cd / Cm), one f64 launch a call, bit-repeatable,
+   and the f32 instance at the dense envelope's shapes (its own 8-mode
+   template instance) against the f64 plain version (1e-5);
 4. sweep phase: ``chain_sweep_cuda`` in f32 and f64 against
    ``chain_sweep_plain`` in f64 on the flagship chain factors (nested
    level 1 and 2, thomas), on random loads for 360 and 37 right-hand sides
@@ -82,7 +84,9 @@ chain-sweep kernel, and checks them:
    scan, the envelope; under torch.profiler each kernel's device time
    beside its bound (the larger of its bytes over 3.35 TB/s and its FLOPs
    over 67 TFLOP/s FP32 or 34 TFLOP/s FP64, the H100 SXM's HBM and
-   non-tensor-core rates, counted from this run's shapes), and the scan's
+   non-tensor-core rates, counted from this run's shapes; K1's f64 mode
+   sums, a product of phase factors and spatial records, at the 67
+   TFLOP/s of FP64 on the tensor cores, which is exact FP64), and the scan's
    device operations and busy time;
 11. options phase (9,612 DOF, f64 model and solve): the default jacket
    with pinned h-braces and two conductors, legs-flooded buoyancy, 40 m/s
@@ -100,7 +104,8 @@ chain-sweep kernel, and checks them:
    utilization [C, S, M] and the Morison totals), the governing case
    against ``analyze_phase_batch``; time, device operations and busy time,
    peak memory; then an f32 copy of the model through the same call (1,000
-   launches of the f32 instance, its Morison totals at 1e-6);
+   launches of the f32 instance, its Morison totals at 1e-6, its full
+   utilization at 3e-5: the f32 solve and recovery as well);
 13. sweep phase: ``design_sweep`` of the same cases at t_analysis = 0 and
    ``critical_case``; the governing and 4 seeded random cases against a
    per-case ``analyze`` (1e-10); time;
@@ -112,13 +117,16 @@ chain-sweep kernel, and checks them:
    around exactly that call: ``modal_analysis_condensed`` (10 modes, 12
    chain modes; clamped and dry, then on springs with added mass: 10
    sweep launches each, frequencies 1e-10, 1 - MAC 1e-8, longer periods);
-   the smallest relative gap of the chain spectrum at the retained count;
    the dense ``modal_analysis`` on the card at n_seg = 8 against
    Craig-Bampton with 16 chain modes (2e-6); ``dynamic_response_condensed``
    of the flagship storm (72 steps, 6 harmonics: one launch of K1's f64
    instance, 10 sweep launches) and ``fatigue_screen`` on its von Mises
-   history; ``transient_response_condensed`` over 12 periods at T/128
-   ramped over 2 (one K1 launch at S = 1,536) against the harmonic steady
+   history; the harmonic response at 10, 12 and 14 chain modes, card vs
+   CPU (at 10 and 14 utilization too at 1e-9), with the chain that carries
+   the difference, its Ritz and exact gaps at the cut, and the CPU run
+   against itself on the jacket moved 1e-11 m;
+   ``transient_response_condensed`` over 12 periods at T/128 ramped over 2
+   (one K1 launch at S = 1,536) against the harmonic steady
    state (5e-3 utilization, 2e-2 tip history); the transient with relative
    drag (2 iterations), free decay from mode 1 (the damping-ratio check)
    and a seeded ground-acceleration record; each call's host time, device
@@ -174,6 +182,7 @@ PREP_F2_TOL = 1e-9        # reactions, von Mises; F2 (tests/test_condense.py)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 FP32_FLOP_PER_S = 67e12     # H100 SXM FP32 outside the tensor cores
 FP64_FLOP_PER_S = 34e12     # H100 SXM FP64 outside the tensor cores
+FP64_TC_FLOP_PER_S = 67e12  # ... on the tensor cores (DMMA: exact FP64)
 EPILOGUE_FLOP = 60    # K1 per (phase, point): normal projection, drag,
                       # inertia, lever-rule sums
 CASE = dict(wave_dir_deg=38.0, current_dir_deg=38.0, F_axial_kN=25100.0,
@@ -199,6 +208,9 @@ DENSE_LOAD_TOL = 1e-6 # dense envelope of the f32 model on the card (K1 f32
                       # loads) vs the CPU f64 run: total_morison, relative to
                       # its maximum (K1's f32 error against its plain
                       # version is ~6e-7, phase 3)
+DENSE_UTIL32_TOL = 3e-5  # ... its full utilization [C, S, M], relative to
+                        # its maximum: the f32 solve and recovery as well,
+                        # set from measurement (1.31e-5 on an H100)
 GOV_TOL = 2e-5        # governing case vs analyze_phase_batch
                       # (tests/test_envelope.py:97-102)
 SWEEP_CASE_TOL = 1e-10  # design_sweep vs per-case analyze
@@ -219,14 +231,16 @@ CB_DENSE_TOL = 2e-6   # Craig-Bampton (16 chain modes) vs dense modal at
                       # n_seg = 8 (tests/test_dynamics.py:188-205)
 HARMONIC_TOL = 1e-9   # dynamic_response_condensed card vs CPU: U, DAF
 TRANSIENT_TOL = 1e-9  # transient_response_condensed card vs CPU: U, tip
-UTIL_DYN_TOL = 1e-7   # ... their utilization and the fatigue screen on it,
-                      # set from measurement (1.6e-8 harmonic, 2.4e-8
-                      # transient on an H100): the 12-mode chain basis
-                      # splits a degenerate bending pair in some chains
-                      # (relative gap down to 1.3e-10), so LAPACK and
-                      # cuSOLVER keep rotations of it that differ at ~1e-10
-                      # in U, and the recovery on 0.3 m elements amplifies
-                      # that ~100x
+UTIL_DYN_TOL = 1e-7   # ... their utilization and the fatigue screen on it
+                      # at 12 chain modes, set from measurement (1.6e-8
+                      # harmonic, 2.4e-8 transient on an H100): the
+                      # 12-mode cut splits exactly degenerate bending pairs
+                      # whose Ritz values the subspace iteration leaves
+                      # only ~3e-10 apart in two chains, so roundoff
+                      # rotates the kept vector (the CPU run alone, on the
+                      # jacket moved 1e-11 m, moves by 3.4e-9); 10 and 14
+                      # chain modes, Ritz gaps from ~1e-8, are held at
+                      # HARMONIC_TOL
 STEADY_UTIL_TOL = 5e-3  # transient last period vs harmonic (n_steps = 128)
 STEADY_TIP_TOL = 2e-2   # ... tip history (tests/test_dynamics.py:329-366)
 DECAY_ZETA_RTOL = 0.01  # free decay: damping ratio, damped period
@@ -844,7 +858,8 @@ def dense_envelope_phase(pt, hk, dev, coarse64, waves_cpu, cases):
     case against the CPU f64 plain run (1e-10), the governing case against
     ``analyze_phase_batch``; time, device operations and peak memory.  Then
     an f32 copy of the model through the same call: one launch of the f32
-    instance per case, its Morison totals at K1's f32 limit."""
+    instance per case, its Morison totals at K1's f32 limit, its full
+    utilization at the f32 model's limit."""
     import torch
     waves = waves_cpu.to(torch.float64, dev)
     C, out = waves.E.shape[0], {}
@@ -898,11 +913,13 @@ def dense_envelope_phase(pt, hk, dev, coarse64, waves_cpu, cases):
           + ", ".join(f"{k} {v:.2e}" for k, v in errs32.items())
           + f"; governing case {gov32}", flush=True)
     check(errs32["total_morison"] <= DENSE_LOAD_TOL
+          and errs32["utilization"] <= DENSE_UTIL32_TOL
           and errs32["max_util_per_case"] <= ENV_CASE_TOL
           and errs32["member_envelope"] <= ENV_MEMBER_TOL and gov32 == gov_cpu,
           f"dense envelope of the f32 model (K1 f32) vs the CPU f64 run: "
           f"total_morison {errs32['total_morison']:.2e} <= "
-          f"{DENSE_LOAD_TOL:g}, max_util_per_case "
+          f"{DENSE_LOAD_TOL:g}, utilization {errs32['utilization']:.2e} <= "
+          f"{DENSE_UTIL32_TOL:g}, max_util_per_case "
           f"{errs32['max_util_per_case']:.2e} <= {ENV_CASE_TOL:g}, "
           f"member_envelope {errs32['member_envelope']:.2e} <= "
           f"{ENV_MEMBER_TOL:g}, governing case {gov32} == {gov_cpu}")
@@ -1019,7 +1036,7 @@ def k1_f64_phase(pt, hk, dev, coarse64, refined64, wave64):
     (360 phases, 1,632 members, Fenton N = 18, 15 Gauss points) and the
     dense envelope's (36 phases, 51 members, Stokes-5 with 8 modes) with
     Wheeler stretching and per-member Cd / Cm.  Returns the largest errors
-    and the flagship operands."""
+    and both sets of operands."""
     import numpy as np
     import torch
     from small_fem_solver_tpu_torch.ops.morison import morison_phase_batch
@@ -1039,7 +1056,7 @@ def k1_f64_phase(pt, hk, dev, coarse64, refined64, wave64):
              / DESIGN_STEPS)
     fields = ("nodal_forces", "F1", "F2", "total_drag", "total_inertia",
               "total_morison")
-    out = {"abs": 0.0, "rel": 0.0, "args": flagship}
+    out = {"abs": 0.0, "rel": 0.0, "args": flagship, "dense": dense}
     for label, args, kw in (
             ("flagship", flagship, {}),
             ("dense envelope shapes, Wheeler, per-member Cd/Cm", dense,
@@ -1068,6 +1085,25 @@ def k1_f64_phase(pt, hk, dev, coarse64, refined64, wave64):
                                              - getattr(ref, f)).abs().max())
                                        for f in ("F1", "F2")))
     return out
+
+
+def chain_ritz(dyn, fn):
+    """The chain modes' Ritz values [Mc, block] of the last Rayleigh-Ritz
+    step of ``fn()``, a Craig-Bampton reduction (``ops.dynamics.
+    _chain_modes``: the subspace iteration's block, or the whole interior
+    space on its dense path), read from its eigensolver's calls."""
+    seen, eigh = [], dyn.eigh_general_small
+
+    def record(A, B):
+        lam, Q = eigh(A, B)
+        seen.append(lam)
+        return lam, Q
+    dyn.eigh_general_small = record
+    try:
+        fn()
+    finally:
+        dyn.eigh_general_small = eigh
+    return seen[-1]
 
 
 def span_mac_err(a, b, freqs) -> float:
@@ -1135,6 +1171,7 @@ def dynamics_phase(pt, hk, dev, coarse64, refined64, wave64):
     flagship storm and its fatigue screen, the 12-period transient against
     the harmonic steady state, and the transient variants (relative drag,
     free decay, ground acceleration).  Returns the records."""
+    import dataclasses
     import numpy as np
     import torch
     from small_fem_solver_tpu_torch.ops import dynamics as dyn
@@ -1188,19 +1225,11 @@ def dynamics_phase(pt, hk, dev, coarse64, refined64, wave64):
     check(bool((modal["modal springs + added mass"].periods_s[:4]
                 > modal["modal"].periods_s[:4]).all()),
           "springs and added mass lengthen the first four periods")
-    # the retained chain modes end at a gap of the chain spectrum? (bending
-    # modes come in equal pairs: a count that splits a pair keeps a
-    # rotation of it that the eigensolver picks)
-    cb = dyn._cb_reduce(cpu_c, cpu_r, N_SEG, 210000.0, 0.3, TOPSIDE_T,
-                        CHAIN_MODES + 2)
-    lam = torch.diagonal(cb.K_red)[cb.qdof]
-    gap = (lam[:, CHAIN_MODES] - lam[:, CHAIN_MODES - 1]) \
-        / lam[:, CHAIN_MODES - 1]
-    out["chain_gap"] = (float(gap.min()), float(gap.max()))
-    print(f"[dynamics] chain eigenvalues {CHAIN_MODES + 1} vs {CHAIN_MODES}: "
-          f"relative gap {out['chain_gap'][0]:.3e} .. "
-          f"{out['chain_gap'][1]:.3e} over the {lam.shape[0]} chains",
-          flush=True)
+    # the exact chain spectrum (the dense Rayleigh-Ritz on each chain's
+    # whole interior space, which every count up to it would take)
+    n_chain = 6 * (N_SEG - 1)
+    exact = chain_ritz(dyn, lambda: dyn._cb_reduce(
+        cpu_c, cpu_r, N_SEG, 210000.0, 0.3, None, n_chain))
 
     # ---- physics: Craig-Bampton vs the dense modal analysis, n_seg = 8 ----
     r8 = pt.refine_model(coarse64, 8)
@@ -1218,10 +1247,10 @@ def dynamics_phase(pt, hk, dev, coarse64, refined64, wave64):
           f"{out['cb_dense_mass']:.1e}")
 
     # ---- harmonic ----
-    def harmonic(c, r, w, n_steps=72, n_harmonics=6):
+    def harmonic(c, r, w, n_steps=72, n_harmonics=6, **kw):
         return pt.dynamic_response_condensed(c, r, N_SEG, w, case,
                                              n_harmonics=n_harmonics,
-                                             n_steps=n_steps)
+                                             n_steps=n_steps, **kw)
     hc, hp = on_both("dynamic_condensed", harmonic,
                      {"sweep": 10, "f32": 0, "f64": 1})
     errs = {f: rel(getattr(hc, f).cpu(), getattr(hp, f))
@@ -1249,19 +1278,51 @@ def dynamics_phase(pt, hk, dev, coarse64, refined64, wave64):
           f"{out['max_util']:.6f}, 25-year damage (D curve) "
           f"{out['max_damage']:.3e}; vs CPU "
           + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()), flush=True)
-    # the card-vs-CPU difference depends on which degenerate chain pairs
-    # the retained count splits: the same call at 10 and 14 chain modes
-    for m in (10, 14):
-        a, b = (pt.dynamic_response_condensed(c, r, N_SEG, w, case,
-                                              n_harmonics=6, n_steps=72,
-                                              n_chain_modes=m)
-                for c, r, w in ((coarse64, refined64, wave64),
-                                (cpu_c, cpu_r, wave_cpu)))
-        e = {f: rel(getattr(a, f).cpu(), getattr(b, f))
-             for f in ("U_time", "utilization")}
-        check(e["U_time"] <= HARMONIC_TOL and e["utilization"] <= UTIL_DYN_TOL,
-              f"harmonic response with {m} chain modes, card vs CPU: U_time "
-              f"{e['U_time']:.2e}, utilization {e['utilization']:.2e}")
+    # which chain pairs the retained count splits: tubes bend alike in two
+    # planes, so the chain spectrum holds exactly degenerate pairs; the
+    # subspace iteration leaves each split by its convergence residue (its
+    # Ritz gap), and a count that cuts a pair keeps a rotation of it that
+    # roundoff moves by ~1e-16 / Ritz gap.  At each count: the card against
+    # the CPU, the chain that carries the largest utilization difference
+    # and its gaps, and the CPU run against itself on the jacket moved
+    # 1e-11 m (a roundoff-level perturbation)
+    moved_c = dataclasses.replace(cpu_c, coords=cpu_c.coords + torch.tensor(
+        [1e-11, 0.0, 0.0], dtype=torch.float64))
+    moved_r = pt.refine_model(moved_c, N_SEG)
+    out["cuts"] = {}
+    for m in (10, CHAIN_MODES, 14):
+        ritz = chain_ritz(dyn, lambda: dyn._cb_reduce(
+            cpu_c, cpu_r, N_SEG, 210000.0, 0.3, None, m))
+        gap, egap = ((lam[:, m] - lam[:, m - 1]) / lam[:, m - 1]
+                     for lam in (ritz, exact))
+        a, b = (hc, hp) if m == CHAIN_MODES else (
+            harmonic(c, r, w, n_chain_modes=m)
+            for c, r, w in ((coarse64, refined64, wave64),
+                            (cpu_c, cpu_r, wave_cpu)))
+        moved = harmonic(moved_c, moved_r, wave_cpu, n_chain_modes=m)
+        e = {"U_time": rel(a.U_time.cpu(), b.U_time),
+             "utilization": rel(a.utilization.cpu(), b.utilization),
+             "moved_utilization": rel(moved.utilization, b.utilization)}
+        d = ((a.utilization.cpu() - b.utilization).abs().amax(0)
+             .reshape(-1, N_SEG).amax(1))                  # per chain
+        j = int(d.argmax())
+        out["cuts"][m] = dict(e, ritz_gap_min=float(gap.min()),
+                              worst_chain=j, worst_ritz_gap=float(gap[j]),
+                              exact_gap_max=float(egap.max()))
+        print(f"[dynamics] {m} chain modes (Ritz block {ritz.shape[1]}): "
+              f"card vs CPU U_time {e['U_time']:.2e}, utilization "
+              f"{e['utilization']:.2e}, largest in chain {j} (Ritz gap "
+              f"{float(gap[j]):.2e}, exact {float(egap[j]):.2e}); Ritz gaps "
+              f"at the cut from {float(gap.min()):.2e} (chain "
+              f"{int(gap.argmin())}), exact gaps below 1e-12 in "
+              f"{int((egap < 1e-12).sum())} of {gap.shape[0]} chains; CPU "
+              f"vs CPU on the moved jacket: utilization "
+              f"{e['moved_utilization']:.2e}", flush=True)
+        if m != CHAIN_MODES:
+            check(max(e["U_time"], e["utilization"]) <= HARMONIC_TOL,
+                  f"harmonic response with {m} chain modes, card vs CPU: "
+                  f"U_time {e['U_time']:.2e}, utilization "
+                  f"{e['utilization']:.2e} <= {HARMONIC_TOL:g}")
 
     # ---- transient: 12 periods at T/128, ramped over 2 ----
     spp, n_per = 128, 12
@@ -1485,6 +1546,32 @@ def main() -> int:
                       for f in fields), f"kernel bit-repeatable ({label})")
 
     k64 = k1_f64_phase(pt, hk, dev, coarse64, refined64, wave64)
+    # the f32 instance at the dense envelope's shapes (36 phases, 51
+    # members, Stokes-5 with 8 modes: its NMAX = 8 template instance), with
+    # Wheeler stretching and per-member Cd / Cm, as the f32 model's
+    # envelope (phase 12) runs it
+    def dense_args(dtype, args=k64["dense"]):
+        return (*hk.cast_operands(dtype, dev, *args[:2]), args[2],
+                *hk.cast_operands(dtype, dev, *args[3:]))
+    d32 = dense_args(f32)
+    d64 = dense_args(f64, d32)     # the same (f32-rounded) inputs
+    before = hk.morison_phase_batch_cuda.instance_launches["f32"]
+    out = hk.morison_phase_batch_cuda(*d32, stretching="wheeler")
+    torch.cuda.synchronize()
+    n = hk.morison_phase_batch_cuda.instance_launches["f32"] - before
+    ref = morison_phase_batch(*d64, stretching="wheeler")
+    errs = {f: rel(getattr(out, f), getattr(ref, f)) for f in fields}
+    print(f"[kernel] dense envelope shapes, Wheeler, per-member Cd/Cm: "
+          f"S={DESIGN_STEPS} M={coarse64.n_members} N={d64[0].n_modes} max "
+          "rel err " + " ".join(f"{f}={e:.2e}" for f, e in errs.items()),
+          flush=True)
+    check(n == 1 and out.F1.dtype == f32
+          and all(torch.isfinite(getattr(out, f)).all() for f in fields),
+          f"K1 f32 instance launched once ({n}), outputs finite (dense "
+          "envelope shapes)")
+    check(max(errs.values()) < KERNEL_TOL, f"kernel vs f64 plain (dense "
+          f"envelope shapes): {max(errs.values()):.2e} < {KERNEL_TOL:g}")
+    kernel_rel = max(kernel_rel, max(errs.values()))
 
     # ---- 4. sweep phase at the flagship chain shapes ----
     prep_th = pt.prepare_condensed(coarse32, refined32, N_SEG,
@@ -1787,7 +1874,11 @@ def main() -> int:
     S_, M_, Q_, N_ = N_STEPS, Mr, 15, wave32.n_modes
     k1_bytes = 4 * (2 * S_ * M_ * 3 + S_ * 6 + S_ + 2 * N_ + 4
                     + refined32.n_nodes * 3 + M_) + 8 * 2 * M_
-    k1_flops = S_ * M_ * Q_ * (2 * 2 * N_ * 5 + EPILOGUE_FLOP)
+    # the mode sums, [S, 2N] phase factors times [2N, P] spatial records
+    # for five fields, and the elementwise epilogue
+    k1_mode_flops = S_ * M_ * Q_ * 2 * 2 * N_ * 5
+    k1_epi_flops = S_ * M_ * Q_ * EPILOGUE_FLOP
+    k1_flops = k1_mode_flops + k1_epi_flops
     k1_bound, k1_by = bound_us(k1_bytes, k1_flops)
     print(f"[bound] {smi}: K1 {k1_us:.1f} us on the device "
           f"(fused pass {kernel_us(ev, 'morison_phase_batch_kernel'):.1f} "
@@ -1809,11 +1900,17 @@ def main() -> int:
               + kernel_us(ev, "morison_totals_kernel"))
     k64_bytes = 8 * (2 * S_ * M_ * 3 + S_ * 6 + S_ + 2 * N_ + 4
                      + refined32.n_nodes * 3 + M_) + 8 * 2 * M_
-    k64_bound, k64_by = bound_us(k64_bytes, k1_flops, FP64_FLOP_PER_S)
+    # f64: the mode sums at the FP64 tensor-core rate, the epilogue at the
+    # FP64 rate outside them (counted as its equivalent at the former)
+    k64_bound, k64_by = bound_us(
+        k64_bytes, k1_mode_flops
+        + k1_epi_flops * FP64_TC_FLOP_PER_S / FP64_FLOP_PER_S,
+        FP64_TC_FLOP_PER_S)
     print(f"[bound] {smi}: K1 f64 instance {k64_us:.1f} us on the device "
           f"(pass {kernel_us(ev, 'morison_phase_batch_f64_kernel'):.1f} + "
           f"totals {kernel_us(ev, 'morison_totals_kernel'):.1f}); FP64 bound "
-          f"{k64_bound:.1f} us by {k64_by} ({k1_flops / 1e9:.2f} GFLOP, "
+          f"{k64_bound:.1f} us by {k64_by} ({k1_mode_flops / 1e9:.2f} GFLOP "
+          f"of mode sums at 67 TFLOP/s, {k1_epi_flops / 1e9:.2f} at 34, "
           f"{k64_bytes / 1e6:.1f} MB): {k64_bound / k64_us:.0%} of the "
           f"bound; wrapper {k64_ms:.3f} ms vs plain f64 {p64_ms:.3f} ms "
           f"(torch.profiler, CUDA events)", flush=True)

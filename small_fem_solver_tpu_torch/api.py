@@ -58,7 +58,7 @@ from .ops import solve as solve_mod
 from .ops.assembly import (assemble_dense, element_dof_indices,
                            node_gather_table, node_sum_ordered)
 from .ops.beams import element_stiffness, internal_forces, matvec12
-from .ops.hopper_kernels import morison_end_forces_cuda
+from .ops.hopper_kernels import cast_operands, morison_end_forces_cuda
 from .ops.morison import (POINTWISE_CHUNK_ELEMS, MorisonLoads, hydro_members,
                           morison_end_forces, morison_loads)
 from .ops.sections import TubeSections, von_mises_8pt
@@ -608,14 +608,13 @@ def _scan_loads(prep: "CondensedPrepared", wave: FourierWave, case, n_steps,
         # version computes in the model's dtype
         kdt = (torch.float32 if kinematics == "fused"
                and device.type == "cuda" else ldtype)
-
-        def k(x):
-            return x.to(kdt) if torch.is_tensor(x) else x
+        wk, xyz, D_k, *per_member, ts_k, alpha = cast_operands(
+            kdt, device, wave, refined.coords, D_m, case_l.wave_dir_deg,
+            case_l.current_dir_deg, Cd_h, Cm_h, case_l.rho_water, ts,
+            current_alpha)
         F1, F2, drag, inertia = batch_fn(
-            wave.to(kdt, device), k(refined.coords), conn_h, k(D_m),
-            k(case_l.wave_dir_deg), k(case_l.current_dir_deg), k(Cd_h),
-            k(Cm_h), k(case_l.rho_water), k(ts), n_gauss=n_gauss,
-            current_alpha=k(current_alpha), stretching=stretching)
+            wk, xyz, conn_h, D_k, *per_member, ts_k, n_gauss=n_gauss,
+            current_alpha=alpha, stretching=stretching)
         F_I_nodes, g = _chain_layout_loads(coarse, refined, case_l,
                                            F1.to(ldtype), F2.to(ldtype),
                                            L_m, prep.n_seg)
@@ -1117,7 +1116,7 @@ def design_envelope(model: JacketModel, waves: FourierWave, cases: LoadCase,
                 cases.marine_growth_mm, cases.Cd, cases.Cm)
         per_case = (D_h, cases.wave_dir_deg, cases.current_dir_deg, Cd_h,
                     Cm_h, cases.rho_water, ts)
-        wk = waves.to(dtype, dev)
+        wk, = cast_operands(dtype, dev, waves)
         ends = [morison_end_forces_cuda(
             wk.case(i), model.coords, conn_h, *(a[i] for a in per_case),
             n_gauss=n_gauss, current_alpha=current_alpha,

@@ -47,7 +47,7 @@ from .beams import (element_stiffness, internal_forces, local_axes,
                     transformation_matrices)
 from .condense import condense_loads, factor_chains
 from .eigen import eigh_general_small
-from .hopper_kernels import morison_phase_batch_cuda
+from .hopper_kernels import cast_operands, morison_phase_batch_cuda
 from .morison import gauss_legendre_01, hydro_diameter_m, hydro_members
 from .sections import TubeSections, von_mises_8pt
 from .solve import (factor_dense, free_fixed_dofs, ground_with_springs,
@@ -651,13 +651,11 @@ def _phase_loads(model, wave: FourierWave, case: LoadCase, ts, n_gauss,
     conn_h, D_m, Cd_h, Cm_h = hydro_members(
         model, case.marine_growth_mm, case.Cd if Cd is None else Cd,
         case.Cm)
-
-    def k(x):
-        return torch.as_tensor(x, dtype=dtype, device=dev)
-    return morison_phase_batch_cuda(
-        wave.to(dtype, dev), model.coords, conn_h, D_m.to(dtype),
-        k(case.wave_dir_deg), k(case.current_dir_deg), k(Cd_h), k(Cm_h),
-        k(case.rho_water), ts, n_gauss=n_gauss, stretching=stretching)
+    wk, xyz, *rest = cast_operands(
+        dtype, dev, wave, model.coords, D_m, case.wave_dir_deg,
+        case.current_dir_deg, Cd_h, Cm_h, case.rho_water, ts)
+    return morison_phase_batch_cuda(wk, xyz, conn_h, *rest, n_gauss=n_gauss,
+                                    stretching=stretching)
 
 
 def _recover_util(sections, sect_id, conn, K_local, T, U, fy):

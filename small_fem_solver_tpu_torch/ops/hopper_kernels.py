@@ -238,6 +238,21 @@ def kernel_operands(wave: FourierWave, coords, conn, D_m, wave_dir_deg,
         s=s, w=w)
 
 
+def cast_operands(dtype, device, *xs) -> tuple:
+    """``xs`` as operands of the Morison kernel's ``dtype`` instance on
+    ``device``: waves and tensors cast and moved, numpy arrays made
+    tensors, Python numbers and ``None`` passed as they are (the kernel
+    takes a number by value).  Integer operands (``conn``) are not passed
+    through here."""
+    def cast(x):
+        if isinstance(x, FourierWave):
+            return x.to(dtype, device)
+        if isinstance(x, (torch.Tensor, np.ndarray)):
+            return torch.as_tensor(x, dtype=dtype, device=device)
+        return x
+    return tuple(cast(x) for x in xs)
+
+
 def _operand(v, M: int, name: str, cls=_Operand):
     """A value or a tensor (0-d, or [M] per member) as an Operand."""
     if not isinstance(v, torch.Tensor):

@@ -243,6 +243,29 @@ def test_kernel_operand_packing_f64():
                            n_gauss=15, current_alpha=None)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cast_operands(dtype):
+    """cast_operands gives every float operand of an f64 call the kernel
+    instance's dtype: waves and tensors cast, numpy arrays made tensors,
+    numbers and None as they are; the result packs without a mixed-dtype
+    error and, in f64, is the f64 call itself."""
+    model, wave, D, ts, tm, tw = _inputs(jnp.float64, torch.float64,
+                                         "fenton", 12)
+    Cd = np.random.default_rng(2).uniform(0.6, 1.1, tm.n_members)
+    wk, xyz, Dk, wdir, Cdk, ts_k, alpha = hk.cast_operands(
+        dtype, "cpu", tw, tm.coords, torch.tensor(D), 38.0, Cd,
+        torch.tensor(ts), None)
+    assert wk.E.dtype == xyz.dtype == Dk.dtype == Cdk.dtype == ts_k.dtype \
+        == dtype
+    assert wdir == 38.0 and alpha is None
+    assert torch.equal(Cdk, torch.as_tensor(Cd, dtype=dtype))
+    k = hk.kernel_operands(wk, xyz, tm.conn, Dk, wdir, 120.0, Cdk, 2.0,
+                           1025.0, ts_k, n_gauss=15, current_alpha=alpha)
+    assert k["coords"].dtype == dtype and k["Cd"].dtype == dtype
+    if dtype == torch.float64:
+        assert xyz.data_ptr() == tm.coords.data_ptr()
+
+
 def test_cuda_wrapper_refuses_cpu_tensors_and_bad_sizes():
     """The kernel's launcher refuses CPU tensors and counts no launch; the
     wrappers run the plain version on them; the TPU kernel's size limits
