@@ -133,7 +133,38 @@ chain-sweep kernel, and checks them:
    operations, busy time and peak memory;
 16. large modal phase: ``modal_analysis_condensed`` at 99,882 DOF (10
    sweep launches at depth 326), the first 8 frequencies within 2e-3 of
-   the 9,612-DOF ones; time and peak memory.
+   the 9,612-DOF ones; time and peak memory;
+17. K1-sea phase: K1's general-mode (random sea) instance on the flagship
+   mesh with per-member Cd / Cm, f32 against the plain version in f64 on
+   the same f32-rounded inputs (1e-5) and f64 against f64 (1e-12), one
+   launch a call, bit-repeatable, at N = 64 (2,048 samples, Wheeler), 48
+   (a power-law current), 37 (spread, Wheeler, 1,023 samples) and 256
+   (spread); its device time at the sea scan's shapes beside its bound;
+18. sea phase: ``sea_scan_prepared`` (JONSWAP Hs 6.5 m, Tp 9.4 s, 64
+   components, U_c 1 m/s, Wheeler, 2,048 samples at Tp / 10) on the f32
+   and the f64 handle of the flagship mesh (one K1-sea launch and the
+   scan's sweeps each), f32 against f64, equilibrium, card against the
+   port's CPU f64 run at 256 samples (1e-9), the spread sea (s = 4, 256
+   samples) likewise, and the spectral fatigue screen of the history;
+19. frequency-domain phase: ``spectral_response_prepared`` and
+   ``spectral_response_dynamic`` (12 chain modes) at 9,612 DOF in f64,
+   card against CPU (the quasi-static response at refine 8, 1e-9; the
+   dynamic one at phase 15's 12-chain-mode limits);
+20. scatter phase: ``scatter_fatigue_spectral`` as the JAX bench runs it
+   (refine 8, f32, its 10 and 40 states, 32 components: ms per state and
+   the marginal ms per state), the dynamic diagram of the 10 states at
+   9,612 DOF in f64 and ``long_term_extremes`` on it, 3 states at refine 8
+   card against CPU (1e-9), and the time-domain ``scatter_fatigue`` over 4
+   states at 9,612 DOF (one K1-sea launch a state);
+21. sea transient phase: ``transient_response_condensed`` driven by the
+   sea (64 components, dt 0.1 s, 1,024 steps, 12 chain modes, f64) and
+   its relative-drag variant (256 steps), card against CPU (U 1e-9,
+   utilization 1e-7).
+
+Every new path is run with the launch counts set to 0 just before it and
+read just after it; a mean or MPM stress is compared to one of its
+member's tied governing circumferential points (opposite points of a
+member without axial stress variance tie to roundoff).
 
 Prints the kernel record and the card's name and power limit on the lines
 before the last, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -246,7 +277,40 @@ STEADY_TIP_TOL = 2e-2   # ... tip history (tests/test_dynamics.py:329-366)
 DECAY_ZETA_RTOL = 0.01  # free decay: damping ratio, damped period
 DECAY_PERIOD_RTOL = 5e-3  # (tests/test_dynamics.py:248-284)
 MESH_FREQ_TOL = 2e-3  # 99,882 vs 9,612 DOF frequencies
+# irregular seas (JONSWAP gamma 3.3, d = 50 m; the half-hour realization of
+# the JAX package's sea_scan_prepared example)
+SEA_HS, SEA_TP, SEA_D, SEA_UC = 6.5, 9.4, 50.0, 1.0
+SEA_N = 64            # components
+SEA_STEPS = 2048      # samples at Tp / 10
+SPREADING_S = 4.0     # the spread sea's cos^2s spreading exponent
+SPREAD_STEPS = 256
+SEA_CHECK_STEPS = 256  # card vs CPU f64 at a reduced sample count
+SEA_TOL = 1e-9        # sea scan card vs CPU f64 (U, von Mises, reactions)
+# f32 sea scan vs f64 over every sample, set from measurement (4.2e-4 and
+# 6.2e-4 on an H100): a Gauss point within ~1e-6 m of the surface flips
+# wet / dry between the f32 and f64 models; off the samples with a point
+# within SURFACE_BAND of it the flagship's limits (U_TOL, UTIL_TOL) hold
+SEA_F32_U_TOL = 1e-3
+SEA_F32_UTIL_TOL = 1.5e-3
+# ... its Morison totals off the band (4.95e-5 measured): the f32 sea's
+# frequencies carry a relative rounding of ~6e-8, which the 1,925 s
+# record turns into phase drifts of ~1e-4 rad
+SEA_F32_TOTAL_TOL = 2e-4
+FD_TOL = 1e-9         # spectral response / scatter card vs CPU f64, refine 8
+TIED = 1e-9           # two circumferential points' variances tie
+SURFACE_BAND = 1e-4   # m: K1-sea f32 vs f64 holds out points this close to
+                      # the f64 free surface (the wet / dry jump)
+SEA_TRANSIENT_STEPS = 1024
+# bench.py:285-289: the scatter diagrams of the JAX bench
+SCATTER_STATES = [(2.5 + 0.5 * i, 7.0 + 0.3 * i, 0.05, 36.0 * i)
+                  for i in range(10)]
+SCATTER_STATES40 = [(2.5 + 0.125 * i, 7.0 + 0.075 * i, 0.0125, 9.0 * i)
+                    for i in range(40)]
+TD_STATES = 4         # time-domain scatter: the first 4 bench states
                       # (tests/test_dynamics.py:207-220)
+
+
+SMI = ""              # the card's name and power limit (set in main)
 
 
 class CheckFailed(RuntimeError):
@@ -337,6 +401,13 @@ def device_events(fn, reps: int = 1, host: bool = True):
 def kernel_us(events, name):
     times = [t for n, t in events if name in n]
     return sum(times) / len(times) if times else float("nan")
+
+
+def kernel_median_us(events, name):
+    """The median device time of the records named ``name`` (one record
+    of a session can come back far off its launch's time)."""
+    times = sorted(t for n, t in events if name in n)
+    return times[len(times) // 2] if times else float("nan")
 
 
 def top_device_ops(events, k: int = 5) -> str:
@@ -868,7 +939,7 @@ def dense_envelope_phase(pt, hk, dev, coarse64, waves_cpu, cases):
         return pt.design_envelope(coarse64, waves, cases, n_steps=DESIGN_STEPS)
     env, n, out["first_s"] = counted(hk, envelope)
     out["launches"] = n["f64"]
-    check(n == {"sweep": 0, "f32": 0, "f64": C}, f"design_envelope of the "
+    check(same_counts(n, {"f64": C}), f"design_envelope of the "
           f"f64 model launched {n} (K1's f64 instance once per case: {C})")
     check(tuple(env.utilization.shape) == (C, DESIGN_STEPS,
                                            coarse64.n_members)
@@ -903,7 +974,7 @@ def dense_envelope_phase(pt, hk, dev, coarse64, waves_cpu, cases):
         coarse32, waves_cpu.to(torch.float32, dev), cases,
         n_steps=DESIGN_STEPS))
     out["launches_f32"] = n["f32"]
-    check(n == {"sweep": 0, "f32": C, "f64": 0}, f"design_envelope of the "
+    check(same_counts(n, {"f32": C}), f"design_envelope of the "
           f"f32 model launched {n} (K1's f32 instance once per case: {C})")
     errs32 = {f: rel(getattr(env32, f).cpu(), getattr(ref, f))
               for f in ("max_util_per_case", "member_envelope", "utilization",
@@ -1131,14 +1202,20 @@ def counted(hk, fn):
     import torch
     hk.chain_sweep_cuda.launches = 0
     hk.morison_phase_batch_cuda.launches = 0
-    hk.morison_phase_batch_cuda.instance_launches.update(f32=0, f64=0)
+    counts = hk.morison_phase_batch_cuda.instance_launches
+    counts.update({k: 0 for k in counts})
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return res, {"sweep": hk.chain_sweep_cuda.launches,
-                 **hk.morison_phase_batch_cuda.instance_launches}, seconds
+    return res, {"sweep": hk.chain_sweep_cuda.launches, **counts}, seconds
+
+
+def same_counts(n: dict, want: dict) -> bool:
+    """Launch counts ``n`` (from :func:`counted`) equal ``want``, a kernel
+    or instance that ``want`` leaves out counted as 0."""
+    return all(v == want.get(k, 0) for k, v in n.items())
 
 
 def call_record(fn) -> dict:
@@ -1158,6 +1235,7 @@ def call_record(fn) -> dict:
     rec["ops"], rec["busy_ms"] = len(events), sum(t for _, t in events) / 1e3
     rec["sweep_us"] = kernel_us(events, "chain_sweep_kernel")
     rec["k1_us"] = kernel_us(events, "morison_phase_batch_f64_kernel")
+    rec["k1_sea_us"] = kernel_us(events, "morison_sea_kernel")
     rec["top"] = top_device_ops(events, 3)
     return rec
 
@@ -1188,7 +1266,7 @@ def dynamics_phase(pt, hk, dev, coarse64, refined64, wave64):
         counts against ``want``."""
         t0 = time.perf_counter()
         card, n, _ = counted(hk, lambda: fn(coarse64, refined64, wave64))
-        check(n == want, f"{label}: kernel launches {n} == {want}")
+        check(same_counts(n, want), f"{label}: kernel launches {n} == {want}")
         launches[label] = n
         rec[label] = call_record(lambda: fn(coarse64, refined64, wave64))
         t1 = time.perf_counter()
@@ -1422,7 +1500,7 @@ def modal_large_phase(pt, hk, coarse64, freqs_9612):
                                            n_chain_modes=CHAIN_MODES,
                                            topside_mass_t=TOPSIDE_T)
     res, n, _ = counted(hk, modal)
-    check(n == {"sweep": 10, "f32": 0, "f64": 0}, f"99,882-DOF modal: kernel "
+    check(same_counts(n, {"sweep": 10}), f"99,882-DOF modal: kernel "
           f"launches {n}")
     err = freq_err(res.frequencies_hz, freqs_9612[:8])
     check(res.mode_shapes.shape == (8, big.n_dof)
@@ -1433,6 +1511,643 @@ def modal_large_phase(pt, hk, coarse64, freqs_9612):
     rec = call_record(modal)
     rec.update(launches=n, err=err, periods=[float(p) for p in res.periods_s])
     return rec
+
+
+def sea_bound(itemsize: int, S: int, M: int, Q: int, N: int, n_nodes: int,
+              spread: bool, wheeler: bool):
+    """(bound us, by, GFLOP, MB) of one K1-sea launch: F1 / F2 and the
+    totals written once; times, phase table, per-mode arrays, coords and
+    member arrays read once; the mode sums 2 x 2N x F FLOP per (phase,
+    point) (F = 5 fields, 7 spread; 13 / 19 with Wheeler) plus the
+    epilogue.  FP32 at 67 TFLOP/s; FP64 with the mode sums at 67 (FP64 on
+    the tensor cores) and the epilogue at 34, as K1's f64 instance."""
+    F = (7 if spread else 5) + ((12 if spread else 8) if wheeler else 0)
+    P = M * Q
+    nbytes = itemsize * (2 * S * M * 3 + S * 6 + S + 2 * S * N + 6 * N
+                         + n_nodes * 3 + 3 * M) + 8 * 2 * M
+    mode, epi = S * P * 2 * 2 * N * F, S * P * EPILOGUE_FLOP
+    if itemsize == 4:
+        us, by = bound_us(nbytes, mode + epi)
+    else:
+        us, by = bound_us(nbytes, mode + epi * FP64_TC_FLOP_PER_S
+                          / FP64_FLOP_PER_S, FP64_TC_FLOP_PER_S)
+    return us, by, (mode + epi) / 1e9, nbytes / 1e6
+
+
+def surface_band(sea, coords, conn, wave_dir, ts, band: float):
+    """[S, M] mask of the (sample, member) pairs with a Gauss point within
+    ``band`` m of the free surface of ``sea`` (f64, from its spatial eta
+    rows and the f64 phase table): there the wet / dry mask z <= eta is a
+    jump, so a point that float32 rounding of eta (~1e-6 m) puts on the
+    other side of the surface changes the member's force by the point's
+    whole share."""
+    from small_fem_solver_tpu_torch.ops import hopper_kernels as hk
+    from small_fem_solver_tpu_torch.ops.morison import _mode_spatial_coeffs
+    mc = _mode_spatial_coeffs(sea.k, sea.omega, sea.phi, sea.E, sea.U, sea.d,
+                              coords, conn, wave_dir, 0.0, 15, "none",
+                              sea.dir_deg)
+    ph = hk.sea_phase_table(sea, ts)
+    N = sea.n_modes
+    eta = ph[:, :N] @ mc.Acat[0].T + ph[:, N:] @ mc.Bcat[0].T    # [S, P]
+    near = (mc.z[None, :] - eta).abs() < band
+    return near.reshape(ts.shape[0], conn.shape[0], -1).any(dim=-1)
+
+
+def k1_sea_phase(pt, hk, dev, refined64):
+    """K1's general-mode (random sea) instance on the flagship mesh with
+    per-member Cd / Cm: f32 against the plain version in f64 on the same
+    f32-rounded inputs (1e-5 of the largest value) and f64 against f64
+    (1e-12), one launch a call on its instance's counter, bit-repeatable,
+    at N = 64 (the sea scan's shapes: 2,048 samples, Wheeler), 48 (a
+    power-law current), 37 (off the 32-mode tile; spread, Wheeler, an odd
+    S) and 256 (spread).  Then the sea scan's shapes timed: the wrapper
+    (CUDA events), the plain versions, the kernel's device time
+    (torch.profiler) beside its bound.  Returns the records."""
+    import numpy as np
+    import torch
+    from small_fem_solver_tpu_torch.ops.spectrum import morison_sea_end_forces
+    f32, f64 = torch.float32, torch.float64
+    M = refined64.n_members
+    rng = np.random.default_rng(17)
+    D = refined64.sections.D_outer[refined64.sect_id] / 1000.0
+    Cd = torch.tensor(rng.uniform(0.6, 1.1, M), device=dev)
+    Cm = torch.tensor(rng.uniform(1.6, 2.1, M), device=dev)
+    fields = ("F1", "F2", "total_drag", "total_inertia")
+    out = {"rel": {}, "abs": {}, "cases": []}
+    shapes = (("sea scan shapes, Wheeler", SEA_N, SEA_STEPS, None,
+               "wheeler", None),
+              ("power-law current", 48, SEA_STEPS, None, "none", 1.0 / 7.0),
+              ("spread, Wheeler, odd S", 37, 1023, SPREADING_S, "wheeler",
+               None),
+              ("spread, N=256", 256, 515, SPREADING_S, "none", None))
+    for label, N, S, spread, st, alpha in shapes:
+        sea = pt.make_random_sea(SEA_HS, SEA_TP, SEA_D, n_components=N,
+                                 seed=0, U_c=SEA_UC, spreading_s=spread,
+                                 device=dev)
+        ts = torch.arange(S, dtype=f64, device=dev) * SEA_TP / 10.0
+        kw = dict(current_alpha=alpha, stretching=st)
+        for dtype, key, tol in ((f32, "sea_f32", KERNEL_TOL),
+                                (f64, "sea_f64", KERNEL_TOL_F64)):
+            ops = hk.cast_operands(dtype, dev, sea, refined64.coords, D,
+                                   38.0, 38.0, Cd, Cm, 1025.0, ts)
+            ref_ops = hk.cast_operands(f64, dev, *ops)
+            before = hk.morison_phase_batch_cuda.instance_launches[key]
+            res = hk.morison_sea_batch_cuda(ops[0], ops[1], refined64.conn,
+                                            *ops[2:], **kw)
+            again = hk.morison_sea_batch_cuda(ops[0], ops[1], refined64.conn,
+                                              *ops[2:], **kw)
+            torch.cuda.synchronize()
+            n = hk.morison_phase_batch_cuda.instance_launches[key] - before
+            ref = dict(zip(fields, morison_sea_end_forces(
+                ref_ops[0], ref_ops[1], refined64.conn, *ref_ops[2:], **kw)))
+            held = ""
+            if dtype == f32:
+                # f32 against f64: the (sample, member) pairs with a point
+                # within SURFACE_BAND of the surface are held out (counted;
+                # their error printed), the totals of their samples too
+                near = surface_band(ref_ops[0], ref_ops[1], refined64.conn,
+                                    ref_ops[3], ref_ops[-1], SURFACE_BAND)
+                keep_sm = ~near[..., None]
+                keep_s = ~near.any(dim=1)[:, None]
+                mask = {"F1": keep_sm, "F2": keep_sm, "total_drag": keep_s,
+                        "total_inertia": keep_s}
+                errs = {f: float(((getattr(res, f).double() - ref[f])
+                                  * mask[f]).abs().max()
+                                 / ref[f].abs().max()) for f in fields}
+                band_err = max(rel(getattr(res, f), ref[f]) for f in fields)
+                held = (f"; {int(near.sum())} of {near.numel()} (sample, "
+                        f"member) pairs within {SURFACE_BAND:g} m of the "
+                        f"surface held out ({int((~keep_s).sum())} samples "
+                        f"for the totals), largest error with them "
+                        f"{band_err:.2e}")
+            else:
+                keep_sm = torch.ones(1, dtype=torch.bool, device=dev)
+                errs = {f: rel(getattr(res, f), ref[f]) for f in fields}
+            print(f"[kernel sea] {key} {label}: S={S} M={M} N={N} max rel "
+                  "err " + " ".join(f"{f}={e:.2e}" for f, e in errs.items())
+                  + held, flush=True)
+            check(n == 2 and res.F1.dtype == dtype
+                  and all(torch.isfinite(getattr(res, f)).all()
+                          for f in fields),
+                  f"K1 {key} launched once a call ({n} for 2), outputs "
+                  f"finite ({label})")
+            check(max(errs.values()) <= tol, f"K1 {key} vs f64 plain "
+                  f"({label}): {max(errs.values()):.2e} <= {tol:g}")
+            check(all(torch.equal(getattr(res, f), getattr(again, f))
+                      for f in fields + ("nodal_forces",)),
+                  f"K1 {key} bit-repeatable ({label})")
+            out["rel"][key] = max(out["rel"].get(key, 0.0),
+                                  max(errs.values()))
+            out["abs"][key] = max(out["abs"].get(key, 0.0), *(
+                float(((getattr(res, f).double() - ref[f]) * keep_sm)
+                      .abs().max()) for f in ("F1", "F2")))
+            del ref
+        out["cases"].append(label)
+    # the sea scan's shapes: wrapper, plain, device time, bound
+    sea = pt.make_random_sea(SEA_HS, SEA_TP, SEA_D, n_components=SEA_N,
+                             seed=0, U_c=SEA_UC, device=dev)
+    ts = torch.arange(SEA_STEPS, dtype=f64, device=dev) * SEA_TP / 10.0
+    for dtype, key, kname in ((f32, "sea_f32", "morison_sea_kernel<float"),
+                              (f64, "sea_f64", "morison_sea_kernel<double")):
+        ops = hk.cast_operands(dtype, dev, sea, refined64.coords, D, 38.0,
+                               38.0, Cd, Cm, 1025.0, ts)
+        args = (ops[0], ops[1], refined64.conn, *ops[2:])
+        k_ops = hk.sea_kernel_operands(*args, n_gauss=15, current_alpha=None)
+        ms = cuda_ms(lambda: hk.morison_sea_end_forces_cuda(
+            *args, stretching="wheeler"), n=10)
+        plain_ms = cuda_ms(lambda: morison_sea_end_forces(
+            *args, stretching="wheeler"), n=3, warmup=1)
+        raw_ms = cuda_ms(lambda: hk.launch_morison_sea(k_ops, True), n=10)
+        ev = device_events(lambda: hk.launch_morison_sea(k_ops, True),
+                           SHORT_REPS // 5)
+        pass_us = kernel_median_us(ev, "morison_sea_kernel")
+        tot_us = kernel_median_us(ev, "morison_totals_kernel")
+        us = pass_us + tot_us
+        bound, by, gflop, mb = sea_bound(
+            ops[1].element_size(), SEA_STEPS, M, 15, SEA_N,
+            refined64.n_nodes, False, True)
+        out[key] = dict(ms=ms, plain_ms=plain_ms, device_us=us,
+                        launch_ms=raw_ms, bound_us=bound, bound_by=by)
+        print(f"[bound] {SMI}: K1 {key} at the sea scan's shapes (S="
+              f"{SEA_STEPS}, M={M}, N={SEA_N}, Wheeler) {us:.1f} us on the "
+              f"device (median launch: pass {pass_us:.1f} + totals "
+              f"{tot_us:.1f}; the launch alone {raw_ms:.3f} ms, CUDA "
+              f"events); bound {bound:.1f} us by {by} ({gflop:.1f} GFLOP, "
+              f"{mb:.1f} MB): {bound / us:.0%} of the bound; wrapper "
+              f"{ms:.3f} ms vs plain {plain_ms:.3f} ms (torch.profiler, CUDA "
+              "events)", flush=True)
+    return out
+
+
+def scan_equilibrium(pt, s, dev) -> float:
+    """Largest |sum of reactions + applied loads| over the largest applied
+    load, every step of a condensed scan of the flagship case (topside
+    shear along the wave heading, axial load, custom self-weight, Morison
+    totals)."""
+    import torch
+    f64 = torch.float64
+    tm = s.total_morison.double()
+    th = torch.deg2rad(torch.tensor(90.0 - CASE["wave_dir_deg"], dtype=f64,
+                                    device=dev))
+    shear = CASE["F_shear_kN"] * 1e3
+    weight = CASE["custom_sw_tonnes"] * 1e3 * pt.G_GRAV
+    applied = torch.stack([shear * torch.cos(th) + tm[:, 0],
+                           shear * torch.sin(th) + tm[:, 1],
+                           -CASE["F_axial_kN"] * 1e3 - weight + tm[:, 2]],
+                          dim=1)
+    R = s.reactions.double().sum(dim=1)[:, :3]
+    return float((R + applied).abs().max() / applied.abs().max())
+
+
+def tie_err(mean, rows, scf=1.0) -> float:
+    """Distance of each member's mean stress ``mean`` [..., M] to the
+    nearest mean of its governing circumferential points in the transfer
+    ``rows`` (the argmax of the 8 variances; points whose variances tie
+    to 1e-9, opposite points of a member whose axial stress has no
+    variance, may each govern, so roundoff picks one), over the largest
+    such mean."""
+    import torch
+    sc, ss = rows.stress_cos.double().cpu(), rows.stress_sin.double().cpu()
+    m0 = 0.5 * torch.sum((sc * scf)**2 + (ss * scf)**2, dim=0)
+    gov = m0 >= m0.amax(dim=-1, keepdim=True) * (1.0 - TIED)
+    cand = torch.where(gov, rows.stress_mean.double().cpu() * scf, torch.nan)
+    d = (mean.double().cpu()[..., None] - cand).abs().nan_to_num(torch.inf)
+    return float(d.amin(dim=-1).max() / cand.nan_to_num(0.0).abs().max())
+
+
+def sea_phase(pt, hk, dev, coarse64, refined64, prep32, prep64, cpu,
+              per_scan):
+    """The random-sea scan (``sea_scan_prepared``) of the flagship mesh:
+    JONSWAP Hs 6.5 m, Tp 9.4 s, 64 components, U_c 1 m/s, Wheeler, 2,048
+    samples at Tp / 10 (the half hour of the JAX package's example), on
+    the f32 handle and on the f64 one, each with its launch counts read
+    around exactly that call (one K1-sea launch, the scan's sweeps);
+    f32 against f64; equilibrium; the f64 scan at 256 samples against the
+    port's CPU f64 run of the same call (1e-9); the spread sea (s = 4, 256
+    samples) likewise; the spectral fatigue screen of the f64 history;
+    each call's time, device operations, busy time and peak memory."""
+    import torch
+    f32, f64 = torch.float32, torch.float64
+    case = pt.LoadCase(**CASE)
+    ts = torch.arange(SEA_STEPS, dtype=f64) * SEA_TP / 10.0
+    out, rec = {"launches": {}}, {}
+
+    def sea(dtype, device, spread=None):
+        return pt.make_random_sea(SEA_HS, SEA_TP, SEA_D, n_components=SEA_N,
+                                  seed=0, U_c=SEA_UC, spreading_s=spread,
+                                  dtype=dtype, device=device)
+
+    def scan(prep, s, n=SEA_STEPS):
+        return pt.sea_scan_prepared(prep, s, case, ts[:n],
+                                    stretching="wheeler")
+    runs = {}
+    for label, prep, dtype, key in (("sea scan f32", prep32, f32, "sea_f32"),
+                                    ("sea scan f64", prep64, f64, "sea_f64")):
+        s = sea(dtype, dev)
+        res, n, first = counted(hk, lambda: scan(prep, s))
+        out["launches"][label] = n
+        check(same_counts(n, {"sweep": per_scan, key: 1}), f"{label}: "
+              f"kernel launches {n} (one {key} launch, {per_scan} sweeps)")
+        check(tuple(res.U.shape) == (SEA_STEPS, refined64.n_dof)
+              and all(bool(torch.isfinite(getattr(res, f)).all())
+                      for f in ("U", "von_mises", "reactions",
+                                "total_morison")),
+              f"{label}: U {tuple(res.U.shape)}, all fields finite")
+        rec[label] = call_record(lambda: scan(prep, s))
+        rec[label]["first_s"] = first
+        runs[label] = res
+    s32, s64 = runs["sea scan f32"], runs["sea scan f64"]
+    # the samples at which a Gauss point lies within SURFACE_BAND of the
+    # f64 surface: there f32 rounding can flip the point wet / dry (a jump
+    # of its whole share), and each sample's solve is its own
+    near = surface_band(sea(f64, dev), refined64.coords, refined64.conn,
+                        CASE["wave_dir_deg"], ts.to(f64).to(dev),
+                        SURFACE_BAND).any(dim=1)
+    keep = ~near
+
+    def f32_errs(k):
+        return {"U": rel(s32.U[k], s64.U[k]),
+                "utilization": rel(s32.utilization[k], s64.utilization[k]),
+                "max utilization": abs(float(s32.utilization[k].max())
+                                       / float(s64.utilization[k].max())
+                                       - 1.0),
+                "total_morison": rel(s32.total_morison[k],
+                                     s64.total_morison[k])}
+    errs, errs_off = f32_errs(slice(None)), f32_errs(keep)
+    out["f32_errs"], out["f32_errs_off_band"] = errs, errs_off
+    out["band_samples"] = int(near.sum())
+    print(f"[sea] f32 scan vs f64 scan ({SEA_STEPS} samples): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; the {int(keep.sum())} samples with no Gauss point within "
+          f"{SURFACE_BAND:g} m of the surface: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs_off.items())
+          + f"; max utilization {float(s64.utilization.max()):.6f} at "
+          f"t = {float(s64.ts[s64.critical_index]):.2f} s", flush=True)
+    check(errs_off["U"] <= U_TOL and errs_off["utilization"] <= UTIL_TOL
+          and errs_off["max utilization"] <= MAX_UTIL_TOL
+          and errs_off["total_morison"] <= SEA_F32_TOTAL_TOL,
+          f"f32 sea scan vs f64 off the surface band: U "
+          f"{errs_off['U']:.2e} <= {U_TOL:g}, utilization "
+          f"{errs_off['utilization']:.2e} <= {UTIL_TOL:g}, its maximum "
+          f"{errs_off['max utilization']:.2e} <= {MAX_UTIL_TOL:g}, Morison "
+          f"totals {errs_off['total_morison']:.2e} <= "
+          f"{SEA_F32_TOTAL_TOL:g}")
+    check(errs["U"] <= SEA_F32_U_TOL
+          and errs["utilization"] <= SEA_F32_UTIL_TOL
+          and errs["max utilization"] <= MAX_UTIL_TOL,
+          f"f32 sea scan vs f64, every sample: U {errs['U']:.2e} <= "
+          f"{SEA_F32_U_TOL:g}, utilization {errs['utilization']:.2e} <= "
+          f"{SEA_F32_UTIL_TOL:g}, its maximum {errs['max utilization']:.2e} "
+          f"<= {MAX_UTIL_TOL:g}")
+    eq32, eq64 = scan_equilibrium(pt, s32, dev), scan_equilibrium(pt, s64,
+                                                                  dev)
+    out["equilibrium"] = (eq32, eq64)
+    check(eq32 < EQ_TOL_F32 and eq64 < EQ_TOL_F64, f"sea scan equilibrium: "
+          f"f32 {eq32:.2e} < {EQ_TOL_F32:g}, f64 {eq64:.2e} < {EQ_TOL_F64:g}")
+
+    # the card against the port's CPU f64 run of the same call
+    out["cpu"] = {}
+    for label, spread in (("sea scan", None), ("spread sea scan",
+                                               SPREADING_S)):
+        s_card = sea(f64, dev, spread)
+        if spread is not None:
+            res, n, _ = counted(hk, lambda: scan(prep32, sea(f32, dev,
+                                                             spread),
+                                                 SPREAD_STEPS))
+            out["launches"]["spread sea scan f32"] = n
+            check(same_counts(n, {"sweep": per_scan, "sea_f32": 1}),
+                  f"spread sea scan f32: kernel launches {n}")
+            rec["spread sea scan f32"] = call_record(
+                lambda: scan(prep32, sea(f32, dev, spread), SPREAD_STEPS))
+        card = scan(prep64, s_card, SEA_CHECK_STEPS)
+        t0 = time.perf_counter()
+        ref = scan(cpu["prep"], sea(f64, "cpu", spread), SEA_CHECK_STEPS)
+        cpu_s = time.perf_counter() - t0
+        e = {f: rel(getattr(card, f).cpu(), getattr(ref, f))
+             for f in ("U", "von_mises", "reactions", "total_morison")}
+        out["cpu"][label] = e
+        print(f"[sea] {label} f64, {SEA_CHECK_STEPS} samples, card vs CPU "
+              f"(CPU run {cpu_s:.2f} s): "
+              + ", ".join(f"{k} {v:.2e}" for k, v in e.items()), flush=True)
+        check(max(e.values()) <= SEA_TOL, f"{label} card vs CPU f64: "
+              f"{max(e.values()):.2e} <= {SEA_TOL:g}")
+
+    # the spectral fatigue screen of the f64 history (host numpy)
+    t0 = time.perf_counter()
+    scr = pt.spectral_fatigue_screen(s64.von_mises, SEA_TP / 10.0, 25.0)
+    out["screen_s"] = time.perf_counter() - t0
+    out["counter"] = "native" if pt.native.available() else "Python"
+    out["max_damage"] = (float(scr.damage_rainflow.max()),
+                         float(scr.damage_rayleigh.max()))
+    check(bool(torch.isfinite(scr.damage_rainflow).all())
+          and bool((scr.damage_rainflow >= 0).all())
+          and out["max_damage"][0] > 0,
+          f"spectral fatigue screen of the f64 history: 25-year damage "
+          f"rainflow {out['max_damage'][0]:.3e}, Rayleigh "
+          f"{out['max_damage'][1]:.3e} ({out['counter']} rainflow counter, "
+          f"{out['screen_s']:.2f} s)")
+    out["rec"] = rec
+    return out
+
+
+def freq_phase(pt, hk, dev, coarse64, refined64, prep64, cpu, per_scan):
+    """The frequency domain at 9,612 DOF in f64: ``spectral_response_
+    prepared`` (64 components: 129 transfer rows in one condensed solve)
+    and ``spectral_response_dynamic`` (12 chain modes; the Craig-Bampton
+    reduction and modal basis built in the counted call), each with its
+    launch counts read around exactly that call; the quasi-static response
+    at refine 8 against the port's CPU f64 run (1e-9), the dynamic one at
+    9,612 DOF against it at phase 15's limits for 12 chain modes (U rows 1e-9,
+    stresses 1e-7); mean and MPM stresses against one of the tied
+    governing points (:func:`tie_err`).  Returns the records."""
+    import torch
+    from small_fem_solver_tpu_torch import api
+    f64 = torch.float64
+    case = pt.LoadCase(**CASE)
+    out, rec = {"launches": {}}, {}
+
+    def sea(device):
+        return pt.make_random_sea(SEA_HS, SEA_TP, SEA_D, n_components=SEA_N,
+                                  seed=0, U_c=SEA_UC, device=device)
+    s_card = sea(dev)
+    fd, n, _ = counted(hk, lambda: pt.spectral_response_prepared(
+        prep64, s_card, case))
+    out["launches"]["spectral_response"] = n
+    check(same_counts(n, {"sweep": per_scan}), f"spectral_response_prepared: "
+          f"kernel launches {n} (one {2 * SEA_N + 1}-row condensed solve)")
+    rec["spectral response"] = call_record(
+        lambda: pt.spectral_response_prepared(prep64, s_card, case))
+
+    def cold_dynamic(c, r, s, prep):
+        api._CB_CACHE.clear()
+        api._MODAL_CACHE.clear()
+        return pt.spectral_response_dynamic(c, r, N_SEG, s, case,
+                                            n_chain_modes=CHAIN_MODES,
+                                            prep=prep)
+    dyn, n, _ = counted(hk, lambda: cold_dynamic(coarse64, refined64, s_card,
+                                                 prep64))
+    out["launches"]["spectral_response_dynamic"] = n
+    check(same_counts(n, {"sweep": 10 + per_scan}), f"spectral_response_"
+          f"dynamic: kernel launches {n} (10 chain-mode sweeps, then the "
+          "static transfer's)")
+    rec["spectral response dynamic"] = call_record(
+        lambda: cold_dynamic(coarse64, refined64, s_card, prep64))
+    for label, r in (("quasi-static", fd), ("dynamic", dyn)):
+        check(all(bool(torch.isfinite(getattr(r, f)).all())
+                  for f in ("sigma_stress", "damage_wl", "mpm_utilization")),
+              f"spectral response ({label}) finite")
+    out["daf_sigma"] = float(dyn.sigma_stress.max() / fd.sigma_stress.max())
+    print(f"[freq] {refined64.n_dof} DOF: max stress std quasi-static "
+          f"{float(fd.sigma_stress.max()):.4f} MPa, dynamic "
+          f"{float(dyn.sigma_stress.max()):.4f} MPa; max MPM utilization "
+          f"{float(fd.mpm_utilization.max()):.6f} / "
+          f"{float(dyn.mpm_utilization.max()):.6f}; 1-year W-L damage "
+          f"{float(fd.damage_wl.max()):.3e} / "
+          f"{float(dyn.damage_wl.max()):.3e}",
+          flush=True)
+
+    # quasi-static at refine 8, card vs CPU
+    invariant = ("sigma_stress", "nu0_hz", "bandwidth_alpha2", "damage_nb",
+                 "damage_wl", "sigma_disp_mm", "mpm_disp_mm",
+                 "sigma_base_shear_N", "sigma_otm_Nm", "mpm_otm_Nm")
+    fd8 = pt.spectral_response_prepared(cpu["prep8_card"], s_card, case)
+    s_cpu = sea("cpu")
+    ref8 = pt.spectral_response_prepared(cpu["prep8"], s_cpu, case)
+    rows8 = pt.spectral_transfer_prepared(cpu["prep8"], s_cpu, case)
+    e = {f: rel(getattr(fd8, f).cpu(), getattr(ref8, f)) for f in invariant}
+    e["mean_stress (tied points)"] = tie_err(fd8.mean_stress, rows8)
+    e["mpm_stress - |mean|"] = rel(
+        (fd8.mpm_stress - fd8.mean_stress.abs()).cpu(),
+        ref8.mpm_stress - ref8.mean_stress.abs())
+    out["fd8_errs"] = e
+    print("[freq] spectral_response_prepared at refine 8, card vs CPU: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in e.items()), flush=True)
+    check(max(e.values()) <= FD_TOL, f"spectral response at refine 8 card "
+          f"vs CPU f64: {max(e.values()):.2e} <= {FD_TOL:g}")
+
+    # dynamic at 9,612 DOF, card vs CPU
+    t0 = time.perf_counter()
+    ref = cold_dynamic(cpu["coarse"], cpu["refined"], s_cpu, cpu["prep"])
+    rows = pt.spectral_transfer_dynamic(
+        cpu["coarse"], cpu["refined"], N_SEG, s_cpu, case,
+        n_chain_modes=CHAIN_MODES, prep=cpu["prep"])
+    cpu_s = time.perf_counter() - t0
+    e_u = {f: rel(getattr(dyn, f).cpu(), getattr(ref, f))
+           for f in ("sigma_disp_mm", "mpm_disp_mm", "sigma_base_shear_N",
+                     "sigma_otm_Nm")}
+    e_s = {f: rel(getattr(dyn, f).cpu(), getattr(ref, f))
+           for f in ("sigma_stress", "nu0_hz", "damage_nb", "damage_wl")}
+    e_s["mean_stress (tied points)"] = tie_err(dyn.mean_stress, rows)
+    out["dyn_errs"] = (e_u, e_s)
+    print(f"[freq] spectral_response_dynamic at {refined64.n_dof} DOF, card "
+          f"vs CPU (CPU runs {cpu_s:.2f} s): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in {**e_u, **e_s}.items()),
+          flush=True)
+    check(max(e_u.values()) <= HARMONIC_TOL
+          and max(e_s.values()) <= UTIL_DYN_TOL,
+          f"spectral_response_dynamic card vs CPU f64: displacement and "
+          f"force rows {max(e_u.values()):.2e} <= {HARMONIC_TOL:g}, stresses "
+          f"{max(e_s.values()):.2e} <= {UTIL_DYN_TOL:g} (12 chain modes)")
+    out["rec"] = rec
+    return out
+
+
+def scatter_phase(pt, hk, dev, coarse64, refined64, prep64, cpu, per_scan):
+    """Scatter fatigue: the JAX bench's frequency-domain diagram
+    (``bench.py:266-317``: refine 8, f32 handle, its 10 and 40 states, 32
+    components, d = 50 m, 25 years), ms per state and the marginal ms per
+    state; the dynamic diagram of the 10 states at 9,612 DOF in f64 and
+    ``long_term_extremes`` on it; the quasi-static diagram of 3 states at
+    refine 8 in f64 against the port's CPU run (damages 1e-9, means and
+    MPM to a tied governing point); the time-domain ``scatter_fatigue`` at
+    9,612 DOF (48 components, 1,024 steps, Wheeler) over 4 of the bench's
+    states; launch counts around each call.  Returns the records."""
+    import torch
+    from small_fem_solver_tpu_torch import api
+    f32 = torch.float32
+    case = pt.LoadCase(**CASE)
+    out, rec = {"launches": {}}, {}
+    c32 = pt.default_3leg_jacket(dtype=f32, device=dev)
+    r32 = pt.refine_model(c32, 8)
+    prep8 = pt.prepare_condensed(c32, r32, 8, solve_dtype=f32)
+
+    def bench(ss):
+        return pt.scatter_fatigue_spectral(prep8, case, ss, SEA_D, 25.0,
+                                           n_components=32)
+    one, n1, _ = counted(hk, lambda: bench(SCATTER_STATES[:1]))
+    r10, n10, _ = counted(hk, lambda: bench(SCATTER_STATES))
+    out["launches"]["scatter bench (10 states)"] = n10
+    check(same_counts(n10, {"sweep": 10 * n1["sweep"]}) and n1["sweep"] > 0,
+          f"bench scatter: kernel launches {n10} for 10 states ({n1} for "
+          "one)")
+    check(bool(torch.isfinite(r10.damage_wl).all())
+          and float(r10.damage_wl.max()) > 0, "bench scatter damages finite")
+    bench(SCATTER_STATES40)
+    best10 = best40 = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        bench(SCATTER_STATES)
+        torch.cuda.synchronize()
+        best10 = min(best10, time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        bench(SCATTER_STATES40)
+        torch.cuda.synchronize()
+        best40 = min(best40, time.perf_counter() - t0)
+    out["bench"] = dict(
+        ms_per_state=best10 / len(SCATTER_STATES) * 1e3,
+        marginal_ms_per_state=(best40 - best10)
+        / (len(SCATTER_STATES40) - len(SCATTER_STATES)) * 1e3,
+        best10_s=best10, best40_s=best40, n_dof=r32.n_dof,
+        max_damage_wl=float(r10.damage_wl.max()))
+    rec["scatter bench (10 states)"] = call_record(
+        lambda: bench(SCATTER_STATES))
+    print(f"[scatter] {SMI}: spectral scatter fatigue (bench.py config): "
+          f"{len(SCATTER_STATES)} states x {2 * 32 + 1} transfer rows @ "
+          f"{r32.n_dof} DOF f32 = {out['bench']['ms_per_state']:.2f} ms/state "
+          f"(marginal {out['bench']['marginal_ms_per_state']:.2f} ms/state "
+          f"from the 40-state climate; best of 3, host clock); max 25-y W-L "
+          f"damage {out['bench']['max_damage_wl']:.3e}", flush=True)
+
+    # the dynamic diagram at 9,612 DOF in f64, then the long-term extremes
+    def dynamic_scatter():
+        api._CB_CACHE.clear()
+        api._MODAL_CACHE.clear()
+        return pt.scatter_fatigue_spectral(
+            prep64, case, SCATTER_STATES, SEA_D, 25.0, n_components=32,
+            dynamic=True, n_chain_modes=CHAIN_MODES)
+    rdyn, n, _ = counted(hk, dynamic_scatter)
+    out["launches"]["scatter dynamic (10 states)"] = n
+    check(same_counts(n, {"sweep": 10 + 10 * per_scan}), f"dynamic scatter: "
+          f"kernel launches {n} (10 chain-mode sweeps, then {per_scan} a "
+          "state)")
+    rec["scatter dynamic (10 states)"] = call_record(dynamic_scatter)
+    t0 = time.perf_counter()
+    lt = pt.long_term_extremes(rdyn, return_years=(1.0, 100.0))
+    out["extremes_s"] = time.perf_counter() - t0
+    out["extremes"] = [float(v) for v in lt.utilization.max(axis=1)]
+    check(bool(torch.isfinite(rdyn.damage_wl).all())
+          and all(v > 0 for v in out["extremes"])
+          and out["extremes"][1] >= out["extremes"][0],
+          f"dynamic scatter finite; long-term 1 / 100-year utilization "
+          f"{out['extremes'][0]:.6f} <= {out['extremes'][1]:.6f}")
+    out["dyn_damage"] = (float(rdyn.damage_wl.max()),
+                         float(rdyn.mpm_utilization.max()))
+    print(f"[scatter] dynamic diagram at {refined64.n_dof} DOF f64: max 25-y "
+          f"W-L damage {out['dyn_damage'][0]:.3e}, max MPM utilization "
+          f"{out['dyn_damage'][1]:.6f}; 1 / 100-year utilization "
+          + " / ".join(f"{v:.6f}" for v in out["extremes"]), flush=True)
+
+    # quasi-static diagram of 3 states at refine 8 in f64, card vs CPU
+    states3 = SCATTER_STATES[:3]
+    kw = dict(n_components=32)
+    card = pt.scatter_fatigue_spectral(cpu["prep8_card"], case, states3,
+                                       SEA_D, 25.0, **kw)
+    ref = pt.scatter_fatigue_spectral(cpu["prep8"], case, states3, SEA_D,
+                                      25.0, **kw)
+    e = {f: rel(torch.as_tensor(getattr(card, f)),
+                torch.as_tensor(getattr(ref, f)))
+         for f in ("damage_nb", "damage_wl", "per_state_wl",
+                   "per_state_sigma", "per_state_nu0")}
+    mean_e = 0.0
+    for i, row in enumerate(states3):
+        s = pt.make_random_sea(row[0], row[1], SEA_D, n_components=32,
+                               seed=i, device="cpu")
+        rows = pt.spectral_transfer_prepared(
+            cpu["prep8"], s, pt.LoadCase(**{**CASE, "wave_dir_deg": row[3],
+                                            "current_dir_deg": row[3]}))
+        mean_e = max(mean_e, tie_err(torch.as_tensor(
+            card.per_state_mean[i]), rows))
+    e["per_state_mean (tied points)"] = mean_e
+    # MPM utilization: each state's |mean| + sigma sqrt(2 ln(nu0 T)) over
+    # fy, the largest over the states (the card's means, the CPU's sigma
+    # and nu0)
+    g = torch.sqrt(2.0 * torch.log(torch.clamp(
+        torch.as_tensor(ref.per_state_nu0) * 3.0 * 3600.0, min=1.0 + 1e-9)))
+    mpm = ((torch.as_tensor(card.per_state_mean).abs()
+            + torch.as_tensor(ref.per_state_sigma) * g) / float(case.fy))
+    e["mpm_utilization"] = rel(card.mpm_utilization.cpu(),
+                               mpm.amax(dim=0))
+    out["cpu_errs"] = e
+    print("[scatter] quasi-static diagram, 3 states at refine 8 f64, card vs "
+          "CPU: " + ", ".join(f"{k} {v:.2e}" for k, v in e.items()),
+          flush=True)
+    check(max(e.values()) <= FD_TOL, f"scatter at refine 8 card vs CPU f64: "
+          f"{max(e.values()):.2e} <= {FD_TOL:g}")
+
+    # the time-domain diagram at 9,612 DOF
+    states4 = SCATTER_STATES[:TD_STATES]
+
+    def time_domain():
+        return pt.scatter_fatigue(prep64, case, states4, SEA_D, 25.0)
+    td, n, first = counted(hk, time_domain)
+    out["launches"]["scatter time domain (4 states)"] = n
+    check(same_counts(n, {"sweep": TD_STATES * per_scan,
+                          "sea_f64": TD_STATES}),
+          f"time-domain scatter: kernel launches {n} (one K1-sea launch a "
+          "state)")
+    rec["scatter time domain (4 states)"] = call_record(time_domain)
+    rec["scatter time domain (4 states)"]["first_s"] = first
+    out["td_damage"] = (float(td.damage_rainflow.max()),
+                        float(td.damage_rayleigh.max()))
+    check(bool(torch.isfinite(td.damage_rainflow).all())
+          and out["td_damage"][0] > 0
+          and td.per_state_rainflow.shape == (TD_STATES, refined64.n_members),
+          f"time-domain scatter: max 25-y damage rainflow "
+          f"{out['td_damage'][0]:.3e}, Rayleigh {out['td_damage'][1]:.3e} "
+          f"({'native' if pt.native.available() else 'Python'} rainflow "
+          "counter)")
+    out["rec"] = rec
+    return out
+
+
+def sea_transient_phase(pt, hk, dev, coarse64, refined64, cpu):
+    """``transient_response_condensed`` driven by the random sea (64
+    components, dt 0.1 s, 1,024 steps ramped over one Tp, 12 chain
+    modes, f64) and its relative-drag variant (256 steps, 2 passes), each
+    with its launch counts read around exactly that call (one K1-sea
+    launch, 10 sweeps) and against the port's CPU f64 run of the same call
+    (U 1e-9, utilization 1e-7: phase 15's limits at 12 chain modes).  Returns
+    the records."""
+    import torch
+    case = pt.LoadCase(**CASE)
+    out, rec = {"launches": {}}, {}
+
+    def run(c, r, device, **kw):
+        s = pt.make_random_sea(SEA_HS, SEA_TP, SEA_D, n_components=SEA_N,
+                               seed=0, U_c=SEA_UC, device=device)
+        return pt.transient_response_condensed(
+            c, r, N_SEG, s, case, dt=0.1, ramp_periods=1.0, **kw)
+    for label, kw in (("sea transient", dict(n_steps=SEA_TRANSIENT_STEPS)),
+                      ("sea transient relative drag",
+                       dict(n_steps=256, relative_drag=True,
+                            drag_iterations=2))):
+        card, n, first = counted(hk, lambda: run(coarse64, refined64, dev,
+                                                 **kw))
+        out["launches"][label] = n
+        check(same_counts(n, {"sweep": 10, "sea_f64": 1}),
+              f"{label}: kernel launches {n}")
+        rec[label] = call_record(lambda: run(coarse64, refined64, dev, **kw))
+        rec[label]["first_s"] = first
+        t0 = time.perf_counter()
+        ref = run(cpu["coarse"], cpu["refined"], "cpu", **kw)
+        cpu_s = time.perf_counter() - t0
+        e = {f: rel(getattr(card, f).cpu(), getattr(ref, f))
+             for f in ("U_time", "utilization", "tip_displacement_mm")}
+        out[label] = e
+        print(f"[sea transient] {label} ({kw['n_steps']} steps): max tip "
+              f"{float(card.tip_displacement_mm.max()):.3f} mm, max "
+              f"utilization {float(card.utilization.max()):.6f}; card vs CPU "
+              f"(CPU run {cpu_s:.2f} s): "
+              + ", ".join(f"{k} {v:.2e}" for k, v in e.items()), flush=True)
+        check(bool(torch.isfinite(card.U_time).all())
+              and max(e["U_time"], e["tip_displacement_mm"]) <= TRANSIENT_TOL
+              and e["utilization"] <= UTIL_DYN_TOL,
+              f"{label} card vs CPU f64: U {e['U_time']:.2e}, tip "
+              f"{e['tip_displacement_mm']:.2e} <= {TRANSIENT_TOL:g}, "
+              f"utilization {e['utilization']:.2e} <= {UTIL_DYN_TOL:g}")
+    out["steps_per_s"] = SEA_TRANSIENT_STEPS / rec["sea transient"]["s"]
+    out["rec"] = rec
+    return out
 
 
 def main() -> int:
@@ -1450,8 +2165,10 @@ def main() -> int:
 
     # ---- 1. device ----
     dev = torch.device("cuda", 0)
+    global SMI
     name, count, smi = (torch.cuda.get_device_name(0),
                         torch.cuda.device_count(), smi_line())
+    SMI = smi
     nvcc = subprocess.run([hk.nvcc_path(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(f"[device] {smi} | count={count} | torch {torch.__version__} "
@@ -2041,6 +2758,53 @@ def main() -> int:
           f"{b9:.2f} us by {by9}; n_int={n_int99} {mlarge['sweep_us']:.1f} us "
           f"vs bound {b99:.2f} us by {by99} (torch.profiler)", flush=True)
 
+    # ---- 17-21. irregular seas and the frequency domain ----
+    t0 = time.perf_counter()
+    ksea = k1_sea_phase(pt, hk, dev, refined64)
+    print(f"[kernel sea] phase {time.perf_counter() - t0:.2f} s wall",
+          flush=True)
+    t0 = time.perf_counter()
+    cpu_c = pt.default_3leg_jacket(device="cpu")
+    cpu_r = pt.refine_model(cpu_c, N_SEG)
+    cpu = {"coarse": cpu_c, "refined": cpu_r,
+           "prep": pt.prepare_condensed(cpu_c, cpu_r, N_SEG),
+           "prep8": pt.prepare_condensed(cpu_c, pt.refine_model(cpu_c, 8), 8),
+           "prep8_card": pt.prepare_condensed(
+               coarse64, pt.refine_model(coarse64, 8), 8)}
+    prep64 = pt.prepare_condensed(coarse64, refined64, N_SEG)
+    sea = sea_phase(pt, hk, dev, coarse64, refined64, prep, prep64, cpu,
+                    per_scan)
+    print(f"[sea] phase {time.perf_counter() - t0:.2f} s wall", flush=True)
+    t0 = time.perf_counter()
+    freq = freq_phase(pt, hk, dev, coarse64, refined64, prep64, cpu,
+                      per_scan)
+    print(f"[freq] phase {time.perf_counter() - t0:.2f} s wall", flush=True)
+    t0 = time.perf_counter()
+    scat = scatter_phase(pt, hk, dev, coarse64, refined64, prep64, cpu,
+                         per_scan)
+    print(f"[scatter] phase {time.perf_counter() - t0:.2f} s wall",
+          flush=True)
+    t0 = time.perf_counter()
+    strans = sea_transient_phase(pt, hk, dev, coarse64, refined64, cpu)
+    print(f"[sea transient] phase {time.perf_counter() - t0:.2f} s wall",
+          flush=True)
+    for label, r in {**sea["rec"], **freq["rec"], **scat["rec"],
+                     **strans["rec"]}.items():
+        print(f"[time] {smi}: {label}: {r['s'] * 1e3:.1f} ms (host clock, "
+              f"synchronised, one call"
+              + (f"; first call {r['first_s'] * 1e3:.1f} ms"
+                 if "first_s" in r else "")
+              + f"), {r['ops']} device operations, device busy "
+              f"{r['busy_ms']:.3f} ms, peak device memory "
+              f"{r['peak_mib']:.0f} MiB; sweep {r['sweep_us']:.1f} us, K1-sea "
+              f"{r['k1_sea_us']:.1f} us per launch; most time: {r['top']} "
+              "(torch.profiler)", flush=True)
+    print(f"[time] {smi}: sea transient march "
+          f"{strans['steps_per_s']:.0f} steps/s ({SEA_TRANSIENT_STEPS} "
+          "steps, host clock)", flush=True)
+    sea_launches = {**sea["launches"], **freq["launches"],
+                    **scat["launches"], **strans["launches"]}
+
     l1 = sweep_ms["nested level 1"]
     print(json.dumps({"kernels": [{
         "name": "morison_phase_batch",
@@ -2055,11 +2819,26 @@ def main() -> int:
             "dense_envelope_f32_model": denv["launches_f32"],
             "options_scan": options["k1_launches"],
             "dynamic_condensed": dyn["launches"]["dynamic_condensed"]["f64"],
-            "transient": dyn["launches"]["transient"]["f64"]},
+            "transient": dyn["launches"]["transient"]["f64"],
+            **{label: n["sea_f32"] + n["sea_f64"]
+               for label, n in sea_launches.items()
+               if n["sea_f32"] + n["sea_f64"]}},
         "instances": {"f32": ["scan", "envelope", "dense_envelope_f32_model",
                               "options_scan"],
                       "f64": ["dense_envelope", "dynamic_condensed",
-                              "transient"]},
+                              "transient"],
+                      "sea_f32": [k for k, n in sea_launches.items()
+                                  if n["sea_f32"]],
+                      "sea_f64": [k for k, n in sea_launches.items()
+                                  if n["sea_f64"]]},
+        "sea": {key: {**ksea[key], "max_abs_err": ksea["abs"][key],
+                      "max_rel_err": ksea["rel"][key],
+                      "bound_ms": ksea[key]["bound_us"] / 1e3,
+                      "share": ksea[key]["bound_us"]
+                      / ksea[key]["device_us"],
+                      "shapes": f"S={SEA_STEPS}, M={refined64.n_members}, "
+                                f"N={SEA_N}, Wheeler"}
+                for key in ("sea_f32", "sea_f64")},
         "f64": {"max_abs_err": k64["abs"], "max_rel_err": k64["rel"],
                 "ms": k64_ms, "plain_ms": p64_ms, "device_us": k64_us,
                 "bound_ms": k64_bound / 1e3, "bound_by": k64_by},
@@ -2091,7 +2870,8 @@ def main() -> int:
             "modal_condensed": dyn["launches"]["modal"]["sweep"],
             "dynamic_condensed": dyn["launches"]["dynamic_condensed"]["sweep"],
             "transient": dyn["launches"]["transient"]["sweep"],
-            "modal_large": mlarge["launches"]["sweep"]},
+            "modal_large": mlarge["launches"]["sweep"],
+            **{label: n["sweep"] for label, n in sea_launches.items()}},
         "launches_per_scan": per_scan,
         "max_abs_err": sweep_err,
         "max_rel_err": sweep_rel,

@@ -11,8 +11,12 @@ pointwise kinematics), the design envelopes (dense ``design_envelope``,
 ``design_envelope_condensed``, ``parallel.sweep.design_sweep``, resumable
 envelopes with npz persistence), the model and load options (member
 end releases, appurtenances, still-water buoyancy, wind and foundation
-springs), and structural dynamics: modal analysis (dense and
-Craig-Bampton), harmonic and transient response, and fatigue screening.  Waves: Airy, Stokes (orders 1-5) and Fenton with the
+springs), structural dynamics: modal analysis (dense and
+Craig-Bampton), harmonic and transient response, and fatigue screening,
+and irregular seas: random-sea scans (condensed and dense), the
+frequency-domain transfer and response (quasi-static and dynamic),
+time- and frequency-domain scatter fatigue, long-term extremes and
+sea-driven transients.  Waves: Airy, Stokes (orders 1-5) and Fenton with the
 reference's automatic selection.  The fused Morison kernel and the
 chain-sweep kernel (CUDA C++) have plain PyTorch versions beside them.
 The package imports no JAX; ``convert`` carries state over from the JAX
@@ -21,11 +25,16 @@ package.  Entry points run on the CUDA card unless the caller passes
 """
 
 from .api import (AnalysisResults, CondensedPrepared, CondensedScanResults,
-                  EnvelopeResults, LoadCase, analyze, analyze_condensed,
-                  analyze_phase_batch, analyze_prepared, analyze_ssi,
-                  design_envelope, design_envelope_condensed,
-                  phase_scan_condensed, phase_scan_prepared,
-                  prepare_condensed)
+                  EnvelopeResults, FreqTransfer, LoadCase, LongTermExtremes,
+                  ScatterFatigue, ScatterFatigueSpectral, analyze,
+                  analyze_condensed, analyze_phase_batch, analyze_prepared,
+                  analyze_ssi, design_envelope, design_envelope_condensed,
+                  long_term_extremes, phase_scan_condensed,
+                  phase_scan_prepared, prepare_condensed, scatter_fatigue,
+                  scatter_fatigue_spectral, sea_response_batch,
+                  sea_scan_prepared, spectral_response_dynamic,
+                  spectral_response_prepared, spectral_transfer_dynamic,
+                  spectral_transfer_prepared)
 from .constants import (DEFAULT_E, DEFAULT_FY, DEFAULT_NU, DEFAULT_RHO_STEEL,
                         DEFAULT_RHO_WATER, G_GRAV)
 from .device import resolve_device
@@ -42,8 +51,14 @@ from .ops.eigen import (eigh_general_small, jacobi_eigh, subspace_eigh,
                         subspace_largest)
 from .ops.fatigue import FatigueScreen, fatigue_screen
 from .ops.fenton import fenton_wave, fenton_wave_batch
+from .ops.freqdomain import (FreqDomainResponse, LinearizedSeaLoads,
+                             linearized_sea_loads, spectral_stats)
 from .ops.morison import MorisonLoads, PhaseScan, morison_loads, phase_scan
 from .ops.sections import TubeSections, tube_sections
+from .ops.spectrum import (SeaKinematics, SpectralFatigue, SpectralSea,
+                           jonswap_shape, make_random_sea, morison_sea_batch,
+                           pm_shape, sea_kinematics, sea_surface,
+                           spectral_fatigue_screen)
 from .ops.stokes import stokes_wave
 from .ops.wave_models import airy_steepness, make_wave, validate_wave
 from .ops.waves import (FourierWave, airy_wave, kinematics,

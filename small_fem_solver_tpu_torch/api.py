@@ -18,6 +18,14 @@ counterpart of ``small_fem_solver_tpu/api.py``).
   cases on one case-independent factorization and keeps only the
   utilization reductions.
 
+- :func:`sea_scan_prepared` / :func:`sea_response_batch` solve the full
+  FEM at every sample of a random sea (``ops/spectrum.py``);
+  :func:`spectral_transfer_prepared` / :func:`spectral_response_prepared`
+  and their Craig-Bampton ``*_dynamic`` forms give its frequency-domain
+  statistics (``ops/freqdomain.py``); :func:`scatter_fatigue`,
+  :func:`scatter_fatigue_spectral` and :func:`long_term_extremes` sum
+  them over a scatter diagram.
+
 ``kinematics='fused'`` (the default of the scan and the envelope; the
 JAX package's name ``'pallas'`` is an alias) evaluates the loads with the
 hand-written CUDA kernel (``ops/hopper_kernels.py``) in float32 on CUDA
@@ -58,10 +66,14 @@ from .ops import solve as solve_mod
 from .ops.assembly import (assemble_dense, element_dof_indices,
                            node_gather_table, node_sum_ordered)
 from .ops.beams import element_stiffness, internal_forces, matvec12
-from .ops.hopper_kernels import cast_operands, morison_end_forces_cuda
+from .ops.fatigue import SECONDS_PER_YEAR
+from .ops.hopper_kernels import (cast_operands, morison_end_forces_cuda,
+                                 morison_sea_end_forces_cuda)
 from .ops.morison import (POINTWISE_CHUNK_ELEMS, MorisonLoads, hydro_members,
                           morison_end_forces, morison_loads)
-from .ops.sections import TubeSections, von_mises_8pt
+from .ops.sections import TubeSections, normal_stress_8pt, von_mises_8pt
+from .ops.spectrum import (SpectralSea, make_random_sea, morison_sea_batch,
+                           spectral_fatigue_screen)
 from .ops.waves import FourierWave
 from .ops.wind import (wind_member_ends, wind_member_forces,
                        wind_topside_force)
@@ -645,19 +657,23 @@ def _condensed_solution(prep: "CondensedPrepared", F_I_nodes, g,
     return U_In, v, F_cond_flat, U_I
 
 
-def _von_mises(prep: "CondensedPrepared", U_In, v) -> torch.Tensor:
-    """Von Mises stress [S, Mr] (MPa) of every refined element.
-
-    Only the node-1 end forces F1 = -(K_local T u)[:6] are needed; element
-    displacement vectors come straight from the chain layout.
-    """
+def _node1_forces(prep: "CondensedPrepared", U_In, v) -> torch.Tensor:
+    """Node-1 end forces F1 = -(K_local T u)[:6] [S, Mr, 6] of every
+    refined element, the element displacement vectors read straight from
+    the chain layout."""
     S = U_In.shape[0]
     node1, node2 = prep.coarse.conn[:, 0], prep.coarse.conn[:, 1]
     vext = torch.cat([U_In[:, node1][:, None], v, U_In[:, node2][:, None]],
                      dim=1)
     u_e = torch.cat([vext[:, :-1], vext[:, 1:]], dim=-1)
     u_elem = u_e.transpose(1, 2).reshape(S, -1, 12)        # member-major
-    F1 = matvec12(-prep.KT[:, :6, :], u_elem)              # [S, Mr, 6]
+    return matvec12(-prep.KT[:, :6, :], u_elem)
+
+
+def _von_mises(prep: "CondensedPrepared", U_In, v) -> torch.Tensor:
+    """Von Mises stress [S, Mr] (MPa) of every refined element (only the
+    node-1 end forces are needed)."""
+    F1 = _node1_forces(prep, U_In, v)
     refined = prep.refined
     return von_mises_8pt(refined.sections.to(prep.K_I.dtype),
                          refined.sect_id, *(F1[..., c] for c in range(6)))
@@ -708,18 +724,26 @@ def _scan_prepared(prep: CondensedPrepared, wave, case: LoadCase, n_steps,
         ts, F_I_nodes, g, total_morison = _scan_loads(
             prep, wave, case, n_steps, n_gauss, kinematics, stretching,
             current_alpha, accel)
-        U_In, v, F_cond_flat, U_I = _condensed_solution(prep, F_I_nodes, g,
-                                                        refine_steps)
-        S = ts.shape[0]
-        vm = _von_mises(prep, U_In, v)
-        util = vm / case.fy
-        R = U_I @ prep.K_I.T - F_cond_flat                 # [S, 6 nc]
-        return CondensedScanResults(
-            ts=ts, U=_chain_to_global(U_In, v), von_mises=vm,
-            utilization=util,
-            reactions=R[:, prep.fixed].reshape(S, -1, 6),
-            total_morison=total_morison,
-            critical_index=torch.argmax(torch.amax(util, dim=1)))
+        return _prepared_results(prep, case, ts, F_I_nodes, g,
+                                 total_morison, refine_steps)
+
+
+def _prepared_results(prep: CondensedPrepared, case: LoadCase, ts,
+                      F_I_nodes, g, total_morison,
+                      refine_steps: int) -> CondensedScanResults:
+    """Condensed solve and recovery from chain-layout loads (solve dtype):
+    shared by the steady-wave scans and the irregular-sea scan."""
+    U_In, v, F_cond_flat, U_I = _condensed_solution(prep, F_I_nodes, g,
+                                                    refine_steps)
+    S = ts.shape[0]
+    vm = _von_mises(prep, U_In, v)
+    util = vm / case.fy
+    R = U_I @ prep.K_I.T - F_cond_flat                     # [S, 6 nc]
+    return CondensedScanResults(
+        ts=ts, U=_chain_to_global(U_In, v), von_mises=vm, utilization=util,
+        reactions=R[:, prep.fixed].reshape(S, -1, 6),
+        total_morison=total_morison,
+        critical_index=torch.argmax(torch.amax(util, dim=1)))
 
 
 def _check_material(prep: CondensedPrepared, case: LoadCase) -> None:
@@ -1286,3 +1310,715 @@ def design_envelope_condensed(coarse: JacketModel, refined: JacketModel,
     ts, per_phase, member_max, tot = (torch.cat(x) for x in zip(*chunks))
     return _envelope_from_reductions(ts, per_phase,
                                      torch.amax(member_max, dim=0), tot)
+
+
+# ---------------------------------------------------------------------------
+# Irregular seas and the frequency domain
+# ---------------------------------------------------------------------------
+#
+# ``ops.dynamics`` imports this module, so the dynamic spectral paths import
+# it inside their functions.
+
+def sea_scan_prepared(prep: CondensedPrepared, sea: SpectralSea,
+                      case: LoadCase, ts, n_gauss: int = 15,
+                      refine_steps: int = 1, stretching: str = "none",
+                      current_alpha=None) -> CondensedScanResults:
+    """Irregular-sea time-history response on a prepared condensed model:
+    the full refined FEM problem at every sample time ``ts`` [S] of a
+    random-sea realization (:func:`.ops.spectrum.make_random_sea`).  The
+    loads of all components at all times are one launch of the fused
+    Morison kernel's general-mode instance on the card (the model's
+    dtype; the plain version on the CPU), condensed onto the handle's
+    interface factorization, and all S solves are one multi-RHS condensed
+    solve.  ``stretching='wheeler'`` is the standard crest treatment for
+    linear irregular seas (API RP 2A).  Feed ``von_mises`` to
+    :func:`.ops.spectrum.spectral_fatigue_screen`."""
+    _check_no_slam(case, "sea_scan_prepared")
+    refined = prep.refined
+    ldtype, dev = refined.dtype, refined.device
+    case_s = case.cast(prep.K_I.dtype, dev)
+    with _full_f32_matmul():
+        case_l = case_s.cast(ldtype, dev)
+        ts = torch.as_tensor(ts, dtype=ldtype, device=dev)
+        conn_h, D_m, Cd_h, Cm_h = hydro_members(
+            refined, case_l.marine_growth_mm, case_l.Cd, case_l.Cm)
+        F1, F2, drag, inertia = morison_sea_end_forces_cuda(
+            sea.to(ldtype, dev), refined.coords, conn_h, D_m,
+            case_l.wave_dir_deg, case_l.current_dir_deg, Cd_h, Cm_h,
+            case_l.rho_water, ts, n_gauss=n_gauss,
+            current_alpha=current_alpha, stretching=stretching)
+        F_I_nodes, g = _chain_layout_loads(prep.coarse, refined, case_l, F1,
+                                           F2, prep.L_m.to(ldtype),
+                                           prep.n_seg)
+        return _prepared_results(prep, case_s, ts,
+                                 F_I_nodes.to(prep.K_I.dtype),
+                                 g.to(prep.K_I.dtype), drag + inertia,
+                                 refine_steps)
+
+
+class FreqTransfer(NamedTuple):
+    """Per-component transfer rows of one sea state: the response to
+    component i is ``X_cos[i] cos(w_i t) + X_sin[i] sin(w_i t)`` about
+    ``X_mean`` (which carries all static loading).  Feed to
+    :func:`.ops.freqdomain.spectral_stats`."""
+
+    omega: torch.Tensor        # [N] component frequencies (rad/s)
+    U_mean: torch.Tensor       # [n_dof] displacements (mm), refined layout
+    U_cos: torch.Tensor        # [N, n_dof]
+    U_sin: torch.Tensor        # [N, n_dof]
+    stress_mean: torch.Tensor  # [Mr, 8] normal stress at the 8 points (MPa)
+    stress_cos: torch.Tensor   # [N, Mr, 8]
+    stress_sin: torch.Tensor   # [N, Mr, 8]
+    totals: torch.Tensor       # [2N+1, 3] global hydro force rows (N)
+    sigma_v_max: torch.Tensor  # linearization diagnostics
+    c_lin_mean: torch.Tensor
+    totals_moment: torch.Tensor  # [2N+1, 3] moment rows about the mudline
+
+
+def _wave_only(case: LoadCase) -> LoadCase:
+    """``case`` with every static load stripped (topside, self-weight,
+    buoyancy, wind): the component rows carry pure wave loading."""
+    zero = torch.zeros_like(torch.as_tensor(case.F_axial_kN))
+    return dataclasses.replace(
+        case, F_axial_kN=zero, F_shear_kN=zero, M_moment_kNm=zero,
+        M_torsion_kNm=zero, custom_sw_tonnes=zero, sw_mode="none",
+        buoyancy="none", wind_speed_ms=0.0)
+
+
+def _sea_transfer_loads(prep: CondensedPrepared, sea: SpectralSea,
+                        case_l: LoadCase, n_gauss: int, current_alpha):
+    """The Borgman-linearized load rows of a sea in the chain layout (the
+    model's dtype): (lin, F_I [2N+1, nc, 6], g [2N+1, n_int, Mc, 6]); the
+    mean row carries the full case, the component rows wave loading
+    only."""
+    from .ops.freqdomain import linearized_sea_loads
+    coarse, refined = prep.coarse, prep.refined
+    conn_h, D_m, Cd_h, Cm_h = hydro_members(
+        refined, case_l.marine_growth_mm, case_l.Cd, case_l.Cm)
+    lin = linearized_sea_loads(sea, refined.coords, conn_h, D_m,
+                               case_l.wave_dir_deg, case_l.current_dir_deg,
+                               Cd_h, Cm_h, case_l.rho_water, n_gauss=n_gauss,
+                               current_alpha=current_alpha)
+    L_m = prep.L_m.to(refined.dtype)
+    F_I_m, g_m = _chain_layout_loads(coarse, refined, case_l, lin.F1[:1],
+                                     lin.F2[:1], L_m, prep.n_seg)
+    F_I_d, g_d = _chain_layout_loads(coarse, refined, _wave_only(case_l),
+                                     lin.F1[1:], lin.F2[1:], L_m, prep.n_seg)
+    return lin, torch.cat([F_I_m, F_I_d]), torch.cat([g_m, g_d])
+
+
+def _spectral_transfer(prep: CondensedPrepared, sea: SpectralSea,
+                       case: LoadCase, n_gauss: int, refine_steps: int,
+                       current_alpha) -> FreqTransfer:
+    """:func:`spectral_transfer_prepared` with ``case`` on the model's
+    device."""
+    refined = prep.refined
+    sea = sea.to(refined.dtype, refined.device)
+    return _transfer_rows(prep, sea, *_sea_transfer_loads(
+        prep, sea, case.cast(refined.dtype, refined.device), n_gauss,
+        current_alpha), refine_steps)
+
+
+def _transfer_rows(prep: CondensedPrepared, sea: SpectralSea, lin, F_I, g,
+                   refine_steps: int) -> FreqTransfer:
+    """The quasi-static transfer rows of the load rows ``F_I`` / ``g``
+    (:func:`_sea_transfer_loads`): all 2N+1 rows in one condensed
+    multi-RHS solve, stresses by ``normal_stress_8pt`` in the solve
+    dtype."""
+    refined = prep.refined
+    solve_dtype = prep.K_I.dtype
+    U_In, v, _, _ = _condensed_solution(prep, F_I.to(solve_dtype),
+                                        g.to(solve_dtype), refine_steps)
+    U = _chain_to_global(U_In, v)
+    F1e = _node1_forces(prep, U_In, v)
+    s8 = normal_stress_8pt(refined.sections.to(solve_dtype), refined.sect_id,
+                           F1e[..., 0], F1e[..., 4], F1e[..., 5])
+    N = sea.n_modes
+    return FreqTransfer(
+        omega=sea.omega.to(solve_dtype), U_mean=U[0], U_cos=U[1:1 + N],
+        U_sin=U[1 + N:], stress_mean=s8[0], stress_cos=s8[1:1 + N],
+        stress_sin=s8[1 + N:], totals=lin.totals.to(solve_dtype),
+        sigma_v_max=lin.sigma_v_max, c_lin_mean=lin.c_lin_mean,
+        totals_moment=lin.totals_moment.to(solve_dtype))
+
+
+def spectral_transfer_prepared(prep: CondensedPrepared, sea: SpectralSea,
+                               case: LoadCase, n_gauss: int = 15,
+                               refine_steps: int = 1,
+                               current_alpha=None) -> FreqTransfer:
+    """The 2N+1 Borgman-linearized transfer solves of a sea state (the
+    mean row with the full case, the component rows with wave loading
+    only), returning the raw per-component response rows."""
+    _check_no_slam(case, "spectral_transfer_prepared")
+    with _full_f32_matmul():
+        return _spectral_transfer(
+            prep, sea, case.cast(prep.K_I.dtype, prep.refined.device),
+            n_gauss, refine_steps, current_alpha)
+
+
+def _stats(tr: FreqTransfer, case: LoadCase, T_storm_s, exposure_years,
+           curve, scf, occurrence):
+    """:func:`.ops.freqdomain.spectral_stats` of transfer rows, the numbers
+    in their dtype on their device."""
+    from .ops.freqdomain import spectral_stats
+    ref = tr.U_mean
+
+    def num(v):
+        return torch.as_tensor(v, dtype=ref.dtype, device=ref.device)
+    return spectral_stats(
+        tr.omega, tr.stress_mean, tr.stress_cos, tr.stress_sin, tr.U_mean,
+        tr.U_cos, tr.U_sin, tr.totals, num(case.fy), num(T_storm_s),
+        num(exposure_years), curve=curve, scf=num(scf),
+        occurrence=num(occurrence), sigma_v_max=tr.sigma_v_max,
+        c_lin_mean=tr.c_lin_mean, totals_moment=tr.totals_moment)
+
+
+def spectral_response_prepared(prep: CondensedPrepared, sea: SpectralSea,
+                               case: LoadCase,
+                               T_storm_s: float = 3.0 * 3600.0,
+                               exposure_years: float = 1.0,
+                               curve: str = "D-sea-cp", scf=1.0,
+                               occurrence: float = 1.0, n_gauss: int = 15,
+                               refine_steps: int = 1, current_alpha=None):
+    """Frequency-domain stochastic response of one sea state: the 2N+1
+    transfer solves of :func:`spectral_transfer_prepared`, then closed-form
+    statistics (:class:`.ops.freqdomain.FreqDomainResponse`: stress
+    standard deviations, upcrossing rates, narrow-band and Wirsching-Light
+    fatigue over ``exposure_years`` x ``occurrence``, MPM extremes over
+    ``T_storm_s``).  ``scf`` is a scalar or per-refined-member [Mr]."""
+    tr = spectral_transfer_prepared(prep, sea, case, n_gauss=n_gauss,
+                                    refine_steps=refine_steps,
+                                    current_alpha=current_alpha)
+    return _stats(tr, case, T_storm_s, exposure_years, curve, scf,
+                  occurrence)
+
+
+_CB_CACHE: dict = {}
+
+
+def _cached_cb_reduce(coarse, refined, n_seg, E, nu, topside_mass_t,
+                      n_chain_modes, support_stiffness, added_mass_Ca,
+                      rho_water):
+    """Craig-Bampton reduction memoized on the models' identity and every
+    other input (springs and added mass by value): it does not depend on
+    the sea state, so scatter sweeps pay it once."""
+    from .ops.dynamics import _cb_reduce
+    ss_key = None if support_stiffness is None \
+        else np.asarray(support_stiffness, np.float64).tobytes()
+    ca_key = None if added_mass_Ca is None \
+        else np.asarray(added_mass_Ca, np.float64).tobytes()
+    key = (id(coarse), id(refined), n_seg, float(E), float(nu),
+           float(topside_mass_t), int(n_chain_modes), ss_key, ca_key,
+           float(rho_water))
+    hit = _CB_CACHE.get(key)
+    if hit is None:
+        if len(_CB_CACHE) >= 4:
+            _CB_CACHE.clear()
+        cb = _cb_reduce(coarse, refined, n_seg, E, nu, topside_mass_t,
+                        n_chain_modes, support_stiffness=support_stiffness,
+                        added_mass_Ca=added_mass_Ca, rho_water=rho_water)
+        hit = (coarse, refined, cb)       # strong refs pin the id keys
+        _CB_CACHE[key] = hit
+    return hit[2]
+
+
+_MODAL_CACHE: dict = {}
+
+
+def _cb_modal_basis(cb, damping: str, damping_ratio: float,
+                    n_modes_device: int = 64):
+    """Mass-normalized full modal basis of the reduced (K, M) and the
+    per-mode damping coefficients, memoized on the reduction's identity:
+    (w2n [n_f], phi [n_f, n_f], c_j [n_f]).  ``torch.linalg.eigh`` runs on
+    the card as on the CPU, so the basis is always complete;
+    ``n_modes_device`` (the JAX package's truncation for a device without
+    eigh) is accepted and not used."""
+    from .ops.dynamics import _reduced_ff
+    key = (id(cb), damping, damping_ratio)
+    hit = _MODAL_CACHE.get(key)
+    if hit is not None:
+        return hit[1:]
+    dtype = cb.K_red.dtype
+    with _full_f32_matmul():
+        K_ff, M_ff = _reduced_ff(cb)
+        Lm = torch.linalg.cholesky(M_ff)
+        Y = torch.linalg.solve_triangular(Lm, K_ff, upper=False)
+        Am = torch.linalg.solve_triangular(Lm, Y.mT, upper=False)
+        w2n, V = torch.linalg.eigh(0.5 * (Am + Am.mT))
+        w2n = torch.clamp(w2n, min=0.0)
+        wn = torch.sqrt(w2n)
+        phi = torch.linalg.solve_triangular(Lm.mT, V, upper=True)
+    if damping == "modal":
+        c_j = (2.0 * damping_ratio * wn).to(dtype)
+    else:                                              # 'rayleigh'
+        wn_np = wn.cpu().numpy()
+        w1 = float(wn_np[0])
+        w2r = next((float(v) for v in wn_np[1:] if v > 1.01 * w1), 3.0 * w1)
+        alpha = damping_ratio * 2.0 * w1 * w2r / (w1 + w2r)
+        beta = damping_ratio * 2.0 / (w1 + w2r)
+        c_j = (alpha + beta * w2n).to(dtype)
+    if len(_MODAL_CACHE) >= 8:
+        _MODAL_CACHE.clear()
+    _MODAL_CACHE[key] = (cb, w2n, phi, c_j)   # strong ref pins the id key
+    return w2n, phi, c_j
+
+
+def _check_damping(damping: str, damping_ratio: float) -> None:
+    if damping not in ("modal", "rayleigh"):
+        raise ValueError("damping must be 'modal' or 'rayleigh', got "
+                         f"{damping!r}")
+    if not 0.0 < float(damping_ratio) < 1.0:
+        raise ValueError("damping_ratio must be in (0, 1), got "
+                         f"{damping_ratio}")
+
+
+def _dynamic_transfer_core(prep: CondensedPrepared, cb, w2n, phi, c_j,
+                           sea: SpectralSea, case: LoadCase, n_gauss: int,
+                           current_alpha,
+                           hydro_damping: bool = False) -> FreqTransfer:
+    """Per-sea dynamic transfer rows by mode acceleration: the exact static
+    rows of the condensed solve plus the expanded modal correction q(w) -
+    q(0) on the Craig-Bampton basis.  ``hydro_damping=True`` adds the
+    Borgman-linearized relative-velocity drag damping projected on the
+    modal diagonal."""
+    from .ops.dynamics import (_cb_expand, _cb_reduce_forces,
+                               element_hydro_damping)
+    refined, n_seg = prep.refined, prep.n_seg
+    dtype, dev = refined.dtype, refined.device
+    sea = sea.to(dtype, dev)
+    lin, F_I, g = _sea_transfer_loads(prep, sea, case.cast(dtype, dev),
+                                      n_gauss, current_alpha)
+    tr_s = _transfer_rows(prep, sea, lin, F_I, g, 1)
+    # work-conjugate projection of the rows to the reduced space
+    F_red = _cb_reduce_forces(cb, _chain_to_global(F_I, g), cb.nc, n_seg,
+                              dtype)
+    F_f = F_red[:, cb.free]
+    edofs = element_dof_indices(refined.conn)
+    if hydro_damping:
+        # modal-diagonal projection of the linearized drag damping
+        # (structural members only; appurtenance damping neglected)
+        Mr = refined.conn.shape[0]
+        C_e = element_hydro_damping(refined.coords, refined.conn,
+                                    lin.c_damp[:Mr])
+        P_red = phi.new_zeros(phi.shape[1], cb.n_red)
+        P_red[:, cb.free] = phi.mT
+        pe = _cb_expand(cb, P_red)[:, edofs]           # [n_modes, Mr, 12]
+        c_h = torch.einsum("nmi,mij,nmj->n", pe, C_e, pe)
+        c_j = c_j + torch.clamp(c_h, min=0.0)
+
+    N = sea.n_modes
+    w = sea.omega
+    fc = F_f[1:1 + N] @ phi                            # [N, n_f]
+    fs = F_f[1 + N:] @ phi
+    d_ = w2n[None, :] - (w**2)[:, None]
+    cw = c_j[None, :] * w[:, None]
+    det = d_**2 + cw**2
+    qc = (d_ * fc - cw * fs) / det
+    qs = (cw * fc + d_ * fs) / det
+    # mode acceleration: each mode's static response comes out, the exact
+    # static content comes from the condensed solve
+    w2s = torch.clamp(w2n, min=1e-30)
+    Xc = (qc - fc / w2s) @ phi.mT
+    Xs = (qs - fs / w2s) @ phi.mT
+    X = torch.cat([Xc.new_zeros(1, Xc.shape[1]), Xc, Xs])
+    U_red = X.new_zeros(X.shape[0], cb.n_red)
+    U_red[:, cb.free] = X
+    U = _cb_expand(cb, U_red) + torch.cat(
+        [tr_s.U_mean[None], tr_s.U_cos, tr_s.U_sin]).to(dtype)
+    F1e = matvec12(-(cb.K_local @ cb.T)[:, :6, :], U[:, edofs])
+    s8 = normal_stress_8pt(refined.sections, refined.sect_id, F1e[..., 0],
+                           F1e[..., 4], F1e[..., 5])
+    return FreqTransfer(
+        omega=w, U_mean=U[0], U_cos=U[1:1 + N], U_sin=U[1 + N:],
+        stress_mean=s8[0], stress_cos=s8[1:1 + N], stress_sin=s8[1 + N:],
+        totals=lin.totals.to(dtype), sigma_v_max=lin.sigma_v_max,
+        c_lin_mean=lin.c_lin_mean, totals_moment=lin.totals_moment.to(dtype))
+
+
+def spectral_transfer_dynamic(coarse: JacketModel, refined: JacketModel,
+                              n_seg: int, sea: SpectralSea, case: LoadCase,
+                              damping_ratio: float = 0.02,
+                              damping: str = "modal",
+                              n_chain_modes: int = 12,
+                              topside_mass_t: float | None = None,
+                              support_stiffness=None, added_mass_Ca=None,
+                              n_gauss: int = 15, current_alpha=None,
+                              prep: CondensedPrepared | None = None,
+                              hydro_damping: bool = False) -> FreqTransfer:
+    """Per-component dynamic transfer rows (mode acceleration): the exact
+    quasi-static rows of :func:`spectral_transfer_prepared` (``prep`` is
+    built when not given) plus, per retained mode j and component i, the
+    closed-form modal amplification with d = w_j^2 - w_i^2, c = c_j w_i:
+    q_cos = (d f_cos - c f_sin) / det, q_sin = (c f_cos + d f_sin) / det,
+    minus its static part.  ``damping``: 'modal' (c_j = 2 zeta w_j) or
+    'rayleigh' (anchored at the first two distinct frequencies).  The
+    Craig-Bampton reduction (``_cached_cb_reduce``) and its modal basis
+    (``_cb_modal_basis``) are cached across calls."""
+    _check_no_slam(case, "spectral_transfer_dynamic")
+    _check_damping(damping, damping_ratio)
+    case = case.cast(refined.dtype, refined.device)
+    if topside_mass_t is None:
+        topside_mass_t = float(case.custom_sw_tonnes)
+    if prep is None:
+        prep = prepare_condensed(coarse, refined, n_seg, E=float(case.E),
+                                 nu=float(case.nu),
+                                 support_stiffness=support_stiffness)
+    cb = _cached_cb_reduce(coarse, refined, n_seg, float(case.E),
+                           float(case.nu), topside_mass_t, n_chain_modes,
+                           support_stiffness, added_mass_Ca,
+                           float(case.rho_water))
+    w2n, phi, c_j = _cb_modal_basis(cb, damping, float(damping_ratio))
+    with _full_f32_matmul():
+        return _dynamic_transfer_core(prep, cb, w2n, phi, c_j, sea, case,
+                                      n_gauss, current_alpha,
+                                      hydro_damping=hydro_damping)
+
+
+def spectral_response_dynamic(coarse: JacketModel, refined: JacketModel,
+                              n_seg: int, sea: SpectralSea, case: LoadCase,
+                              damping_ratio: float = 0.02,
+                              damping: str = "modal",
+                              T_storm_s: float = 3.0 * 3600.0,
+                              exposure_years: float = 1.0,
+                              curve: str = "D-sea-cp", scf=1.0,
+                              occurrence: float = 1.0,
+                              n_chain_modes: int = 12,
+                              topside_mass_t: float | None = None,
+                              support_stiffness=None, added_mass_Ca=None,
+                              n_gauss: int = 15, current_alpha=None,
+                              prep: CondensedPrepared | None = None,
+                              hydro_damping: bool = False):
+    """Dynamic frequency-domain stochastic response: the transfer of
+    :func:`spectral_transfer_dynamic` (resonance-band energy amplified by
+    the Craig-Bampton dynamic transfer), then the closed-form statistics
+    of :func:`spectral_response_prepared`."""
+    tr = spectral_transfer_dynamic(
+        coarse, refined, n_seg, sea, case, damping_ratio=damping_ratio,
+        damping=damping, n_chain_modes=n_chain_modes,
+        topside_mass_t=topside_mass_t, support_stiffness=support_stiffness,
+        added_mass_Ca=added_mass_Ca, n_gauss=n_gauss,
+        current_alpha=current_alpha, prep=prep, hydro_damping=hydro_damping)
+    return _stats(tr, case, T_storm_s, exposure_years, curve, scf,
+                  occurrence)
+
+
+def _scatter_states(states, name: str) -> tuple:
+    """Scatter rows as float tuples (Hs, Tp, occurrence[, heading]),
+    checked: at least one row, 3 or 4 columns, occurrences summing to at
+    most 1."""
+    states = tuple(tuple(float(v) for v in row) for row in states)
+    if not states:
+        raise ValueError(f"{name} needs at least one (Hs, Tp, occurrence) "
+                         "state")
+    if any(len(r) not in (3, 4) for r in states):
+        raise ValueError("scatter rows must be (Hs, Tp, occurrence"
+                         "[, heading_deg])")
+    total_occ = sum(r[2] for r in states)
+    if total_occ > 1.0 + 1e-9:
+        raise ValueError(
+            f"scatter-diagram occurrences sum to {total_occ:.3f} > 1")
+    return states
+
+
+class ScatterFatigue(NamedTuple):
+    """Scatter-diagram fatigue accumulation over several sea states (time
+    domain)."""
+
+    damage_rainflow: torch.Tensor    # [M] Miner sum over all states
+    damage_rayleigh: torch.Tensor    # [M]
+    life_years_rainflow: torch.Tensor
+    life_years_rayleigh: torch.Tensor
+    per_state_rainflow: np.ndarray   # [n_states, M]
+    states: tuple                    # ((Hs, Tp, occurrence[, heading]), ...)
+
+
+def scatter_fatigue(prep: CondensedPrepared, case: LoadCase, states, d,
+                    exposure_years: float, curve: str = "D-sea-cp",
+                    scf: float = 1.0, n_components: int = 48,
+                    n_steps: int = 1024, seed: int = 0, U_c=0.0,
+                    spectrum: str = "jonswap", stretching: str = "wheeler",
+                    current_alpha=None, spreading_s=None) -> ScatterFatigue:
+    """Fatigue over a scatter diagram of sea states in the time domain:
+    each (Hs, Tp, occurrence[, heading]) row is realized as a random sea
+    (seed ``seed + i``), its full refined FEM response history solved by
+    :func:`sea_scan_prepared` (``n_steps`` samples at Tp / 10), screened
+    by :func:`.ops.spectrum.spectral_fatigue_screen`, and the per-member
+    damages summed (Miner).  A 4th column sets the state's wave heading
+    and rotates the current with it."""
+    states = _scatter_states(states, "scatter_fatigue")
+    rel_dir = case.current_dir_deg - case.wave_dir_deg
+    refined = prep.refined
+    d_rf = d_nb = None
+    per_state = []
+    for i, row in enumerate(states):
+        Hs, Tp, occ = row[:3]
+        case_i = case
+        if len(row) == 4:
+            case_i = dataclasses.replace(case, wave_dir_deg=row[3],
+                                         current_dir_deg=row[3] + rel_dir)
+        sea = make_random_sea(Hs, Tp, d, n_components=n_components,
+                              seed=seed + i, spectrum=spectrum, U_c=U_c,
+                              spreading_s=spreading_s, dtype=refined.dtype,
+                              device=refined.device)
+        dt = Tp / 10.0
+        hist = sea_scan_prepared(prep, sea, case_i, np.arange(n_steps) * dt,
+                                 stretching=stretching,
+                                 current_alpha=current_alpha)
+        scr = spectral_fatigue_screen(hist.von_mises, dt,
+                                      exposure_years=exposure_years,
+                                      curve=curve, scf=scf, occurrence=occ)
+        rf = scr.damage_rainflow.numpy()
+        nb = scr.damage_rayleigh.numpy()
+        per_state.append(rf)
+        d_rf = rf if d_rf is None else d_rf + rf
+        d_nb = nb if d_nb is None else d_nb + nb
+    with np.errstate(divide="ignore"):
+        life_rf = np.where(d_rf > 0, exposure_years / d_rf, np.inf)
+        life_nb = np.where(d_nb > 0, exposure_years / d_nb, np.inf)
+    t = torch.from_numpy
+    return ScatterFatigue(
+        damage_rainflow=t(d_rf), damage_rayleigh=t(d_nb),
+        life_years_rainflow=t(life_rf), life_years_rayleigh=t(life_nb),
+        per_state_rainflow=np.stack(per_state), states=states)
+
+
+class ScatterFatigueSpectral(NamedTuple):
+    """Frequency-domain scatter-diagram fatigue (no time march)."""
+
+    damage_nb: torch.Tensor          # [M] narrow-band Miner sum, all states
+    damage_wl: torch.Tensor          # [M] Wirsching-Light corrected sum
+    life_years_nb: torch.Tensor
+    life_years_wl: torch.Tensor
+    per_state_wl: np.ndarray         # [n_states, M]
+    mpm_utilization: torch.Tensor    # [M] max over states (per-state storm)
+    states: tuple                    # ((Hs, Tp, occurrence[, heading]), ...)
+    per_state_sigma: np.ndarray      # [n_states, M] stress std dev (MPa)
+    per_state_mean: np.ndarray       # [n_states, M] mean stress (MPa)
+    per_state_nu0: np.ndarray        # [n_states, M] upcrossing rate (Hz)
+
+
+def _scatter_spectral_setup(prep: CondensedPrepared, case: LoadCase, states,
+                            d, *, n_components: int, seed: int,
+                            spectrum: str, U_c, spreading_s):
+    """The per-state inputs of :func:`scatter_fatigue_spectral`: (seas, one
+    :class:`SpectralSea` a state in the model's dtype on its device, state
+    headings [B] and occurrences [B] in the solve dtype, B).  The seas are
+    drawn on the host (``make_random_sea``) and each moved once."""
+    refined = prep.refined
+    seas = [make_random_sea(r[0], r[1], d, n_components=n_components,
+                            seed=seed + i, spectrum=spectrum, U_c=U_c,
+                            spreading_s=spreading_s, dtype=refined.dtype,
+                            device=refined.device)
+            for i, r in enumerate(states)]
+    heads = np.array([r[3] if len(r) == 4 else float(case.wave_dir_deg)
+                      for r in states], np.float64)
+    occs = np.array([r[2] for r in states], np.float64)
+    opts = dict(dtype=prep.K_I.dtype, device=refined.device)
+    return (seas, torch.as_tensor(heads, **opts),
+            torch.as_tensor(occs, **opts), len(states))
+
+
+def _scatter_spectral_one_fn(prep: CondensedPrepared, case: LoadCase, dyn,
+                             n_gauss, current_alpha, curve, exposure_years,
+                             storm_hours, scf, hydro_damping=False):
+    """The per-state body of the scatter: quasi-static (``dyn`` None) or
+    Craig-Bampton dynamic transfer rows of one (sea, heading, occurrence),
+    then the closed-form statistics; returns (damage_nb, damage_wl,
+    mpm_utilization, sigma, mean, nu0), each [Mr]."""
+    case_s = case.cast(prep.K_I.dtype, prep.refined.device)
+    rel = case_s.current_dir_deg - case_s.wave_dir_deg
+
+    def one(sea, head, occ):
+        case_i = dataclasses.replace(case_s, wave_dir_deg=head,
+                                     current_dir_deg=head + rel)
+        if dyn is None:
+            tr = _spectral_transfer(prep, sea, case_i, n_gauss, 1,
+                                    current_alpha)
+        else:
+            cb, w2n, phi, c_j = dyn
+            tr = _dynamic_transfer_core(prep, cb, w2n, phi, c_j, sea, case_i,
+                                        n_gauss, current_alpha,
+                                        hydro_damping=hydro_damping)
+        st = _stats(tr, case_s, storm_hours * 3600.0, exposure_years, curve,
+                    scf, occ)
+        return (st.damage_nb, st.damage_wl, st.mpm_utilization,
+                st.sigma_stress, st.mean_stress, st.nu0_hz)
+    return one
+
+
+def _scatter_spectral_batched(prep, case, seas, heads, occs, dyn, n_gauss,
+                              current_alpha, curve, exposure_years,
+                              storm_hours, scf, hydro_damping=False):
+    """The whole diagram, one state at a time (one state's memory; each
+    state equals its own :func:`spectral_response_prepared` /
+    :func:`spectral_response_dynamic`): six [B, Mr] stacks."""
+    one = _scatter_spectral_one_fn(prep, case, dyn, n_gauss, current_alpha,
+                                   curve, exposure_years, storm_hours, scf,
+                                   hydro_damping)
+    with _full_f32_matmul():
+        rows = [one(sea, heads[i], occs[i]) for i, sea in enumerate(seas)]
+    return tuple(torch.stack(x) for x in zip(*rows))
+
+
+def scatter_fatigue_spectral(prep: CondensedPrepared, case: LoadCase,
+                             states, d, exposure_years: float,
+                             curve: str = "D-sea-cp", scf=1.0,
+                             n_components: int = 48, seed: int = 0,
+                             U_c=0.0, spectrum: str = "jonswap",
+                             current_alpha=None, spreading_s=None,
+                             n_gauss: int = 15, dynamic: bool = False,
+                             damping_ratio: float = 0.02,
+                             damping: str = "modal",
+                             n_chain_modes: int = 12,
+                             topside_mass_t: float | None = None,
+                             added_mass_Ca=None, support_stiffness=None,
+                             storm_hours: float = 3.0, mesh=None,
+                             hydro_damping: bool = False
+                             ) -> ScatterFatigueSpectral:
+    """Long-term fatigue over an (Hs, Tp, occurrence[, heading]) scatter
+    diagram in the frequency domain: each state costs the 2N+1 transfer
+    solves of :func:`spectral_transfer_prepared` (one multi-RHS condensed
+    solve) and a closed-form statistics pass, and the per-member
+    narrow-band and Wirsching-Light damages add up over the states
+    (Miner).  ``dynamic=True`` takes every state's transfer through the
+    Craig-Bampton mode-acceleration dynamic transfer; the reduction and
+    its modal basis are state-independent and built once.
+
+    The states run one after another, each its own condensed solve (the
+    JAX package streams them through ``lax.map``): one state's memory,
+    and each state equals its single-state call.  ``mesh=`` (the
+    state-sharded diagram) raises ``NotImplementedError``."""
+    states = _scatter_states(states, "scatter_fatigue_spectral")
+    _check_no_slam(case, "scatter_fatigue_spectral")
+    if mesh is not None:
+        raise NotImplementedError(
+            "the state-sharded scatter (mesh=) is not ported yet (ROADMAP.md, "
+            "Queue A item 6: distribution)")
+    case = case.cast(prep.refined.dtype, prep.refined.device)
+    dyn = None
+    if dynamic:
+        _check_damping(damping, damping_ratio)
+        if topside_mass_t is None:
+            topside_mass_t = float(case.custom_sw_tonnes)
+        cb = _cached_cb_reduce(prep.coarse, prep.refined, prep.n_seg,
+                               float(case.E), float(case.nu),
+                               topside_mass_t, n_chain_modes,
+                               support_stiffness, added_mass_Ca,
+                               float(case.rho_water))
+        dyn = (cb,) + _cb_modal_basis(cb, damping, float(damping_ratio))
+    seas, heads, occs, B = _scatter_spectral_setup(
+        prep, case, states, d, n_components=n_components, seed=seed,
+        spectrum=spectrum, U_c=U_c, spreading_s=spreading_s)
+    nb, wl, mu, sig, mean_s, nu0 = (
+        x.cpu().numpy() for x in _scatter_spectral_batched(
+            prep, case, seas, heads, occs, dyn, n_gauss, current_alpha,
+            curve, float(exposure_years), float(storm_hours), scf,
+            hydro_damping))
+    d_nb, d_wl = nb.sum(axis=0), wl.sum(axis=0)
+    with np.errstate(divide="ignore"):
+        life_nb = np.where(d_nb > 0, exposure_years / d_nb, np.inf)
+        life_wl = np.where(d_wl > 0, exposure_years / d_wl, np.inf)
+    t = torch.from_numpy
+    return ScatterFatigueSpectral(
+        damage_nb=t(d_nb), damage_wl=t(d_wl), life_years_nb=t(life_nb),
+        life_years_wl=t(life_wl), per_state_wl=wl,
+        mpm_utilization=t(mu.max(axis=0)), states=states,
+        per_state_sigma=sig, per_state_mean=mean_s, per_state_nu0=nu0)
+
+
+class LongTermExtremes(NamedTuple):
+    """N-year return levels from the all-states upcrossing integral."""
+
+    return_years: np.ndarray        # [R]
+    stress_mpa: np.ndarray          # [R, M] return stress level
+    utilization: np.ndarray         # [R, M] level / fy
+    governing_state: np.ndarray     # [R, M] index of the dominant state
+
+
+def long_term_extremes(res: ScatterFatigueSpectral, return_years=(10., 100.),
+                       fy: float = 355.0) -> LongTermExtremes:
+    """Long-term (all sea states) extreme response levels: the rate of
+    upcrossings of level x is nu(x) = sum_i occ_i nu_i exp(-(x - m_i)^2 /
+    (2 sigma_i^2)) over the states' Gaussian responses, and the N-year
+    level solves nu(x) T_N = 1 (vectorized bisection over members; a
+    single state with occurrence 1 gives the MPM formula m + sigma
+    sqrt(2 ln(nu0 T_N))).  Host numpy post-processing of a
+    :func:`scatter_fatigue_spectral` result."""
+    occ = np.array([r[2] for r in res.states])[:, None]      # [B, 1]
+    m = np.asarray(res.per_state_mean)                        # [B, M]
+    sig = np.maximum(np.asarray(res.per_state_sigma), 0.0)
+    nu = np.maximum(np.asarray(res.per_state_nu0), 0.0)
+    live = (sig > 1e-12) & (occ * nu > 0)
+    sig_s = np.where(live, sig, 1.0)
+
+    def nu_of(x):                                             # x: [R, 1, M]
+        ex = np.exp(-0.5 * ((x - m[None]) / sig_s[None]) ** 2)
+        return np.sum(np.where(live[None], occ[None] * nu[None] * ex, 0.0),
+                      axis=1)                                 # [R, M]
+
+    R = len(return_years)
+    T = np.asarray(return_years, np.float64) * SECONDS_PER_YEAR
+    target = 1.0 / T[:, None]
+    lo = np.broadcast_to(m.max(axis=0)[None], (R, m.shape[1])).copy()
+    span = (sig * np.sqrt(2.0 * np.log(np.maximum(
+        nu * T.max(), np.e)))).max(axis=0) + 1e-9
+    hi = lo + 3.0 * span
+    for _ in range(8):          # grow hi until nu(hi) < target everywhere
+        under = nu_of(hi[:, None, :]) > target
+        if not under.any():
+            break
+        hi = np.where(under, lo + 2.0 * (hi - lo), hi)
+    for _ in range(80):                                       # bisection
+        mid = 0.5 * (lo + hi)
+        high_side = nu_of(mid[:, None, :]) > target
+        lo = np.where(high_side, mid, lo)
+        hi = np.where(high_side, hi, mid)
+    x = 0.5 * (lo + hi)
+    dead = ~live.any(axis=0)    # no wave-induced variance: the largest mean
+    x[:, dead] = m.max(axis=0)[dead]
+    ex = np.exp(-0.5 * ((x[:, None, :] - m[None]) / sig_s[None]) ** 2)
+    contrib = np.where(live[None], occ[None] * nu[None] * ex, 0.0)
+    return LongTermExtremes(
+        return_years=np.asarray(return_years, np.float64), stress_mpa=x,
+        utilization=x / float(fy), governing_state=np.argmax(contrib, axis=1))
+
+
+def sea_response_batch(model: JacketModel, sea: SpectralSea, case: LoadCase,
+                       ts, n_gauss: int = 15, stretching: str = "none",
+                       current_alpha=None,
+                       support_stiffness=None) -> CondensedScanResults:
+    """Irregular-sea time-history response of an unrefined (dense) model:
+    K factored once (through the foundation springs when given), the
+    loads of all sample times one launch of the fused Morison kernel's
+    general-mode instance on the card, every sample time a column of one
+    multi-RHS solve.  Returns :class:`CondensedScanResults`."""
+    _check_no_slam(case, "sea_response_batch")
+    dtype, dev = model.dtype, model.device
+    case = case.cast(dtype, dev)
+    ks_nodes, free, fixed = _ssi_spring_nodes(model, support_stiffness, dtype)
+    with _full_f32_matmul():
+        ts = torch.as_tensor(ts, dtype=dtype, device=dev)
+        K, K_local, T, L_m = _dense_system(model, case)
+        fac = _spring_dfac(K, ks_nodes, free)
+        conn_h, D_m, Cd_h, Cm_h = hydro_members(
+            model, case.marine_growth_mm, case.Cd, case.Cm)
+        mb = morison_sea_batch(sea.to(dtype, dev), model.coords, conn_h, D_m,
+                               case.wave_dir_deg, case.current_dir_deg, Cd_h,
+                               Cm_h, case.rho_water, ts, n_gauss=n_gauss,
+                               current_alpha=current_alpha,
+                               stretching=stretching)
+        F = assemble_loads(model, case, mb.nodal_forces, L_m)
+        U = solve_mod.solve_factored(fac, F)
+        F1, _ = internal_forces(K_local, T,
+                                U[:, element_dof_indices(model.conn)])
+        vm = von_mises_8pt(model.sections, model.sect_id,
+                           *(F1[..., c] for c in range(6)))
+        util = vm / case.fy
+        # reactions through the springless K: K U - F = -k u at a spring
+        R = U @ K.T - F
+        return CondensedScanResults(
+            ts=ts, U=U, von_mises=vm, utilization=util,
+            reactions=R[:, torch.as_tensor(fixed, device=dev)]
+            .reshape(ts.shape[0], -1, 6),
+            total_morison=mb.total_morison,
+            critical_index=torch.argmax(torch.amax(util, dim=1)))

@@ -17,6 +17,7 @@ from .models.model import JacketModel
 from .ops.condense import ChainFactor, NestedChainFactor
 from .ops.sections import TubeSections
 from .ops.solve import DenseFactor
+from .ops.spectrum import SpectralSea
 from .ops.waves import FourierWave
 
 
@@ -71,6 +72,19 @@ def wave_from_numpy(k, omega, c, d, U_c, H, T, E, U, clamp_z=False,
                           for n, v in arrays.items()},
                        clamp_z=bool(clamp_z), dt_fd=float(dt_fd),
                        model=str(model), order=int(order))
+
+
+def sea_from_numpy(omega, k, a, phi, E, U, d, U_c, Hs, Tp, dir_deg=None,
+                   spectrum: str = "jonswap", device=None,
+                   dtype: torch.dtype = torch.float64) -> SpectralSea:
+    """A :class:`SpectralSea` from a JAX sea's leaves (``dir_deg`` None for
+    a long-crested sea)."""
+    device = resolve_device(device)
+    f = {n: _float(v, dtype, device) for n, v in
+         dict(omega=omega, k=k, a=a, phi=phi, E=E, U=U, d=d, U_c=U_c, Hs=Hs,
+              Tp=Tp).items()}
+    return SpectralSea(**f, dir_deg=None if dir_deg is None
+                       else _float(dir_deg, dtype, device), spectrum=spectrum)
 
 
 def case_from_numpy(**fields) -> LoadCase:

@@ -73,6 +73,12 @@
 // (rounding ~j eps in float64).  Bound at the flagship shapes: 3.7 GFLOP
 // over the H100's 34 TFLOP/s of FP64, ~109 us.  The float32 kernel above
 // is not touched by it.
+//
+// Random seas.  morison_sea_kernel (float32 and float64, at the end of the
+// file) computes the function for a general mode set (independent k_i,
+// omega_i, phi_i, optional per-mode headings, any N), reading the phase
+// factors from a table the wrapper builds; the harmonic kernels above are
+// not touched by it.
 #include <cuda_runtime.h>
 
 namespace {
@@ -109,6 +115,33 @@ struct ParamsT {
   const T* d;
   const T* Uc;
   const T* ts;             // [S]
+  T s[MAX_GAUSS];          // Gauss abscissae on [0, 1]
+  T w[MAX_GAUSS];          // Gauss weights (sum 1)
+  int M, S, N, n_gauss, power_law;
+  T* F1;                   // [S, M, 3]
+  T* F2;                   // [S, M, 3]
+  T* partials;             // [G, S, 6]
+  T* totals;               // [S, 6] drag xyz | inertia xyz
+};
+
+// The general-mode (random sea) instance's operands: per-mode arrays
+// instead of one wave's harmonics, and the phase table.
+template <typename T>
+struct SeaParamsT {
+  const T* coords;         // [n_nodes, 3]
+  const long long* conn;   // [M, 2]
+  const T* D;              // [M] hydrodynamic diameter [m]
+  OperandT<T> Cd, Cm;      // per member or scalar
+  OperandT<T> wave_dir, current_dir, rho, alpha;   // scalars
+  const T* E;              // [N] surface amplitudes
+  const T* U;              // [N] velocity coefficients
+  const T* k;              // [N] wavenumbers
+  const T* omega;          // [N] angular frequencies
+  const T* phi;            // [N] phases
+  const T* dir;            // [N] headings relative to wave_dir, or null
+  const T* d;              // depth (device, 0-d)
+  const T* Uc;             // current (device, 0-d)
+  const T* phase;          // [S, 2N]: cos (omega_i t_s) | sin (omega_i t_s)
   T s[MAX_GAUSS];          // Gauss abscissae on [0, 1]
   T w[MAX_GAUSS];          // Gauss weights (sum 1)
   int M, S, N, n_gauss, power_law;
@@ -641,6 +674,303 @@ bool valid(const ParamsT<T>* p) {
          p->n_gauss <= MAX_GAUSS;
 }
 
+// ---------------------------------------------------------------------------
+// General-mode instance (random seas), float32 and float64
+// ---------------------------------------------------------------------------
+//
+// The same function over an arbitrary mode set: mode i has its own k_i,
+// omega_i, E_i, U_i, spatial phase phi_i and, for a short-crested sea, its
+// own heading (wave_dir + dir_i), as ops/spectrum.py::morison_sea_batch
+// computes it (the JAX package's _morison_batch_core with rel_dir_deg).
+// The frequencies are not harmonics, so angle addition does not apply: as
+// in the TPU kernel, the wrapper builds the phase table cos / sin(omega_i
+// t_s) [S, 2N] (in float64, then cast) and the kernel reads it.
+//
+// Layout.  A block is 32 phases x 16 point lanes (512 threads): thread
+// (phase s, point q) owns the mode sums of one quadrature point at one
+// phase, in registers.  Blocks walk a fixed stride of members
+// (grid.y); for each member the modes stream through shared memory in
+// tiles of 32: the tile's records cos / sin(k_i x_q + phi_i), U_i C_i(z_q),
+// U_i S_i(z_q) [32 modes][16 points] are built by the block, and its phase
+// factors [32 phases][32 modes] copied from the table, so N has no limit.
+// After the last tile each thread forms its point's drag and inertia;
+// the 16 lanes of a phase add their member's sums by a fixed shuffle tree,
+// and lane 0 writes F1 / F2 and keeps the phase's running totals.  Totals
+// go through the same fixed-order second pass as above: bit-repeatable.
+//
+// Bounds.  2 x 2N x F FLOP per (phase, point) for the mode sums (F = 5
+// fields, 7 for a spread sea; 13 / 19 with Wheeler) plus the epilogue.
+// The records are rebuilt per 32-phase block (a sincos and two exp per
+// point and mode, a few per cent of the mode sums).  Each (phase, point,
+// mode) reads its record and phase factors from shared memory (24 bytes
+// in f32, 48 in f64), which likely bounds this simple form: on an H100 it
+// measured ~39% of its FP32 bound and ~20% of its FP64 one, and the f64
+// time per phase does not fall without Wheeler's rows.
+
+constexpr int SEA_PHASES = 32;        // phases a block
+constexpr int SEA_LANES = 16;         // point lanes a phase (MAX_GAUSS)
+constexpr int SEA_THREADS = SEA_PHASES * SEA_LANES;
+constexpr int SEA_TILE = 32;          // modes a shared-memory tile
+constexpr int SEA_MEMBER_BLOCKS = 512;
+
+template <typename T>
+__device__ __forceinline__ void sincos_t(T x, T* s, T* c);
+template <>
+__device__ __forceinline__ void sincos_t<float>(float x, float* s, float* c) {
+  sincosf(x, s, c);
+}
+template <>
+__device__ __forceinline__ void sincos_t<double>(double x, double* s,
+                                                 double* c) {
+  sincos(x, s, c);
+}
+template <typename T>
+__device__ __forceinline__ void sincospi_t(T x, T* s, T* c);
+template <>
+__device__ __forceinline__ void sincospi_t<float>(float x, float* s,
+                                                  float* c) {
+  sincospif(x, s, c);
+}
+template <>
+__device__ __forceinline__ void sincospi_t<double>(double x, double* s,
+                                                   double* c) {
+  sincospi(x, s, c);
+}
+
+// The mode sums of one (phase, point).  Long-crested seas keep the
+// horizontal fields along the heading (ux, dux); spread seas resolve them
+// into x (ux, dux) and y (uy, duy) with per-mode direction weights.
+template <typename T>
+struct SeaFields {
+  T eta = 0, ux = 0, uy = 0, w = 0, dux = 0, duy = 0, dw = 0;
+  T ux_z = 0, uy_z = 0, w_z = 0, dux_z = 0, duy_z = 0, dw_z = 0;
+  T ux_zz = 0, uy_zz = 0, w_zz = 0, dux_zz = 0, duy_zz = 0, dw_zz = 0;
+};
+
+template <typename T, bool WHEELER, bool SPREAD>
+__global__ void __launch_bounds__(SEA_THREADS)
+morison_sea_kernel(const SeaParamsT<T> p) {
+  // records [mode][point][4]: cos, sin (k x + phi), U C(z), U S(z)
+  __shared__ T rec[SEA_TILE][SEA_LANES][4];
+  __shared__ T pc[SEA_PHASES][SEA_TILE], ps[SEA_PHASES][SEA_TILE];
+  // per mode: E, k, omega, heading cos / sin (spread seas)
+  __shared__ T mE[SEA_TILE], mk[SEA_TILE], mw[SEA_TILE], mcw[SEA_TILE],
+      msw[SEA_TILE];
+  __shared__ T pts[SEA_LANES][4];   // x, y (or wave-frame x), z per point
+  const int N = p.N, Q = p.n_gauss, M = p.M, S = p.S;
+  const int tid = threadIdx.x;
+  const int q = tid % SEA_LANES, ph = tid / SEA_LANES;
+  const int s_ph = blockIdx.x * SEA_PHASES + ph;
+  const bool live = s_ph < S && q < Q;
+
+  const T d = p.d[0];
+  T sin_w, cos_w, sin_c, cos_c;
+  sincospi_t<T>((T(90) - operand(p.wave_dir, 0)) / T(180), &sin_w, &cos_w);
+  sincospi_t<T>((T(90) - operand(p.current_dir, 0)) / T(180), &sin_c,
+                &cos_c);
+  const T wave_dir = operand(p.wave_dir, 0);
+  T tot[6] = {0, 0, 0, 0, 0, 0};
+
+  for (int m = blockIdx.y; m < M; m += gridDim.y) {
+    const long long n1 = p.conn[2 * m], n2 = p.conn[2 * m + 1];
+    const T x1 = p.coords[3 * n1], y1 = p.coords[3 * n1 + 1],
+            z1 = p.coords[3 * n1 + 2];
+    const T dx = p.coords[3 * n2] - x1, dy = p.coords[3 * n2 + 1] - y1,
+            dzm = p.coords[3 * n2 + 2] - z1;
+    const T L = sqrt(dx * dx + dy * dy + dzm * dzm);
+    const T ex = dx / L, ey = dy / L, ez = dzm / L;
+    // this thread's point
+    const int qq = q < Q ? q : 0;
+    const T sq = p.s[qq];
+    const T x = x1 + sq * dx, y = y1 + sq * dy, z = z1 + sq * dzm;
+    if (ph == 0 && q < Q) {
+      pts[q][0] = SPREAD ? x : x * cos_w + y * sin_w;
+      pts[q][1] = y;
+      pts[q][2] = z;
+    }
+    SeaFields<T> f;
+    for (int t0 = 0; t0 < N; t0 += SEA_TILE) {
+      const int nt = min(SEA_TILE, N - t0);
+      __syncthreads();   // the previous tile is read; pts are written
+      if (tid < nt) {
+        const int j = t0 + tid;
+        mE[tid] = p.E[j];
+        mk[tid] = p.k[j];
+        mw[tid] = p.omega[j];
+        if (SPREAD) {
+          T sd, cd;
+          sincospi_t<T>((T(90) - (wave_dir + p.dir[j])) / T(180), &sd, &cd);
+          mcw[tid] = cd;
+          msw[tid] = sd;
+        }
+      }
+      for (int i = tid; i < SEA_PHASES * nt; i += SEA_THREADS) {
+        const int r = i / nt, j = i % nt;
+        const int s = blockIdx.x * SEA_PHASES + r;
+        const size_t o = (size_t)(s < S ? s : 0) * 2 * N + t0 + j;
+        pc[r][j] = p.phase[o];
+        ps[r][j] = p.phase[o + N];
+      }
+      __syncthreads();   // mode data and headings
+      for (int i = tid; i < nt * SEA_LANES; i += SEA_THREADS) {
+        const int j = i / SEA_LANES, qr = i % SEA_LANES;
+        if (qr >= Q) continue;
+        const T kj = mk[j], U = p.U[t0 + j];
+        const T xr = pts[qr][0], zr = pts[qr][2];
+        const T proj = SPREAD ? xr * mcw[j] + pts[qr][1] * msw[j] : xr;
+        T sx, cx;
+        sincos_t<T>(kj * proj + p.phi[t0 + j], &sx, &cx);
+        // overflow-safe cosh(A)/cosh(B), sinh(A)/cosh(B), A = k (z + d)
+        const T A = kj * (zr + d), B = kj * d, Aa = fabs(A);
+        const T scale = exp(Aa - B) / (T(1) + exp(T(-2) * B));
+        const T e2 = exp(T(-2) * Aa);
+        const T sgn = (A > T(0)) ? T(1) : ((A < T(0)) ? T(-1) : T(0));
+        rec[j][qr][0] = cx;
+        rec[j][qr][1] = sx;
+        rec[j][qr][2] = U * scale * (T(1) + e2);
+        rec[j][qr][3] = U * sgn * scale * (T(1) - e2);
+      }
+      __syncthreads();
+      if (!live) continue;
+      for (int j = 0; j < nt; ++j) {
+        const T cx = rec[j][q][0], sx = rec[j][q][1];
+        const T UC = rec[j][q][2], US = rec[j][q][3];
+        const T ct = pc[ph][j], st = ps[ph][j];
+        // cos / sin of (k x + phi - omega t)
+        const T cp = cx * ct + sx * st, sp = sx * ct - cx * st;
+        const T jw = mw[j];
+        const T ucw = jw * UC, nusw = -jw * US;
+        const T hx = SPREAD ? mcw[j] : T(1), hy = SPREAD ? msw[j] : T(0);
+        f.eta += mE[j] * cp;
+        f.ux += hx * UC * cp;
+        f.w += US * sp;
+        f.dux += hx * ucw * sp;
+        f.dw += nusw * cp;
+        if (SPREAD) {
+          f.uy += hy * UC * cp;
+          f.duy += hy * ucw * sp;
+        }
+        if (WHEELER) {
+          // d/dz: C' = k S, S' = k C; d^2/dz^2: C'' = k^2 C, S'' = k^2 S
+          const T kj = mk[j];
+          const T t1 = kj * cp, t2 = kj * sp;
+          f.ux_z += hx * US * t1;
+          f.w_z += UC * t2;
+          f.dux_z += hx * -nusw * t2;
+          f.dw_z += -ucw * t1;
+          const T t3 = kj * t1, t4 = kj * t2;
+          f.ux_zz += hx * UC * t3;
+          f.w_zz += US * t4;
+          f.dux_zz += hx * ucw * t4;
+          f.dw_zz += nusw * t3;
+          if (SPREAD) {
+            f.uy_z += hy * US * t1;
+            f.duy_z += hy * -nusw * t2;
+            f.uy_zz += hy * UC * t3;
+            f.duy_zz += hy * ucw * t4;
+          }
+        }
+      }
+    }
+
+    // this point's drag and inertia (zero for idle lanes and dry points)
+    T gx = 0, gy = 0, gz = 0, ix = 0, iy = 0, iz = 0;
+    if (live) {
+      if (WHEELER) {
+        T dzw = -(z + d) * f.eta / (d + f.eta);
+        dzw = fmin(fmax(dzw, -d), d);
+        const T h2 = T(0.5) * dzw * dzw;
+        f.ux = f.ux + dzw * f.ux_z + h2 * f.ux_zz;
+        f.w = f.w + dzw * f.w_z + h2 * f.w_zz;
+        f.dux = f.dux + dzw * f.dux_z + h2 * f.dux_zz;
+        f.dw = f.dw + dzw * f.dw_z + h2 * f.dw_zz;
+        if (SPREAD) {
+          f.uy = f.uy + dzw * f.uy_z + h2 * f.uy_zz;
+          f.duy = f.duy + dzw * f.duy_z + h2 * f.duy_zz;
+        }
+      }
+      if (z <= f.eta) {
+        T uc = p.Uc[0];
+        if (p.power_law) {
+          const T frac = fmin(fmax((z + d) / d, T(0)), T(1));
+          uc *= pow(frac, operand(p.alpha, 0));
+        }
+        const T wx = SPREAD ? f.ux : f.ux * cos_w;
+        const T wy = SPREAD ? f.uy : f.ux * sin_w;
+        const T ax = SPREAD ? f.dux : f.dux * cos_w;
+        const T ay = SPREAD ? f.duy : f.dux * sin_w;
+        const T Ux = wx + uc * cos_c, Uy = wy + uc * sin_c, Uz = f.w;
+        const T Az = f.dw;
+        const T Ue = Ux * ex + Uy * ey + Uz * ez;
+        const T Ae = ax * ex + ay * ey + Az * ez;
+        const T Upx = Ux - Ue * ex, Upy = Uy - Ue * ey, Upz = Uz - Ue * ez;
+        const T Umag = sqrt(Upx * Upx + Upy * Upy + Upz * Upz);
+        const T D = p.D[m], rho = operand(p.rho, 0), Lw = L * p.w[q];
+        const T cd = T(0.5) * rho * operand(p.Cd, m) * D * Lw;
+        const T ci = rho * operand(p.Cm, m) * (T(kPi64) * D * D / T(4)) * Lw;
+        const T cdf = (Umag > T(1e-10)) ? cd * Umag : T(0);
+        gx = cdf * Upx; gy = cdf * Upy; gz = cdf * Upz;
+        ix = ci * (ax - Ae * ex); iy = ci * (ay - Ae * ey);
+        iz = ci * (Az - Ae * ez);
+      }
+    }
+    // the member's sums over its points: a fixed shuffle tree over the
+    // phase's 16 lanes
+    T v[9] = {gx, gy, gz, ix, iy, iz, sq * (gx + ix), sq * (gy + iy),
+              sq * (gz + iz)};
+#pragma unroll
+    for (int c = 0; c < 9; ++c)
+      for (int off = SEA_LANES / 2; off > 0; off >>= 1)
+        v[c] += __shfl_xor_sync(0xffffffffu, v[c], off, SEA_LANES);
+    if (q == 0 && s_ph < S) {
+      const size_t o = ((size_t)s_ph * M + m) * 3;
+      p.F1[o] = (v[0] + v[3]) - v[6];
+      p.F1[o + 1] = (v[1] + v[4]) - v[7];
+      p.F1[o + 2] = (v[2] + v[5]) - v[8];
+      p.F2[o] = v[6]; p.F2[o + 1] = v[7]; p.F2[o + 2] = v[8];
+      for (int c = 0; c < 6; ++c) tot[c] += v[c];
+    }
+  }
+  if (q == 0 && s_ph < S)
+    for (int c = 0; c < 6; ++c)
+      p.partials[((size_t)blockIdx.y * S + s_ph) * 6 + c] = tot[c];
+}
+
+// The member blocks of the sea grid (the rows of its partial sums): a
+// function of the shapes only.
+template <typename T>
+int grid_members_sea(const SeaParamsT<T>& p) {
+  return p.M < SEA_MEMBER_BLOCKS ? p.M : SEA_MEMBER_BLOCKS;
+}
+
+template <typename T, bool WHEELER, bool SPREAD>
+cudaError_t launch_sea(const SeaParamsT<T>& p, int G, cudaStream_t stream) {
+  const dim3 grid((p.S + SEA_PHASES - 1) / SEA_PHASES, G);
+  morison_sea_kernel<T, WHEELER, SPREAD><<<grid, SEA_THREADS, 0, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  morison_totals_kernel<T><<<(p.S * 6 + 255) / 256, 256, 0, stream>>>(
+      p.partials, G, p.S, p.totals);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_sea_any(const SeaParamsT<T>& p, int wheeler, int G,
+                           cudaStream_t st) {
+  const bool spread = p.dir != nullptr;
+  if (wheeler)
+    return spread ? launch_sea<T, true, true>(p, G, st)
+                  : launch_sea<T, true, false>(p, G, st);
+  return spread ? launch_sea<T, false, true>(p, G, st)
+                : launch_sea<T, false, false>(p, G, st);
+}
+
+template <typename T>
+bool valid_sea(const SeaParamsT<T>* p) {
+  return p->M > 0 && p->S > 0 && p->N > 0 && p->n_gauss > 0 &&
+         p->n_gauss <= MAX_GAUSS;
+}
+
 }  // namespace
 
 extern "C" {
@@ -683,6 +1013,35 @@ int morison_phase_batch_launch_f64(const MorisonParams64* p, int wheeler,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(wheeler ? launch64<true>(*p, G, st)
                        : launch64<false>(*p, G, st));
+}
+
+// The general-mode instance (float32 / float64): grid rows of the partial
+// sums, sizeof(SeaParamsT) for the ctypes mirror, and the launch (fused
+// pass + fixed-order totals; ``dir`` null for a long-crested sea).
+int morison_sea_grid_blocks_f32(const SeaParamsT<float>* p) {
+  if (!valid_sea(p)) return -(int)cudaErrorInvalidValue;
+  return grid_members_sea(*p);
+}
+int morison_sea_grid_blocks_f64(const SeaParamsT<double>* p) {
+  if (!valid_sea(p)) return -(int)cudaErrorInvalidValue;
+  return grid_members_sea(*p);
+}
+int morison_sea_params_size_f32() { return (int)sizeof(SeaParamsT<float>); }
+int morison_sea_params_size_f64() { return (int)sizeof(SeaParamsT<double>); }
+
+int morison_sea_launch_f32(const SeaParamsT<float>* p, int wheeler, int G,
+                           void* stream) {
+  if (!valid_sea(p) || G != grid_members_sea(*p))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_sea_any(*p, wheeler, G,
+                             static_cast<cudaStream_t>(stream));
+}
+int morison_sea_launch_f64(const SeaParamsT<double>* p, int wheeler, int G,
+                           void* stream) {
+  if (!valid_sea(p) || G != grid_members_sea(*p))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_sea_any(*p, wheeler, G,
+                             static_cast<cudaStream_t>(stream));
 }
 
 const char* morison_error_string(int code) {

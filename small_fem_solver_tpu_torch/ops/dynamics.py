@@ -47,9 +47,11 @@ from .beams import (element_stiffness, internal_forces, local_axes,
                     transformation_matrices)
 from .condense import condense_loads, factor_chains
 from .eigen import eigh_general_small
-from .hopper_kernels import cast_operands, morison_phase_batch_cuda
+from .hopper_kernels import (cast_operands, morison_phase_batch_cuda,
+                             morison_sea_batch_cuda)
 from .morison import gauss_legendre_01, hydro_diameter_m, hydro_members
 from .sections import TubeSections, von_mises_8pt
+from .spectrum import SpectralSea, sea_kinematics
 from .solve import (factor_dense, free_fixed_dofs, ground_with_springs,
                     solve_factored, support_spring_nodes)
 from .waves import FourierWave
@@ -630,23 +632,27 @@ def _rayleigh(K_ff, M_ff, damping_ratio, dtype):
             damping_ratio * 2.0 / (w1 + w2))
 
 
-def _check_dynamics_loading(case: LoadCase, wave):
+def _check_dynamics_loading(case: LoadCase, wave, periodic: bool = False):
+    """Slamming is pointwise-path only; the harmonic paths (``periodic``)
+    need a steady wave, the transient takes a random sea too."""
     if case.slam_cs:
         raise ValueError("dynamics loading uses the separable phase "
                          "matmul; slamming (slam_cs > 0) is pointwise-"
                          "path only")
-    if wave is not None and not isinstance(wave, FourierWave):
-        raise NotImplementedError(
-            f"{type(wave).__name__} waves (irregular seas, SpectralSea) are "
-            "not ported yet (ROADMAP.md, Queue A item 7b: spectrum and "
-            "frequency domain)")
+    kinds = (FourierWave,) if periodic else (FourierWave, SpectralSea)
+    if wave is not None and not isinstance(wave, kinds):
+        raise TypeError(
+            f"{type(wave).__name__} is not a wave this path takes: the "
+            "harmonic response needs a FourierWave; a SpectralSea goes "
+            "through transient_response_condensed or the spectral paths")
 
 
-def _phase_loads(model, wave: FourierWave, case: LoadCase, ts, n_gauss,
+def _phase_loads(model, wave, case: LoadCase, ts, n_gauss,
                  stretching="none", Cd=None):
-    """Phase-batch Morison loads of a model in its dtype: on the card one
-    launch of the Morison kernel (its instance of that dtype), on the CPU
-    the plain version."""
+    """Phase-batch Morison loads of a model in its dtype for a steady wave
+    or a random sea: on the card one launch of the Morison kernel (its
+    harmonic or general-mode instance of that dtype), on the CPU the plain
+    version."""
     dtype, dev = model.dtype, model.device
     conn_h, D_m, Cd_h, Cm_h = hydro_members(
         model, case.marine_growth_mm, case.Cd if Cd is None else Cd,
@@ -654,8 +660,10 @@ def _phase_loads(model, wave: FourierWave, case: LoadCase, ts, n_gauss,
     wk, xyz, *rest = cast_operands(
         dtype, dev, wave, model.coords, D_m, case.wave_dir_deg,
         case.current_dir_deg, Cd_h, Cm_h, case.rho_water, ts)
-    return morison_phase_batch_cuda(wk, xyz, conn_h, *rest, n_gauss=n_gauss,
-                                    stretching=stretching)
+    batch = (morison_sea_batch_cuda if isinstance(wave, SpectralSea)
+             else morison_phase_batch_cuda)
+    return batch(wk, xyz, conn_h, *rest, n_gauss=n_gauss,
+                 stretching=stretching)
 
 
 def _recover_util(sections, sect_id, conn, K_local, T, U, fy):
@@ -711,7 +719,7 @@ def dynamic_response(model, wave, case: LoadCase, n_harmonics: int = 6,
     to the case's custom self-weight tonnage."""
     dtype, dev = model.dtype, model.device
     case = case.cast(dtype, dev)
-    _check_dynamics_loading(case, wave)
+    _check_dynamics_loading(case, wave, periodic=True)
     if topside_mass_t is None:
         topside_mass_t = float(case.custom_sw_tonnes)
     with _full_f32_matmul():
@@ -791,7 +799,7 @@ def dynamic_response_condensed(coarse, refined, n_seg: int, wave,
     are expanded back for full-field stress recovery."""
     dtype, dev = refined.dtype, refined.device
     case = case.cast(dtype, dev)
-    _check_dynamics_loading(case, wave)
+    _check_dynamics_loading(case, wave, periodic=True)
     if topside_mass_t is None:
         topside_mass_t = float(case.custom_sw_tonnes)
     cb = _cb_reduce(coarse, refined, n_seg, float(case.E), float(case.nu),
@@ -835,9 +843,15 @@ def _relative_drag_fn(refined, case: LoadCase, wave, n_gauss: int,
     nodal [n, 3]`` (N) with U_rel = U_wave + U_current - v_structure
     (``v_nodal`` in m/s), whose velocity-coupled part is the hydrodynamic
     drag damping.  Equals :func:`..morison.morison_loads`' drag term at
-    v = 0 (uniform current, analytic acceleration path); ``wave`` None is
-    still water (drag from the structure's motion alone).  Nodal sums run
-    in a fixed order."""
+    v = 0 (uniform current, analytic acceleration path); ``wave`` is a
+    steady wave, a long-crested :class:`..spectrum.SpectralSea` (a spread
+    sea raises ``ValueError``: its headings live in the phase batch, not
+    pointwise) or None, still water (drag from the structure's motion
+    alone).  Nodal sums run in a fixed order."""
+    if isinstance(wave, SpectralSea) and wave.dir_deg is not None:
+        raise ValueError("relative_drag supports long-crested seas only "
+                         "(spread seas resolve per-mode headings in the "
+                         "precomputed batch, not pointwise)")
     dev = refined.device
     conn_h, D_m, Cd_h, _ = hydro_members(refined, case.marine_growth_mm,
                                          case.Cd, case.Cm)
@@ -868,8 +882,11 @@ def _relative_drag_fn(refined, case: LoadCase, wave, n_gauss: int,
             subf = sub.to(dtype)
             U = torch.zeros_like(pos)
         else:
-            kin = wave_kinematics(wave, x_wave, z, t, accel="analytic",
-                                  stretching=stretching)
+            kin = (sea_kinematics(wave, x_wave, z, t)
+                   if isinstance(wave, SpectralSea)
+                   else wave_kinematics(wave, x_wave, z, t,
+                                        accel="analytic",
+                                        stretching=stretching))
             sub = kin.submerged
             subf = sub.to(dtype)
             u_wave_only = kin.u - wave.U_c * subf
@@ -945,7 +962,10 @@ def transient_response_condensed(coarse, refined, n_seg: int, wave,
     velocity): its velocity-coupled part is the hydrodynamic damping.
     ``ground_accel`` ([n_steps] m/s^2 along ``ground_dir``) adds seismic
     excitation F_eff = -M iota a_g; displacements are then relative to the
-    ground.  Irregular seas (``SpectralSea``) are not ported yet.
+    ground.  ``wave`` may be a random sea (:class:`..spectrum.SpectralSea`:
+    its loads are one launch of the kernel's general-mode instance on the
+    card, the ramp counts peak periods Tp; relative drag takes a
+    long-crested sea).
     """
     dtype, dev = refined.dtype, refined.device
     case = case.cast(dtype, dev)
@@ -980,8 +1000,9 @@ def transient_response_condensed(coarse, refined, n_seg: int, wave,
             F_f = _cb_reduced_loads(cb, refined, case, mb.nodal_forces, nc,
                                     n_seg, dtype)[:, cb.free]
             if ramp_periods > 0:
-                ramp = torch.clamp(ts / (ramp_periods * float(wave.T)),
-                                   max=1.0)
+                T_ramp = float(wave.Tp if isinstance(wave, SpectralSea)
+                               else wave.T)
+                ramp = torch.clamp(ts / (ramp_periods * T_ramp), max=1.0)
                 F_f = F_f * ramp[:, None]
         if ground_accel is not None:
             ag = torch.as_tensor(ground_accel, dtype=dtype, device=dev)

@@ -8,6 +8,10 @@
   ``small_fem_solver_tpu/ops/pallas_kernels.py::
   morison_phase_batch_pallas``.  Its plain PyTorch versions are
   ``ops/morison.py::morison_end_forces`` / ``morison_phase_batch``.
+  ``morison_sea_end_forces_cuda`` / ``morison_sea_batch_cuda`` launch the
+  same file's general-mode instance (float32 and float64) for the
+  independent components of a random sea; its plain version is
+  ``ops/spectrum.py::morison_sea_end_forces``.
 - ``chain_sweep_cuda`` launches the chain-sweep kernel in
   ``csrc/chain_sweep.cu`` (forward RHS sweep + backward substitution), the
   port of the two Pallas TPU kernels of
@@ -42,6 +46,7 @@ import torch
 
 from .morison import (MorisonPhaseBatch, gauss_legendre_01, morison_end_forces,
                       nodal_scatter)
+from .spectrum import SpectralSea, morison_sea_end_forces
 from .waves import FourierWave
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
@@ -63,6 +68,12 @@ _SIGNATURES = {
         "morison_phase_batch_launch_f64": ([_PTR, _I32, _I32, _PTR], _I32),
         "morison_grid_blocks_f64": ([_PTR, _I32], _I32),
         "morison_params_size_f64": ([], _I32),
+        "morison_sea_launch_f32": ([_PTR, _I32, _I32, _PTR], _I32),
+        "morison_sea_launch_f64": ([_PTR, _I32, _I32, _PTR], _I32),
+        "morison_sea_grid_blocks_f32": ([_PTR], _I32),
+        "morison_sea_grid_blocks_f64": ([_PTR], _I32),
+        "morison_sea_params_size_f32": ([], _I32),
+        "morison_sea_params_size_f64": ([], _I32),
     },
     "chain_sweep": {
         "chain_sweep_launch_f32": ([_PTR] * 6 + [_I64] * 4 + [_I32] * 5
@@ -133,9 +144,14 @@ def build_all(names=KERNELS) -> dict:
         if name == "morison_phase_batch" and (
                 lib.morison_params_size() != ctypes.sizeof(_MorisonParams)
                 or lib.morison_params_size_f64()
-                != ctypes.sizeof(_MorisonParams64)):
-            raise RuntimeError("MorisonParams in morison_phase_batch.cu and "
-                               "its ctypes mirror differ in size")
+                != ctypes.sizeof(_MorisonParams64)
+                or lib.morison_sea_params_size_f32()
+                != ctypes.sizeof(_SeaParams)
+                or lib.morison_sea_params_size_f64()
+                != ctypes.sizeof(_SeaParams64)):
+            raise RuntimeError("MorisonParams / SeaParamsT in "
+                               "morison_phase_batch.cu and their ctypes "
+                               "mirrors differ in size")
         _libs[name] = lib
     return {n: _libs[n] for n in names}
 
@@ -167,8 +183,28 @@ def _params_struct(scalar):
     return Operand, Params
 
 
+def _sea_params_struct(scalar, operand):
+    """ctypes mirror of ``SeaParamsT<T>`` in ``csrc/morison_phase_batch.cu``
+    (checked against the library's ``sizeof`` at build)."""
+    class SeaParams(ctypes.Structure):
+        _fields_ = ([(n, ctypes.c_void_p) for n in ("coords", "conn", "D")]
+                    + [(n, operand) for n in ("Cd", "Cm", "wave_dir",
+                                              "current_dir", "rho", "alpha")]
+                    + [(n, ctypes.c_void_p) for n in ("E", "U", "k", "omega",
+                                                      "phi", "dir", "d", "Uc",
+                                                      "phase")]
+                    + [("s", scalar * MAX_GAUSS), ("w", scalar * MAX_GAUSS)]
+                    + [(n, ctypes.c_int) for n in ("M", "S", "N", "n_gauss",
+                                                   "power_law")]
+                    + [(n, ctypes.c_void_p) for n in ("F1", "F2", "partials",
+                                                      "totals")])
+    return SeaParams
+
+
 _Operand, _MorisonParams = _params_struct(ctypes.c_float)
 _Operand64, _MorisonParams64 = _params_struct(ctypes.c_double)
+_SeaParams = _sea_params_struct(ctypes.c_float, _Operand)
+_SeaParams64 = _sea_params_struct(ctypes.c_double, _Operand64)
 # kernel instance by operand dtype: (name, params, operand, scalar, C
 # suffix)
 _INSTANCES = {
@@ -200,6 +236,18 @@ def kernel_operands(wave: FourierWave, coords, conn, D_m, wave_dir_deg,
     copy, no synchronisation.  The kernel's prologue expands member ->
     point from these.
     """
+    return _operands({n: getattr(wave, n) for n in ("E", "U", "k", "omega",
+                                                    "d", "U_c")},
+                     "wave", coords, conn, D_m, wave_dir_deg,
+                     current_dir_deg, Cd, Cm, rho_water, ts, n_gauss,
+                     current_alpha)
+
+
+def _operands(mode_fields: dict, owner: str, coords, conn, D_m,
+              wave_dir_deg, current_dir_deg, Cd, Cm, rho_water, ts,
+              n_gauss: int, current_alpha) -> dict:
+    """:func:`kernel_operands` for the wave's (or sea's) tensor fields
+    ``mode_fields``: each checked, ``U_c`` under the key ``Uc``."""
     dtype, dev = coords.dtype, coords.device
     if dtype not in _INSTANCES:
         raise TypeError("the Morison kernel takes float32 or float64 "
@@ -227,9 +275,9 @@ def kernel_operands(wave: FourierWave, coords, conn, D_m, wave_dir_deg,
         coords=tensor(coords, "coords"),
         conn=conn.to(device=dev, dtype=torch.int64).contiguous(),
         D=tensor(D_m, "D_m"), ts=tensor(ts, "ts"),
-        **{n: tensor(getattr(wave, n), f"wave.{n}")
-           for n in ("E", "U", "k", "omega", "d")},
-        Uc=tensor(wave.U_c, "wave.U_c"), Cd=value(Cd, "Cd"),
+        **{"Uc" if n == "U_c" else n: None if v is None
+           else tensor(v, f"{owner}.{n}") for n, v in mode_fields.items()},
+        Cd=value(Cd, "Cd"),
         Cm=value(Cm, "Cm"), wave_dir=value(wave_dir_deg, "wave_dir_deg"),
         current_dir=value(current_dir_deg, "current_dir_deg"),
         rho=value(rho_water, "rho_water"),
@@ -245,7 +293,7 @@ def cast_operands(dtype, device, *xs) -> tuple:
     takes a number by value).  Integer operands (``conn``) are not passed
     through here."""
     def cast(x):
-        if isinstance(x, FourierWave):
+        if isinstance(x, (FourierWave, SpectralSea)):
             return x.to(dtype, device)
         if isinstance(x, (torch.Tensor, np.ndarray)):
             return torch.as_tensor(x, dtype=dtype, device=device)
@@ -367,7 +415,129 @@ def morison_phase_batch_cuda(wave: FourierWave, coords: torch.Tensor,
 
 
 morison_phase_batch_cuda.launches = 0
-morison_phase_batch_cuda.instance_launches = {"f32": 0, "f64": 0}
+morison_phase_batch_cuda.instance_launches = {"f32": 0, "f64": 0,
+                                              "sea_f32": 0, "sea_f64": 0}
+
+
+def sea_phase_table(sea: SpectralSea, ts: torch.Tensor) -> torch.Tensor:
+    """The general-mode kernel's phase factors [S, 2N] = cos(omega_i t_s)
+    | sin(omega_i t_s), formed in float64 and cast to ``ts``' dtype: a
+    2,048-step realization reaches omega t ~ 4e3 rad, where a float32
+    argument alone is off by ~2e-4 rad."""
+    ang = ts.double()[:, None] * sea.omega.double()[None, :]
+    return torch.cat([torch.cos(ang), torch.sin(ang)], dim=1).to(ts.dtype)
+
+
+def sea_kernel_operands(sea: SpectralSea, coords, conn, D_m, wave_dir_deg,
+                        current_dir_deg, Cd, Cm, rho_water, ts, n_gauss: int,
+                        current_alpha) -> dict:
+    """The general-mode instance's operands, as :func:`kernel_operands`
+    gives the harmonic ones (the same dtype and device rules: mixed dtypes
+    raise ``TypeError``), with the sea's per-mode ``E``, ``U``, ``k``,
+    ``omega``, ``phi``, ``dir`` (``None`` for a long-crested sea), and the
+    phase table ``phase`` [S, 2N] (:func:`sea_phase_table`, the one device
+    operation this issues)."""
+    k = _operands({n: getattr(sea, n) for n in ("E", "U", "k", "omega",
+                                                "phi", "d", "U_c")}
+                  | {"dir": sea.dir_deg}, "sea", coords, conn, D_m,
+                  wave_dir_deg, current_dir_deg, Cd, Cm, rho_water, ts,
+                  n_gauss, current_alpha)
+    k["phase"] = sea_phase_table(sea, k["ts"]).contiguous()
+    return k
+
+
+def launch_morison_sea(k: dict, wheeler: bool):
+    """Launch the general-mode instance of the operands' dtype on
+    operands from :func:`sea_kernel_operands`; returns (F1 [S, M, 3],
+    F2 [S, M, 3], totals [S, 6]).  Raises for CPU tensors."""
+    dev, dtype = k["coords"].device, k["coords"].dtype
+    if dev.type != "cuda":
+        raise RuntimeError("the Morison kernel needs CUDA tensors (got "
+                           f"{dev}); the plain version is "
+                           "ops.spectrum.morison_sea_end_forces")
+    name, _, operand, scalar, _ = _INSTANCES[dtype]
+    params = _SeaParams if dtype == torch.float32 else _SeaParams64
+    lib = build("morison_phase_batch")
+    M, S, N = k["conn"].shape[0], k["ts"].shape[0], k["E"].shape[0]
+    F1 = torch.empty(S, M, 3, dtype=dtype, device=dev)
+    F2 = torch.empty(S, M, 3, dtype=dtype, device=dev)
+    totals = torch.empty(S, 6, dtype=dtype, device=dev)
+    p = params(
+        *(k[n].data_ptr() for n in ("coords", "conn", "D")),
+        *(_operand(k[n], M, n, operand) for n in ("Cd", "Cm", "wave_dir",
+                                                   "current_dir", "rho")),
+        _operand(0.0 if k["alpha"] is None else k["alpha"], M, "alpha",
+                 operand),
+        *(k[n].data_ptr() for n in ("E", "U", "k", "omega", "phi")),
+        None if k["dir"] is None else k["dir"].data_ptr(),
+        k["d"].data_ptr(), k["Uc"].data_ptr(), k["phase"].data_ptr(),
+        (scalar * MAX_GAUSS)(*k["s"]), (scalar * MAX_GAUSS)(*k["w"]),
+        M, S, N, len(k["s"]), int(k["alpha"] is not None),
+        F1.data_ptr(), F2.data_ptr(), None, totals.data_ptr())
+    with torch.cuda.device(dev):
+        G = getattr(lib, f"morison_sea_grid_blocks_{name}")(ctypes.byref(p))
+        if G <= 0:
+            raise RuntimeError("morison_sea grid query failed: "
+                               + lib.morison_error_string(-G).decode())
+        partials = torch.empty(G, S, 6, dtype=dtype, device=dev)
+        p.partials = partials.data_ptr()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, f"morison_sea_launch_{name}")(
+            ctypes.byref(p), int(wheeler), G, stream)
+    if err != 0:
+        raise RuntimeError("morison_sea kernel launch failed: "
+                           + lib.morison_error_string(err).decode())
+    morison_phase_batch_cuda.launches += 1
+    morison_phase_batch_cuda.instance_launches["sea_" + name] += 1
+    return F1, F2, totals
+
+
+def morison_sea_end_forces_cuda(sea: SpectralSea, coords: torch.Tensor,
+                                conn: torch.Tensor, D_m: torch.Tensor,
+                                wave_dir_deg, current_dir_deg, Cd, Cm,
+                                rho_water, ts: torch.Tensor,
+                                n_gauss: int = 15, current_alpha=None,
+                                stretching: str = "none"):
+    """Fused-kernel :func:`..spectrum.morison_sea_end_forces` (a random
+    sea: any number of components, long-crested or spread): (F1, F2,
+    total_drag, total_inertia) in the operands' dtype.
+
+    The same contract as :func:`morison_end_forces_cuda`: CUDA tensors
+    launch the general-mode instance of their dtype (float32 or float64;
+    mixed dtypes raise ``TypeError``) or raise when the build or the
+    launch fails; CPU tensors run the plain version.  Launches count on
+    ``morison_phase_batch_cuda.launches`` and on
+    ``.instance_launches["sea_f32"]`` / ``["sea_f64"]``."""
+    if n_gauss > MAX_GAUSS:
+        raise ValueError(f"n_gauss must be <= {MAX_GAUSS}")
+    if stretching not in ("none", "wheeler"):
+        raise ValueError(f"unknown stretching mode {stretching!r}")
+    if coords.device.type != "cuda":
+        return morison_sea_end_forces(sea, coords, conn, D_m, wave_dir_deg,
+                                      current_dir_deg, Cd, Cm, rho_water, ts,
+                                      n_gauss, current_alpha, stretching)
+    k = sea_kernel_operands(sea, coords, conn, D_m, wave_dir_deg,
+                            current_dir_deg, Cd, Cm, rho_water, ts, n_gauss,
+                            current_alpha)
+    F1, F2, totals = launch_morison_sea(k, stretching == "wheeler")
+    return F1, F2, totals[:, :3], totals[:, 3:]
+
+
+def morison_sea_batch_cuda(sea: SpectralSea, coords: torch.Tensor,
+                           conn: torch.Tensor, D_m: torch.Tensor,
+                           wave_dir_deg, current_dir_deg, Cd, Cm, rho_water,
+                           ts: torch.Tensor, n_gauss: int = 15,
+                           current_alpha=None,
+                           stretching: str = "none") -> MorisonPhaseBatch:
+    """:func:`morison_sea_end_forces_cuda` plus the nodal scatter: the
+    kernel form of :func:`..spectrum.morison_sea_batch` (which calls it)."""
+    F1, F2, total_drag, total_inertia = morison_sea_end_forces_cuda(
+        sea, coords, conn, D_m, wave_dir_deg, current_dir_deg, Cd, Cm,
+        rho_water, ts, n_gauss, current_alpha, stretching)
+    return MorisonPhaseBatch(
+        nodal_forces=nodal_scatter(F1, F2, conn, coords.shape[0]),
+        total_drag=total_drag, total_inertia=total_inertia,
+        total_morison=total_drag + total_inertia, F1=F1, F2=F2)
 
 
 SWEEP_LANES = 32            # right-hand sides per sweep block (one a lane)

@@ -346,12 +346,20 @@ class _ModeCoeffs(NamedTuple):
 
 
 def _mode_spatial_coeffs(kv, wv, phiv, E, U, d, coords, conn, wave_dir_deg,
-                         current_dir_deg, n_gauss: int,
-                         stretching: str) -> _ModeCoeffs:
+                         current_dir_deg, n_gauss: int, stretching: str,
+                         rel_dir_deg=None) -> _ModeCoeffs:
     """Per-mode spatial harmonic factors at every Gauss point — the
-    phase-independent half of the separable engine."""
-    dtype = coords.dtype
-    theta_w = torch.deg2rad(_as(90.0 - wave_dir_deg, coords))
+    phase-independent half of the separable engine.
+
+    ``rel_dir_deg`` ([N] degrees, or ``None``) gives each mode its own
+    heading relative to ``wave_dir_deg`` (a short-crested sea): the phases
+    use each mode's own projection, and the horizontal velocity and
+    acceleration rows carry per-mode direction weights."""
+    if rel_dir_deg is None:
+        theta_w = torch.deg2rad(_as(90.0 - wave_dir_deg, coords))
+    else:
+        theta_w = torch.deg2rad(90.0 - (_as(wave_dir_deg, coords)
+                                        + _as(rel_dir_deg, coords)))  # [N]
     theta_c = torch.deg2rad(_as(90.0 - current_dir_deg, coords))
     cw, sw = torch.cos(theta_w), torch.sin(theta_w)
     cos_c, sin_c = torch.cos(theta_c), torch.sin(theta_c)
@@ -408,15 +416,17 @@ def _per_member(v, Q: int, ref: torch.Tensor) -> torch.Tensor:
 
 def _morison_batch_core(kv, wv, phiv, E, U, d, U_c, coords, conn, D_m,
                         wave_dir_deg, current_dir_deg, Cd, Cm, rho_water,
-                        ts, n_gauss: int, current_alpha, stretching: str):
+                        ts, n_gauss: int, current_alpha, stretching: str,
+                        rel_dir_deg=None):
     """Separable Morison engine over an arbitrary mode set (per-mode [N]
     wavenumbers ``kv``, frequencies ``wv``, phase offsets ``phiv``, surface
-    and velocity coefficients ``E``/``U``); returns (F1, F2, total_drag,
-    total_inertia)."""
+    and velocity coefficients ``E``/``U``, optional per-mode headings
+    ``rel_dir_deg``): harmonics of one wave or the components of a random
+    sea; returns (F1, F2, total_drag, total_inertia)."""
     dtype = coords.dtype
     mc = _mode_spatial_coeffs(kv, wv, phiv, E, U, d, coords, conn,
                               wave_dir_deg, current_dir_deg, n_gauss,
-                              stretching)
+                              stretching, rel_dir_deg)
     z, e, L, s, w = mc.z, mc.e, mc.L, mc.s, mc.w
     M, Q, S = conn.shape[0], n_gauss, ts.shape[0]
 

@@ -523,3 +523,85 @@ def test_dynamics_on_card_match_cpu():
         assert float(p @ p / (a[i] @ a[i])) >= 1.0 - 1e-8, i
     errs = _rel_fields(hc, hp, ("U_time", "U_static", "utilization", "daf"))
     assert max(errs.values()) <= 1e-10, errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,S,spreading_s,stretching,alpha", [
+    (37, 45, None, "wheeler", None), (64, 129, 4.0, "none", 1.0 / 7.0),
+    (16, 31, 4.0, "wheeler", None), (300, 40, None, "none", None)])
+def test_sea_kernel_matches_plain(N, S, spreading_s, stretching, alpha):
+    """K1's general-mode (random sea) instance on the 4x refined jacket
+    with per-member Cd / Cm over a half-hour of samples: f32 against the
+    plain version in f64 on the same f32-rounded inputs (1e-5 of the
+    largest value) and f64 against f64 (1e-12); mode counts off the
+    32-mode tile (and past the harmonic instances' 32), odd phase counts,
+    one launch a call on its instance's counter, bit-repeatable."""
+    dev = _device()
+    refined = pt.refine_model(pt.default_3leg_jacket(device=dev), 4)
+    M = refined.n_members
+    gen = np.random.default_rng(3)
+    D = refined.sections.D_outer[refined.sect_id] / 1000.0
+    coefs = (torch.tensor(gen.uniform(0.6, 1.1, M), device=dev),
+             torch.tensor(gen.uniform(1.6, 2.1, M), device=dev))
+    sea = pt.make_random_sea(6.5, 9.4, 50.0, n_components=N, seed=1,
+                             U_c=1.0, spreading_s=spreading_s, device=dev)
+    ts = torch.linspace(0.0, 1800.0, S, dtype=torch.float64, device=dev)
+    kw = dict(current_alpha=alpha, stretching=stretching)
+    for dtype, tol in ((torch.float32, KERNEL_TOL),
+                       (torch.float64, KERNEL_TOL_F64)):
+        ops = hk.cast_operands(dtype, dev, sea, refined.coords, D, 38.0,
+                               50.0, *coefs, 1025.0, ts)
+        ref_ops = hk.cast_operands(torch.float64, dev, *ops)
+        key = "sea_f32" if dtype == torch.float32 else "sea_f64"
+        before = hk.morison_phase_batch_cuda.instance_launches[key]
+        out = hk.morison_sea_batch_cuda(ops[0], ops[1], refined.conn,
+                                        *ops[2:], **kw)
+        again = hk.morison_sea_batch_cuda(ops[0], ops[1], refined.conn,
+                                          *ops[2:], **kw)
+        torch.cuda.synchronize()
+        assert hk.morison_phase_batch_cuda.instance_launches[key] \
+            == before + 2
+        ref = pt.morison_sea_batch(ref_ops[0].to(torch.float64, "cpu"),
+                                   ref_ops[1].cpu(), refined.conn.cpu(),
+                                   *(o.cpu() if torch.is_tensor(o) else o
+                                     for o in ref_ops[2:]), **kw)
+        for name in FIELDS:
+            assert _rel(getattr(out, name).cpu(), getattr(ref, name)) \
+                <= tol, (dtype, name)
+            assert torch.equal(getattr(out, name), getattr(again, name))
+    with pytest.raises(TypeError, match="mixed dtypes"):
+        hk.morison_sea_end_forces_cuda(sea.to(torch.float32), refined.coords,
+                                       refined.conn, D, 38.0, 50.0, *coefs,
+                                       1025.0, ts)
+
+
+@pytest.mark.cuda
+def test_sea_paths_on_card_match_cpu():
+    """sea_scan_prepared (one K1-sea f64 launch) and
+    spectral_response_prepared on the 4x refined jacket in f64: the card
+    against the CPU at 1e-9."""
+    dev = _device()
+    runs = {}
+    for d in ("cpu", dev):
+        coarse = pt.default_3leg_jacket(device=d)
+        refined = pt.refine_model(coarse, 4)
+        prep = pt.prepare_condensed(coarse, refined, 4)
+        sea = pt.make_random_sea(6.5, 9.4, 50.0, n_components=24, seed=0,
+                                 U_c=1.0, device=d)
+        case = pt.LoadCase(**STORM)
+        hk.morison_phase_batch_cuda.instance_launches["sea_f64"] = 0
+        runs[str(d)] = (
+            pt.sea_scan_prepared(prep, sea, case,
+                                 torch.arange(256, dtype=torch.float64)
+                                 * 0.94,
+                                 stretching="wheeler"),
+            pt.spectral_response_prepared(prep, sea, case))
+    assert hk.morison_phase_batch_cuda.instance_launches["sea_f64"] == 1
+    (sc, fc), (sp, fp) = runs[str(dev)], runs["cpu"]
+    errs = _rel_fields(sc, sp, ("U", "von_mises", "reactions",
+                                "total_morison"))
+    # (the MPM stress follows the governing circumferential point, an
+    # argmax that roundoff decides between tied opposite points)
+    errs.update(_rel_fields(fc, fp, ("sigma_stress", "damage_wl",
+                                     "nu0_hz")))
+    assert max(errs.values()) <= 1e-9, errs

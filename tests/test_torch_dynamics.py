@@ -30,6 +30,7 @@ from small_fem_solver_tpu.ops.solve import \
     ground_with_springs as j_ground_with_springs
 from small_fem_solver_tpu.ops.spectrum import make_random_sea
 import small_fem_solver_tpu_torch as pt
+from small_fem_solver_tpu_torch import convert
 from small_fem_solver_tpu_torch.ops import dynamics as td
 from small_fem_solver_tpu_torch.ops import eigen as te
 from small_fem_solver_tpu_torch.ops.solve import ground_with_springs
@@ -187,13 +188,30 @@ def test_transient_response_matches_jax(jacket, variant):
 
 
 def test_transient_refuses_spectral_seas(jacket):
-    """Irregular seas wait for the spectrum slice (ROADMAP item 7b)."""
+    """The seas the dynamics paths refuse, as the JAX package does: a
+    spread sea with relative drag (its headings live in the phase batch,
+    not pointwise), and any sea on the harmonic paths, which need a
+    periodic wave; slamming everywhere.  (Long-crested seas run through
+    the transient: ``tests/test_torch_spectrum.py``.)"""
     _, _, _, tc, tr, _ = jacket
-    sea = make_random_sea(6.0, 9.4, 50.0, n_components=4, seed=2)
-    with pytest.raises(NotImplementedError, match="7b"):
-        pt.transient_response_condensed(tc, tr[2], 2, sea,
+    sea = make_random_sea(6.0, 9.4, 50.0, n_components=4, seed=2,
+                          spreading_s=4.0)
+    port = convert.sea_from_numpy(
+        *(np.asarray(getattr(sea, f)) for f in ("omega", "k", "a", "phi",
+                                                "E", "U", "d", "U_c", "Hs",
+                                                "Tp")),
+        dir_deg=np.asarray(sea.dir_deg), device="cpu")
+    with pytest.raises(ValueError, match="long-crested"):
+        jd.transient_response_condensed(jacket[0], jacket[1][2], 2, sea,
+                                        sf.LoadCase(**STORM), dt=0.1,
+                                        n_steps=4, relative_drag=True)
+    with pytest.raises(ValueError, match="long-crested"):
+        pt.transient_response_condensed(tc, tr[2], 2, port,
                                         pt.LoadCase(**STORM), dt=0.1,
-                                        n_steps=4)
+                                        n_steps=4, relative_drag=True)
+    with pytest.raises(TypeError, match="FourierWave"):
+        pt.dynamic_response_condensed(tc, tr[2], 2, port,
+                                      pt.LoadCase(**STORM), n_steps=4)
     with pytest.raises(ValueError, match="slamming"):
         pt.dynamic_response(tc, None, pt.LoadCase(**STORM, slam_cs=3.14))
 
