@@ -289,7 +289,7 @@ SEA_TOL = 1e-9        # sea scan card vs CPU f64 (U, von Mises, reactions)
 # f32 sea scan vs f64 over every sample, set from measurement (4.2e-4 and
 # 6.2e-4 on an H100): a Gauss point within ~1e-6 m of the surface flips
 # wet / dry between the f32 and f64 models; off the samples with a point
-# within SURFACE_BAND of it the flagship's limits (U_TOL, UTIL_TOL) hold
+# within hk.SURFACE_BAND of it the flagship's limits (U_TOL, UTIL_TOL) hold
 SEA_F32_U_TOL = 1e-3
 SEA_F32_UTIL_TOL = 1.5e-3
 # ... its Morison totals off the band (4.95e-5 measured): the f32 sea's
@@ -298,8 +298,6 @@ SEA_F32_UTIL_TOL = 1.5e-3
 SEA_F32_TOTAL_TOL = 2e-4
 FD_TOL = 1e-9         # spectral response / scatter card vs CPU f64, refine 8
 TIED = 1e-9           # two circumferential points' variances tie
-SURFACE_BAND = 1e-4   # m: K1-sea f32 vs f64 holds out points this close to
-                      # the f64 free surface (the wet / dry jump)
 SEA_TRANSIENT_STEPS = 1024
 # bench.py:285-289: the scatter diagrams of the JAX bench
 SCATTER_STATES = [(2.5 + 0.5 * i, 7.0 + 0.3 * i, 0.05, 36.0 * i)
@@ -1235,7 +1233,9 @@ def call_record(fn) -> dict:
     rec["ops"], rec["busy_ms"] = len(events), sum(t for _, t in events) / 1e3
     rec["sweep_us"] = kernel_us(events, "chain_sweep_kernel")
     rec["k1_us"] = kernel_us(events, "morison_phase_batch_f64_kernel")
-    rec["k1_sea_us"] = kernel_us(events, "morison_sea_kernel")
+    # K1-sea: its records pass and its fused pass
+    rec["k1_sea_us"] = (kernel_us(events, "morison_sea_records_kernel")
+                        + kernel_us(events, "morison_sea_kernel"))
     rec["top"] = top_device_ops(events, 3)
     return rec
 
@@ -1513,100 +1513,175 @@ def modal_large_phase(pt, hk, coarse64, freqs_9612):
     return rec
 
 
+def sea_fields(spread: bool, wheeler: bool) -> int:
+    """Kinematic fields of K1-sea's mode sums: eta, u, w, du/dt, dw/dt (+ v,
+    dv/dt for a spread sea) and, with Wheeler, their d/dz and d^2/dz^2 rows
+    (all but eta's)."""
+    return (7 if spread else 5) + ((12 if spread else 8) if wheeler else 0)
+
+
 def sea_bound(itemsize: int, S: int, M: int, Q: int, N: int, n_nodes: int,
-              spread: bool, wheeler: bool):
-    """(bound us, by, GFLOP, MB) of one K1-sea launch: F1 / F2 and the
-    totals written once; times, phase table, per-mode arrays, coords and
-    member arrays read once; the mode sums 2 x 2N x F FLOP per (phase,
-    point) (F = 5 fields, 7 spread; 13 / 19 with Wheeler) plus the
-    epilogue.  FP32 at 67 TFLOP/s; FP64 with the mode sums at 67 (FP64 on
-    the tensor cores) and the epilogue at 34, as K1's f64 instance."""
-    F = (7 if spread else 5) + ((12 if spread else 8) if wheeler else 0)
-    P = M * Q
+              spread: bool, wheeler: bool) -> dict:
+    """The bound of one K1-sea launch, the least time over the two forms
+    of its mode sums: the matrix product (4F FLOP per (phase, point,
+    mode)) and the angle difference (6 + 2F: cos / sin of the angle
+    difference, then one FMA per field), F = ``sea_fields``, plus the
+    epilogue.  FP32 at 67 TFLOP/s; FP64 the better of the angle form at
+    34 and the matrix form at 67 (the FP64 tensor cores), the epilogue
+    at 34.  Bytes: F1 / F2 and the totals written once; times, phase
+    table, per-mode arrays, coords and member arrays read once.  Returns
+    us, by, form, both forms' GFLOP, the epilogue's and the MB."""
+    F = sea_fields(spread, wheeler)
+    items = S * M * Q * N
+    matrix, angle = items * 4 * F, items * (6 + 2 * F)
+    epi = S * M * Q * EPILOGUE_FLOP
     nbytes = itemsize * (2 * S * M * 3 + S * 6 + S + 2 * S * N + 6 * N
                          + n_nodes * 3 + 3 * M) + 8 * 2 * M
-    mode, epi = S * P * 2 * 2 * N * F, S * P * EPILOGUE_FLOP
     if itemsize == 4:
-        us, by = bound_us(nbytes, mode + epi)
+        forms = {"matrix": (matrix + epi) / FP32_FLOP_PER_S,
+                 "angle": (angle + epi) / FP32_FLOP_PER_S}
     else:
-        us, by = bound_us(nbytes, mode + epi * FP64_TC_FLOP_PER_S
-                          / FP64_FLOP_PER_S, FP64_TC_FLOP_PER_S)
-    return us, by, (mode + epi) / 1e9, nbytes / 1e6
+        forms = {"matrix": matrix / FP64_TC_FLOP_PER_S
+                 + epi / FP64_FLOP_PER_S,
+                 "angle": (angle + epi) / FP64_FLOP_PER_S}
+    form = min(forms, key=forms.get)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return dict(us=max(t_bytes, forms[form]) * 1e6,
+                by="bytes" if t_bytes >= forms[form] else "operations",
+                form=form, matrix_gflop=matrix / 1e9,
+                angle_gflop=angle / 1e9, epilogue_gflop=epi / 1e9,
+                mb=nbytes / 1e6)
 
 
-def surface_band(sea, coords, conn, wave_dir, ts, band: float):
-    """[S, M] mask of the (sample, member) pairs with a Gauss point within
-    ``band`` m of the free surface of ``sea`` (f64, from its spatial eta
-    rows and the f64 phase table): there the wet / dry mask z <= eta is a
-    jump, so a point that float32 rounding of eta (~1e-6 m) puts on the
-    other side of the surface changes the member's force by the point's
-    whole share."""
+def sea_mode_sums_ms(sea, ts, P: int, F: int, dtype) -> float:
+    """The yardstick of K1-sea's mode sums alone: one ``torch.matmul`` of
+    the phase table [S, 2N] by a coefficient matrix [2N, P F] (random,
+    from a seeded generator), SGEMM without TF32 or DGEMM; ms, CUDA
+    events.  The port never calls it."""
+    import torch
     from small_fem_solver_tpu_torch.ops import hopper_kernels as hk
-    from small_fem_solver_tpu_torch.ops.morison import _mode_spatial_coeffs
-    mc = _mode_spatial_coeffs(sea.k, sea.omega, sea.phi, sea.E, sea.U, sea.d,
-                              coords, conn, wave_dir, 0.0, 15, "none",
-                              sea.dir_deg)
-    ph = hk.sea_phase_table(sea, ts)
-    N = sea.n_modes
-    eta = ph[:, :N] @ mc.Acat[0].T + ph[:, N:] @ mc.Bcat[0].T    # [S, P]
-    near = (mc.z[None, :] - eta).abs() < band
-    return near.reshape(ts.shape[0], conn.shape[0], -1).any(dim=-1)
+    dev = ts.device
+    table = hk.sea_phase_table(sea, ts.to(dtype))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    coeffs = torch.randn(2 * sea.n_modes, P * F, generator=gen, device=dev,
+                         dtype=dtype)
+    out = torch.empty(ts.shape[0], P * F, device=dev, dtype=dtype)
+    ms = cuda_ms(lambda: torch.matmul(table, coeffs, out=out), n=5,
+                 warmup=1)
+    del table, coeffs, out
+    torch.cuda.empty_cache()
+    return ms
 
 
-def k1_sea_phase(pt, hk, dev, refined64):
-    """K1's general-mode (random sea) instance on the flagship mesh with
-    per-member Cd / Cm: f32 against the plain version in f64 on the same
-    f32-rounded inputs (1e-5 of the largest value) and f64 against f64
-    (1e-12), one launch a call on its instance's counter, bit-repeatable,
-    at N = 64 (the sea scan's shapes: 2,048 samples, Wheeler), 48 (a
-    power-law current), 37 (off the 32-mode tile; spread, Wheeler, an odd
-    S) and 256 (spread).  Then the sea scan's shapes timed: the wrapper
-    (CUDA events), the plain versions, the kernel's device time
-    (torch.profiler) beside its bound.  Returns the records."""
+def sea_build_report(hk) -> dict:
+    """What the build says of K1-sea's kernels (``hk.build_report``:
+    ptxas -v and cuobjdump -sass of the library): every f64 fused pass
+    issues DMMA (its mode sums on the FP64 tensor cores), no f32 one
+    issues HMMA (no TF32), and no sea kernel spills.  Returns {instance:
+    registers, stack, spill bytes, DMMA, HMMA} and the first DMMA's
+    text."""
+    import re
+    rep = hk.build_report("morison_phase_batch")
+    out = {}
+    for name, r in rep.items():
+        m = re.search(r"morison_sea_(kernel|records_kernel)I([fd])Lb([01])"
+                      r"(?:ELb([01]))?", name)
+        if m is None:
+            continue
+        label = ("fused" if m[1] == "kernel" else "records") + " " \
+            + {"f": "f32", "d": "f64"}[m[2]] + "".join(
+                f" {f}={b}" for f, b in zip(
+                    ("wheeler", "spread") if m[4] else ("spread",),
+                    m.groups()[2:]) if b is not None)
+        out[label] = {k: r.get(k) for k in ("registers", "stack",
+                                            "spill_stores", "spill_loads",
+                                            "DMMA", "HMMA")}
+        print(f"[build] K1-sea {label}: {out[label]}", flush=True)
+    fused = {k: v for k, v in out.items() if k.startswith("fused")}
+    check(len(fused) == 8 and len(out) == 12, f"K1-sea: 8 fused and 4 "
+          f"records instances in the library ({len(fused)}, "
+          f"{len(out) - len(fused)})")
+    check(all((v["DMMA"] or 0) > 0 for k, v in fused.items() if "f64" in k),
+          "every K1-sea f64 fused pass issues DMMA (FP64 tensor cores)")
+    check(all(v["HMMA"] == 0 for k, v in fused.items() if "f32" in k),
+          "no K1-sea f32 fused pass issues HMMA (no TF32)")
+    check(all(v["spill_stores"] == 0 and v["spill_loads"] == 0
+              for v in out.values()), "no K1-sea kernel spills (ptxas -v)")
+    first = next((r["first_dmma"] for n, r in rep.items()
+                  if "morison_sea_kernelId" in n and r.get("first_dmma")),
+                 None)
+    print(f"[build] K1-sea f64 first DMMA: {first}", flush=True)
+    return {"instances": out, "first_dmma": first}
+
+
+def k1_sea_phase(pt, hk, dev, coarse64, refined64):
+    """K1's general-mode (random sea) instance with per-member Cd / Cm: f32
+    against the plain version in f64 on the same f32-rounded inputs (1e-5
+    of the largest value, off the surface band) and f64 against f64
+    (1e-12), one launch a call on its instance's counter, bit-repeatable.
+    Shapes on the flagship mesh: N = 64 (the sea scan's: 2,048 samples,
+    Wheeler), 48 (a power-law current), 37 (N off the 16-mode chunk;
+    spread, Wheeler, S = 1,023 off the phase tile) and 256 (spread, S =
+    515); on the coarse jacket (51 members, fewer member tiles than a grid
+    row) Q = 7 (two members a tile; spread, Wheeler, N = 37, S = 515);
+    on the flagship mesh again Q = 8 (two members fill a tile; Wheeler)
+    and Q = 16 (one member fills it; spread, Wheeler), N = 37, S = 515.
+    Then the sea scan's shapes timed: the wrapper (CUDA events), the plain
+    versions, the kernel's device time (torch.profiler) beside its bound
+    and the mode sums alone as one ``torch.matmul``.  Returns the
+    records."""
     import numpy as np
     import torch
     from small_fem_solver_tpu_torch.ops.spectrum import morison_sea_end_forces
     f32, f64 = torch.float32, torch.float64
-    M = refined64.n_members
-    rng = np.random.default_rng(17)
-    D = refined64.sections.D_outer[refined64.sect_id] / 1000.0
-    Cd = torch.tensor(rng.uniform(0.6, 1.1, M), device=dev)
-    Cm = torch.tensor(rng.uniform(1.6, 2.1, M), device=dev)
     fields = ("F1", "F2", "total_drag", "total_inertia")
-    out = {"rel": {}, "abs": {}, "cases": []}
-    shapes = (("sea scan shapes, Wheeler", SEA_N, SEA_STEPS, None,
+    out = {"rel": {}, "abs": {}, "cases": [], "build": sea_build_report(hk)}
+    shapes = (("sea scan shapes, Wheeler", refined64, 15, SEA_N, SEA_STEPS,
+               None, "wheeler", None),
+              ("power-law current", refined64, 15, 48, SEA_STEPS, None,
+               "none", 1.0 / 7.0),
+              ("spread, Wheeler, N=37, S=1023", refined64, 15, 37, 1023,
+               SPREADING_S, "wheeler", None),
+              ("spread, N=256, S=515", refined64, 15, 256, 515, SPREADING_S,
+               "none", None),
+              ("coarse jacket, Q=7, spread, Wheeler", coarse64, 7, 37, 515,
+               SPREADING_S, "wheeler", None),
+              ("Q=8, Wheeler, N=37, S=515", refined64, 8, 37, 515, None,
                "wheeler", None),
-              ("power-law current", 48, SEA_STEPS, None, "none", 1.0 / 7.0),
-              ("spread, Wheeler, odd S", 37, 1023, SPREADING_S, "wheeler",
-               None),
-              ("spread, N=256", 256, 515, SPREADING_S, "none", None))
-    for label, N, S, spread, st, alpha in shapes:
+              ("Q=16, spread, Wheeler, N=37, S=515", refined64, 16, 37, 515,
+               SPREADING_S, "wheeler", None))
+    for label, model, Q, N, S, spread, st, alpha in shapes:
+        M = model.n_members
+        rng = np.random.default_rng(17)
+        D = model.sections.D_outer[model.sect_id] / 1000.0
+        Cd = torch.tensor(rng.uniform(0.6, 1.1, M), device=dev)
+        Cm = torch.tensor(rng.uniform(1.6, 2.1, M), device=dev)
         sea = pt.make_random_sea(SEA_HS, SEA_TP, SEA_D, n_components=N,
                                  seed=0, U_c=SEA_UC, spreading_s=spread,
                                  device=dev)
         ts = torch.arange(S, dtype=f64, device=dev) * SEA_TP / 10.0
-        kw = dict(current_alpha=alpha, stretching=st)
+        kw = dict(n_gauss=Q, current_alpha=alpha, stretching=st)
         for dtype, key, tol in ((f32, "sea_f32", KERNEL_TOL),
                                 (f64, "sea_f64", KERNEL_TOL_F64)):
-            ops = hk.cast_operands(dtype, dev, sea, refined64.coords, D,
+            ops = hk.cast_operands(dtype, dev, sea, model.coords, D,
                                    38.0, 38.0, Cd, Cm, 1025.0, ts)
             ref_ops = hk.cast_operands(f64, dev, *ops)
             before = hk.morison_phase_batch_cuda.instance_launches[key]
-            res = hk.morison_sea_batch_cuda(ops[0], ops[1], refined64.conn,
+            res = hk.morison_sea_batch_cuda(ops[0], ops[1], model.conn,
                                             *ops[2:], **kw)
-            again = hk.morison_sea_batch_cuda(ops[0], ops[1], refined64.conn,
+            again = hk.morison_sea_batch_cuda(ops[0], ops[1], model.conn,
                                               *ops[2:], **kw)
             torch.cuda.synchronize()
             n = hk.morison_phase_batch_cuda.instance_launches[key] - before
             ref = dict(zip(fields, morison_sea_end_forces(
-                ref_ops[0], ref_ops[1], refined64.conn, *ref_ops[2:], **kw)))
+                ref_ops[0], ref_ops[1], model.conn, *ref_ops[2:], **kw)))
             held = ""
             if dtype == f32:
                 # f32 against f64: the (sample, member) pairs with a point
-                # within SURFACE_BAND of the surface are held out (counted;
+                # within hk.SURFACE_BAND of the surface are held out (counted;
                 # their error printed), the totals of their samples too
-                near = surface_band(ref_ops[0], ref_ops[1], refined64.conn,
-                                    ref_ops[3], ref_ops[-1], SURFACE_BAND)
+                near = hk.surface_band(ref_ops[0], ref_ops[1], model.conn,
+                                       ref_ops[3], ref_ops[-1], n_gauss=Q)
                 keep_sm = ~near[..., None]
                 keep_s = ~near.any(dim=1)[:, None]
                 mask = {"F1": keep_sm, "F2": keep_sm, "total_drag": keep_s,
@@ -1616,15 +1691,16 @@ def k1_sea_phase(pt, hk, dev, refined64):
                                  / ref[f].abs().max()) for f in fields}
                 band_err = max(rel(getattr(res, f), ref[f]) for f in fields)
                 held = (f"; {int(near.sum())} of {near.numel()} (sample, "
-                        f"member) pairs within {SURFACE_BAND:g} m of the "
+                        f"member) pairs within {hk.SURFACE_BAND:g} m of the "
                         f"surface held out ({int((~keep_s).sum())} samples "
                         f"for the totals), largest error with them "
                         f"{band_err:.2e}")
             else:
                 keep_sm = torch.ones(1, dtype=torch.bool, device=dev)
                 errs = {f: rel(getattr(res, f), ref[f]) for f in fields}
-            print(f"[kernel sea] {key} {label}: S={S} M={M} N={N} max rel "
-                  "err " + " ".join(f"{f}={e:.2e}" for f, e in errs.items())
+            print(f"[kernel sea] {key} {label}: S={S} M={M} Q={Q} N={N} max "
+                  "rel err " + " ".join(f"{f}={e:.2e}"
+                                        for f, e in errs.items())
                   + held, flush=True)
             check(n == 2 and res.F1.dtype == dtype
                   and all(torch.isfinite(getattr(res, f)).all()
@@ -1643,12 +1719,16 @@ def k1_sea_phase(pt, hk, dev, refined64):
                       .abs().max()) for f in ("F1", "F2")))
             del ref
         out["cases"].append(label)
-    # the sea scan's shapes: wrapper, plain, device time, bound
+    # the sea scan's shapes: wrapper, plain, device time, bound, mode sums
+    M = refined64.n_members
+    rng = np.random.default_rng(17)
+    D = refined64.sections.D_outer[refined64.sect_id] / 1000.0
+    Cd = torch.tensor(rng.uniform(0.6, 1.1, M), device=dev)
+    Cm = torch.tensor(rng.uniform(1.6, 2.1, M), device=dev)
     sea = pt.make_random_sea(SEA_HS, SEA_TP, SEA_D, n_components=SEA_N,
                              seed=0, U_c=SEA_UC, device=dev)
     ts = torch.arange(SEA_STEPS, dtype=f64, device=dev) * SEA_TP / 10.0
-    for dtype, key, kname in ((f32, "sea_f32", "morison_sea_kernel<float"),
-                              (f64, "sea_f64", "morison_sea_kernel<double")):
+    for dtype, key in ((f32, "sea_f32"), (f64, "sea_f64")):
         ops = hk.cast_operands(dtype, dev, sea, refined64.coords, D, 38.0,
                                38.0, Cd, Cm, 1025.0, ts)
         args = (ops[0], ops[1], refined64.conn, *ops[2:])
@@ -1660,22 +1740,31 @@ def k1_sea_phase(pt, hk, dev, refined64):
         raw_ms = cuda_ms(lambda: hk.launch_morison_sea(k_ops, True), n=10)
         ev = device_events(lambda: hk.launch_morison_sea(k_ops, True),
                            SHORT_REPS // 5)
+        rec_us = kernel_median_us(ev, "morison_sea_records_kernel")
         pass_us = kernel_median_us(ev, "morison_sea_kernel")
         tot_us = kernel_median_us(ev, "morison_totals_kernel")
-        us = pass_us + tot_us
-        bound, by, gflop, mb = sea_bound(
-            ops[1].element_size(), SEA_STEPS, M, 15, SEA_N,
-            refined64.n_nodes, False, True)
+        us = rec_us + pass_us + tot_us
+        b = sea_bound(ops[1].element_size(), SEA_STEPS, M, 15, SEA_N,
+                      refined64.n_nodes, False, True)
+        lib_ms = sea_mode_sums_ms(sea, ts, M * 15, sea_fields(False, True),
+                                  dtype)
         out[key] = dict(ms=ms, plain_ms=plain_ms, device_us=us,
-                        launch_ms=raw_ms, bound_us=bound, bound_by=by)
+                        launch_ms=raw_ms, bound_us=b["us"], bound_by=b["by"],
+                        bound_form=b["form"], library_ms=lib_ms)
         print(f"[bound] {SMI}: K1 {key} at the sea scan's shapes (S="
               f"{SEA_STEPS}, M={M}, N={SEA_N}, Wheeler) {us:.1f} us on the "
-              f"device (median launch: pass {pass_us:.1f} + totals "
+              f"device (median launch: records {rec_us:.1f} + pass "
+              f"{pass_us:.1f} + totals "
               f"{tot_us:.1f}; the launch alone {raw_ms:.3f} ms, CUDA "
-              f"events); bound {bound:.1f} us by {by} ({gflop:.1f} GFLOP, "
-              f"{mb:.1f} MB): {bound / us:.0%} of the bound; wrapper "
-              f"{ms:.3f} ms vs plain {plain_ms:.3f} ms (torch.profiler, CUDA "
-              "events)", flush=True)
+              f"events); bound {b['us']:.1f} us by {b['by']} ({b['form']} "
+              f"form; mode sums {b['matrix_gflop']:.1f} GFLOP as a matrix "
+              f"product, {b['angle_gflop']:.1f} as angle differences, + "
+              f"{b['epilogue_gflop']:.1f} epilogue; {b['mb']:.1f} MB): "
+              f"{b['us'] / us:.0%} of the bound; wrapper {ms:.3f} ms vs "
+              f"plain {plain_ms:.3f} ms; mode sums alone as one "
+              f"torch.matmul [{SEA_STEPS}, {2 * SEA_N}] @ [{2 * SEA_N}, "
+              f"{M * 15 * sea_fields(False, True)}] {lib_ms:.3f} ms "
+              "(torch.profiler, CUDA events)", flush=True)
     return out
 
 
@@ -1757,12 +1846,12 @@ def sea_phase(pt, hk, dev, coarse64, refined64, prep32, prep64, cpu,
         rec[label]["first_s"] = first
         runs[label] = res
     s32, s64 = runs["sea scan f32"], runs["sea scan f64"]
-    # the samples at which a Gauss point lies within SURFACE_BAND of the
+    # the samples at which a Gauss point lies within hk.SURFACE_BAND of the
     # f64 surface: there f32 rounding can flip the point wet / dry (a jump
     # of its whole share), and each sample's solve is its own
-    near = surface_band(sea(f64, dev), refined64.coords, refined64.conn,
-                        CASE["wave_dir_deg"], ts.to(f64).to(dev),
-                        SURFACE_BAND).any(dim=1)
+    near = hk.surface_band(sea(f64, dev), refined64.coords, refined64.conn,
+                           CASE["wave_dir_deg"],
+                           ts.to(f64).to(dev)).any(dim=1)
     keep = ~near
 
     def f32_errs(k):
@@ -1779,7 +1868,7 @@ def sea_phase(pt, hk, dev, coarse64, refined64, prep32, prep64, cpu,
     print(f"[sea] f32 scan vs f64 scan ({SEA_STEPS} samples): "
           + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
           + f"; the {int(keep.sum())} samples with no Gauss point within "
-          f"{SURFACE_BAND:g} m of the surface: "
+          f"{hk.SURFACE_BAND:g} m of the surface: "
           + ", ".join(f"{k} {v:.2e}" for k, v in errs_off.items())
           + f"; max utilization {float(s64.utilization.max()):.6f} at "
           f"t = {float(s64.ts[s64.critical_index]):.2f} s", flush=True)
@@ -2760,7 +2849,7 @@ def main() -> int:
 
     # ---- 17-21. irregular seas and the frequency domain ----
     t0 = time.perf_counter()
-    ksea = k1_sea_phase(pt, hk, dev, refined64)
+    ksea = k1_sea_phase(pt, hk, dev, coarse64, refined64)
     print(f"[kernel sea] phase {time.perf_counter() - t0:.2f} s wall",
           flush=True)
     t0 = time.perf_counter()
@@ -2839,6 +2928,7 @@ def main() -> int:
                       "shapes": f"S={SEA_STEPS}, M={refined64.n_members}, "
                                 f"N={SEA_N}, Wheeler"}
                 for key in ("sea_f32", "sea_f64")},
+        "sea_build": ksea["build"],
         "f64": {"max_abs_err": k64["abs"], "max_rel_err": k64["rel"],
                 "ms": k64_ms, "plain_ms": p64_ms, "device_us": k64_us,
                 "bound_ms": k64_bound / 1e3, "bound_by": k64_by},

@@ -678,40 +678,202 @@ bool valid(const ParamsT<T>* p) {
 // General-mode instance (random seas), float32 and float64
 // ---------------------------------------------------------------------------
 //
-// The same function over an arbitrary mode set: mode i has its own k_i,
+// Replaces, for a general mode set, the same Pallas TPU kernel as above
+// (small_fem_solver_tpu/ops/pallas_kernels.py:229, morison_phase_batch_pallas):
+// the function of ops/spectrum.py::morison_sea_end_forces (the JAX
+// package's _morison_batch_core with rel_dir_deg).  Mode i has its own k_i,
 // omega_i, E_i, U_i, spatial phase phi_i and, for a short-crested sea, its
-// own heading (wave_dir + dir_i), as ops/spectrum.py::morison_sea_batch
-// computes it (the JAX package's _morison_batch_core with rel_dir_deg).
-// The frequencies are not harmonics, so angle addition does not apply: as
-// in the TPU kernel, the wrapper builds the phase table cos / sin(omega_i
-// t_s) [S, 2N] (in float64, then cast) and the kernel reads it.
+// own heading (wave_dir + dir_i).  The frequencies are not harmonics, so
+// angle addition does not apply: the wrapper builds the phase table
+// cos / sin(omega_i t_s) [S, 2N] (in float64, then cast) and the kernel
+// reads it.
 //
-// Layout.  A block is 32 phases x 16 point lanes (512 threads): thread
-// (phase s, point q) owns the mode sums of one quadrature point at one
-// phase, in registers.  Blocks walk a fixed stride of members
-// (grid.y); for each member the modes stream through shared memory in
-// tiles of 32: the tile's records cos / sin(k_i x_q + phi_i), U_i C_i(z_q),
-// U_i S_i(z_q) [32 modes][16 points] are built by the block, and its phase
-// factors [32 phases][32 modes] copied from the table, so N has no limit.
-// After the last tile each thread forms its point's drag and inertia;
-// the 16 lanes of a phase add their member's sums by a fixed shuffle tree,
-// and lane 0 writes F1 / F2 and keeps the phase's running totals.  Totals
-// go through the same fixed-order second pass as above: bit-repeatable.
+// The mode sums.  With theta_i = k_i x + phi_i - omega_i t every field of a
+// (phase s, point p) is sum_i c_fi cos(theta_i) (eta, u, dw/dt and their
+// z-derivatives) or sum_i c_fi sin(theta_i) (w, du/dt, ...), where the
+// record c_fi folds every per-(point, mode) factor the field needs (E_i,
+// U_i C_i(z), omega_i U_i S_i(z), k_i and k_i^2 for Wheeler's rows, the
+// heading weights of a spread sea): F fields, 5 (7 spread), 13 (19) with
+// Wheeler.  Two forms compute them:
+//   angle difference: cp = cos(k x + phi) ct + sin(k x + phi) st, sp = ...
+//     per (s, p, i) from the table's ct, st, then one FMA per field:
+//     6 + 2F FLOP per item;
+//   matrix product: D[s, (p, f)] = sum_k A[s, k] B[k, (p, f)] with A the
+//     table [S, 2N] and B[(i, cos), (p, f)] = c cos(k x + phi) (or c sin),
+//     B[(i, sin), (p, f)] = c sin(k x + phi) (or -c cos): 4F FLOP per item.
 //
-// Bounds.  2 x 2N x F FLOP per (phase, point) for the mode sums (F = 5
-// fields, 7 for a spread sea; 13 / 19 with Wheeler) plus the epilogue.
-// The records are rebuilt per 32-phase block (a sincos and two exp per
-// point and mode, a few per cent of the mode sums).  Each (phase, point,
-// mode) reads its record and phase factors from shared memory (24 bytes
-// in f32, 48 in f64), which likely bounds this simple form: on an H100 it
-// measured ~39% of its FP32 bound and ~20% of its FP64 one, and the f64
-// time per phase does not fall without Wheeler's rows.
+// Records pass.  morison_sea_records_kernel computes, once a launch, what
+// depends on a point and a mode but not on the phase: for every (point,
+// mode) cos / sin (k x + phi), U C(z), U S(z) (a sincos and two exp), for
+// every point its position, current, member axis and drag / inertia
+// factors, for every mode E, omega, k and the heading weights, into a
+// scratch buffer the wrapper allocates (25 MB f32, 50 MB f64 at the sea
+// scan's shapes).  The fused pass then reads only shared memory between
+// its barriers: its global inputs all arrive by cp.async.
+//
+// Tiles and pipeline.  A block (one an SM) owns a tile of phases (64 in
+// float64, 128 in float32) and walks member tiles of 16 point slots (the
+// Q points of one member for Q > 8, of two for Q <= 8, padded) with a
+// fixed stride over grid.y (at most SEA_ROWS rows), so the grid depends
+// only on the shapes.  The modes run in chunks of SEA_CHUNK = 16 (any N,
+// the last chunk zero-padded).  A step is one (member tile, chunk); the
+// steps of all the block's tiles form one pipeline with one barrier a
+// step: while step t is summed, the table slice of step t + 1 [phases x 2
+// x 16] and the records of step t + 2 arrive by cp.async (double
+// buffered; a tile's slot data with its first step, a ring of 4 tiles),
+// and the records of step t + 1 are folded into its coefficient tile.
+// In float64 at F <= 13 a third warpgroup (the producers) issues the
+// copies and folds while two warpgroups (the summers) run the mode sums,
+// epilogue and reductions: 384 threads at 168 registers, no spill.  Where
+// the summers' registers do not fit beside it (float32, F = 19) the 256
+// summing threads stage and fold themselves.
+//
+// Float64: the matrix-product form on the FP64 tensor cores.  A warp owns
+// 16 phases x 8 slots x all F fields: F accumulator tiles of
+// mma.sync.m16n8k4.f64 (the 16 x 8 tile of field f over the warp's phases
+// and slots), each k-step two modes (cos, sin rows interleaved), A from
+// the staged table, B from the coefficient tile.  Every DMMA product is a
+// full f64 FMA: only the order of the sums changes.  A lane ends with all
+// F fields of 2 phases x 2 slots in registers, so the epilogue needs no
+// transpose.
+//
+// Float32: register-blocked FP32 FMAs in the angle-difference form (no
+// tensor cores, no TF32).  A thread owns 8 phases x 1 slot x F fields:
+// per mode it reads its 8 (ct, st) pairs (four 16-byte loads, shared by
+// the 16 lanes of a phase group) and its slot's record (F + 2 values in
+// 16-byte quads, slot-minor, so a quarter warp reads 128 contiguous
+// bytes), forms cp, sp per phase and adds one FMA per field: 8 (4 + F)
+// FMAs for 16 + F + 2 values read, 4.25 a value at F = 13.  The
+// matrix-product form in the same tiles needs 2F FMAs per phase and 2F
+// record values: 1.5x the FMAs and 1.75x the record bytes read for the
+// same sums at F = 13.  A draft of it in these tiles ran slower than the
+// angle form on an H100, so only the angle form is kept.
+//
+// Epilogue (both), after a tile's last step.  Per (phase, slot): Wheeler's
+// Taylor stretch with its +-d clip, the wet mask, drag and inertia,
+// written [phase][slot][6] into shared memory; then one thread per
+// (phase, component) adds each member's points in order (F2 = sum s_q f,
+// F1 = sum f - F2), writes F1 / F2 and keeps the phase's running totals of
+// that component, which go through the fixed-order second pass
+// (morison_totals_kernel).  No float atomics: bit-repeatable.
+//
+// Bounds.  At the sea scan's shapes (S 2,048, M 1,632, Q 15, N 64,
+// Wheeler: F = 13) the matrix form is 166.8 GFLOP and the angle form 102.7:
+// f32 1.58 ms at 67 TFLOP/s (angle form), f64 2.58 ms at the FP64 tensor
+// cores' 67 (the angle form at 34 would take 3.1).  Measured on an H100
+// (chip_smoke.py, PERF.md §6): f64 ~46% of its bound, its fold, copies and
+// member sums overlapping the DMMA sums only in part; f32 ~39%, co-bound
+// by shared-memory bandwidth (32 floats read per 136 FMAs a thread and
+// mode: the SM's 128 bytes a clock match its FMA issue rate at that
+// ratio).  Registers (-Xptxas -v, as chip_smoke.py's build report prints
+// them; no spill anywhere, no stack in the fused passes, 32-40 bytes in
+// the records passes): f64 168 at F = 5, 7, 13 (384 threads), 244 at
+// F = 19; f32 120, 128, 192, 229 at F = 5, 7, 13, 19.  Dynamic shared
+// memory: f64 150.5 / 166.5 / 214.5 / 214 KB, f32 109.5 / 117.5 / 125.5 /
+// 141.5 KB.
 
-constexpr int SEA_PHASES = 32;        // phases a block
-constexpr int SEA_LANES = 16;         // point lanes a phase (MAX_GAUSS)
-constexpr int SEA_THREADS = SEA_PHASES * SEA_LANES;
-constexpr int SEA_TILE = 32;          // modes a shared-memory tile
-constexpr int SEA_MEMBER_BLOCKS = 512;
+constexpr int SEA_THREADS = 256;
+constexpr int SEA_SLOTS = 16;                 // point slots a tile (MAX_GAUSS)
+constexpr int SEA_CHUNK = 16;                 // modes a pipeline step
+constexpr int SEA_ROWS = 128;                 // grid rows (member-tile walkers)
+constexpr int SEA_SLOT_RING = 4;              // tiles of slot data in flight
+constexpr int SEA_EPI = SEA_SLOTS * 6 + 1;    // a phase's row of point forces
+constexpr int SEA_SMEM = 232448;              // shared memory a block may use
+// per-slot data: wave-frame x (or plan x), y, z, current x / y, member axis,
+// drag and inertia factors, Gauss abscissa, live flag
+enum { SL_PX, SL_PY, SL_Z, SL_UCX, SL_UCY, SL_EX, SL_EY, SL_EZ, SL_CD, SL_CI,
+       SL_SQ, SL_LIVE, SLOT_W };
+// per-(point, mode) record: cos, sin (k x + phi), U C(z), U S(z)
+enum { RC_CX, RC_SX, RC_UC, RC_US, REC_W };
+// per-mode factors: E, omega, k, heading cos / sin (1, 0 long-crested)
+enum { MD_E, MD_OM, MD_K, MD_HX, MD_HY, MODE_W = 8 };
+
+#pragma nv_diag_suppress 177   // field indices an instance does not use
+// The fields of one (phase, point): the cos-type fields first, then the
+// sin-type ones.  Absent fields have index -1.
+template <bool WHEELER, bool SPREAD>
+struct SeaLayout {
+  static constexpr int NZ = WHEELER ? (SPREAD ? 6 : 4) : 0;
+  static constexpr int NCOS = (SPREAD ? 4 : 3) + NZ;
+  static constexpr int NSIN = (SPREAD ? 3 : 2) + NZ;
+  static constexpr int F = NCOS + NSIN;
+  static constexpr int ETA = 0, UX = 1, DW = 2, UY = SPREAD ? 3 : -1;
+  static constexpr int UX_Z = WHEELER ? (SPREAD ? 4 : 3) : -1;
+  static constexpr int DW_Z = WHEELER ? UX_Z + 1 : -1;
+  static constexpr int UX_ZZ = WHEELER ? UX_Z + 2 : -1;
+  static constexpr int DW_ZZ = WHEELER ? UX_Z + 3 : -1;
+  static constexpr int UY_Z = WHEELER && SPREAD ? UX_Z + 4 : -1;
+  static constexpr int UY_ZZ = WHEELER && SPREAD ? UX_Z + 5 : -1;
+  static constexpr int W = NCOS, DUX = NCOS + 1, DUY = SPREAD ? NCOS + 2 : -1;
+  static constexpr int W_Z = WHEELER ? NCOS + (SPREAD ? 3 : 2) : -1;
+  static constexpr int DUX_Z = WHEELER ? W_Z + 1 : -1;
+  static constexpr int W_ZZ = WHEELER ? W_Z + 2 : -1;
+  static constexpr int DUX_ZZ = WHEELER ? W_Z + 3 : -1;
+  static constexpr int DUY_Z = WHEELER && SPREAD ? W_Z + 4 : -1;
+  static constexpr int DUY_ZZ = WHEELER && SPREAD ? W_Z + 5 : -1;
+};
+#pragma nv_diag_default 177
+
+// Shared-memory geometry of one instance (in elements of T).
+template <typename T, bool WHEELER, bool SPREAD>
+struct SeaGeom {
+  static constexpr bool F64 = sizeof(T) == 8;
+  static constexpr int F = SeaLayout<WHEELER, SPREAD>::F;
+  static constexpr int TS = F64 ? 64 : 128;      // phases a block tile
+  static constexpr int PH = 8;                   // f32: phases a thread
+  // f64 up to F = 13: a producer warpgroup (copies, B tiles) beside the
+  // two summing ones, 168 registers a thread; elsewhere the summers'
+  // registers do not fit beside it, and they stage and build themselves
+  static constexpr bool WS = F64 && F <= 13;
+  static constexpr int THREADS = SEA_THREADS + (WS ? 128 : 0);
+  static constexpr int PRODUCERS = WS ? 128 : SEA_THREADS;
+  // staged table: f64 [TS][AS] with (cos, sin) of a mode side by side,
+  // f32 [cos 16 | sin 16][AS] over the tile's phases; the padding keeps the
+  // fragment / vector loads free of bank conflicts
+  static constexpr int AS = F64 ? 2 * SEA_CHUNK + 4 : TS + 4;
+  static constexpr int TAB = F64 ? TS * AS : 2 * SEA_CHUNK * AS;
+  // f32 record [mode][quad][slot][4]: cos, sin (k x + phi) and F factors
+  static constexpr int NQ = (F + 2 + 3) / 4;
+  // f64 coefficient tile [2 x 16 rows][F][16 slots], row = 4 mod 16 doubles
+  static constexpr int RS = F * SEA_SLOTS + 4;
+  static constexpr int COEF = F64 ? 2 * SEA_CHUNK * RS
+                                  : SEA_CHUNK * NQ * SEA_SLOTS * 4;
+  static constexpr int BUF = TAB + COEF;         // a step's table and tile
+  // a step's staged records [16 modes][16 slots][REC_W] and mode factors
+  static constexpr int RAW = SEA_CHUNK * (SEA_SLOTS * REC_W + MODE_W);
+  static constexpr int EPI = TS * SEA_EPI;
+  static constexpr int SLOTS = SEA_SLOT_RING * SEA_SLOTS * SLOT_W;
+  // the point forces get their own region where it fits, else they reuse
+  // the buffer the tile's last step has drained
+  static constexpr bool EPI_OWN =
+      sizeof(T) * (2 * BUF + 2 * RAW + EPI + SLOTS) <= SEA_SMEM;
+  static constexpr int RAW_AT = 2 * BUF;
+  static constexpr int EPI_AT = RAW_AT + 2 * RAW;
+  static constexpr int SLOTS_AT = EPI_AT + (EPI_OWN ? EPI : 0);
+  static constexpr size_t BYTES = sizeof(T) * (SLOTS_AT + SLOTS);
+  static_assert(EPI_OWN || BUF >= EPI, "point forces fit no buffer");
+  static_assert(BYTES <= SEA_SMEM, "shared memory of a block");
+};
+
+// The records pass's output in the scratch buffer: records [rows][N]
+// [REC_W], slot table [rows][SLOT_W], mode table [N][MODE_W]; rows = M Q
+// (member-major).
+template <typename T>
+struct SeaScratch {
+  T* rec;
+  T* slot;
+  T* mode;
+  __host__ __device__ SeaScratch(const SeaParamsT<T>& p, T* base) {
+    const long long rows = (long long)p.M * p.n_gauss;
+    rec = base;
+    slot = rec + rows * p.N * REC_W;
+    mode = slot + rows * SLOT_W;
+  }
+  static long long elems(const SeaParamsT<T>& p) {
+    const long long rows = (long long)p.M * p.n_gauss;
+    return rows * p.N * REC_W + rows * SLOT_W + (long long)p.N * MODE_W;
+  }
+};
 
 template <typename T>
 __device__ __forceinline__ void sincos_t(T x, T* s, T* c);
@@ -737,217 +899,598 @@ __device__ __forceinline__ void sincospi_t<double>(double x, double* s,
   sincospi(x, s, c);
 }
 
-// The mode sums of one (phase, point).  Long-crested seas keep the
-// horizontal fields along the heading (ux, dux); spread seas resolve them
-// into x (ux, dux) and y (uy, duy) with per-mode direction weights.
+// Copies global -> shared that bypass the registers: one element, or 16
+// bytes; a false ``pred`` fills the destination with zeros (src is not
+// read).
 template <typename T>
-struct SeaFields {
-  T eta = 0, ux = 0, uy = 0, w = 0, dux = 0, duy = 0, dw = 0;
-  T ux_z = 0, uy_z = 0, w_z = 0, dux_z = 0, duy_z = 0, dw_z = 0;
-  T ux_zz = 0, uy_zz = 0, w_zz = 0, dux_zz = 0, duy_zz = 0, dw_zz = 0;
-};
+__device__ __forceinline__ void cp_async(T* dst, const T* src, bool pred) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+               "l"(src), "n"(sizeof(T)), "r"(pred ? (int)sizeof(T) : 0));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
 
+// c[16 x 8] += a[16 x 4] b[4 x 8] on the FP64 tensor cores (lane l holds
+// a(l/4, l%4), a(l/4 + 8, l%4); b(l%4, l/4); c rows l/4 and l/4 + 8, columns
+// 2 (l%4) and 2 (l%4) + 1).
+__device__ __forceinline__ void dmma_16x8x4(double* c, double a0, double a1,
+                                            double b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
+// The per-(point, mode) factor c_f of every field (SeaLayout order).
 template <typename T, bool WHEELER, bool SPREAD>
-__global__ void __launch_bounds__(SEA_THREADS)
-morison_sea_kernel(const SeaParamsT<T> p) {
-  // records [mode][point][4]: cos, sin (k x + phi), U C(z), U S(z)
-  __shared__ T rec[SEA_TILE][SEA_LANES][4];
-  __shared__ T pc[SEA_PHASES][SEA_TILE], ps[SEA_PHASES][SEA_TILE];
-  // per mode: E, k, omega, heading cos / sin (spread seas)
-  __shared__ T mE[SEA_TILE], mk[SEA_TILE], mw[SEA_TILE], mcw[SEA_TILE],
-      msw[SEA_TILE];
-  __shared__ T pts[SEA_LANES][4];   // x, y (or wave-frame x), z per point
-  const int N = p.N, Q = p.n_gauss, M = p.M, S = p.S;
-  const int tid = threadIdx.x;
-  const int q = tid % SEA_LANES, ph = tid / SEA_LANES;
-  const int s_ph = blockIdx.x * SEA_PHASES + ph;
-  const bool live = s_ph < S && q < Q;
+__device__ __forceinline__ void sea_fold(T E, T hx, T hy, T om, T k, T UC,
+                                         T US, T* c) {
+  using L = SeaLayout<WHEELER, SPREAD>;
+  c[L::ETA] = E;
+  c[L::UX] = hx * UC;
+  c[L::DW] = -om * US;
+  c[L::W] = US;
+  c[L::DUX] = hx * (om * UC);
+  if constexpr (SPREAD) {
+    c[L::UY] = hy * UC;
+    c[L::DUY] = hy * (om * UC);
+  }
+  if constexpr (WHEELER) {
+    // d/dz: C' = k S, S' = k C; d^2/dz^2: C'' = k^2 C, S'' = k^2 S
+    const T kUC = k * UC, kUS = k * US, k2UC = k * kUC, k2US = k * kUS;
+    c[L::UX_Z] = hx * kUS;
+    c[L::DW_Z] = -om * kUC;
+    c[L::UX_ZZ] = hx * k2UC;
+    c[L::DW_ZZ] = -om * k2US;
+    c[L::W_Z] = kUC;
+    c[L::DUX_Z] = hx * (om * kUS);
+    c[L::W_ZZ] = k2US;
+    c[L::DUX_ZZ] = hx * (om * k2UC);
+    if constexpr (SPREAD) {
+      c[L::UY_Z] = hy * kUS;
+      c[L::UY_ZZ] = hy * k2UC;
+      c[L::DUY_Z] = hy * (om * kUS);
+      c[L::DUY_ZZ] = hy * (om * k2UC);
+    }
+  }
+}
 
-  const T d = p.d[0];
+// The records pass: for every (point row r = m Q + q, mode j) the record
+// cos / sin (k x + phi), U C(z), U S(z); for j = 0 the point's slot data
+// (position, current, member axis, drag and inertia factors); for r = 0
+// the mode's factors.  One thread an item, grid-stride.
+template <typename T, bool SPREAD>
+__global__ void __launch_bounds__(256)
+morison_sea_records_kernel(const SeaParamsT<T> p, T* scratch) {
+  const SeaScratch<T> out(p, scratch);
+  const int N = p.N, Q = p.n_gauss;
+  const long long items = (long long)p.M * Q * N;
+  const T d = p.d[0], wave_dir = operand(p.wave_dir, 0);
   T sin_w, cos_w, sin_c, cos_c;
-  sincospi_t<T>((T(90) - operand(p.wave_dir, 0)) / T(180), &sin_w, &cos_w);
+  sincospi_t<T>((T(90) - wave_dir) / T(180), &sin_w, &cos_w);
   sincospi_t<T>((T(90) - operand(p.current_dir, 0)) / T(180), &sin_c,
                 &cos_c);
-  const T wave_dir = operand(p.wave_dir, 0);
-  T tot[6] = {0, 0, 0, 0, 0, 0};
-
-  for (int m = blockIdx.y; m < M; m += gridDim.y) {
+  for (long long it = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       it < items; it += (long long)gridDim.x * blockDim.x) {
+    const long long r = it / N;
+    const int j = (int)(it - r * N), m = (int)(r / Q), q = (int)(r - m * Q);
     const long long n1 = p.conn[2 * m], n2 = p.conn[2 * m + 1];
     const T x1 = p.coords[3 * n1], y1 = p.coords[3 * n1 + 1],
             z1 = p.coords[3 * n1 + 2];
     const T dx = p.coords[3 * n2] - x1, dy = p.coords[3 * n2 + 1] - y1,
             dzm = p.coords[3 * n2 + 2] - z1;
-    const T L = sqrt(dx * dx + dy * dy + dzm * dzm);
-    const T ex = dx / L, ey = dy / L, ez = dzm / L;
-    // this thread's point
-    const int qq = q < Q ? q : 0;
-    const T sq = p.s[qq];
+    const T sq = p.s[q];
     const T x = x1 + sq * dx, y = y1 + sq * dy, z = z1 + sq * dzm;
-    if (ph == 0 && q < Q) {
-      pts[q][0] = SPREAD ? x : x * cos_w + y * sin_w;
-      pts[q][1] = y;
-      pts[q][2] = z;
+    const T px = SPREAD ? x : x * cos_w + y * sin_w;
+    if (j == 0) {
+      const T L = sqrt(dx * dx + dy * dy + dzm * dzm);
+      T uc = p.Uc[0];
+      if (p.power_law) {
+        const T frac = fmin(fmax((z + d) / d, T(0)), T(1));
+        uc *= pow(frac, operand(p.alpha, 0));
+      }
+      const T D = p.D[m], rho = operand(p.rho, 0), Lw = L * p.w[q];
+      T* sd = out.slot + r * SLOT_W;
+      sd[SL_PX] = px;
+      sd[SL_PY] = y;
+      sd[SL_Z] = z;
+      sd[SL_UCX] = uc * cos_c;
+      sd[SL_UCY] = uc * sin_c;
+      sd[SL_EX] = dx / L;
+      sd[SL_EY] = dy / L;
+      sd[SL_EZ] = dzm / L;
+      sd[SL_CD] = T(0.5) * rho * operand(p.Cd, m) * D * Lw;
+      sd[SL_CI] = rho * operand(p.Cm, m) * (T(kPi64) * D * D / T(4)) * Lw;
+      sd[SL_SQ] = sq;
+      sd[SL_LIVE] = 1;
     }
-    SeaFields<T> f;
-    for (int t0 = 0; t0 < N; t0 += SEA_TILE) {
-      const int nt = min(SEA_TILE, N - t0);
-      __syncthreads();   // the previous tile is read; pts are written
-      if (tid < nt) {
-        const int j = t0 + tid;
-        mE[tid] = p.E[j];
-        mk[tid] = p.k[j];
-        mw[tid] = p.omega[j];
-        if (SPREAD) {
-          T sd, cd;
-          sincospi_t<T>((T(90) - (wave_dir + p.dir[j])) / T(180), &sd, &cd);
-          mcw[tid] = cd;
-          msw[tid] = sd;
-        }
-      }
-      for (int i = tid; i < SEA_PHASES * nt; i += SEA_THREADS) {
-        const int r = i / nt, j = i % nt;
-        const int s = blockIdx.x * SEA_PHASES + r;
-        const size_t o = (size_t)(s < S ? s : 0) * 2 * N + t0 + j;
-        pc[r][j] = p.phase[o];
-        ps[r][j] = p.phase[o + N];
-      }
-      __syncthreads();   // mode data and headings
-      for (int i = tid; i < nt * SEA_LANES; i += SEA_THREADS) {
-        const int j = i / SEA_LANES, qr = i % SEA_LANES;
-        if (qr >= Q) continue;
-        const T kj = mk[j], U = p.U[t0 + j];
-        const T xr = pts[qr][0], zr = pts[qr][2];
-        const T proj = SPREAD ? xr * mcw[j] + pts[qr][1] * msw[j] : xr;
-        T sx, cx;
-        sincos_t<T>(kj * proj + p.phi[t0 + j], &sx, &cx);
-        // overflow-safe cosh(A)/cosh(B), sinh(A)/cosh(B), A = k (z + d)
-        const T A = kj * (zr + d), B = kj * d, Aa = fabs(A);
-        const T scale = exp(Aa - B) / (T(1) + exp(T(-2) * B));
-        const T e2 = exp(T(-2) * Aa);
-        const T sgn = (A > T(0)) ? T(1) : ((A < T(0)) ? T(-1) : T(0));
-        rec[j][qr][0] = cx;
-        rec[j][qr][1] = sx;
-        rec[j][qr][2] = U * scale * (T(1) + e2);
-        rec[j][qr][3] = U * sgn * scale * (T(1) - e2);
-      }
-      __syncthreads();
-      if (!live) continue;
-      for (int j = 0; j < nt; ++j) {
-        const T cx = rec[j][q][0], sx = rec[j][q][1];
-        const T UC = rec[j][q][2], US = rec[j][q][3];
-        const T ct = pc[ph][j], st = ps[ph][j];
-        // cos / sin of (k x + phi - omega t)
-        const T cp = cx * ct + sx * st, sp = sx * ct - cx * st;
-        const T jw = mw[j];
-        const T ucw = jw * UC, nusw = -jw * US;
-        const T hx = SPREAD ? mcw[j] : T(1), hy = SPREAD ? msw[j] : T(0);
-        f.eta += mE[j] * cp;
-        f.ux += hx * UC * cp;
-        f.w += US * sp;
-        f.dux += hx * ucw * sp;
-        f.dw += nusw * cp;
-        if (SPREAD) {
-          f.uy += hy * UC * cp;
-          f.duy += hy * ucw * sp;
-        }
-        if (WHEELER) {
-          // d/dz: C' = k S, S' = k C; d^2/dz^2: C'' = k^2 C, S'' = k^2 S
-          const T kj = mk[j];
-          const T t1 = kj * cp, t2 = kj * sp;
-          f.ux_z += hx * US * t1;
-          f.w_z += UC * t2;
-          f.dux_z += hx * -nusw * t2;
-          f.dw_z += -ucw * t1;
-          const T t3 = kj * t1, t4 = kj * t2;
-          f.ux_zz += hx * UC * t3;
-          f.w_zz += US * t4;
-          f.dux_zz += hx * ucw * t4;
-          f.dw_zz += nusw * t3;
-          if (SPREAD) {
-            f.uy_z += hy * US * t1;
-            f.duy_z += hy * -nusw * t2;
-            f.uy_zz += hy * UC * t3;
-            f.duy_zz += hy * ucw * t4;
-          }
-        }
-      }
+    const T kj = p.k[j];
+    T hx = 1, hy = 0, proj = px;
+    if constexpr (SPREAD) {
+      sincospi_t<T>((T(90) - (wave_dir + p.dir[j])) / T(180), &hy, &hx);
+      proj = px * hx + y * hy;
     }
-
-    // this point's drag and inertia (zero for idle lanes and dry points)
-    T gx = 0, gy = 0, gz = 0, ix = 0, iy = 0, iz = 0;
-    if (live) {
-      if (WHEELER) {
-        T dzw = -(z + d) * f.eta / (d + f.eta);
-        dzw = fmin(fmax(dzw, -d), d);
-        const T h2 = T(0.5) * dzw * dzw;
-        f.ux = f.ux + dzw * f.ux_z + h2 * f.ux_zz;
-        f.w = f.w + dzw * f.w_z + h2 * f.w_zz;
-        f.dux = f.dux + dzw * f.dux_z + h2 * f.dux_zz;
-        f.dw = f.dw + dzw * f.dw_z + h2 * f.dw_zz;
-        if (SPREAD) {
-          f.uy = f.uy + dzw * f.uy_z + h2 * f.uy_zz;
-          f.duy = f.duy + dzw * f.duy_z + h2 * f.duy_zz;
-        }
-      }
-      if (z <= f.eta) {
-        T uc = p.Uc[0];
-        if (p.power_law) {
-          const T frac = fmin(fmax((z + d) / d, T(0)), T(1));
-          uc *= pow(frac, operand(p.alpha, 0));
-        }
-        const T wx = SPREAD ? f.ux : f.ux * cos_w;
-        const T wy = SPREAD ? f.uy : f.ux * sin_w;
-        const T ax = SPREAD ? f.dux : f.dux * cos_w;
-        const T ay = SPREAD ? f.duy : f.dux * sin_w;
-        const T Ux = wx + uc * cos_c, Uy = wy + uc * sin_c, Uz = f.w;
-        const T Az = f.dw;
-        const T Ue = Ux * ex + Uy * ey + Uz * ez;
-        const T Ae = ax * ex + ay * ey + Az * ez;
-        const T Upx = Ux - Ue * ex, Upy = Uy - Ue * ey, Upz = Uz - Ue * ez;
-        const T Umag = sqrt(Upx * Upx + Upy * Upy + Upz * Upz);
-        const T D = p.D[m], rho = operand(p.rho, 0), Lw = L * p.w[q];
-        const T cd = T(0.5) * rho * operand(p.Cd, m) * D * Lw;
-        const T ci = rho * operand(p.Cm, m) * (T(kPi64) * D * D / T(4)) * Lw;
-        const T cdf = (Umag > T(1e-10)) ? cd * Umag : T(0);
-        gx = cdf * Upx; gy = cdf * Upy; gz = cdf * Upz;
-        ix = ci * (ax - Ae * ex); iy = ci * (ay - Ae * ey);
-        iz = ci * (Az - Ae * ez);
-      }
+    if (r == 0) {
+      T* md = out.mode + (size_t)j * MODE_W;
+      md[MD_E] = p.E[j];
+      md[MD_OM] = p.omega[j];
+      md[MD_K] = kj;
+      md[MD_HX] = hx;
+      md[MD_HY] = hy;
+      md[5] = md[6] = md[7] = 0;
     }
-    // the member's sums over its points: a fixed shuffle tree over the
-    // phase's 16 lanes
-    T v[9] = {gx, gy, gz, ix, iy, iz, sq * (gx + ix), sq * (gy + iy),
-              sq * (gz + iz)};
-#pragma unroll
-    for (int c = 0; c < 9; ++c)
-      for (int off = SEA_LANES / 2; off > 0; off >>= 1)
-        v[c] += __shfl_xor_sync(0xffffffffu, v[c], off, SEA_LANES);
-    if (q == 0 && s_ph < S) {
-      const size_t o = ((size_t)s_ph * M + m) * 3;
-      p.F1[o] = (v[0] + v[3]) - v[6];
-      p.F1[o + 1] = (v[1] + v[4]) - v[7];
-      p.F1[o + 2] = (v[2] + v[5]) - v[8];
-      p.F2[o] = v[6]; p.F2[o + 1] = v[7]; p.F2[o + 2] = v[8];
-      for (int c = 0; c < 6; ++c) tot[c] += v[c];
-    }
+    T sx, cx;
+    sincos_t<T>(kj * proj + p.phi[j], &sx, &cx);
+    // overflow-safe cosh(A)/cosh(B), sinh(A)/cosh(B), A = k (z + d)
+    const T A = kj * (z + d), B = kj * d, Aa = fabs(A);
+    const T scale = exp(Aa - B) / (T(1) + exp(T(-2) * B));
+    const T e2 = exp(T(-2) * Aa);
+    const T sgn = (A > T(0)) ? T(1) : ((A < T(0)) ? T(-1) : T(0));
+    const T U = p.U[j];
+    T* rc = out.rec + it * REC_W;
+    rc[RC_CX] = cx;
+    rc[RC_SX] = sx;
+    rc[RC_UC] = U * scale * (T(1) + e2);
+    rc[RC_US] = U * sgn * scale * (T(1) - e2);
   }
-  if (q == 0 && s_ph < S)
-    for (int c = 0; c < 6; ++c)
-      p.partials[((size_t)blockIdx.y * S + s_ph) * 6 + c] = tot[c];
 }
 
-// The member blocks of the sea grid (the rows of its partial sums): a
-// function of the shapes only.
+// Stage the table slice of modes j0 .. j0 + 15 for the tile's phases into
+// ``tab`` (zeros past S and N), thread t of NT.  A warp copies 4 phases x
+// 8 modes: rows of 8 consecutive table entries from global memory.
+template <typename T, int NT>
+__device__ __forceinline__ void sea_stage_table(const SeaParamsT<T>& p,
+                                                T* tab, int s0, int j0,
+                                                int t) {
+  using Geo = SeaGeom<T, false, false>;
+  constexpr int TS = Geo::TS, AS = Geo::AS;
+  constexpr int PER = TS * 2 * SEA_CHUNK / NT;
+  const int lane = t & 31, warp = t >> 5;
+#pragma unroll
+  for (int it = 0; it < PER; ++it) {
+    const int b = it * (NT / 32) + warp;
+    const int r = (b >> 2) * 4 + (lane >> 3);           // phase in the tile
+    const int jj = (b & 1) * 8 + (lane & 7), cs = (b >> 1) & 1;
+    const int s = s0 + r, j = j0 + jj;
+    const bool ok = s < p.S && j < p.N;
+    const T* src = ok ? p.phase + (size_t)s * 2 * p.N + cs * p.N + j
+                      : p.phase;
+    T* dst = Geo::F64 ? tab + r * AS + 2 * jj + cs
+                      : tab + (cs * SEA_CHUNK + jj) * AS + r;
+    cp_async(dst, src, ok);
+  }
+}
+
+// Stage the records [16 modes][16 slots][REC_W] and the mode factors
+// [16][MODE_W] of modes j0 .. j0 + 15 and member tile ``mt`` into ``raw``
+// (zeros for padding), 16 bytes a copy, thread t of NT.
+template <typename T, int NT>
+__device__ __forceinline__ void sea_stage_records(const SeaParamsT<T>& p,
+                                                  const SeaScratch<T>& sc,
+                                                  T* raw, int mt, int j0,
+                                                  int Qp, int mpt, int t) {
+  constexpr int V = 16 / sizeof(T);            // elements a copy
+  constexpr int RC = REC_W / V, MC = MODE_W / V;   // copies a record, mode
+  for (int c = t; c < SEA_CHUNK * SEA_SLOTS * RC; c += NT) {
+    const int i = c % SEA_SLOTS, jj = (c / SEA_SLOTS) % SEA_CHUNK,
+              h = c / (SEA_SLOTS * SEA_CHUNK);
+    const int m = mt * mpt + i / Qp, q = i % Qp, j = j0 + jj;
+    const bool ok = q < p.n_gauss && m < p.M && j < p.N;
+    const long long r = (long long)m * p.n_gauss + q;
+    cp_async16(raw + (jj * SEA_SLOTS + i) * REC_W + h * V,
+               ok ? sc.rec + (r * p.N + j) * REC_W + h * V : sc.rec, ok);
+  }
+  T* md = raw + SEA_CHUNK * SEA_SLOTS * REC_W;
+  const int c = t;
+  if (c < SEA_CHUNK * MC) {
+    const int jj = c / MC, h = c % MC, j = j0 + jj;
+    cp_async16(md + jj * MODE_W + h * V,
+               j < p.N ? sc.mode + (long long)j * MODE_W + h * V : sc.mode,
+               j < p.N);
+  }
+}
+
+// Stage the slot data [16][SLOT_W] of member tile ``mt`` into ``sd``.
 template <typename T>
-int grid_members_sea(const SeaParamsT<T>& p) {
-  return p.M < SEA_MEMBER_BLOCKS ? p.M : SEA_MEMBER_BLOCKS;
+__device__ __forceinline__ void sea_stage_slots(const SeaParamsT<T>& p,
+                                                const SeaScratch<T>& sc,
+                                                T* sd, int mt, int Qp,
+                                                int mpt, int t) {
+  constexpr int V = 16 / sizeof(T), SC = SLOT_W / V;
+  const int c = t;
+  if (c >= SEA_SLOTS * SC) return;
+  const int i = c / SC, h = c % SC;
+  const int m = mt * mpt + i / Qp, q = i % Qp;
+  const bool ok = q < p.n_gauss && m < p.M;
+  const long long r = (long long)m * p.n_gauss + q;
+  cp_async16(sd + i * SLOT_W + h * V, ok ? sc.slot + r * SLOT_W + h * V
+                                         : sc.slot, ok);
+}
+
+// Fold the staged record of (slot, mode) ``item`` (slot item % 16, mode
+// item / 16 of the step) into the step's B tile (f64) or f32 records
+// ``coef``.
+template <typename T, bool WHEELER, bool SPREAD>
+__device__ __forceinline__ void sea_build(T* coef, const T* raw, int item) {
+  using L = SeaLayout<WHEELER, SPREAD>;
+  using Geo = SeaGeom<T, WHEELER, SPREAD>;
+  constexpr int F = L::F;
+  const int i = item % SEA_SLOTS, jj = item / SEA_SLOTS;
+  const T* rc = raw + (jj * SEA_SLOTS + i) * REC_W;
+  const T* md = raw + SEA_CHUNK * SEA_SLOTS * REC_W + jj * MODE_W;
+  const T cx = rc[RC_CX], sx = rc[RC_SX];
+  T c[F];
+  sea_fold<T, WHEELER, SPREAD>(md[MD_E], md[MD_HX], md[MD_HY], md[MD_OM],
+                               md[MD_K], rc[RC_UC], rc[RC_US], c);
+  if constexpr (Geo::F64) {
+    // rows 2 jj (cos omega t) and 2 jj + 1 (sin omega t) of the B tile
+    T* b = coef + (2 * jj) * Geo::RS + i;
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      b[f * SEA_SLOTS] = f < L::NCOS ? c[f] * cx : c[f] * sx;
+      b[Geo::RS + f * SEA_SLOTS] = f < L::NCOS ? c[f] * sx : -(c[f] * cx);
+    }
+  } else {
+    T r[4 * Geo::NQ];
+    r[0] = cx;
+    r[1] = sx;
+#pragma unroll
+    for (int f = 0; f < F; ++f) r[2 + f] = c[f];
+#pragma unroll
+    for (int e = F + 2; e < 4 * Geo::NQ; ++e) r[e] = 0;
+#pragma unroll
+    for (int v = 0; v < Geo::NQ; ++v)
+      *reinterpret_cast<float4*>(coef + ((jj * Geo::NQ + v) * SEA_SLOTS + i)
+                                 * 4) = make_float4(r[4 * v], r[4 * v + 1],
+                                                    r[4 * v + 2],
+                                                    r[4 * v + 3]);
+  }
+}
+
+// The mode sums of chunk ``tab`` / ``coef`` (nt live modes) into the f64
+// accumulators acc[f][4] of this warp's 16 phases x 8 slots.
+template <bool WHEELER, bool SPREAD>
+__device__ __forceinline__ void sea_sums_f64(const double* tab,
+                                             const double* coef, int nt,
+                                             double* acc) {
+  using Geo = SeaGeom<double, WHEELER, SPREAD>;
+  constexpr int F = Geo::F;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const double* a = tab + ((warp & 3) * 16 + g) * Geo::AS + t;
+  const double* b = coef + t * Geo::RS + (warp >> 2) * 8 + g;
+#pragma unroll 2
+  for (int ks = 0; ks < (nt + 1) / 2; ++ks) {   // two modes a k-step
+    const double a0 = a[4 * ks], a1 = a[8 * Geo::AS + 4 * ks];
+    const double* bk = b + 4 * ks * Geo::RS;
+#pragma unroll
+    for (int f = 0; f < F; ++f)
+      dmma_16x8x4(acc + 4 * f, a0, a1, bk[f * SEA_SLOTS]);
+  }
+}
+
+// The same for f32: acc[8 phases][F] of this thread's slot.
+template <bool WHEELER, bool SPREAD, int UNROLL>
+__device__ __forceinline__ void sea_sums_f32(const float* tab,
+                                             const float* coef, int nt,
+                                             float* acc) {
+  using L = SeaLayout<WHEELER, SPREAD>;
+  using Geo = SeaGeom<float, WHEELER, SPREAD>;
+  constexpr int F = L::F, PH = Geo::PH;
+  const int i = threadIdx.x % SEA_SLOTS, pg = threadIdx.x / SEA_SLOTS;
+  const float* ta = tab + pg * PH;
+  const float* rec = coef + i * 4;
+#pragma unroll UNROLL
+  for (int j = 0; j < nt; ++j) {
+    float ct[PH], st[PH], r[4 * Geo::NQ];
+#pragma unroll
+    for (int v = 0; v < PH / 4; ++v) {
+      const float4 c4 = *reinterpret_cast<const float4*>(ta + j * Geo::AS
+                                                         + 4 * v);
+      const float4 s4 = *reinterpret_cast<const float4*>(
+          ta + (SEA_CHUNK + j) * Geo::AS + 4 * v);
+      ct[4 * v] = c4.x; ct[4 * v + 1] = c4.y;
+      ct[4 * v + 2] = c4.z; ct[4 * v + 3] = c4.w;
+      st[4 * v] = s4.x; st[4 * v + 1] = s4.y;
+      st[4 * v + 2] = s4.z; st[4 * v + 3] = s4.w;
+    }
+#pragma unroll
+    for (int v = 0; v < Geo::NQ; ++v) {
+      const float4 r4 = *reinterpret_cast<const float4*>(
+          rec + (j * Geo::NQ + v) * SEA_SLOTS * 4);
+      r[4 * v] = r4.x; r[4 * v + 1] = r4.y;
+      r[4 * v + 2] = r4.z; r[4 * v + 3] = r4.w;
+    }
+#pragma unroll
+    for (int t = 0; t < PH; ++t) {
+      float* a = acc + t * F;
+      // cos / sin (k x + phi - omega t)
+      const float cp = fmaf(r[0], ct[t], r[1] * st[t]);
+      const float sp = fmaf(r[1], ct[t], -(r[0] * st[t]));
+#pragma unroll
+      for (int f = 0; f < F; ++f)
+        a[f] = fmaf(r[2 + f], f < L::NCOS ? cp : sp, a[f]);
+    }
+  }
+}
+
+// Drag and inertia (x, y, z each) of one point at one phase from its
+// fields ``fl`` (zero for padding and dry points).
+template <typename T, bool WHEELER, bool SPREAD>
+__device__ __forceinline__ void sea_forces(const T* fl, const T* sd, T d,
+                                           T cos_w, T sin_w, T* o) {
+  using L = SeaLayout<WHEELER, SPREAD>;
+#pragma unroll
+  for (int c = 0; c < 6; ++c) o[c] = 0;
+  if (sd[SL_LIVE] == T(0)) return;
+  const T z = sd[SL_Z], eta = fl[L::ETA];
+  T ux = fl[L::UX], w = fl[L::W], dux = fl[L::DUX], dw = fl[L::DW];
+  T uy = 0, duy = 0;
+  if constexpr (SPREAD) {
+    uy = fl[L::UY];
+    duy = fl[L::DUY];
+  }
+  if constexpr (WHEELER) {
+    T dzw = -(z + d) * eta / (d + eta);
+    dzw = fmin(fmax(dzw, -d), d);
+    const T h2 = T(0.5) * dzw * dzw;
+    ux = ux + dzw * fl[L::UX_Z] + h2 * fl[L::UX_ZZ];
+    w = w + dzw * fl[L::W_Z] + h2 * fl[L::W_ZZ];
+    dux = dux + dzw * fl[L::DUX_Z] + h2 * fl[L::DUX_ZZ];
+    dw = dw + dzw * fl[L::DW_Z] + h2 * fl[L::DW_ZZ];
+    if constexpr (SPREAD) {
+      uy = uy + dzw * fl[L::UY_Z] + h2 * fl[L::UY_ZZ];
+      duy = duy + dzw * fl[L::DUY_Z] + h2 * fl[L::DUY_ZZ];
+    }
+  }
+  if (!(z <= eta)) return;
+  const T ex = sd[SL_EX], ey = sd[SL_EY], ez = sd[SL_EZ];
+  const T wx = SPREAD ? ux : ux * cos_w;
+  const T wy = SPREAD ? uy : ux * sin_w;
+  const T ax = SPREAD ? dux : dux * cos_w;
+  const T ay = SPREAD ? duy : dux * sin_w;
+  const T Ux = wx + sd[SL_UCX], Uy = wy + sd[SL_UCY], Uz = w;
+  const T Az = dw;
+  const T Ue = Ux * ex + Uy * ey + Uz * ez;
+  const T Ae = ax * ex + ay * ey + Az * ez;
+  const T Upx = Ux - Ue * ex, Upy = Uy - Ue * ey, Upz = Uz - Ue * ez;
+  const T Umag = sqrt(Upx * Upx + Upy * Upy + Upz * Upz);
+  const T cdf = (Umag > T(1e-10)) ? sd[SL_CD] * Umag : T(0);
+  const T ci = sd[SL_CI];
+  o[0] = cdf * Upx; o[1] = cdf * Upy; o[2] = cdf * Upz;
+  o[3] = ci * (ax - Ae * ex); o[4] = ci * (ay - Ae * ey);
+  o[5] = ci * (Az - Ae * ez);
+}
+
+// The roles of a block's threads: stage and build the steps, sum them and
+// reduce the tiles, or both.
+enum SeaRole { SEA_PRODUCER = 1, SEA_SUMMER = 2, SEA_BOTH = 3 };
+
+// The block's pipeline in one role (thread t of the role's threads).  The
+// roles run the same steps and meet at the same barriers.
+template <typename T, bool WHEELER, bool SPREAD, int ROLE>
+__device__ __forceinline__ void sea_run(const SeaParamsT<T>& p, T* scratch,
+                                        T* smem, int t) {
+  using L = SeaLayout<WHEELER, SPREAD>;
+  using Geo = SeaGeom<T, WHEELER, SPREAD>;
+  constexpr int F = L::F, TS = Geo::TS;
+  constexpr int NP = Geo::PRODUCERS;
+  constexpr bool PROD = ROLE & SEA_PRODUCER, SUM = ROLE & SEA_SUMMER;
+  constexpr int NACC = Geo::F64 ? 4 * F : Geo::PH * F;
+  constexpr int NIT = (TS * 3 + SEA_THREADS - 1) / SEA_THREADS;
+  const SeaScratch<T> sc(p, scratch);
+  const int N = p.N, S = p.S, M = p.M, Q = p.n_gauss;
+  const int Qp = Q <= 8 ? 8 : 16, mpt = SEA_SLOTS / Qp;
+  const int n_tiles = (M + mpt - 1) / mpt;
+  const int rows = gridDim.y, row = blockIdx.y;
+  const int my_tiles = row < n_tiles ? (n_tiles - 1 - row) / rows + 1 : 0;
+  const int n_chunks = (N + SEA_CHUNK - 1) / SEA_CHUNK;
+  const int n_steps = my_tiles * n_chunks;
+  const int s0 = blockIdx.x * TS;
+  // step x: member tile x / n_chunks of this block, mode chunk x % n_chunks
+  auto tile = [&](int x) { return row + (x / n_chunks) * rows; };
+  auto chunk0 = [&](int x) { return (x % n_chunks) * SEA_CHUNK; };
+  auto buf = [&](int x) { return smem + (x & 1) * Geo::BUF; };
+  auto raw = [&](int x) { return smem + Geo::RAW_AT + (x & 1) * Geo::RAW; };
+  auto slots = [&](int k) {   // the slot data of the block's tile k
+    return smem + Geo::SLOTS_AT + (k % SEA_SLOT_RING) * SEA_SLOTS * SLOT_W;
+  };
+  // the copies step x needs two steps ahead: its records and mode factors,
+  // and its tile's slot data at the tile's first step
+  auto stage_ahead = [&](int x) {
+    sea_stage_records<T, NP>(p, sc, raw(x), tile(x), chunk0(x), Qp, mpt, t);
+    if (x % n_chunks == 0)
+      sea_stage_slots<T>(p, sc, slots(x / n_chunks), tile(x), Qp, mpt, t);
+  };
+  // the B tile or f32 records of step x
+  auto build = [&](int x) {
+#pragma unroll
+    for (int n = 0; n < SEA_THREADS / NP; ++n)
+      sea_build<T, WHEELER, SPREAD>(buf(x) + Geo::TAB, raw(x), t + n * NP);
+  };
+
+  if (n_steps > 0) {   // prologue: steps 0 and 1 staged, step 0 built
+    if constexpr (PROD) {
+      sea_stage_table<T, NP>(p, buf(0), s0, 0, t);
+      stage_ahead(0);
+      if (n_steps > 1) stage_ahead(1);
+      cp_async_commit();
+      cp_async_wait_all();
+    }
+    __syncthreads();
+    if constexpr (PROD) build(0);
+    __syncthreads();
+  }
+  T acc[SUM ? NACC : 1];
+  T tot[NIT][2];                  // running totals of items (phase, x)
+  const T d = p.d[0];
+  T sin_w = 0, cos_w = 0;
+  if constexpr (SUM) {
+#pragma unroll
+    for (int a = 0; a < NACC; ++a) acc[a] = 0;
+#pragma unroll
+    for (int r = 0; r < NIT; ++r) tot[r][0] = tot[r][1] = 0;
+    sincospi_t<T>((T(90) - operand(p.wave_dir, 0)) / T(180), &sin_w,
+                  &cos_w);
+  }
+
+  for (int st = 0; st < n_steps; ++st) {
+    const int k = st / n_chunks, c = st % n_chunks;
+    if constexpr (PROD) {
+      // copies for steps st + 1 (table) and st + 2, then the B tile or
+      // f32 records of step st + 1 while step st is summed
+      if (st + 1 < n_steps)
+        sea_stage_table<T, NP>(p, buf(st + 1), s0, chunk0(st + 1), t);
+      if (st + 2 < n_steps) stage_ahead(st + 2);
+      cp_async_commit();
+      if (st + 1 < n_steps) build(st + 1);
+    }
+    if constexpr (SUM) {
+      const int nt = min(SEA_CHUNK, N - c * SEA_CHUNK);
+      if constexpr (Geo::F64)
+        sea_sums_f64<WHEELER, SPREAD>(buf(st), buf(st) + Geo::TAB, nt, acc);
+      else
+        sea_sums_f32<WHEELER, SPREAD, (F > 13 ? 1 : 2)>(
+            buf(st), buf(st) + Geo::TAB, nt, acc);
+    }
+    if constexpr (PROD) cp_async_wait_all();
+    __syncthreads();   // step st read; step st + 1 built, st + 2 staged
+    if (c + 1 < n_chunks) continue;
+
+    // tile k is summed: each (phase, slot)'s drag and inertia into epi,
+    // then one thread a (phase, x) adds each member's points in order
+    T* const epi = Geo::EPI_OWN ? smem + Geo::EPI_AT : buf(st);
+    const T* const sl = slots(k);
+    if constexpr (SUM) {
+      T fl[F], o[6];
+      if constexpr (Geo::F64) {
+        const int lane = t & 31, warp = t >> 5;
+        const int r0 = (warp & 3) * 16 + (lane >> 2);
+        const int i0 = (warp >> 2) * 8 + 2 * (lane & 3);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+#pragma unroll
+          for (int f = 0; f < F; ++f) fl[f] = acc[4 * f + e];
+          const int r = r0 + 8 * (e >> 1), i = i0 + (e & 1);
+          sea_forces<T, WHEELER, SPREAD>(fl, sl + i * SLOT_W, d, cos_w,
+                                         sin_w, o);
+#pragma unroll
+          for (int q = 0; q < 6; ++q) epi[r * SEA_EPI + i * 6 + q] = o[q];
+        }
+      } else {
+        const int i = t % SEA_SLOTS, r0 = (t / SEA_SLOTS) * Geo::PH;
+#pragma unroll
+        for (int e = 0; e < Geo::PH; ++e) {
+#pragma unroll
+          for (int f = 0; f < F; ++f) fl[f] = acc[e * F + f];
+          sea_forces<T, WHEELER, SPREAD>(fl, sl + i * SLOT_W, d, cos_w,
+                                         sin_w, o);
+#pragma unroll
+          for (int q = 0; q < 6; ++q)
+            epi[(r0 + e) * SEA_EPI + i * 6 + q] = o[q];
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < NACC; ++a) acc[a] = 0;
+    }
+    __syncthreads();
+    if constexpr (SUM) {
+#pragma unroll
+      for (int r = 0; r < NIT; ++r) {
+        const int it = t + r * SEA_THREADS, ph = it / 3, x = it % 3;
+        const int s = s0 + ph;
+        if (it >= TS * 3 || s >= S) continue;
+        for (int mm = 0; mm < mpt; ++mm) {
+          const int m = tile(st) * mpt + mm;
+          if (m >= M) break;
+          T vd = 0, vi = 0, v2 = 0;
+          for (int q = 0; q < Q; ++q) {
+            const int i = mm * Qp + q;
+            const T g = epi[ph * SEA_EPI + i * 6 + x];
+            const T f = epi[ph * SEA_EPI + i * 6 + 3 + x];
+            vd += g;
+            vi += f;
+            v2 += sl[i * SLOT_W + SL_SQ] * (g + f);
+          }
+          const size_t o3 = ((size_t)s * M + m) * 3 + x;
+          p.F1[o3] = (vd + vi) - v2;
+          p.F2[o3] = v2;
+          tot[r][0] += vd;
+          tot[r][1] += vi;
+        }
+      }
+    }
+    if constexpr (!Geo::EPI_OWN) __syncthreads();   // epi is buf(st) again
+  }
+  if constexpr (SUM) {
+#pragma unroll
+    for (int r = 0; r < NIT; ++r) {
+      const int it = t + r * SEA_THREADS, ph = it / 3, x = it % 3;
+      const int s = s0 + ph;
+      if (it < TS * 3 && s < S) {
+        p.partials[((size_t)row * S + s) * 6 + x] = tot[r][0];
+        p.partials[((size_t)row * S + s) * 6 + 3 + x] = tot[r][1];
+      }
+    }
+  }
 }
 
 template <typename T, bool WHEELER, bool SPREAD>
-cudaError_t launch_sea(const SeaParamsT<T>& p, int G, cudaStream_t stream) {
-  const dim3 grid((p.S + SEA_PHASES - 1) / SEA_PHASES, G);
-  morison_sea_kernel<T, WHEELER, SPREAD><<<grid, SEA_THREADS, 0, stream>>>(p);
+__global__ void __launch_bounds__(SeaGeom<T, WHEELER, SPREAD>::THREADS, 1)
+morison_sea_kernel(const SeaParamsT<T> p, T* scratch) {
+  extern __shared__ __align__(16) unsigned char sea_smem[];
+  T* const smem = reinterpret_cast<T*>(sea_smem);
+  const int tid = threadIdx.x;
+  if constexpr (SeaGeom<T, WHEELER, SPREAD>::WS) {
+    // warpgroups 0-1 sum, warpgroup 2 stages and builds
+    if (tid < SEA_THREADS)
+      sea_run<T, WHEELER, SPREAD, SEA_SUMMER>(p, scratch, smem, tid);
+    else
+      sea_run<T, WHEELER, SPREAD, SEA_PRODUCER>(p, scratch, smem,
+                                                tid - SEA_THREADS);
+  } else {
+    sea_run<T, WHEELER, SPREAD, SEA_BOTH>(p, scratch, smem, tid);
+  }
+}
+
+// The grid rows of the sea kernel (the rows of its partial sums): a
+// function of the shapes only.
+template <typename T>
+int grid_members_sea(const SeaParamsT<T>& p) {
+  const int mpt = p.n_gauss <= 8 ? 2 : 1;
+  const int tiles = (p.M + mpt - 1) / mpt;
+  return tiles < SEA_ROWS ? tiles : SEA_ROWS;
+}
+
+template <typename T, bool WHEELER, bool SPREAD>
+cudaError_t launch_sea(const SeaParamsT<T>& p, int G, T* scratch,
+                       cudaStream_t stream) {
+  using Geo = SeaGeom<T, WHEELER, SPREAD>;
+  const long long items = (long long)p.M * p.n_gauss * p.N;
+  const long long rb = (items + 255) / 256;
+  morison_sea_records_kernel<T, SPREAD>
+      <<<(unsigned)(rb < 4096 ? rb : 4096), 256, 0, stream>>>(p, scratch);
   cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  auto kernel = morison_sea_kernel<T, WHEELER, SPREAD>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Geo::BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.S + Geo::TS - 1) / Geo::TS, G);
+  kernel<<<grid, Geo::THREADS, Geo::BYTES, stream>>>(p, scratch);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   morison_totals_kernel<T><<<(p.S * 6 + 255) / 256, 256, 0, stream>>>(
       p.partials, G, p.S, p.totals);
@@ -956,13 +1499,13 @@ cudaError_t launch_sea(const SeaParamsT<T>& p, int G, cudaStream_t stream) {
 
 template <typename T>
 cudaError_t launch_sea_any(const SeaParamsT<T>& p, int wheeler, int G,
-                           cudaStream_t st) {
+                           T* scratch, cudaStream_t st) {
   const bool spread = p.dir != nullptr;
   if (wheeler)
-    return spread ? launch_sea<T, true, true>(p, G, st)
-                  : launch_sea<T, true, false>(p, G, st);
-  return spread ? launch_sea<T, false, true>(p, G, st)
-                : launch_sea<T, false, false>(p, G, st);
+    return spread ? launch_sea<T, true, true>(p, G, scratch, st)
+                  : launch_sea<T, true, false>(p, G, scratch, st);
+  return spread ? launch_sea<T, false, true>(p, G, scratch, st)
+                : launch_sea<T, false, false>(p, G, scratch, st);
 }
 
 template <typename T>
@@ -1016,8 +1559,9 @@ int morison_phase_batch_launch_f64(const MorisonParams64* p, int wheeler,
 }
 
 // The general-mode instance (float32 / float64): grid rows of the partial
-// sums, sizeof(SeaParamsT) for the ctypes mirror, and the launch (fused
-// pass + fixed-order totals; ``dir`` null for a long-crested sea).
+// sums, sizeof(SeaParamsT) for the ctypes mirror, the elements of the
+// scratch buffer the records pass fills, and the launch (records pass,
+// fused pass, fixed-order totals; ``dir`` null for a long-crested sea).
 int morison_sea_grid_blocks_f32(const SeaParamsT<float>* p) {
   if (!valid_sea(p)) return -(int)cudaErrorInvalidValue;
   return grid_members_sea(*p);
@@ -1028,19 +1572,25 @@ int morison_sea_grid_blocks_f64(const SeaParamsT<double>* p) {
 }
 int morison_sea_params_size_f32() { return (int)sizeof(SeaParamsT<float>); }
 int morison_sea_params_size_f64() { return (int)sizeof(SeaParamsT<double>); }
+long long morison_sea_scratch_f32(const SeaParamsT<float>* p) {
+  return valid_sea(p) ? SeaScratch<float>::elems(*p) : -1;
+}
+long long morison_sea_scratch_f64(const SeaParamsT<double>* p) {
+  return valid_sea(p) ? SeaScratch<double>::elems(*p) : -1;
+}
 
 int morison_sea_launch_f32(const SeaParamsT<float>* p, int wheeler, int G,
-                           void* stream) {
-  if (!valid_sea(p) || G != grid_members_sea(*p))
+                           void* scratch, void* stream) {
+  if (!valid_sea(p) || G != grid_members_sea(*p) || !scratch)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_sea_any(*p, wheeler, G,
+  return (int)launch_sea_any(*p, wheeler, G, static_cast<float*>(scratch),
                              static_cast<cudaStream_t>(stream));
 }
 int morison_sea_launch_f64(const SeaParamsT<double>* p, int wheeler, int G,
-                           void* stream) {
-  if (!valid_sea(p) || G != grid_members_sea(*p))
+                           void* scratch, void* stream) {
+  if (!valid_sea(p) || G != grid_members_sea(*p) || !scratch)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_sea_any(*p, wheeler, G,
+  return (int)launch_sea_any(*p, wheeler, G, static_cast<double*>(scratch),
                              static_cast<cudaStream_t>(stream));
 }
 

@@ -37,6 +37,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -44,8 +45,8 @@ import tempfile
 import numpy as np
 import torch
 
-from .morison import (MorisonPhaseBatch, gauss_legendre_01, morison_end_forces,
-                      nodal_scatter)
+from .morison import (MorisonPhaseBatch, _mode_spatial_coeffs,
+                      gauss_legendre_01, morison_end_forces, nodal_scatter)
 from .spectrum import SpectralSea, morison_sea_end_forces
 from .waves import FourierWave
 
@@ -53,7 +54,7 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-              "-Xcompiler", "-fPIC", "-shared")
+              "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v")
 MAX_MODES = 32     # wave modes the Morison kernel takes
 MAX_GAUSS = 16     # quadrature points per member (one 16-lane half-warp)
 
@@ -68,10 +69,12 @@ _SIGNATURES = {
         "morison_phase_batch_launch_f64": ([_PTR, _I32, _I32, _PTR], _I32),
         "morison_grid_blocks_f64": ([_PTR, _I32], _I32),
         "morison_params_size_f64": ([], _I32),
-        "morison_sea_launch_f32": ([_PTR, _I32, _I32, _PTR], _I32),
-        "morison_sea_launch_f64": ([_PTR, _I32, _I32, _PTR], _I32),
+        "morison_sea_launch_f32": ([_PTR, _I32, _I32, _PTR, _PTR], _I32),
+        "morison_sea_launch_f64": ([_PTR, _I32, _I32, _PTR, _PTR], _I32),
         "morison_sea_grid_blocks_f32": ([_PTR], _I32),
         "morison_sea_grid_blocks_f64": ([_PTR], _I32),
+        "morison_sea_scratch_f32": ([_PTR], _I64),
+        "morison_sea_scratch_f64": ([_PTR], _I64),
         "morison_sea_params_size_f32": ([], _I32),
         "morison_sea_params_size_f64": ([], _I32),
     },
@@ -133,6 +136,8 @@ def build_all(names=KERNELS) -> dict:
             failed.append(f"{name}.cu: nvcc failed ({proc.returncode}):\n"
                           f"{out}")
         else:
+            # ptxas's report (registers, stack, spills), for build_report
+            todo[name].with_suffix(".log").write_text(out)
             os.replace(tmp, todo[name])
     if failed:
         raise RuntimeError("\n".join(failed))
@@ -159,6 +164,49 @@ def build_all(names=KERNELS) -> dict:
 def build(name: str) -> ctypes.CDLL:
     """Compile (if needed) and load one kernel library."""
     return _libs.get(name) or build_all((name,))[name]
+
+
+def build_report(name: str) -> dict:
+    """What the build of one kernel library says of each kernel, keyed by
+    its mangled name: from ``ptxas -v`` (kept beside the library when it
+    is built) ``registers``, ``stack``, ``spill_stores`` and
+    ``spill_loads`` in bytes; from ``cuobjdump -sass`` of the library the
+    count of its ``DMMA`` (FP64 tensor-core) and ``HMMA`` (any other
+    tensor-core type, TF32 included) instructions and the first
+    ``DMMA``'s text, ``first_dmma``."""
+    build(name)
+    so = _library_path(name)
+    out, cur = {}, {}
+    for line in so.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\w+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m[1]), spill_stores=int(m[2]),
+                       spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m[1])
+    tool = pathlib.Path(nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    cur = {}
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            cur.update(DMMA=0, HMMA=0, first_dmma=None)
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,6}\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"((DMMA|HMMA)[^;]*?)\s*;", line)
+        if m and cur:
+            cur[m[2]] += 1
+            if m[2] == "DMMA" and cur["first_dmma"] is None:
+                cur["first_dmma"] = m[1]
+    return out
 
 
 def _params_struct(scalar):
@@ -428,6 +476,29 @@ def sea_phase_table(sea: SpectralSea, ts: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.cos(ang), torch.sin(ang)], dim=1).to(ts.dtype)
 
 
+# m: float32 against float64 K1-sea results are held off the (sample,
+# member) pairs with a Gauss point this close to the f64 free surface
+SURFACE_BAND = 1e-4
+
+
+def surface_band(sea: SpectralSea, coords, conn, wave_dir, ts,
+                 band: float = SURFACE_BAND, n_gauss: int = 15):
+    """[S, M] mask of the (sample, member) pairs with a Gauss point within
+    ``band`` m of the free surface of ``sea`` (f64, from its spatial eta
+    rows and the f64 phase table): there the wet / dry mask z <= eta is a
+    jump, so a point that float32 rounding of eta (~1e-6 m) puts on the
+    other side of the surface changes the member's force by the point's
+    whole share."""
+    mc = _mode_spatial_coeffs(sea.k, sea.omega, sea.phi, sea.E, sea.U, sea.d,
+                              coords, conn, wave_dir, 0.0, n_gauss, "none",
+                              sea.dir_deg)
+    ph = sea_phase_table(sea, ts)
+    N = sea.n_modes
+    eta = ph[:, :N] @ mc.Acat[0].T + ph[:, N:] @ mc.Bcat[0].T    # [S, P]
+    near = (mc.z[None, :] - eta).abs() < band
+    return near.reshape(ts.shape[0], conn.shape[0], -1).any(dim=-1)
+
+
 def sea_kernel_operands(sea: SpectralSea, coords, conn, D_m, wave_dir_deg,
                         current_dir_deg, Cd, Cm, rho_water, ts, n_gauss: int,
                         current_alpha) -> dict:
@@ -448,8 +519,10 @@ def sea_kernel_operands(sea: SpectralSea, coords, conn, D_m, wave_dir_deg,
 
 def launch_morison_sea(k: dict, wheeler: bool):
     """Launch the general-mode instance of the operands' dtype on
-    operands from :func:`sea_kernel_operands`; returns (F1 [S, M, 3],
-    F2 [S, M, 3], totals [S, 6]).  Raises for CPU tensors."""
+    operands from :func:`sea_kernel_operands` (its records pass, fused
+    pass and fixed-order totals; the records pass fills a scratch buffer
+    of M Q (4 N + 12) + 8 N elements allocated here); returns (F1 [S, M,
+    3], F2 [S, M, 3], totals [S, 6]).  Raises for CPU tensors."""
     dev, dtype = k["coords"].device, k["coords"].dtype
     if dev.type != "cuda":
         raise RuntimeError("the Morison kernel needs CUDA tensors (got "
@@ -481,9 +554,14 @@ def launch_morison_sea(k: dict, wheeler: bool):
                                + lib.morison_error_string(-G).decode())
         partials = torch.empty(G, S, 6, dtype=dtype, device=dev)
         p.partials = partials.data_ptr()
+        # the records pass's output: per (point, mode) records, per-point
+        # and per-mode tables
+        scratch = torch.empty(
+            getattr(lib, f"morison_sea_scratch_{name}")(ctypes.byref(p)),
+            dtype=dtype, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, f"morison_sea_launch_{name}")(
-            ctypes.byref(p), int(wheeler), G, stream)
+            ctypes.byref(p), int(wheeler), G, scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("morison_sea kernel launch failed: "
                            + lib.morison_error_string(err).decode())

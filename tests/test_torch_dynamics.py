@@ -201,14 +201,16 @@ def test_transient_refuses_spectral_seas(jacket):
                                                 "E", "U", "d", "U_c", "Hs",
                                                 "Tp")),
         dir_deg=np.asarray(sea.dir_deg), device="cpu")
+    # (the transient tests' chain modes and time grid: JAX reaches its
+    # check after the reduction and the condensed loads, whose compiles
+    # they have made)
+    kw = dict(dt=9.4 / 32, n_steps=64, relative_drag=True, n_chain_modes=6)
     with pytest.raises(ValueError, match="long-crested"):
         jd.transient_response_condensed(jacket[0], jacket[1][2], 2, sea,
-                                        sf.LoadCase(**STORM), dt=0.1,
-                                        n_steps=4, relative_drag=True)
+                                        sf.LoadCase(**STORM), **kw)
     with pytest.raises(ValueError, match="long-crested"):
         pt.transient_response_condensed(tc, tr[2], 2, port,
-                                        pt.LoadCase(**STORM), dt=0.1,
-                                        n_steps=4, relative_drag=True)
+                                        pt.LoadCase(**STORM), **kw)
     with pytest.raises(TypeError, match="FourierWave"):
         pt.dynamic_response_condensed(tc, tr[2], 2, port,
                                       pt.LoadCase(**STORM), n_steps=4)

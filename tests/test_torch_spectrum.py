@@ -22,8 +22,9 @@ test states its tolerance (max |port - JAX| / max |JAX|):
   axial stress variance tie to roundoff, so these are held to the value
   at one of the tied points (``tie_candidates``);
 - a PyTorch emulation of the general-mode kernel's arithmetic on its
-  packed operands (f64 phase table, per-mode records, the per-phase point
-  lanes) against the plain version: 1e-12.
+  packed operands (f64 phase table, folded per-(point, mode) records, the
+  f64 matrix-product and the f32 angle-difference forms over zero-padded
+  mode chunks) against the plain version: 1e-12.
 """
 import dataclasses
 import math
@@ -415,18 +416,54 @@ def test_scatter_fatigue_spectral_and_extremes_match_jax(jacket):
                            jacket["jr"], N_SEG, False, 1e-9)
 
 
-def emulate_sea_kernel(k: dict, wheeler: bool):
+SEA_CHUNK = 16   # modes of one pipeline stage of the general-mode kernel
+
+
+def sea_field_factors(k: dict, hx, hy, UC, US, wheeler: bool):
+    """The general-mode kernel's folded records (``sea_fold`` in
+    ``csrc/morison_phase_batch.cu``): per field its per-(point, mode)
+    factor c_f [M, Q, N] from the per-mode heading weights ``hx``, ``hy``
+    [N] (1 and 0 for a long-crested sea) and U C(z), U S(z) [M, Q, N]; the
+    cos-type fields (summed against cos(k x + phi - omega t)) first, then
+    the sin-type ones, as (name, kind, c_f)."""
+    E, om, kj = k["E"].double(), k["omega"].double(), k["k"].double()
+    spread = k["dir"] is not None
+    kUC, kUS = kj * UC, kj * US
+    k2UC, k2US = kj * kUC, kj * kUS
+    cos = [("eta", E.expand_as(UC)), ("ux", hx * UC), ("dw", -om * US)]
+    sin = [("w", US), ("dux", hx * (om * UC))]
+    if spread:
+        cos.append(("uy", hy * UC))
+        sin.append(("duy", hy * (om * UC)))
+    if wheeler:
+        cos += [("ux_z", hx * kUS), ("dw_z", -om * kUC),
+                ("ux_zz", hx * k2UC), ("dw_zz", -om * k2US)]
+        sin += [("w_z", kUC), ("dux_z", hx * (om * kUS)), ("w_zz", k2US),
+                ("dux_zz", hx * (om * k2UC))]
+        if spread:
+            cos += [("uy_z", hy * kUS), ("uy_zz", hy * k2UC)]
+            sin += [("duy_z", hy * (om * kUS)), ("duy_zz", hy * (om * k2UC))]
+    return ([(n, "cos", c) for n, c in cos]
+            + [(n, "sin", c) for n, c in sin])
+
+
+def emulate_sea_kernel(k: dict, wheeler: bool, form: str):
     """The general-mode kernel's arithmetic on its packed operands
-    (``hopper_kernels.sea_kernel_operands``), in PyTorch: per (phase,
-    point) lane the mode sums over the f64 phase table and the per-mode
-    records cos / sin(k x + phi), U C(z), U S(z) (a spread sea's per-mode
-    headings as direction weights), Wheeler's Taylor rows with the
-    kernel's +-d clip, the wet mask, drag and inertia, then the 16-lane
-    member sums and F1 = sum f - F2.  Returns (F1, F2, totals [S, 6])."""
+    (``hopper_kernels.sea_kernel_operands``), in f64 PyTorch: per (member,
+    point) the records cos / sin(k x + phi) and the folded field factors
+    (``sea_field_factors``); the mode sums over the f64 phase table in
+    chunks of ``SEA_CHUNK`` modes, the last one zero-padded, in the f64
+    instance's matrix-product form (``form="matrix"``: A = the chunk's
+    (cos, sin) table columns [S, 2 x 16], B = the coefficient rows c cos,
+    c sin (cos-type) or c sin, -c cos (sin-type) [2 x 16, points x F]) or
+    the f32 instance's angle-difference form (``form="angle"``: cp, sp
+    per (phase, point, mode), then one product per field); then Wheeler's
+    Taylor rows with the kernel's +-d clip, the wet mask, drag and
+    inertia, the member sums over its points in order and F1 = sum f -
+    F2.  Returns (F1, F2, totals [S, 6])."""
     f64 = torch.float64
     coords, conn = k["coords"].double(), k["conn"]
     M, S, N = conn.shape[0], k["ts"].shape[0], k["E"].shape[0]
-    Q = len(k["s"])
     s = torch.tensor(np.asarray(k["s"], np.float64))
     w = torch.tensor(np.asarray(k["w"], np.float64))
     d, Uc = k["d"].double(), k["Uc"].double()
@@ -447,11 +484,11 @@ def emulate_sea_kernel(k: dict, wheeler: bool):
     if spread:
         th = torch.pi * (90 - (wave_dir + k["dir"].double())) / 180
         hx, hy = torch.cos(th), torch.sin(th)                  # [N]
-        proj = pts[..., 0:1] * hx + pts[..., 1:2] * hy         # [M, Q, N]
+        proj = pts[..., 0:1] * hx + pts[..., 1:2] * hy
     else:
-        hx = torch.ones(N, dtype=f64)
+        hx, hy = torch.ones(N, dtype=f64), torch.zeros(N, dtype=f64)
         proj = (pts[..., 0] * cos_w + pts[..., 1] * sin_w)[..., None]
-    kj, om = k["k"].double(), k["omega"].double()
+    kj = k["k"].double()
     arg = kj * proj + k["phi"].double()
     cx, sx = torch.cos(arg), torch.sin(arg)                    # [M, Q, N]
     z = pts[..., 2]
@@ -461,31 +498,45 @@ def emulate_sea_kernel(k: dict, wheeler: bool):
     scale = torch.exp(Aa - B) / (1 + torch.exp(-2 * B))
     UC = k["U"].double() * scale * (1 + torch.exp(-2 * Aa))
     US = k["U"].double() * torch.sign(A) * scale * (1 - torch.exp(-2 * Aa))
+    fac = sea_field_factors(k, hx, hy, UC, US, wheeler)
+    c = torch.stack([f for _, _, f in fac], -1)                # [M, Q, N, F]
+    is_cos = torch.tensor([kind == "cos" for _, kind, _ in fac])
+    n_pad = -N % SEA_CHUNK                                     # zero modes
     ph = k["phase"].double()
-    ct, st = ph[:, :N], ph[:, N:]                              # [S, N]
-    cp = cx[None] * ct[:, None, None] + sx[None] * st[:, None, None]
-    sp = sx[None] * ct[:, None, None] - cx[None] * st[:, None, None]
-    ucw, nusw = om * UC, -om * US
-
-    def msum(a):                                               # [S, M, Q]
-        return a.sum(-1)
-    eta = msum(k["E"].double() * cp)
-    ux, w_ = msum(hx * UC * cp), msum(US * sp)
-    dux, dw = msum(hx * ucw * sp), msum(nusw * cp)
+    ct = torch.nn.functional.pad(ph[:, :N], (0, n_pad))        # [S, Np]
+    st = torch.nn.functional.pad(ph[:, N:], (0, n_pad))
+    c = torch.nn.functional.pad(c, (0, 0, 0, n_pad))
+    cx = torch.nn.functional.pad(cx, (0, n_pad))
+    sx = torch.nn.functional.pad(sx, (0, n_pad))
+    acc = torch.zeros(S, M, z.shape[1], len(fac), dtype=f64)
+    for j0 in range(0, N + n_pad, SEA_CHUNK):
+        ch = slice(j0, j0 + SEA_CHUNK)
+        cxc, sxc, cc = cx[..., ch, None], sx[..., ch, None], c[..., ch, :]
+        if form == "matrix":
+            Bc = torch.where(is_cos, cc * cxc, cc * sxc)       # [M, Q, 16, F]
+            Bs = torch.where(is_cos, cc * sxc, -(cc * cxc))
+            Ac = torch.stack([ct[:, ch], st[:, ch]], -1)       # [S, 16, 2]
+            Bk = torch.stack([Bc, Bs], 3)                      # [M, Q, 16, 2, F]
+            acc += torch.einsum("sjc,mqjcf->smqf", Ac, Bk)
+        else:
+            ctc, stc = ct[:, None, None, ch], st[:, None, None, ch]
+            cp = cxc[None, ..., 0] * ctc + sxc[None, ..., 0] * stc
+            sp = sxc[None, ..., 0] * ctc - cxc[None, ..., 0] * stc
+            acc += (torch.where(is_cos, cp[..., None], sp[..., None])
+                    * cc[None]).sum(3)
+    fl = {n: acc[..., i] for i, (n, _, _) in enumerate(fac)}
+    eta, ux, w_, dux, dw = (fl[n] for n in ("eta", "ux", "w", "dux", "dw"))
     if spread:
-        uy, duy = msum(hy * UC * cp), msum(hy * ucw * sp)
+        uy, duy = fl["uy"], fl["duy"]
     if wheeler:
-        t1, t2 = kj * cp, kj * sp
-        t3, t4 = kj * t1, kj * t2
         dz = torch.clamp(-(z + d) * eta / (d + eta), -d, d)
         h2 = 0.5 * dz * dz
-        ux = ux + dz * msum(hx * US * t1) + h2 * msum(hx * UC * t3)
-        w_ = w_ + dz * msum(UC * t2) + h2 * msum(US * t4)
-        dux = dux + dz * msum(hx * -nusw * t2) + h2 * msum(hx * ucw * t4)
-        dw = dw + dz * msum(-ucw * t1) + h2 * msum(nusw * t3)
+
+        def stretch(n):
+            return fl[n] + dz * fl[n + "_z"] + h2 * fl[n + "_zz"]
+        ux, w_, dux, dw = (stretch(n) for n in ("ux", "w", "dux", "dw"))
         if spread:
-            uy = uy + dz * msum(hy * US * t1) + h2 * msum(hy * UC * t3)
-            duy = duy + dz * msum(hy * -nusw * t2) + h2 * msum(hy * ucw * t4)
+            uy, duy = stretch("uy"), stretch("duy")
     if not spread:
         uy, duy = ux * sin_w, dux * sin_w
         ux, dux = ux * cos_w, dux * cos_w
@@ -518,9 +569,11 @@ def emulate_sea_kernel(k: dict, wheeler: bool):
     ("spread", True, None, 16, 31)])
 def test_sea_kernel_operand_emulation(jacket, label, wheeler, alpha, N, S):
     """The general-mode kernel's packed operands (f64 phase table, per-mode
-    arrays, per-member Cd / Cm) through an emulation of its arithmetic
-    against the plain version at 1e-12; N off the 32-mode tile, S off the
-    32-phase block."""
+    arrays, per-member Cd / Cm) through an emulation of its arithmetic in
+    both forms (the f64 instance's matrix product over zero-padded mode
+    chunks, the f32 instance's angle differences) against the plain
+    version at 1e-12; N off the 16-mode chunk (37, 33), S off the 64- and
+    128-phase tiles."""
     js = sf.make_random_sea(6.5, 9.4, 50.0, n_components=N, seed=4,
                             U_c=0.8, spreading_s=None if label == "long"
                             else 4.0)
@@ -532,13 +585,14 @@ def test_sea_kernel_operand_emulation(jacket, label, wheeler, alpha, N, S):
     k = hk.sea_kernel_operands(ts_, tr.coords, tr.conn, D, 38.0, 50.0, Cd, Cm,
                                1025.0, times, 15, alpha)
     assert k["phase"].shape == (S, 2 * N) and k["phase"].is_contiguous()
-    F1, F2, totals = emulate_sea_kernel(k, wheeler)
     ref = tsp.morison_sea_end_forces(
         ts_, tr.coords, tr.conn, D, 38.0, 50.0, Cd, Cm, 1025.0, times,
         current_alpha=alpha, stretching="wheeler" if wheeler else "none")
-    assert rel_err(F1, ref[0]) < 1e-12
-    assert rel_err(F2, ref[1]) < 1e-12
-    assert rel_err(totals, torch.cat(ref[2:], -1)) < 1e-12
+    for form in ("matrix", "angle"):
+        F1, F2, totals = emulate_sea_kernel(k, wheeler, form)
+        assert rel_err(F1, ref[0]) < 1e-12, form
+        assert rel_err(F2, ref[1]) < 1e-12, form
+        assert rel_err(totals, torch.cat(ref[2:], -1)) < 1e-12, form
     # the wrapper's contract on the CPU: the plain version; mixed dtypes
     # raise at the kernel's operand check
     out = hk.morison_sea_end_forces_cuda(
