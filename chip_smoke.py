@@ -25,12 +25,19 @@ chain-sweep kernel, and checks them:
    ``morison_phase_batch`` in f64 on the same (f32-rounded) inputs, at the
    flagship shapes, for Fenton and Airy waves, Wheeler stretching, a
    member count and a phase count off the kernel's tiles, and the scan's
-   0-d tensor coefficients; bit-repeatable; then K1's float64 instance
-   against the plain version in f64 (1e-12) at the flagship shapes and at
-   the dense envelope's (36 phases, 51 members, Stokes-5 with 8 modes,
-   Wheeler, per-member Cd / Cm), one f64 launch a call, bit-repeatable,
-   and the f32 instance at the dense envelope's shapes (its own 8-mode
-   template instance) against the f64 plain version (1e-5);
+   0-d tensor coefficients; bit-repeatable; then K1's case-batched
+   float64 instance (its build report first: registers, spills and DMMA
+   counts from ptxas -v and cuobjdump -sass) against the plain version in
+   f64 (1e-12), with and without Wheeler, at its paths' four shapes: the
+   dense envelope's 1,000 cases in one launch (36 phases, 51 members,
+   Stokes-5 with 8 modes, per-case headings, per-(case, member) Cd,
+   per-case Cm; cases 0, 517 and 999 bit-equal to one-case launches), the
+   flagship (360 phases), the harmonic response (72) and the transient
+   (1,536); one f64 launch a call, bit-repeatable, each shape's device
+   time against its bound; and the f32 instance at the dense envelope's
+   shapes (its own 8-mode template instance) against the f64 plain
+   version (1e-5) (the f64 and dense-shape checks run after phase 4's
+   wrapper checks, which stay the run's first profiler sessions);
 4. sweep phase: ``chain_sweep_cuda`` in f32 and f64 against
    ``chain_sweep_plain`` in f64 on the flagship chain factors (nested
    level 1 and 2, thomas), on random loads for 360 and 37 right-hand sides
@@ -99,8 +106,9 @@ chain-sweep kernel, and checks them:
 12. dense envelope phase: 1,000 cases (Stokes-5, H = linspace(2, 14, 50)
    m x 20 headings of wave and current, T = 9.4 s, d = 50 m, U_c = 1.7
    m/s) x 36 phases through ``design_envelope`` on the default jacket
-   (126 DOF, f64): exactly 1,000 launches of K1's f64 instance, every case
-   against the CPU f64 plain run at 1e-10 (the reductions, the full
+   (126 DOF, f64): exactly one launch of K1's case-batched f64 instance
+   for the 1,000 cases, every case against the CPU f64 plain run at 1e-10
+   (the reductions, the full
    utilization [C, S, M] and the Morison totals), the governing case
    against ``analyze_phase_batch``; time, device operations and busy time,
    peak memory; then an f32 copy of the model through the same call (1,000
@@ -253,6 +261,8 @@ DENSE_F64_TOL = 1e-10 # dense f64 envelope on the card (K1 f64) vs the CPU
                       # f64 run: utilization, total_morison, reductions
 # dynamics at 9,612 DOF (f64), against the port's CPU f64 run of each call
 TOPSIDE_T = 1100.0    # topside mass (tests/test_dynamics.py)
+HARMONIC_STEPS = 72   # dynamic_response_condensed's phases (phase 15)
+TRANSIENT_STEPS = 1536  # transient_response_condensed: 12 periods at T / 128
 CHAIN_MODES = 12      # retained chain modes of the Craig-Bampton basis
 MODAL_FREQ_TOL = 1e-10  # frequencies, relative
 MODAL_MAC_TOL = 1e-8  # 1 - MAC of each card mode against its CPU mode's
@@ -923,7 +933,8 @@ ENV_FIELDS = ("ts", "utilization", "max_util_per_phase", "max_util_per_case",
 
 def dense_envelope_phase(pt, hk, dev, coarse64, waves_cpu, cases):
     """``design_envelope`` of the 1,000 cases x 36 phases on the default
-    jacket in f64: exactly one launch of K1's f64 instance per case, every
+    jacket in f64: exactly one launch of K1's case-batched f64 instance for
+    all the cases, every
     case against the CPU f64 plain run (1e-10), the governing case against
     ``analyze_phase_batch``; time, device operations and peak memory.  Then
     an f32 copy of the model through the same call: one launch of the f32
@@ -937,8 +948,9 @@ def dense_envelope_phase(pt, hk, dev, coarse64, waves_cpu, cases):
         return pt.design_envelope(coarse64, waves, cases, n_steps=DESIGN_STEPS)
     env, n, out["first_s"] = counted(hk, envelope)
     out["launches"] = n["f64"]
-    check(same_counts(n, {"f64": C}), f"design_envelope of the "
-          f"f64 model launched {n} (K1's f64 instance once per case: {C})")
+    check(same_counts(n, {"f64": 1}), f"design_envelope of the f64 model "
+          f"launched {n} (K1's case-batched f64 instance once for the {C} "
+          "cases)")
     check(tuple(env.utilization.shape) == (C, DESIGN_STEPS,
                                            coarse64.n_members)
           and all(torch.isfinite(getattr(env, f)).all() for f in ENV_FIELDS),
@@ -1004,7 +1016,7 @@ def dense_envelope_phase(pt, hk, dev, coarse64, waves_cpu, cases):
     out["peak_mib"] = peak_mib(envelope)
     events = device_events(envelope)
     out["ops"], out["busy_ms"] = len(events), sum(t for _, t in events) / 1e3
-    out["k1_us"] = kernel_us(events, "morison_phase_batch_f64_kernel")
+    out["k1_us"] = sum(kernel_us(events, n) for n in HARM64_KERNELS)
     out["top"] = top_device_ops(events)
     out["errs"], out["gov_err"] = errs, gov_err
     return env, out
@@ -1098,23 +1110,114 @@ def resume_phase(pt, dev, coarse64, waves_cpu, cases, env):
     return seconds
 
 
-def k1_f64_phase(pt, hk, dev, coarse64, refined64, wave64):
-    """K1's float64 instance against its plain f64 version on the same
-    inputs (F1, F2, the totals and the nodal forces at 1e-12 of their
-    maxima; one f64 launch a call; bit-repeatable): the flagship shapes
-    (360 phases, 1,632 members, Fenton N = 18, 15 Gauss points) and the
-    dense envelope's (36 phases, 51 members, Stokes-5 with 8 modes) with
-    Wheeler stretching and per-member Cd / Cm.  Returns the largest errors
-    and both sets of operands."""
+def harm64_bound(S: int, M: int, Q: int, N: int, n_nodes: int, C: int = 1,
+                 wheeler: bool = False) -> dict:
+    """The bound of one launch of K1's case-batched f64 instance: the mode
+    sums, 4F FLOP per (case, phase, point, mode) (F = 5, 13 with Wheeler)
+    at the FP64 tensor cores' 67 TFLOP/s, plus the epilogue, EPILOGUE_FLOP
+    per (case, phase, point) at the 34 TFLOP/s of FP64 outside them,
+    against the bytes (F1 / F2 and the totals written once; phase times,
+    wave, per-case member coefficients, coords and members read once) at
+    3.35 TB/s.  Returns us, by, the GFLOP of both parts and the MB."""
+    F = 13 if wheeler else 5
+    sums = C * S * M * Q * N * 4 * F
+    epi = C * S * M * Q * EPILOGUE_FLOP
+    nbytes = (8 * (C * (2 * S * M * 3 + S * 6 + S + 2 * N + 4 + 3 * M)
+                   + n_nodes * 3) + 8 * 2 * M)
+    t_ops = sums / FP64_TC_FLOP_PER_S + epi / FP64_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return dict(us=max(t_ops, t_bytes) * 1e6,
+                by="bytes" if t_bytes >= t_ops else "operations",
+                sums_gflop=sums / 1e9, epilogue_gflop=epi / 1e9,
+                mb=nbytes / 1e6)
+
+
+# K1's f64 instance: its records pass, fused pass and totals
+HARM64_KERNELS = ("morison_harm64_records_kernel", "morison_harm64_kernel",
+                  "morison_harm64_totals_kernel")
+
+
+def harm64_us(events) -> dict:
+    """Device us of one K1 f64 launch by part (records pass, fused pass,
+    totals) from profiler events of repeated launches, and their sum."""
+    parts = [kernel_median_us(events, n) for n in HARM64_KERNELS]
+    return {"records": parts[0], "fused": parts[1], "totals": parts[2],
+            "total": sum(parts)}
+
+
+def harm64_build_report(hk) -> dict:
+    """What the build says of K1's f64 harmonic instances
+    (``hk.build_report``: ptxas -v and cuobjdump -sass of the library):
+    both fused passes (with and without Wheeler) issue DMMA (their mode
+    sums on the FP64 tensor cores), and no f64 harmonic kernel spills.
+    Returns {instance: registers, stack, spill bytes, DMMA, HMMA} and the
+    first DMMA's text."""
+    import re
+    rep = hk.build_report("morison_phase_batch")
+    out, first = {}, None
+    for name, r in rep.items():
+        m = re.search(r"morison_harm64_(kernel|records_kernel)(?:ILb([01])E)?",
+                      name)
+        if m is None:
+            continue
+        label = (f"fused wheeler={m[2]}" if m[1] == "kernel"
+                 else m[1].split("_")[0])
+        out[label] = {k: r.get(k) for k in ("registers", "stack",
+                                            "spill_stores", "spill_loads",
+                                            "DMMA", "HMMA")}
+        if m[1] == "kernel" and first is None:
+            first = r.get("first_dmma")
+        print(f"[build] K1 f64 {label}: {out[label]}", flush=True)
+    fused = {k: v for k, v in out.items() if k.startswith("fused")}
+    check(len(fused) == 2 and len(out) == 3, f"K1 f64: 2 fused passes and "
+          f"the records pass in the library ({len(fused)}, "
+          f"{len(out) - len(fused)})")
+    check(all((v["DMMA"] or 0) > 0 for v in fused.values()),
+          "both K1 f64 fused passes issue DMMA (FP64 tensor cores)")
+    check(all(v["spill_stores"] == 0 and v["spill_loads"] == 0
+              for v in out.values()), "no K1 f64 kernel spills (ptxas -v)")
+    print(f"[build] K1 f64 first DMMA: {first}", flush=True)
+    return {"instances": out, "first_dmma": first}
+
+
+def k1_f64_phase(pt, hk, dev, coarse64, refined64, wave64, waves_d, dirs_d):
+    """K1's case-batched float64 instance against its plain f64 version on
+    the same inputs (F1, F2 and the totals at 1e-12 of their maxima; the
+    nodal forces too at one case's shapes), with and without Wheeler, at
+    the four shapes its paths give it: the dense envelope (the 1,000
+    design cases in ONE launch: 36 phases, 51 members, Stokes-5 with 8
+    modes, per-case headings, per-(case, member) Cd, per-case Cm and rho),
+    the flagship (360 phases, 1,632 members, Fenton N = 18), the harmonic
+    response (72 phases) and the transient (1,536).  One launch a call,
+    bit-repeatable, and case i of the batch bit-equal to a one-case launch
+    of case i.  Each shape's device time (records pass, fused pass,
+    totals) against its bound; the build report.  Returns the errors,
+    times, bounds, and the flagship and one-case dense operands."""
     import numpy as np
     import torch
-    from small_fem_solver_tpu_torch.ops.morison import morison_phase_batch
+    from small_fem_solver_tpu_torch.ops.morison import (
+        morison_end_forces, morison_end_forces_batch, morison_phase_batch)
     f64 = torch.float64
+    build = harm64_build_report(hk)
     D = refined64.sections.D_outer[refined64.sect_id] / 1000.0
-    ts = torch.arange(N_STEPS, dtype=f64, device=dev) * wave64.T / N_STEPS
-    flagship = (wave64, refined64.coords, refined64.conn, D, 38.0, 38.0, 0.7,
+
+    def flagship(S, per_period=None):
+        ts = (torch.arange(S, dtype=f64, device=dev) * wave64.T
+              / (per_period or S))
+        return (wave64, refined64.coords, refined64.conn, D, 38.0, 38.0, 0.7,
                 2.0, 1025.0, ts)
-    rng, M = np.random.default_rng(7), coarse64.n_members
+    rng, M, C = np.random.default_rng(7), coarse64.n_members, len(dirs_d)
+    waves = waves_d.to(f64, dev)
+    tens = dict(dtype=f64, device=dev)
+    dirs = torch.tensor(dirs_d, **tens)
+    dense_b = (waves, coarse64.coords, coarse64.conn,
+               coarse64.sections.D_outer[coarse64.sect_id] / 1000.0, dirs,
+               dirs, torch.tensor(rng.uniform(0.6, 1.1, (C, M)), **tens),
+               torch.tensor(rng.uniform(1.6, 2.1, (C, 1)), **tens),
+               torch.full((C,), 1025.0, **tens),
+               torch.arange(DESIGN_STEPS, **tens)[None, :]
+               * waves.T[:, None] / DESIGN_STEPS)
+    # one case at the dense shapes (the f32 instance's check in main)
     stokes = pt.make_wave(14.0, 9.4, 50.0, U_c=1.7, model="stokes", N=5,
                           n_modes=8, dtype=f64, device=dev)
     dense = (stokes, coarse64.coords, coarse64.conn,
@@ -1123,36 +1226,97 @@ def k1_f64_phase(pt, hk, dev, coarse64, refined64, wave64):
              torch.tensor(rng.uniform(1.6, 2.1, M), device=dev), 1025.0,
              torch.arange(DESIGN_STEPS, dtype=f64, device=dev) * stokes.T
              / DESIGN_STEPS)
-    fields = ("nodal_forces", "F1", "F2", "total_drag", "total_inertia",
-              "total_morison")
-    out = {"abs": 0.0, "rel": 0.0, "args": flagship, "dense": dense}
-    for label, args, kw in (
-            ("flagship", flagship, {}),
-            ("dense envelope shapes, Wheeler, per-member Cd/Cm", dense,
-             dict(stretching="wheeler"))):
-        before = hk.morison_phase_batch_cuda.instance_launches["f64"]
-        res = hk.morison_phase_batch_cuda(*args, **kw)
-        again = hk.morison_phase_batch_cuda(*args, **kw)
-        torch.cuda.synchronize()
-        n = hk.morison_phase_batch_cuda.instance_launches["f64"] - before
-        ref = morison_phase_batch(*args, **kw)
-        errs = {f: rel(getattr(res, f), getattr(ref, f)) for f in fields}
-        S, Mk = res.F1.shape[:2]
-        print(f"[kernel f64] {label}: S={S} M={Mk} N={args[0].n_modes} "
-              "max rel err " + " ".join(f"{f}={e:.2e}" for f, e in
-                                        errs.items()), flush=True)
-        check(n == 2 and res.F1.dtype == f64, f"K1 f64 instance launched "
-              f"({n} launches for 2 calls, {res.F1.dtype}) ({label})")
-        check(all(torch.isfinite(getattr(res, f)).all() for f in fields),
-              f"K1 f64 outputs finite ({label})")
-        check(max(errs.values()) <= KERNEL_TOL_F64, f"K1 f64 vs f64 plain "
-              f"({label}): {max(errs.values()):.2e} <= {KERNEL_TOL_F64:g}")
-        check(all(torch.equal(getattr(res, f), getattr(again, f))
-                  for f in fields), f"K1 f64 bit-repeatable ({label})")
-        out["rel"] = max(out["rel"], max(errs.values()))
-        out["abs"] = max(out["abs"], *(float((getattr(res, f)
-                                             - getattr(ref, f)).abs().max())
-                                       for f in ("F1", "F2")))
+    shapes = {"dense envelope": (dense_b, C),
+              "flagship": (flagship(N_STEPS), 1),
+              "harmonic": (flagship(HARMONIC_STEPS), 1),
+              "transient": (flagship(TRANSIENT_STEPS, 128), 1)}
+    names = ("F1", "F2", "total_drag", "total_inertia")
+    out = {"abs": 0.0, "rel": 0.0, "args": flagship(N_STEPS),
+           "dense": dense, "build": build, "shapes": {}}
+    for label, (args, Cb) in shapes.items():
+        wave, coords, conn = args[:3]
+        S, Mk, N = args[-1].shape[-1], conn.shape[0], wave.n_modes
+        for stretching in ("none", "wheeler"):
+            kw = dict(stretching=stretching)
+            if Cb > 1:
+                def call():
+                    return hk.morison_end_forces_batch_cuda(*args, **kw)
+            else:
+                def call():
+                    return hk.morison_end_forces_cuda(*args, **kw)
+            before = hk.morison_phase_batch_cuda.instance_launches["f64"]
+            res = call()
+            again = call()
+            torch.cuda.synchronize()
+            n = hk.morison_phase_batch_cuda.instance_launches["f64"] - before
+            if Cb > 1:
+                ref = morison_end_forces_batch(*args, **kw)
+            else:
+                mb = morison_phase_batch(*args, **kw)
+                ref = (mb.F1, mb.F2, mb.total_drag, mb.total_inertia)
+            errs = {f: rel(a, b) for f, a, b in zip(names, res, ref)}
+            tag = f"{label} (C={Cb} S={S} M={Mk} N={N}, {stretching})"
+            print(f"[kernel f64] {tag}: max rel err "
+                  + " ".join(f"{f}={e:.2e}" for f, e in errs.items()),
+                  flush=True)
+            check(n == 2 and res[0].dtype == f64
+                  and tuple(res[0].shape) == ((Cb,) if Cb > 1 else ())
+                  + (S, Mk, 3), f"K1 f64 instance: {n} launches for 2 calls "
+                  f"({tag})")
+            check(all(torch.isfinite(r).all() for r in res),
+                  f"K1 f64 outputs finite ({tag})")
+            check(max(errs.values()) <= KERNEL_TOL_F64, f"K1 f64 vs f64 "
+                  f"plain ({tag}): {max(errs.values()):.2e} <= "
+                  f"{KERNEL_TOL_F64:g}")
+            check(all(torch.equal(a, b) for a, b in zip(res, again)),
+                  f"K1 f64 bit-repeatable ({tag})")
+            if Cb > 1:
+                # case i of the batch against a one-case launch of case i
+                picks = (0, 517, C - 1)
+                for i in picks:
+                    one = hk.morison_end_forces_cuda(
+                        waves.case(i), *args[1:4], args[4][i], args[5][i],
+                        args[6][i], args[7][i, 0], args[8][i], args[9][i],
+                        **kw)
+                    check(all(torch.equal(a[i], b) for a, b in
+                              zip(res, one)), f"K1 f64 batch case {i} "
+                          f"bit-equal to its one-case launch ({tag})")
+            else:
+                nod = hk.morison_phase_batch_cuda(*args, **kw).nodal_forces
+                nerr = rel(nod, mb.nodal_forces)
+                check(nerr <= KERNEL_TOL_F64, f"K1 f64 nodal forces vs "
+                      f"plain ({tag}): {nerr:.2e} <= {KERNEL_TOL_F64:g}")
+            out["rel"] = max(out["rel"], max(errs.values()))
+            out["abs"] = max(out["abs"], *(float((a - b).abs().max())
+                                           for a, b in zip(res[:2], ref[:2])))
+            # device time beside the bound (the launches are not counted:
+            # the count is read around each path's own run)
+            ev = device_events(call, 10 if label == "dense envelope"
+                               else SHORT_REPS)
+            dev_us = harm64_us(ev)
+            bound = harm64_bound(S, Mk, 15, N, coords.shape[0], Cb,
+                                 stretching == "wheeler")
+            rec = {"device_us": dev_us, "bound": bound,
+                   "share": bound["us"] / dev_us["total"],
+                   "ms": cuda_ms(call, n=10), "max_rel_err":
+                   max(errs.values())}
+            if stretching == "none":
+                plain = (morison_end_forces_batch if Cb > 1
+                         else morison_end_forces)
+                rec["plain_ms"] = cuda_ms(lambda: plain(*args, **kw), n=3,
+                                          warmup=1)
+            out["shapes"][f"{label}, {stretching}"] = rec
+            print(f"[bound] {SMI}: K1 f64 {tag}: {dev_us['total']:.1f} us "
+                  f"on the device (records {dev_us['records']:.1f} + fused "
+                  f"{dev_us['fused']:.1f} + totals {dev_us['totals']:.1f}); "
+                  f"bound {bound['us']:.1f} us by {bound['by']} "
+                  f"({bound['sums_gflop']:.2f} GFLOP of mode sums at 67 "
+                  f"TFLOP/s, {bound['epilogue_gflop']:.2f} of epilogue at "
+                  f"34, {bound['mb']:.1f} MB): {rec['share']:.0%} of the "
+                  f"bound; wrapper {rec['ms']:.3f} ms"
+                  + (f", plain f64 {rec['plain_ms']:.3f} ms"
+                     if "plain_ms" in rec else "")
+                  + " (torch.profiler, CUDA events)", flush=True)
     return out
 
 
@@ -1232,7 +1396,8 @@ def call_record(fn) -> dict:
     events = device_events(fn, host=False)
     rec["ops"], rec["busy_ms"] = len(events), sum(t for _, t in events) / 1e3
     rec["sweep_us"] = kernel_us(events, "chain_sweep_kernel")
-    rec["k1_us"] = kernel_us(events, "morison_phase_batch_f64_kernel")
+    # K1's f64 instance: its records pass and its fused pass
+    rec["k1_us"] = sum(kernel_us(events, n) for n in HARM64_KERNELS[:2])
     # K1-sea: its records pass and its fused pass
     rec["k1_sea_us"] = (kernel_us(events, "morison_sea_records_kernel")
                         + kernel_us(events, "morison_sea_kernel"))
@@ -2351,34 +2516,6 @@ def main() -> int:
             check(all(torch.equal(getattr(out, f), getattr(again, f))
                       for f in fields), f"kernel bit-repeatable ({label})")
 
-    k64 = k1_f64_phase(pt, hk, dev, coarse64, refined64, wave64)
-    # the f32 instance at the dense envelope's shapes (36 phases, 51
-    # members, Stokes-5 with 8 modes: its NMAX = 8 template instance), with
-    # Wheeler stretching and per-member Cd / Cm, as the f32 model's
-    # envelope (phase 12) runs it
-    def dense_args(dtype, args=k64["dense"]):
-        return (*hk.cast_operands(dtype, dev, *args[:2]), args[2],
-                *hk.cast_operands(dtype, dev, *args[3:]))
-    d32 = dense_args(f32)
-    d64 = dense_args(f64, d32)     # the same (f32-rounded) inputs
-    before = hk.morison_phase_batch_cuda.instance_launches["f32"]
-    out = hk.morison_phase_batch_cuda(*d32, stretching="wheeler")
-    torch.cuda.synchronize()
-    n = hk.morison_phase_batch_cuda.instance_launches["f32"] - before
-    ref = morison_phase_batch(*d64, stretching="wheeler")
-    errs = {f: rel(getattr(out, f), getattr(ref, f)) for f in fields}
-    print(f"[kernel] dense envelope shapes, Wheeler, per-member Cd/Cm: "
-          f"S={DESIGN_STEPS} M={coarse64.n_members} N={d64[0].n_modes} max "
-          "rel err " + " ".join(f"{f}={e:.2e}" for f, e in errs.items()),
-          flush=True)
-    check(n == 1 and out.F1.dtype == f32
-          and all(torch.isfinite(getattr(out, f)).all() for f in fields),
-          f"K1 f32 instance launched once ({n}), outputs finite (dense "
-          "envelope shapes)")
-    check(max(errs.values()) < KERNEL_TOL, f"kernel vs f64 plain (dense "
-          f"envelope shapes): {max(errs.values()):.2e} < {KERNEL_TOL:g}")
-    kernel_rel = max(kernel_rel, max(errs.values()))
-
     # ---- 4. sweep phase at the flagship chain shapes ----
     prep_th = pt.prepare_condensed(coarse32, refined32, N_SEG,
                                    chain_solver="thomas", solve_dtype=f32)
@@ -2480,6 +2617,41 @@ def main() -> int:
               f"{len(ops)} device operations in {SHORT_REPS} calls, all its "
               f"kernels ({sorted(set(ops))}), no host-to-device copy, no "
               "synchronisation")
+
+    # ---- K1's f64 instance (after the wrappers' first profiler sessions)
+    t0 = time.perf_counter()
+    waves_d, cases_d, H_d, dir_d = design_batch(pt)
+    n_design = len(H_d)
+    print(f"[design] {n_design}-case batch (50 Stokes-5 waves, one host "
+          f"solve): {time.perf_counter() - t0:.2f} s", flush=True)
+    k64 = k1_f64_phase(pt, hk, dev, coarse64, refined64, wave64, waves_d,
+                       dir_d)
+    # the f32 instance at the dense envelope's shapes (36 phases, 51
+    # members, Stokes-5 with 8 modes: its NMAX = 8 template instance), with
+    # Wheeler stretching and per-member Cd / Cm, as the f32 model's
+    # envelope (phase 12) runs it
+    def dense_args(dtype, args=k64["dense"]):
+        return (*hk.cast_operands(dtype, dev, *args[:2]), args[2],
+                *hk.cast_operands(dtype, dev, *args[3:]))
+    d32 = dense_args(f32)
+    d64 = dense_args(f64, d32)     # the same (f32-rounded) inputs
+    before = hk.morison_phase_batch_cuda.instance_launches["f32"]
+    out = hk.morison_phase_batch_cuda(*d32, stretching="wheeler")
+    torch.cuda.synchronize()
+    n = hk.morison_phase_batch_cuda.instance_launches["f32"] - before
+    ref = morison_phase_batch(*d64, stretching="wheeler")
+    errs = {f: rel(getattr(out, f), getattr(ref, f)) for f in fields}
+    print(f"[kernel] dense envelope shapes, Wheeler, per-member Cd/Cm: "
+          f"S={DESIGN_STEPS} M={coarse64.n_members} N={d64[0].n_modes} max "
+          "rel err " + " ".join(f"{f}={e:.2e}" for f, e in errs.items()),
+          flush=True)
+    check(n == 1 and out.F1.dtype == f32
+          and all(torch.isfinite(getattr(out, f)).all() for f in fields),
+          f"K1 f32 instance launched once ({n}), outputs finite (dense "
+          "envelope shapes)")
+    check(max(errs.values()) < KERNEL_TOL, f"kernel vs f64 plain (dense "
+          f"envelope shapes): {max(errs.values()):.2e} < {KERNEL_TOL:g}")
+    kernel_rel = max(kernel_rel, max(errs.values()))
 
     # ---- 5. scan phase: the flagship scan, with the launch counts ----
     hk.morison_phase_batch_cuda.launches = 0
@@ -2695,31 +2867,12 @@ def main() -> int:
           f"{env_launches['morison_phase_batch']} per envelope call "
           f"(torch.profiler)", flush=True)
 
-    # K1's f64 instance at the flagship shapes: wrapper, plain f64 version,
-    # device time beside the FP64 bound
-    args64 = k64["args"]
-    k_ops64 = hk.kernel_operands(*args64, n_gauss=15, current_alpha=None)
-    k64_ms = cuda_ms(lambda: hk.morison_end_forces_cuda(*args64))
-    p64_ms = cuda_ms(lambda: morison_phase_batch(*args64), n=5)
-    ev = device_events(lambda: hk.launch_morison(k_ops64, False), SHORT_REPS)
-    k64_us = (kernel_us(ev, "morison_phase_batch_f64_kernel")
-              + kernel_us(ev, "morison_totals_kernel"))
-    k64_bytes = 8 * (2 * S_ * M_ * 3 + S_ * 6 + S_ + 2 * N_ + 4
-                     + refined32.n_nodes * 3 + M_) + 8 * 2 * M_
-    # f64: the mode sums at the FP64 tensor-core rate, the epilogue at the
-    # FP64 rate outside them (counted as its equivalent at the former)
-    k64_bound, k64_by = bound_us(
-        k64_bytes, k1_mode_flops
-        + k1_epi_flops * FP64_TC_FLOP_PER_S / FP64_FLOP_PER_S,
-        FP64_TC_FLOP_PER_S)
-    print(f"[bound] {smi}: K1 f64 instance {k64_us:.1f} us on the device "
-          f"(pass {kernel_us(ev, 'morison_phase_batch_f64_kernel'):.1f} + "
-          f"totals {kernel_us(ev, 'morison_totals_kernel'):.1f}); FP64 bound "
-          f"{k64_bound:.1f} us by {k64_by} ({k1_mode_flops / 1e9:.2f} GFLOP "
-          f"of mode sums at 67 TFLOP/s, {k1_epi_flops / 1e9:.2f} at 34, "
-          f"{k64_bytes / 1e6:.1f} MB): {k64_bound / k64_us:.0%} of the "
-          f"bound; wrapper {k64_ms:.3f} ms vs plain f64 {p64_ms:.3f} ms "
-          f"(torch.profiler, CUDA events)", flush=True)
+    # K1's f64 instance: its device time against its bound at each shape
+    # (k1_f64_phase printed them)
+    f64_flag = k64["shapes"]["flagship, none"]
+    k64_us, k64_ms = f64_flag["device_us"]["total"], f64_flag["ms"]
+    p64_ms, k64_bound = f64_flag["plain_ms"], f64_flag["bound"]["us"]
+    k64_by = f64_flag["bound"]["by"]
 
     # the sweep at the main path's own operands and layouts
     sweep_runs = {"nested level 1": scan_sweeps[0][1:],
@@ -2775,11 +2928,6 @@ def main() -> int:
     print(f"[options] phase {time.perf_counter() - t0:.2f} s wall", flush=True)
 
     # ---- 12-14. dense design tier: 1,000 cases on the default jacket ----
-    t0 = time.perf_counter()
-    waves_d, cases_d, H_d, dir_d = design_batch(pt)
-    n_design = len(H_d)
-    print(f"[design] {n_design}-case batch (50 Stokes-5 waves, one host "
-          f"solve): {time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
     env_d, denv = dense_envelope_phase(pt, hk, dev, coarse64, waves_d,
                                        cases_d)
@@ -2931,7 +3079,15 @@ def main() -> int:
         "sea_build": ksea["build"],
         "f64": {"max_abs_err": k64["abs"], "max_rel_err": k64["rel"],
                 "ms": k64_ms, "plain_ms": p64_ms, "device_us": k64_us,
-                "bound_ms": k64_bound / 1e3, "bound_by": k64_by},
+                "bound_ms": k64_bound / 1e3, "bound_by": k64_by,
+                "shapes": {key: {"device_us": r["device_us"],
+                                 "bound_us": r["bound"]["us"],
+                                 "bound_by": r["bound"]["by"],
+                                 "share": r["share"], "ms": r["ms"],
+                                 "plain_ms": r.get("plain_ms"),
+                                 "max_rel_err": r["max_rel_err"]}
+                           for key, r in k64["shapes"].items()}},
+        "f64_build": k64["build"],
         "launches_per_scan": scan_launches["morison_phase_batch"] // 2,
         "max_abs_err": kernel_err,
         "max_rel_err": kernel_rel,

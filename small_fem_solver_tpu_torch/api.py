@@ -67,7 +67,8 @@ from .ops.assembly import (assemble_dense, element_dof_indices,
                            node_gather_table, node_sum_ordered)
 from .ops.beams import element_stiffness, internal_forces, matvec12
 from .ops.fatigue import SECONDS_PER_YEAR
-from .ops.hopper_kernels import (cast_operands, morison_end_forces_cuda,
+from .ops.hopper_kernels import (cast_operands, morison_end_forces_batch_cuda,
+                                 morison_end_forces_cuda,
                                  morison_sea_end_forces_cuda)
 from .ops.morison import (POINTWISE_CHUNK_ELEMS, MorisonLoads, hydro_members,
                           morison_end_forces, morison_loads)
@@ -1112,15 +1113,17 @@ def design_envelope(model: JacketModel, waves: FourierWave, cases: LoadCase,
     :class:`LoadCase` with ``[C]`` numeric fields (see
     ``parallel.sweep.make_wave_batch`` / ``make_case_batch``); E and nu
     must be shared by all cases.  K is factored once (Cholesky; grounded
-    through ``support_stiffness`` springs, see :func:`analyze_ssi`).  Each
-    case's phase loads come from the separable Morison engine in the
-    model's dtype, as in the JAX package: on CUDA tensors one launch of
-    the Morison kernel per case (its float32 or float64 instance), on the
-    CPU its plain version.  Everything around those launches runs once for
-    the batch: the hydrodynamic set, the nodal sums and the load assembly
-    (``torch.func.vmap`` over the cases), then all C x S load vectors are
-    one multi-RHS solve, and the recovery is batched.  The result keeps
-    the full utilization field [C, S, M].
+    through ``support_stiffness`` springs, see :func:`analyze_ssi`).  The
+    phase loads of all cases come from the separable Morison engine in the
+    model's dtype, as in the JAX package (``jax.vmap`` there): on CUDA
+    tensors of a float64 model one launch of the Morison kernel's
+    case-batched float64 instance for the whole batch (a float32 model:
+    one launch of its float32 instance per case), on the CPU its plain
+    version (``torch.func.vmap`` over the cases).  Everything else runs
+    once for the batch: the hydrodynamic set, the nodal sums and the load
+    assembly (``torch.func.vmap`` over the cases), then all C x S load
+    vectors are one multi-RHS solve, and the recovery is batched.  The
+    result keeps the full utilization field [C, S, M].
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -1138,14 +1141,13 @@ def design_envelope(model: JacketModel, waves: FourierWave, cases: LoadCase,
         D_h, Cd_h, Cm_h = torch.func.vmap(
             lambda mg, cd, cm: hydro_members(model, mg, cd, cm)[1:])(
                 cases.marine_growth_mm, cases.Cd, cases.Cm)
-        per_case = (D_h, cases.wave_dir_deg, cases.current_dir_deg, Cd_h,
-                    Cm_h, cases.rho_water, ts)
         wk, = cast_operands(dtype, dev, waves)
-        ends = [morison_end_forces_cuda(
-            wk.case(i), model.coords, conn_h, *(a[i] for a in per_case),
-            n_gauss=n_gauss, current_alpha=current_alpha,
-            stretching=stretching) for i in range(C)]
-        F1, F2, drag, inertia = (torch.stack(x) for x in zip(*ends))
+        # Cd / Cm per case [C, 1] or per case and member [C, M']
+        F1, F2, drag, inertia = morison_end_forces_batch_cuda(
+            wk, model.coords, conn_h, D_h, cases.wave_dir_deg,
+            cases.current_dir_deg, Cd_h.reshape(C, -1), Cm_h.reshape(C, -1),
+            cases.rho_water, ts, n_gauss=n_gauss,
+            current_alpha=current_alpha, stretching=stretching)
         F12 = torch.cat([F1, F2], dim=2)                   # [C, S, 2M', 3]
         tot = drag + inertia
         table = node_gather_table(torch.cat([conn_h[:, 0], conn_h[:, 1]]),

@@ -64,14 +64,12 @@
 // kernel adds the blocks in a fixed order.  The grid depends only on the
 // card and the shapes: results are bit-repeatable.
 //
-// Float64.  morison_phase_batch_f64_kernel computes the same function in
-// double precision for float64 models (the dense design envelope and the
-// dynamics loads, which the JAX package evaluates in the model's dtype).
-// It is the simple form: one phase a thread, 64 phases a block, each block
-// walking a fixed stride of members, its records built per member in
-// shared memory as above and cos / sin (j omega t) by angle addition
-// (rounding ~j eps in float64).  Bound at the flagship shapes: 3.7 GFLOP
-// over the H100's 34 TFLOP/s of FP64, ~109 us.  The float32 kernel above
+// Float64.  morison_harm64_kernel (after the random-sea instance, whose
+// fragment, fold and epilogue helpers it shares) computes the same
+// function in double precision for float64 models (the dense design
+// envelope and the dynamics loads, which the JAX package evaluates in the
+// model's dtype), for a batch of C cases in one launch: a records pass,
+// then the mode sums on the FP64 tensor cores.  The float32 kernel above
 // is not touched by it.
 //
 // Random seas.  morison_sea_kernel (float32 and float64, at the end of the
@@ -151,9 +149,40 @@ struct SeaParamsT {
   T* totals;               // [S, 6] drag xyz | inertia xyz
 };
 
+// A coefficient of the case-batched float64 instance: element (case c,
+// member m) at ptr[sc * c + sm * m] (stride 0 along an axis it does not
+// have), or, when ptr is null, by value.
+struct HOperand {
+  const double* ptr;
+  long long sc, sm;
+  double value;
+};
+
+// The case-batched float64 harmonic instance's operands: C cases (waves,
+// phase times, headings, current, coefficients) on one model's members.
+struct Harm64Params {
+  const double* coords;    // [n_nodes, 3]
+  const long long* conn;   // [M, 2]
+  HOperand D, Cd, Cm;      // [C, M], [C, 1], [M] or scalar
+  HOperand wave_dir, current_dir, rho, alpha;   // [C] or scalar
+  const double* E;         // [C, N]
+  const double* U;         // [C, N]
+  const double* k;         // [C]
+  const double* omega;     // [C]
+  const double* d;         // [C]
+  const double* Uc;        // [C]
+  const double* ts;        // [C, S]
+  double s[MAX_GAUSS];     // Gauss abscissae on [0, 1]
+  double w[MAX_GAUSS];     // Gauss weights (sum 1)
+  int C, M, S, N, n_gauss, power_law;
+  double* F1;              // [C, S, M, 3]
+  double* F2;              // [C, S, M, 3]
+  double* partials;        // [C, G, S, 6]
+  double* totals;          // [C, S, 6] drag xyz | inertia xyz
+};
+
 using Operand = OperandT<float>;
 using MorisonParams = ParamsT<float>;
-using MorisonParams64 = ParamsT<double>;
 
 namespace {
 
@@ -445,203 +474,6 @@ cudaError_t launch(const MorisonParams& p, int G, cudaStream_t stream) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   morison_totals_kernel<float><<<(p.S * 6 + 255) / 256, 256, 0, stream>>>(
-      p.partials, G, p.S, p.totals);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// Float64 instance
-// ---------------------------------------------------------------------------
-
-constexpr int THREADS64 = 64;         // one phase a thread
-constexpr int MEMBER_BLOCKS64 = 512;  // blocks along the members (grid.y)
-
-// The float64 mode sums of one (phase, point); Wheeler adds the d/dz and
-// d^2/dz^2 sums.  r: cos(jkx), sin(jkx), U_j C_j(z), U_j S_j(z).
-template <bool WHEELER>
-struct Fields64 {
-  double eta = 0, u = 0, w = 0, du = 0, dw = 0;
-  double u_z = 0, w_z = 0, du_z = 0, dw_z = 0;
-  double u_zz = 0, w_zz = 0, du_zz = 0, dw_zz = 0;
-};
-
-// Grid: x over 64-phase tiles, y over MEMBER_BLOCKS64 member strides; block
-// (x, y) walks members y, y + gridDim.y, ... in order and writes its
-// per-phase drag / inertia sums to partials[y, s, :].  Shared memory: the
-// member's records [Q * N][4], point data [Q][8] and per-mode E, j k, j w.
-template <bool WHEELER>
-__global__ void __launch_bounds__(THREADS64)
-morison_phase_batch_f64_kernel(const MorisonParams64 p) {
-  extern __shared__ double smem64[];
-  const int N = p.N, Q = p.n_gauss, M = p.M, S = p.S;
-  double* rec = smem64;                 // [Q * N][4]
-  double* pt = rec + 4 * Q * N;         // [Q][8]
-  double* mE = pt + 8 * Q;              // [N]
-  double* mjk = mE + N;                 // [N]
-  double* mjw = mjk + N;                // [N]
-  const int tid = threadIdx.x;
-  const int s_ph = blockIdx.x * THREADS64 + tid;
-  const bool live_ph = s_ph < S;
-
-  const double d = p.d[0], kk = p.k[0], omega = p.omega[0];
-  double sin_w, cos_w, sin_c, cos_c;
-  sincospi((90.0 - operand(p.wave_dir, 0)) / 180.0, &sin_w, &cos_w);
-  sincospi((90.0 - operand(p.current_dir, 0)) / 180.0, &sin_c, &cos_c);
-  for (int j = tid; j < N; j += THREADS64) {
-    mE[j] = p.E[j];
-    mjk[j] = (j + 1) * kk;
-    mjw[j] = (j + 1) * omega;
-  }
-  double s1, c1;
-  sincos(omega * (live_ph ? p.ts[s_ph] : 0.0), &s1, &c1);
-  double tot[6] = {0, 0, 0, 0, 0, 0};
-
-  for (int m = blockIdx.y; m < M; m += gridDim.y) {
-    __syncthreads();   // the previous member's records are read
-    const long long n1 = p.conn[2 * m], n2 = p.conn[2 * m + 1];
-    const double x1 = p.coords[3 * n1], y1 = p.coords[3 * n1 + 1],
-                 z1 = p.coords[3 * n1 + 2];
-    const double dx = p.coords[3 * n2] - x1, dy = p.coords[3 * n2 + 1] - y1,
-                 dz = p.coords[3 * n2 + 2] - z1;
-    const double L = sqrt(dx * dx + dy * dy + dz * dz);
-    const double ex = dx / L, ey = dy / L, ez = dz / L;
-    for (int q = tid; q < Q; q += THREADS64) {
-      const double s = p.s[q];
-      const double x = x1 + s * dx, y = y1 + s * dy, z = z1 + s * dz;
-      double uc = p.Uc[0];
-      if (p.power_law) {
-        const double frac = fmin(fmax((z + d) / d, 0.0), 1.0);
-        uc *= pow(frac, operand(p.alpha, 0));
-      }
-      const double D = p.D[m], rho = operand(p.rho, 0), Lw = L * p.w[q];
-      double* o = pt + 8 * q;
-      o[0] = z;
-      o[1] = x * cos_w + y * sin_w;
-      o[2] = uc * cos_c;
-      o[3] = uc * sin_c;
-      o[4] = 0.5 * rho * operand(p.Cd, m) * D * Lw;
-      o[5] = rho * operand(p.Cm, m) * (kPi64 * D * D / 4.0) * Lw;
-      o[6] = s;
-    }
-    __syncthreads();
-    for (int i = tid; i < Q * N; i += THREADS64) {
-      const int q = i / N, j = i % N;
-      const double z = pt[8 * q], xw = pt[8 * q + 1], jk = mjk[j];
-      const double U = p.U[j];
-      double sjx, cjx;
-      sincos(jk * xw, &sjx, &cjx);
-      // overflow-safe cosh(A)/cosh(B), sinh(A)/cosh(B), A = jk (z + d)
-      const double A = jk * (z + d), B = jk * d, Aa = fabs(A);
-      const double scale = exp(Aa - B) / (1.0 + exp(-2.0 * B));
-      const double e2 = exp(-2.0 * Aa);
-      const double sgn = (A > 0.0) ? 1.0 : ((A < 0.0) ? -1.0 : 0.0);
-      double* r = rec + 4 * i;
-      r[0] = cjx;
-      r[1] = sjx;
-      r[2] = U * scale * (1.0 + e2);
-      r[3] = U * sgn * scale * (1.0 - e2);
-    }
-    __syncthreads();
-    if (!live_ph) continue;
-
-    double fdx = 0, fdy = 0, fdz = 0, fix = 0, fiy = 0, fiz = 0;
-    double f2x = 0, f2y = 0, f2z = 0;
-    for (int q = 0; q < Q; ++q) {
-      const double* r = rec + 4 * q * N;
-      Fields64<WHEELER> f;
-      double cj = c1, sj = s1;   // cos / sin (j omega t), j = 1
-      for (int j = 0; j < N; ++j) {
-        const double cx = r[4 * j], sx = r[4 * j + 1];
-        const double UC = r[4 * j + 2], US = r[4 * j + 3];
-        const double jw = mjw[j];
-        // cos / sin of (j k x - j omega t)
-        const double cp = cx * cj + sx * sj, sp = sx * cj - cx * sj;
-        const double ucw = jw * UC, nusw = -jw * US;
-        f.eta += mE[j] * cp;
-        f.u += UC * cp;
-        f.w += US * sp;
-        f.du += ucw * sp;
-        f.dw += nusw * cp;
-        if (WHEELER) {
-          const double jk = mjk[j];
-          const double t1 = jk * cp, t2 = jk * sp;
-          f.u_z += US * t1;
-          f.w_z += UC * t2;
-          f.du_z += -nusw * t2;
-          f.dw_z += -ucw * t1;
-          const double t3 = jk * t1, t4 = jk * t2;
-          f.u_zz += UC * t3;
-          f.w_zz += US * t4;
-          f.du_zz += ucw * t4;
-          f.dw_zz += nusw * t3;
-        }
-        const double cn = cj * c1 - sj * s1;
-        sj = sj * c1 + cj * s1;
-        cj = cn;
-      }
-      const double* a = pt + 8 * q;
-      const double z = a[0];
-      if (WHEELER) {
-        double dzw = -(z + d) * f.eta / (d + f.eta);
-        dzw = fmin(fmax(dzw, -d), d);
-        const double h2 = 0.5 * dzw * dzw;
-        f.u = f.u + dzw * f.u_z + h2 * f.u_zz;
-        f.w = f.w + dzw * f.w_z + h2 * f.w_zz;
-        f.du = f.du + dzw * f.du_z + h2 * f.du_zz;
-        f.dw = f.dw + dzw * f.dw_z + h2 * f.dw_zz;
-      }
-      if (z <= f.eta) {
-        const double Ux = f.u * cos_w + a[2], Uy = f.u * sin_w + a[3],
-                     Uz = f.w;
-        const double Ax = f.du * cos_w, Ay = f.du * sin_w, Az = f.dw;
-        const double Ue = Ux * ex + Uy * ey + Uz * ez;
-        const double Ae = Ax * ex + Ay * ey + Az * ez;
-        const double Upx = Ux - Ue * ex, Upy = Uy - Ue * ey,
-                     Upz = Uz - Ue * ez;
-        const double Umag = sqrt(Upx * Upx + Upy * Upy + Upz * Upz);
-        const double cdf = (Umag > 1e-10) ? a[4] * Umag : 0.0;
-        const double gx = cdf * Upx, gy = cdf * Upy, gz = cdf * Upz;
-        const double ix = a[5] * (Ax - Ae * ex), iy = a[5] * (Ay - Ae * ey),
-                     iz = a[5] * (Az - Ae * ez);
-        fdx += gx; fdy += gy; fdz += gz;
-        fix += ix; fiy += iy; fiz += iz;
-        f2x += a[6] * (gx + ix);
-        f2y += a[6] * (gy + iy);
-        f2z += a[6] * (gz + iz);
-      }
-    }
-    const size_t o = ((size_t)s_ph * M + m) * 3;
-    p.F1[o] = (fdx + fix) - f2x;
-    p.F1[o + 1] = (fdy + fiy) - f2y;
-    p.F1[o + 2] = (fdz + fiz) - f2z;
-    p.F2[o] = f2x; p.F2[o + 1] = f2y; p.F2[o + 2] = f2z;
-    tot[0] += fdx; tot[1] += fdy; tot[2] += fdz;
-    tot[3] += fix; tot[4] += fiy; tot[5] += fiz;
-  }
-  if (live_ph)
-    for (int c = 0; c < 6; ++c)
-      p.partials[((size_t)blockIdx.y * S + s_ph) * 6 + c] = tot[c];
-}
-
-size_t smem_bytes64(const MorisonParams64& p) {
-  return sizeof(double) * ((size_t)4 * p.n_gauss * p.N + 8 * p.n_gauss
-                           + 3 * p.N);
-}
-
-// The member blocks of the f64 grid (the rows of its partial sums): depends
-// only on the shapes, so the fixed-order totals are bit-repeatable.
-int grid_members64(const MorisonParams64& p) {
-  return p.M < MEMBER_BLOCKS64 ? p.M : MEMBER_BLOCKS64;
-}
-
-template <bool WHEELER>
-cudaError_t launch64(const MorisonParams64& p, int G, cudaStream_t stream) {
-  const dim3 grid((p.S + THREADS64 - 1) / THREADS64, G);
-  morison_phase_batch_f64_kernel<WHEELER>
-      <<<grid, THREADS64, smem_bytes64(p), stream>>>(p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  morison_totals_kernel<double><<<(p.S * 6 + 255) / 256, 256, 0, stream>>>(
       p.partials, G, p.S, p.totals);
   return cudaGetLastError();
 }
@@ -967,6 +799,20 @@ __device__ __forceinline__ void sea_fold(T E, T hx, T hy, T om, T k, T UC,
   }
 }
 
+// U C(z) = U cosh(A) / cosh(B) and U S(z) = U sinh(A) / cosh(B) of a mode
+// with wavenumber k at height z, A = k (z + d), B = k d, in a form that
+// does not overflow for deep water or short waves
+template <typename T>
+__device__ __forceinline__ void depth_factors(T k, T z, T d, T U, T* uc,
+                                              T* us) {
+  const T A = k * (z + d), B = k * d, Aa = fabs(A);
+  const T scale = exp(Aa - B) / (T(1) + exp(T(-2) * B));
+  const T e2 = exp(T(-2) * Aa);
+  const T sgn = (A > T(0)) ? T(1) : ((A < T(0)) ? T(-1) : T(0));
+  *uc = U * scale * (T(1) + e2);
+  *us = U * sgn * scale * (T(1) - e2);
+}
+
 // The records pass: for every (point row r = m Q + q, mode j) the record
 // cos / sin (k x + phi), U C(z), U S(z); for j = 0 the point's slot data
 // (position, current, member axis, drag and inertia factors); for r = 0
@@ -1033,17 +879,10 @@ morison_sea_records_kernel(const SeaParamsT<T> p, T* scratch) {
     }
     T sx, cx;
     sincos_t<T>(kj * proj + p.phi[j], &sx, &cx);
-    // overflow-safe cosh(A)/cosh(B), sinh(A)/cosh(B), A = k (z + d)
-    const T A = kj * (z + d), B = kj * d, Aa = fabs(A);
-    const T scale = exp(Aa - B) / (T(1) + exp(T(-2) * B));
-    const T e2 = exp(T(-2) * Aa);
-    const T sgn = (A > T(0)) ? T(1) : ((A < T(0)) ? T(-1) : T(0));
-    const T U = p.U[j];
     T* rc = out.rec + it * REC_W;
     rc[RC_CX] = cx;
     rc[RC_SX] = sx;
-    rc[RC_UC] = U * scale * (T(1) + e2);
-    rc[RC_US] = U * sgn * scale * (T(1) - e2);
+    depth_factors<T>(kj, z, d, p.U[j], rc + RC_UC, rc + RC_US);
   }
 }
 
@@ -1514,6 +1353,516 @@ bool valid_sea(const SeaParamsT<T>* p) {
          p->n_gauss <= MAX_GAUSS;
 }
 
+// ---------------------------------------------------------------------------
+// Float64 harmonic instance, case-batched
+// ---------------------------------------------------------------------------
+//
+// Replaces, for float64 models, the same Pallas TPU kernel
+// (small_fem_solver_tpu/ops/pallas_kernels.py:229, morison_phase_batch_pallas)
+// together with the JAX package's jax.vmap of the loads over a batch of
+// cases (small_fem_solver_tpu/api.py:3083-3102): the function of
+// ops/morison.py::morison_end_forces_batch for C cases (waves, phase times,
+// headings, current, coefficients, each per case or shared) on one model's
+// members, in one launch.
+//
+// The mode sums.  With theta_j = j (k x - omega t) every field of a (phase
+// s, point p) is sum_j c_fj cos(theta_j) (eta, u, dw/dt and their
+// z-derivatives) or sum_j c_fj sin(theta_j) (w, du/dt, ...), c_fj the
+// per-(point, mode) factor of field f (sea_fold with mode j's E_j, j omega,
+// j k): F = 5 fields, 13 with Wheeler stretching.  As a matrix product
+// fields[s, (p, f)] = sum_k A[s, k] B[k, (p, f)], A the phase table [S, 2 N]
+// (cos, sin (j omega t_s) side by side) and B[(j, cos), (p, f)] =
+// c cos(j k x) (cos-type f) or c sin(j k x), B[(j, sin), (p, f)] = c sin(j k x)
+// or -c cos(j k x): 4F FLOP per (phase, point, mode) on
+// mma.sync.m16n8k4.f64 (dmma_16x8x4), two modes a k-step.  Harmonic waves
+// have N <= 32, so one k-loop covers every mode, padded to an even count N2
+// (no 16-mode chunks), and a block keeps its A tile for its whole life.
+//
+// Records pass.  morison_harm64_records_kernel computes once a launch what
+// does not depend on the phase: per (case, point, mode) cos / sin (j k x),
+// U_j C_j(z), U_j S_j(z) (a sincos, three exp); per (case, point) the
+// random-sea instance's slot data (position, current, member axis, drag
+// and inertia factors, Gauss abscissa); per (case, phase, mode) cos / sin
+// (j omega t_s) by sincos, exact to rounding at every j (no angle
+// addition).  The wrapper allocates the scratch, C (M Q (4 N + 12) +
+// 2 S N2) doubles: 16.5 MB at the flagship shapes, 274 MB for the dense
+// envelope's 1,000 cases.
+//
+// Tiles.  A block owns one case and a tile of 16 MT phases (MT <= 4
+// m-tiles: ceil(S / 16) m-tiles over the fewest tiles of at most 4) and
+// walks member tiles of 16 point slots (one member for Q > 8, two for
+// Q <= 8) with a fixed stride over grid.y.  It runs 2 MT warps: warp w the
+// m-tile w % MT and the slot half w / MT, 16 phases x 8 slots x F fields of
+// accumulators.  The grid rows (member-tile walkers) depend on S, M and Q
+// alone: at least HARM_MIN_TILES tiles a row, at most HARM_BLOCKS blocks
+// for one case.  A batch adds its cases along grid.x, so every case is
+// tiled and summed as in a launch of its own: case i is bit-equal to a
+// one-case launch of case i, and chunking a batch changes no bit.
+//
+// A member tile k, one barrier a tile where two B tiles fit: its records
+// and slot data arrive by cp.async two tiles ahead; after the barrier all
+// threads fold tile k + 1's records with the mode factors into the other
+// B tile [2 N2][F x 16 slots] while each warp runs tile k's N2 / 2 k-steps
+// x F DMMA and the epilogue (sea_forces: Wheeler's Taylor stretch, the wet
+// mask, drag and inertia) on its lane's 2 phases x 2 slots, then the
+// lever-rule member sums over the 8 slots of its half: a reduce-scatter
+// over each quad's 4 lanes (9 shuffles a row, lane x < 3 keeping
+// component x).  The second half's sums go through shared memory to the
+// first half's warps, which write F1 / F2 after the next barrier and keep
+// each phase's running totals.  No float atomics: the totals go through
+// a fixed-order second pass (morison_harm64_totals_kernel), bit-repeatable.
+//
+// Bounds (counted by chip_smoke.py from a run's shapes, PERF.md).  At the
+// flagship shapes (S 360, M 1,632, Q 15, N 18) the sums are 3.17 GFLOP,
+// 47 us at the FP64 tensor cores' 67 TFLOP/s, and the epilogue ~0.53
+// GFLOP at the 34 TFLOP/s of FP64 outside them: 63 us.  The dense
+// envelope's 1,000 cases (S 36, M 51, N 8): 4.41 + 1.65 GFLOP, 114 us.
+// On an H100 the fused pass takes about three times the bound at F = 5
+// (chip_smoke.py's times; PERF.md).  Its build (chip_smoke.py's report):
+// 128 registers a thread at F = 5, so an SM holds two blocks, 16 warps,
+// to hide the epilogue's dependent FP64 chains (sqrt, shuffles), the
+// DMMA chains and the barrier of each tile; 234 at F = 13, one block.
+// At the dense envelope's shapes 25% of the phases are padding (36 of
+// 48) and the records pass, a round trip of its output through device
+// memory, takes about a third of the launch.
+
+constexpr int HARM_SLOTS = SEA_SLOTS;        // point slots a member tile
+constexpr int HARM_MAX_MT = 4;               // 16-phase m-tiles a block
+constexpr int HARM_THREADS = 64 * HARM_MAX_MT;
+constexpr int HARM_MIN_TILES = 12;           // member tiles a grid row walks
+constexpr int HARM_BLOCKS = 264;             // blocks of one case (2 an SM)
+constexpr int HARM_XCH = 9;                  // a phase's member sums:
+                                             // drag, inertia, F2 (xyz each)
+constexpr int HARM_SLOT_RING = 3;            // member tiles of slot data
+
+__device__ __forceinline__ double hop(const HOperand& o, int c, int m) {
+  return o.ptr ? __ldg(o.ptr + o.sc * c + o.sm * m) : o.value;
+}
+
+// The tiling of one case: S phases, M members, Q points, N modes, F
+// fields (the same for every case of a batch).  Shared memory, in
+// doubles: the phase table A [16 MT][AS], NB B tiles [2 N2][RS] (two when
+// they fit: the next member tile is folded while this one is summed),
+// staged records [2][(cos, sin (j k x)) | (U C, U S)][N2][16 slots][2] (a
+// fold reads 16 bytes a lane, no bank twice), slot data [3][16][SLOT_W], the
+// second half's member sums [2][16 MT][HARM_XCH], mode factors [N2][4].
+struct HarmTiles {
+  int N2, AS, RS, MT, n_pt, Qp, mpt, n_tiles, rows, NB;
+  int A_at, B_at, RAW_at, SLOT_at, XCH_at, MD_at, total;
+  __host__ __device__ HarmTiles(int S, int M, int Q, int N, int F) {
+    N2 = N + (N & 1);
+    // row strides = 4 mod 16 doubles: the fragment loads hit no bank twice
+    AS = 2 * N2 + (20 - (2 * N2) % 16) % 16;
+    RS = F * HARM_SLOTS + 4;
+    const int nm = (S + 15) / 16;
+    n_pt = (nm + HARM_MAX_MT - 1) / HARM_MAX_MT;
+    MT = (nm + n_pt - 1) / n_pt;
+    Qp = Q <= 8 ? 8 : 16;
+    mpt = HARM_SLOTS / Qp;
+    n_tiles = (M + mpt - 1) / mpt;
+    const int by_tiles = (n_tiles + HARM_MIN_TILES - 1) / HARM_MIN_TILES;
+    const int by_blocks = (HARM_BLOCKS + n_pt - 1) / n_pt;
+    rows = by_tiles < by_blocks ? by_tiles : by_blocks;
+    // two B tiles where they fit the blocks an SM runs (two at F = 5)
+    const size_t budget = F > 5 ? SEA_SMEM : SEA_SMEM / 2 - 1024;
+    for (NB = 2; NB >= 1; --NB) {
+      const int TS = 16 * MT;
+      A_at = 0;
+      B_at = A_at + TS * AS;
+      RAW_at = B_at + NB * 2 * N2 * RS;
+      SLOT_at = RAW_at + 2 * N2 * HARM_SLOTS * REC_W;
+      XCH_at = SLOT_at + HARM_SLOT_RING * HARM_SLOTS * SLOT_W;
+      MD_at = XCH_at + 2 * TS * HARM_XCH;
+      total = MD_at + 4 * N2;
+      if (sizeof(double) * total <= budget) break;
+    }
+  }
+};
+
+// The records pass's output: records [C][M Q][N][REC_W], slot data
+// [C][M Q][SLOT_W], phase table [C][S][N2][2] (cos, sin; zeros past N).
+struct HarmScratch {
+  double* rec;
+  double* slot;
+  double* phase;
+  __host__ __device__ HarmScratch(const Harm64Params& p, double* base) {
+    const long long P = (long long)p.M * p.n_gauss;
+    rec = base;
+    slot = rec + p.C * P * p.N * REC_W;
+    phase = slot + p.C * P * SLOT_W;
+  }
+  static long long elems(const Harm64Params& p) {
+    const long long P = (long long)p.M * p.n_gauss;
+    return p.C * (P * (p.N * REC_W + SLOT_W)
+                  + 2LL * p.S * (p.N + (p.N & 1)));
+  }
+};
+
+// The records pass: for every (case c, point row r = m Q + q, mode j) the
+// record cos / sin (j k x), U_j C_j(z), U_j S_j(z) and, for j = 0, the
+// point's slot data; then for every (case, phase, mode) cos / sin
+// (j omega t_s).  One thread an item, grid-stride.
+__global__ void __launch_bounds__(256)
+morison_harm64_records_kernel(const Harm64Params p, double* scratch) {
+  const HarmScratch out(p, scratch);
+  const int N = p.N, Q = p.n_gauss, S = p.S, N2 = N + (N & 1);
+  const long long P = (long long)p.M * Q;
+  const long long n_rec = p.C * P * N, n_ph = (long long)p.C * S * N2;
+  for (long long it = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       it < n_rec + n_ph; it += (long long)gridDim.x * blockDim.x) {
+    if (it >= n_rec) {
+      const long long u = it - n_rec, cs = u / N2;   // cs = c S + s
+      const int j = (int)(u - cs * N2), c = (int)(cs / S);
+      double sn = 0.0, cn = 0.0;
+      if (j < N) sincos((j + 1) * __ldg(p.omega + c) * __ldg(p.ts + cs), &sn,
+                        &cn);
+      out.phase[2 * u] = cn;
+      out.phase[2 * u + 1] = sn;
+      continue;
+    }
+    const long long cr = it / N, r = cr % P;        // cr = c P + r
+    const int j = (int)(it - cr * N), c = (int)(cr / P);
+    const int m = (int)(r / Q), q = (int)(r - (long long)m * Q);
+    const long long n1 = p.conn[2 * m], n2 = p.conn[2 * m + 1];
+    const double x1 = p.coords[3 * n1], y1 = p.coords[3 * n1 + 1],
+                 z1 = p.coords[3 * n1 + 2];
+    const double dx = p.coords[3 * n2] - x1, dy = p.coords[3 * n2 + 1] - y1,
+                 dzm = p.coords[3 * n2 + 2] - z1;
+    const double sq = p.s[q];
+    const double x = x1 + sq * dx, y = y1 + sq * dy, z = z1 + sq * dzm;
+    const double d = __ldg(p.d + c);
+    double sin_w, cos_w;
+    sincospi((90.0 - hop(p.wave_dir, c, 0)) / 180.0, &sin_w, &cos_w);
+    const double px = x * cos_w + y * sin_w;
+    if (j == 0) {
+      const double L = sqrt(dx * dx + dy * dy + dzm * dzm);
+      double sin_c, cos_c;
+      sincospi((90.0 - hop(p.current_dir, c, 0)) / 180.0, &sin_c, &cos_c);
+      double uc = __ldg(p.Uc + c);
+      if (p.power_law) {
+        const double frac = fmin(fmax((z + d) / d, 0.0), 1.0);
+        uc *= pow(frac, hop(p.alpha, c, 0));
+      }
+      const double D = hop(p.D, c, m), rho = hop(p.rho, c, 0),
+                   Lw = L * p.w[q];
+      double* sd = out.slot + cr * SLOT_W;
+      sd[SL_PX] = px;
+      sd[SL_PY] = y;
+      sd[SL_Z] = z;
+      sd[SL_UCX] = uc * cos_c;
+      sd[SL_UCY] = uc * sin_c;
+      sd[SL_EX] = dx / L;
+      sd[SL_EY] = dy / L;
+      sd[SL_EZ] = dzm / L;
+      sd[SL_CD] = 0.5 * rho * hop(p.Cd, c, m) * D * Lw;
+      sd[SL_CI] = rho * hop(p.Cm, c, m) * (kPi64 * D * D / 4.0) * Lw;
+      sd[SL_SQ] = sq;
+      sd[SL_LIVE] = 1.0;
+    }
+    const double jk = (j + 1) * __ldg(p.k + c);
+    double* rc = out.rec + it * REC_W;
+    sincos(jk * px, rc + RC_SX, rc + RC_CX);
+    depth_factors<double>(jk, z, d, __ldg(p.U + (long long)c * N + j),
+                          rc + RC_UC, rc + RC_US);
+  }
+}
+
+// The fused pass: grid (C x phase tiles, rows), 64 MT threads a block.
+template <bool WHEELER>
+__global__ void __launch_bounds__(HARM_THREADS, WHEELER ? 1 : 2)
+morison_harm64_kernel(const Harm64Params p, double* scratch) {
+  using L = SeaLayout<WHEELER, false>;
+  constexpr int F = L::F, RS = F * HARM_SLOTS + 4;
+  extern __shared__ __align__(16) unsigned char harm_smem[];
+  double* const smem = reinterpret_cast<double*>(harm_smem);
+  const HarmTiles tl(p.S, p.M, p.n_gauss, p.N, F);
+  const HarmScratch sc(p, scratch);
+  const int N = p.N, S = p.S, M = p.M, Q = p.n_gauss, N2 = tl.N2;
+  const long long P = (long long)M * Q;
+  const int NT = blockDim.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, tq = lane & 3;
+  const int mt = warp % tl.MT, half = warp / tl.MT;
+  const int c = blockIdx.x / tl.n_pt, TS = 16 * tl.MT;
+  const int s0 = (blockIdx.x - c * tl.n_pt) * TS;
+  const int row = blockIdx.y, rows = gridDim.y;
+  const int my_tiles =
+      row < tl.n_tiles ? (tl.n_tiles - 1 - row) / rows + 1 : 0;
+  // DB = 1: tile k + 1 is staged two tiles ahead and folded while tile k
+  // is summed, one barrier a tile; DB = 0 (one B tile): fold, barrier, sum
+  const int DB = tl.NB - 1;
+  double* const A = smem + tl.A_at;
+  double* const md = smem + tl.MD_at;
+  auto Bt = [&](int k) { return smem + tl.B_at + (k & DB) * 2 * N2 * RS; };
+  auto raw = [&](int k) {
+    return smem + tl.RAW_at + (k & 1) * N2 * HARM_SLOTS * REC_W;
+  };
+  auto slots = [&](int k) {
+    return smem + tl.SLOT_at + (k % HARM_SLOT_RING) * HARM_SLOTS * SLOT_W;
+  };
+  auto xch = [&](int k) { return smem + tl.XCH_at + (k & 1) * TS * HARM_XCH; };
+  auto first_member = [&](int k) { return (row + k * rows) * tl.mpt; };
+
+  // member tile k's records and slot data by cp.async (zeros for
+  // padding)
+  auto stage = [&](int k) {
+    double* const rw = raw(k);
+    double* const sd = slots(k);
+    const int m0 = first_member(k), per = 2 * N2;   // copies a slot's records
+    for (int x = tid; x < HARM_SLOTS * per; x += NT) {
+      const int i = x / per, j = (x - i * per) >> 1, h = x & 1;
+      const int m = m0 + i / tl.Qp, q = i % tl.Qp;
+      const bool ok = q < Q && m < M && j < N;
+      const long long r = c * P + (long long)m * Q + q;
+      cp_async16(rw + ((h * N2 + j) * HARM_SLOTS + i) * 2,
+                 ok ? sc.rec + (r * N + j) * REC_W + 2 * h : sc.rec, ok);
+    }
+    for (int x = tid; x < HARM_SLOTS * SLOT_W / 2; x += NT) {
+      const int i = x / (SLOT_W / 2), h = x - i * (SLOT_W / 2);
+      const int m = m0 + i / tl.Qp, q = i % tl.Qp;
+      const bool ok = q < Q && m < M;
+      const long long r = c * P + (long long)m * Q + q;
+      cp_async16(sd + i * SLOT_W + 2 * h,
+                 ok ? sc.slot + r * SLOT_W + 2 * h : sc.slot, ok);
+    }
+  };
+  // member tile k's B tile: rows 2 j (cos j omega t) and 2 j + 1 (sin j
+  // omega t), column f * 16 + slot
+  auto fold = [&](int k) {
+    const double* const rw = raw(k);
+    double* const B = Bt(k);
+    for (int x = tid; x < HARM_SLOTS * N2; x += NT) {
+      const int i = x % HARM_SLOTS, j = x / HARM_SLOTS;
+      // (cos, sin (j k x)) and (U C, U S) of slot i, mode j
+      const double* r0 = rw + 2 * x;
+      const double* r1 = r0 + 2 * N2 * HARM_SLOTS;
+      const double* mj = md + 4 * j;
+      double cf[F];
+      sea_fold<double, WHEELER, false>(mj[0], 1.0, 0.0, mj[1], mj[2], r1[0],
+                                       r1[1], cf);
+      const double cx = r0[0], sx = r0[1];
+      double* b = B + 2 * j * RS + i;
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        b[f * HARM_SLOTS] = f < L::NCOS ? cf[f] * cx : cf[f] * sx;
+        b[RS + f * HARM_SLOTS] = f < L::NCOS ? cf[f] * sx : -(cf[f] * cx);
+      }
+    }
+  };
+
+  // the block's phase table (its case, its phases; zeros past S) and the
+  // mode factors E_j, j omega, j k, then the first tiles
+  for (int x = tid; x < TS * N2; x += NT) {
+    const int r = x / N2, j = x - r * N2, s = s0 + r;
+    const bool ok = s < S;
+    cp_async16(A + r * tl.AS + 2 * j,
+               ok ? sc.phase + ((long long)c * S + s) * 2 * N2 + 2 * j
+                  : sc.phase, ok);
+  }
+  const double d = __ldg(p.d + c), kk = __ldg(p.k + c),
+               om = __ldg(p.omega + c);
+  for (int j = tid; j < N2; j += NT) {
+    const bool live = j < N;
+    md[4 * j] = live ? __ldg(p.E + (long long)c * N + j) : 0.0;
+    md[4 * j + 1] = live ? (j + 1) * om : 0.0;
+    md[4 * j + 2] = live ? (j + 1) * kk : 0.0;
+    md[4 * j + 3] = 0.0;
+  }
+  for (int k = 0; k <= DB && k < my_tiles; ++k) stage(k);
+  cp_async_commit();
+  if (DB && my_tiles > 0) {
+    cp_async_wait_all();
+    __syncthreads();
+    fold(0);
+  }
+  double sin_w, cos_w;
+  sincospi((90.0 - hop(p.wave_dir, c, 0)) / 180.0, &sin_w, &cos_w);
+
+  double acc[4 * F];
+  double pend[2][3];                    // this lane's own member sums
+  double tot[2][2] = {{0.0, 0.0}, {0.0, 0.0}};   // running drag, inertia
+
+  // the first half's lanes tq < 3 (component x = tq): tile k's F1 / F2 at
+  // the lane's two phase rows, from its own sums and the second half's,
+  // and the running totals, members in order
+  auto finalize = [&](int k) {
+    const double* const xo = xch(k);
+    const int m0 = first_member(k);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = mt * 16 + g + 8 * rr, s = s0 + r;
+      if (s >= S) continue;
+      const double* o = xo + r * HARM_XCH + 3 * tq;
+      double v[2][3];
+#pragma unroll
+      for (int u = 0; u < 3; ++u) {
+        // one member a tile: both halves' points; two: one member a half
+        v[0][u] = tl.mpt == 1 ? pend[rr][u] + o[u] : pend[rr][u];
+        v[1][u] = o[u];
+      }
+#pragma unroll
+      for (int mm = 0; mm < 2; ++mm) {
+        const int m = m0 + mm;
+        if (mm >= tl.mpt || m >= M) break;
+        const long long o3 = (((long long)c * S + s) * M + m) * 3 + tq;
+        p.F1[o3] = (v[mm][0] + v[mm][1]) - v[mm][2];
+        p.F2[o3] = v[mm][2];
+        tot[rr][0] += v[mm][0];
+        tot[rr][1] += v[mm][1];
+      }
+    }
+  };
+
+  for (int k = 0; k < my_tiles; ++k) {
+    cp_async_wait_all();
+    __syncthreads();   // tile k + DB staged; tile k - 1 summed, exchanged
+    if (k > 0 && half == 0 && tq < 3) finalize(k - 1);
+    if (k + 1 + DB < my_tiles) stage(k + 1 + DB);
+    cp_async_commit();
+    if (DB) {
+      if (k + 1 < my_tiles) fold(k + 1);
+    } else {
+      fold(k);
+      __syncthreads();   // B tile built
+    }
+#pragma unroll
+    for (int a = 0; a < 4 * F; ++a) acc[a] = 0.0;
+    {
+      const double* a = A + (mt * 16 + g) * tl.AS + tq;
+      const double* b = Bt(k) + tq * RS + half * 8 + g;
+#pragma unroll 2
+      for (int ks = 0; ks < N2 / 2; ++ks) {   // two modes a k-step
+        const double a0 = a[4 * ks], a1 = a[8 * tl.AS + 4 * ks];
+        const double* bk = b + 4 * ks * RS;
+#pragma unroll
+        for (int f = 0; f < F; ++f)
+          dmma_16x8x4(acc + 4 * f, a0, a1, bk[f * HARM_SLOTS]);
+      }
+    }
+    // the epilogue of each of the lane's rows (phases g, g + 8 of its
+    // m-tile) at its 2 slots, then the member sums over its half's 8
+    // slots: a reduce-scatter over the quad's 4 lanes leaves lane x < 3
+    // the sums (v0 + v2) + (v1 + v3) of component x (lane 3: of z too)
+    const double* const sd = slots(k);
+    double* const xo = xch(k);
+    const bool lo = tq < 2;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      double v[HARM_XCH];               // drag xyz, inertia xyz, F2 xyz
+#pragma unroll
+      for (int u = 0; u < HARM_XCH; ++u) v[u] = 0.0;
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const int e = 2 * rr + e2;
+        const double* si = sd + (half * 8 + 2 * tq + e2) * SLOT_W;
+        double fl[F], o[6];
+#pragma unroll
+        for (int f = 0; f < F; ++f) fl[f] = acc[4 * f + e];
+        sea_forces<double, WHEELER, false>(fl, si, d, cos_w, sin_w, o);
+        const double sq = si[SL_SQ];
+#pragma unroll
+        for (int x = 0; x < 3; ++x) {
+          v[x] += o[x];
+          v[3 + x] += o[3 + x];
+          v[6 + x] += sq * (o[x] + o[3 + x]);
+        }
+      }
+      // lanes {t, t ^ 2}: t < 2 keeps x, y, t >= 2 keeps z
+      double own[3];
+#pragma unroll
+      for (int u = 0; u < 3; ++u) {
+        const double* q = v + 3 * u;    // quantity u's x, y, z
+        const double rx = __shfl_xor_sync(0xffffffffu, lo ? q[2] : q[0], 2);
+        const double ry = __shfl_xor_sync(0xffffffffu, q[1], 2);
+        const double cx = q[0] + rx, cy = q[1] + ry, cz = q[2] + rx;
+        // lanes {t, t ^ 1}: lane 0 keeps x, lane 1 y, lanes 2, 3 z
+        const double mine = tq == 0 ? cx : (tq == 1 ? cy : cz);
+        const double r2 = __shfl_xor_sync(0xffffffffu,
+                                          tq == 0 ? cy : (tq == 1 ? cx : cz),
+                                          1);
+        own[u] = mine + r2;
+      }
+      if (half == 0) {
+#pragma unroll
+        for (int u = 0; u < 3; ++u) pend[rr][u] = own[u];
+      } else if (tq < 3) {
+        double* o = xo + (mt * 16 + g + 8 * rr) * HARM_XCH + 3 * tq;
+#pragma unroll
+        for (int u = 0; u < 3; ++u) o[u] = own[u];
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  if (half == 0 && tq < 3) {
+    if (my_tiles > 0) finalize(my_tiles - 1);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int s = s0 + mt * 16 + g + 8 * rr;
+      if (s >= S) continue;
+      double* o = p.partials + (((long long)c * rows + row) * S + s) * 6;
+      o[tq] = tot[rr][0];
+      o[3 + tq] = tot[rr][1];
+    }
+  }
+}
+
+// The totals of case c0 + blockIdx.y: its partials [G, S, 6] summed over
+// g in order (morison_totals_kernel's sum, a case a grid row).
+__global__ void morison_harm64_totals_kernel(const double* __restrict__ part,
+                                             int G, int S, int c0,
+                                             double* __restrict__ totals) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= S * 6) return;
+  const size_t c = (size_t)c0 + blockIdx.y;
+  double acc = 0;
+  for (int g = 0; g < G; ++g) acc += __ldg(part + (c * G + g) * S * 6 + i);
+  totals[c * S * 6 + i] = acc;
+}
+
+template <bool WHEELER>
+cudaError_t launch_harm64(const Harm64Params& p, int G, double* scratch,
+                          cudaStream_t stream) {
+  const HarmTiles tl(p.S, p.M, p.n_gauss, p.N,
+                     SeaLayout<WHEELER, false>::F);
+  const long long items = (long long)p.C * p.M * p.n_gauss * p.N
+                          + (long long)p.C * p.S * tl.N2;
+  const long long rb = (items + 255) / 256;
+  morison_harm64_records_kernel
+      <<<(unsigned)(rb < 8192 ? rb : 8192), 256, 0, stream>>>(p, scratch);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  auto kernel = morison_harm64_kernel<WHEELER>;
+  const int bytes = (int)(sizeof(double) * tl.total);
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((unsigned)p.C * tl.n_pt, G), 64 * tl.MT, bytes, stream>>>(
+      p, scratch);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // the cases on grid.y, at most 65,535 a launch
+  for (int c0 = 0; c0 < p.C; c0 += 65535) {
+    const int nc = p.C - c0 < 65535 ? p.C - c0 : 65535;
+    morison_harm64_totals_kernel
+        <<<dim3((p.S * 6 + 255) / 256, nc), 256, 0, stream>>>(
+            p.partials, G, p.S, c0, p.totals);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+bool valid_harm64(const Harm64Params* p) {
+  return p->C > 0 && p->M > 0 && p->S > 0 && p->N > 0 && p->N <= 32 &&
+         p->n_gauss > 0 && p->n_gauss <= MAX_GAUSS;
+}
+
+HarmTiles harm_tiles(const Harm64Params& p, int wheeler) {
+  return HarmTiles(p.S, p.M, p.n_gauss, p.N,
+                   wheeler ? SeaLayout<true, false>::F
+                           : SeaLayout<false, false>::F);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1537,25 +1886,6 @@ int morison_phase_batch_launch(const MorisonParams* p, int wheeler, int G,
   if (!valid(p) || G <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)pick(p->N, wheeler != 0).launch(*p, G, st);
-}
-
-// The float64 instance: the same contract on a MorisonParams64 (every
-// pointer to float64 device memory; partials [G, S, 6] with G from
-// morison_grid_blocks_f64, which stretching does not change).
-int morison_grid_blocks_f64(const MorisonParams64* p, int /*wheeler*/) {
-  if (!valid(p)) return -(int)cudaErrorInvalidValue;
-  return grid_members64(*p);
-}
-
-int morison_params_size_f64() { return (int)sizeof(MorisonParams64); }
-
-int morison_phase_batch_launch_f64(const MorisonParams64* p, int wheeler,
-                                   int G, void* stream) {
-  if (!valid(p) || G != grid_members64(*p))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(wheeler ? launch64<true>(*p, G, st)
-                       : launch64<false>(*p, G, st));
 }
 
 // The general-mode instance (float32 / float64): grid rows of the partial
@@ -1592,6 +1922,36 @@ int morison_sea_launch_f64(const SeaParamsT<double>* p, int wheeler, int G,
     return (int)cudaErrorInvalidValue;
   return (int)launch_sea_any(*p, wheeler, G, static_cast<double*>(scratch),
                              static_cast<cudaStream_t>(stream));
+}
+
+// The case-batched float64 harmonic instance: sizeof(Harm64Params) for
+// the ctypes mirror; its tiling for these shapes (out: m-tiles a block,
+// phase tiles, grid rows G (the rows of the partial sums [C, G, S, 6]),
+// member tiles, the fused pass's dynamic shared memory in bytes; returns a
+// CUDA error code); the elements of the scratch buffer the records pass
+// fills; and the launch (records pass, fused pass, fixed-order totals).
+int morison_harm64_params_size() { return (int)sizeof(Harm64Params); }
+int morison_harm64_tiles(const Harm64Params* p, int wheeler, int* out) {
+  if (!valid_harm64(p)) return (int)cudaErrorInvalidValue;
+  const HarmTiles tl = harm_tiles(*p, wheeler);
+  out[0] = tl.MT;
+  out[1] = tl.n_pt;
+  out[2] = tl.rows;
+  out[3] = tl.n_tiles;
+  out[4] = (int)(sizeof(double) * tl.total);
+  return 0;
+}
+long long morison_harm64_scratch(const Harm64Params* p) {
+  return valid_harm64(p) ? HarmScratch::elems(*p) : -1;
+}
+int morison_harm64_launch(const Harm64Params* p, int wheeler, int G,
+                          void* scratch, void* stream) {
+  if (!valid_harm64(p) || !scratch || G != harm_tiles(*p, wheeler).rows)
+    return (int)cudaErrorInvalidValue;
+  double* sc = static_cast<double*>(scratch);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(wheeler ? launch_harm64<true>(*p, G, sc, st)
+                       : launch_harm64<false>(*p, G, sc, st));
 }
 
 const char* morison_error_string(int code) {

@@ -8,6 +8,10 @@
   ``small_fem_solver_tpu/ops/pallas_kernels.py::
   morison_phase_batch_pallas``.  Its plain PyTorch versions are
   ``ops/morison.py::morison_end_forces`` / ``morison_phase_batch``.
+  ``morison_end_forces_batch_cuda`` takes a batch of C cases: the float64
+  instance has a case axis, so the batch is one launch (the two wrappers
+  above launch it at C = 1); its plain version is
+  ``ops/morison.py::morison_end_forces_batch``.
   ``morison_sea_end_forces_cuda`` / ``morison_sea_batch_cuda`` launch the
   same file's general-mode instance (float32 and float64) for the
   independent components of a random sea; its plain version is
@@ -46,7 +50,8 @@ import numpy as np
 import torch
 
 from .morison import (MorisonPhaseBatch, _mode_spatial_coeffs,
-                      gauss_legendre_01, morison_end_forces, nodal_scatter)
+                      gauss_legendre_01, morison_end_forces,
+                      morison_end_forces_batch, nodal_scatter)
 from .spectrum import SpectralSea, morison_sea_end_forces
 from .waves import FourierWave
 
@@ -66,9 +71,10 @@ _SIGNATURES = {
         "morison_grid_blocks": ([_PTR, _I32], _I32),
         "morison_params_size": ([], _I32),
         "morison_error_string": ([_I32], ctypes.c_char_p),
-        "morison_phase_batch_launch_f64": ([_PTR, _I32, _I32, _PTR], _I32),
-        "morison_grid_blocks_f64": ([_PTR, _I32], _I32),
-        "morison_params_size_f64": ([], _I32),
+        "morison_harm64_launch": ([_PTR, _I32, _I32, _PTR, _PTR], _I32),
+        "morison_harm64_tiles": ([_PTR, _I32, _PTR], _I32),
+        "morison_harm64_scratch": ([_PTR], _I64),
+        "morison_harm64_params_size": ([], _I32),
         "morison_sea_launch_f32": ([_PTR, _I32, _I32, _PTR, _PTR], _I32),
         "morison_sea_launch_f64": ([_PTR, _I32, _I32, _PTR, _PTR], _I32),
         "morison_sea_grid_blocks_f32": ([_PTR], _I32),
@@ -148,13 +154,13 @@ def build_all(names=KERNELS) -> dict:
             getattr(lib, fn).restype = restype
         if name == "morison_phase_batch" and (
                 lib.morison_params_size() != ctypes.sizeof(_MorisonParams)
-                or lib.morison_params_size_f64()
-                != ctypes.sizeof(_MorisonParams64)
+                or lib.morison_harm64_params_size()
+                != ctypes.sizeof(_Harm64Params)
                 or lib.morison_sea_params_size_f32()
                 != ctypes.sizeof(_SeaParams)
                 or lib.morison_sea_params_size_f64()
                 != ctypes.sizeof(_SeaParams64)):
-            raise RuntimeError("MorisonParams / SeaParamsT in "
+            raise RuntimeError("MorisonParams / SeaParamsT / Harm64Params in "
                                "morison_phase_batch.cu and their ctypes "
                                "mirrors differ in size")
         _libs[name] = lib
@@ -209,26 +215,56 @@ def build_report(name: str) -> dict:
     return out
 
 
-def _params_struct(scalar):
-    """ctypes mirrors of ``OperandT<T>`` and ``ParamsT<T>`` in
-    ``csrc/morison_phase_batch.cu`` for ``scalar`` (c_float or c_double;
-    checked against the library's ``sizeof`` at build)."""
+def _operand_struct(scalar):
+    """ctypes mirror of ``OperandT<T>`` in ``csrc/morison_phase_batch.cu``
+    for ``scalar`` (c_float or c_double)."""
     class Operand(ctypes.Structure):
         _fields_ = [("ptr", ctypes.c_void_p), ("stride", ctypes.c_longlong),
                     ("value", scalar)]
+    return Operand
 
-    class Params(ctypes.Structure):
-        _fields_ = ([(n, ctypes.c_void_p) for n in ("coords", "conn", "D")]
-                    + [(n, Operand) for n in ("Cd", "Cm", "wave_dir",
-                                              "current_dir", "rho", "alpha")]
-                    + [(n, ctypes.c_void_p) for n in ("E", "U", "k", "omega",
-                                                      "d", "Uc", "ts")]
-                    + [("s", scalar * MAX_GAUSS), ("w", scalar * MAX_GAUSS)]
-                    + [(n, ctypes.c_int) for n in ("M", "S", "N", "n_gauss",
-                                                   "power_law")]
-                    + [(n, ctypes.c_void_p) for n in ("F1", "F2", "partials",
-                                                      "totals")])
-    return Operand, Params
+
+_Operand = _operand_struct(ctypes.c_float)
+_Operand64 = _operand_struct(ctypes.c_double)
+
+
+class _MorisonParams(ctypes.Structure):
+    """ctypes mirror of ``ParamsT<float>`` (checked against the library's
+    ``sizeof`` at build)."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("coords", "conn", "D")]
+                + [(n, _Operand) for n in ("Cd", "Cm", "wave_dir",
+                                           "current_dir", "rho", "alpha")]
+                + [(n, ctypes.c_void_p) for n in ("E", "U", "k", "omega", "d",
+                                                  "Uc", "ts")]
+                + [("s", ctypes.c_float * MAX_GAUSS),
+                   ("w", ctypes.c_float * MAX_GAUSS)]
+                + [(n, ctypes.c_int) for n in ("M", "S", "N", "n_gauss",
+                                               "power_law")]
+                + [(n, ctypes.c_void_p) for n in ("F1", "F2", "partials",
+                                                  "totals")])
+
+
+class _HOperand(ctypes.Structure):
+    """ctypes mirror of ``HOperand``: element (case c, member m) at ptr[sc c
+    + sm m], or ``value`` when ptr is null."""
+    _fields_ = [("ptr", ctypes.c_void_p), ("sc", ctypes.c_longlong),
+                ("sm", ctypes.c_longlong), ("value", ctypes.c_double)]
+
+
+class _Harm64Params(ctypes.Structure):
+    """ctypes mirror of ``Harm64Params``, the case-batched float64
+    instance's operands (checked against the library's ``sizeof``)."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("coords", "conn")]
+                + [(n, _HOperand) for n in ("D", "Cd", "Cm", "wave_dir",
+                                            "current_dir", "rho", "alpha")]
+                + [(n, ctypes.c_void_p) for n in ("E", "U", "k", "omega", "d",
+                                                  "Uc", "ts")]
+                + [("s", ctypes.c_double * MAX_GAUSS),
+                   ("w", ctypes.c_double * MAX_GAUSS)]
+                + [(n, ctypes.c_int) for n in ("C", "M", "S", "N", "n_gauss",
+                                               "power_law")]
+                + [(n, ctypes.c_void_p) for n in ("F1", "F2", "partials",
+                                                  "totals")])
 
 
 def _sea_params_struct(scalar, operand):
@@ -249,16 +285,13 @@ def _sea_params_struct(scalar, operand):
     return SeaParams
 
 
-_Operand, _MorisonParams = _params_struct(ctypes.c_float)
-_Operand64, _MorisonParams64 = _params_struct(ctypes.c_double)
 _SeaParams = _sea_params_struct(ctypes.c_float, _Operand)
 _SeaParams64 = _sea_params_struct(ctypes.c_double, _Operand64)
-# kernel instance by operand dtype: (name, params, operand, scalar, C
-# suffix)
-_INSTANCES = {
-    torch.float32: ("f32", _MorisonParams, _Operand, ctypes.c_float, ""),
-    torch.float64: ("f64", _MorisonParams64, _Operand64, ctypes.c_double,
-                    "_f64"),
+# the general-mode instance by operand dtype: (name, params, operand,
+# scalar)
+_SEA_INSTANCES = {
+    torch.float32: ("f32", _SeaParams, _Operand, ctypes.c_float),
+    torch.float64: ("f64", _SeaParams64, _Operand64, ctypes.c_double),
 }
 
 
@@ -297,7 +330,7 @@ def _operands(mode_fields: dict, owner: str, coords, conn, D_m,
     """:func:`kernel_operands` for the wave's (or sea's) tensor fields
     ``mode_fields``: each checked, ``U_c`` under the key ``Uc``."""
     dtype, dev = coords.dtype, coords.device
-    if dtype not in _INSTANCES:
+    if dtype not in (torch.float32, torch.float64):
         raise TypeError("the Morison kernel takes float32 or float64 "
                         f"operands, got {dtype}")
 
@@ -362,36 +395,38 @@ def _operand(v, M: int, name: str, cls=_Operand):
 
 
 def launch_morison(k: dict, wheeler: bool):
-    """Launch the kernel instance of the operands' dtype on operands from
+    """Launch the float32 instance on float32 operands from
     :func:`kernel_operands` (all on one CUDA device); returns (F1 [S, M,
-    3], F2 [S, M, 3], totals [S, 6] = drag xyz | inertia xyz) in that
-    dtype.  Raises for CPU tensors."""
+    3], F2 [S, M, 3], totals [S, 6] = drag xyz | inertia xyz).  Raises for
+    CPU tensors and for float64 operands (the float64 instance is
+    :func:`launch_morison_batch64`'s)."""
     dev, dtype = k["coords"].device, k["coords"].dtype
     if dev.type != "cuda":
         raise RuntimeError("the Morison kernel needs CUDA tensors (got "
                            f"{dev}); the plain version is "
                            "ops.morison.morison_phase_batch")
-    name, params, operand, scalar, suffix = _INSTANCES[dtype]
+    if dtype != torch.float32:
+        raise TypeError("launch_morison launches the float32 instance; "
+                        "float64 operands go to launch_morison_batch64")
     lib = build("morison_phase_batch")
     M, S, N = k["conn"].shape[0], k["ts"].shape[0], k["E"].shape[0]
     n_gauss = len(k["s"])
     F1 = torch.empty(S, M, 3, dtype=dtype, device=dev)
     F2 = torch.empty(S, M, 3, dtype=dtype, device=dev)
     totals = torch.empty(S, 6, dtype=dtype, device=dev)
-    p = params(
+    p = _MorisonParams(
         *(k[n].data_ptr() for n in ("coords", "conn", "D")),
-        *(_operand(k[n], M, n, operand) for n in ("Cd", "Cm", "wave_dir",
-                                                   "current_dir", "rho")),
-        _operand(0.0 if k["alpha"] is None else k["alpha"], M, "alpha",
-                 operand),
+        *(_operand(k[n], M, n) for n in ("Cd", "Cm", "wave_dir",
+                                          "current_dir", "rho")),
+        _operand(0.0 if k["alpha"] is None else k["alpha"], M, "alpha"),
         *(k[n].data_ptr() for n in ("E", "U", "k", "omega", "d", "Uc",
                                     "ts")),
-        (scalar * MAX_GAUSS)(*k["s"]), (scalar * MAX_GAUSS)(*k["w"]),
+        (ctypes.c_float * MAX_GAUSS)(*k["s"]),
+        (ctypes.c_float * MAX_GAUSS)(*k["w"]),
         M, S, N, n_gauss, int(k["alpha"] is not None),
         F1.data_ptr(), F2.data_ptr(), None, totals.data_ptr())
     with torch.cuda.device(dev):
-        G = getattr(lib, "morison_grid_blocks" + suffix)(ctypes.byref(p),
-                                                         int(wheeler))
+        G = lib.morison_grid_blocks(ctypes.byref(p), int(wheeler))
         if G <= 0:
             raise RuntimeError("morison_phase_batch grid query failed: "
                                + lib.morison_error_string(-G).decode())
@@ -399,14 +434,188 @@ def launch_morison(k: dict, wheeler: bool):
         partials = torch.empty(G, S, 6, dtype=dtype, device=dev)
         p.partials = partials.data_ptr()
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, "morison_phase_batch_launch" + suffix)(
-            ctypes.byref(p), int(wheeler), G, stream)
+        err = lib.morison_phase_batch_launch(ctypes.byref(p), int(wheeler),
+                                             G, stream)
     if err != 0:
         raise RuntimeError("morison_phase_batch kernel launch failed: "
                            + lib.morison_error_string(err).decode())
     morison_phase_batch_cuda.launches += 1
-    morison_phase_batch_cuda.instance_launches[name] += 1
+    morison_phase_batch_cuda.instance_launches["f32"] += 1
     return F1, F2, totals
+
+
+def _hoperand(v, C: int, M: int, name: str, per_member: bool) -> _HOperand:
+    """An operand of the case-batched instance as an ``HOperand``: a number
+    or 0-d tensor (shared), [C] per case (``per_member=False``), or (with
+    ``per_member``) [M] per member, [C, M] per case and member, [C, 1] per
+    case."""
+    if not isinstance(v, torch.Tensor):
+        return _HOperand(None, 0, 0, v)
+    shape = tuple(v.shape)
+    strides = {(): (0, 0)}
+    strides.update({(M,): (0, 1), (C, M): (M, 1), (C, 1): (1, 0)}
+                   if per_member else {(C,): (1, 0)})
+    if shape not in strides:
+        want = "[M], [C, M] or [C, 1]" if per_member else "[C]"
+        raise ValueError(f"{name} must be a scalar or {want} with C = {C}, "
+                         f"M = {M}; got shape {shape}")
+    return _HOperand(v.data_ptr(), *strides[shape], 0.0)
+
+
+_MEMBER_OPERANDS = ("D", "Cd", "Cm")
+_CASE_OPERANDS = ("wave_dir", "current_dir", "rho", "alpha")
+
+
+def batch_kernel_operands(waves: FourierWave, coords, conn, D_m,
+                          wave_dir_deg, current_dir_deg, Cd, Cm, rho_water,
+                          ts, n_gauss: int, current_alpha) -> dict:
+    """The case-batched float64 instance's operands for C cases, under
+    :func:`kernel_operands`' dtype and device rules (mixed dtypes raise
+    ``TypeError``; no device operation): ``waves`` a batch
+    (``waves.stack_waves``: ``E``, ``U`` [C, N], ``k``, ``omega``, ``d``,
+    ``U_c`` [C]), ``ts`` [C, S]; ``D``, ``Cd``, ``Cm`` [C, M] (per case and
+    member), [C, 1] (per case), [M] (per member) or a scalar;
+    ``wave_dir``, ``current_dir``, ``rho``, ``alpha`` [C] or a scalar; and
+    ``C``.  Other shapes raise ``ValueError``."""
+    k = kernel_operands(waves, coords, conn, D_m, wave_dir_deg,
+                        current_dir_deg, Cd, Cm, rho_water, ts, n_gauss,
+                        current_alpha)
+    if k["E"].ndim != 2 or k["ts"].ndim != 2:
+        raise ValueError("a case batch has waves with E [C, N] and ts "
+                         f"[C, S]; got E {tuple(k['E'].shape)}, ts "
+                         f"{tuple(k['ts'].shape)}")
+    C, N = k["E"].shape
+    M = k["conn"].shape[0]
+    wanted = dict(U=(C, N), k=(C,), omega=(C,), d=(C,), Uc=(C,),
+                  ts=(C, k["ts"].shape[1]))
+    for n, shape in wanted.items():
+        if tuple(k[n].shape) != shape:
+            raise ValueError(f"batch operand {n} must be {list(shape)}, got "
+                             f"{list(k[n].shape)}")
+    for n in _MEMBER_OPERANDS + _CASE_OPERANDS:
+        if k[n] is not None:
+            _hoperand(k[n], C, M, n, n in _MEMBER_OPERANDS)
+    k["C"] = C
+    return k
+
+
+def _batch64_params(k: dict) -> _Harm64Params:
+    """The ``Harm64Params`` of operands ``k`` (outputs unset)."""
+    C, M = k["C"], k["conn"].shape[0]
+    return _Harm64Params(
+        k["coords"].data_ptr(), k["conn"].data_ptr(),
+        *(_hoperand(k[n], C, M, n, True) for n in _MEMBER_OPERANDS),
+        *(_hoperand(k[n], C, M, n, False) for n in _CASE_OPERANDS[:3]),
+        _hoperand(0.0 if k["alpha"] is None else k["alpha"], C, M, "alpha",
+                  False),
+        *(k[n].data_ptr() for n in ("E", "U", "k", "omega", "d", "Uc",
+                                    "ts")),
+        (ctypes.c_double * MAX_GAUSS)(*k["s"]),
+        (ctypes.c_double * MAX_GAUSS)(*k["w"]),
+        C, M, k["ts"].shape[1], k["E"].shape[1], len(k["s"]),
+        int(k["alpha"] is not None), None, None, None, None)
+
+
+def launch_morison_batch64(k: dict, wheeler: bool):
+    """Launch the case-batched float64 instance on operands from
+    :func:`batch_kernel_operands` (all on one CUDA device): its records
+    pass (into a scratch buffer of C (M Q (4 N + 12) + 2 S N2) doubles
+    allocated here, N2 = N rounded up to even), the fused pass and the
+    fixed-order totals, one launch for the C cases.  Returns (F1 [C, S, M,
+    3], F2 [C, S, M, 3], totals [C, S, 6] = drag xyz | inertia xyz).
+    Raises for CPU tensors."""
+    dev, dtype = k["coords"].device, k["coords"].dtype
+    if dev.type != "cuda":
+        raise RuntimeError("the Morison kernel needs CUDA tensors (got "
+                           f"{dev}); the plain version is "
+                           "ops.morison.morison_end_forces_batch")
+    if dtype != torch.float64:
+        raise TypeError("the case-batched instance takes float64 operands, "
+                        f"got {dtype}")
+    lib = build("morison_phase_batch")
+    C, M, S = k["C"], k["conn"].shape[0], k["ts"].shape[1]
+    F1 = torch.empty(C, S, M, 3, dtype=dtype, device=dev)
+    F2 = torch.empty(C, S, M, 3, dtype=dtype, device=dev)
+    totals = torch.empty(C, S, 6, dtype=dtype, device=dev)
+    p = _batch64_params(k)
+    p.F1, p.F2, p.totals = F1.data_ptr(), F2.data_ptr(), totals.data_ptr()
+    # the tiling the library derives from S, M, Q and N: m-tiles a block,
+    # phase tiles, grid rows G, member tiles, shared memory
+    tiles = (ctypes.c_int * 5)()
+    err = lib.morison_harm64_tiles(ctypes.byref(p), int(wheeler), tiles)
+    if err != 0:
+        raise ValueError("morison_harm64 tiling refused these operands: "
+                         + lib.morison_error_string(err).decode())
+    G = tiles[2]
+    with torch.cuda.device(dev):
+        # each case's partial totals [C, G, S, 6]; the records pass's
+        # per-(case, point, mode) records, slot data and phase table
+        partials = torch.empty(C, G, S, 6, dtype=dtype, device=dev)
+        p.partials = partials.data_ptr()
+        scratch = torch.empty(lib.morison_harm64_scratch(ctypes.byref(p)),
+                              dtype=dtype, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.morison_harm64_launch(ctypes.byref(p), int(wheeler), G,
+                                        scratch.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("morison_harm64 kernel launch failed: "
+                           + lib.morison_error_string(err).decode())
+    morison_phase_batch_cuda.launches += 1
+    morison_phase_batch_cuda.instance_launches["f64"] += 1
+    return F1, F2, totals
+
+
+def _case_operand(v, i: int, per_member: bool = False):
+    """Case ``i``'s value of a batch operand (:func:`batch_kernel_operands`'
+    shapes) as :func:`kernel_operands` takes it."""
+    if isinstance(v, np.ndarray):
+        v = torch.as_tensor(v)
+    if not isinstance(v, torch.Tensor) or v.ndim == 0:
+        return v
+    if per_member:
+        return v if v.ndim == 1 else (v[i, 0] if v.shape[1] == 1 else v[i])
+    return v[i]
+
+
+def morison_end_forces_batch_cuda(waves: FourierWave, coords: torch.Tensor,
+                                  conn: torch.Tensor, D_m, wave_dir_deg,
+                                  current_dir_deg, Cd, Cm, rho_water,
+                                  ts: torch.Tensor, n_gauss: int = 15,
+                                  current_alpha=None,
+                                  stretching: str = "none"):
+    """Fused-kernel :func:`..morison.morison_end_forces_batch` of C cases
+    (the operand shapes of :func:`batch_kernel_operands`): (F1, F2 [C, S,
+    M, 3], total_drag, total_inertia [C, S, 3]).
+
+    Float64 CUDA tensors launch the case-batched float64 instance once for
+    the whole batch, or raise; float32 ones launch the float32 instance
+    once a case (it has no case axis); CPU tensors run the plain version.
+    Launches count on ``morison_phase_batch_cuda.launches`` and
+    ``.instance_launches``."""
+    if n_gauss > MAX_GAUSS:
+        raise ValueError(f"n_gauss must be <= {MAX_GAUSS}")
+    if waves.n_modes > MAX_MODES:
+        raise ValueError(f"wave n_modes must be <= {MAX_MODES}")
+    if stretching not in ("none", "wheeler"):
+        raise ValueError(f"unknown stretching mode {stretching!r}")
+    if coords.device.type != "cuda":
+        return morison_end_forces_batch(
+            waves, coords, conn, D_m, wave_dir_deg, current_dir_deg, Cd, Cm,
+            rho_water, ts, n_gauss, current_alpha, stretching)
+    if coords.dtype == torch.float32:
+        ends = [morison_end_forces_cuda(
+            waves.case(i), coords, conn, _case_operand(D_m, i, True),
+            _case_operand(wave_dir_deg, i), _case_operand(current_dir_deg, i),
+            _case_operand(Cd, i, True), _case_operand(Cm, i, True),
+            _case_operand(rho_water, i), ts[i], n_gauss,
+            _case_operand(current_alpha, i), stretching)
+            for i in range(ts.shape[0])]
+        return tuple(torch.stack(x) for x in zip(*ends))
+    k = batch_kernel_operands(waves, coords, conn, D_m, wave_dir_deg,
+                              current_dir_deg, Cd, Cm, rho_water, ts,
+                              n_gauss, current_alpha)
+    F1, F2, totals = launch_morison_batch64(k, stretching == "wheeler")
+    return F1, F2, totals[..., :3], totals[..., 3:]
 
 
 def morison_end_forces_cuda(wave: FourierWave, coords: torch.Tensor,
@@ -417,12 +626,13 @@ def morison_end_forces_cuda(wave: FourierWave, coords: torch.Tensor,
     """Fused-kernel :func:`..morison.morison_end_forces`: (F1, F2,
     total_drag, total_inertia) in the operands' dtype.
 
-    CUDA tensors launch the kernel instance of their dtype: float32 or
-    float64 (any other dtype, or operands of mixed dtypes, raise
-    ``TypeError``: nothing is cast), or raise when the build or the launch
-    fails.  CPU tensors run the plain version in their own dtype.  Kernel
-    launches count on ``morison_phase_batch_cuda.launches`` (per instance
-    on ``.instance_launches``).
+    CUDA tensors launch the kernel instance of their dtype: float32, or
+    float64 (the case-batched instance at C = 1); any other dtype, or
+    operands of mixed dtypes, raise ``TypeError`` (nothing is cast), and a
+    failed build or launch raises.  CPU tensors run the plain version in
+    their own dtype.  Kernel launches count on
+    ``morison_phase_batch_cuda.launches`` (per instance on
+    ``.instance_launches``).
     """
     if n_gauss > MAX_GAUSS:
         raise ValueError(f"n_gauss must be <= {MAX_GAUSS}")
@@ -434,6 +644,13 @@ def morison_end_forces_cuda(wave: FourierWave, coords: torch.Tensor,
         return morison_end_forces(wave, coords, conn, D_m, wave_dir_deg,
                                   current_dir_deg, Cd, Cm, rho_water, ts,
                                   n_gauss, current_alpha, stretching)
+    if coords.dtype != torch.float32:
+        # the case-batched instance on a batch of one (views, no copy)
+        F1, F2, drag, inertia = morison_end_forces_batch_cuda(
+            wave._map(lambda t: t[None]), coords, conn, D_m, wave_dir_deg,
+            current_dir_deg, Cd, Cm, rho_water, ts[None], n_gauss,
+            current_alpha, stretching)
+        return F1[0], F2[0], drag[0], inertia[0]
     k = kernel_operands(wave, coords, conn, D_m, wave_dir_deg,
                         current_dir_deg, Cd, Cm, rho_water, ts, n_gauss,
                         current_alpha)
@@ -450,9 +667,10 @@ def morison_phase_batch_cuda(wave: FourierWave, coords: torch.Tensor,
     """Fused-kernel :func:`..morison.morison_phase_batch`: same signature,
     semantics and result type (in the operands' dtype, float32 or float64,
     on a CUDA device; CPU tensors run the plain version).
-    ``morison_phase_batch_cuda.launches`` counts the K1 launches of both
+    ``morison_phase_batch_cuda.launches`` counts the K1 launches of the
     wrappers and ``.instance_launches`` those of each instance ("f32",
-    "f64"); :func:`launch_morison` adds one per launch."""
+    "f64" (case-batched), "sea_f32", "sea_f64"); each launcher adds one
+    per launch."""
     F1, F2, total_drag, total_inertia = morison_end_forces_cuda(
         wave, coords, conn, D_m, wave_dir_deg, current_dir_deg, Cd, Cm,
         rho_water, ts, n_gauss, current_alpha, stretching)
@@ -528,8 +746,7 @@ def launch_morison_sea(k: dict, wheeler: bool):
         raise RuntimeError("the Morison kernel needs CUDA tensors (got "
                            f"{dev}); the plain version is "
                            "ops.spectrum.morison_sea_end_forces")
-    name, _, operand, scalar, _ = _INSTANCES[dtype]
-    params = _SeaParams if dtype == torch.float32 else _SeaParams64
+    name, params, operand, scalar = _SEA_INSTANCES[dtype]
     lib = build("morison_phase_batch")
     M, S, N = k["conn"].shape[0], k["ts"].shape[0], k["E"].shape[0]
     F1 = torch.empty(S, M, 3, dtype=dtype, device=dev)

@@ -24,6 +24,7 @@ lever-rule end split F1 += (1 - s) f, F2 += s f.  Forces in N.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple
 
@@ -328,6 +329,56 @@ def morison_end_forces(wave: FourierWave, coords: torch.Tensor,
         j * wave.k, j * wave.omega, torch.zeros_like(j), wave.E, wave.U,
         wave.d, wave.U_c, coords, conn, D_m, wave_dir_deg, current_dir_deg,
         Cd, Cm, rho_water, ts, n_gauss, current_alpha, stretching)
+
+
+def morison_end_forces_batch(waves: FourierWave, coords: torch.Tensor,
+                             conn: torch.Tensor, D_m, wave_dir_deg,
+                             current_dir_deg, Cd, Cm, rho_water,
+                             ts: torch.Tensor, n_gauss: int = 15,
+                             current_alpha=None, stretching: str = "none"):
+    """:func:`morison_end_forces` of C cases on one model's members, as
+    ``torch.func.vmap`` over the cases (in chunks of at most
+    ``POINTWISE_CHUNK_ELEMS`` phase x point x mode elements): the plain
+    version of the Morison kernel's case-batched float64 instance.
+
+    ``waves``: a batched wave (``waves.stack_waves``; ``E``, ``U`` [C, N],
+    scalars [C]); ``ts`` [C, S]; ``D_m``, ``Cd``, ``Cm``: [C, M] per case
+    and member, [C, 1] per case, [M] per member, or a scalar;
+    ``wave_dir_deg``, ``current_dir_deg``, ``rho_water``,
+    ``current_alpha``: [C] per case or a scalar.  Returns (F1, F2 [C, S,
+    M, 3], total_drag, total_inertia [C, S, 3])."""
+    C, S = ts.shape
+    wave_names = [f.name for f in dataclasses.fields(FourierWave)
+                  if isinstance(getattr(waves, f.name), torch.Tensor)]
+    args = dict(D_m=D_m, Cd=Cd, Cm=Cm, wave_dir_deg=wave_dir_deg,
+                current_dir_deg=current_dir_deg, rho_water=rho_water,
+                current_alpha=current_alpha)
+    batched = {}
+    for name, v in args.items():
+        if isinstance(v, np.ndarray):
+            v = args[name] = _as(v, coords)
+        per_case = (isinstance(v, torch.Tensor)
+                    and v.ndim == (2 if name in ("D_m", "Cd", "Cm") else 1))
+        if per_case:   # [C, 1] is one value a case
+            batched[name] = (v[:, 0] if v.ndim == 2 and v.shape[1] == 1
+                             else v)
+    shared = {n: v for n, v in args.items() if n not in batched}
+
+    def one(wave_fields, ts_c, per_case):
+        kw = {**shared, **dict(zip(batched, per_case))}
+        wave = dataclasses.replace(waves, **dict(zip(wave_names,
+                                                     wave_fields)))
+        return morison_end_forces(
+            wave, coords, conn, kw["D_m"], kw["wave_dir_deg"],
+            kw["current_dir_deg"], kw["Cd"], kw["Cm"], kw["rho_water"], ts_c,
+            n_gauss, kw["current_alpha"], stretching)
+    per_item = S * conn.shape[0] * n_gauss * waves.n_modes
+    step = max(1, POINTWISE_CHUNK_ELEMS // per_item)
+    parts = [torch.func.vmap(one)(
+        tuple(getattr(waves, n)[lo:lo + step] for n in wave_names),
+        ts[lo:lo + step], tuple(v[lo:lo + step] for v in batched.values()))
+        for lo in range(0, C, step)]
+    return tuple(torch.cat(x) for x in zip(*parts))
 
 
 class _ModeCoeffs(NamedTuple):

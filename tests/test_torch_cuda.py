@@ -17,7 +17,8 @@ import small_fem_solver_tpu_torch as pt
 from small_fem_solver_tpu_torch.ops import hopper_kernels as hk
 from small_fem_solver_tpu_torch.ops.condense import (
     ChainFactor, chain_sweep_plain, condense_loads, condense_loads_nested)
-from small_fem_solver_tpu_torch.ops.morison import morison_phase_batch
+from small_fem_solver_tpu_torch.ops.morison import (morison_end_forces_batch,
+                                                    morison_phase_batch)
 
 FIELDS = ("nodal_forces", "total_drag", "total_inertia", "total_morison",
           "F1", "F2")
@@ -88,18 +89,43 @@ def test_kernel_matches_plain_f64(model, N, stretching, alpha, n_members, S,
         assert _rel(getattr(out, name), getattr(ref, name)) < KERNEL_TOL, name
 
 
+# wave theory, and the heights of one case and of a 3-case batch
+FENTON18 = (dict(model="fenton", N=18, n_modes=18), 17.038,
+            [9.0, 13.0, 17.038])
+STOKES8 = (dict(model="stokes", N=5, n_modes=8), 12.0, [8.0, 12.0, 14.0])
+STOKES5 = (dict(model="stokes", N=5, n_modes=5), 12.0, [8.0, 12.0, 14.0])
+# make_wave's default (Fenton N = 20): without Wheeler one B tile (the
+# kernel's single-buffered path), with it two
+FENTON20 = (dict(model="fenton", N=20, n_modes=20), 17.038,
+            [9.0, 13.0, 17.038])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("stretching,alpha,n_members,S", [
-    ("none", None, None, 72), ("wheeler", 1.0 / 7.0, 37, 37)])
-def test_f64_kernel_matches_plain_f64(stretching, alpha, n_members, S):
-    """The kernel's float64 instance against the plain version in f64 on
-    the same inputs, with per-member Cd / Cm: 1e-12 of the largest value,
-    launched once and counted as f64; bit-repeatable."""
+@pytest.mark.parametrize("stretching,alpha,n_members,S,wave", [
+    ("none", None, None, 72, FENTON18),
+    ("wheeler", 1.0 / 7.0, 37, 37, FENTON18),
+    # the dense envelope's tile edge: 36 phases pad to 48, 8 modes
+    ("none", None, None, 36, STOKES8),
+    ("wheeler", None, 51, 36, STOKES8),
+    # an odd mode count: the k-loop pads one mode
+    ("wheeler", 1.0 / 7.0, 29, 37, STOKES5),
+    ("none", None, None, 50, STOKES5),
+    ("none", 1.0 / 7.0, None, 40, FENTON20),
+    ("wheeler", None, 37, 40, FENTON20),
+])
+def test_f64_kernel_matches_plain_f64(stretching, alpha, n_members, S,
+                                      wave):
+    """The kernel's float64 (case-batched) instance against the plain
+    version in f64 on the same inputs, with per-member Cd / Cm: 1e-12 of
+    the largest value, launched once and counted as f64; bit-repeatable.
+    Then a batch of 3 cases (per-case waves, phase times, headings, rho,
+    per-(case, member) Cd and per-case Cm) in one launch against the
+    batched plain version, each case bit-equal to a one-case launch."""
     dev = _device()
     refined = pt.refine_model(pt.default_3leg_jacket(device=dev), 4)
     M = n_members or refined.n_members
-    wave = pt.make_wave(17.038, 9.4, 50.0, U_c=1.7, model="fenton", N=18,
-                        device=dev)
+    wave_kw, H, Hs = wave
+    wave = pt.make_wave(H, 9.4, 50.0, U_c=1.7, device=dev, **wave_kw)
     gen = torch.Generator(device="cpu").manual_seed(1)
     Cd = (0.6 + 0.5 * torch.rand(M, generator=gen, dtype=torch.float64))
     Cm = (1.6 + 0.5 * torch.rand(M, generator=gen, dtype=torch.float64))
@@ -124,6 +150,33 @@ def test_f64_kernel_matches_plain_f64(stretching, alpha, n_members, S):
         assert torch.equal(getattr(out, name), getattr(again, name)), name
     with pytest.raises(TypeError, match="mixed dtypes"):
         hk.morison_phase_batch_cuda(*args[:-1], ts.float())
+
+    # three cases in one launch
+    waves = pt.make_wave_batch(Hs, 9.4, 50.0, U_c=1.7, dtype=torch.float64,
+                               device=dev, **wave_kw)
+    f64 = dict(dtype=torch.float64, device=dev)
+    tsb = (torch.arange(S, **f64)[None, :] * waves.T[:, None] / S
+           + torch.tensor([[0.0], [0.13], [0.41]], **f64))
+    Cdb = 0.6 + 0.5 * torch.rand(3, M, generator=gen, dtype=torch.float64)
+    Cmb = 1.6 + 0.5 * torch.rand(3, 1, generator=gen, dtype=torch.float64)
+    per_case = (torch.tensor([38.0, 100.0, 250.0], **f64),
+                torch.tensor([120.0, 38.0, 300.0], **f64), Cdb.to(dev),
+                Cmb.to(dev), torch.tensor([1025.0, 1020.0, 1030.0], **f64))
+    bargs = (waves, refined.coords, refined.conn[:M], D, *per_case, tsb)
+    kw = dict(current_alpha=alpha, stretching=stretching)
+    before = hk.morison_phase_batch_cuda.instance_launches["f64"]
+    outb = hk.morison_end_forces_batch_cuda(*bargs, **kw)
+    torch.cuda.synchronize()
+    assert hk.morison_phase_batch_cuda.instance_launches["f64"] == before + 1
+    refb = morison_end_forces_batch(*bargs, **kw)
+    for a, b in zip(outb, refb):
+        assert a.shape == b.shape and _rel(a, b) < KERNEL_TOL_F64
+    wd, cdir, Cdc, Cmc, rho = per_case
+    for i in range(3):
+        one = hk.morison_end_forces_cuda(
+            waves.case(i), refined.coords, refined.conn[:M], D, wd[i],
+            cdir[i], Cdc[i], Cmc[i, 0], rho[i], tsb[i], **kw)
+        assert all(torch.equal(a[i], b) for a, b in zip(outb, one)), i
 
 
 @pytest.mark.cuda
@@ -431,9 +484,10 @@ def test_kernel_per_member_coefficients_with_appurtenances():
 
 @pytest.mark.cuda
 def test_design_envelope_on_card_matches_cpu():
-    """The dense f64 envelope on the card (one launch of the kernel's f64
-    instance per case) against the same call on the CPU (the plain version
-    in f64), with springs, releases and appurtenances: the full
+    """The dense f64 envelope on the card (one launch of the kernel's
+    case-batched f64 instance for all the cases) against the same call on
+    the CPU (the plain version in f64), with springs, releases and
+    appurtenances: the full
     utilization, the Morison totals and the reductions at 1e-10 of their
     maxima, the same governing case."""
     dev = _device()
@@ -450,7 +504,7 @@ def test_design_envelope_on_card_matches_cpu():
         runs[str(d)] = pt.design_envelope(_options_jacket(d), waves, cases,
                                           n_steps=12,
                                           support_stiffness=SPRINGS)
-    assert hk.morison_phase_batch_cuda.instance_launches["f64"] == 3
+    assert hk.morison_phase_batch_cuda.instance_launches["f64"] == 1
     card, cpu = runs[str(dev)], runs["cpu"]
     assert card.utilization.device.type == "cuda"
     errs = _rel_fields(card, cpu, ("utilization", "total_morison",

@@ -6,10 +6,17 @@
   2e-6 x max (the tolerance of tests/test_pallas.py);
 - the CUDA kernel's operands (``kernel_operands``) through a PyTorch
   emulation of the kernel's prologue and arithmetic against the plain port;
+- the case-batched float64 instance: its packed operands
+  (``batch_kernel_operands``, case i = ``kernel_operands`` of case i)
+  through an emulation of its records pass, phase table, DMMA k-steps and
+  epilogue against the batched plain version
+  (``ops/morison.py::morison_end_forces_batch``), which is held against
+  JAX per case;
 - the CUDA wrapper's CPU dispatch and guards (the kernel itself:
   tests/test_torch_cuda.py).
 """
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,8 +26,10 @@ import torch
 import small_fem_solver_tpu as sf
 from small_fem_solver_tpu.ops.morison import morison_phase_batch as jax_mpb
 from small_fem_solver_tpu.ops.pallas_kernels import morison_phase_batch_pallas
+import small_fem_solver_tpu_torch as pt
 from small_fem_solver_tpu_torch.ops import hopper_kernels as hk
-from small_fem_solver_tpu_torch.ops.morison import morison_phase_batch
+from small_fem_solver_tpu_torch.ops.morison import (morison_end_forces_batch,
+                                                    morison_phase_batch)
 from test_torch_convert import port_model, port_wave, rel_err
 
 FIELDS = ("nodal_forces", "total_drag", "total_inertia", "total_morison",
@@ -212,27 +221,33 @@ def test_kernel_operand_packing(stretching, alpha, n_members):
 
 
 def test_kernel_operand_packing_f64():
-    """float64 operands stay float64 (the kernel's f64 instance): nothing
-    is cast or copied, the Gauss rule is float64, and the emulated kernel
-    arithmetic equals the plain port at 1e-12; mixed dtypes raise."""
+    """float64 operands stay float64 and reach the kernel's f64 instance as
+    a batch of one case, as ``morison_end_forces_cuda`` hands them over
+    (views: nothing is cast or copied, the Gauss rule is float64); the
+    emulated arithmetic of the case-batched instance equals the plain port
+    at 1e-12; mixed dtypes raise."""
     model, wave, D, ts, tm, tw = _inputs(jnp.float64, torch.float64,
                                          "fenton", 12)
     Cd = np.random.default_rng(2).uniform(0.6, 1.1, tm.n_members)
     args = (tw, tm.coords, tm.conn, torch.tensor(D), 38.0, 120.0, Cd, 2.0,
             1025.0, torch.tensor(ts))
     for stretching, alpha in (("none", None), ("wheeler", 1.0 / 7.0)):
-        k = hk.kernel_operands(*args, n_gauss=15, current_alpha=alpha)
+        k = hk.batch_kernel_operands(tw._map(lambda t: t[None]), *args[1:-1],
+                                     args[-1][None], n_gauss=15,
+                                     current_alpha=alpha)
+        assert k["C"] == 1 and k["E"].shape == (1, 12)
         assert k["s"].dtype == np.float64 and k["w"].dtype == np.float64
         assert k["Cd"].dtype == torch.float64
         assert all(v.dtype == torch.float64 for n, v in k.items()
                    if isinstance(v, torch.Tensor) and n != "conn")
         assert k["coords"].data_ptr() == tm.coords.data_ptr()
         assert k["E"].data_ptr() == tw.E.data_ptr()
-        F1, F2, drag, inertia = _emulate_kernel(k, stretching == "wheeler")
+        F1, F2, drag, inertia = _emulate_batch64(k, stretching == "wheeler")
         ref = morison_phase_batch(*args, current_alpha=alpha,
                                   stretching=stretching)
-        for a, b in ((F1, ref.F1), (F2, ref.F2), (drag, ref.total_drag),
-                     (inertia, ref.total_inertia)):
+        for a, b in ((F1[0], ref.F1), (F2[0], ref.F2),
+                     (drag[0], ref.total_drag),
+                     (inertia[0], ref.total_inertia)):
             assert rel_err(a, b) < 1e-12
     with pytest.raises(TypeError, match="mixed dtypes"):
         hk.kernel_operands(*args[:-1], torch.tensor(ts, dtype=torch.float32),
@@ -293,3 +308,312 @@ def test_cuda_wrapper_refuses_cpu_tensors_and_bad_sizes():
             *args[1:])
     with pytest.raises(ValueError, match="stretching"):
         hk.morison_phase_batch_cuda(*args, stretching="linear")
+
+
+# ---- the case-batched float64 instance ----
+
+def _batch_value(v, C, M, per_member):
+    """A batch operand (number, 0-d, [C], [M], [C, M] or [C, 1]) as the
+    kernel reads it, broadcast to [C, M] (per member) or [C]."""
+    v = torch.as_tensor(v, dtype=torch.float64)
+    if per_member:
+        return (v if v.ndim == 2 else v.reshape(1, -1)).expand(C, M)
+    return v.expand(C)
+
+
+def _tiles(S, M, Q):
+    """The kernel's tiling rule (csrc/morison_phase_batch.cu, HarmTiles):
+    phase tiles, member tiles and grid rows from S, M and Q alone."""
+    nm = -(-S // 16)
+    n_pt = -(-nm // 4)
+    mpt = 2 if Q <= 8 else 1
+    n_tiles = -(-M // mpt)
+    return n_pt, mpt, n_tiles, min(-(-n_tiles // 12), -(-264 // n_pt))
+
+
+def _emulate_batch64(k, wheeler):
+    """The arithmetic of the case-batched float64 instance on its packed
+    operands, in PyTorch: the records pass (per (case, point, mode) records,
+    slot data, the phase table by sin / cos of (j omega) t with modes padded
+    to an even N2), the B tile's fold, the mode sums as DMMA k-steps of two
+    modes in order, the epilogue, the lever-rule member sums in the
+    kernel's order (a lane's two slots, the quad's reduce-scatter (v0 +
+    v2) + (v1 + v3), then the two halves) and the totals summed by grid
+    row in order."""
+    C, M = k["C"], k["conn"].shape[0]
+    coords, conn = k["coords"], k["conn"]
+    s = torch.from_numpy(k["s"])
+    wq = torch.from_numpy(k["w"])
+    Q, N, S = len(s), k["E"].shape[1], k["ts"].shape[1]
+    N2 = N + N % 2
+    D, Cd, Cm = (_batch_value(k[n], C, M, True) for n in ("D", "Cd", "Cm"))
+    wd, cdir, rho = (_batch_value(k[n], C, M, False)
+                     for n in ("wave_dir", "current_dir", "rho"))
+    d, kk, om = k["d"], k["k"], k["omega"]
+    # records pass: per (case, point) slot data
+    x1 = coords[conn[:, 0]]
+    dL = coords[conn[:, 1]] - x1
+    L = torch.sqrt((dL * dL).sum(-1))
+    pos = (x1[:, None, :] + s[None, :, None] * dL[:, None, :]).reshape(-1, 3)
+    x, y, z = pos[:, 0], pos[:, 1], pos[:, 2]                 # [P]
+    cw, sw = (f(torch.pi * (90.0 - wd) / 180.0)[:, None]
+              for f in (torch.cos, torch.sin))                # [C, 1]
+    cc, sc = (f(torch.pi * (90.0 - cdir) / 180.0)[:, None]
+              for f in (torch.cos, torch.sin))
+    px = x * cw + y * sw                                      # [C, P]
+    uc = k["Uc"][:, None].expand(C, M * Q)
+    if k["alpha"] is not None:
+        alpha = _batch_value(k["alpha"], C, M, False)[:, None]
+        frac = torch.clip((z + d[:, None]) / d[:, None], 0.0, 1.0)
+        uc = uc * frac ** alpha
+    Lw = (L[:, None] * wq[None, :]).reshape(-1)               # [P]
+    Dp = D.repeat_interleave(Q, dim=1)
+    cd = 0.5 * rho[:, None] * Cd.repeat_interleave(Q, dim=1) * Dp * Lw
+    ci = (rho[:, None] * Cm.repeat_interleave(Q, dim=1)
+          * (torch.pi * Dp * Dp / 4.0) * Lw)
+    e = (dL / L[:, None]).repeat_interleave(Q, dim=0)         # [P, 3]
+    sq = s.repeat(M)
+    # per (case, point, mode) records
+    j = torch.arange(1, N + 1, dtype=torch.float64)
+    jk = j * kk[:, None]                                      # [C, N]
+    ang = jk[:, None, :] * px[:, :, None]                     # [C, P, N]
+    cx, sx = torch.cos(ang), torch.sin(ang)
+    A_ = jk[:, None, :] * (z[None, :, None] + d[:, None, None])
+    B_ = (jk * d[:, None])[:, None, :]
+    Aa = A_.abs()
+    scale = torch.exp(Aa - B_) / (1.0 + torch.exp(-2.0 * B_))
+    e2 = torch.exp(-2.0 * Aa)
+    U = k["U"][:, None, :]
+    UC = U * scale * (1.0 + e2)
+    US = U * torch.sign(A_) * scale * (1.0 - e2)
+    # phase table [C, S, 2 N2]: cos, sin (j omega t) side by side
+    arg = (j * om[:, None])[:, None, :] * k["ts"][:, :, None]
+    pad = (0, N2 - N)
+    tab = torch.stack([torch.nn.functional.pad(torch.cos(arg), pad),
+                       torch.nn.functional.pad(torch.sin(arg), pad)],
+                      -1).reshape(C, S, 2 * N2)
+    # the fold (sea_fold with E_j, j omega, j k), SeaLayout's field order
+    Ej, jw = k["E"][:, None, :], (j * om[:, None])[:, None, :]
+    jkk = jk[:, None, :]
+    cos_f = [Ej.expand_as(UC), UC, -jw * US]
+    sin_f = [US, jw * UC]
+    if wheeler:
+        cos_f += [jkk * US, -jw * jkk * UC, jkk**2 * UC, -jw * jkk**2 * US]
+        sin_f += [jkk * UC, jw * jkk * US, jkk**2 * US, jw * jkk**2 * UC]
+    cf = torch.stack(cos_f + sin_f, -1)                       # [C, P, N, F]
+    nc = len(cos_f)
+    Bc = torch.cat([cf[..., :nc] * cx[..., None],
+                    cf[..., nc:] * sx[..., None]], -1)        # cos row
+    Bs = torch.cat([cf[..., :nc] * sx[..., None],
+                    -(cf[..., nc:] * cx[..., None])], -1)     # sin row
+    Bt = torch.stack([Bc, Bs], 3)                             # [C,P,N,2,F]
+    Bt = torch.nn.functional.pad(Bt, (0, 0, 0, 0, 0, N2 - N))
+    Bt = Bt.reshape(C, -1, 2 * N2, Bt.shape[-1])              # [C,P,2N2,F]
+    # the sums: DMMA k-steps of 4 rows (two modes) in order
+    fl = torch.zeros(C, S, Bt.shape[1], Bt.shape[-1], dtype=torch.float64)
+    for ks in range(N2 // 2):
+        fl = fl + torch.einsum("csk,cpkf->cspf", tab[..., 4 * ks:4 * ks + 4],
+                               Bt[:, :, 4 * ks:4 * ks + 4])
+    # epilogue (sea_forces)
+    zz = z[None, None, :]
+    eta, ux, dw = fl[..., 0], fl[..., 1], fl[..., 2]
+    w_, dux = fl[..., nc], fl[..., nc + 1]
+    if wheeler:
+        dz = -(zz + d[:, None, None]) * eta / (d[:, None, None] + eta)
+        dz = torch.minimum(torch.maximum(dz, -d[:, None, None]),
+                           d[:, None, None])
+        h2 = 0.5 * dz * dz
+        ux = ux + dz * fl[..., 3] + h2 * fl[..., 5]
+        w_ = w_ + dz * fl[..., nc + 2] + h2 * fl[..., nc + 4]
+        dux = dux + dz * fl[..., nc + 3] + h2 * fl[..., nc + 5]
+        dw = dw + dz * fl[..., 4] + h2 * fl[..., 6]
+    live = zz <= eta
+    zero = torch.zeros_like(eta)
+    cwb, swb = cw[:, :, None], sw[:, :, None]
+    Ux = ux * cwb + (uc * cc)[:, None, :]
+    Uy = ux * swb + (uc * sc)[:, None, :]
+    Ax, Ay = dux * cwb, dux * swb
+    ex, ey, ez = e[:, 0], e[:, 1], e[:, 2]
+    Ue = Ux * ex + Uy * ey + w_ * ez
+    Ae = Ax * ex + Ay * ey + dw * ez
+    Up = torch.stack([Ux - Ue * ex, Uy - Ue * ey, w_ - Ue * ez], -1)
+    Umag = torch.sqrt((Up * Up).sum(-1))
+    cdf = torch.where(Umag > 1e-10, cd[:, None, :] * Umag, zero)
+    fd = torch.where(live[..., None], cdf[..., None] * Up, 0.0)
+    fi = torch.where(live[..., None], ci[:, None, :, None] * torch.stack(
+        [Ax - Ae * ex, Ay - Ae * ey, dw - Ae * ez], -1), 0.0)
+    # member sums over 16 slots in the kernel's order
+    n_pt, mpt, n_tiles, rows = _tiles(S, M, Q)
+    Qp = 16 // mpt
+    v = torch.cat([fd, fi, sq[:, None] * (fd + fi)], -1)      # [C,S,P,9]
+    v = torch.nn.functional.pad(v.reshape(C, S, M, Q, 9),
+                                (0, 0, 0, Qp - Q))
+    if mpt == 2:   # two members a tile, one a half
+        v = v.reshape(C, S, M, 1, 4, 2, 9)
+    else:
+        v = v.reshape(C, S, M, 2, 4, 2, 9)
+    lane = v[..., 0, :] + v[..., 1, :]
+    quad = (lane[..., 0, :] + lane[..., 2, :]) + (lane[..., 1, :]
+                                                  + lane[..., 3, :])
+    mem = quad[..., 0, :] if mpt == 2 else quad[..., 0, :] + quad[..., 1, :]
+    F2 = mem[..., 6:]
+    F1 = (mem[..., :3] + mem[..., 3:6]) - F2
+    # totals: each grid row's members in order, then the rows in order
+    part = torch.zeros(C, rows, S, 6, dtype=torch.float64)
+    for t in range(n_tiles):
+        for m in range(t * mpt, min(M, (t + 1) * mpt)):
+            part[:, t % rows] = part[:, t % rows] + mem[:, :, m, :6]
+    tot = part[:, 0]
+    for g in range(1, rows):
+        tot = tot + part[:, g]
+    return F1, F2, tot[..., :3], tot[..., 3:]
+
+
+@functools.lru_cache(maxsize=None)
+def _port_waves(N):
+    """Three port waves of N modes (C = 3): Stokes-5, its modes past the
+    fifth given seeded amplitudes of the first mode's times 0.5 a mode
+    (the kernel's arithmetic weighs at every mode, without a costly
+    Fenton solve)."""
+    w = pt.make_wave_batch([6.0, 10.0, 13.0], 9.4, 50.0, U_c=1.2,
+                           model="stokes", N=5, n_modes=N,
+                           dtype=torch.float64, device="cpu")
+    if N <= 5:
+        return w
+    rng = np.random.default_rng(N)
+    decay = torch.tensor(0.5 ** np.arange(5, N)
+                         * rng.uniform(0.5, 1.5, (3, N - 5)))
+    return dataclasses.replace(
+        w, E=torch.cat([w.E[:, :5], w.E[:, :1] * decay], 1),
+        U=torch.cat([w.U[:, :5], w.U[:, :1] * decay], 1))
+
+
+def _batch_args(N, n_members=None):
+    """A 3-case batch on the default jacket: per-case headings, current
+    headings, rho and phase times, per-(case, member) Cd and per-case Cm."""
+    m = pt.default_3leg_jacket(device="cpu")
+    M = n_members or m.n_members
+    waves, C, S = _port_waves(N), 3, 13
+    rng = np.random.default_rng(N)
+    ts = (torch.arange(S, dtype=torch.float64)[None, :] * waves.T[:, None]
+          / S + torch.tensor([[0.0], [0.11], [0.37]]))
+    D = (m.sections.D_outer[m.sect_id] / 1000.0)[:M]
+
+    def f64(v):
+        return torch.tensor(v, dtype=torch.float64)
+    return (waves, m.coords, m.conn[:M], D, f64([0.0, 38.0, 200.0]),
+            f64([10.0, 38.0, 175.0]), f64(rng.uniform(0.6, 1.1, (C, M))),
+            f64(rng.uniform(1.6, 2.1, (C, 1))), f64([1025.0, 1020.0, 1030.0]),
+            ts)
+
+
+@pytest.mark.parametrize("N", [5, 8, 18])
+@pytest.mark.parametrize("stretching", ["none", "wheeler"])
+def test_batch64_kernel_emulation(N, stretching):
+    """The case-batched float64 instance's arithmetic on its packed
+    operands (C = 3 cases, N = 5 (odd: a padded mode), 8, 18, a power-law
+    current, per-(case, member) Cd and per-case Cm) equals the batched
+    plain version at 1e-12 of the largest value."""
+    args = _batch_args(N)
+    k = hk.batch_kernel_operands(*args, n_gauss=15, current_alpha=1.0 / 7.0)
+    assert k["C"] == 3 and k["E"].shape == (3, N)
+    out = _emulate_batch64(k, stretching == "wheeler")
+    ref = morison_end_forces_batch(*args, current_alpha=1.0 / 7.0,
+                                   stretching=stretching)
+    for a, b in zip(out, ref):
+        assert a.shape == b.shape
+        assert rel_err(a, b) < 1e-12
+
+
+def test_batch64_emulation_two_members_a_tile():
+    """n_gauss <= 8 puts two members in a tile of 16 slots (an odd member
+    count leaves the last tile half empty): the emulation of that layout
+    against the plain version at 1e-12."""
+    args = _batch_args(8, n_members=13)
+    k = hk.batch_kernel_operands(*args, n_gauss=6, current_alpha=None)
+    out = _emulate_batch64(k, True)
+    ref = morison_end_forces_batch(*args, n_gauss=6, stretching="wheeler")
+    for a, b in zip(out, ref):
+        assert rel_err(a, b) < 1e-12
+
+
+def test_batch64_operand_packing():
+    """Case i of the batched operands is kernel_operands of case i (the
+    per-case slices of every operand, the wave's fields, the Gauss rule);
+    nothing is copied; shapes the kernel does not take raise."""
+    args = _batch_args(8)
+    waves, coords, conn, D, wd, cdir, Cd, Cm, rho, ts = args
+    k = hk.batch_kernel_operands(*args, n_gauss=15, current_alpha=None)
+    assert k["E"].data_ptr() == waves.E.data_ptr()
+    assert k["coords"].data_ptr() == coords.data_ptr()
+    member = ("D", "Cd", "Cm")
+    for i in range(3):
+        ki = hk.kernel_operands(waves.case(i), coords, conn, D, wd[i],
+                                cdir[i], Cd[i], Cm[i, 0], rho[i], ts[i],
+                                n_gauss=15, current_alpha=None)
+        for name, v in ki.items():
+            got = k[name]
+            if name in ("coords", "conn", "s", "w"):
+                assert np.array_equal(np.asarray(got), np.asarray(v)), name
+            elif v is None:
+                assert got is None, name
+            else:
+                case_i = hk._case_operand(got, i, name in member)
+                assert torch.equal(torch.as_tensor(case_i),
+                                   torch.as_tensor(v)), name
+    bad = dict(D=D[:5], Cd=Cd[:, :5], wave_dir_deg=wd[:2])
+    for name, v in bad.items():
+        kw = dict(zip(("D_m", "wave_dir_deg", "current_dir_deg", "Cd", "Cm",
+                       "rho_water"), args[3:9]))
+        kw[name if name != "D" else "D_m"] = v
+        with pytest.raises(ValueError):
+            hk.batch_kernel_operands(waves, coords, conn, **kw, ts=ts,
+                                     n_gauss=15, current_alpha=None)
+
+
+@pytest.mark.parametrize("stretching", ["none", "wheeler"])
+def test_batch_plain_matches_jax_per_case(stretching):
+    """The batched plain version (torch.func.vmap over 3 cases with
+    per-case headings, Cd and phase times) against JAX's
+    morison_phase_batch of each case, f64, 1e-10 relative (the inputs of
+    test_plain_morison_matches_jax_f64)."""
+    model, wave, D, ts, tm, tw = _inputs(jnp.float64, torch.float64,
+                                         "fenton", 12, refine=2)
+    rng = np.random.default_rng(3)
+    Cd = rng.uniform(0.6, 1.1, (3, model.n_members))
+    dirs, cdirs = [38.0, 100.0, 250.0], [120.0, 38.0, 300.0]
+    tss = np.stack([ts, ts + 0.2, ts + 0.5])
+    waves = pt.stack_waves([tw] * 3)
+    F1, F2, drag, inertia = morison_end_forces_batch(
+        waves, tm.coords, tm.conn, torch.tensor(D), torch.tensor(dirs),
+        torch.tensor(cdirs), torch.tensor(Cd), 2.0, 1025.0,
+        torch.tensor(tss), current_alpha=1.0 / 7.0, stretching=stretching)
+    for i in range(3):
+        ref = jax_mpb(wave, model.coords, model.conn, D, dirs[i], cdirs[i],
+                      Cd[i], 2.0, 1025.0, tss[i], current_alpha=1.0 / 7.0,
+                      stretching=stretching)
+        for a, b in ((F1[i], ref.F1), (F2[i], ref.F2),
+                     (drag[i], ref.total_drag),
+                     (inertia[i], ref.total_inertia)):
+            assert rel_err(a, b) < 1e-10
+
+
+def test_batch_wrapper_on_cpu_tensors():
+    """morison_end_forces_batch_cuda on CPU tensors is the batched plain
+    version (f64 and f32) and counts no launch; the case-batched launcher
+    refuses CPU tensors; its size limits raise."""
+    args = _batch_args(5)
+    before = dict(hk.morison_phase_batch_cuda.instance_launches)
+    for dtype in (torch.float64, torch.float32):
+        cast = hk.cast_operands(dtype, "cpu", *args[:2]) + (args[2],) \
+            + hk.cast_operands(dtype, "cpu", *args[3:])
+        out = hk.morison_end_forces_batch_cuda(*cast)
+        ref = morison_end_forces_batch(*cast)
+        assert all(torch.equal(a, b) for a, b in zip(out, ref))
+        assert out[0].dtype == dtype and out[0].shape == (3, 13, 51, 3)
+    assert hk.morison_phase_batch_cuda.instance_launches == before
+    k = hk.batch_kernel_operands(*args, n_gauss=15, current_alpha=None)
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        hk.launch_morison_batch64(k, False)
+    with pytest.raises(ValueError, match="n_gauss"):
+        hk.morison_end_forces_batch_cuda(*args, n_gauss=17)
