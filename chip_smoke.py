@@ -257,6 +257,7 @@ RESUME_TOL = 1e-12    # resumed chunked envelope vs one design_envelope
 RESUME_CHUNK = 64
 SHORT_REPS = 50       # calls of a short function in one profiler session
 KERNEL_TOL_F64 = 1e-12  # K1's f64 instance vs its plain f64 version
+N_GAUSS = 15          # Gauss points a member (the Morison paths' default)
 DENSE_F64_TOL = 1e-10 # dense f64 envelope on the card (K1 f64) vs the CPU
                       # f64 run: utilization, total_morison, reductions
 # dynamics at 9,612 DOF (f64), against the port's CPU f64 run of each call
@@ -1145,39 +1146,53 @@ def harm64_us(events) -> dict:
             "total": sum(parts)}
 
 
-def harm64_build_report(hk) -> dict:
-    """What the build says of K1's f64 harmonic instances
-    (``hk.build_report``: ptxas -v and cuobjdump -sass of the library):
-    both fused passes (with and without Wheeler) issue DMMA (their mode
-    sums on the FP64 tensor cores), and no f64 harmonic kernel spills.
-    Returns {instance: registers, stack, spill bytes, DMMA, HMMA} and the
-    first DMMA's text."""
+def build_report_check(hk, what: str, pattern: str, label, counts: tuple,
+                       f64) -> dict:
+    """What the build says of a family of K1's kernels (``hk.build_report``:
+    ptxas -v and cuobjdump -sass of the library): the kernels whose names
+    match ``pattern``, each labelled ``label(match)`` ("fused ..." for a
+    fused pass); ``counts`` = (fused passes, other kernels) of them in the
+    library; every fused pass that ``f64(label)`` picks issues DMMA (its
+    mode sums on the FP64 tensor cores), no other issues HMMA (no TF32),
+    and no kernel of the family spills.  Returns {instance: registers,
+    stack, spill bytes, DMMA, HMMA} and the first f64 fused pass's first
+    DMMA's text."""
     import re
-    rep = hk.build_report("morison_phase_batch")
     out, first = {}, None
-    for name, r in rep.items():
-        m = re.search(r"morison_harm64_(kernel|records_kernel)(?:ILb([01])E)?",
-                      name)
+    for name, r in hk.build_report("morison_phase_batch").items():
+        m = re.search(pattern, name)
         if m is None:
             continue
-        label = (f"fused wheeler={m[2]}" if m[1] == "kernel"
-                 else m[1].split("_")[0])
-        out[label] = {k: r.get(k) for k in ("registers", "stack",
-                                            "spill_stores", "spill_loads",
-                                            "DMMA", "HMMA")}
-        if m[1] == "kernel" and first is None:
+        lab = label(m)
+        out[lab] = {k: r.get(k) for k in ("registers", "stack",
+                                          "spill_stores", "spill_loads",
+                                          "DMMA", "HMMA")}
+        if lab.startswith("fused") and f64(lab) and first is None:
             first = r.get("first_dmma")
-        print(f"[build] K1 f64 {label}: {out[label]}", flush=True)
+        print(f"[build] {what} {lab}: {out[lab]}", flush=True)
     fused = {k: v for k, v in out.items() if k.startswith("fused")}
-    check(len(fused) == 2 and len(out) == 3, f"K1 f64: 2 fused passes and "
-          f"the records pass in the library ({len(fused)}, "
-          f"{len(out) - len(fused)})")
-    check(all((v["DMMA"] or 0) > 0 for v in fused.values()),
-          "both K1 f64 fused passes issue DMMA (FP64 tensor cores)")
+    got = (len(fused), len(out) - len(fused))
+    check(got == counts, f"{what}: {counts[0]} fused passes and {counts[1]} "
+          f"other kernels in the library {got}")
+    check(all((v["DMMA"] or 0) > 0 for k, v in fused.items() if f64(k)),
+          f"every {what} f64 fused pass issues DMMA (FP64 tensor cores)")
+    check(all(v["HMMA"] == 0 for k, v in fused.items() if not f64(k)),
+          f"no {what} f32 fused pass issues HMMA (no TF32)")
     check(all(v["spill_stores"] == 0 and v["spill_loads"] == 0
-              for v in out.values()), "no K1 f64 kernel spills (ptxas -v)")
-    print(f"[build] K1 f64 first DMMA: {first}", flush=True)
+              for v in out.values()), f"no {what} kernel spills (ptxas -v)")
+    print(f"[build] {what} f64 first DMMA: {first}", flush=True)
     return {"instances": out, "first_dmma": first}
+
+
+def harm64_build_report(hk) -> dict:
+    """:func:`build_report_check` of K1's f64 harmonic instance: both fused
+    passes (with and without Wheeler) issue DMMA; its records pass, fused
+    passes and totals do not spill."""
+    return build_report_check(
+        hk, "K1 f64", r"morison_harm64_(kernel|records_kernel|totals_kernel)"
+        r"(?:ILb([01])E)?",
+        lambda m: (f"fused wheeler={m[2]}" if m[1] == "kernel"
+                   else m[1].split("_")[0]), (2, 2), lambda lab: True)
 
 
 def k1_f64_phase(pt, hk, dev, coarse64, refined64, wave64, waves_d, dirs_d):
@@ -1188,7 +1203,10 @@ def k1_f64_phase(pt, hk, dev, coarse64, refined64, wave64, waves_d, dirs_d):
     design cases in ONE launch: 36 phases, 51 members, Stokes-5 with 8
     modes, per-case headings, per-(case, member) Cd, per-case Cm and rho),
     the flagship (360 phases, 1,632 members, Fenton N = 18), the harmonic
-    response (72 phases) and the transient (1,536).  One launch a call,
+    response (72 phases) and the transient (1,536); then the flagship and
+    transient phase counts at Fenton N = 28 and 32 (without Wheeler a
+    block fills an SM's shared memory alone; N = 32 at 360 phases with
+    Wheeler too, one B tile).  One launch a call,
     bit-repeatable, and case i of the batch bit-equal to a one-case launch
     of case i.  Each shape's device time (records pass, fused pass,
     totals) against its bound; the build report.  Returns the errors,
@@ -1201,10 +1219,10 @@ def k1_f64_phase(pt, hk, dev, coarse64, refined64, wave64, waves_d, dirs_d):
     build = harm64_build_report(hk)
     D = refined64.sections.D_outer[refined64.sect_id] / 1000.0
 
-    def flagship(S, per_period=None):
-        ts = (torch.arange(S, dtype=f64, device=dev) * wave64.T
+    def flagship(S, per_period=None, wave=wave64):
+        ts = (torch.arange(S, dtype=f64, device=dev) * wave.T
               / (per_period or S))
-        return (wave64, refined64.coords, refined64.conn, D, 38.0, 38.0, 0.7,
+        return (wave, refined64.coords, refined64.conn, D, 38.0, 38.0, 0.7,
                 2.0, 1025.0, ts)
     rng, M, C = np.random.default_rng(7), coarse64.n_members, len(dirs_d)
     waves = waves_d.to(f64, dev)
@@ -1226,18 +1244,29 @@ def k1_f64_phase(pt, hk, dev, coarse64, refined64, wave64, waves_d, dirs_d):
              torch.tensor(rng.uniform(1.6, 2.1, M), device=dev), 1025.0,
              torch.arange(DESIGN_STEPS, dtype=f64, device=dev) * stokes.T
              / DESIGN_STEPS)
-    shapes = {"dense envelope": (dense_b, C),
-              "flagship": (flagship(N_STEPS), 1),
-              "harmonic": (flagship(HARMONIC_STEPS), 1),
-              "transient": (flagship(TRANSIENT_STEPS, 128), 1)}
+    # the most modes the wrappers take (Fenton N = 28, 32): without Wheeler
+    # a block of 4 m-tiles fills an SM's shared memory alone
+    fenton = {N: pt.make_wave(17.038, 9.4, 50.0, U_c=1.7, model="fenton",
+                              N=N, n_modes=N, dtype=f64, device=dev)
+              for N in (28, 32)}
+    both, no_wheeler = ("none", "wheeler"), ("none",)
+    shapes = {"dense envelope": (dense_b, C, both),
+              "flagship": (flagship(N_STEPS), 1, both),
+              "harmonic": (flagship(HARMONIC_STEPS), 1, both),
+              "transient": (flagship(TRANSIENT_STEPS, 128), 1, both)}
+    for N, w in fenton.items():
+        shapes[f"flagship N {N}"] = (flagship(N_STEPS, wave=w), 1,
+                                     both if N == 32 else no_wheeler)
+        shapes[f"transient N {N}"] = (flagship(TRANSIENT_STEPS, 128, w), 1,
+                                      no_wheeler)
     names = ("F1", "F2", "total_drag", "total_inertia")
     out = {"abs": 0.0, "rel": 0.0, "args": flagship(N_STEPS),
            "dense": dense, "build": build, "shapes": {}}
-    for label, (args, Cb) in shapes.items():
+    for label, (args, Cb, stretchings) in shapes.items():
         wave, coords, conn = args[:3]
         S, Mk, N = args[-1].shape[-1], conn.shape[0], wave.n_modes
-        for stretching in ("none", "wheeler"):
-            kw = dict(stretching=stretching)
+        for stretching in stretchings:
+            kw = dict(stretching=stretching, n_gauss=N_GAUSS)
             if Cb > 1:
                 def call():
                     return hk.morison_end_forces_batch_cuda(*args, **kw)
@@ -1294,8 +1323,8 @@ def k1_f64_phase(pt, hk, dev, coarse64, refined64, wave64, waves_d, dirs_d):
             ev = device_events(call, 10 if label == "dense envelope"
                                else SHORT_REPS)
             dev_us = harm64_us(ev)
-            bound = harm64_bound(S, Mk, 15, N, coords.shape[0], Cb,
-                                 stretching == "wheeler")
+            bound = harm64_bound(S, Mk, kw["n_gauss"], N, coords.shape[0],
+                                 Cb, stretching == "wheeler")
             rec = {"device_us": dev_us, "bound": bound,
                    "share": bound["us"] / dev_us["total"],
                    "ms": cuda_ms(call, n=10), "max_rel_err":
@@ -1739,44 +1768,17 @@ def sea_mode_sums_ms(sea, ts, P: int, F: int, dtype) -> float:
 
 
 def sea_build_report(hk) -> dict:
-    """What the build says of K1-sea's kernels (``hk.build_report``:
-    ptxas -v and cuobjdump -sass of the library): every f64 fused pass
-    issues DMMA (its mode sums on the FP64 tensor cores), no f32 one
-    issues HMMA (no TF32), and no sea kernel spills.  Returns {instance:
-    registers, stack, spill bytes, DMMA, HMMA} and the first DMMA's
-    text."""
-    import re
-    rep = hk.build_report("morison_phase_batch")
-    out = {}
-    for name, r in rep.items():
-        m = re.search(r"morison_sea_(kernel|records_kernel)I([fd])Lb([01])"
-                      r"(?:ELb([01]))?", name)
-        if m is None:
-            continue
-        label = ("fused" if m[1] == "kernel" else "records") + " " \
-            + {"f": "f32", "d": "f64"}[m[2]] + "".join(
-                f" {f}={b}" for f, b in zip(
-                    ("wheeler", "spread") if m[4] else ("spread",),
-                    m.groups()[2:]) if b is not None)
-        out[label] = {k: r.get(k) for k in ("registers", "stack",
-                                            "spill_stores", "spill_loads",
-                                            "DMMA", "HMMA")}
-        print(f"[build] K1-sea {label}: {out[label]}", flush=True)
-    fused = {k: v for k, v in out.items() if k.startswith("fused")}
-    check(len(fused) == 8 and len(out) == 12, f"K1-sea: 8 fused and 4 "
-          f"records instances in the library ({len(fused)}, "
-          f"{len(out) - len(fused)})")
-    check(all((v["DMMA"] or 0) > 0 for k, v in fused.items() if "f64" in k),
-          "every K1-sea f64 fused pass issues DMMA (FP64 tensor cores)")
-    check(all(v["HMMA"] == 0 for k, v in fused.items() if "f32" in k),
-          "no K1-sea f32 fused pass issues HMMA (no TF32)")
-    check(all(v["spill_stores"] == 0 and v["spill_loads"] == 0
-              for v in out.values()), "no K1-sea kernel spills (ptxas -v)")
-    first = next((r["first_dmma"] for n, r in rep.items()
-                  if "morison_sea_kernelId" in n and r.get("first_dmma")),
-                 None)
-    print(f"[build] K1-sea f64 first DMMA: {first}", flush=True)
-    return {"instances": out, "first_dmma": first}
+    """:func:`build_report_check` of K1-sea's kernels: every f64 fused pass
+    issues DMMA, no f32 one HMMA, none of them spills."""
+    def label(m):
+        return (("fused" if m[1] == "kernel" else "records") + " "
+                + {"f": "f32", "d": "f64"}[m[2]] + "".join(
+                    f" {f}={b}" for f, b in zip(
+                        ("wheeler", "spread") if m[4] else ("spread",),
+                        m.groups()[2:]) if b is not None))
+    return build_report_check(
+        hk, "K1-sea", r"morison_sea_(kernel|records_kernel)I([fd])Lb([01])"
+        r"(?:ELb([01]))?", label, (8, 4), lambda lab: "f64" in lab)
 
 
 def k1_sea_phase(pt, hk, dev, coarse64, refined64):

@@ -1386,7 +1386,8 @@ bool valid_sea(const SeaParamsT<T>* p) {
 // (j omega t_s) by sincos, exact to rounding at every j (no angle
 // addition).  The wrapper allocates the scratch, C (M Q (4 N + 12) +
 // 2 S N2) doubles: 16.5 MB at the flagship shapes, 274 MB for the dense
-// envelope's 1,000 cases.
+// envelope's 1,000 cases; a batch that would need more than its cap
+// (512 MiB) is launched in chunks of cases.
 //
 // Tiles.  A block owns one case and a tile of 16 MT phases (MT <= 4
 // m-tiles: ceil(S / 16) m-tiles over the fewest tiles of at most 4) and
@@ -1421,7 +1422,9 @@ bool valid_sea(const SeaParamsT<T>* p) {
 // (chip_smoke.py's times; PERF.md).  Its build (chip_smoke.py's report):
 // 128 registers a thread at F = 5, so an SM holds two blocks, 16 warps,
 // to hide the epilogue's dependent FP64 chains (sqrt, shuffles), the
-// DMMA chains and the barrier of each tile; 234 at F = 13, one block.
+// DMMA chains and the barrier of each tile (one block where a block of 4
+// m-tiles needs more than half the shared memory: N >= 27); 234 at
+// F = 13, one block.
 // At the dense envelope's shapes 25% of the phases are padding (36 of
 // 48) and the records pass, a round trip of its output through device
 // memory, takes about a third of the launch.
@@ -1463,19 +1466,28 @@ struct HarmTiles {
     const int by_tiles = (n_tiles + HARM_MIN_TILES - 1) / HARM_MIN_TILES;
     const int by_blocks = (HARM_BLOCKS + n_pt - 1) / n_pt;
     rows = by_tiles < by_blocks ? by_tiles : by_blocks;
-    // two B tiles where they fit the blocks an SM runs (two at F = 5)
-    const size_t budget = F > 5 ? SEA_SMEM : SEA_SMEM / 2 - 1024;
-    for (NB = 2; NB >= 1; --NB) {
-      const int TS = 16 * MT;
-      A_at = 0;
-      B_at = A_at + TS * AS;
-      RAW_at = B_at + NB * 2 * N2 * RS;
-      SLOT_at = RAW_at + 2 * N2 * HARM_SLOTS * REC_W;
-      XCH_at = SLOT_at + HARM_SLOT_RING * HARM_SLOTS * SLOT_W;
-      MD_at = XCH_at + 2 * TS * HARM_XCH;
-      total = MD_at + 4 * N2;
-      if (sizeof(double) * total <= budget) break;
+    // two B tiles where they fit the blocks an SM runs (two at F = 5),
+    // else one; where not even one fits two blocks (F = 5, N >= 27, 4
+    // m-tiles), the whole of an SM's shared memory for one block.  NB = 0:
+    // no layout fits, and the host refuses the launch.
+    const bool pair = F <= 5;
+    for (int b = pair ? 0 : 1; b < 2; ++b) {
+      const size_t budget = b ? SEA_SMEM : SEA_SMEM / 2 - 1024;
+      for (NB = 2; NB >= 1; --NB)
+        if (sizeof(double) * layout(NB) <= budget) return;
     }
+  }
+  // the offsets with NB B tiles; returns the doubles of shared memory
+  __host__ __device__ int layout(int nb) {
+    const int TS = 16 * MT;
+    A_at = 0;
+    B_at = A_at + TS * AS;
+    RAW_at = B_at + nb * 2 * N2 * RS;
+    SLOT_at = RAW_at + 2 * N2 * HARM_SLOTS * REC_W;
+    XCH_at = SLOT_at + HARM_SLOT_RING * HARM_SLOTS * SLOT_W;
+    MD_at = XCH_at + 2 * TS * HARM_XCH;
+    total = MD_at + 4 * N2;
+    return total;
   }
 };
 
@@ -1927,18 +1939,20 @@ int morison_sea_launch_f64(const SeaParamsT<double>* p, int wheeler, int G,
 // The case-batched float64 harmonic instance: sizeof(Harm64Params) for
 // the ctypes mirror; its tiling for these shapes (out: m-tiles a block,
 // phase tiles, grid rows G (the rows of the partial sums [C, G, S, 6]),
-// member tiles, the fused pass's dynamic shared memory in bytes; returns a
-// CUDA error code); the elements of the scratch buffer the records pass
+// member tiles, the fused pass's dynamic shared memory in bytes, B tiles;
+// returns a CUDA error code, also where no layout fits shared memory); the elements of the scratch buffer the records pass
 // fills; and the launch (records pass, fused pass, fixed-order totals).
 int morison_harm64_params_size() { return (int)sizeof(Harm64Params); }
 int morison_harm64_tiles(const Harm64Params* p, int wheeler, int* out) {
   if (!valid_harm64(p)) return (int)cudaErrorInvalidValue;
   const HarmTiles tl = harm_tiles(*p, wheeler);
+  if (tl.NB < 1) return (int)cudaErrorInvalidValue;
   out[0] = tl.MT;
   out[1] = tl.n_pt;
   out[2] = tl.rows;
   out[3] = tl.n_tiles;
   out[4] = (int)(sizeof(double) * tl.total);
+  out[5] = tl.NB;
   return 0;
 }
 long long morison_harm64_scratch(const Harm64Params* p) {
@@ -1946,8 +1960,9 @@ long long morison_harm64_scratch(const Harm64Params* p) {
 }
 int morison_harm64_launch(const Harm64Params* p, int wheeler, int G,
                           void* scratch, void* stream) {
-  if (!valid_harm64(p) || !scratch || G != harm_tiles(*p, wheeler).rows)
-    return (int)cudaErrorInvalidValue;
+  if (!valid_harm64(p) || !scratch) return (int)cudaErrorInvalidValue;
+  const HarmTiles tl = harm_tiles(*p, wheeler);
+  if (tl.NB < 1 || G != tl.rows) return (int)cudaErrorInvalidValue;
   double* sc = static_cast<double*>(scratch);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(wheeler ? launch_harm64<true>(*p, G, sc, st)

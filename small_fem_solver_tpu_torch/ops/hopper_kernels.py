@@ -516,14 +516,57 @@ def _batch64_params(k: dict) -> _Harm64Params:
         int(k["alpha"] is not None), None, None, None, None)
 
 
+# The most bytes of records scratch one launch of the case-batched float64
+# instance takes (M Q (4 N + 12) + 2 S N2 doubles a case): a larger batch
+# is launched in chunks of cases.  Every case is tiled and summed as in a
+# launch of its own, so chunking changes no bit.  The 1,000 cases of the
+# dense envelope on the 51-member jacket (274 MB) stay one launch.
+HARM64_SCRATCH_BYTES = 1 << 29
+
+
+def case_slice(k: dict, c0: int, c1: int) -> dict:
+    """Cases ``c0:c1`` of operands from :func:`batch_kernel_operands`, as
+    views: the wave and phase times, and each per-case operand ([C] or [C,
+    M] / [C, 1]); shared operands unchanged."""
+    out = dict(k, C=c1 - c0)
+    for n in ("E", "U", "k", "omega", "d", "Uc", "ts"):
+        out[n] = k[n][c0:c1]
+    for n in _MEMBER_OPERANDS + _CASE_OPERANDS:
+        v = k[n]
+        if isinstance(v, torch.Tensor) and v.ndim == (
+                2 if n in _MEMBER_OPERANDS else 1):
+            out[n] = v[c0:c1]
+    return out
+
+
+def harm64_tiles(k: dict, wheeler: bool) -> dict:
+    """The tiling the library derives for operands ``k`` (S, M, Q and N;
+    the same for every case): m-tiles a block ``MT``, phase tiles
+    ``n_pt``, grid rows ``G`` (the rows of the partial sums), member tiles,
+    the fused pass's shared memory in bytes, its B tiles ``NB``, and the
+    scratch doubles of one case.  Raises ``ValueError`` where the library
+    refuses the shapes (no layout fits shared memory)."""
+    lib = build("morison_phase_batch")
+    p = _batch64_params(case_slice(k, 0, 1))
+    tiles = (ctypes.c_int * 6)()
+    err = lib.morison_harm64_tiles(ctypes.byref(p), int(wheeler), tiles)
+    if err != 0:
+        raise ValueError("morison_harm64 tiling refused these operands: "
+                         + lib.morison_error_string(err).decode())
+    return dict(zip(("MT", "n_pt", "G", "n_tiles", "smem_bytes", "NB"),
+                    tiles), scratch=lib.morison_harm64_scratch(
+                        ctypes.byref(p)))
+
+
 def launch_morison_batch64(k: dict, wheeler: bool):
     """Launch the case-batched float64 instance on operands from
     :func:`batch_kernel_operands` (all on one CUDA device): its records
-    pass (into a scratch buffer of C (M Q (4 N + 12) + 2 S N2) doubles
+    pass (into a scratch buffer of M Q (4 N + 12) + 2 S N2 doubles a case
     allocated here, N2 = N rounded up to even), the fused pass and the
-    fixed-order totals, one launch for the C cases.  Returns (F1 [C, S, M,
-    3], F2 [C, S, M, 3], totals [C, S, 6] = drag xyz | inertia xyz).
-    Raises for CPU tensors."""
+    fixed-order totals, one launch for the C cases, or one a chunk of
+    cases where their scratch would pass ``HARM64_SCRATCH_BYTES``.
+    Returns (F1 [C, S, M, 3], F2 [C, S, M, 3], totals [C, S, 6] = drag xyz
+    | inertia xyz).  Raises for CPU tensors."""
     dev, dtype = k["coords"].device, k["coords"].dtype
     if dev.type != "cuda":
         raise RuntimeError("the Morison kernel needs CUDA tensors (got "
@@ -537,31 +580,29 @@ def launch_morison_batch64(k: dict, wheeler: bool):
     F1 = torch.empty(C, S, M, 3, dtype=dtype, device=dev)
     F2 = torch.empty(C, S, M, 3, dtype=dtype, device=dev)
     totals = torch.empty(C, S, 6, dtype=dtype, device=dev)
-    p = _batch64_params(k)
-    p.F1, p.F2, p.totals = F1.data_ptr(), F2.data_ptr(), totals.data_ptr()
-    # the tiling the library derives from S, M, Q and N: m-tiles a block,
-    # phase tiles, grid rows G, member tiles, shared memory
-    tiles = (ctypes.c_int * 5)()
-    err = lib.morison_harm64_tiles(ctypes.byref(p), int(wheeler), tiles)
-    if err != 0:
-        raise ValueError("morison_harm64 tiling refused these operands: "
-                         + lib.morison_error_string(err).decode())
-    G = tiles[2]
+    tl = harm64_tiles(k, wheeler)
+    G = tl["G"]
+    chunk = max(1, min(C, HARM64_SCRATCH_BYTES // (8 * tl["scratch"])))
     with torch.cuda.device(dev):
-        # each case's partial totals [C, G, S, 6]; the records pass's
+        # a chunk's partial totals [chunk, G, S, 6]; the records pass's
         # per-(case, point, mode) records, slot data and phase table
-        partials = torch.empty(C, G, S, 6, dtype=dtype, device=dev)
-        p.partials = partials.data_ptr()
-        scratch = torch.empty(lib.morison_harm64_scratch(ctypes.byref(p)),
-                              dtype=dtype, device=dev)
+        partials = torch.empty(chunk, G, S, 6, dtype=dtype, device=dev)
+        scratch = torch.empty(chunk * tl["scratch"], dtype=dtype,
+                              device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.morison_harm64_launch(ctypes.byref(p), int(wheeler), G,
-                                        scratch.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("morison_harm64 kernel launch failed: "
-                           + lib.morison_error_string(err).decode())
-    morison_phase_batch_cuda.launches += 1
-    morison_phase_batch_cuda.instance_launches["f64"] += 1
+        for c0 in range(0, C, chunk):
+            c1 = min(C, c0 + chunk)
+            p = _batch64_params(case_slice(k, c0, c1))
+            p.F1, p.F2 = F1[c0:c1].data_ptr(), F2[c0:c1].data_ptr()
+            p.totals, p.partials = totals[c0:c1].data_ptr(), \
+                partials.data_ptr()
+            err = lib.morison_harm64_launch(ctypes.byref(p), int(wheeler),
+                                            G, scratch.data_ptr(), stream)
+            if err != 0:
+                raise RuntimeError("morison_harm64 kernel launch failed: "
+                                   + lib.morison_error_string(err).decode())
+            morison_phase_batch_cuda.launches += 1
+            morison_phase_batch_cuda.instance_launches["f64"] += 1
     return F1, F2, totals
 
 

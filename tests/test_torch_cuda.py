@@ -94,9 +94,15 @@ FENTON18 = (dict(model="fenton", N=18, n_modes=18), 17.038,
             [9.0, 13.0, 17.038])
 STOKES8 = (dict(model="stokes", N=5, n_modes=8), 12.0, [8.0, 12.0, 14.0])
 STOKES5 = (dict(model="stokes", N=5, n_modes=5), 12.0, [8.0, 12.0, 14.0])
-# make_wave's default (Fenton N = 20): without Wheeler one B tile (the
-# kernel's single-buffered path), with it two
+# make_wave's default (Fenton N = 20): at 3 m-tiles a block (S <= 48) two
+# B tiles, at 4 without Wheeler one (the kernel's single-buffered path)
 FENTON20 = (dict(model="fenton", N=20, n_modes=20), 17.038,
+            [9.0, 13.0, 17.038])
+# N >= 27 without Wheeler at 4 m-tiles: one block an SM takes the whole of
+# its shared memory; with Wheeler (N >= 25) one B tile
+FENTON28 = (dict(model="fenton", N=28, n_modes=28), 17.038,
+            [9.0, 13.0, 17.038])
+FENTON32 = (dict(model="fenton", N=32, n_modes=32), 17.038,
             [9.0, 13.0, 17.038])
 
 
@@ -112,6 +118,13 @@ FENTON20 = (dict(model="fenton", N=20, n_modes=20), 17.038,
     ("none", None, None, 50, STOKES5),
     ("none", 1.0 / 7.0, None, 40, FENTON20),
     ("wheeler", None, 37, 40, FENTON20),
+    ("none", None, None, 64, FENTON20),
+    # the flagship's and the transient's phase counts at the most modes
+    ("none", None, None, 360, FENTON28),
+    ("none", 1.0 / 7.0, None, 1536, FENTON28),
+    ("none", 1.0 / 7.0, None, 360, FENTON32),
+    ("none", None, None, 1536, FENTON32),
+    ("wheeler", None, 37, 360, FENTON32),
 ])
 def test_f64_kernel_matches_plain_f64(stretching, alpha, n_members, S,
                                       wave):
@@ -177,6 +190,54 @@ def test_f64_kernel_matches_plain_f64(stretching, alpha, n_members, S,
             waves.case(i), refined.coords, refined.conn[:M], D, wd[i],
             cdir[i], Cdc[i], Cmc[i, 0], rho[i], tsb[i], **kw)
         assert all(torch.equal(a[i], b) for a, b in zip(outb, one)), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stretching", ["none", "wheeler"])
+def test_f64_tiling_fits_every_mode_count(stretching):
+    """The library tiles the case-batched instance for every mode count the
+    wrappers take (N = 1..32) at the phase counts of its paths (36, 72,
+    360, 1,536): at least one B tile, within a block's shared memory."""
+    dev = _device()
+    m = pt.default_3leg_jacket(device=dev)
+    wave = pt.make_wave(12.0, 9.4, 50.0, U_c=1.7, model="stokes", N=5,
+                        n_modes=5, device=dev)
+    k = hk.batch_kernel_operands(
+        wave._map(lambda t: t[None]), m.coords, m.conn,
+        m.sections.D_outer[m.sect_id] / 1000.0, 38.0, 38.0, 0.7, 2.0, 1025.0,
+        torch.zeros(1, 1, dtype=torch.float64, device=dev), 15, None)
+    for N in range(1, hk.MAX_MODES + 1):
+        for S in (36, 72, 360, 1536):
+            kn = dict(k, E=torch.zeros(1, N, dtype=torch.float64, device=dev),
+                      U=torch.zeros(1, N, dtype=torch.float64, device=dev),
+                      ts=torch.zeros(1, S, dtype=torch.float64, device=dev))
+            tl = hk.harm64_tiles(kn, stretching == "wheeler")
+            assert tl["NB"] >= 1 and 0 < tl["smem_bytes"] <= 232448, (N, S)
+
+
+@pytest.mark.cuda
+def test_f64_batch_chunks_are_bit_equal(monkeypatch):
+    """A batch whose records scratch passes HARM64_SCRATCH_BYTES launches in
+    chunks of cases, one launch counted each, bit-equal to one launch."""
+    dev = _device()
+    m = pt.refine_model(pt.default_3leg_jacket(device=dev), 2)
+    waves = pt.make_wave_batch([8.0, 10.0, 12.0, 13.0, 14.0], 9.4, 50.0,
+                               U_c=1.7, model="stokes", N=5, n_modes=8,
+                               dtype=torch.float64, device=dev)
+    f64 = dict(dtype=torch.float64, device=dev)
+    dirs = torch.tensor([0.0, 38.0, 100.0, 200.0, 300.0], **f64)
+    ts = torch.arange(36, **f64)[None, :] * waves.T[:, None] / 36
+    args = (waves, m.coords, m.conn, m.sections.D_outer[m.sect_id] / 1000.0,
+            dirs, dirs, 0.7, 2.0, 1025.0, ts)
+    one = hk.morison_end_forces_batch_cuda(*args, stretching="wheeler")
+    k = hk.batch_kernel_operands(*args, n_gauss=15, current_alpha=None)
+    per_case = hk.harm64_tiles(k, True)["scratch"] * 8
+    monkeypatch.setattr(hk, "HARM64_SCRATCH_BYTES", 2 * per_case)
+    before = hk.morison_phase_batch_cuda.instance_launches["f64"]
+    chunked = hk.morison_end_forces_batch_cuda(*args, stretching="wheeler")
+    torch.cuda.synchronize()
+    assert hk.morison_phase_batch_cuda.instance_launches["f64"] == before + 3
+    assert all(torch.equal(a, b) for a, b in zip(one, chunked))
 
 
 @pytest.mark.cuda

@@ -571,6 +571,31 @@ def test_batch64_operand_packing():
                                      n_gauss=15, current_alpha=None)
 
 
+@pytest.mark.parametrize("c0,c1", [(0, 1), (1, 3), (0, 3)])
+def test_batch64_case_slice(c0, c1):
+    """A chunk of the batched operands (``case_slice``, what the launcher
+    hands one launch of a chunked batch) is batch_kernel_operands of that
+    chunk's cases, as views of the batch's tensors."""
+    args = _batch_args(8)
+    waves, coords, conn, D, wd, cdir, Cd, Cm, rho, ts = args
+    k = hk.batch_kernel_operands(*args, n_gauss=15, current_alpha=1.0 / 7.0)
+    got = hk.case_slice(k, c0, c1)
+    sub = waves._map(lambda t: t[c0:c1])
+    want = hk.batch_kernel_operands(
+        sub, coords, conn, D, wd[c0:c1], cdir[c0:c1], Cd[c0:c1], Cm[c0:c1],
+        rho[c0:c1], ts[c0:c1], n_gauss=15, current_alpha=1.0 / 7.0)
+    assert got.keys() == want.keys() and got["C"] == c1 - c0
+    for name, v in want.items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(got[name], v), name
+        elif isinstance(v, np.ndarray):
+            assert np.array_equal(got[name], v), name
+        else:
+            assert got[name] == v, name
+    assert got["Cd"].data_ptr() == Cd[c0:c1].data_ptr()
+    assert got["ts"].data_ptr() == ts[c0:c1].data_ptr()
+
+
 @pytest.mark.parametrize("stretching", ["none", "wheeler"])
 def test_batch_plain_matches_jax_per_case(stretching):
     """The batched plain version (torch.func.vmap over 3 cases with
