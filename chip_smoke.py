@@ -12,7 +12,9 @@ same storm scan with every model and load option on foundation springs,
 the dense design tier (``design_envelope``, ``design_sweep`` and the
 resumable envelope over 1,000 Stokes cases), and structural dynamics
 (modal, Craig-Bampton, harmonic and transient response at 9,612 DOF, modal
-at 99,882 DOF, in float64) —
+at 99,882 DOF, in float64), irregular seas, and the sparse and iterative
+tier (``analyze(solver="pcg")`` at 9,612 and 99,882 DOF, the direct-write
+BCSR assembly at 99,882 DOF; plain PyTorch, no kernel) —
 through both hand-written kernels, the fused Morison kernel (K1) and the
 chain-sweep kernel, and checks them:
 
@@ -167,7 +169,30 @@ chain-sweep kernel, and checks them:
 21. sea transient phase: ``transient_response_condensed`` driven by the
    sea (64 components, dt 0.1 s, 1,024 steps, 12 chain modes, f64) and
    its relative-drag variant (256 steps), card against CPU (U 1e-9,
-   utilization 1e-7).
+   utilization 1e-7);
+22. Queue C phase: calls past K1's limits that the JAX package runs, a
+   40-mode Airy ``design_envelope`` (126 DOF, f64) and a
+   ``dynamic_response`` at ``n_gauss`` = 20: no K1 launch, one plain
+   route each, the CPU's result (1e-12 / 1e-9);
+23. PCG phase (9,612 DOF, f64, the storm of ``tests/test_pcg_precond.py``):
+   ``analyze(solver="pcg")`` with block-Jacobi and two-level at tol 1e-10
+   against the Cholesky solve (U rtol 1e-8 / atol 1e-9 x max |U|,
+   utilization rtol 1e-7), two-level >= 3x fewer iterations, the counts
+   within 1% of the port's CPU run (printed beside JAX's recorded 4,275 /
+   621), ``pcg_chunk`` 50 bit-equal to 0, a second run bit-equal; times,
+   peak memory and the per-iteration device profile against its bound;
+24. large PCG phase (99,882 DOF, two-level, chunks of 200, f64) against
+   phase 9's ``analyze_condensed``: the bench's call (tol 1e-8,
+   ``accel="fd"``; utilization within 0.1) and the condensed solve's
+   loads (``accel="analytic"``) at tol 1e-8 and 1e-10 (utilization within
+   1e-8); each with ||P(K U - F)|| / ||P F|| recomputed on the host in
+   extended precision (2e-8) and a second run bit-equal; times, peak
+   memory, the iteration's and the mat-vec's device time against their
+   bytes bounds;
+25. assembly phase (99,882 DOF, f32 and f64): the direct-write BCSR
+   assembly against the generic one (5e-6 / 1e-12), bit-repeatable;
+   GDOF/s of single calls and of 64 in a row, device time against the
+   bytes bound.
 
 Every new path is run with the launch counts set to 0 just before it and
 read just after it; a mean or MPM stress is compared to one of its
@@ -204,6 +229,7 @@ EQ_TOL_F32 = 1e-4     # reactions balance the applied loads (f32 solve)
 EQ_TOL_F64 = 1e-9     # ... (f64 solve)
 PREP_TOL = 1e-6       # prepared scan vs one-shot scan
 N_SEG_LARGE = 327     # 99,882 DOF (bench.py:563-598, tests/test_large.py)
+N_DOF_LARGE = 99882
 GOLDENS = ("default", "variant", "shallow", "singular", "custom_tower",
            "autogen_4leg")
 GOLDEN_TOL = 1e-8     # analyze vs the reference's goldens (allclose_err)
@@ -216,6 +242,22 @@ RESID_TOL = 1e-9      # 99,882 DOF: refined residual (tests/test_large.py)
 EQ_TOL_LARGE = 1e-10  # ... equilibrium
 INTERFACE_TOL = 5e-3  # ... interface U vs n_seg = 8
 MORISON_TOTAL_TOL = 0.05  # ... total Morison vs the coarse analyze
+QUEUE_C_ENV_TOL = 1e-12  # 40-mode design_envelope, card vs CPU (plain
+                         # version on both)
+QUEUE_C_DYN_TOL = 1e-9   # dynamic_response at n_gauss 20, card vs CPU
+PCG_TOL = 1e-10       # 9,612-DOF PCG (tests/test_pcg_precond.py:27-44)
+PCG_UTIL_RTOL = 1e-7  # ... utilization vs Cholesky, relative
+PCG_PROFILE_ITERS = 50  # CG iterations in one profiler session
+PCG_LARGE_UTIL_TOL = 0.1  # 99,882 DOF, the bench's call (accel fd) vs
+                          # analyze_condensed (accel analytic; JAX 4.96e-2)
+PCG_LARGE_UTIL_TOL_MATCHED = 1e-8  # ... with the condensed solve's loads
+                          # (accel analytic), tol 1e-8 (PERF.md §6)
+PCG_LARGE_UTIL_TOL_1E10 = 1e-8  # ... and at tol 1e-10 (PERF.md §6)
+PCG_TRUE_RESID_LIMIT = 2e-8  # ||P(KU - F)|| / ||P F|| recomputed on the
+                          # host: the CG recurrence's residual drifts from
+                          # it by rounding (PERF.md §6)
+ASM_TOL_F32 = 5e-6    # direct-write vs generic assembly
+ASM_TOL_F64 = 1e-12   # (tests/test_assembly_direct.py:25-28)
 PREP_ANALYZE_TOL = 1e-12  # analyze_prepared vs analyze_condensed: U,
 PREP_F2_TOL = 1e-9        # reactions, von Mises; F2 (tests/test_condense.py)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
@@ -454,6 +496,18 @@ def peak_mib(fn) -> float:
     fn()
     torch.cuda.synchronize()
     return torch.cuda.max_memory_allocated() / 2**20
+
+
+def peak_over_mib(fn) -> float:
+    """Peak device memory ``fn()`` allocates above what the process holds
+    when it starts, in MiB."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
 
 
 def allclose_err(a, b) -> float:
@@ -793,6 +847,377 @@ def large_phase(pt, hk, dev, coarse64, wave64):
           f"total vs coarse {mor:.2e}, max utilization {umax:.6f}; peak "
           f"device memory of analyze_condensed {out['peak_mib']:.0f} MiB",
           flush=True)
+    out.update(refined=refined, case=case, wave=wave64, condensed=res)
+    return out
+
+
+# ---- Queue C: K1's limits bind on the card only ----
+
+def queue_c_phase(pt, hk, dev):
+    """Calls past K1's limits, which the JAX package's separable engine
+    runs: a 40-mode Airy ``design_envelope`` (126 DOF, f64, 3 cases x 8
+    phases) and a ``dynamic_response`` at ``n_gauss`` = 20.  On the card
+    each picks the plain version from its shapes: no K1 launch, one plain
+    route; each against the port's CPU run of the same call."""
+    import torch
+    coarse = pt.default_3leg_jacket(device=dev)
+    coarse_cpu = pt.default_3leg_jacket(device="cpu")
+    case = pt.LoadCase(**CASE)
+    out = {}
+
+    def envelope(model, device):
+        waves = pt.make_wave_batch([4.0, 9.0, 14.0], [8.0, 9.4, 11.0], 50.0,
+                                   U_c=1.7, model="airy", n_modes=40,
+                                   dtype=torch.float64, device=device)
+        cases = pt.make_case_batch(case, wave_dir_deg=[0.0, 38.0, 120.0])
+        return pt.design_envelope(model, waves, cases, n_steps=8)
+
+    def dynamic(model, device):
+        wave = pt.make_wave(9.5, 9.4, 50.0, U_c=1.2, model="stokes", N=5,
+                            device=device)
+        return pt.dynamic_response(model, wave, case, n_harmonics=4,
+                                   n_steps=24, n_gauss=20)
+
+    for label, fn, fields, tol in (
+            ("design_envelope, 40 Airy modes", envelope,
+             ("utilization", "max_util_per_case", "total_morison"),
+             QUEUE_C_ENV_TOL),
+            ("dynamic_response, n_gauss 20", dynamic,
+             ("U_time", "utilization", "daf"), QUEUE_C_DYN_TOL)):
+        k1 = hk.morison_phase_batch_cuda
+        k1.launches, k1.plain_routes = 0, 0
+        card = fn(coarse, dev)
+        torch.cuda.synchronize()
+        n, routes = k1.launches, k1.plain_routes
+        cpu = fn(coarse_cpu, "cpu")
+        errs = {f: rel(getattr(card, f).cpu(), getattr(cpu, f))
+                for f in fields}
+        check(n == 0 and routes == 1, f"{label} on the card: {n} K1 "
+              f"launches (0), {routes} plain route (1)")
+        check(max(errs.values()) <= tol, f"{label}: card vs CPU "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f" <= {tol:g}")
+        out[label] = {"launches": n, "plain_routes": routes, "errs": errs}
+    return out
+
+
+# ---- the sparse and iterative tier: PCG and BCSR assembly ----
+
+def pcg_iteration_bytes(A, n_dof: int, n_agg: int | None, slots: int):
+    """Bytes one CG iteration must move, each input read once and each
+    output written once: the BCSR blocks and one column and one row index
+    a block (the mat-vec), the block-Jacobi inverse, with the two-level
+    preconditioner the prolongator's real blocks and their columns, the
+    explicit coarse inverse and its scaling, and the vectors (x, r, p and
+    the free-DOF mask read; x, r, p written)."""
+    nb, n = A.pattern.n_blocks, A.pattern.n_nodes
+    it = A.blocks.element_size()
+    nbytes = nb * (36 * it + 16) + n * 36 * it + 7 * n_dof * it
+    if n_agg is not None:
+        nbytes += slots * (36 * it + 8) + ((6 * n_agg) ** 2 + 6 * n_agg) * it
+    return nbytes
+
+
+def matvec_bound(A, n_dof: int):
+    """(bound us, by, bytes) of one ``bcsr_matvec``: blocks and their two
+    indices read once, x read and y written once; 72 FLOPs a block (a 6x6
+    block times a 6-vector)."""
+    nb, it = A.pattern.n_blocks, A.blocks.element_size()
+    nbytes = nb * (36 * it + 16) + 2 * n_dof * it
+    return (*bound_us(nbytes, 72 * nb, FP64_FLOP_PER_S if it == 8
+                      else FP32_FLOP_PER_S), nbytes)
+
+
+def pcg_profile(pt, model, F, precond: str, iters: int):
+    """Device operations, busy time (us) and most time of ``iters`` CG
+    iterations of ``analyze(solver='pcg')``'s operators on ``model`` and
+    the load vector ``F`` (torch.profiler, the solve's own operator and
+    preconditioner; tol 0, so exactly ``iters`` iterations run), the
+    matvec's device time, and the iteration's and the matvec's bounds."""
+    import numpy as np
+    import torch
+    from small_fem_solver_tpu_torch import api
+    from small_fem_solver_tpu_torch.ops import solve as solve_mod
+    from small_fem_solver_tpu_torch.ops.assembly import (assemble_bcsr,
+                                                         bcsr_matvec)
+    from small_fem_solver_tpu_torch.ops.beams import element_stiffness
+    E, G = 210000.0, 210000.0 / 2.6
+    Kg = element_stiffness(model.coords, model.conn, model.sections,
+                           model.sect_id, E, G)[0]
+    A = assemble_bcsr(Kg, api._cached_bcsr_pattern(model.conn,
+                                                   model.n_nodes))
+    fmask, op, pre = api._pcg_operators(A, model, precond)
+    b = fmask * F
+    state = solve_mod.pcg_init(op, b, pre)
+    bnorm = solve_mod.pcg_bnorm(b)
+    events = device_events(lambda: solve_mod.pcg_run(
+        op, pre, state, bnorm, 0.0, iters, iters), host=False)
+    busy = sum(t for _, t in events)
+    n_agg, slots = None, 0
+    if precond == "two_level":
+        _, n_agg, plan = api._cached_aggregates(A.pattern)
+        slots = int(plan.valid.sum())
+    it_bytes = pcg_iteration_bytes(A, model.n_dof, n_agg, slots)
+    x = torch.tensor(np.random.default_rng(0).standard_normal(F.shape),
+                     dtype=F.dtype, device=F.device)
+    mv = device_events(lambda: bcsr_matvec(A, x), SHORT_REPS, host=False)
+    mv_bound, mv_by, mv_bytes = matvec_bound(A, model.n_dof)
+    return {"ops_per_iter": len(events) / iters,
+            "busy_us_per_iter": busy / iters,
+            "top": top_device_ops(events),
+            "iter_bytes": it_bytes,
+            "iter_bound_us": bound_us(it_bytes, 0.0, FP64_FLOP_PER_S)[0],
+            "matvec_us": sum(t for _, t in mv) / SHORT_REPS,
+            "matvec_ops": len(mv) / SHORT_REPS,
+            "matvec_bound_us": mv_bound, "matvec_by": mv_by,
+            "matvec_bytes": mv_bytes, "n_blocks": A.pattern.n_blocks,
+            "n_agg": n_agg}
+
+
+def timed_call(fn):
+    """(result, host-clock s, CUDA-event ms) of one synchronised call."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, start.elapsed_time(end)
+
+
+def pcg_phase(pt, dev, coarse64, refined64):
+    """``analyze(solver="pcg")`` on the 9,612-DOF flagship mesh in f64 with
+    the storm and ``accel="analytic"`` of ``tests/test_pcg_precond.py``:
+    block-Jacobi and two-level at tol 1e-10 against the Cholesky solve on
+    the card (U rtol 1e-8 / atol 1e-9 x max |U|, utilization rtol 1e-7),
+    two-level >= 3x fewer iterations, iteration counts within 1% of the
+    port's CPU run of the same call, ``pcg_chunk`` 50 bit-equal to 0, a
+    second run bit-equal to the first; times and the per-iteration
+    profile."""
+    import torch
+    wave = pt.make_wave(9.5, 9.4, 50.0, U_c=1.2, model="stokes", N=5,
+                        device=dev)
+    case = pt.LoadCase(**CASE)
+    cpu_r = pt.refine_model(pt.default_3leg_jacket(device="cpu"), N_SEG)
+    wave_cpu = wave.to(torch.float64, "cpu")
+
+    def solve(model, w, precond, **kw):
+        return pt.analyze(model, w, case, solver="pcg", accel="analytic",
+                          pcg_precond=precond, pcg_maxiter=20000, **kw)
+    chol = pt.analyze(refined64, wave, case, solver="chol",
+                      accel="analytic")
+    scale = float(chol.U.abs().max())
+    out = {"iters": {}, "cpu_iters": {}, "ms": {}, "wall_s": {}}
+    for precond in ("block_jacobi", "two_level"):
+        res, wall, ms = timed_call(lambda: solve(refined64, wave, precond))
+        out["wall_s"][precond], out["ms"][precond] = wall, ms
+        it = int(res.solver_iters)
+        out["iters"][precond] = it
+        u_err = float(((res.U - chol.U).abs()
+                       / (1e-8 * chol.U.abs() + 1e-9 * scale)).max())
+        util_err = float(((res.utilization - chol.utilization).abs()
+                          / chol.utilization.abs()).max())
+        check(float(res.solver_residual) <= PCG_TOL and u_err <= 1.0
+              and util_err <= PCG_UTIL_RTOL,
+              f"PCG {precond} at {refined64.n_dof} DOF: {it} iterations, "
+              f"residual {float(res.solver_residual):.2e} <= {PCG_TOL:g}; "
+              f"vs Cholesky U within rtol 1e-8 / atol 1e-9 x max|U| "
+              f"(worst {u_err:.2f} of the limit), utilization rtol "
+              f"{util_err:.2e} <= {PCG_UTIL_RTOL:g}")
+        again = solve(refined64, wave, precond)
+        chunked = solve(refined64, wave, precond, pcg_chunk=50)
+        check(int(again.solver_iters) == it and torch.equal(again.U, res.U)
+              and int(chunked.solver_iters) == it
+              and torch.equal(chunked.U, res.U)
+              and torch.equal(chunked.solver_residual, res.solver_residual),
+              f"PCG {precond} on the card bit-repeatable (a second run) and "
+              "pcg_chunk=50 bit-equal to pcg_chunk=0")
+        t0 = time.perf_counter()
+        cpu = solve(cpu_r, wave_cpu, precond)
+        cpu_it = int(cpu.solver_iters)
+        out["cpu_iters"][precond] = cpu_it
+        check(abs(it - cpu_it) <= 0.01 * cpu_it, f"PCG {precond} card "
+              f"{it} vs CPU {cpu_it} iterations (within 1%; CPU run "
+              f"{time.perf_counter() - t0:.2f} s); U card vs CPU "
+              f"{rel(res.U.cpu(), cpu.U):.2e}")
+    bj, tl = out["iters"]["block_jacobi"], out["iters"]["two_level"]
+    check(3 * tl <= bj, f"two-level {tl} x 3 <= block-Jacobi {bj} "
+          "iterations")
+    out["peak_mib"] = peak_over_mib(lambda: solve(refined64, wave,
+                                                 "two_level"))
+    out["profile"] = pcg_profile(pt, refined64, chol.F_applied, "two_level",
+                                 PCG_PROFILE_ITERS)
+    print(f"[pcg] {refined64.n_dof} DOF f64 tol {PCG_TOL:g}: iterations "
+          f"block-Jacobi {bj} (CPU {out['cpu_iters']['block_jacobi']}; "
+          f"JAX recorded 4,275), two-level {tl} (CPU "
+          f"{out['cpu_iters']['two_level']}; JAX recorded 621) -- "
+          "arithmetic counts, not speeds", flush=True)
+    return out
+
+
+def true_residual(model, U, F) -> float:
+    """||P(K U - F)|| / ||P F|| recomputed member by member on the host in
+    extended precision (numpy longdouble): each K_e u_e summed onto its
+    nodes with np.add.at, no BCSR operator and no CG recurrence."""
+    import numpy as np
+    from small_fem_solver_tpu_torch.ops.beams import element_stiffness
+    E, G = 210000.0, 210000.0 / 2.6
+    ld = np.longdouble
+    Kg = element_stiffness(model.coords, model.conn, model.sections,
+                           model.sect_id, E, G)[0].cpu().numpy().astype(ld)
+    conn = model.conn.cpu().numpy()
+    dofs = (6 * conn[:, :, None] + np.arange(6)).reshape(-1, 12)
+    U = U.cpu().numpy().astype(ld)
+    KU = np.zeros(model.n_dof, ld)
+    np.add.at(KU, dofs, np.einsum("mij,mj->mi", Kg, U[dofs]))
+    free = ~np.repeat(model.fixed_mask.cpu().numpy(), 6)
+    F = F.cpu().numpy().astype(ld)
+    d, f = (KU - F)[free], F[free]
+    return float(np.sqrt((d * d).sum() / (f * f).sum()))
+
+
+def pcg_large_phase(pt, dev, large):
+    """``analyze(solver="pcg")`` at 99,882 DOF, two-level, chunks of 200,
+    f64, against phase 9's ``analyze_condensed``:
+
+    - the bench's call (``bench.py:602-606``: tol 1e-8, maxiter 3,000,
+      ``analyze``'s default ``accel="fd"``): utilization within 0.1 of the
+      condensed solve (which runs ``accel="analytic"``; JAX measured
+      4.96e-2 between the same two calls);
+    - the same with ``accel="analytic"``, the condensed solve's loads, at
+      tol 1e-8 and at tol 1e-10: utilization within the limits set in
+      PERF.md before the run;
+    - each: ||P(K U - F)|| / ||P F|| recomputed independently
+      (:func:`true_residual`) within ``PCG_TRUE_RESID_LIMIT``, a second
+      run bit-equal; times, the per-iteration profile, peak memory."""
+    import torch
+    refined, case, wave, cond = (large["refined"], large["case"],
+                                 large["wave"], large["condensed"])
+    out = {"runs": {}}
+    for label, accel, tol, maxiter, limit in (
+            ("bench (accel fd)", "fd", 1e-8, 3000, PCG_LARGE_UTIL_TOL),
+            ("accel analytic", "analytic", 1e-8, 3000,
+             PCG_LARGE_UTIL_TOL_MATCHED),
+            ("accel analytic", "analytic", 1e-10, 6000,
+             PCG_LARGE_UTIL_TOL_1E10)):
+        def solve():
+            return pt.analyze(refined, wave, case, solver="pcg",
+                              accel=accel, pcg_precond="two_level",
+                              pcg_tol=tol, pcg_maxiter=maxiter,
+                              pcg_chunk=200)
+        res, wall, ms = timed_call(solve)
+        it = int(res.solver_iters)
+        resid = true_residual(refined, res.U, res.F_applied)
+        util = rel(res.utilization, cond.utilization)
+        u_rel = rel(res.U, cond.U)
+        tag = f"PCG at {refined.n_dof} DOF, {label}, tol {tol:g}"
+        check(float(res.solver_residual) <= tol
+              and resid <= PCG_TRUE_RESID_LIMIT,
+              f"{tag}: {it} iterations, solver's residual "
+              f"{float(res.solver_residual):.3e} <= {tol:g}; ||P(KU - F)|| "
+              f"/ ||P F|| recomputed on the host {resid:.3e} <= "
+              f"{PCG_TRUE_RESID_LIMIT:g}")
+        check(util <= limit, f"{tag}: utilization vs analyze_condensed "
+              f"{util:.3e} <= {limit:g} (U {u_rel:.3e})")
+        again, wall2, ms2 = timed_call(solve)
+        check(int(again.solver_iters) == it and torch.equal(again.U, res.U),
+              f"{tag}: a second run bit-equal")
+        out["runs"][(label, tol)] = {
+            "iters": it, "resid": resid,
+            "solver_resid": float(res.solver_residual), "util": util,
+            "U": u_rel, "wall_s": (wall, wall2), "ms": (ms, ms2)}
+        print(f"[pcg large] {label}, tol {tol:g}: {it} iterations (JAX "
+              f"recorded 1,354 for the bench's call, through its band "
+              f"operators), utilization vs condensed {util:.3e}, U "
+              f"{u_rel:.3e}, true residual {resid:.3e}; wall {wall:.3f} / "
+              f"{wall2:.3f} s, CUDA events {ms:.1f} / {ms2:.1f} ms",
+              flush=True)
+    out["peak_mib"] = peak_over_mib(lambda: pt.analyze(
+        refined, wave, case, solver="pcg", pcg_precond="two_level",
+        pcg_tol=1e-8, pcg_maxiter=3000, pcg_chunk=200))
+    out["profile"] = pcg_profile(pt, refined, cond.F_applied, "two_level",
+                                 PCG_PROFILE_ITERS)
+    return out
+
+
+def assembly_phase(pt, large):
+    """Direct-write BCSR assembly at 99,882 DOF (``bench.py:433-560``), f32
+    (the bench's dtype) and f64: against the generic ``assemble_bcsr`` of
+    ``element_global_stiffness`` (5e-6 / 1e-12 of the largest block
+    entry), bit-repeatable; GDOF/s of single synchronised calls and
+    sustained over 64 back-to-back assemblies at geometry scales
+    linspace(1, 1.01, 64) (CUDA events); device time against the bytes
+    bound."""
+    import torch
+    from small_fem_solver_tpu_torch import api
+    from small_fem_solver_tpu_torch.ops import assembly as asm
+    from small_fem_solver_tpu_torch.ops.beams import element_global_stiffness
+    out = {}
+    for dtype, tol in ((torch.float32, ASM_TOL_F32),
+                       (torch.float64, ASM_TOL_F64)):
+        m = large["refined"] if dtype == torch.float64 else pt.refine_model(
+            pt.default_3leg_jacket(dtype=dtype,
+                                   device=large["refined"].coords.device),
+            N_SEG_LARGE)
+        E, G = 210000.0, 210000.0 / 2.6
+        prep = asm.prepare_direct_assembly(m.coords, m.conn, m.sect_id,
+                                           m.n_nodes)
+        direct = asm.assemble_bcsr_direct(prep, m.sections, E, G)
+        generic = asm.assemble_bcsr(
+            element_global_stiffness(m.coords, m.conn, m.sections,
+                                     m.sect_id, E, G),
+            api._cached_bcsr_pattern(m.conn, m.n_nodes))
+        # the direct [diag | ij | ji] order against the generic sorted one
+        n = m.n_nodes
+        key = direct.pattern.block_rows * n + direct.pattern.block_cols
+        gkey = generic.pattern.block_rows * n + generic.pattern.block_cols
+        order = torch.argsort(key)
+        check(torch.equal(key[order], gkey), "direct-write pattern holds "
+              "the generic pattern's blocks")
+        err = rel(direct.blocks[order], generic.blocks)
+        again = asm.assemble_bcsr_direct(prep, m.sections, E, G)
+        check(err <= tol and torch.equal(again.blocks, direct.blocks),
+              f"direct-write assembly {dtype} at {m.n_dof} DOF vs generic "
+              f"assemble_bcsr: {err:.2e} <= {tol:g}; bit-repeatable")
+        single = cuda_ms(lambda: asm.assemble_bcsr_direct(prep, m.sections,
+                                                          E, G))
+        scales = torch.linspace(1.0, 1.01, 64, dtype=dtype,
+                                device=m.coords.device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        for _ in range(2):          # the second round is timed
+            torch.cuda.synchronize()
+            start.record()
+            for k in range(64):
+                asm.assemble_bcsr_direct(prep, m.sections, E, G,
+                                         scale=scales[k])
+            end.record()
+            torch.cuda.synchronize()
+        sustained = start.elapsed_time(end) / 64
+        events = device_events(lambda: asm.assemble_bcsr_direct(
+            prep, m.sections, E, G), SHORT_REPS, host=False)
+        dev_us = sum(t for _, t in events) / SHORT_REPS
+        nb, it = prep.pattern.n_blocks, direct.blocks.element_size()
+        lanes = prep.sect.shape[0]
+        # inputs read once: two end coordinates, a section id and a
+        # quadrant code a lane, the diagonal's padding mask; the blocks
+        # written once; ~360 FLOPs a lane (its quadrant's closed form: ~12
+        # nonzero pattern entries x 9 rotation products x 3, plus the
+        # coefficients)
+        nbytes = lanes * (6 * it + 16) + prep.diag_mask.numel() * it \
+            + nb * 36 * it
+        bound, by = bound_us(nbytes, 360.0 * lanes, FP32_FLOP_PER_S
+                             if it == 4 else FP64_FLOP_PER_S)
+        out[str(dtype).split(".")[-1]] = {
+            "err": err, "single_ms": single, "sustained_ms": sustained,
+            "gdofs_single": m.n_dof / single / 1e6,
+            "gdofs_sustained": m.n_dof / sustained / 1e6,
+            "device_us": dev_us, "ops": len(events) / SHORT_REPS,
+            "bound_us": bound, "bound_by": by, "bytes": nbytes,
+            "top": top_device_ops(events)}
     return out
 
 
@@ -3043,6 +3468,77 @@ def main() -> int:
           "steps, host clock)", flush=True)
     sea_launches = {**sea["launches"], **freq["launches"],
                     **scat["launches"], **strans["launches"]}
+
+    # ---- 22. Queue C: calls past K1's limits pick the plain version ----
+    t0 = time.perf_counter()
+    qc = queue_c_phase(pt, hk, dev)
+    print(f"[queue c] phase {time.perf_counter() - t0:.2f} s wall; "
+          + "; ".join(f"{k}: {v['launches']} K1 launches, "
+                      f"{v['plain_routes']} plain route, card vs CPU "
+                      + ", ".join(f"{f} {e:.2e}" for f, e in
+                                  v["errs"].items())
+                      for k, v in qc.items()), flush=True)
+
+    # ---- 23-25. the sparse and iterative tier ----
+    t0 = time.perf_counter()
+    pcg = pcg_phase(pt, dev, coarse64, refined64)
+    print(f"[pcg] phase {time.perf_counter() - t0:.2f} s wall", flush=True)
+    t0 = time.perf_counter()
+    pcgl = pcg_large_phase(pt, dev, large)
+    print(f"[pcg large] phase {time.perf_counter() - t0:.2f} s wall",
+          flush=True)
+    t0 = time.perf_counter()
+    asmb = assembly_phase(pt, large)
+    print(f"[assembly] phase {time.perf_counter() - t0:.2f} s wall",
+          flush=True)
+    for label, n_dof, prof in (
+            ("9,612 DOF", refined64.n_dof, pcg["profile"]),
+            ("99,882 DOF", N_DOF_LARGE, pcgl["profile"])):
+        print(f"[profile] {smi}: PCG two-level iteration at {label}: "
+              f"{prof['ops_per_iter']:.1f} device operations, device busy "
+              f"{prof['busy_us_per_iter']:.1f} us an iteration "
+              f"({PCG_PROFILE_ITERS} iterations in one session); bound "
+              f"{prof['iter_bound_us']:.2f} us by bytes "
+              f"({prof['iter_bytes'] / 1e6:.1f} MB an iteration, "
+              f"{prof['n_blocks']} blocks, {prof['n_agg']} aggregates): "
+              f"{prof['iter_bound_us'] / prof['busy_us_per_iter']:.1%}; "
+              f"bcsr_matvec {prof['matvec_us']:.1f} us on the device "
+              f"({prof['matvec_ops']:.1f} operations) vs bound "
+              f"{prof['matvec_bound_us']:.2f} us by {prof['matvec_by']} "
+              f"({prof['matvec_bytes'] / 1e6:.1f} MB): "
+              f"{prof['matvec_bound_us'] / prof['matvec_us']:.1%}; most "
+              f"time: {prof['top']} (torch.profiler)", flush=True)
+    print(f"[time] {smi}: PCG at {refined64.n_dof} DOF, tol {PCG_TOL:g}: "
+          + "; ".join(f"{k} {pcg['iters'][k]} iterations, "
+                      f"{pcg['ms'][k]:.1f} ms CUDA events, "
+                      f"{pcg['wall_s'][k] * 1e3:.1f} ms wall "
+                      f"({pcg['ms'][k] * 1e3 / pcg['iters'][k]:.1f} us an "
+                      "iteration)" for k in pcg["iters"])
+          + f"; peak device memory of a two-level solve {pcg['peak_mib']:.0f}"
+          " MiB above the process's (one synchronised call each)",
+          flush=True)
+    print(f"[time] {smi}: PCG at {N_DOF_LARGE} DOF (two-level, chunks of "
+          "200): " + "; ".join(
+              f"{label}, tol {tol:g}: {r['iters']} iterations, "
+              f"{r['ms'][0]:.1f} / {r['ms'][1]:.1f} ms CUDA events, "
+              f"{r['wall_s'][0] * 1e3:.1f} / {r['wall_s'][1] * 1e3:.1f} ms "
+              f"wall ({r['ms'][1] * 1e3 / r['iters']:.1f} us an iteration)"
+              for (label, tol), r in pcgl["runs"].items())
+          + f"; peak device memory of the bench's solve "
+          f"{pcgl['peak_mib']:.0f} MiB above the process's (two "
+          "synchronised calls each)", flush=True)
+    for label, r in asmb.items():
+        print(f"[time] {smi}: direct-write assembly {label} at "
+              f"{N_DOF_LARGE} DOF: single {r['single_ms']:.3f} ms = "
+              f"{r['gdofs_single']:.3f} GDOF/s, sustained (64 in a row) "
+              f"{r['sustained_ms']:.3f} ms = {r['gdofs_sustained']:.3f} "
+              f"GDOF/s (CUDA events); {r['ops']:.0f} device operations, "
+              f"{r['device_us']:.1f} us on the device vs bound "
+              f"{r['bound_us']:.2f} us by {r['bound_by']} "
+              f"({r['bytes'] / 1e6:.1f} MB): "
+              f"{r['bound_us'] / r['device_us']:.1%}; vs generic "
+              f"{r['err']:.2e}; most time: {r['top']} (torch.profiler)",
+              flush=True)
 
     l1 = sweep_ms["nested level 1"]
     print(json.dumps({"kernels": [{

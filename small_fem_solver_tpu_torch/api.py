@@ -4,8 +4,11 @@ counterpart of ``small_fem_solver_tpu/api.py``).
 - :func:`analyze` is the reference's single static analysis: pointwise
   Morison loads at ``case.t_analysis``, dense assembly, LU (with an
   optional least-squares fallback) or Cholesky solve, reactions, member
-  end forces and von Mises utilization.  :func:`analyze_phase_batch`
-  factors K once and solves every phase of one wave period.
+  end forces and von Mises utilization; with ``solver='pcg'`` the
+  assembly is block-sparse (BCSR) and the solve matrix-free
+  preconditioned CG (block-Jacobi or two-level), for meshes a dense
+  solve cannot hold.  :func:`analyze_phase_batch` factors K once and
+  solves every phase of one wave period.
 - :func:`analyze_condensed` (one-shot) and :func:`analyze_prepared`
   (through a :func:`prepare_condensed` handle) run the same analysis on a
   refined jacket through exact chain condensation (``ops/condense.py``),
@@ -32,7 +35,10 @@ hand-written CUDA kernel (``ops/hopper_kernels.py``) in float32 on CUDA
 tensors, as the JAX package's ``'pallas'`` path does, and with its plain
 PyTorch version in the model's dtype on the CPU, where it equals
 ``'separable'`` (the plain version everywhere, the JAX package's
-default); both build the loads directly in the chain layout.
+default); both build the loads directly in the chain layout.  Past the
+kernel's limits (more than 32 wave modes or 16 Gauss points) ``'fused'``
+runs the plain version on the card too, as the JAX package's default
+does, while ``'pallas'`` raises there, as the JAX kernel path does.
 ``'pointwise'`` evaluates the kinematics per phase with the reference's
 exact semantics (``accel``, the evaluation-height clamp, slamming), as
 :func:`analyze` does.  On CUDA tensors the condensed solves always run the
@@ -52,6 +58,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import warnings
 from functools import partial
 from typing import NamedTuple
 
@@ -61,20 +68,25 @@ import torch
 from .constants import G_GRAV
 from .device import resolve_device
 from .models.model import JacketModel
+from .ops import coarse as coarse_mod
 from .ops import condense as condense_mod
 from .ops import solve as solve_mod
-from .ops.assembly import (assemble_dense, element_dof_indices,
-                           node_gather_table, node_sum_ordered)
+from .ops.assembly import (assemble_bcsr, assemble_dense, bcsr_block_diagonal,
+                           bcsr_matvec, build_bcsr_pattern,
+                           element_dof_indices, node_gather_table,
+                           node_sum_ordered)
 from .ops.beams import element_stiffness, internal_forces, matvec12
 from .ops.fatigue import SECONDS_PER_YEAR
-from .ops.hopper_kernels import (cast_operands, morison_end_forces_batch_cuda,
+from .ops.hopper_kernels import (cast_operands, kernel_route,
+                                 morison_end_forces_batch_cuda,
                                  morison_end_forces_cuda,
                                  morison_sea_end_forces_cuda)
 from .ops.morison import (POINTWISE_CHUNK_ELEMS, MorisonLoads, hydro_members,
-                          morison_end_forces, morison_loads)
+                          morison_end_forces, morison_end_forces_batch,
+                          morison_loads)
 from .ops.sections import TubeSections, normal_stress_8pt, von_mises_8pt
 from .ops.spectrum import (SpectralSea, make_random_sea, morison_sea_batch,
-                           spectral_fatigue_screen)
+                           morison_sea_end_forces, spectral_fatigue_screen)
 from .ops.waves import FourierWave
 from .ops.wind import (wind_member_ends, wind_member_forces,
                        wind_topside_force)
@@ -152,8 +164,9 @@ class AnalysisResults(NamedTuple):
     max_displacement_mm: torch.Tensor
     max_displacement_node: torch.Tensor   # int index
     total_reaction: torch.Tensor   # [6] sums of reaction components
-    # iterative-solver and second-order diagnostics of the JAX package's
-    # PCG and P-delta paths (not ported yet: always None here)
+    # iterations and relative residual of the PCG solve (solver='pcg');
+    # the P-delta amplification of the JAX package's analyze_pdelta (not
+    # ported yet: always None here)
     solver_iters: torch.Tensor | None = None
     solver_residual: torch.Tensor | None = None
     pdelta_amplification: torch.Tensor | None = None
@@ -541,20 +554,27 @@ def _check_no_slam(case: LoadCase, path: str) -> None:
             "matmul")
 
 
-def _resolve_kinematics(kinematics: str) -> str:
-    """``'pallas'``, the JAX package's name of its kernel path, is
-    ``'fused'`` here."""
-    return "fused" if kinematics == "pallas" else kinematics
+_KERNEL_KINEMATICS = ("fused", "pallas")
 
 
-def _morison_batch_fn(kinematics: str):
-    """The phase-batch Morison engine of a resolved ``kinematics`` mode:
-    member end forces and totals, ``(F1, F2, total_drag, total_inertia)``."""
-    if kinematics == "fused":
-        return morison_end_forces_cuda
-    if kinematics == "separable":
-        return morison_end_forces
-    raise ValueError(f"unknown kinematics mode {kinematics!r}")
+def _check_batch_kinematics(kinematics: str) -> None:
+    """The phase-batch ``kinematics`` modes (the pointwise mode aside)."""
+    if kinematics not in (*_KERNEL_KINEMATICS, "separable"):
+        raise ValueError(f"unknown kinematics mode {kinematics!r}")
+
+
+def _fused_loads(kinematics: str, device: torch.device, n_gauss: int,
+                 n_modes: int) -> bool:
+    """Whether a condensed scan's phase-batch loads go through the Morison
+    kernel's wrapper.  ``'pallas'`` (the JAX package's name of its kernel
+    path) always does, so on the card it raises past the kernel's limits
+    as the JAX kernel path does.  ``'fused'`` does unless the shapes pass
+    those limits on the card (:func:`.ops.hopper_kernels.kernel_route`):
+    then the plain version runs in the model's dtype, as the JAX
+    package's default ``'separable'`` does at any size."""
+    if kinematics == "pallas":
+        return True
+    return kinematics == "fused" and kernel_route(device, n_gauss, n_modes)
 
 
 def _pointwise_morison(model: JacketModel, wave: FourierWave,
@@ -612,15 +632,16 @@ def _scan_loads(prep: "CondensedPrepared", wave: FourierWave, case, n_steps,
             prep.n_seg)
         total = mor.total_morison
     else:
-        batch_fn = _morison_batch_fn(kinematics)
+        _check_batch_kinematics(kinematics)
+        fused = _fused_loads(kinematics, device, n_gauss, wave.n_modes)
+        batch_fn = morison_end_forces_cuda if fused else morison_end_forces
         _check_no_slam(case_l, "the condensed phase scan")
         conn_h, D_m, Cd_h, Cm_h = hydro_members(
             refined, case_l.marine_growth_mm, case_l.Cd, case_l.Cm)
-        # 'fused' gives the loads in float32 on the card (the kernel's f32
+        # the kernel gives the loads in float32 on the card (its f32
         # instance), as the JAX package's "pallas" path does; the plain
         # version computes in the model's dtype
-        kdt = (torch.float32 if kinematics == "fused"
-               and device.type == "cuda" else ldtype)
+        kdt = torch.float32 if fused and device.type == "cuda" else ldtype
         wk, xyz, D_k, *per_member, ts_k, alpha = cast_operands(
             kdt, device, wave, refined.coords, D_m, case_l.wave_dir_deg,
             case_l.current_dir_deg, Cd_h, Cm_h, case_l.rho_water, ts,
@@ -773,7 +794,7 @@ def phase_scan_prepared(prep: CondensedPrepared, wave, case: LoadCase,
     _check_material(prep, case)
     return _scan_prepared(prep, wave, case.cast(prep.K_I.dtype,
                                                 prep.refined.device),
-                          n_steps, n_gauss, _resolve_kinematics(kinematics),
+                          n_steps, n_gauss, kinematics,
                           refine_steps,
                           stretching, current_alpha, accel)
 
@@ -808,7 +829,7 @@ def phase_scan_condensed(coarse: JacketModel, refined: JacketModel,
     prep = _cached_prepared(coarse, refined, n_seg, case, chain_solver,
                             solve_dtype, support_stiffness)
     return _scan_prepared(prep, wave, case.cast(solve_dtype, refined.device),
-                          n_steps, n_gauss, _resolve_kinematics(kinematics),
+                          n_steps, n_gauss, kinematics,
                           refine_steps,
                           stretching, current_alpha, accel)
 
@@ -897,28 +918,48 @@ def analyze(model: JacketModel, wave: FourierWave, case: LoadCase,
 
     ``solver``: 'lu' (the reference's dense LU; ``lstsq_fallback`` solves
     a singular free-free block by minimum-norm least squares, as the
-    reference's except branch does) or 'chol' (Jacobi-scaled Cholesky
-    with one refinement round).  'pcg' and the distributed ``mesh`` solve
-    are not ported yet; the dense solvers ignore ``pcg_tol``,
-    ``pcg_maxiter`` and ``pcg_chunk``, and an unknown ``pcg_precond``
-    raises ``ValueError``, as in the JAX package.
+    reference's except branch does), 'chol' (Jacobi-scaled Cholesky
+    with one refinement round) or 'pcg' (matrix-free preconditioned CG on
+    BCSR, for meshes a dense solve cannot hold; :func:`_analyze_pcg`).
+    The dense solvers ignore ``pcg_tol``, ``pcg_maxiter`` and
+    ``pcg_chunk``; an unknown ``pcg_precond`` raises ``ValueError``
+    whatever the solver, as in the JAX package.
+
+    PCG converges on ||r|| / ||b|| <= ``pcg_tol`` within ``pcg_maxiter``
+    iterations and fills ``solver_iters`` and ``solver_residual``; it
+    warns when it does not converge (a NaN residual included).
+    ``pcg_precond``: 'block_jacobi' (the 6x6 nodal smoother),
+    'two_level' (block-Jacobi plus a rigid-body-aggregate coarse
+    correction, ``ops/coarse.py``) or 'auto' (two-level from 120 nodes
+    on).  ``pcg_chunk``: iterations between the host's convergence reads
+    (0: ``ops.solve.PCG_CHECK_EVERY``); the result is the same for every
+    value.  The distributed ``mesh`` solve is not ported yet.
     """
-    # the dense solvers ignore pcg_tol / pcg_maxiter / pcg_chunk, as the
-    # JAX package's do; pcg_precond is validated whatever the solver
     if pcg_precond not in ("auto", "block_jacobi", "two_level"):
         raise ValueError(f"unknown pcg_precond {pcg_precond!r}")
     if mesh is not None:
         raise NotImplementedError(
             "the distributed analyze (mesh=) is not ported yet (ROADMAP.md, "
             "Queue A item 6: distribution)")
-    if solver == "pcg":
-        raise NotImplementedError(
-            "solver='pcg' is not ported yet (ROADMAP.md, Queue A item 5: "
-            "sparse and iterative tier)")
-    if solver not in ("lu", "chol"):
+    if solver not in ("lu", "chol", "pcg"):
         raise ValueError(f"unknown solver {solver!r}")
-    free, fixed = solve_mod.free_fixed_dofs(model.fixed_mask)
     case = case.cast(model.dtype, model.device)
+    if solver == "pcg":
+        if pcg_precond == "auto":
+            pcg_precond = ("two_level" if model.n_nodes >= 120
+                           else "block_jacobi")
+        res = _analyze_pcg(model, wave, case, n_gauss, accel, stretching,
+                           current_alpha, pcg_tol, pcg_maxiter, pcg_precond,
+                           pcg_chunk)
+        rel = float(res.solver_residual)
+        if not rel <= pcg_tol:     # catches NaN too
+            warnings.warn(
+                f"PCG did not converge: relative residual {rel:.2e} > tol "
+                f"{pcg_tol:.1e} after {int(res.solver_iters)} iterations "
+                f"(maxiter {pcg_maxiter}); results may be inaccurate",
+                stacklevel=2)
+        return res
+    free, fixed = solve_mod.free_fixed_dofs(model.fixed_mask)
     with _full_f32_matmul():
         mor = _pointwise_morison(model, wave, case, case.t_analysis, n_gauss,
                                  accel, stretching, current_alpha)
@@ -929,6 +970,95 @@ def analyze(model: JacketModel, wave: FourierWave, case: LoadCase,
         else:
             U = solve_mod.solve_factored(solve_mod.factor_dense(K, free), F)
         return _recover(model, case, K, U, F, fixed, K_local, T, L_m, mor)
+
+
+# The BCSR pattern and the aggregation depend only on the connectivity;
+# they are built on the host, so they are memoized (bounded) on it.
+_PATTERN_CACHE: dict = {}
+_AGG_CACHE: dict = {}
+
+
+def _cached_bcsr_pattern(conn: torch.Tensor, n_nodes: int):
+    """:func:`.ops.assembly.build_bcsr_pattern` of ``conn``, memoized on
+    the connectivity and its device (one copy to the host a miss)."""
+    key = (n_nodes, str(conn.device), conn.cpu().numpy().tobytes())
+    pat = _PATTERN_CACHE.get(key)
+    if pat is None:
+        if len(_PATTERN_CACHE) >= 8:
+            _PATTERN_CACHE.clear()
+        pat = _PATTERN_CACHE[key] = build_bcsr_pattern(conn, n_nodes)
+    return pat
+
+
+def _cached_aggregates(pattern):
+    """(agg, n_agg, plan) of the two-level preconditioner
+    (:func:`.ops.coarse.aggregates_from_pattern`, :func:`.ops.coarse
+    .plan_sparse_p`), memoized on the pattern object."""
+    key = id(pattern)
+    hit = _AGG_CACHE.get(key)
+    if hit is None or hit[0] is not pattern:
+        if len(_AGG_CACHE) >= 8:
+            _AGG_CACHE.clear()
+        agg = coarse_mod.aggregates_from_pattern(pattern)
+        n_agg = int(agg.max()) + 1
+        hit = _AGG_CACHE[key] = (pattern, agg, n_agg,
+                                 coarse_mod.plan_sparse_p(pattern, agg,
+                                                          n_agg))
+    return hit[1:]
+
+
+def _pcg_operators(A, model: JacketModel, precond: str):
+    """(free-DOF mask, BC-projected operator, preconditioner) of the
+    assembled BCSR stiffness ``A`` for PCG; ``precond`` 'block_jacobi' or
+    'two_level' (its coarse space built here, once a solve)."""
+    fmask = solve_mod.dof_free_mask(model.fixed_mask).to(A.blocks.dtype)
+    op = solve_mod.projected_operator(lambda x: bcsr_matvec(A, x), fmask)
+    pre = solve_mod.block_jacobi_preconditioner(bcsr_block_diagonal(A),
+                                                fmask)
+    if precond == "two_level":
+        agg, n_agg, plan = _cached_aggregates(A.pattern)
+        cs = coarse_mod.build_coarse_space(A, model.coords, model.fixed_mask,
+                                           agg=agg, n_agg=n_agg, plan=plan)
+        pre = coarse_mod.two_level_preconditioner(pre, cs)
+    return fmask, op, pre
+
+
+def _analyze_pcg(model: JacketModel, wave: FourierWave, case: LoadCase,
+                 n_gauss, accel, stretching, current_alpha, tol: float,
+                 maxiter: int, precond: str, chunk: int) -> AnalysisResults:
+    """:func:`analyze` with ``solver='pcg'`` (``case`` in the model's dtype
+    and device): pointwise loads, BCSR assembly, the BC-projected operator
+    and ``precond`` ('block_jacobi' or 'two_level'), PCG on the free
+    loads, then reactions R = K U - F and the recovery.  One code path
+    whatever ``chunk``.  The JAX package's chunked route runs entry-major
+    band operators on chain-refined meshes
+    (``small_fem_solver_tpu/api.py:558-610``, ``ops/structured.py``), a
+    TPU layout of the same mat-vec and preconditioner in (8, 128) tiles;
+    it is not ported, and the generic BCSR operators serve every route."""
+    fixed = solve_mod.free_fixed_dofs(model.fixed_mask)[1]
+    with _full_f32_matmul():
+        mor = _pointwise_morison(model, wave, case, case.t_analysis, n_gauss,
+                                 accel, stretching, current_alpha)
+        G = case.E / (2.0 * (1.0 + case.nu))
+        Kg, K_local, T, L_m = element_stiffness(
+            model.coords, model.conn, model.sections, model.sect_id, case.E,
+            G, release=model.release)
+        F = assemble_loads(model, case, mor.nodal_forces, L_m)
+        A = assemble_bcsr(Kg, _cached_bcsr_pattern(model.conn,
+                                                   model.n_nodes))
+        fmask, op, pre = _pcg_operators(A, model, precond)
+        res = solve_mod.pcg(op, fmask * F, precond=pre, tol=tol,
+                            maxiter=maxiter,
+                            check_every=chunk or solve_mod.PCG_CHECK_EVERY)
+        U = fmask * res.x
+        R = bcsr_matvec(A, U) - F
+        F1, F2 = internal_forces(K_local, T,
+                                 U[element_dof_indices(model.conn)])
+        reactions = R[torch.as_tensor(fixed, device=R.device)].reshape(-1, 6)
+        return _analysis_results(
+            model.sections, model.sect_id, case.fy, U, F, F1, F2, reactions,
+            L_m, mor)._replace(solver_iters=res.n_iter,
+                               solver_residual=res.residual)
 
 
 def analyze_phase_batch(model: JacketModel, wave: FourierWave,
@@ -1119,11 +1249,13 @@ def design_envelope(model: JacketModel, waves: FourierWave, cases: LoadCase,
     tensors of a float64 model one launch of the Morison kernel's
     case-batched float64 instance for the whole batch (a float32 model:
     one launch of its float32 instance per case), on the CPU its plain
-    version (``torch.func.vmap`` over the cases).  Everything else runs
-    once for the batch: the hydrodynamic set, the nodal sums and the load
-    assembly (``torch.func.vmap`` over the cases), then all C x S load
-    vectors are one multi-RHS solve, and the recovery is batched.  The
-    result keeps the full utilization field [C, S, M].
+    version (``torch.func.vmap`` over the cases); waves of more than 32
+    modes or ``n_gauss`` > 16 run the plain version on the card too (no
+    launch; one ``morison_phase_batch_cuda.plain_routes``).  Everything
+    else runs once for the batch: the hydrodynamic set, the nodal sums
+    and the load assembly (``torch.func.vmap`` over the cases), then all
+    C x S load vectors are one multi-RHS solve, and the recovery is
+    batched.  The result keeps the full utilization field [C, S, M].
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -1143,7 +1275,12 @@ def design_envelope(model: JacketModel, waves: FourierWave, cases: LoadCase,
                 cases.marine_growth_mm, cases.Cd, cases.Cm)
         wk, = cast_operands(dtype, dev, waves)
         # Cd / Cm per case [C, 1] or per case and member [C, M']
-        F1, F2, drag, inertia = morison_end_forces_batch_cuda(
+        # past the kernel's limits on the card: the plain version in the
+        # model's dtype (kernel_route counts the route)
+        batch_fn = (morison_end_forces_batch_cuda
+                    if kernel_route(dev, n_gauss, waves.n_modes)
+                    else morison_end_forces_batch)
+        F1, F2, drag, inertia = batch_fn(
             wk, model.coords, conn_h, D_h, cases.wave_dir_deg,
             cases.current_dir_deg, Cd_h.reshape(C, -1), Cm_h.reshape(C, -1),
             cases.rho_water, ts, n_gauss=n_gauss,
@@ -1290,8 +1427,7 @@ def design_envelope_condensed(coarse: JacketModel, refined: JacketModel,
             "Queue A item 6: distribution)")
     _check_shared_material(cases)
     _check_no_slam(cases, "design_envelope_condensed")
-    kinematics = _resolve_kinematics(kinematics)
-    _morison_batch_fn(kinematics)   # 'fused' or 'separable' only
+    _check_batch_kinematics(kinematics)
     if case_batch < 1:
         raise ValueError(f"case_batch must be >= 1, got {case_batch}")
     # every numeric field as [C] in the solve dtype, so each case indexes
@@ -1303,7 +1439,7 @@ def design_envelope_condensed(coarse: JacketModel, refined: JacketModel,
     # One condensed solve of all cases is 1.7-3.2x faster on an H100, but
     # its float32 interface solve rounds differently from a per-case one:
     # 5.8e-5 off the per-case scans, though as close to float64 (PERF.md).
-    bs = 1 if kinematics == "fused" else case_batch
+    bs = 1 if kinematics in _KERNEL_KINEMATICS else case_batch
     with _full_f32_matmul():
         chunks = [_condensed_envelope_chunk(
             prep, waves, cases, lo, min(lo + bs, C), n_steps, n_gauss,
@@ -1330,10 +1466,11 @@ def sea_scan_prepared(prep: CondensedPrepared, sea: SpectralSea,
     random-sea realization (:func:`.ops.spectrum.make_random_sea`).  The
     loads of all components at all times are one launch of the fused
     Morison kernel's general-mode instance on the card (the model's
-    dtype; the plain version on the CPU), condensed onto the handle's
-    interface factorization, and all S solves are one multi-RHS condensed
-    solve.  ``stretching='wheeler'`` is the standard crest treatment for
-    linear irregular seas (API RP 2A).  Feed ``von_mises`` to
+    dtype; the plain version on the CPU, and on the card at ``n_gauss`` >
+    16, with no launch and one plain route counted), condensed onto the
+    handle's interface factorization, and all S solves are one multi-RHS
+    condensed solve.  ``stretching='wheeler'`` is the standard crest
+    treatment for linear irregular seas (API RP 2A).  Feed ``von_mises`` to
     :func:`.ops.spectrum.spectral_fatigue_screen`."""
     _check_no_slam(case, "sea_scan_prepared")
     refined = prep.refined
@@ -1344,7 +1481,9 @@ def sea_scan_prepared(prep: CondensedPrepared, sea: SpectralSea,
         ts = torch.as_tensor(ts, dtype=ldtype, device=dev)
         conn_h, D_m, Cd_h, Cm_h = hydro_members(
             refined, case_l.marine_growth_mm, case_l.Cd, case_l.Cm)
-        F1, F2, drag, inertia = morison_sea_end_forces_cuda(
+        sea_fn = (morison_sea_end_forces_cuda if kernel_route(dev, n_gauss)
+                  else morison_sea_end_forces)
+        F1, F2, drag, inertia = sea_fn(
             sea.to(ldtype, dev), refined.coords, conn_h, D_m,
             case_l.wave_dir_deg, case_l.current_dir_deg, Cd_h, Cm_h,
             case_l.rho_water, ts, n_gauss=n_gauss,

@@ -1,15 +1,24 @@
-"""ctypes binding of the native rainflow counter (the port's own copy of
-the part of ``small_fem_solver_tpu/native.py`` it needs).
+"""ctypes bindings of the native host-side mesh kit (the port's own copy
+of the part of ``small_fem_solver_tpu/native.py`` it needs).
 
-``native/mesh_kit.cpp`` holds ``rainflow_damage_sums``, a batched ASTM
-E1049 rainflow Miner sum over [S, M] float64 histories, identical in its
-results to the Python stack of ``ops/spectrum.py::_rainflow_ranges``.  At
-first use it is compiled with the host C++ compiler into
+``native/mesh_kit.cpp`` holds
+
+- ``rainflow_damage_sums``, a batched ASTM E1049 rainflow Miner sum over
+  [S, M] float64 histories, identical in its results to the Python stack
+  of ``ops/spectrum.py::_rainflow_ranges``;
+- ``bcsr_pattern_count`` / ``bcsr_pattern_fill``, the block-sparsity
+  pattern of the global stiffness in O(M) with a hash map (integer-equal
+  to the numpy builder of ``ops/assembly.py::build_bcsr_pattern``);
+- ``aggregate_nodes``, the greedy BFS node aggregation of the two-level
+  preconditioner (integer-equal to the Python BFS of
+  ``ops/coarse.py::aggregate_nodes``).
+
+At first use the file is compiled with the host C++ compiler into
 ``small_fem_solver_tpu_torch/_build/`` (named by a hash of the source and
 flags; ``native/`` is never written) and loaded with ``ctypes``.  Without
-a compiler, or when the build fails, :func:`rainflow_damage_sums_native`
-returns ``None`` and the caller counts with the Python stack.  This is a
-host-side counter, not a device path.
+a compiler, or when the build fails, each function returns ``None`` and
+its caller runs the numpy or Python version.  These are host-side
+routines, not device paths.
 """
 from __future__ import annotations
 
@@ -68,15 +77,25 @@ def _load():
     except OSError:
         return None
     f64p = np.ctypeslib.ndpointer(np.float64, flags="C")
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C")
+    i64p = np.ctypeslib.ndpointer(np.int64, flags="C")
+    i64 = ctypes.c_int64
     lib.rainflow_damage_sums.restype = ctypes.c_int
-    lib.rainflow_damage_sums.argtypes = [f64p, ctypes.c_int64, ctypes.c_int64,
-                                         ctypes.c_double, f64p, f64p]
+    lib.rainflow_damage_sums.argtypes = [f64p, i64, i64, ctypes.c_double,
+                                         f64p, f64p]
+    lib.bcsr_pattern_count.restype = i64
+    lib.bcsr_pattern_count.argtypes = [i32p, i64, i64]
+    lib.bcsr_pattern_fill.restype = ctypes.c_int
+    lib.bcsr_pattern_fill.argtypes = [i32p, i64, i64, i32p, i32p, i64p,
+                                      i32p, i64]
+    lib.aggregate_nodes.restype = i64
+    lib.aggregate_nodes.argtypes = [i32p, i64, i64, i64, i64p]
     _lib = lib
     return _lib
 
 
 def available() -> bool:
-    """Whether the native counter is built and loaded."""
+    """Whether the native library is built and loaded."""
     return _load() is not None
 
 
@@ -94,3 +113,37 @@ def rainflow_damage_sums_native(y, m_slope: float):
     if lib.rainflow_damage_sums(y, S, M, float(m_slope), out_sum, out_n):
         raise RuntimeError("rainflow_damage_sums failed")
     return out_sum, out_n
+
+
+def bcsr_pattern_native(conn, n_nodes: int):
+    """(block_rows, block_cols, row_ptr, elem_slot) of the BCSR pattern of
+    ``conn`` [M, 2] (numpy, on the host), or None when the library is
+    absent."""
+    lib = _load()
+    if lib is None:
+        return None
+    conn = np.ascontiguousarray(conn, dtype=np.int32)
+    m = conn.shape[0]
+    nb = lib.bcsr_pattern_count(conn, m, n_nodes)
+    block_rows = np.empty(nb, np.int32)
+    block_cols = np.empty(nb, np.int32)
+    row_ptr = np.empty(n_nodes + 1, np.int64)
+    elem_slot = np.empty((m, 4), np.int32)
+    if lib.bcsr_pattern_fill(conn, m, n_nodes, block_rows, block_cols,
+                             row_ptr, elem_slot, nb):
+        raise RuntimeError("bcsr_pattern_fill failed")
+    return block_rows, block_cols, row_ptr, elem_slot
+
+
+def aggregate_nodes_native(edges, n_nodes: int, target_size: int):
+    """Aggregate id [n_nodes] int64 of each node (greedy BFS over
+    ``edges`` [E, 2]), or None when the library is absent."""
+    lib = _load()
+    if lib is None:
+        return None
+    edges = np.ascontiguousarray(edges, dtype=np.int32).reshape(-1, 2)
+    out = np.empty(n_nodes, np.int64)
+    if lib.aggregate_nodes(edges, edges.shape[0], n_nodes, int(target_size),
+                           out) < 0:
+        raise RuntimeError("aggregate_nodes failed")
+    return out

@@ -126,6 +126,68 @@ def local_stiffness(L_mm: torch.Tensor, sec: TubeSections, sect_id, E, G,
     return (coeffs @ pat).reshape(-1, 12, 12)
 
 
+def _rotate(R: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """``T^T K T`` of [M, 3b, 3b] matrices K with T block-diagonal in the
+    member rotations R [M, 3, 3], block by block (no T is formed)."""
+    b = K.shape[-1] // 3
+    K5 = K.reshape(-1, b, 3, b, 3)
+    return torch.einsum("mar,mAaBb,mbs->mArBs", R, K5, R).reshape(
+        -1, 3 * b, 3 * b)
+
+
+def global_stiffness_direct(R: torch.Tensor,
+                            coeffs: torch.Tensor) -> torch.Tensor:
+    """``K_global[M, 12, 12]`` from the local axes R [M, 3, 3] and the
+    stiffness coefficients [M, 10]: every 3x3 node block of T^T K_local T
+    is R^T K_local[B1, B2] R, formed without T."""
+    pat = torch.as_tensor(_KPAT, dtype=coeffs.dtype, device=coeffs.device)
+    return _rotate(R, (coeffs @ pat).reshape(-1, 12, 12))
+
+
+def quadrant_stack(K: torch.Tensor) -> torch.Tensor:
+    """[M, 12, 12] element matrices -> their (ii, ij, ji, jj)-major
+    quadrant stack [4M, 6, 6], the contribution layout of
+    :func:`.assembly.assemble_bcsr`."""
+    Q = K.reshape(-1, 2, 6, 2, 6)
+    return torch.cat([Q[:, 0, :, 0], Q[:, 0, :, 1], Q[:, 1, :, 0],
+                      Q[:, 1, :, 1]])
+
+
+def global_stiffness_quadrants(R: torch.Tensor,
+                               coeffs: torch.Tensor) -> torch.Tensor:
+    """The element stiffness as the quadrant stack [4M, 6, 6] in
+    (ii, ij, ji, jj)-major order (:func:`quadrant_stack`)."""
+    return quadrant_stack(global_stiffness_direct(R, coeffs))
+
+
+def element_global_stiffness(coords: torch.Tensor, conn: torch.Tensor,
+                             sec: TubeSections, sect_id, E, G,
+                             include_shear: bool = True) -> torch.Tensor:
+    """``K_global[M, 12, 12]`` only, the assembly fast path: no T and no
+    K_local are kept (:func:`global_stiffness_direct`).  No releases."""
+    dL = coords[conn[:, 1]] - coords[conn[:, 0]]
+    L = torch.linalg.norm(dL, dim=-1)
+    return global_stiffness_direct(
+        local_axes(dL, L),
+        stiffness_coeffs(L * 1000.0, sec, sect_id, E, G, include_shear))
+
+
+def lane_quadrants(c1: torch.Tensor, c2: torch.Tensor, scale,
+                   sec: TubeSections, sect_id, E, G,
+                   quad: torch.Tensor) -> torch.Tensor:
+    """Global-axes quadrants [L, 6, 6] of the members with end coordinates
+    c1 / c2 [L, 3] (m; times ``scale`` when given), each lane's own
+    quadrant ``quad`` [L] (0 ii, 1 ij, 2 ji, 3 jj): the per-lane form of
+    :func:`global_stiffness_quadrants` that the direct-write assembly
+    emits in block order."""
+    d = c2 - c1 if scale is None else (c2 - c1) * scale
+    L = torch.linalg.norm(d, dim=-1)
+    Kl = local_stiffness(L * 1000.0, sec, sect_id, E, G).reshape(
+        -1, 2, 6, 2, 6)
+    lanes = torch.arange(Kl.shape[0], device=Kl.device)
+    return _rotate(local_axes(d, L), Kl[lanes, quad // 2, :, quad % 2, :])
+
+
 def matvec12(A: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Batched matvec ``A[m] @ u[..., m, :]`` (``A``: [M, r, 12],
     ``u``: [..., M, 12]; result [..., M, r])."""

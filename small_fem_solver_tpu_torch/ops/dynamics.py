@@ -47,11 +47,12 @@ from .beams import (element_stiffness, internal_forces, local_axes,
                     transformation_matrices)
 from .condense import condense_loads, factor_chains
 from .eigen import eigh_general_small
-from .hopper_kernels import (cast_operands, morison_phase_batch_cuda,
-                             morison_sea_batch_cuda)
-from .morison import gauss_legendre_01, hydro_diameter_m, hydro_members
+from .hopper_kernels import (cast_operands, kernel_route,
+                             morison_phase_batch_cuda)
+from .morison import (gauss_legendre_01, hydro_diameter_m, hydro_members,
+                      morison_phase_batch)
 from .sections import TubeSections, von_mises_8pt
-from .spectrum import SpectralSea, sea_kinematics
+from .spectrum import SpectralSea, morison_sea_batch, sea_kinematics
 from .solve import (factor_dense, free_fixed_dofs, ground_with_springs,
                     solve_factored, support_spring_nodes)
 from .waves import FourierWave
@@ -652,7 +653,10 @@ def _phase_loads(model, wave, case: LoadCase, ts, n_gauss,
     """Phase-batch Morison loads of a model in its dtype for a steady wave
     or a random sea: on the card one launch of the Morison kernel (its
     harmonic or general-mode instance of that dtype), on the CPU the plain
-    version."""
+    version; on the card past the kernel's limits (more than 32 modes or
+    ``n_gauss`` > 16) the plain version too, with no launch and one plain
+    route counted (``hopper_kernels.kernel_route``), as the JAX package's
+    separable engine takes any size."""
     dtype, dev = model.dtype, model.device
     conn_h, D_m, Cd_h, Cm_h = hydro_members(
         model, case.marine_growth_mm, case.Cd if Cd is None else Cd,
@@ -660,8 +664,12 @@ def _phase_loads(model, wave, case: LoadCase, ts, n_gauss,
     wk, xyz, *rest = cast_operands(
         dtype, dev, wave, model.coords, D_m, case.wave_dir_deg,
         case.current_dir_deg, Cd_h, Cm_h, case.rho_water, ts)
-    batch = (morison_sea_batch_cuda if isinstance(wave, SpectralSea)
-             else morison_phase_batch_cuda)
+    if isinstance(wave, SpectralSea):
+        batch = morison_sea_batch        # routes by n_gauss itself
+    elif kernel_route(dev, n_gauss, wave.n_modes):
+        batch = morison_phase_batch_cuda
+    else:
+        batch = morison_phase_batch
     return batch(wk, xyz, conn_h, *rest, n_gauss=n_gauss,
                  stretching=stretching)
 

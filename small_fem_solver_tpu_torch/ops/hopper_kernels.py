@@ -24,8 +24,13 @@
 
 On CUDA tensors the wrappers launch their kernel or raise (a failed
 build or launch is never replaced by the plain version); tensors on the
-CPU run the plain version (the chain sweep's dispatch is
-``ops/condense.py::condense_loads``).
+CPU run the plain version at any size (the chain sweep's dispatch is
+``ops/condense.py::condense_loads``).  The Morison kernel takes at most
+``MAX_GAUSS`` quadrature points and ``MAX_MODES`` harmonic modes; the
+wrappers check those limits on the CUDA route only.  A caller that
+accepts larger shapes picks its route from them first
+(:func:`kernel_route`): past the limits on the card it runs the plain
+version in the model's dtype and counts a plain route, launching nothing.
 
 Build: at first use each source is compiled by ``nvcc`` into a shared
 library with a plain C interface under ``small_fem_solver_tpu_torch/_build/``
@@ -632,17 +637,16 @@ def morison_end_forces_batch_cuda(waves: FourierWave, coords: torch.Tensor,
     the whole batch, or raise; float32 ones launch the float32 instance
     once a case (it has no case axis); CPU tensors run the plain version.
     Launches count on ``morison_phase_batch_cuda.launches`` and
-    ``.instance_launches``."""
-    if n_gauss > MAX_GAUSS:
-        raise ValueError(f"n_gauss must be <= {MAX_GAUSS}")
-    if waves.n_modes > MAX_MODES:
-        raise ValueError(f"wave n_modes must be <= {MAX_MODES}")
+    ``.instance_launches``.  On CUDA tensors ``n_gauss`` > ``MAX_GAUSS``
+    or more than ``MAX_MODES`` modes raise (:func:`kernel_route` picks
+    the plain version for such shapes first)."""
     if stretching not in ("none", "wheeler"):
         raise ValueError(f"unknown stretching mode {stretching!r}")
     if coords.device.type != "cuda":
         return morison_end_forces_batch(
             waves, coords, conn, D_m, wave_dir_deg, current_dir_deg, Cd, Cm,
             rho_water, ts, n_gauss, current_alpha, stretching)
+    _check_limits(n_gauss, waves.n_modes)
     if coords.dtype == torch.float32:
         ends = [morison_end_forces_cuda(
             waves.case(i), coords, conn, _case_operand(D_m, i, True),
@@ -673,18 +677,16 @@ def morison_end_forces_cuda(wave: FourierWave, coords: torch.Tensor,
     failed build or launch raises.  CPU tensors run the plain version in
     their own dtype.  Kernel launches count on
     ``morison_phase_batch_cuda.launches`` (per instance on
-    ``.instance_launches``).
+    ``.instance_launches``).  On CUDA tensors ``n_gauss`` > ``MAX_GAUSS``
+    or more than ``MAX_MODES`` modes raise; on the CPU any size runs.
     """
-    if n_gauss > MAX_GAUSS:
-        raise ValueError(f"n_gauss must be <= {MAX_GAUSS}")
-    if wave.n_modes > MAX_MODES:
-        raise ValueError(f"wave n_modes must be <= {MAX_MODES}")
     if stretching not in ("none", "wheeler"):
         raise ValueError(f"unknown stretching mode {stretching!r}")
     if coords.device.type != "cuda":
         return morison_end_forces(wave, coords, conn, D_m, wave_dir_deg,
                                   current_dir_deg, Cd, Cm, rho_water, ts,
                                   n_gauss, current_alpha, stretching)
+    _check_limits(n_gauss, wave.n_modes)
     if coords.dtype != torch.float32:
         # the case-batched instance on a batch of one (views, no copy)
         F1, F2, drag, inertia = morison_end_forces_batch_cuda(
@@ -724,6 +726,40 @@ def morison_phase_batch_cuda(wave: FourierWave, coords: torch.Tensor,
 morison_phase_batch_cuda.launches = 0
 morison_phase_batch_cuda.instance_launches = {"f32": 0, "f64": 0,
                                               "sea_f32": 0, "sea_f64": 0}
+morison_phase_batch_cuda.plain_routes = 0
+
+
+def kernel_takes(n_gauss: int, n_modes: int | None = None) -> bool:
+    """Whether the Morison kernel takes ``n_gauss`` quadrature points and
+    ``n_modes`` harmonic modes (None: a random sea, whose general-mode
+    instance takes any number of components)."""
+    return n_gauss <= MAX_GAUSS and (n_modes is None or n_modes <= MAX_MODES)
+
+
+def _check_limits(n_gauss: int, n_modes: int | None = None) -> None:
+    """The kernel's size limits, on the CUDA route of the wrappers."""
+    if n_gauss > MAX_GAUSS:
+        raise ValueError(f"n_gauss must be <= {MAX_GAUSS} on the card "
+                         f"(got {n_gauss})")
+    if n_modes is not None and n_modes > MAX_MODES:
+        raise ValueError(f"wave n_modes must be <= {MAX_MODES} on the card "
+                         f"(got {n_modes})")
+
+
+def kernel_route(device: torch.device, n_gauss: int,
+                 n_modes: int | None = None) -> bool:
+    """The route of a phase-batch Morison call, picked by its caller from
+    the shapes before anything runs: True sends it through the kernel's
+    wrapper (the kernel on the card, the plain version on the CPU); False,
+    on the card past :func:`kernel_takes`' limits, means the caller runs
+    the plain version in the model's dtype and launches no kernel, and
+    counts one ``morison_phase_batch_cuda.plain_routes``.  The JAX
+    package's separable engine, which these paths follow, has no such
+    limits."""
+    if device.type != "cuda" or kernel_takes(n_gauss, n_modes):
+        return True
+    morison_phase_batch_cuda.plain_routes += 1
+    return False
 
 
 def sea_phase_table(sea: SpectralSea, ts: torch.Tensor) -> torch.Tensor:
@@ -843,15 +879,16 @@ def morison_sea_end_forces_cuda(sea: SpectralSea, coords: torch.Tensor,
     mixed dtypes raise ``TypeError``) or raise when the build or the
     launch fails; CPU tensors run the plain version.  Launches count on
     ``morison_phase_batch_cuda.launches`` and on
-    ``.instance_launches["sea_f32"]`` / ``["sea_f64"]``."""
-    if n_gauss > MAX_GAUSS:
-        raise ValueError(f"n_gauss must be <= {MAX_GAUSS}")
+    ``.instance_launches["sea_f32"]`` / ``["sea_f64"]``.  On CUDA tensors
+    ``n_gauss`` > ``MAX_GAUSS`` raises; the instance takes any number of
+    components."""
     if stretching not in ("none", "wheeler"):
         raise ValueError(f"unknown stretching mode {stretching!r}")
     if coords.device.type != "cuda":
         return morison_sea_end_forces(sea, coords, conn, D_m, wave_dir_deg,
                                       current_dir_deg, Cd, Cm, rho_water, ts,
                                       n_gauss, current_alpha, stretching)
+    _check_limits(n_gauss)
     k = sea_kernel_operands(sea, coords, conn, D_m, wave_dir_deg,
                             current_dir_deg, Cd, Cm, rho_water, ts, n_gauss,
                             current_alpha)

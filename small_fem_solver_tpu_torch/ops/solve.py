@@ -1,5 +1,5 @@
-"""Dense LU and factor-once Cholesky solves (PyTorch counterpart of the
-dense path of ``small_fem_solver_tpu/ops/solve.py``).
+"""Dense LU and factor-once Cholesky solves, and matrix-free PCG (PyTorch
+counterpart of ``small_fem_solver_tpu/ops/solve.py``).
 
 ``solve_dense`` is the reference's LU solve of the free-free block, with
 an optional minimum-norm least-squares fallback for a singular block.  For
@@ -8,12 +8,27 @@ before the factorization (beam stiffness entries span ~8 orders of
 magnitude between axial and rotational DOFs), and ``solve_factored`` runs
 iterative refinement rounds so float32 solves recover near-working
 precision.  ``ground_with_springs`` grounds K through foundation springs
-for the dynamics paths.  PCG and the matrix-free operators are not ported
-yet (ROADMAP.md, Queue A item 5).
+for the dynamics paths.
+
+:func:`pcg` is preconditioned conjugate gradients on a BC-projected
+operator (:func:`projected_operator`) with the 6x6 block-Jacobi
+(:func:`block_jacobi_preconditioner`) or scalar Jacobi preconditioner;
+``ops/coarse.py`` adds the two-level one.  Its loop runs on the host: the
+CG body is enqueued ``check_every`` iterations at a time, each iteration
+frozen on the device (``torch.where`` on a "still running" flag) once the
+relative residual meets the tolerance, and the host reads the flag only
+between chunks, so the card is not stalled every iteration and the
+result does not depend on the chunk length.  The JAX package runs the
+same loop as a device ``while_loop``, and its ``pcg_chunk`` segments
+exist because one long TPU program trips the TPU runtime's watchdog
+(``small_fem_solver_tpu/ops/solve.py:217-224``); here the chunk length is
+only how often the host looks.  Dot products and norms are
+``torch.dot`` / ``torch.linalg.vector_norm`` (no atomics), so two runs on
+the card give bit-equal iterates.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -173,3 +188,156 @@ def solve_factored(fac: DenseFactor, F: torch.Tensor,
     U = torch.zeros_like(Fb)
     U[:, fac.free_dofs] = U_f.T
     return U if F.ndim == 2 else U[0]
+
+
+# ---------------------------------------------------------------------------
+# Matrix-free PCG (for BCSR / large meshes)
+# ---------------------------------------------------------------------------
+
+PCG_CHECK_EVERY = 50     # iterations between the host's convergence reads
+
+
+class PCGResult(NamedTuple):
+    x: torch.Tensor
+    n_iter: torch.Tensor         # 0-d int64, on the device
+    residual: torch.Tensor       # ||r|| / ||b||, 0-d, on the device
+
+
+def pcg_init(matvec: Callable, b: torch.Tensor, precond: Callable,
+             x0=None) -> tuple:
+    """Initial CG state ``(x, r, p, rz, it)``."""
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = b - matvec(x)
+    z = precond(r)
+    return x, r, z, torch.dot(r, z), torch.zeros((), dtype=torch.int64,
+                                                 device=b.device)
+
+
+def pcg_bnorm(b: torch.Tensor) -> torch.Tensor:
+    """||b||, floored at the dtype's smallest normal number (an all-zero
+    right-hand side would otherwise report a residual of 0/0)."""
+    return torch.clamp(torch.linalg.vector_norm(b),
+                       min=torch.finfo(b.dtype).tiny)
+
+
+def _pcg_running(state, bnorm, tol: float, it_stop: int) -> torch.Tensor:
+    """The device-side "still running" flag: ``it < it_stop`` and the
+    relative residual above ``tol``."""
+    return torch.logical_and(
+        state[4] < it_stop,
+        torch.linalg.vector_norm(state[1]) / bnorm > tol)
+
+
+def _pcg_step(matvec: Callable, precond: Callable, state, bnorm, tol,
+              it_stop) -> tuple:
+    """One CG iteration, applied only where the running flag holds (the
+    state is left bit for bit as it was once CG has stopped)."""
+    x, r, p, rz, it = state
+    go = _pcg_running(state, bnorm, tol, it_stop)
+    Ap = matvec(p)
+    alpha = rz / torch.dot(p, Ap)
+    r_new = r - alpha * Ap
+    z = precond(r_new)
+    rz_new = torch.dot(r_new, z)
+    return (torch.where(go, x + alpha * p, x), torch.where(go, r_new, r),
+            torch.where(go, z + (rz_new / rz) * p, p),
+            torch.where(go, rz_new, rz), it + go)
+
+
+def pcg_run(matvec: Callable, precond: Callable, state, bnorm, tol: float,
+            it_stop: int, check_every: int = PCG_CHECK_EVERY) -> tuple:
+    """Run CG from ``state`` until the relative residual ``||r|| / bnorm``
+    is at most ``tol`` or ``it`` reaches ``it_stop``.  The host enqueues
+    ``check_every`` iterations, then reads the running flag once (the only
+    synchronisation); iterations past the stop are frozen on the device,
+    so the returned state is the same for every ``check_every``.  The
+    state is re-enterable."""
+    check_every = max(int(check_every), 1)
+    while bool(_pcg_running(state, bnorm, tol, it_stop)):
+        for _ in range(check_every):
+            state = _pcg_step(matvec, precond, state, bnorm, tol, it_stop)
+    return state
+
+
+def pcg(matvec: Callable, b: torch.Tensor, precond: Callable | None = None,
+        x0=None, tol: float = 1e-10, maxiter: int = 1000,
+        check_every: int = PCG_CHECK_EVERY) -> PCGResult:
+    """Preconditioned conjugate gradients on an SPD ``matvec`` (a closure
+    over an already BC-projected operator, :func:`projected_operator`),
+    converging on the relative residual ||r|| / ||b|| <= ``tol`` or after
+    ``maxiter`` iterations; ``check_every``: see :func:`pcg_run`."""
+    if precond is None:
+        def precond(r):
+            return r
+    state = pcg_init(matvec, b, precond, x0)
+    bnorm = pcg_bnorm(b)
+    x, r, _, _, it = pcg_run(matvec, precond, state, bnorm, tol, maxiter,
+                             check_every)
+    return PCGResult(x=x, n_iter=it,
+                     residual=torch.linalg.vector_norm(r) / bnorm)
+
+
+def projected_operator(matvec: Callable,
+                       free_mask: torch.Tensor) -> Callable:
+    """U = 0 on the fixed DOFs by projection: A_c x = P A P x + (I - P) x
+    (``free_mask`` [n_dof], 1 on free DOFs).  A_c stays SPD; the solution
+    of A_c x = P b has exact zeros on the fixed DOFs and equals the
+    partitioned solve on the free ones."""
+    def op(x):
+        return free_mask * matvec(free_mask * x) + (1.0 - free_mask) * x
+    return op
+
+
+def spd_block_inv(D: torch.Tensor) -> torch.Tensor:
+    """Batched inverse of small SPD blocks [..., k, k]: batched Cholesky of
+    the symmetrically Jacobi-scaled blocks (the ~1e10 spread between axial
+    and bending stiffness needs the scaling), then ``cholesky_inverse``.
+    The JAX package inverts through two triangular solves
+    (``small_fem_solver_tpu/ops/solve.py:278-297``) because the TPU has no
+    float64 LU; that workaround is not needed here."""
+    d = torch.diagonal(D, dim1=-2, dim2=-1)
+    s = 1.0 / torch.sqrt(torch.where(d > 0, d, torch.ones_like(d)))
+    scale = s[..., :, None] * s[..., None, :]
+    L, _ = torch.linalg.cholesky_ex(D * scale)
+    return torch.cholesky_inverse(L) * scale
+
+
+def block_jacobi_inverse(diag_blocks: torch.Tensor,
+                         free_mask: torch.Tensor) -> torch.Tensor:
+    """Masked block-diagonal inverse [n, 6, 6] (identity at fixed DOFs):
+    the data of the block-Jacobi preconditioner, computed once a solve."""
+    n = diag_blocks.shape[0]
+    mask = free_mask.reshape(n, 6)
+    eye = torch.eye(6, dtype=diag_blocks.dtype, device=diag_blocks.device)
+    D = (diag_blocks * mask[:, :, None] * mask[:, None, :]
+         + eye * (1.0 - mask)[:, :, None])
+    return spd_block_inv(D)
+
+
+def block_jacobi_apply(D_inv: torch.Tensor) -> Callable:
+    """Preconditioner callable from a precomputed block inverse."""
+    n = D_inv.shape[0]
+
+    def precond(r):
+        return (D_inv @ r.reshape(n, 6, 1)).reshape(-1)
+    return precond
+
+
+def block_jacobi_preconditioner(diag_blocks: torch.Tensor,
+                                free_mask: torch.Tensor) -> Callable:
+    """6x6 block-Jacobi preconditioner from the BCSR diagonal blocks
+    [n_nodes, 6, 6]; fixed DOFs get identity rows so the projected system
+    stays well-posed."""
+    return block_jacobi_apply(block_jacobi_inverse(diag_blocks, free_mask))
+
+
+def jacobi_preconditioner(diag: torch.Tensor,
+                          free_mask: torch.Tensor) -> Callable:
+    """Scalar Jacobi preconditioner; fixed DOFs (and zero diagonals)
+    use 1."""
+    d = torch.where(free_mask > 0, diag, torch.ones_like(diag))
+    inv = 1.0 / torch.where(d == 0, torch.ones_like(d), d)
+
+    def precond(r):
+        return inv * r
+    return precond

@@ -34,7 +34,8 @@ from .. import native
 from ..device import resolve_device
 from .dispersion import solve_dispersion
 from .fatigue import SECONDS_PER_YEAR, SN_CURVES
-from .morison import MorisonPhaseBatch, _as, _morison_batch_core
+from .morison import (MorisonPhaseBatch, _as, _morison_batch_core,
+                      nodal_scatter)
 
 
 def jonswap_shape(omega, Tp, gamma: float = 3.3):
@@ -249,13 +250,23 @@ def morison_sea_batch(sea: SpectralSea, coords, conn, D_m, wave_dir_deg,
     """Morison loads of the random sea at every sample time ``ts`` [S], in
     ``coords``' dtype: on CUDA tensors one launch of the fused kernel's
     general-mode instance (``hopper_kernels.morison_sea_batch_cuda``), on
-    the CPU the plain version.  ``stretching='wheeler'`` is the standard
-    crest treatment for linear irregular seas (API RP 2A)."""
+    the CPU the plain version, and on the card too at ``n_gauss`` > 16,
+    past the kernel's limit (no launch; one plain route counted, see
+    ``hopper_kernels.kernel_route``).  ``stretching='wheeler'`` is the
+    standard crest treatment for linear irregular seas (API RP 2A)."""
     # hopper_kernels imports this module for the plain version
-    from .hopper_kernels import morison_sea_batch_cuda
-    return morison_sea_batch_cuda(sea, coords, conn, D_m, wave_dir_deg,
-                                  current_dir_deg, Cd, Cm, rho_water, ts,
-                                  n_gauss, current_alpha, stretching)
+    from .hopper_kernels import kernel_route, morison_sea_batch_cuda
+    if kernel_route(coords.device, n_gauss):
+        return morison_sea_batch_cuda(sea, coords, conn, D_m, wave_dir_deg,
+                                      current_dir_deg, Cd, Cm, rho_water, ts,
+                                      n_gauss, current_alpha, stretching)
+    F1, F2, drag, inertia = morison_sea_end_forces(
+        sea, coords, conn, D_m, wave_dir_deg, current_dir_deg, Cd, Cm,
+        rho_water, ts, n_gauss, current_alpha, stretching)
+    return MorisonPhaseBatch(
+        nodal_forces=nodal_scatter(F1, F2, conn, coords.shape[0]),
+        total_drag=drag, total_inertia=inertia,
+        total_morison=drag + inertia, F1=F1, F2=F2)
 
 
 # ---------------------------------------------------------------------------

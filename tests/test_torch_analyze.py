@@ -337,8 +337,11 @@ def test_dense_solvers_ignore_pcg_options(storm):
 def test_analyze_guards(storm):
     _, _, _, tc, tr, tw = storm
     case = pt.LoadCase(**STORM)
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        pt.analyze(tc, tw["fenton"], case, solver="pcg")
+    # solver="pcg" is ported (tests/test_torch_pcg.py): it runs and agrees
+    # with the Cholesky solve
+    pcg = pt.analyze(tc, tw["fenton"], case, solver="pcg")
+    assert float(pcg.solver_residual) <= 1e-10
+    assert rel_err(pcg.U, pt.analyze(tc, tw["fenton"], case).U) < 1e-8
     with pytest.raises(NotImplementedError, match="Queue A item 6"):
         pt.analyze(tc, tw["fenton"], case, solver="pcg", mesh=object())
     with pytest.raises(ValueError, match="unknown solver"):

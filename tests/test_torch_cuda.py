@@ -752,3 +752,75 @@ def test_sea_paths_on_card_match_cpu():
     errs.update(_rel_fields(fc, fp, ("sigma_stress", "damage_wl",
                                      "nu0_hz")))
     assert max(errs.values()) <= 1e-9, errs
+
+
+@pytest.mark.cuda
+def test_past_limit_call_launches_no_kernel():
+    """A 40-mode f64 dense envelope on the card picks the plain version
+    from its shapes (past K1's 32 modes): no K1 launch, one plain route,
+    the CPU's result at 1e-12."""
+    dev = _device()
+    runs = {}
+    for d in ("cpu", dev):
+        waves = pt.make_wave_batch([4.0, 9.0, 14.0], 9.4, 50.0, U_c=1.7,
+                                   model="airy", n_modes=40,
+                                   dtype=torch.float64, device=d)
+        cases = pt.make_case_batch(pt.LoadCase(**STORM),
+                                   wave_dir_deg=[0.0, 38.0, 120.0])
+        hk.morison_phase_batch_cuda.launches = 0
+        hk.morison_phase_batch_cuda.plain_routes = 0
+        runs[str(d)] = pt.design_envelope(
+            pt.default_3leg_jacket(device=d), waves, cases, n_steps=8)
+        torch.cuda.synchronize()
+    assert hk.morison_phase_batch_cuda.launches == 0
+    assert hk.morison_phase_batch_cuda.plain_routes == 1
+    errs = _rel_fields(runs[str(dev)], runs["cpu"],
+                       ("utilization", "max_util_per_case", "total_morison"))
+    assert max(errs.values()) <= 1e-12, errs
+
+
+def _pcg_storm(d, n_seg, precond, **kw):
+    model = pt.refine_model(pt.default_3leg_jacket(device=d), n_seg)
+    wave = pt.make_wave(9.5, 9.4, 50.0, U_c=1.2, model="stokes", N=5,
+                        device=d)
+    return pt.analyze(model, wave, pt.LoadCase(**STORM), solver="pcg",
+                      accel="analytic", pcg_precond=precond,
+                      pcg_maxiter=20000, **kw)
+
+
+@pytest.mark.cuda
+def test_bcsr_matvec_and_pcg_are_bit_repeatable_on_card():
+    """The mat-vec's row sums and every CG reduction run in a fixed order
+    (no atomics): two runs on the card are bit-equal, with the same
+    iteration count, whatever the chunk length."""
+    dev = _device()
+    from small_fem_solver_tpu_torch.ops import assembly
+    from small_fem_solver_tpu_torch.ops.beams import element_stiffness
+    m = pt.refine_model(pt.default_3leg_jacket(device=dev), 8)
+    Kg = element_stiffness(m.coords, m.conn, m.sections, m.sect_id,
+                           210000.0, 210000.0 / 2.6)[0]
+    A = assembly.assemble_bcsr(Kg, assembly.build_bcsr_pattern(m.conn,
+                                                                m.n_nodes))
+    x = torch.randn(m.n_dof, 4, dtype=torch.float64, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    assert torch.equal(assembly.bcsr_matvec(A, x),
+                       assembly.bcsr_matvec(A, x))
+    for precond in ("block_jacobi", "two_level"):
+        a, b, c = (_pcg_storm(dev, 8, precond, pcg_chunk=k)
+                   for k in (0, 0, 13))
+        assert int(a.solver_iters) == int(b.solver_iters) \
+            == int(c.solver_iters)
+        assert torch.equal(a.U, b.U) and torch.equal(a.U, c.U)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precond", ["two_level", "block_jacobi"])
+def test_pcg_on_card_matches_cpu_9612(precond):
+    """The 9,612-DOF flagship mesh at tol 1e-10: iteration counts within
+    1% of the port's CPU run, U at 1e-8 and utilization at 1e-7 of it."""
+    dev = _device()
+    card, cpu = (_pcg_storm(d, 32, precond) for d in (dev, "cpu"))
+    assert abs(int(card.solver_iters) - int(cpu.solver_iters)) \
+        <= 0.01 * int(cpu.solver_iters)
+    assert _rel(card.U.cpu(), cpu.U) <= 1e-8
+    assert _rel(card.utilization.cpu(), cpu.utilization) <= 1e-7

@@ -66,6 +66,22 @@ def test_design_envelope_matches_jax(setup, springs, alpha):
     assert int(out.governing_case) == int(ref.governing_case)
 
 
+def test_design_envelope_past_kernel_mode_limit_matches_jax(setup):
+    """Airy waves padded to 40 modes, past the Morison kernel's 32: the
+    JAX package's dense envelope (separable) runs them, and so does the
+    port (the plain version, no launch)."""
+    jm, _, jc, tm, _, tc = setup
+    jw = jsweep.make_wave_batch(HS, [8.0, 9.4, 11.0], 50.0, U_c=1.7,
+                                model="airy", n_modes=40, dtype=jnp.float64)
+    ref = sf.design_envelope(jm, jw, jc, n_steps=4)
+    before = hk.morison_phase_batch_cuda.launches
+    out = pt.design_envelope(tm, port_wave(jw), tc, n_steps=4)
+    assert hk.morison_phase_batch_cuda.launches == before
+    for name in ENV_FIELDS:
+        assert rel_err(getattr(out, name), getattr(ref, name)) < TOL, name
+    assert int(out.governing_case) == int(ref.governing_case)
+
+
 def test_design_envelope_equals_phase_batches(setup):
     """Case i of the envelope is the separable phase loads of case i
     through the dense solve: the same as ``analyze_phase_batch`` up to its

@@ -149,6 +149,28 @@ def test_dynamic_response_matches_jax(jacket):
         assert rel_err(out.ts, ref.ts) < 1e-14
 
 
+@pytest.mark.parametrize("wave,n_gauss", [("airy40", 15), ("stokes", 20)])
+def test_dynamic_response_past_kernel_limits_matches_jax(jacket, wave,
+                                                         n_gauss):
+    """An Airy wave padded to 40 modes, and n_gauss = 20: past the Morison
+    kernel's 32 modes / 16 Gauss points, where the JAX package's separable
+    engine still runs; the port runs the plain version (no launch) and
+    matches at 1e-10."""
+    jc, jr, jw, tc, tr, tw = jacket
+    if wave == "airy40":
+        jw = sf.make_wave(9.5, 9.4, 50.0, U_c=1.2, model="airy", n_modes=40)
+        tw = port_wave(jw)
+    case = sf.LoadCase(**STORM)
+    before = pt.ops.hopper_kernels.morison_phase_batch_cuda.launches
+    out = pt.dynamic_response(tc, tw, port_case(case), n_harmonics=4,
+                              n_steps=24, n_gauss=n_gauss)
+    ref = jd.dynamic_response(jc, jw, case, n_harmonics=4, n_steps=24,
+                              n_gauss=n_gauss)
+    assert pt.ops.hopper_kernels.morison_phase_batch_cuda.launches == before
+    for name in HARMONIC_FIELDS:
+        assert rel_err(getattr(out, name), getattr(ref, name)) < TOL, name
+
+
 TRANSIENT_FIELDS = ("U_time", "utilization", "tip_displacement_mm", "omega1",
                     "rayleigh_alpha", "rayleigh_beta")
 

@@ -283,8 +283,10 @@ def test_cast_operands(dtype):
 
 def test_cuda_wrapper_refuses_cpu_tensors_and_bad_sizes():
     """The kernel's launcher refuses CPU tensors and counts no launch; the
-    wrappers run the plain version on them; the TPU kernel's size limits
-    raise."""
+    wrappers run the plain version on them at any size (the kernel's
+    limits, n_gauss <= 16 and n_modes <= 32, bind on the CUDA route only,
+    where callers pick the plain version first: ``kernel_route``); an
+    unknown stretching mode raises."""
     model, wave, D, ts, tm, tw = _inputs(jnp.float64, torch.float32,
                                          "airy", 1)
     args = (tw, tm.coords, tm.conn, torch.tensor(D, dtype=torch.float32),
@@ -299,13 +301,25 @@ def test_cuda_wrapper_refuses_cpu_tensors_and_bad_sizes():
     for name in FIELDS:
         assert torch.equal(getattr(out, name), getattr(ref, name)), name
     assert hk.morison_phase_batch_cuda.launches == before
-    # the TPU kernel's limits: n_gauss <= 16 and n_modes <= 32
+    # past the kernel's limits the CPU route is still the plain version
+    wide = dataclasses.replace(tw, E=torch.zeros(33), U=torch.zeros(33))
+    for big_args, kw in (((*args,), dict(n_gauss=17)),
+                         ((wide, *args[1:]), {})):
+        out = hk.morison_phase_batch_cuda(*big_args, **kw)
+        ref = morison_phase_batch(*big_args, **kw)
+        for name in FIELDS:
+            assert torch.equal(getattr(out, name), getattr(ref, name)), name
+    assert hk.morison_phase_batch_cuda.launches == before
+    # the limits, as callers read them before they pick a route
+    assert hk.kernel_takes(16, 32) and hk.kernel_takes(16)
+    assert not hk.kernel_takes(17) and not hk.kernel_takes(15, 33)
+    routes = hk.morison_phase_batch_cuda.plain_routes
+    assert hk.kernel_route(torch.device("cpu"), 17, 40)
+    assert hk.morison_phase_batch_cuda.plain_routes == routes
     with pytest.raises(ValueError, match="n_gauss"):
-        hk.morison_phase_batch_cuda(*args, n_gauss=17)
+        hk._check_limits(17)
     with pytest.raises(ValueError, match="n_modes"):
-        hk.morison_phase_batch_cuda(
-            dataclasses.replace(tw, E=torch.zeros(33), U=torch.zeros(33)),
-            *args[1:])
+        hk._check_limits(15, 33)
     with pytest.raises(ValueError, match="stretching"):
         hk.morison_phase_batch_cuda(*args, stretching="linear")
 
@@ -625,8 +639,9 @@ def test_batch_plain_matches_jax_per_case(stretching):
 
 def test_batch_wrapper_on_cpu_tensors():
     """morison_end_forces_batch_cuda on CPU tensors is the batched plain
-    version (f64 and f32) and counts no launch; the case-batched launcher
-    refuses CPU tensors; its size limits raise."""
+    version (f64 and f32) and counts no launch, also past the kernel's
+    size limits (they bind on the CUDA route only); the case-batched
+    launcher refuses CPU tensors."""
     args = _batch_args(5)
     before = dict(hk.morison_phase_batch_cuda.instance_launches)
     for dtype in (torch.float64, torch.float32):
@@ -640,5 +655,7 @@ def test_batch_wrapper_on_cpu_tensors():
     k = hk.batch_kernel_operands(*args, n_gauss=15, current_alpha=None)
     with pytest.raises(RuntimeError, match="CUDA tensors"):
         hk.launch_morison_batch64(k, False)
-    with pytest.raises(ValueError, match="n_gauss"):
-        hk.morison_end_forces_batch_cuda(*args, n_gauss=17)
+    out = hk.morison_end_forces_batch_cuda(*args, n_gauss=17)
+    ref = morison_end_forces_batch(*args, n_gauss=17)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    assert hk.morison_phase_batch_cuda.instance_launches == before

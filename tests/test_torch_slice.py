@@ -172,6 +172,24 @@ def test_pallas_kinematics_is_an_alias_of_fused():
                 assert torch.equal(a, getattr(pallas, name)), name
 
 
+def test_default_scan_past_kernel_mode_limit_matches_jax():
+    """An Airy wave padded to 40 modes, past the Morison kernel's 32: the
+    JAX package's default scan (separable) runs it, and so does the
+    port's default (fused, whose CPU route is the plain version); no
+    launch."""
+    coarse, refined, _, tc, tr, _ = _setup(jnp.float64, torch.float64)
+    wave = sf.make_wave(17.038, 9.4, 50.0, U_c=1.7, model="airy",
+                        n_modes=40)
+    case = sf.LoadCase(**CASE)
+    ref = j_scan(coarse, refined, N_SEG, wave, case, n_steps=4)
+    before = hk.morison_phase_batch_cuda.launches
+    out = pt.phase_scan_condensed(tc, tr, N_SEG, port_wave(wave),
+                                  port_case(case), n_steps=4)
+    assert hk.morison_phase_batch_cuda.launches == before
+    for name in FIELDS:
+        assert rel_err(getattr(out, name), getattr(ref, name)) < 1e-9, name
+
+
 def test_default_device_is_the_card():
     """Built without ``device``, a model, wave or wave batch lies on the
     CUDA card; without a card building it raises and names device="cpu"
@@ -200,8 +218,6 @@ def test_default_device_is_the_card():
 def test_unported_options_raise():
     _, _, _, tc, tr, tw = _setup(jnp.float64, torch.float64)
     case = pt.LoadCase(**CASE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.analyze(tc, tw, case, solver="pcg")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt.analyze(tc, tw, case, solver="pcg", mesh=object())
     waves = pt.make_wave_batch([8.0, 9.0], 9.4, 50.0, model="airy",

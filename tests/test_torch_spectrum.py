@@ -347,6 +347,23 @@ def test_sea_response_batch_matches_jax(jacket):
                 (springs, name)
 
 
+def test_sea_response_batch_past_kernel_gauss_limit_matches_jax(jacket):
+    """n_gauss = 20, past the Morison kernel's 16 Gauss points: the port
+    runs the plain version (the JAX package's separable engine takes any
+    count), with no launch, at 1e-9."""
+    js, ts_ = jacket["seas"]["long"]
+    case = sf.LoadCase(**STORM)
+    times = np.arange(16) * 0.94
+    before = hk.morison_phase_batch_cuda.launches
+    ref = sf.sea_response_batch(jacket["jc"], js, case, times, n_gauss=20)
+    out = pt.sea_response_batch(jacket["tc"], ts_, port_case(case), times,
+                                n_gauss=20)
+    assert hk.morison_phase_batch_cuda.launches == before
+    for name in ("U", "von_mises", "utilization", "reactions",
+                 "total_morison"):
+        assert rel_err(getattr(out, name), getattr(ref, name)) < 1e-9, name
+
+
 def test_scatter_fatigue_matches_jax(jacket):
     """The time-domain scatter over two short states (one with its own
     heading), 12 components and 64 steps each, at 1e-9."""
