@@ -192,7 +192,33 @@ chain-sweep kernel, and checks them:
 25. assembly phase (99,882 DOF, f32 and f64): the direct-write BCSR
    assembly against the generic one (5e-6 / 1e-12), bit-repeatable;
    GDOF/s of single calls and of 64 in a row, device time against the
-   bytes bound.
+   bytes bound;
+26. single-rank distribution phase (an NCCL group of this process,
+   ``parallel.multihost.init_multihost``, 1-D DeviceMeshes ``cases`` and
+   ``dof``): the flagship condensed envelope (10 Fenton cases x 360
+   phases, f32, fused) bit-equal to phase 6 with the same K1 and sweep
+   launches, the 1,000-case f64 dense envelope (one K1 launch) bit-equal
+   to phase 12, the sweep and the bench's scatter diagram bit-equal to
+   their unsharded calls, and ``analyze(solver="pcg", mesh=)`` at 99,882
+   DOF (the bench's call and the condensed loads' call: iterations within
+   1% of phase 24's and of 1,354, utilization within 1e-8 of
+   ``analyze_condensed``, a second run bit-equal, collectives, wall and
+   busy time an iteration); the group is destroyed;
+27. two-rank distribution phase (``spawn_ranks``: two gloo ranks on the
+   one card, collectives staged through the host): K1's f64 instance on
+   the second half of the 1,000 cases against its plain version and bit
+   for bit against the whole batch's launch; the flagship envelope (5
+   cases a rank) bit-equal to phase 6, the dense envelope (500 cases a
+   rank) against phase 12 (1e-12, bit-equality reported) and PCG at 9,612
+   DOF against the Cholesky solve; both ranks bit-equal, each rank's
+   launches and collectives;
+28. P-delta and buckling phase (f64): ``analyze_pdelta`` and
+   ``buckling_analysis`` at 126 DOF against the CPU (1e-9),
+   ``analyze_pdelta_condensed`` at 9,612 DOF against the dense
+   ``analyze_pdelta`` (1e-9) and at 99,882 DOF, with the sweep launches
+   of each round and the sweep kernel against its plain version on a
+   round's factor, and ``buckling_analysis_condensed`` (12 chain modes)
+   against the dense factors at 9,612 DOF (1%).
 
 Every new path is run with the launch counts set to 0 just before it and
 read just after it; a mean or MPM stress is compared to one of its
@@ -2831,6 +2857,443 @@ def sea_transient_phase(pt, hk, dev, coarse64, refined64, cpu):
     return out
 
 
+def bit_equal(a, b) -> bool:
+    """Bit equality of two result trees (tensors, arrays, NamedTuples)."""
+    import numpy as np
+    import torch
+    if a is None or b is None:
+        return a is b
+    if isinstance(a, torch.Tensor):
+        return (a.shape == b.shape and a.dtype == b.dtype
+                and bool(torch.equal(a, b.to(a.device))))
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(bit_equal(x, y)
+                                        for x, y in zip(a, b))
+    return a == b
+
+
+def tree_rel(a, b) -> float:
+    """The largest ``rel`` over the tensor fields of two NamedTuples."""
+    import torch
+    return max(rel(x.double(), y.double()) for x, y in zip(a, b)
+               if isinstance(x, torch.Tensor) and x.is_floating_point())
+
+
+def k1_f32_bound(S: int, M: int, Q: int, N: int, n_nodes: int):
+    """(bound us, by, bytes, FLOPs) of one launch of K1's f32 instance:
+    its outputs (end forces, totals) written once and its inputs (phases,
+    wave modes, nodes, per-member data) read once; the mode sums ([S, 2N]
+    phase factors times [2N, M Q] spatial records for five fields) and the
+    elementwise epilogue at the FP32 rate."""
+    nbytes = 4 * (2 * S * M * 3 + S * 6 + S + 2 * N + 4 + n_nodes * 3
+                  + M) + 8 * 2 * M
+    flops = S * M * Q * (2 * 2 * N * 5 + EPILOGUE_FLOP)
+    return (*bound_us(nbytes, flops), nbytes, flops)
+
+
+def host_us(fn, n: int = 300) -> float:
+    """Host microseconds a call of ``fn`` (``n`` calls enqueued back to
+    back after a warm-up, then one synchronisation)."""
+    import torch
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def pcg_per_iteration(pt, solve, iters=(PCG_PROFILE_ITERS,
+                                        2 * PCG_PROFILE_ITERS)):
+    """(device operations, busy us) an iteration of ``solve(n)``, a solve
+    of exactly n iterations: the difference of two profiled solves of
+    ``iters`` iterations, so the set-up (loads, assembly, coarse space)
+    drops out."""
+    import warnings
+    rows = []
+    for n in iters:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # stopped before tol
+            ev = device_events(lambda: solve(n), host=False)
+        rows.append((len(ev), sum(t for _, t in ev)))
+    d = iters[1] - iters[0]
+    return (rows[1][0] - rows[0][0]) / d, (rows[1][1] - rows[0][1]) / d
+
+
+def k1_slice_check(pt, hk, dev, coarse64, waves_cpu, cases) -> dict:
+    """K1's case-batched f64 instance on the second half of the 1,000-case
+    batch (the block of rank 1 of 2; its first case is 500) at the dense
+    envelope's shapes: against the plain version on the same inputs, and
+    bit for bit against the same cases of the whole batch's launch."""
+    import torch
+    from small_fem_solver_tpu_torch.ops.morison import (
+        morison_end_forces_batch)
+    f64 = torch.float64
+    waves = waves_cpu.to(f64, dev)
+    C = waves.E.shape[0]
+    lo = C // 2
+    dirs = torch.as_tensor(cases.wave_dir_deg, dtype=f64, device=dev)
+    ts = (torch.arange(DESIGN_STEPS, dtype=f64, device=dev)[None, :]
+          * waves.T[:, None] / DESIGN_STEPS)
+    D = coarse64.sections.D_outer[coarse64.sect_id] / 1000.0
+
+    def args(sl):
+        return (waves.case(sl), coarse64.coords, coarse64.conn, D, dirs[sl],
+                dirs[sl], 0.7, 2.0, 1025.0, ts[sl])
+    whole = hk.morison_end_forces_batch_cuda(*args(slice(0, C)))
+    before = hk.morison_phase_batch_cuda.instance_launches["f64"]
+    block = hk.morison_end_forces_batch_cuda(*args(slice(lo, C)))
+    torch.cuda.synchronize()
+    n = hk.morison_phase_batch_cuda.instance_launches["f64"] - before
+    plain = morison_end_forces_batch(*args(slice(lo, C)))
+    err = max(rel(a, b) for a, b in zip(block, plain))
+    bits = all(torch.equal(a[lo:], b) for a, b in zip(whole, block))
+    check(n == 1 and err <= 1e-12 and bits,
+          f"K1 f64 on cases {lo}-{C - 1} of the {C}-case batch (one launch, "
+          f"{n}): vs plain {err:.2e} <= 1e-12, bit-equal to the whole "
+          f"batch's launch: {bits}")
+    return {"err": err, "bits": bits}
+
+
+def dist_one_rank_phase(pt, hk, dev, flag, design, large, pcgl):
+    """The sharded paths in a single-rank NCCL group of this process
+    (``parallel.multihost.init_multihost``, a 1-D DeviceMesh): the
+    flagship condensed envelope (10 Fenton cases x 360 phases, f32, fused)
+    bit-equal to the unsharded call with the same K1 and sweep launches;
+    the 1,000-case f64 dense envelope in one K1 launch, bit-equal; the
+    sweep and the frequency-domain scatter's states, bit-equal;
+    ``analyze(solver="pcg", mesh=)`` at 99,882 DOF, the bench's call and
+    the condensed loads' call: iterations within 1% of the single-device
+    solve's, the utilization of the second within 1e-8 of
+    ``analyze_condensed``, a second run bit-equal, the collectives, wall
+    and busy time an iteration.  The group is destroyed at the end."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from small_fem_solver_tpu_torch.parallel import comm
+    from small_fem_solver_tpu_torch.parallel import multihost as mh
+    f32, f64 = torch.float32, torch.float64
+    out = {"launches": {}, "pcg": {}}
+    store = tempfile.mkdtemp(prefix="chip_smoke_group_")
+    check(mh.init_multihost(f"file://{store}/store", world_size=1, rank=0)
+          and dist.get_backend() == "nccl",
+          "single-rank NCCL group initialised (init_multihost)")
+    try:
+        cases_mesh = mh.global_case_mesh("cases")
+        dof_mesh = mh.global_case_mesh("dof")
+        check(cases_mesh.size() == 1 and cases_mesh.device_type == "cuda",
+              f"1-D CUDA DeviceMesh of {cases_mesh.size()} rank")
+
+        env, n, s = counted(hk, lambda: pt.design_envelope_condensed(
+            flag["coarse32"], flag["refined32"], N_SEG, flag["waves32"],
+            flag["cases"], n_steps=N_STEPS, solve_dtype=f32,
+            kinematics="fused", mesh=cases_mesh))
+        out["launches"]["envelope"] = n
+        want = flag["launches"]
+        k1 = sum(v for k, v in n.items() if k != "sweep")
+        check(bit_equal(tuple(env), tuple(flag["env"]))
+              and k1 == want["morison_phase_batch"]
+              and n["sweep"] == want["chain_sweep"],
+              f"sharded flagship envelope (1 rank): bit-equal to the "
+              f"unsharded call, launches K1 {k1} / sweep {n['sweep']} "
+              f"== {want['morison_phase_batch']} / {want['chain_sweep']}")
+        out["envelope_s"] = s
+
+        waves_d = design["waves"].to(f64, dev)
+        envd, n, s = counted(hk, lambda: pt.design_envelope(
+            design["coarse64"], waves_d, design["cases"],
+            n_steps=DESIGN_STEPS, mesh=cases_mesh))
+        out["launches"]["dense_envelope"] = n
+        check(same_counts(n, {"f64": 1})
+              and bit_equal(tuple(envd), tuple(design["env"])),
+              f"sharded 1,000-case dense envelope (1 rank): launches {n} "
+              "(K1 f64 once), bit-equal to the unsharded call")
+
+        def sweep(mesh):
+            return pt.parallel.sweep.design_sweep(
+                design["coarse64"], waves_d, design["cases"], mesh=mesh)
+        sw, n, _ = counted(hk, lambda: sweep(cases_mesh))
+        out["launches"]["sweep"] = n
+        check(bit_equal(tuple(sw), tuple(sweep(None))),
+              "sharded design_sweep (1 rank, 1,000 cases) bit-equal to "
+              "the unsharded call")
+
+        c32 = pt.default_3leg_jacket(dtype=f32, device=dev)
+        prep8 = pt.prepare_condensed(c32, pt.refine_model(c32, 8), 8,
+                                     solve_dtype=f32)
+
+        def scatter(mesh):
+            return pt.scatter_fatigue_spectral(
+                prep8, pt.LoadCase(**CASE), SCATTER_STATES, SEA_D, 25.0,
+                n_components=32, mesh=mesh)
+        sc, n, _ = counted(hk, lambda: scatter(cases_mesh))
+        out["launches"]["scatter"] = n
+        check(bit_equal(tuple(sc), tuple(scatter(None))),
+              f"sharded scatter (1 rank, {len(SCATTER_STATES)} states) "
+              f"bit-equal to the unsharded call (launches {n})")
+
+        refined, case, wave, cond = (large["refined"], large["case"],
+                                     large["wave"], large["condensed"])
+        for label, accel in (("bench (accel fd)", "fd"),
+                             ("accel analytic", "analytic")):
+            def solve(maxiter=3000, chunk=200):
+                return pt.analyze(refined, wave, case, solver="pcg",
+                                  accel=accel, pcg_precond="two_level",
+                                  pcg_tol=1e-8, pcg_maxiter=maxiter,
+                                  pcg_chunk=chunk, mesh=dof_mesh)
+            comm.stats(reset=True)
+            res, wall, ms = timed_call(solve)
+            st = comm.stats(reset=True)
+            again, wall2, ms2 = timed_call(solve)
+            it = int(res.solver_iters)
+            single = pcgl["runs"][(label, 1e-8)]["iters"]
+            util = rel(res.utilization, cond.utilization)
+            resid = true_residual(refined, res.U, res.F_applied)
+            tag = f"distributed PCG (1 rank) at {refined.n_dof} DOF, {label}"
+            check(abs(it / single - 1.0) <= 0.01
+                  and abs(it / 1354 - 1.0) <= 0.01,
+                  f"{tag}: {it} iterations within 1% of the single-device "
+                  f"solve's {single} and of 1,354")
+            check(float(res.solver_residual) <= 1e-8
+                  and resid <= PCG_TRUE_RESID_LIMIT,
+                  f"{tag}: solver's residual {float(res.solver_residual):.3e}"
+                  f" <= 1e-8, recomputed {resid:.3e} <= "
+                  f"{PCG_TRUE_RESID_LIMIT:g}")
+            if accel == "analytic":
+                check(util <= PCG_LARGE_UTIL_TOL_MATCHED,
+                      f"{tag}: utilization vs analyze_condensed {util:.3e} "
+                      f"<= {PCG_LARGE_UTIL_TOL_MATCHED:g}")
+            check(int(again.solver_iters) == it
+                  and torch.equal(again.U, res.U),
+                  f"{tag}: a second run bit-equal")
+            # chunks of 200 run whole: the iterations past the stop are
+            # frozen on the device but still launched
+            steps = -(-it // 200) * 200
+            out["pcg"][label] = {
+                "iters": it, "single": single, "util": util, "resid": resid,
+                "wall_s": (wall, wall2), "ms": (ms, ms2),
+                "collectives": st["collectives"], "steps": steps,
+                "per_iter": st["collectives"] / steps,
+                "host_bytes": st["host_bytes"]}
+            print(f"[dist 1 rank] {tag}: {it} iterations (single device "
+                  f"{single}); {st['collectives']} collectives in "
+                  f"{steps} iteration steps ({st['collectives'] / steps:.3f}"
+                  " a step), "
+                  f"{st['host_bytes']} bytes through the host; utilization "
+                  f"vs condensed {util:.3e}; wall {wall:.3f} / {wall2:.3f} "
+                  f"s, CUDA events {ms:.1f} / {ms2:.1f} ms", flush=True)
+        # one chunk of exactly n iterations (no frozen ones)
+        ops, busy = pcg_per_iteration(pt, lambda n: solve(n, n))
+        out["pcg_ops"], out["pcg_busy_us"] = ops, busy
+        x = large["condensed"].U.contiguous()
+        dots = x[:3].clone()
+        out["host_us"] = {
+            f"all_gather_cat of x ({x.numel() * 8 / 1e6:.1f} MB)":
+                host_us(lambda: comm.all_gather_cat(x, dof_mesh,
+                                                    [x.numel()])),
+            "ordered_sum of 3 dots": host_us(
+                lambda: comm.ordered_sum(dots, dof_mesh)),
+            "an elementwise op (x + 1)": host_us(lambda: x + 1.0)}
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "process group destroyed")
+    return out
+
+
+def dist_two_rank_phase(pt, hk, dev, flag, design, refined64):
+    """Two ranks of one gloo group on the one card
+    (``parallel.multihost.spawn_ranks``; NCCL refuses two ranks on one
+    GPU, so the collectives stage CUDA tensors through the host): the
+    flagship condensed envelope (5 cases a rank) bit-equal to the
+    unsharded call, the 1,000-case f64 dense envelope (500 cases a rank:
+    rank 1's K1 f64 launch starts at case 500) against the unsharded call
+    at 1e-12, ``analyze(solver="pcg", mesh=)`` at 9,612 DOF against the
+    Cholesky solve; both ranks' results bit-equal, and each rank's launch
+    counts.  No scaling is claimed: both ranks share the card."""
+    import torch
+    from small_fem_solver_tpu_torch.ops import hopper_kernels
+    from small_fem_solver_tpu_torch.parallel import comm
+    from small_fem_solver_tpu_torch.parallel import multihost as mh
+    f32 = torch.float32
+    cpu = mh.to_device
+    cases = mh.RankMesh("cases")
+    # the storm of phase 23 (tests/test_pcg_precond.py) and its Cholesky
+    pwave = pt.make_wave(9.5, 9.4, 50.0, U_c=1.2, model="stokes", N=5,
+                         device=dev)
+    chol = pt.analyze(refined64, pwave, pt.LoadCase(**CASE), solver="chol",
+                      accel="analytic")
+    counts = (hopper_kernels.launch_counts, (), {"reset": True})
+    stats = (comm.stats, (), {"reset": True})
+    calls = {
+        "reset": counts, "reset_stats": stats,
+        "envelope": (pt.design_envelope_condensed, (
+            cpu(flag["coarse32"], "cpu"), cpu(flag["refined32"], "cpu"),
+            N_SEG, cpu(flag["waves32"], "cpu"), flag["cases"]),
+            dict(n_steps=N_STEPS, solve_dtype=f32, kinematics="fused",
+                 mesh=cases)),
+        "envelope_counts": counts, "envelope_stats": stats,
+        "dense": (pt.design_envelope, (
+            cpu(design["coarse64"], "cpu"), design["waves"],
+            design["cases"]), dict(n_steps=DESIGN_STEPS, mesh=cases)),
+        "dense_counts": counts, "dense_stats": stats,
+        "pcg": (pt.analyze, (cpu(refined64, "cpu"), cpu(pwave, "cpu"),
+                             pt.LoadCase(**CASE)),
+                dict(solver="pcg", accel="analytic",
+                     pcg_precond="two_level", pcg_tol=PCG_TOL,
+                     pcg_maxiter=20000, mesh=mh.RankMesh("dof"))),
+        "pcg_counts": counts, "pcg_stats": stats,
+    }
+    kslice = k1_slice_check(pt, hk, dev, design["coarse64"], design["waves"],
+                            design["cases"])
+    t0 = time.perf_counter()
+    ranks = mh.spawn_ranks(2, list(calls.values()), backend="gloo",
+                           device="cuda", timeout=600)
+    wall = time.perf_counter() - t0
+    r0, r1 = (dict(zip(calls, r)) for r in ranks)
+    check(all(bit_equal(tuple(r0[k]) if hasattr(r0[k], "_fields")
+                        else r0[k], tuple(r1[k]) if hasattr(r1[k], "_fields")
+                        else r1[k])
+              for k in ("envelope", "dense", "pcg")),
+          "two ranks on the card: both ranks' results bit-equal")
+    env = r0["envelope"]
+    check(bit_equal(tuple(env), tuple(mh.to_device(flag["env"], "cpu"))),
+          "sharded flagship envelope (2 ranks, 5 cases each) bit-equal to "
+          "the unsharded call")
+    dense_err = tree_rel(r0["dense"], mh.to_device(design["env"], "cpu"))
+    dense_bits = bit_equal(tuple(r0["dense"]),
+                           tuple(mh.to_device(design["env"], "cpu")))
+    check(dense_err <= 1e-12, f"sharded dense envelope (2 ranks, 500 cases "
+          f"each; K1 f64 on cases 500-999 in rank 1) vs the unsharded "
+          f"call: {dense_err:.2e} <= 1e-12 (bit-equal: {dense_bits})")
+    pcg = r0["pcg"]
+    util = rel(pcg.utilization, chol.utilization.cpu())
+    check(float(pcg.solver_residual) <= PCG_TOL and util <= PCG_UTIL_RTOL,
+          f"distributed PCG (2 ranks) at {refined64.n_dof} DOF: "
+          f"{int(pcg.solver_iters)} iterations, residual "
+          f"{float(pcg.solver_residual):.2e}, utilization vs Cholesky "
+          f"{util:.2e} <= {PCG_UTIL_RTOL:g}")
+    out = {"wall_s": wall, "dense_err": dense_err, "dense_bits": dense_bits,
+           "k1_slice": kslice,
+           "pcg_iters": int(pcg.solver_iters), "pcg_util": util,
+           "launches": {k: [r[f"{k}_counts"] for r in (r0, r1)]
+                        for k in ("envelope", "dense", "pcg")},
+           "stats": {k: [r[f"{k}_stats"] for r in (r0, r1)]
+                     for k in ("envelope", "dense", "pcg")}}
+    for k in ("envelope", "dense"):
+        for r, n in enumerate(out["launches"][k]):
+            check(n["k1"] >= 1 and (k == "dense" or n["sweep"] >= 1),
+                  f"two ranks: rank {r} launched K1 {n['k1']}x and the "
+                  f"sweep {n['sweep']}x on the {k} path")
+    print(f"[dist 2 ranks] one card, gloo: spawn + all calls {wall:.1f} s "
+          f"wall; launches by rank {out['launches']}; collectives and "
+          f"host-staged bytes by rank {out['stats']}; PCG 9,612 DOF "
+          f"{out['pcg_iters']} iterations", flush=True)
+    return out
+
+
+def pdelta_phase(pt, hk, dev, coarse64, refined64, wave64, large):
+    """Second-order analysis and buckling on the card in f64:
+    ``analyze_pdelta`` at 126 DOF against the CPU run (1e-9);
+    ``analyze_pdelta_condensed`` at 9,612 DOF against the dense
+    ``analyze_pdelta`` on the same mesh (1e-9) and at 99,882 DOF, the
+    sweep launches of each round, the sweep kernel against its plain
+    version on a round's factor; ``buckling_analysis`` at 126 DOF against
+    the CPU (1e-9) and ``buckling_analysis_condensed`` at 9,612 DOF
+    against the dense factors (1% on the lowest, 12 chain modes)."""
+    import torch
+    from small_fem_solver_tpu_torch import api
+    from small_fem_solver_tpu_torch.ops import buckling
+    from small_fem_solver_tpu_torch.ops.condense import (chain_sweep_plain,
+                                                         factor_chains)
+    case = pt.LoadCase(**CASE, t_analysis=0.34)
+    out = {}
+    c_cpu = pt.default_3leg_jacket(device="cpu")
+    w_cpu = wave64.to(torch.float64, "cpu")
+    pd, _, s = counted(hk, lambda: pt.analyze_pdelta(coarse64, wave64, case))
+    pd_cpu = pt.analyze_pdelta(c_cpu, w_cpu, case)
+    err = max(rel(getattr(pd, f).cpu(), getattr(pd_cpu, f))
+              for f in ("U", "reactions", "utilization",
+                        "pdelta_amplification"))
+    amp = float(pd.pdelta_amplification)
+    check(err <= 1e-9 and 1.0 < amp < 1.15,
+          f"analyze_pdelta at {coarse64.n_dof} DOF vs the CPU: {err:.2e} <= "
+          f"1e-9; pdelta_amplification {amp:.6f}")
+    lin = pt.analyze(coarse64, wave64, case)
+    b = buckling.buckling_analysis(coarse64, lin)
+    b_cpu = buckling.buckling_analysis(c_cpu, pt.analyze(c_cpu, w_cpu, case))
+    berr = rel(b.load_factor.cpu(), b_cpu.load_factor)
+    lam = float(b.load_factor[0])
+    check(berr <= 1e-9 and 20.0 < lam < 26.0,
+          f"buckling_analysis at {coarse64.n_dof} DOF: lambda_cr {lam:.4f} "
+          f"(CPU {float(b_cpu.load_factor[0]):.4f}, {berr:.2e} <= 1e-9)")
+    out.update(amp=amp, lam=lam, pdelta_ms=s * 1e3)
+
+    cond, n, s = counted(hk, lambda: pt.analyze_pdelta_condensed(
+        coarse64, refined64, N_SEG, wave64, case))
+    rounds = 4          # the first-order solve and n_iter = 3 rounds
+    check(n["sweep"] >= rounds and n["sweep"] % rounds == 0
+          and bool(torch.isfinite(cond.U).all()),
+          f"analyze_pdelta_condensed at {refined64.n_dof} DOF: {n['sweep']} "
+          f"sweep launches ({n['sweep'] // rounds} a round), finite")
+    dense = pt.analyze_pdelta(refined64, wave64, case, accel="analytic")
+    derr = max(rel(getattr(cond, f), getattr(dense, f))
+               for f in ("U", "utilization", "pdelta_amplification"))
+    check(derr <= 1e-9, f"analyze_pdelta_condensed vs dense analyze_pdelta "
+          f"at {refined64.n_dof} DOF: {derr:.2e} <= 1e-9")
+    out.update(cond_launches=n, cond_ms=s * 1e3, cond_err=derr,
+               cond_amp=float(cond.pdelta_amplification))
+    # the sweep kernel on a P-delta round's factor (Kg - K_G(N))
+    Kg = api.prepare_condensed(coarse64, refined64, N_SEG,
+                               chain_solver="thomas").Kg
+    N = buckling.member_axial_forces(cond)
+    fac = factor_chains(Kg - buckling.element_geometric_stiffness(
+        refined64.coords, refined64.conn, N), N_SEG)
+    g = api._global_to_chain(cond.F_applied[None], coarse64, N_SEG)[1]
+    kern = hk.chain_sweep_cuda(fac, g.contiguous())
+    plain = chain_sweep_plain(fac, g)
+    serr = max(rel(a, b_) for a, b_ in zip(kern, plain))
+    check(serr <= 1e-12, f"chain-sweep kernel vs plain on a P-delta round's "
+          f"factor (f64, B=1, n_int={N_SEG - 1}): {serr:.2e} <= 1e-12")
+    out["sweep_err"] = serr
+
+    big = large["refined"]
+    condl, n, s = counted(hk, lambda: pt.analyze_pdelta_condensed(
+        coarse64, big, N_SEG_LARGE, large["wave"], large["case"]))
+    ampl = float(condl.pdelta_amplification)
+    check(bool(torch.isfinite(condl.U).all()) and 1.0 < ampl < 1.15
+          and n["sweep"] % rounds == 0 and n["sweep"] >= rounds,
+          f"analyze_pdelta_condensed at {big.n_dof} DOF: amplification "
+          f"{ampl:.6f}, {n['sweep']} sweep launches ({n['sweep'] // rounds} "
+          f"a round), {s:.2f} s")
+    out.update(large_launches=n, large_s=s, large_amp=ampl)
+
+    res = pt.analyze_condensed(coarse64, refined64, N_SEG, wave64, case)
+    bc, _, s = counted(hk, lambda: buckling.buckling_analysis_condensed(
+        coarse64, refined64, N_SEG, res, n_modes=3,
+        n_chain_modes=CHAIN_MODES))
+    t0 = time.perf_counter()
+    bd = buckling.buckling_analysis(refined64, res, n_modes=3)
+    dense_s = time.perf_counter() - t0
+    cerr = abs(float(bc.load_factor[0]) / float(bd.load_factor[0]) - 1.0)
+    check(cerr <= 0.01, f"buckling_analysis_condensed ({CHAIN_MODES} chain "
+          f"modes) vs dense at {refined64.n_dof} DOF: lambda_cr "
+          f"{float(bc.load_factor[0]):.4f} vs {float(bd.load_factor[0]):.4f}"
+          f", {cerr:.2e} <= 0.01")
+    out.update(buck_cond_s=s, buck_dense_s=dense_s, buck_err=cerr,
+               lam_9612=float(bd.load_factor[0]))
+    print(f"[pdelta] 126 DOF amplification {amp:.6f}, lambda_cr {lam:.4f}; "
+          f"9,612 DOF condensed vs dense {derr:.2e}, amplification "
+          f"{out['cond_amp']:.6f}; 99,882 DOF amplification {ampl:.6f}; "
+          f"buckling 9,612 DOF condensed {float(bc.load_factor[0]):.4f} vs "
+          f"dense {float(bd.load_factor[0]):.4f}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3078,6 +3541,24 @@ def main() -> int:
           "envelope shapes)")
     check(max(errs.values()) < KERNEL_TOL, f"kernel vs f64 plain (dense "
           f"envelope shapes): {max(errs.values()):.2e} < {KERNEL_TOL:g}")
+    # its device time as the f32 model's dense envelope launches it (no
+    # stretching), beside the bound of that launch's shapes
+    ev = device_events(lambda: hk.morison_phase_batch_cuda(*d32),
+                       SHORT_REPS)
+    k1d = {k: kernel_median_us(ev, k) for k in
+           ("morison_phase_batch_kernel", "morison_totals_kernel")}
+    k1d_bound = k1_f32_bound(DESIGN_STEPS, coarse64.n_members, 15,
+                             d64[0].n_modes, coarse64.n_nodes)
+    k1d_us = sum(k1d.values())
+    print(f"[bound] {smi}: K1 f32 at the dense envelope's shapes (S="
+          f"{DESIGN_STEPS}, M={coarse64.n_members}, Q=15, N="
+          f"{d64[0].n_modes}, no stretching): "
+          f"{k1d['morison_phase_batch_kernel']:.1f} + "
+          f"{k1d['morison_totals_kernel']:.1f} us on the device; bound "
+          f"{k1d_bound[0]:.3f} us by {k1d_bound[1]} "
+          f"({k1d_bound[3] / 1e6:.2f} MFLOP, {k1d_bound[2] / 1e3:.1f} kB): "
+          f"{k1d_bound[0] / k1d_us:.1%} of the bound (torch.profiler)",
+          flush=True)
     kernel_rel = max(kernel_rel, max(errs.values()))
 
     # ---- 5. scan phase: the flagship scan, with the launch counts ----
@@ -3540,6 +4021,48 @@ def main() -> int:
               f"{r['err']:.2e}; most time: {r['top']} (torch.profiler)",
               flush=True)
 
+    # ---- 26-28. distribution and second-order analysis ----
+    flag = dict(coarse32=coarse32, refined32=refined32, waves32=waves32,
+                cases=cases, env=env, launches=env_launches)
+    design = dict(coarse64=coarse64, waves=waves_d, cases=cases_d, env=env_d)
+    t0 = time.perf_counter()
+    d1 = dist_one_rank_phase(pt, hk, dev, flag, design, large, pcgl)
+    print(f"[dist 1 rank] phase {time.perf_counter() - t0:.2f} s wall",
+          flush=True)
+    t0 = time.perf_counter()
+    d2 = dist_two_rank_phase(pt, hk, dev, flag, design, refined64)
+    print(f"[dist 2 ranks] phase {time.perf_counter() - t0:.2f} s wall",
+          flush=True)
+    t0 = time.perf_counter()
+    pdl = pdelta_phase(pt, hk, dev, coarse64, refined64, wave64, large)
+    print(f"[pdelta] phase {time.perf_counter() - t0:.2f} s wall", flush=True)
+    bench1 = d1["pcg"]["bench (accel fd)"]
+    print(f"[time] {smi}: distributed PCG, 1 rank (NCCL), {N_DOF_LARGE} "
+          "DOF, the bench's call: " + "; ".join(
+              f"{label}: {r['iters']} iterations (single device "
+              f"{r['single']}), wall {r['wall_s'][0]:.3f} / "
+              f"{r['wall_s'][1]:.3f} s = {r['wall_s'][1] * 1e6 / r['iters']:.0f}"
+              f" us an iteration with set-up, CUDA events {r['ms'][1]:.1f} ms"
+              for label, r in d1["pcg"].items())
+          + f"; {bench1['per_iter']:.3f} collectives an iteration step "
+          f"({bench1['collectives']} in {bench1['steps']} steps, host-staged "
+          "bytes "
+          f"{bench1['host_bytes']}); device busy {d1['pcg_busy_us']:.1f} us "
+          f"and {d1['pcg_ops']:.1f} device operations an iteration "
+          f"(difference of {PCG_PROFILE_ITERS}- and "
+          f"{2 * PCG_PROFILE_ITERS}-iteration solves, torch.profiler); "
+          "host time a call: " + ", ".join(
+              f"{k} {v:.1f} us" for k, v in d1["host_us"].items()) + "; "
+          f"flagship sharded envelope {d1['envelope_s'] * 1e3:.1f} ms (first "
+          f"call, host clock)", flush=True)
+    print(f"[time] {smi}: P-delta: analyze_pdelta 126 DOF "
+          f"{pdl['pdelta_ms']:.1f} ms; analyze_pdelta_condensed 9,612 DOF "
+          f"{pdl['cond_ms']:.1f} ms, 99,882 DOF {pdl['large_s'] * 1e3:.1f} "
+          f"ms; buckling_analysis_condensed 9,612 DOF "
+          f"{pdl['buck_cond_s'] * 1e3:.1f} ms vs dense "
+          f"{pdl['buck_dense_s'] * 1e3:.1f} ms (host clock, one synchronised "
+          "call each)", flush=True)
+
     l1 = sweep_ms["nested level 1"]
     print(json.dumps({"kernels": [{
         "name": "morison_phase_batch",
@@ -3557,7 +4080,16 @@ def main() -> int:
             "transient": dyn["launches"]["transient"]["f64"],
             **{label: n["sea_f32"] + n["sea_f64"]
                for label, n in sea_launches.items()
-               if n["sea_f32"] + n["sea_f64"]}},
+               if n["sea_f32"] + n["sea_f64"]},
+            "sharded_envelope_1rank": sum(
+                v for k, v in d1["launches"]["envelope"].items()
+                if k != "sweep"),
+            "sharded_dense_envelope_1rank":
+                d1["launches"]["dense_envelope"]["f64"],
+            "sharded_envelope_2ranks": [
+                n["k1"] for n in d2["launches"]["envelope"]],
+            "sharded_dense_envelope_2ranks": [
+                n["f64"] for n in d2["launches"]["dense"]]},
         "instances": {"f32": ["scan", "envelope", "dense_envelope_f32_model",
                               "options_scan"],
                       "f64": ["dense_envelope", "dynamic_condensed",
@@ -3586,6 +4118,10 @@ def main() -> int:
                                  "max_rel_err": r["max_rel_err"]}
                            for key, r in k64["shapes"].items()}},
         "f64_build": k64["build"],
+        "f32_dense_envelope_shapes": {
+            "device_us": k1d, "bound_us": k1d_bound[0],
+            "bound_by": k1d_bound[1],
+            "share": k1d_bound[0] / k1d_us},
         "launches_per_scan": scan_launches["morison_phase_batch"] // 2,
         "max_abs_err": kernel_err,
         "max_rel_err": kernel_rel,
@@ -3615,7 +4151,13 @@ def main() -> int:
             "dynamic_condensed": dyn["launches"]["dynamic_condensed"]["sweep"],
             "transient": dyn["launches"]["transient"]["sweep"],
             "modal_large": mlarge["launches"]["sweep"],
-            **{label: n["sweep"] for label, n in sea_launches.items()}},
+            **{label: n["sweep"] for label, n in sea_launches.items()},
+            "sharded_envelope_1rank": d1["launches"]["envelope"]["sweep"],
+            "sharded_scatter_1rank": d1["launches"]["scatter"]["sweep"],
+            "sharded_envelope_2ranks": [
+                n["sweep"] for n in d2["launches"]["envelope"]],
+            "pdelta_condensed_9612": pdl["cond_launches"]["sweep"],
+            "pdelta_condensed_99882": pdl["large_launches"]["sweep"]},
         "launches_per_scan": per_scan,
         "max_abs_err": sweep_err,
         "max_rel_err": sweep_rel,

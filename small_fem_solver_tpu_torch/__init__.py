@@ -16,7 +16,11 @@ Craig-Bampton), harmonic and transient response, and fatigue screening,
 and irregular seas: random-sea scans (condensed and dense), the
 frequency-domain transfer and response (quasi-static and dynamic),
 time- and frequency-domain scatter fatigue, long-term extremes and
-sea-driven transients.  Waves: Airy, Stokes (orders 1-5) and Fenton with the
+sea-driven transients, second-order analysis (P-delta, dense and
+condensed) and buckling (linearized global, Craig-Bampton reduced, member
+Euler screen), and the case-, state- and row-sharded paths on
+``torch.distributed`` (``mesh=``, ``parallel.multihost``,
+``parallel.pcg_dist``).  Waves: Airy, Stokes (orders 1-5) and Fenton with the
 reference's automatic selection.  The fused Morison kernel and the
 chain-sweep kernel (CUDA C++) have plain PyTorch versions beside them.
 The package imports no JAX; ``convert`` carries state over from the JAX
@@ -27,8 +31,8 @@ package.  Entry points run on the CUDA card unless the caller passes
 from .api import (AnalysisResults, CondensedPrepared, CondensedScanResults,
                   EnvelopeResults, FreqTransfer, LoadCase, LongTermExtremes,
                   ScatterFatigue, ScatterFatigueSpectral, analyze,
-                  analyze_condensed, analyze_phase_batch, analyze_prepared,
-                  analyze_ssi, design_envelope, design_envelope_condensed,
+                  analyze_condensed, analyze_pdelta, analyze_pdelta_condensed,
+                  analyze_phase_batch, analyze_prepared, analyze_ssi, design_envelope, design_envelope_condensed,
                   long_term_extremes, phase_scan_condensed,
                   phase_scan_prepared, prepare_condensed, scatter_fatigue,
                   scatter_fatigue_spectral, sea_response_batch,
@@ -41,6 +45,9 @@ from .device import resolve_device
 from .models.model import (JacketModel, add_appurtenances, build_model,
                            refine_model)
 from .models.presets import DEFAULT_STORM, default_3leg_jacket
+from .ops.buckling import (BucklingResults, EulerScreen, buckling_analysis,
+                           buckling_analysis_condensed,
+                           element_geometric_stiffness, euler_member_screen)
 from .ops.dispersion import apparent_period, solve_dispersion
 from .ops.dynamics import (HarmonicResponse, ModalResults,
                            TransientResponse, dynamic_response,

@@ -76,6 +76,7 @@ from .ops.assembly import (assemble_bcsr, assemble_dense, bcsr_block_diagonal,
                            element_dof_indices, node_gather_table,
                            node_sum_ordered)
 from .ops.beams import element_stiffness, internal_forces, matvec12
+from .ops.buckling import element_geometric_stiffness, model_release_W
 from .ops.fatigue import SECONDS_PER_YEAR
 from .ops.hopper_kernels import (cast_operands, kernel_route,
                                  morison_end_forces_batch_cuda,
@@ -90,6 +91,7 @@ from .ops.spectrum import (SpectralSea, make_random_sea, morison_sea_batch,
 from .ops.waves import FourierWave
 from .ops.wind import (wind_member_ends, wind_member_forces,
                        wind_topside_force)
+from .utils.persist import _case_slice
 
 @dataclasses.dataclass(frozen=True)
 class LoadCase:
@@ -165,8 +167,7 @@ class AnalysisResults(NamedTuple):
     max_displacement_node: torch.Tensor   # int index
     total_reaction: torch.Tensor   # [6] sums of reaction components
     # iterations and relative residual of the PCG solve (solver='pcg');
-    # the P-delta amplification of the JAX package's analyze_pdelta (not
-    # ported yet: always None here)
+    # the P-delta amplification (analyze_pdelta, analyze_pdelta_condensed)
     solver_iters: torch.Tensor | None = None
     solver_residual: torch.Tensor | None = None
     pdelta_amplification: torch.Tensor | None = None
@@ -933,14 +934,24 @@ def analyze(model: JacketModel, wave: FourierWave, case: LoadCase,
     correction, ``ops/coarse.py``) or 'auto' (two-level from 120 nodes
     on).  ``pcg_chunk``: iterations between the host's convergence reads
     (0: ``ops.solve.PCG_CHECK_EVERY``); the result is the same for every
-    value.  The distributed ``mesh`` solve is not ported yet.
+    value.
+
+    With ``mesh`` (a 1-D :class:`~torch.distributed.device_mesh.DeviceMesh`,
+    any axis name; every rank of its group makes the same call) and
+    ``solver='pcg'``, the linear solve is the row-sharded distributed PCG
+    (:func:`.parallel.pcg_dist.distributed_pcg`): K's 6x6 node-block rows
+    are split over the ranks, and loads, assembly and recovery stay
+    replicated (O(n), cheap next to the solve).  Every rank returns the
+    whole result.  ``mesh`` with another solver raises ``ValueError``, as
+    in the JAX package.
     """
     if pcg_precond not in ("auto", "block_jacobi", "two_level"):
         raise ValueError(f"unknown pcg_precond {pcg_precond!r}")
     if mesh is not None:
-        raise NotImplementedError(
-            "the distributed analyze (mesh=) is not ported yet (ROADMAP.md, "
-            "Queue A item 6: distribution)")
+        if solver != "pcg":
+            raise ValueError("mesh-distributed analyze requires "
+                             "solver='pcg'")
+        _mesh_info(mesh)
     if solver not in ("lu", "chol", "pcg"):
         raise ValueError(f"unknown solver {solver!r}")
     case = case.cast(model.dtype, model.device)
@@ -950,10 +961,11 @@ def analyze(model: JacketModel, wave: FourierWave, case: LoadCase,
                            else "block_jacobi")
         res = _analyze_pcg(model, wave, case, n_gauss, accel, stretching,
                            current_alpha, pcg_tol, pcg_maxiter, pcg_precond,
-                           pcg_chunk)
+                           pcg_chunk, mesh)
         rel = float(res.solver_residual)
         if not rel <= pcg_tol:     # catches NaN too
             warnings.warn(
+                f"{'distributed ' if mesh is not None else ''}"
                 f"PCG did not converge: relative residual {rel:.2e} > tol "
                 f"{pcg_tol:.1e} after {int(res.solver_iters)} iterations "
                 f"(maxiter {pcg_maxiter}); results may be inaccurate",
@@ -1016,20 +1028,28 @@ def _pcg_operators(A, model: JacketModel, precond: str):
     pre = solve_mod.block_jacobi_preconditioner(bcsr_block_diagonal(A),
                                                 fmask)
     if precond == "two_level":
-        agg, n_agg, plan = _cached_aggregates(A.pattern)
-        cs = coarse_mod.build_coarse_space(A, model.coords, model.fixed_mask,
-                                           agg=agg, n_agg=n_agg, plan=plan)
-        pre = coarse_mod.two_level_preconditioner(pre, cs)
+        pre = coarse_mod.two_level_preconditioner(pre,
+                                                  _coarse_space(A, model))
     return fmask, op, pre
+
+
+def _coarse_space(A, model: JacketModel):
+    """The two-level preconditioner's coarse space of ``A`` (the
+    aggregation memoized on the pattern)."""
+    agg, n_agg, plan = _cached_aggregates(A.pattern)
+    return coarse_mod.build_coarse_space(A, model.coords, model.fixed_mask,
+                                         agg=agg, n_agg=n_agg, plan=plan)
 
 
 def _analyze_pcg(model: JacketModel, wave: FourierWave, case: LoadCase,
                  n_gauss, accel, stretching, current_alpha, tol: float,
-                 maxiter: int, precond: str, chunk: int) -> AnalysisResults:
+                 maxiter: int, precond: str, chunk: int,
+                 mesh=None) -> AnalysisResults:
     """:func:`analyze` with ``solver='pcg'`` (``case`` in the model's dtype
     and device): pointwise loads, BCSR assembly, the BC-projected operator
     and ``precond`` ('block_jacobi' or 'two_level'), PCG on the free
-    loads, then reactions R = K U - F and the recovery.  One code path
+    loads (row-sharded over ``mesh`` when given), then reactions R = K U -
+    F and the recovery.  One code path
     whatever ``chunk``.  The JAX package's chunked route runs entry-major
     band operators on chain-refined meshes
     (``small_fem_solver_tpu/api.py:558-610``, ``ops/structured.py``), a
@@ -1046,11 +1066,19 @@ def _analyze_pcg(model: JacketModel, wave: FourierWave, case: LoadCase,
         F = assemble_loads(model, case, mor.nodal_forces, L_m)
         A = assemble_bcsr(Kg, _cached_bcsr_pattern(model.conn,
                                                    model.n_nodes))
-        fmask, op, pre = _pcg_operators(A, model, precond)
-        res = solve_mod.pcg(op, fmask * F, precond=pre, tol=tol,
-                            maxiter=maxiter,
-                            check_every=chunk or solve_mod.PCG_CHECK_EVERY)
-        U = fmask * res.x
+        check_every = chunk or solve_mod.PCG_CHECK_EVERY
+        if mesh is None:
+            fmask, op, pre = _pcg_operators(A, model, precond)
+            res = solve_mod.pcg(op, fmask * F, precond=pre, tol=tol,
+                                maxiter=maxiter, check_every=check_every)
+            U = fmask * res.x
+        else:
+            from .parallel.pcg_dist import distributed_pcg
+            U, n_iter, resid = distributed_pcg(
+                A, F, model.fixed_mask, mesh, tol=tol, maxiter=maxiter,
+                coarse=(_coarse_space(A, model) if precond == "two_level"
+                        else None), check_every=check_every)
+            res = solve_mod.PCGResult(x=U, n_iter=n_iter, residual=resid)
         R = bcsr_matvec(A, U) - F
         F1, F2 = internal_forces(K_local, T,
                                  U[element_dof_indices(model.conn)])
@@ -1179,6 +1207,133 @@ def analyze_condensed(coarse: JacketModel, refined: JacketModel, n_seg: int,
 
 
 # ---------------------------------------------------------------------------
+# Second-order (P-delta) analyses
+# ---------------------------------------------------------------------------
+
+def _amplification(U1: torch.Tensor, U2: torch.Tensor) -> torch.Tensor:
+    """The largest nodal translation ratio of the second-order solution
+    ``U2`` over the first-order ``U1`` (nodes that do not move count 1)."""
+    d1 = torch.linalg.norm(U1.reshape(-1, 6)[:, :3], dim=-1)
+    d2 = torch.linalg.norm(U2.reshape(-1, 6)[:, :3], dim=-1)
+    moved = d1 > 0
+    return torch.amax(torch.where(
+        moved, d2 / torch.where(moved, d1, torch.ones_like(d1)),
+        torch.ones_like(d1)))
+
+
+def analyze_pdelta(model: JacketModel, wave: FourierWave, case: LoadCase,
+                   n_iter: int = 3, n_gauss: int = 15, accel: str = "fd",
+                   stretching: str = "none", current_alpha=None,
+                   support_stiffness=None) -> AnalysisResults:
+    """Second-order (P-delta) static analysis: equilibrium on the deformed
+    geometry, linearized through the consistent geometric stiffness
+    (:func:`.ops.buckling.element_geometric_stiffness`).  Solves ``(K -
+    K_G(N)) U = F`` with ``N`` the member axial forces (positive in
+    compression), fixed-point iterated ``n_iter`` times from the linear
+    solution; for a member at axial load P the lateral response amplifies
+    by ~1 / (1 - P / P_cr).
+
+    Past the elastic buckling load (lambda_cr < 1 in
+    :func:`.ops.buckling.buckling_analysis`) the corrected system is not
+    positive definite and the Cholesky gives NaN, the signal that no
+    second-order static equilibrium exists (no error is raised).  Results
+    carry ``pdelta_amplification``, the largest nodal displacement ratio
+    against the first-order solution.  ``support_stiffness`` combines
+    P-delta with foundation springs (:func:`analyze_ssi`): the corrected
+    system is K + diag(k) - K_G.  Dense, on the model's device in its
+    dtype."""
+    case = case.cast(model.dtype, model.device)
+    ks_nodes, free, fixed = _ssi_spring_nodes(model, support_stiffness,
+                                              model.dtype)
+    with _full_f32_matmul():
+        mor = _pointwise_morison(model, wave, case, case.t_analysis, n_gauss,
+                                 accel, stretching, current_alpha)
+        K, K_local, T, L_m = _dense_system(model, case)
+        W = model_release_W(model, case.E, case.nu)
+        F = assemble_loads(model, case, mor.nodal_forces, L_m)
+        U1 = U = solve_mod.solve_factored(_spring_dfac(K, ks_nodes, free), F)
+        dofs = element_dof_indices(model.conn)
+        K2 = K
+        for _ in range(n_iter):
+            N = -internal_forces(K_local, T, U[dofs])[0][:, 0]
+            K2 = K - assemble_dense(element_geometric_stiffness(
+                model.coords, model.conn, N, W=W), model.conn, model.n_dof)
+            U = solve_mod.solve_factored(_spring_dfac(K2, ks_nodes, free), F)
+        res = _recover(model, case, K2, U, F, fixed, K_local, T, L_m, mor)
+        return res._replace(pdelta_amplification=_amplification(U1, U))
+
+
+def analyze_pdelta_condensed(coarse: JacketModel, refined: JacketModel,
+                             n_seg: int, wave, case: LoadCase,
+                             n_iter: int = 3, n_gauss: int = 15,
+                             accel: str = "analytic",
+                             solve_dtype: torch.dtype = torch.float64,
+                             chain_solver: str = "auto",
+                             support_stiffness=None) -> AnalysisResults:
+    """Second-order (P-delta) analysis of a chain-refined mesh: the fixed
+    point of :func:`analyze_pdelta` (solve, member axial forces, subtract
+    the consistent geometric stiffness, solve again), every solve through
+    the exact chain condensation, so it reaches the sizes of
+    :func:`analyze_condensed`.  The chains are refactored each round from
+    ``Kg - K_G(N)`` (their pivots stay positive definite below elastic
+    buckling; past it they give NaN, as on the dense path), and on the card
+    every condensed solve runs the chain-sweep kernel.  Loads are pointwise
+    at ``case.t_analysis`` in the model's dtype; the solves run in
+    ``solve_dtype`` with no refinement round, as in the JAX package.  Equals
+    :func:`analyze_pdelta` on the same refined mesh, since both iterate the
+    same linearized system."""
+    _check_refined_layout(coarse, refined, n_seg)
+    ks_nodes, free_np, fixed_np = _ssi_spring_nodes(coarse, support_stiffness,
+                                                    solve_dtype)
+    device = refined.device
+    free = torch.as_tensor(free_np, device=device)
+    fixed = torch.as_tensor(fixed_np, device=device)
+    factor, _condense, _backsub = _chain_fns(_resolve_chain_solver(
+        n_seg, chain_solver))
+    case_s = case.cast(solve_dtype, device)
+    case_l = case.cast(refined.dtype, device)
+    node1, node2 = coarse.conn[:, 0], coarse.conn[:, 1]
+    with _full_f32_matmul():
+        coords_s = refined.coords.to(solve_dtype)
+        sec_s = refined.sections.to(solve_dtype)
+        G = case_s.E / (2.0 * (1.0 + case_s.nu))
+        Kg, K_local, T, L_m = element_stiffness(
+            coords_s, refined.conn, sec_s, refined.sect_id, case_s.E, G,
+            release=refined.release)
+        W = model_release_W(dataclasses.replace(refined, coords=coords_s,
+                                                sections=sec_s),
+                            case_s.E, case_s.nu)
+        mor = _pointwise_morison(refined, wave, case_l, case_l.t_analysis,
+                                 n_gauss, accel)
+        F = assemble_loads(refined, case_l, mor.nodal_forces,
+                           L_m.to(refined.dtype)).to(solve_dtype)
+        F_I_nodes, g = _global_to_chain(F[None], coarse, n_seg)
+        dofs = element_dof_indices(refined.conn)
+
+        def solve_with(K_elems):
+            fac = factor(K_elems, n_seg)
+            K_I = assemble_dense(fac.K_super, coarse.conn, 6 * coarse.n_nodes)
+            U_In, v, F_cond, U_I = _condensed_solve(
+                F_I_nodes, g, fac, _spring_dfac(K_I, ks_nodes, free),
+                _condense, _backsub, node1, node2)
+            return _chain_to_global(U_In, v)[0], K_I, F_cond, U_I
+
+        U1, K_I, F_cond, U_I = solve_with(Kg)
+        U = U1
+        for _ in range(n_iter):
+            N = -internal_forces(K_local, T, U[dofs])[0][:, 0]
+            U, K_I, F_cond, U_I = solve_with(
+                Kg - element_geometric_stiffness(coords_s, refined.conn, N,
+                                                 W=W))
+        F1, F2 = internal_forces(K_local, T, U[dofs])
+        R = U_I @ K_I.T - F_cond                           # [1, 6 nc]
+        return _analysis_results(
+            sec_s, refined.sect_id, case_s.fy, U, F, F1, F2,
+            R[0, fixed].reshape(-1, 6), L_m, mor)._replace(
+                pdelta_amplification=_amplification(U1, U))
+
+
+# ---------------------------------------------------------------------------
 # Design envelopes: dense and condensed
 # ---------------------------------------------------------------------------
 
@@ -1227,6 +1382,28 @@ def _dense_batch(model: JacketModel, waves: FourierWave, cases: LoadCase,
     return C, cases, fixed, system, _spring_dfac(system[0], ks_nodes, free)
 
 
+def _mesh_info(mesh) -> tuple:
+    """(group, rank, size) of a ``mesh=`` argument (raises on anything but
+    a 1-D DeviceMesh with a live process group)."""
+    from .parallel import comm
+    return comm.mesh_info(mesh)
+
+
+def _mesh_cases(mesh, C: int, what: str) -> tuple:
+    """(slice of this rank's cases, every rank's block size) of a batch of
+    ``C`` cases sharded over ``mesh`` in contiguous equal blocks; a count
+    the mesh does not divide raises, as the JAX package's ``P('cases')``
+    placement does."""
+    _, rank, W = _mesh_info(mesh)
+    if C % W:
+        raise ValueError(
+            f"{what}: {C} cases do not divide evenly over the mesh's {W} "
+            "ranks (the case axis is sharded in equal blocks, as by the JAX "
+            "package's P('cases'))")
+    per = C // W
+    return slice(rank * per, (rank + 1) * per), [per] * W
+
+
 def _tensor_fields(obj) -> list:
     """Names of the tensor fields of a wave or case dataclass."""
     return [f.name for f in dataclasses.fields(obj)
@@ -1256,16 +1433,25 @@ def design_envelope(model: JacketModel, waves: FourierWave, cases: LoadCase,
     and the load assembly (``torch.func.vmap`` over the cases), then all
     C x S load vectors are one multi-RHS solve, and the recovery is
     batched.  The result keeps the full utilization field [C, S, M].
+
+    With ``mesh`` (a 1-D DeviceMesh, axis 'cases'; every rank of its group
+    makes the same call) the case batch is split into equal contiguous
+    rank blocks: each rank factors K and runs its block (one launch of
+    K1's f64 instance on its slice of the batch), and the blocks are
+    all-gathered, so every rank returns the whole envelope.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the case-sharded envelope (mesh=) is not ported yet (ROADMAP.md, "
-            "Queue A item 6: distribution)")
     _check_no_slam(cases, "design_envelope")
+    if mesh is not None:
+        _mesh_info(mesh)
     dtype, dev = model.dtype, model.device
     with _full_f32_matmul():
         C, cases, _, (K, K_local, T, L_m), fac = _dense_batch(
             model, waves, cases, support_stiffness)
+        if mesh is not None:
+            block, sizes = _mesh_cases(mesh, C, "design_envelope")
+            waves, cases = _case_slice(waves, block), _case_slice(cases,
+                                                                  block)
+            C = sizes[0]
         fields = _tensor_fields(cases)
         ts = (torch.arange(n_steps, dtype=dtype, device=dev)
               * waves.T.to(dtype)[:, None] / n_steps)          # [C, S]
@@ -1299,6 +1485,8 @@ def design_envelope(model: JacketModel, waves: FourierWave, cases: LoadCase,
         vm = von_mises_8pt(model.sections, model.sect_id,
                            *(F1[..., c] for c in range(6)))
         util = vm.reshape(C, n_steps, -1) / cases.fy[:, None, None]
+    if mesh is not None:
+        ts, util, tot = _gather(mesh, sizes, ts, util, tot)
     return _envelope_from_reductions(
         ts, torch.amax(util, dim=-1), torch.amax(util, dim=(0, 1)),
         tot)._replace(utilization=util)
@@ -1318,15 +1506,15 @@ def design_sweep(model: JacketModel, waves: FourierWave, cases: LoadCase,
     load assembly of all cases run as one case-batched evaluation (in
     chunks of at most ``POINTWISE_CHUNK_ELEMS`` kinematics elements), then
     one multi-RHS solve and a batched recovery.  Returns
-    :class:`AnalysisResults` with a leading case axis.
+    :class:`AnalysisResults` with a leading case axis.  With ``mesh`` (a
+    1-D DeviceMesh, axis 'cases') each rank runs its equal contiguous
+    block of cases and every rank returns the whole batch (all-gathered).
     """
     if solver not in ("chol", "lu"):
         raise ValueError(f"design_sweep supports dense solvers "
                          f"('chol'/'lu'); got {solver!r}")
     if mesh is not None:
-        raise NotImplementedError(
-            "the case-sharded sweep (mesh=) is not ported yet (ROADMAP.md, "
-            "Queue A item 6: distribution)")
+        _mesh_info(mesh)
     waves = waves.to(model.dtype, model.device)
     per_case = ((model.n_members + model.n_appurtenances) * n_gauss
                 * waves.n_modes)
@@ -1334,6 +1522,11 @@ def design_sweep(model: JacketModel, waves: FourierWave, cases: LoadCase,
     with _full_f32_matmul():
         C, cases, fixed, (K, K_local, T, L_m), fac = _dense_batch(
             model, waves, cases, support_stiffness)
+        if mesh is not None:
+            block, sizes = _mesh_cases(mesh, C, "design_sweep")
+            waves, cases = _case_slice(waves, block), _case_slice(cases,
+                                                                  block)
+            C = sizes[0]
         wf, cf = _tensor_fields(waves), _tensor_fields(cases)
 
         def loads(w, c):
@@ -1350,9 +1543,17 @@ def design_sweep(model: JacketModel, waves: FourierWave, cases: LoadCase,
         mor = type(parts[0][1])(*(torch.cat(x) for x in
                                   zip(*(p[1] for p in parts))))
         U = solve_mod.solve_factored(fac, F)               # [C, n_dof]
-        return _recover(model, dataclasses.replace(cases,
-                                                   fy=cases.fy[:, None]),
-                        K, U, F, fixed, K_local, T, L_m, mor)
+        res = _recover(model, dataclasses.replace(cases,
+                                                  fy=cases.fy[:, None]),
+                       K, U, F, fixed, K_local, T, L_m, mor)
+    return res if mesh is None else _gather(mesh, sizes, res)[0]
+
+
+def _gather(mesh, sizes, *xs):
+    """The rank blocks of each of ``xs`` (a leading case axis) joined in
+    rank order on every rank (:func:`.parallel.comm.gather_tree`)."""
+    from .parallel import comm
+    return comm.gather_tree(xs, mesh, sizes)
 
 
 def _envelope_from_reductions(ts, per_phase, member_envelope, tot):
@@ -1420,11 +1621,18 @@ def design_envelope_condensed(coarse: JacketModel, refined: JacketModel,
     case equals its prepared scan bit for bit; ``'separable'`` (its plain
     version) solves ``case_batch`` cases per condensed solve.  In float64
     results do not depend on ``case_batch``.
+
+    With ``mesh`` (a 1-D DeviceMesh, axis 'cases'; every rank of its group
+    makes the same call) every rank factors the case-independent chains
+    itself and streams its equal contiguous block of cases; the per-case
+    reductions are all-gathered and the member envelope is one
+    all-reduce-max, so every rank returns the whole envelope, bit-equal
+    to the unsharded call where a case's arithmetic does not depend on its
+    batch (``kinematics='fused'``, or a ``case_batch`` that divides the
+    rank blocks).
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "the case-sharded envelope (mesh=) is not ported yet (ROADMAP.md, "
-            "Queue A item 6: distribution)")
+        _mesh_info(mesh)
     _check_shared_material(cases)
     _check_no_slam(cases, "design_envelope_condensed")
     _check_batch_kinematics(kinematics)
@@ -1432,6 +1640,10 @@ def design_envelope_condensed(coarse: JacketModel, refined: JacketModel,
         raise ValueError(f"case_batch must be >= 1, got {case_batch}")
     # every numeric field as [C] in the solve dtype, so each case indexes
     C, cases = _case_batch(waves, cases, solve_dtype, refined.device)
+    if mesh is not None:
+        block, sizes = _mesh_cases(mesh, C, "design_envelope_condensed")
+        waves, cases = _case_slice(waves, block), _case_slice(cases, block)
+        C = sizes[0]
     prep = prepare_condensed(
         coarse, refined, n_seg, E=cases.E[0], nu=cases.nu[0],
         chain_solver=chain_solver, solve_dtype=solve_dtype,
@@ -1446,8 +1658,12 @@ def design_envelope_condensed(coarse: JacketModel, refined: JacketModel,
             kinematics, stretching, current_alpha)
             for lo in range(0, C, bs)]
     ts, per_phase, member_max, tot = (torch.cat(x) for x in zip(*chunks))
-    return _envelope_from_reductions(ts, per_phase,
-                                     torch.amax(member_max, dim=0), tot)
+    member_env = torch.amax(member_max, dim=0)
+    if mesh is not None:
+        from .parallel import comm
+        ts, per_phase, tot = _gather(mesh, sizes, ts, per_phase, tot)
+        member_env = comm.all_reduce_max(member_env, mesh)
+    return _envelope_from_reductions(ts, per_phase, member_env, tot)
 
 
 # ---------------------------------------------------------------------------
@@ -2027,14 +2243,16 @@ def scatter_fatigue_spectral(prep: CondensedPrepared, case: LoadCase,
 
     The states run one after another, each its own condensed solve (the
     JAX package streams them through ``lax.map``): one state's memory,
-    and each state equals its single-state call.  ``mesh=`` (the
-    state-sharded diagram) raises ``NotImplementedError``."""
+    and each state equals its single-state call.  With ``mesh`` (a 1-D
+    DeviceMesh, axis 'cases'; every rank of its group makes the same call)
+    the states are padded to a multiple of the ranks by repeating the last
+    sea with zero occurrence, each rank runs its equal contiguous block,
+    the per-state rows are all-gathered (the padding stripped) and summed
+    in state order on every rank: the same bits as the unsharded call."""
     states = _scatter_states(states, "scatter_fatigue_spectral")
     _check_no_slam(case, "scatter_fatigue_spectral")
     if mesh is not None:
-        raise NotImplementedError(
-            "the state-sharded scatter (mesh=) is not ported yet (ROADMAP.md, "
-            "Queue A item 6: distribution)")
+        _mesh_info(mesh)
     case = case.cast(prep.refined.dtype, prep.refined.device)
     dyn = None
     if dynamic:
@@ -2050,11 +2268,21 @@ def scatter_fatigue_spectral(prep: CondensedPrepared, case: LoadCase,
     seas, heads, occs, B = _scatter_spectral_setup(
         prep, case, states, d, n_components=n_components, seed=seed,
         spectrum=spectrum, U_c=U_c, spreading_s=spreading_s)
-    nb, wl, mu, sig, mean_s, nu0 = (
-        x.cpu().numpy() for x in _scatter_spectral_batched(
-            prep, case, seas, heads, occs, dyn, n_gauss, current_alpha,
-            curve, float(exposure_years), float(storm_hours), scf,
-            hydro_damping))
+    if mesh is not None:
+        _, rank, W = _mesh_info(mesh)
+        n_pad = (-B) % W
+        seas = seas + [seas[-1]] * n_pad
+        heads = torch.cat([heads, heads[-1:].expand(n_pad)])
+        occs = torch.cat([occs, occs.new_zeros(n_pad)])
+        per = (B + n_pad) // W
+        block = slice(rank * per, (rank + 1) * per)
+        seas, heads, occs = seas[block], heads[block], occs[block]
+    rows = _scatter_spectral_batched(
+        prep, case, seas, heads, occs, dyn, n_gauss, current_alpha, curve,
+        float(exposure_years), float(storm_hours), scf, hydro_damping)
+    if mesh is not None:
+        rows = _gather(mesh, [per] * W, *rows)
+    nb, wl, mu, sig, mean_s, nu0 = (x[:B].cpu().numpy() for x in rows)
     d_nb, d_wl = nb.sum(axis=0), wl.sum(axis=0)
     with np.errstate(divide="ignore"):
         life_nb = np.where(d_nb > 0, exposure_years / d_nb, np.inf)

@@ -15,14 +15,20 @@ of the part of ``small_fem_solver_tpu/native.py`` it needs).
 
 At first use the file is compiled with the host C++ compiler into
 ``small_fem_solver_tpu_torch/_build/`` (named by a hash of the source and
-flags; ``native/`` is never written) and loaded with ``ctypes``.  Without
+flags; ``native/`` is never written) and loaded with ``ctypes``.  The
+build holds a file lock in that directory (:func:`build_lock`, shared with
+the CUDA kernels' build) and writes a temporary name that it renames into
+place, so processes that start at once (the ranks of a group) compile it
+once and never load a half-written file.  Without
 a compiler, or when the build fails, each function returns ``None`` and
 its caller runs the numpy or Python version.  These are host-side
 routines, not device paths.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -41,26 +47,44 @@ _lib = None
 _tried = False
 
 
-def _build() -> pathlib.Path | None:
-    """The compiled library (built if needed), or None."""
+@contextlib.contextmanager
+def build_lock(build_dir: pathlib.Path):
+    """An exclusive lock on ``build_dir/.lock`` (created as needed) for
+    the enclosed build: a process that finds it held waits, then sees the
+    finished library."""
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with open(build_dir / ".lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _build(build_dir: pathlib.Path | None = None) -> pathlib.Path | None:
+    """The compiled library in ``build_dir`` (default ``_build/``; built if
+    needed, under :func:`build_lock`), or None."""
     cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
     if cxx is None or not _SOURCE.exists():
         return None
+    build_dir = pathlib.Path(build_dir or _BUILD_DIR)
     tag = hashlib.sha256(_SOURCE.read_bytes()
                          + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    so = _BUILD_DIR / f"libmesh_kit_{tag}.so"
+    so = build_dir / f"libmesh_kit_{tag}.so"
     if so.exists():
         return so
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    try:
-        subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, str(_SOURCE)], check=True,
-                       capture_output=True, timeout=300)
-    except (OSError, subprocess.SubprocessError):
-        os.unlink(tmp)
-        return None
-    os.replace(tmp, so)
+    with build_lock(build_dir):
+        if so.exists():         # built by another process meanwhile
+            return so
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
+        os.close(fd)
+        try:
+            subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, str(_SOURCE)],
+                           check=True, capture_output=True, timeout=300)
+        except (OSError, subprocess.SubprocessError):
+            os.unlink(tmp)
+            return None
+        os.replace(tmp, so)
     return so
 
 

@@ -26,7 +26,9 @@ with Z0 = T^{-1} [C_0; 0; ...], Zn = T^{-1} [...; 0; B_{n-1}].
 
 Every 6x6 pivot is symmetrically Jacobi-scaled before its Cholesky: the
 rotational and translational DOFs differ by ~L^2 in magnitude, and the
-unscaled Schur blocks lose definiteness to float32 rounding.
+unscaled Schur blocks lose definiteness to float32 rounding.  A pivot
+that is not positive definite (a chain past buckling in a P-delta round)
+gives NaN, as in the JAX package, not an error.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from .hopper_kernels import chain_sweep_cuda
+from .solve import cholesky_or_nan
 
 
 def node_sum(values: torch.Tensor, nodes: torch.Tensor,
@@ -98,8 +101,7 @@ def factor_chains(K_elems: torch.Tensor, n_seg: int) -> ChainFactor:
         rhs = torch.cat([U_pad[p], rhs0, -Lp @ zn, Lp, eye], dim=-1)
         dd = 1.0 / torch.sqrt(torch.abs(torch.diagonal(denom, dim1=-2,
                                                        dim2=-1)))
-        Ld = torch.linalg.cholesky(denom * dd[..., :, None]
-                                   * dd[..., None, :])
+        Ld = cholesky_or_nan(denom * dd[..., :, None] * dd[..., None, :])
         x = dd[..., :, None] * torch.cholesky_solve(dd[..., :, None] * rhs,
                                                     Ld)
         cprime, z0, zn, dinvl, dinv = x.split(6, dim=-1)

@@ -37,8 +37,11 @@ library with a plain C interface under ``small_fem_solver_tpu_torch/_build/``
 (keyed by a hash of the source and flags, so an edited kernel is rebuilt)
 and loaded with ``ctypes``; a launch takes raw device pointers and
 PyTorch's current stream.  :func:`build_all` starts one ``nvcc`` per
-source, all at once.  Nothing is built or imported when this module is
-imported.
+source, all at once, under the build directory's file lock
+(``native.build_lock``), so the ranks of a process group that reach it
+together compile each library once.  Nothing is built or imported when
+this module is imported.  :func:`launch_counts` reads (and resets) the
+launch counters.
 """
 from __future__ import annotations
 
@@ -54,6 +57,7 @@ import tempfile
 import numpy as np
 import torch
 
+from ..native import build_lock
 from .morison import (MorisonPhaseBatch, _mode_spatial_coeffs,
                       gauss_legendre_01, morison_end_forces,
                       morison_end_forces_batch, nodal_scatter)
@@ -123,16 +127,42 @@ def build_all(names=KERNELS) -> dict:
     """Compile (if needed) and load the named kernel libraries; returns
     {name: ctypes.CDLL}.
 
-    Missing libraries are compiled concurrently, one ``nvcc`` per source.
-    Each file is named by its source hash and written atomically, so
-    concurrent first uses cannot load a half-written file.
+    Missing libraries are compiled concurrently, one ``nvcc`` per source,
+    under the build directory's file lock (:func:`..native.build_lock`):
+    processes that reach the build at once (the ranks of a group) compile
+    each library once.  Each file is named by its source hash and written
+    to a temporary name renamed into place, so no process loads a
+    half-written file.
     """
     todo = {n: _library_path(n) for n in names if n not in _libs}
+    if not all(so.exists() for so in todo.values()):
+        with build_lock(_BUILD_DIR):
+            _compile({n: so for n, so in todo.items() if not so.exists()})
+    for name, so in todo.items():
+        lib = ctypes.CDLL(str(so))
+        for fn, (argtypes, restype) in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        if name == "morison_phase_batch" and (
+                lib.morison_params_size() != ctypes.sizeof(_MorisonParams)
+                or lib.morison_harm64_params_size()
+                != ctypes.sizeof(_Harm64Params)
+                or lib.morison_sea_params_size_f32()
+                != ctypes.sizeof(_SeaParams)
+                or lib.morison_sea_params_size_f64()
+                != ctypes.sizeof(_SeaParams64)):
+            raise RuntimeError("MorisonParams / SeaParamsT / Harm64Params in "
+                               "morison_phase_batch.cu and their ctypes "
+                               "mirrors differ in size")
+        _libs[name] = lib
+    return {n: _libs[n] for n in names}
+
+
+def _compile(todo: dict) -> None:
+    """nvcc each ``{name: library path}`` concurrently (the caller holds
+    the build lock); raises with nvcc's output on a failure."""
     jobs = {}
     for name, so in todo.items():
-        if so.exists():
-            continue
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
         os.close(fd)
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(_CSRC / f"{name}.cu")]
@@ -152,24 +182,6 @@ def build_all(names=KERNELS) -> dict:
             os.replace(tmp, todo[name])
     if failed:
         raise RuntimeError("\n".join(failed))
-    for name, so in todo.items():
-        lib = ctypes.CDLL(str(so))
-        for fn, (argtypes, restype) in _SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
-        if name == "morison_phase_batch" and (
-                lib.morison_params_size() != ctypes.sizeof(_MorisonParams)
-                or lib.morison_harm64_params_size()
-                != ctypes.sizeof(_Harm64Params)
-                or lib.morison_sea_params_size_f32()
-                != ctypes.sizeof(_SeaParams)
-                or lib.morison_sea_params_size_f64()
-                != ctypes.sizeof(_SeaParams64)):
-            raise RuntimeError("MorisonParams / SeaParamsT / Harm64Params in "
-                               "morison_phase_batch.cu and their ctypes "
-                               "mirrors differ in size")
-        _libs[name] = lib
-    return {n: _libs[n] for n in names}
 
 
 def build(name: str) -> ctypes.CDLL:
@@ -1029,3 +1041,19 @@ def chain_sweep_cuda(fac, g: torch.Tensor, split: bool = False):
 
 
 chain_sweep_cuda.launches = 0
+
+
+def launch_counts(reset: bool = False) -> dict:
+    """The kernel launch counters of this process: ``sweep`` (the chain
+    sweep), ``k1`` (every Morison kernel launch) and one per K1 instance;
+    with ``reset`` every counter is set to 0 after it is read (a rank of a
+    process group reads its own counters this way)."""
+    counts = {"sweep": chain_sweep_cuda.launches,
+              "k1": morison_phase_batch_cuda.launches,
+              **morison_phase_batch_cuda.instance_launches}
+    if reset:
+        chain_sweep_cuda.launches = 0
+        morison_phase_batch_cuda.launches = 0
+        inst = morison_phase_batch_cuda.instance_launches
+        inst.update({k: 0 for k in inst})
+    return counts

@@ -158,12 +158,23 @@ class DenseFactor(NamedTuple):
     n_dof: int
 
 
+def cholesky_or_nan(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of each SPD matrix in ``A`` [..., n, n]; a
+    matrix that is not positive definite gets an all-NaN factor, as
+    ``jnp.linalg.cholesky`` gives (a second-order system past buckling),
+    instead of an error.  No host synchronisation on the card."""
+    L, info = torch.linalg.cholesky_ex(A)
+    return torch.where((info == 0)[..., None, None], L,
+                       torch.full_like(L, float("nan")))
+
+
 def factor_dense(K: torch.Tensor, free_dofs) -> DenseFactor:
-    """Cholesky-factor the Jacobi-scaled free-free block once."""
+    """Cholesky-factor the Jacobi-scaled free-free block once (NaN when it
+    is not positive definite: :func:`cholesky_or_nan`)."""
     free = torch.as_tensor(free_dofs, device=K.device)
     K_ff = K[free][:, free]
     d = 1.0 / torch.sqrt(torch.diagonal(K_ff))
-    L = torch.linalg.cholesky(K_ff * d[:, None] * d[None, :])
+    L = cholesky_or_nan(K_ff * d[:, None] * d[None, :])
     return DenseFactor(chol=L, scale=d, K_ff=K_ff, free_dofs=free,
                        n_dof=K.shape[0])
 

@@ -9,8 +9,8 @@ feed the design envelopes (:func:`~..api.design_envelope`,
 per-case pointwise loads run as one case-batched evaluation
 (``torch.func.vmap``).  ``design_sweep`` lives in ``api.py`` beside
 ``design_envelope``, whose set-up it shares, and is re-exported here under
-its JAX name.  The case-sharded sweep (``mesh=``) is not ported yet
-(ROADMAP.md, Queue A item 6).
+its JAX name.  ``mesh=`` (a 1-D DeviceMesh) shards the case axis over
+the ranks of its group (:mod:`.comm`).
 """
 from __future__ import annotations
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import os
 import pathlib
 
 import numpy as np
@@ -144,8 +145,12 @@ def design_envelope_resumable(model_or_coarse, waves, cases, out_dir,
     ``refined``/``n_seg`` the condensed envelope runs, else the dense
     :func:`~..api.design_envelope`.  ``max_chunks`` bounds the blocks
     computed by this call (the return is ``None`` until every chunk
-    exists); other keyword arguments go to the envelope.  Returns the
-    merged EnvelopeResults (CPU tensors).
+    exists); other keyword arguments go to the envelope, ``mesh=`` among
+    them: then every rank of the mesh's group makes the same call, the
+    chunks still to compute are listed before any is written (so the ranks
+    agree on them), and each rank writes the (identical) files under its
+    own temporary names.  Returns the merged EnvelopeResults (CPU
+    tensors).
     """
     from ..api import design_envelope, design_envelope_condensed
 
@@ -167,14 +172,15 @@ def design_envelope_resumable(model_or_coarse, waves, cases, out_dir,
                 f"resume directory {out} holds chunks of a DIFFERENT sweep "
                 f"(mismatched fields: {diff}); use a fresh out_dir or delete "
                 f"the stale chunks")
-    else:
-        mpath.write_text(json.dumps(manifest))
+    todo = [i for i in range(n_chunks)
+            if not (out / f"chunk_{i:04d}.npz").exists()]
+    if not mpath.exists():
+        tmp = mpath.with_suffix(f".{os.getpid()}.tmp")
+        tmp.write_text(json.dumps(manifest))
+        tmp.rename(mpath)
 
-    done = 0
-    for i in range(n_chunks):
+    for done, i in enumerate(todo):
         path = out / f"chunk_{i:04d}.npz"
-        if path.exists():
-            continue
         if max_chunks is not None and done >= max_chunks:
             return None
         sl = slice(i * chunk_size, min((i + 1) * chunk_size, n_cases))
@@ -184,9 +190,8 @@ def design_envelope_resumable(model_or_coarse, waves, cases, out_dir,
                                             w_i, c_i, **kw)
         else:
             env = design_envelope(model_or_coarse, w_i, c_i, **kw)
-        tmp = path.with_suffix(".tmp.npz")
+        tmp = path.with_suffix(f".{os.getpid()}.tmp.npz")
         save_results(tmp, env)
         tmp.rename(path)
-        done += 1
     return merge_envelope_chunks([load_results(out / f"chunk_{i:04d}.npz")
                                   for i in range(n_chunks)])

@@ -241,6 +241,70 @@ def test_f64_batch_chunks_are_bit_equal(monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lo,hi", [(3, 7), (4, 8), (7, 8)])
+def test_f64_case_slice_mid_batch_is_bit_equal(lo, hi):
+    """K1's case-batched f64 instance on a block of cases that starts
+    mid-batch (a rank's block of a case-sharded dense envelope): the
+    sliced batch's launch, and the launch of ``case_slice`` operands, give
+    the same cases of the whole batch's launch bit for bit, and the block
+    matches the plain version at 1e-12."""
+    dev = _device()
+    m = pt.default_3leg_jacket(device=dev)
+    C = 8
+    waves = pt.make_wave_batch(np.linspace(4.0, 15.0, C), 9.4, 50.0, U_c=1.7,
+                               model="stokes", N=5, n_modes=8,
+                               dtype=torch.float64, device=dev)
+    f64 = dict(dtype=torch.float64, device=dev)
+    dirs = torch.linspace(0.0, 315.0, C, **f64)
+    ts = torch.arange(36, **f64)[None, :] * waves.T[:, None] / 36
+    D = m.sections.D_outer[m.sect_id] / 1000.0
+    args = (waves, m.coords, m.conn, D, dirs, dirs, 0.7, 2.0, 1025.0, ts)
+    whole = hk.morison_end_forces_batch_cuda(*args)
+    block = hk.morison_end_forces_batch_cuda(
+        waves.case(slice(lo, hi)), m.coords, m.conn, D, dirs[lo:hi],
+        dirs[lo:hi], 0.7, 2.0, 1025.0, ts[lo:hi])
+    assert all(torch.equal(a[lo:hi], b) for a, b in zip(whole, block))
+    k = hk.batch_kernel_operands(*args, n_gauss=15, current_alpha=None)
+    F1, F2, totals = hk.launch_morison_batch64(hk.case_slice(k, lo, hi),
+                                               False)
+    assert torch.equal(F1, block[0]) and torch.equal(F2, block[1])
+    assert torch.equal(totals[..., :3], block[2])
+    plain = morison_end_forces_batch(
+        waves.case(slice(lo, hi)), m.coords, m.conn, D, dirs[lo:hi],
+        dirs[lo:hi], 0.7, 2.0, 1025.0, ts[lo:hi])
+    assert max(_rel(a, b) for a, b in zip(block, plain)) <= KERNEL_TOL_F64
+
+
+@pytest.mark.cuda
+def test_single_rank_nccl_envelope_is_bit_equal(tmp_path):
+    """A case-sharded dense envelope in a single-rank NCCL group on the
+    card: one K1 f64 launch, bit-equal to the unsharded call."""
+    import torch.distributed as dist
+    from small_fem_solver_tpu_torch.parallel import multihost as mh
+    dev = _device()
+    m = pt.default_3leg_jacket(device=dev)
+    waves = pt.make_wave_batch([4.0, 9.0, 13.0, 15.0], 9.4, 50.0, U_c=1.7,
+                               model="stokes", N=5, n_modes=8,
+                               dtype=torch.float64, device=dev)
+    cases = pt.make_case_batch(pt.LoadCase(**STORM),
+                               wave_dir_deg=[0.0, 38.0, 200.0, 300.0])
+    ref = pt.design_envelope(m, waves, cases, n_steps=12)
+    assert mh.init_multihost(f"file://{tmp_path}/store", world_size=1,
+                             rank=0, backend="nccl")
+    try:
+        before = hk.morison_phase_batch_cuda.instance_launches["f64"]
+        env = pt.design_envelope(m, waves, cases, n_steps=12,
+                                 mesh=mh.global_case_mesh())
+        torch.cuda.synchronize()
+        assert hk.morison_phase_batch_cuda.instance_launches["f64"] \
+            == before + 1
+    finally:
+        dist.destroy_process_group()
+    assert all(torch.equal(a, b) for a, b in zip(env, ref)
+               if a is not None)
+
+
+@pytest.mark.cuda
 def test_kernel_is_bit_repeatable():
     """No float atomics: two launches give identical bits."""
     dev = _device()

@@ -137,7 +137,7 @@ def test_envelope_guards(port_setup, jax_waves):
         run(mixed)
     with pytest.raises(ValueError, match="slam"):
         run(dataclasses.replace(cases, slam_cs=1.0))
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         run(mesh=object())
     # foundation springs are ported: the sprung envelope against JAX's
     jc = sf.default_3leg_jacket()

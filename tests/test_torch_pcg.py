@@ -14,7 +14,8 @@ one thread (its solves are thousands of small operations):
 - the chunked route against JAX's (which runs its TPU band operators) at
   1e-5 x max |U|, as ``test_chunked_pcg_matches_single_program`` holds them;
 - the non-convergence warning (a small ``pcg_maxiter``, a NaN residual),
-  an unknown ``pcg_precond`` raising, ``mesh=`` still raising;
+  an unknown ``pcg_precond`` raising, a ``mesh=`` that is not a
+  DeviceMesh raising;
 - ``ops.solve.pcg`` against JAX's on a seeded right-hand side, with the
   sparse and the dense-oracle two-level preconditioners.
 """
@@ -183,7 +184,7 @@ def test_pcg_warns_when_not_converged(storm):
 def test_pcg_options_validated(storm):
     with pytest.raises(ValueError, match="pcg_precond"):
         _pcg(storm, pcg_precond="ilu")
-    with pytest.raises(NotImplementedError, match="mesh="):
+    with pytest.raises(TypeError, match="mesh="):
         _pcg(storm, mesh=object())
 
 

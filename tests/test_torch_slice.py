@@ -218,14 +218,16 @@ def test_default_device_is_the_card():
 def test_unported_options_raise():
     _, _, _, tc, tr, tw = _setup(jnp.float64, torch.float64)
     case = pt.LoadCase(**CASE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.analyze(tc, tw, case, solver="pcg", mesh=object())
+    # mesh= is ported (tests/test_torch_distributed.py): a dense solver
+    # with a mesh and a mesh of the wrong kind raise
+    with pytest.raises(ValueError, match="requires solver='pcg'"):
+        pt.analyze(tc, tw, case, solver="lu", mesh=object())
     waves = pt.make_wave_batch([8.0, 9.0], 9.4, 50.0, model="airy",
                                dtype=torch.float64, device="cpu")
     cases = pt.make_case_batch(case, wave_dir_deg=[0.0, 38.0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         pt.design_envelope(tc, waves, cases, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         pt.parallel.sweep.design_sweep(tc, waves, cases, mesh=object())
     with pytest.raises(ValueError):
         pt.phase_scan_condensed(tc, tr, N_SEG, tw, case, n_steps=2,

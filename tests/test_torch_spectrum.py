@@ -420,7 +420,7 @@ def check_scatter_spectral(jp, tp, jc, jr, seg, dynamic: bool, tol: float):
     lt = pt.long_term_extremes(out, return_years=(1.0, 100.0))
     assert np.isfinite(lt.stress_mpa).all()
     assert (lt.stress_mpa[1] >= lt.stress_mpa[0]).all()
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         pt.scatter_fatigue_spectral(tp, port_case(case), STATES, 50.0,
                                     25.0, mesh=object())
 
