@@ -91,6 +91,7 @@ from .ops.spectrum import (SpectralSea, make_random_sea, morison_sea_batch,
 from .ops.waves import FourierWave
 from .ops.wind import (wind_member_ends, wind_member_forces,
                        wind_topside_force)
+from .parallel import comm
 from .utils.persist import _case_slice
 
 @dataclasses.dataclass(frozen=True)
@@ -951,7 +952,7 @@ def analyze(model: JacketModel, wave: FourierWave, case: LoadCase,
         if solver != "pcg":
             raise ValueError("mesh-distributed analyze requires "
                              "solver='pcg'")
-        _mesh_info(mesh)
+        comm.mesh_info(mesh)
     if solver not in ("lu", "chol", "pcg"):
         raise ValueError(f"unknown solver {solver!r}")
     case = case.cast(model.dtype, model.device)
@@ -1382,19 +1383,12 @@ def _dense_batch(model: JacketModel, waves: FourierWave, cases: LoadCase,
     return C, cases, fixed, system, _spring_dfac(system[0], ks_nodes, free)
 
 
-def _mesh_info(mesh) -> tuple:
-    """(group, rank, size) of a ``mesh=`` argument (raises on anything but
-    a 1-D DeviceMesh with a live process group)."""
-    from .parallel import comm
-    return comm.mesh_info(mesh)
-
-
 def _mesh_cases(mesh, C: int, what: str) -> tuple:
     """(slice of this rank's cases, every rank's block size) of a batch of
     ``C`` cases sharded over ``mesh`` in contiguous equal blocks; a count
     the mesh does not divide raises, as the JAX package's ``P('cases')``
     placement does."""
-    _, rank, W = _mesh_info(mesh)
+    _, rank, W = comm.mesh_info(mesh)
     if C % W:
         raise ValueError(
             f"{what}: {C} cases do not divide evenly over the mesh's {W} "
@@ -1441,8 +1435,6 @@ def design_envelope(model: JacketModel, waves: FourierWave, cases: LoadCase,
     all-gathered, so every rank returns the whole envelope.
     """
     _check_no_slam(cases, "design_envelope")
-    if mesh is not None:
-        _mesh_info(mesh)
     dtype, dev = model.dtype, model.device
     with _full_f32_matmul():
         C, cases, _, (K, K_local, T, L_m), fac = _dense_batch(
@@ -1486,7 +1478,7 @@ def design_envelope(model: JacketModel, waves: FourierWave, cases: LoadCase,
                            *(F1[..., c] for c in range(6)))
         util = vm.reshape(C, n_steps, -1) / cases.fy[:, None, None]
     if mesh is not None:
-        ts, util, tot = _gather(mesh, sizes, ts, util, tot)
+        ts, util, tot = comm.gather_tree((ts, util, tot), mesh, sizes)
     return _envelope_from_reductions(
         ts, torch.amax(util, dim=-1), torch.amax(util, dim=(0, 1)),
         tot)._replace(utilization=util)
@@ -1513,8 +1505,6 @@ def design_sweep(model: JacketModel, waves: FourierWave, cases: LoadCase,
     if solver not in ("chol", "lu"):
         raise ValueError(f"design_sweep supports dense solvers "
                          f"('chol'/'lu'); got {solver!r}")
-    if mesh is not None:
-        _mesh_info(mesh)
     waves = waves.to(model.dtype, model.device)
     per_case = ((model.n_members + model.n_appurtenances) * n_gauss
                 * waves.n_modes)
@@ -1546,14 +1536,7 @@ def design_sweep(model: JacketModel, waves: FourierWave, cases: LoadCase,
         res = _recover(model, dataclasses.replace(cases,
                                                   fy=cases.fy[:, None]),
                        K, U, F, fixed, K_local, T, L_m, mor)
-    return res if mesh is None else _gather(mesh, sizes, res)[0]
-
-
-def _gather(mesh, sizes, *xs):
-    """The rank blocks of each of ``xs`` (a leading case axis) joined in
-    rank order on every rank (:func:`.parallel.comm.gather_tree`)."""
-    from .parallel import comm
-    return comm.gather_tree(xs, mesh, sizes)
+    return res if mesh is None else comm.gather_tree(res, mesh, sizes)
 
 
 def _envelope_from_reductions(ts, per_phase, member_envelope, tot):
@@ -1631,8 +1614,6 @@ def design_envelope_condensed(coarse: JacketModel, refined: JacketModel,
     batch (``kinematics='fused'``, or a ``case_batch`` that divides the
     rank blocks).
     """
-    if mesh is not None:
-        _mesh_info(mesh)
     _check_shared_material(cases)
     _check_no_slam(cases, "design_envelope_condensed")
     _check_batch_kinematics(kinematics)
@@ -1660,8 +1641,8 @@ def design_envelope_condensed(coarse: JacketModel, refined: JacketModel,
     ts, per_phase, member_max, tot = (torch.cat(x) for x in zip(*chunks))
     member_env = torch.amax(member_max, dim=0)
     if mesh is not None:
-        from .parallel import comm
-        ts, per_phase, tot = _gather(mesh, sizes, ts, per_phase, tot)
+        ts, per_phase, tot = comm.gather_tree((ts, per_phase, tot), mesh,
+                                              sizes)
         member_env = comm.all_reduce_max(member_env, mesh)
     return _envelope_from_reductions(ts, per_phase, member_env, tot)
 
@@ -2251,8 +2232,8 @@ def scatter_fatigue_spectral(prep: CondensedPrepared, case: LoadCase,
     in state order on every rank: the same bits as the unsharded call."""
     states = _scatter_states(states, "scatter_fatigue_spectral")
     _check_no_slam(case, "scatter_fatigue_spectral")
-    if mesh is not None:
-        _mesh_info(mesh)
+    if mesh is not None:        # before the state set-up and any reduction
+        _, rank, W = comm.mesh_info(mesh)
     case = case.cast(prep.refined.dtype, prep.refined.device)
     dyn = None
     if dynamic:
@@ -2269,7 +2250,6 @@ def scatter_fatigue_spectral(prep: CondensedPrepared, case: LoadCase,
         prep, case, states, d, n_components=n_components, seed=seed,
         spectrum=spectrum, U_c=U_c, spreading_s=spreading_s)
     if mesh is not None:
-        _, rank, W = _mesh_info(mesh)
         n_pad = (-B) % W
         seas = seas + [seas[-1]] * n_pad
         heads = torch.cat([heads, heads[-1:].expand(n_pad)])
@@ -2281,7 +2261,7 @@ def scatter_fatigue_spectral(prep: CondensedPrepared, case: LoadCase,
         prep, case, seas, heads, occs, dyn, n_gauss, current_alpha, curve,
         float(exposure_years), float(storm_hours), scf, hydro_damping)
     if mesh is not None:
-        rows = _gather(mesh, [per] * W, *rows)
+        rows = comm.gather_tree(rows, mesh, [per] * W)
     nb, wl, mu, sig, mean_s, nu0 = (x[:B].cpu().numpy() for x in rows)
     d_nb, d_wl = nb.sum(axis=0), wl.sum(axis=0)
     with np.errstate(divide="ignore"):

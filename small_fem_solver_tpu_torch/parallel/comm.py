@@ -87,16 +87,13 @@ def _back(x: torch.Tensor, device) -> torch.Tensor:
     return x.to(device)
 
 
-def all_gather_cat(x: torch.Tensor, mesh, sizes=None) -> torch.Tensor:
+def all_gather_cat(x: torch.Tensor, mesh, sizes) -> torch.Tensor:
     """The ranks' blocks ``x`` [n_r, ...] concatenated in rank order, on
-    every rank.  ``sizes``: every rank's n_r when the caller knows them
-    (else one more collective exchanges them); blocks shorter than the
-    largest are zero-padded for the backend and the padding stripped."""
+    every rank; ``sizes`` holds every rank's n_r.  Blocks shorter than
+    the largest are zero-padded for the backend and the padding
+    stripped."""
     group, _, W = mesh_info(mesh)
     x = x.contiguous()
-    if sizes is None:
-        n = torch.tensor([x.shape[0]], dtype=torch.int64, device=x.device)
-        sizes = [int(v) for v in all_gather_cat(n, mesh, [1] * W)]
     sizes = [int(s) for s in sizes]
     n_max = max(sizes)
     xs, back = _staged(x, group)

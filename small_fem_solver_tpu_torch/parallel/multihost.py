@@ -38,26 +38,22 @@ import torch.distributed as dist
 from . import comm
 
 
-def _default_backend() -> str:
-    return "nccl" if torch.cuda.is_available() else "gloo"
-
-
 def init_multihost(init_method: str | None = None,
-                   world_size: int | None = None, rank: int | None = None,
-                   backend: str | None = None) -> bool:
+                   world_size: int | None = None,
+                   rank: int | None = None) -> bool:
     """Initialise the default process group for a multi-process run.
 
     Returns False, and does nothing, when there is nothing to join: no
     ``init_method``, ``world_size`` unset or 1, and no ``WORLD_SIZE`` above
     1 in the environment.  Otherwise calls ``init_process_group``
     (``init_method`` defaults to ``env://``, torchrun's environment) and
-    returns True.  ``backend``: NCCL when CUDA is available (each rank on
-    card ``LOCAL_RANK``), gloo on the CPU."""
+    returns True.  The backend is NCCL when CUDA is available (each rank
+    on card ``LOCAL_RANK``), gloo on the CPU."""
     env_world = int(os.environ.get("WORLD_SIZE", "1") or 1)
     if (init_method is None and world_size in (None, 0, 1)
             and env_world <= 1):
         return False
-    backend = backend or _default_backend()
+    backend = "nccl" if torch.cuda.is_available() else "gloo"
     if backend == "nccl":
         local = int(os.environ.get("LOCAL_RANK", rank or 0))
         torch.cuda.set_device(local % torch.cuda.device_count())

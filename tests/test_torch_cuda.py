@@ -290,7 +290,7 @@ def test_single_rank_nccl_envelope_is_bit_equal(tmp_path):
                                wave_dir_deg=[0.0, 38.0, 200.0, 300.0])
     ref = pt.design_envelope(m, waves, cases, n_steps=12)
     assert mh.init_multihost(f"file://{tmp_path}/store", world_size=1,
-                             rank=0, backend="nccl")
+                             rank=0)
     try:
         before = hk.morison_phase_batch_cuda.instance_launches["f64"]
         env = pt.design_envelope(m, waves, cases, n_steps=12,

@@ -395,7 +395,7 @@ def test_single_rank_group_and_mesh_refusals(data, tmp_path):
             pt.design_envelope_condensed(d["tm"], d["tr"], N_SEG, d["tw"],
                                          d["tc"], n_steps=2, mesh=bad)
     assert mh.init_multihost(f"file://{tmp_path}/store", world_size=1,
-                             rank=0, backend="gloo") is True
+                             rank=0) is True
     try:
         mesh = mh.global_case_mesh()
         kw = dict(n_steps=2, solve_dtype=F64)
