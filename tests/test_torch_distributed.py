@@ -369,7 +369,7 @@ def test_shard_bcsr_round_trip(data):
 def test_multihost_on_one_process(data):
     """Without a process group: init_multihost() is a no-op returning
     False, no global mesh, the local slice is everything, and the
-    multi-host envelope equals the plain envelope."""
+    multi-host envelopes equal the plain ones."""
     assert not dist.is_initialized()
     assert mh.init_multihost() is False
     assert mh.global_case_mesh() is None
@@ -383,6 +383,13 @@ def test_multihost_on_one_process(data):
                                t_analysis=np.zeros(len(HS)))
     ref = pt.design_envelope(data["tm"], waves, cases, n_steps=4)
     assert same(env.max_util_per_case, ref.max_util_per_case)
+    cond = mh.multihost_design_envelope_condensed(
+        data["tm"], data["tr"], N_SEG, HS, 9.4, 50.0, 1.7,
+        pt.LoadCase(**BASE), wave_model="stokes", N=5, n_modes=8, n_steps=4,
+        dtype=F64, solve_dtype=F64)
+    ref = pt.design_envelope_condensed(data["tm"], data["tr"], N_SEG, waves,
+                                       cases, n_steps=4, solve_dtype=F64)
+    assert same(tuple(cond), tuple(ref))
 
 
 def test_single_rank_group_and_mesh_refusals(data, tmp_path):
