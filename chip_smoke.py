@@ -203,7 +203,10 @@ chain-sweep kernel, and checks them:
    DOF (the bench's call and the condensed loads' call: iterations within
    1% of phase 24's and of 1,354, utilization within 1e-8 of
    ``analyze_condensed``, a second run bit-equal, collectives, wall and
-   busy time an iteration); the group is destroyed;
+   busy time an iteration); the group is destroyed; then the host time
+   of a call of the PCG's collectives in two new single-rank processes,
+   c10d's flight recorder at its default buffer and off: fresh, after
+   10,000 collectives and after a profiler session;
 27. two-rank distribution phase (``spawn_ranks``: two gloo ranks on the
    one card, collectives staged through the host): K1's f64 instance on
    the second half of the 1,000 cases against its plain version and bit
@@ -2908,6 +2911,76 @@ def host_us(fn, n: int = 300) -> float:
     return (t1 - t0) / n * 1e6
 
 
+FR_BUFFER_VARS = ("TORCH_FR_BUFFER_SIZE", "TORCH_NCCL_TRACE_BUFFER_SIZE")
+PROBE_HISTORY = 10000   # collectives between the probe's first two readings
+
+
+def collective_host_probe() -> None:
+    """Host microseconds a call of the distributed PCG's collectives (the
+    99,882-DOF solution's ``all_gather_cat``, an ``ordered_sum`` of 3
+    dots) in a single-rank NCCL group of this process, printed as one
+    JSON line: fresh, after ``PROBE_HISTORY`` more collectives, and after
+    a torch.profiler session (the smoke's own process has made ~12,000
+    collectives and many profiler sessions when it reads them).
+    :func:`collective_host_us` runs it in fresh processes, since c10d's
+    flight recorder reads its buffer size once a process."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from small_fem_solver_tpu_torch.parallel import comm
+    from small_fem_solver_tpu_torch.parallel import multihost as mh
+    store = tempfile.mkdtemp(prefix="chip_smoke_probe_")
+    mh.init_multihost(f"file://{store}/store", world_size=1, rank=0)
+    try:
+        mesh = mh.global_case_mesh("dof")
+        x = torch.ones(N_DOF_LARGE, dtype=torch.float64,
+                       device=torch.device("cuda", 0))
+        dots = x[:3].clone()
+
+        def read():
+            return {"all_gather_cat": host_us(
+                        lambda: comm.all_gather_cat(x, mesh, [x.numel()])),
+                    "ordered_sum": host_us(
+                        lambda: comm.ordered_sum(dots, mesh))}
+        out = {"fresh": read()}
+        for _ in range(PROBE_HISTORY):
+            comm.ordered_sum(dots, mesh)
+        torch.cuda.synchronize()
+        out[f"after {PROBE_HISTORY} more"] = read()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts):
+            comm.ordered_sum(dots, mesh)
+            torch.cuda.synchronize()
+        out["after a profiler session"] = read()
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+
+
+def collective_host_us() -> dict:
+    """:func:`collective_host_probe` in two fresh processes, one after the
+    other: c10d's flight recorder at PyTorch's default buffer size
+    (``TORCH_FR_BUFFER_SIZE`` unset) and off (0)."""
+    out = {}
+    for label, size in (("flight recorder default", None),
+                        ("flight recorder off", "0")):
+        env = {k: v for k, v in os.environ.items()
+               if k not in FR_BUFFER_VARS}
+        if size is not None:
+            env[FR_BUFFER_VARS[0]] = size
+        p = subprocess.run(
+            [sys.executable, "-c",
+             "import chip_smoke; chip_smoke.collective_host_probe()"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            capture_output=True, text=True, timeout=300)
+        check(p.returncode == 0, f"collective host probe ({label}) ran "
+              f"(exit code {p.returncode})"
+              + (f": {p.stderr[-2000:]}" if p.returncode else ""))
+        out[label] = json.loads(p.stdout.strip().splitlines()[-1])
+    return out
+
+
 def pcg_per_iteration(pt, solve, iters=(PCG_PROFILE_ITERS,
                                         2 * PCG_PROFILE_ITERS)):
     """(device operations, busy us) an iteration of ``solve(n)``, a solve
@@ -3102,6 +3175,7 @@ def dist_one_rank_phase(pt, hk, dev, flag, design, large, pcgl):
     finally:
         dist.destroy_process_group()
     check(not dist.is_initialized(), "process group destroyed")
+    out["host_us_fr"] = collective_host_us()
     return out
 
 
@@ -3184,11 +3258,18 @@ def dist_two_rank_phase(pt, hk, dev, flag, design, refined64):
                         for k in ("envelope", "dense", "pcg")},
            "stats": {k: [r[f"{k}_stats"] for r in (r0, r1)]
                      for k in ("envelope", "dense", "pcg")}}
-    for k in ("envelope", "dense"):
+    # each rank's block: half the flagship's cases, so half the unsharded
+    # call's K1 f32 and sweep launches (10 / 40), and 500 dense cases in
+    # one K1 f64 launch; the PCG launches neither kernel
+    k1, sw = (flag["launches"][k] // 2
+              for k in ("morison_phase_batch", "chain_sweep"))
+    want = {"envelope": {"k1": k1, "f32": k1, "sweep": sw},
+            "dense": {"k1": 1, "f64": 1}, "pcg": {}}
+    for k, w in want.items():
         for r, n in enumerate(out["launches"][k]):
-            check(n["k1"] >= 1 and (k == "dense" or n["sweep"] >= 1),
-                  f"two ranks: rank {r} launched K1 {n['k1']}x and the "
-                  f"sweep {n['sweep']}x on the {k} path")
+            check(same_counts(n, w),
+                  f"two ranks: rank {r} launched {n} on the {k} path "
+                  f"(want {w})")
     print(f"[dist 2 ranks] one card, gloo: spawn + all calls {wall:.1f} s "
           f"wall; launches by rank {out['launches']}; collectives and "
           f"host-staged bytes by rank {out['stats']}; PCG 9,612 DOF "
@@ -4053,6 +4134,11 @@ def main() -> int:
           f"{2 * PCG_PROFILE_ITERS}-iteration solves, torch.profiler); "
           "host time a call: " + ", ".join(
               f"{k} {v:.1f} us" for k, v in d1["host_us"].items()) + "; "
+          "in a new single-rank process: " + "; ".join(
+              f"{label}, {stage}: " + ", ".join(f"{k} {v:.1f} us"
+                                                for k, v in r.items())
+              for label, stages in d1["host_us_fr"].items()
+              for stage, r in stages.items()) + "; "
           f"flagship sharded envelope {d1['envelope_s'] * 1e3:.1f} ms (first "
           f"call, host clock)", flush=True)
     print(f"[time] {smi}: P-delta: analyze_pdelta 126 DOF "

@@ -22,9 +22,11 @@ result does not depend on the chunk length.  The JAX package runs the
 same loop as a device ``while_loop``, and its ``pcg_chunk`` segments
 exist because one long TPU program trips the TPU runtime's watchdog
 (``small_fem_solver_tpu/ops/solve.py:217-224``); here the chunk length is
-only how often the host looks.  Dot products and norms are
-``torch.dot`` / ``torch.linalg.vector_norm`` (no atomics), so two runs on
-the card give bit-equal iterates.
+only how often the host looks.  Dot products are ``torch.dot`` (no
+atomics), so two runs on the card give bit-equal iterates; the stop test
+is the JAX package's distributed one, ``sqrt(r.r) / ||b||``, so the
+row-sharded solve (``parallel/pcg_dist.py``) runs this same loop with its
+own reduction of the dot products.
 """
 from __future__ import annotations
 
@@ -162,10 +164,10 @@ def cholesky_or_nan(A: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor of each SPD matrix in ``A`` [..., n, n]; a
     matrix that is not positive definite gets an all-NaN factor, as
     ``jnp.linalg.cholesky`` gives (a second-order system past buckling),
-    instead of an error.  No host synchronisation on the card."""
+    instead of an error.  The factor is filled in place (no second n x n
+    buffer) and the host is not synchronised on the card."""
     L, info = torch.linalg.cholesky_ex(A)
-    return torch.where((info == 0)[..., None, None], L,
-                       torch.full_like(L, float("nan")))
+    return L.masked_fill_((info != 0)[..., None, None], float("nan"))
 
 
 def factor_dense(K: torch.Tensor, free_dofs) -> DenseFactor:
@@ -214,78 +216,91 @@ class PCGResult(NamedTuple):
     residual: torch.Tensor       # ||r|| / ||b||, 0-d, on the device
 
 
+def local_dots(*pairs) -> tuple:
+    """The dot products ``a . b`` of the ``(a, b)`` pairs on one device:
+    the default reduction of the CG loop.  A sharded solve passes its own,
+    which sums the ranks' partials (``parallel/pcg_dist.py``)."""
+    return tuple(torch.dot(a, b) for a, b in pairs)
+
+
 def pcg_init(matvec: Callable, b: torch.Tensor, precond: Callable,
-             x0=None) -> tuple:
-    """Initial CG state ``(x, r, p, rz, it)``."""
+             x0=None, dots: Callable = local_dots) -> tuple:
+    """Initial CG state ``(x, r, p, rz, rr, it)``; ``rr`` = r.r carries
+    the stop test's residual norm."""
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
     z = precond(r)
-    return x, r, z, torch.dot(r, z), torch.zeros((), dtype=torch.int64,
-                                                 device=b.device)
+    rz, rr = dots((r, z), (r, r))
+    return x, r, z, rz, rr, torch.zeros((), dtype=torch.int64,
+                                        device=b.device)
 
 
-def pcg_bnorm(b: torch.Tensor) -> torch.Tensor:
+def pcg_bnorm(b: torch.Tensor, dots: Callable = local_dots) -> torch.Tensor:
     """||b||, floored at the dtype's smallest normal number (an all-zero
     right-hand side would otherwise report a residual of 0/0)."""
-    return torch.clamp(torch.linalg.vector_norm(b),
+    return torch.clamp(torch.sqrt(dots((b, b))[0]),
                        min=torch.finfo(b.dtype).tiny)
 
 
 def _pcg_running(state, bnorm, tol: float, it_stop: int) -> torch.Tensor:
     """The device-side "still running" flag: ``it < it_stop`` and the
-    relative residual above ``tol``."""
-    return torch.logical_and(
-        state[4] < it_stop,
-        torch.linalg.vector_norm(state[1]) / bnorm > tol)
+    relative residual ``sqrt(r.r) / bnorm`` above ``tol``."""
+    return torch.logical_and(state[5] < it_stop,
+                             torch.sqrt(state[4]) / bnorm > tol)
 
 
 def _pcg_step(matvec: Callable, precond: Callable, state, bnorm, tol,
-              it_stop) -> tuple:
+              it_stop, dots: Callable) -> tuple:
     """One CG iteration, applied only where the running flag holds (the
     state is left bit for bit as it was once CG has stopped)."""
-    x, r, p, rz, it = state
+    x, r, p, rz, rr, it = state
     go = _pcg_running(state, bnorm, tol, it_stop)
     Ap = matvec(p)
-    alpha = rz / torch.dot(p, Ap)
+    alpha = rz / dots((p, Ap))[0]
     r_new = r - alpha * Ap
     z = precond(r_new)
-    rz_new = torch.dot(r_new, z)
+    rz_new, rr_new = dots((r_new, z), (r_new, r_new))
     return (torch.where(go, x + alpha * p, x), torch.where(go, r_new, r),
             torch.where(go, z + (rz_new / rz) * p, p),
-            torch.where(go, rz_new, rz), it + go)
+            torch.where(go, rz_new, rz), torch.where(go, rr_new, rr), it + go)
 
 
 def pcg_run(matvec: Callable, precond: Callable, state, bnorm, tol: float,
-            it_stop: int, check_every: int = PCG_CHECK_EVERY) -> tuple:
-    """Run CG from ``state`` until the relative residual ``||r|| / bnorm``
-    is at most ``tol`` or ``it`` reaches ``it_stop``.  The host enqueues
-    ``check_every`` iterations, then reads the running flag once (the only
-    synchronisation); iterations past the stop are frozen on the device,
-    so the returned state is the same for every ``check_every``.  The
-    state is re-enterable."""
+            it_stop: int, check_every: int = PCG_CHECK_EVERY,
+            dots: Callable = local_dots) -> tuple:
+    """Run CG from ``state`` until the relative residual
+    ``sqrt(r.r) / bnorm`` is at most ``tol`` or ``it`` reaches
+    ``it_stop``.  The host enqueues ``check_every`` iterations, then reads
+    the running flag once (the only synchronisation); iterations past the
+    stop are frozen on the device, so the returned state is the same for
+    every ``check_every``.  ``dots``: the dot-product reduction
+    (:func:`local_dots`, or a sharded solve's).  The state is
+    re-enterable."""
     check_every = max(int(check_every), 1)
     while bool(_pcg_running(state, bnorm, tol, it_stop)):
         for _ in range(check_every):
-            state = _pcg_step(matvec, precond, state, bnorm, tol, it_stop)
+            state = _pcg_step(matvec, precond, state, bnorm, tol, it_stop,
+                              dots)
     return state
 
 
 def pcg(matvec: Callable, b: torch.Tensor, precond: Callable | None = None,
         x0=None, tol: float = 1e-10, maxiter: int = 1000,
-        check_every: int = PCG_CHECK_EVERY) -> PCGResult:
+        check_every: int = PCG_CHECK_EVERY,
+        dots: Callable = local_dots) -> PCGResult:
     """Preconditioned conjugate gradients on an SPD ``matvec`` (a closure
     over an already BC-projected operator, :func:`projected_operator`),
     converging on the relative residual ||r|| / ||b|| <= ``tol`` or after
-    ``maxiter`` iterations; ``check_every``: see :func:`pcg_run`."""
+    ``maxiter`` iterations; ``check_every`` and ``dots``: see
+    :func:`pcg_run`."""
     if precond is None:
         def precond(r):
             return r
-    state = pcg_init(matvec, b, precond, x0)
-    bnorm = pcg_bnorm(b)
-    x, r, _, _, it = pcg_run(matvec, precond, state, bnorm, tol, maxiter,
-                             check_every)
-    return PCGResult(x=x, n_iter=it,
-                     residual=torch.linalg.vector_norm(r) / bnorm)
+    state = pcg_init(matvec, b, precond, x0, dots)
+    bnorm = pcg_bnorm(b, dots)
+    x, _, _, _, rr, it = pcg_run(matvec, precond, state, bnorm, tol,
+                                 maxiter, check_every, dots)
+    return PCGResult(x=x, n_iter=it, residual=torch.sqrt(rr) / bnorm)
 
 
 def projected_operator(matvec: Callable,

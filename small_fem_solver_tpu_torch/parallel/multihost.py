@@ -29,7 +29,6 @@ import os
 import pathlib
 import tempfile
 import time
-import traceback
 
 import numpy as np
 import torch
@@ -228,43 +227,34 @@ def _for_rank(obj, rank: int, device, meshes: dict, mesh_device: str,
 def _rank_main(rank: int, world_size: int, backend: str, device: str,
                calls, tmp: str, return_exceptions: bool) -> None:
     """One rank of :func:`spawn_ranks`: join the group, run the calls,
-    write the results (on the CPU) or the error to ``tmp``."""
-    out_path = pathlib.Path(tmp) / f"rank{rank}.pt"
+    write the results (on the CPU) to ``tmp``."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        dev = torch.device("cuda", torch.cuda.current_device())
+    else:   # the ranks share the host's cores
+        torch.set_num_threads(max(1, torch.get_num_threads() // world_size))
+    dist.init_process_group(backend, init_method=f"file://{tmp}/store",
+                            world_size=world_size, rank=rank)
+    mesh_device = "cuda" if backend == "nccl" else "cpu"
+    meshes, results = {}, []
     try:
-        dev = torch.device(device)
-        if dev.type == "cuda":
-            torch.cuda.set_device(rank % torch.cuda.device_count())
-            dev = torch.device("cuda", torch.cuda.current_device())
-        else:   # the ranks share the host's cores
-            torch.set_num_threads(max(1, torch.get_num_threads()
-                                      // world_size))
-        dist.init_process_group(backend,
-                                init_method=f"file://{tmp}/store",
-                                world_size=world_size, rank=rank)
-        mesh_device = "cuda" if backend == "nccl" else "cpu"
-        meshes, results = {}, []
-        try:
-            for fn, args, kwargs in calls:
-                args = [_for_rank(a, rank, dev, meshes, mesh_device,
-                                  world_size) for a in args]
-                kwargs = {k: _for_rank(v, rank, dev, meshes, mesh_device,
-                                       world_size)
-                          for k, v in kwargs.items()}
-                try:
-                    res = fn(*args, **kwargs)
-                except Exception as e:      # noqa: BLE001 - handed back
-                    if not return_exceptions:
-                        raise
-                    res = e
-                results.append(to_device(res, "cpu"))
-        finally:
-            dist.destroy_process_group()
-        torch.save(results, f"{out_path}.tmp")
-        os.replace(f"{out_path}.tmp", out_path)
-    except BaseException:
-        pathlib.Path(tmp, f"rank{rank}.err").write_text(
-            traceback.format_exc())
-        raise
+        for fn, args, kwargs in calls:
+            args = [_for_rank(a, rank, dev, meshes, mesh_device, world_size)
+                    for a in args]
+            kwargs = {k: _for_rank(v, rank, dev, meshes, mesh_device,
+                                   world_size)
+                      for k, v in kwargs.items()}
+            try:
+                res = fn(*args, **kwargs)
+            except Exception as e:      # noqa: BLE001 - handed back
+                if not return_exceptions:
+                    raise
+                res = e
+            results.append(to_device(res, "cpu"))
+    finally:
+        dist.destroy_process_group()
+    torch.save(results, pathlib.Path(tmp) / f"rank{rank}.pt")
 
 
 def spawn_ranks(world_size: int, calls, backend: str | None = None,
@@ -280,56 +270,41 @@ def spawn_ranks(world_size: int, calls, backend: str | None = None,
     in the arguments are moved to the rank's device, a :class:`RankMesh`
     argument becomes the rank's 1-D DeviceMesh and a :class:`PerRank` one
     the rank's own value.
-    ``device``: 'cpu' (default) or 'cuda' (rank r on card r modulo the
-    cards).  ``backend``: default NCCL when every rank has a card of its
-    own, else gloo (NCCL refuses two ranks on one card; gloo stages CUDA
-    tensors through the host, :mod:`.comm`).  With ``return_exceptions``
-    an exception a call raises is returned in its place (the ranks must
-    agree on it, or the next collective waits on the ones that did not
-    raise); otherwise the first failing rank ends the launch with a
-    ``RuntimeError`` that carries its traceback.  The ranks are killed
-    after ``timeout`` seconds."""
-    import multiprocessing as mp
+    ``device``: the ranks' device type, ``None`` (the default) the card
+    (rank r on card r modulo the cards; raises without one), ``"cpu"`` for
+    CPU ranks.  ``backend``: default NCCL when every rank has a card of
+    its own, else gloo (NCCL refuses two ranks on one card; gloo stages
+    CUDA tensors through the host, :mod:`.comm`).  With
+    ``return_exceptions`` an exception a call raises is returned in its
+    place (the ranks must agree on it, or the next collective waits on the
+    ones that did not raise); otherwise the first failing rank ends the
+    launch, the others are killed and its traceback is raised
+    (``torch.multiprocessing.ProcessRaisedException``).  The ranks are
+    killed after ``timeout`` seconds."""
+    from torch.multiprocessing import start_processes
 
-    device = str(torch.device(device or "cpu"))
+    from ..device import resolve_device
+
+    device = str(resolve_device(device))
     if backend is None:
         backend = ("nccl" if device.startswith("cuda")
                    and torch.cuda.device_count() >= world_size else "gloo")
-    ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="spawn_ranks_") as tmp:
-        procs = [ctx.Process(target=_rank_main,
-                             args=(r, world_size, backend, device, calls, tmp,
-                                   return_exceptions))
-                 for r in range(world_size)]
-        for p in procs:
-            p.start()
+        ctx = start_processes(
+            _rank_main, args=(world_size, backend, device, calls, tmp,
+                              return_exceptions),
+            nprocs=world_size, join=False, start_method="spawn")
         deadline = time.monotonic() + timeout
-        failed, timed_out = None, False
         try:
-            while any(p.is_alive() for p in procs):
-                failed = next((r for r, p in enumerate(procs)
-                               if p.exitcode not in (None, 0)), None)
-                timed_out = time.monotonic() > deadline
-                if failed is not None or timed_out:
-                    break
-                time.sleep(0.05)
+            while not ctx.join(max(deadline - time.monotonic(), 0.0)):
+                if time.monotonic() >= deadline:
+                    raise RuntimeError(f"spawn_ranks: the ranks did not "
+                                       f"finish within {timeout:.0f} s")
         finally:
-            for p in procs:
+            for p in ctx.processes:
                 if p.is_alive():
                     p.kill()
                 p.join()
-        if timed_out and failed is None:
-            raise RuntimeError(f"spawn_ranks: the ranks did not finish "
-                               f"within {timeout:.0f} s")
-        if failed is None:
-            failed = next((r for r, p in enumerate(procs)
-                           if p.exitcode != 0), None)
-        if failed is not None:
-            err = pathlib.Path(tmp, f"rank{failed}.err")
-            raise RuntimeError(
-                f"spawn_ranks: rank {failed} of {world_size} failed (exit "
-                f"code {procs[failed].exitcode}):\n"
-                + (err.read_text() if err.exists() else "no traceback"))
         return [torch.load(pathlib.Path(tmp, f"rank{r}.pt"),
                            weights_only=False)
                 for r in range(world_size)]

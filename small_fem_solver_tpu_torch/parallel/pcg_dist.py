@@ -20,13 +20,14 @@ them:
 
 Dirichlet BCs by projection (fixed DOFs pinned to identity rows), as on
 one device (``ops/solve.py``).  Nodes are padded to a multiple of the
-mesh size; padded rows are pinned like fixed ones.  The stop test is the
-JAX package's ``sqrt(r.r) / ||b|| > tol``, kept on the device as a
-running flag (iterations past the stop leave the state unchanged, as in
-``ops/solve.py``); the host reads it once every ``check_every``
-iterations.  An iteration makes four collectives (three with
-block-Jacobi): the mat-vec's gather, ``p.Ap``, the coarse residual, and
-``r.z`` with ``r.r`` in one sum.  Every rank returns the same bits.
+mesh size; padded rows are pinned like fixed ones.  The CG loop is the
+one-device loop of ``ops/solve.py`` (the JAX package's stop test
+``sqrt(r.r) / ||b|| > tol`` kept on the device as a running flag, read
+by the host once every ``check_every`` iterations) given this module's
+operator, preconditioner and dot-product reduction.  An iteration makes
+four collectives (three with block-Jacobi): the mat-vec's gather,
+``p.Ap``, the coarse residual, and ``r.z`` with ``r.r`` in one sum.
+Every rank returns the same bits.
 """
 from __future__ import annotations
 
@@ -36,7 +37,8 @@ import numpy as np
 import torch
 
 from ..ops.assembly import BCSRMatrix, segment_sum_ordered, segment_table
-from ..ops.solve import PCG_CHECK_EVERY, block_jacobi_inverse, dof_free_mask
+from ..ops.solve import (PCG_CHECK_EVERY, block_jacobi_inverse,
+                         dof_free_mask, pcg)
 from . import comm
 
 
@@ -102,11 +104,16 @@ def distributed_pcg(A: BCSRMatrix, b, fixed_mask, mesh, axis: str = "dof",
     ``coarse`` (an ``ops.coarse.CoarseSpace``) adds the smoothed
     rigid-body-aggregate correction to the block-Jacobi preconditioner:
     one ordered sum of the [6 n_agg] coarse residual an iteration.
-    ``axis`` names the mesh's axis, as in the JAX package (the mesh's own
-    group is used).  Returns (u [n_dof], n_iter, rel_residual), the last
-    two 0-d tensors on the device."""
-    del axis
+    ``axis``: the mesh's axis the rows are sharded over, as in the JAX
+    package; a named mesh without it raises ``ValueError``.  The CG loop
+    is ``ops/solve.py``'s (:func:`..ops.solve.pcg`) with this module's
+    operator, preconditioner and rank-ordered dot products.  Returns
+    (u [n_dof], n_iter, rel_residual), the last two 0-d tensors on the
+    device."""
     _, rank, W = comm.mesh_info(mesh)
+    if mesh.mesh_dim_names and axis not in mesh.mesh_dim_names:
+        raise ValueError(f"distributed_pcg shards over the mesh axis "
+                         f"{axis!r}; the mesh has {mesh.mesh_dim_names}")
     S = shard_bcsr(A, W)
     n, R = A.pattern.n_nodes, S.rows_per_dev
     n_pad, dev, dtype = S.n_nodes_padded, A.blocks.device, A.blocks.dtype
@@ -147,33 +154,10 @@ def distributed_pcg(A: BCSRMatrix, b, fixed_mask, mesh, axis: str = "dof",
 
     def dots(*pairs):
         return comm.ordered_sum(torch.stack([torch.dot(a, c)
-                                             for a, c in pairs]), mesh)
+                                             for a, c in pairs]),
+                                mesh).unbind()
 
-    x = torch.zeros_like(b_loc)
-    r = b_loc                                    # b - op(0): op(0) is 0
-    z = precond(r)
-    p = z
-    rz, rr, bb = dots((r, z), (r, r), (b_loc, b_loc))
-    bnorm = torch.clamp(torch.sqrt(bb), min=torch.finfo(dtype).tiny)
-    it = torch.zeros((), dtype=torch.int64, device=dev)
-
-    def running(rr, it):
-        return torch.logical_and(it < maxiter, torch.sqrt(rr) / bnorm > tol)
-
-    check_every = max(int(check_every), 1)
-    while bool(running(rr, it)):
-        for _ in range(check_every):
-            go = running(rr, it)
-            Ap = op(p)
-            alpha = rz / dots((p, Ap))[0]
-            r_new = r - alpha * Ap
-            z = precond(r_new)
-            rz_new, rr_new = dots((r_new, z), (r_new, r_new))
-            x = torch.where(go, x + alpha * p, x)
-            r = torch.where(go, r_new, r)
-            p = torch.where(go, z + (rz_new / rz) * p, p)
-            rz = torch.where(go, rz_new, rz)
-            rr = torch.where(go, rr_new, rr)
-            it = it + go
-    u = comm.all_gather_cat(x, mesh, sizes)[:6 * n]
-    return u, it, torch.sqrt(rr) / bnorm
+    res = pcg(op, b_loc, precond=precond, tol=tol, maxiter=maxiter,
+              check_every=check_every, dots=dots)
+    return (comm.all_gather_cat(res.x, mesh, sizes)[:6 * n], res.n_iter,
+            res.residual)

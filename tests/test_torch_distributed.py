@@ -165,7 +165,7 @@ def _launch(d, world_size):
     """Every call of :func:`_calls` in one group of ``world_size`` gloo
     ranks: (every rank's results by name, the 7-case batch)."""
     calls, waves7 = _calls(d, world_size)
-    out = mh.spawn_ranks(world_size, list(calls.values()),
+    out = mh.spawn_ranks(world_size, list(calls.values()), device="cpu",
                          return_exceptions=True)
     return [dict(zip(calls, r)) for r in out], waves7
 
@@ -395,7 +395,8 @@ def test_multihost_on_one_process(data):
 def test_single_rank_group_and_mesh_refusals(data, tmp_path):
     """A one-rank gloo group in this process: the sharded condensed
     envelope is bit-equal to the unsharded call.  A mesh of the wrong
-    kind raises TypeError, a mesh whose group is gone ValueError."""
+    kind raises TypeError, a mesh whose group is gone ValueError, and so
+    does distributed_pcg on a mesh without its axis."""
     d = data
     for bad in (object(), "cases", 2):
         with pytest.raises(TypeError, match="DeviceMesh"):
@@ -411,6 +412,8 @@ def test_single_rank_group_and_mesh_refusals(data, tmp_path):
         ref = pt.design_envelope_condensed(d["tm"], d["tr"], N_SEG, d["tw"],
                                            d["tc"], **kw)
         assert same(tuple(one), tuple(ref))
+        with pytest.raises(ValueError, match="axis 'dof'"):
+            tpd.distributed_pcg(d["A"], d["b"], d["tp"].fixed_mask, mesh)
     finally:
         dist.destroy_process_group()
     with pytest.raises(ValueError, match="process group"):
