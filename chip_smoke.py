@@ -14,7 +14,10 @@ resumable envelope over 1,000 Stokes cases), and structural dynamics
 (modal, Craig-Bampton, harmonic and transient response at 9,612 DOF, modal
 at 99,882 DOF, in float64), irregular seas, and the sparse and iterative
 tier (``analyze(solver="pcg")`` at 9,612 and 99,882 DOF, the direct-write
-BCSR assembly at 99,882 DOF; plain PyTorch, no kernel) —
+BCSR assembly at 99,882 DOF; plain PyTorch, no kernel), and the design
+tier after the envelope (pile springs and SSI, response spectra,
+pushover and its rose, the member-removal screen, the code checks and
+combinations, in float64) —
 through both hand-written kernels, the fused Morison kernel (K1) and the
 chain-sweep kernel, and checks them:
 
@@ -221,15 +224,41 @@ chain-sweep kernel, and checks them:
    ``analyze_pdelta`` (1e-9) and at 99,882 DOF, with the sweep launches
    of each round and the sweep kernel against its plain version on a
    round's factor, and ``buckling_analysis_condensed`` (12 chain modes)
-   against the dense factors at 9,612 DOF (1%).
+   against the dense factors at 9,612 DOF (1%);
+29. soil phase (f64, the Airy storm at t = 0.34 s): ``soil_support_stiffness``
+   of the CLI's clay-over-sand profile and a 2,134 x 50 mm, 60 m pile
+   (64 elements) from the clamped analysis's reactions, its 9 Newton
+   solves on the card, against the CPU (1e-10), Newton residuals below
+   1e-8; ``analyze_ssi`` on those springs against the CPU (1e-9) and
+   ``analyze_condensed(support_stiffness=)`` at 9,612 and 99,882 DOF
+   (equilibrium 1e-9, the sweep launches);
+30. seismic phase (EC8 ground C, 0.2 g, three directions, 1,100 t):
+   ``response_spectrum`` at 126 DOF against the CPU (CQC 1e-9; SRSS and
+   100-40-40 on the CPU's shapes), ``response_spectrum_condensed`` at
+   9,612 DOF (10 sweep launches) against the CPU (CQC, 1e-9 at 14 chain
+   modes; at 12 the periods at 1e-9, the rest reported: that cut splits
+   degenerate chain-mode pairs) and at 99,882 DOF (periods against phase
+   16's);
+31. pushover phase (the CLI's defaults: lambda to 6 in 25 steps, 120
+   iterations): ``pushover`` against the CPU (RSR, first yield and flags
+   equal, curves 1e-9), ``pushover_rose`` at 16 headings (400 states a
+   batched iteration) against the CPU at 4 headings, bit-equal in a
+   single-rank NCCL group, and in two gloo ranks (phase 27's spawn);
+32. removal phase: ``member_removal_screen``, 51 removals in one batched
+   factorization, against the CPU (flags equal, utilizations 1e-10);
+33. checks phase: the API RP 2A and ISO 19902 member checks, the API joint
+   check, the VIV screen, the air gap (Airy and Stokes-5) and
+   ``combo_envelope`` of three load cases against the CPU (1e-12); each
+   of phases 29-33 with its wall time, device operations, busy time and
+   peak memory.
 
 Every new path is run with the launch counts set to 0 just before it and
 read just after it; a mean or MPM stress is compared to one of its
 member's tied governing circumferential points (opposite points of a
 member without axial stress variance tie to roundoff).
 
-Prints the kernel record and the card's name and power limit on the lines
-before the last, and ``{"ok": true, "device": {...}}`` as the last line.
+Prints the whole script's wall time, then the kernel record and the
+card's name and power limit on the lines before the last, and ``{"ok": true, "device": {...}}`` as the last line.
 Exits non-zero (and prints no result) without a CUDA device, outside a
 checkout of the repository, or when any check fails.
 
@@ -3187,8 +3216,9 @@ def dist_two_rank_phase(pt, hk, dev, flag, design, refined64):
     unsharded call, the 1,000-case f64 dense envelope (500 cases a rank:
     rank 1's K1 f64 launch starts at case 500) against the unsharded call
     at 1e-12, ``analyze(solver="pcg", mesh=)`` at 9,612 DOF against the
-    Cholesky solve; both ranks' results bit-equal, and each rank's launch
-    counts.  No scaling is claimed: both ranks share the card."""
+    Cholesky solve, and the design tier's pushover rose (8 of its 16
+    headings a rank; checked in :func:`pushover_phase`); both ranks'
+    results bit-equal, and each rank's launch counts.  No scaling is claimed: both ranks share the card."""
     import torch
     from small_fem_solver_tpu_torch.ops import hopper_kernels
     from small_fem_solver_tpu_torch.parallel import comm
@@ -3221,6 +3251,11 @@ def dist_two_rank_phase(pt, hk, dev, flag, design, refined64):
                      pcg_precond="two_level", pcg_tol=PCG_TOL,
                      pcg_maxiter=20000, mesh=mh.RankMesh("dof"))),
         "pcg_counts": counts, "pcg_stats": stats,
+        # the design tier's pushover rose, 8 headings a rank
+        "rose": (pt.pushover_rose, (*storm_inputs(pt, "cpu"),
+                                    list(ROSE_HEADINGS)),
+                 dict(PUSH_KW, mesh=mh.RankMesh("headings"))),
+        "rose_counts": counts, "rose_stats": stats,
     }
     kslice = k1_slice_check(pt, hk, dev, design["coarse64"], design["waves"],
                             design["cases"])
@@ -3232,7 +3267,7 @@ def dist_two_rank_phase(pt, hk, dev, flag, design, refined64):
     check(all(bit_equal(tuple(r0[k]) if hasattr(r0[k], "_fields")
                         else r0[k], tuple(r1[k]) if hasattr(r1[k], "_fields")
                         else r1[k])
-              for k in ("envelope", "dense", "pcg")),
+              for k in ("envelope", "dense", "pcg", "rose")),
           "two ranks on the card: both ranks' results bit-equal")
     env = r0["envelope"]
     check(bit_equal(tuple(env), tuple(mh.to_device(flag["env"], "cpu"))),
@@ -3254,17 +3289,18 @@ def dist_two_rank_phase(pt, hk, dev, flag, design, refined64):
     out = {"wall_s": wall, "dense_err": dense_err, "dense_bits": dense_bits,
            "k1_slice": kslice,
            "pcg_iters": int(pcg.solver_iters), "pcg_util": util,
+           "rose": r0["rose"],
            "launches": {k: [r[f"{k}_counts"] for r in (r0, r1)]
-                        for k in ("envelope", "dense", "pcg")},
+                        for k in ("envelope", "dense", "pcg", "rose")},
            "stats": {k: [r[f"{k}_stats"] for r in (r0, r1)]
-                     for k in ("envelope", "dense", "pcg")}}
+                     for k in ("envelope", "dense", "pcg", "rose")}}
     # each rank's block: half the flagship's cases, so half the unsharded
     # call's K1 f32 and sweep launches (10 / 40), and 500 dense cases in
     # one K1 f64 launch; the PCG launches neither kernel
     k1, sw = (flag["launches"][k] // 2
               for k in ("morison_phase_batch", "chain_sweep"))
     want = {"envelope": {"k1": k1, "f32": k1, "sweep": sw},
-            "dense": {"k1": 1, "f64": 1}, "pcg": {}}
+            "dense": {"k1": 1, "f64": 1}, "pcg": {}, "rose": {}}
     for k, w in want.items():
         for r, n in enumerate(out["launches"][k]):
             check(same_counts(n, w),
@@ -3375,7 +3411,440 @@ def pdelta_phase(pt, hk, dev, coarse64, refined64, wave64, large):
     return out
 
 
+# ---- the design tier: foundation, seismic, collapse and code checks ----
+
+# the storm of tests/test_soil.py:183-188 (Airy) and the CLI's built-in
+# soil profile and pile (small_fem_solver_tpu/cli.py:1469-1474)
+AIRY = (17.038, 9.4, 50.0, 1.7)
+SOIL = [dict(kind="clay", z_top=0.0, z_bot=8.0, su_kPa=40.0,
+             gamma_kN_m3=8.0, eps50=0.02),
+        dict(kind="sand", z_top=8.0, z_bot=100.0, phi_deg=35.0,
+             gamma_kN_m3=10.0)]
+PILE = dict(D_mm=2134.0, t_mm=50.0, L_m=60.0)      # n_elem 64 (default)
+SOIL_TOL = 1e-10      # springs, card vs CPU
+SSI_TOL = 1e-9        # analyze_ssi on those springs, card vs CPU
+NEWTON_RESID = 1e-8   # Newton residuals of the head solves
+SEISMIC = dict(pga_g=0.2, ground="C", topside_mass_t=TOPSIDE_T,
+               directions=((1.0, 0.0, 0.0), (0.0, 1.0, 0.0),
+                           (0.0, 0.0, 1.0)))
+SEISMIC_TOL = 1e-9    # spectra card vs CPU (CQC; SRSS on the CPU's shapes)
+PUSH_KW = dict(lambda_max=6.0, n_lambda=25, n_iter=120)  # cli.py:1772-1777
+# past first yield: lambda to 18 (tests/test_pushover.py's jacket range)
+PUSH_YIELD_KW = dict(PUSH_KW, lambda_max=18.0)
+ROSE_HEADINGS = tuple(22.5 * i for i in range(16))
+PUSH_TOL = 1e-9       # pushover curves card vs CPU
+REMOVAL_TOL = 1e-10   # removal-screen utilizations card vs CPU
+CHECK_TOL = 1e-12     # code checks and combinations card vs CPU
+
+
+def nrel(a, b) -> float:
+    """:func:`rel` of two arrays or tensors (host copies, f64)."""
+    import numpy as np
+    a = np.asarray(a.cpu() if hasattr(a, "cpu") else a, np.float64)
+    b = np.asarray(b.cpu() if hasattr(b, "cpu") else b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def storm_inputs(pt, device):
+    """(default jacket f64, Airy storm wave, storm case at t = 0.34 s) on
+    ``device``."""
+    return (pt.default_3leg_jacket(device=device),
+            pt.airy_wave(*AIRY, device=device),
+            pt.LoadCase(**CASE, t_analysis=0.34))
+
+
+def phase_record(fn) -> dict:
+    """:func:`call_record` of a phase's main call, as one line's text."""
+    rec = call_record(fn)
+    rec["text"] = (f"{rec['s'] * 1e3:.1f} ms host clock (one synchronised "
+                   f"call), {rec['ops']} device operations, device busy "
+                   f"{rec['busy_ms']:.3f} ms, peak device memory "
+                   f"{rec['peak_mib']:.0f} MiB; most time: {rec['top']}")
+    return rec
+
+
+def equilibrium(res) -> float:
+    """|sum of reactions + sum of applied forces| / |applied| (the three
+    force components)."""
+    F = res.F_applied.reshape(-1, 6)[:, :3].sum(0)
+    return float((res.total_reaction[:3] + F).abs().max() / F.abs().max())
+
+
+def soil_phase(pt, hk, dev, coarse64, refined64, large):
+    """Pile springs to SSI on the card (f64): the clamped storm analysis,
+    ``soil_support_stiffness`` from its reactions (9 Newton solves of the
+    64-element pile on the card; each support's heads against the spring
+    rows and their Newton residuals below 1e-8), the springs against a
+    CPU run (1e-10), then ``analyze_ssi`` at 126 DOF (against the CPU,
+    equilibrium) and ``analyze_condensed(..., support_stiffness=)`` at
+    9,612 and 99,882 DOF (equilibrium, the sweep launches)."""
+    import numpy as np
+    from small_fem_solver_tpu_torch.ops import soil as soil_mod
+    soil = [pt.SoilLayer(**lay) for lay in SOIL]
+    pile = pt.Pile(**PILE)
+    model, wave, case = storm_inputs(pt, dev)
+    out = {}
+    clamped = pt.analyze(model, wave, case, solver="chol")
+    springs, n, s = counted(hk, lambda: pt.soil_support_stiffness(
+        model, soil, pile, reactions=clamped.reactions))
+    check(same_counts(n, {}), f"soil springs launch no kernel: {n}")
+    out["springs_s"] = s
+    c_cpu, w_cpu, _ = storm_inputs(pt, "cpu")
+    springs_cpu = pt.soil_support_stiffness(
+        c_cpu, soil, pile,
+        reactions=pt.analyze(c_cpu, w_cpu, case, solver="chol").reactions)
+    err = nrel(springs, springs_cpu)
+    R = clamped.reactions.cpu().numpy()
+    heads = [soil_mod.pile_head_stiffness(
+        pile, soil, H_kN=max(np.hypot(r[0], r[1]) / 1e3, 10.0),
+        V_kN=max(abs(r[2]) / 1e3, 100.0),
+        M_kNm=(lambda m: m if m > 1.0 else 0.0)(np.hypot(r[3], r[4]) / 1e6),
+        device=dev) for r in R]
+    resid = max(float(h.residuals.max()) for h in heads)
+    rows = np.stack([h.support_stiffness for h in heads])
+    check(err <= SOIL_TOL and resid <= NEWTON_RESID
+          and np.array_equal(rows, springs),
+          f"soil_support_stiffness on the card vs the CPU: {err:.2e} <= "
+          f"{SOIL_TOL:g}; Newton residuals <= {resid:.1e} (<= "
+          f"{NEWTON_RESID:g}); rows = the heads' springs")
+    out.update(springs=springs, err=err, resid=resid,
+               kz_over_ky=float(springs[0, 2] / springs[0, 0]))
+
+    ssi = pt.analyze_ssi(model, wave, case, springs)
+    ssi_cpu = pt.analyze_ssi(c_cpu, w_cpu, case, springs_cpu)
+    serr = max(rel(getattr(ssi, f).cpu(), getattr(ssi_cpu, f))
+               for f in ("U", "reactions", "utilization"))
+    eq = equilibrium(ssi)
+    check(serr <= SSI_TOL and eq <= 1e-9 and float(
+        ssi.max_displacement_mm) > float(clamped.max_displacement_mm),
+          f"analyze_ssi at {model.n_dof} DOF on the pile springs: vs CPU "
+          f"{serr:.2e} <= {SSI_TOL:g}, equilibrium {eq:.2e} <= 1e-9, max "
+          f"displacement {float(ssi.max_displacement_mm):.2f} mm > clamped "
+          f"{float(clamped.max_displacement_mm):.2f} mm")
+    out.update(ssi_err=serr, ssi_eq=eq)
+    for label, fine, n_seg in (("9612", refined64, N_SEG),
+                               ("99882", large["refined"], N_SEG_LARGE)):
+        res, n, s = counted(hk, lambda: pt.analyze_condensed(
+            model, fine, n_seg, wave, case, support_stiffness=springs))
+        eq = equilibrium(res)
+        check(n["sweep"] >= 2 and same_counts(n, {"sweep": n["sweep"]})
+              and eq <= 1e-9 and bool(res.U.isfinite().all()),
+              f"analyze_condensed on the pile springs at {fine.n_dof} DOF: "
+              f"{n['sweep']} sweep launches, equilibrium {eq:.2e} <= 1e-9, "
+              f"max utilization {float(res.utilization.max()):.6f}")
+        out[f"condensed_{label}"] = dict(launches=n, s=s, eq=eq,
+                                         umax=float(res.utilization.max()))
+    r = R[0]   # support 0's head: 3 of the 9 Newton solves
+    out["rec"] = phase_record(lambda: soil_mod.pile_head_stiffness(
+        pile, soil, H_kN=max(np.hypot(r[0], r[1]) / 1e3, 10.0),
+        V_kN=max(abs(r[2]) / 1e3, 100.0), device=dev))
+    return out
+
+
+def cluster_sums(freqs, values):
+    """``values`` [n_dirs, n_modes] summed over each cluster of modes
+    whose frequencies agree to 1e-4 (the jacket's near-degenerate pairs
+    are split by 1e-7 to 3e-6, its distinct modes by >= 3%; inside a pair
+    the basis is the eigensolver's choice, the pair's sum is not)."""
+    import numpy as np
+    f = np.asarray(freqs.cpu(), np.float64)
+    v = np.asarray(values.cpu(), np.float64)
+    cuts = np.flatnonzero(np.abs(np.diff(f)) > 1e-4 * np.abs(f[1:])) + 1
+    return np.stack([p.sum(axis=-1) for p in np.split(v, cuts, axis=-1)],
+                    axis=-1)
+
+
+def spectrum_errs(card, cpu) -> dict:
+    """Card against CPU of one spectrum run: periods, the CQC demands,
+    and the effective masses summed over frequency clusters."""
+    errs = {f: rel(getattr(card, f).cpu(), getattr(cpu, f))
+            for f in ("periods_s", "U_peak", "F1_local", "F2_local",
+                      "utilization", "base_shear_kN")}
+    errs["effective_mass_clusters"] = nrel(
+        cluster_sums(cpu.frequencies_hz, card.effective_mass_t),
+        cluster_sums(cpu.frequencies_hz, cpu.effective_mass_t))
+    return errs
+
+
+def seismic_phase(pt, hk, dev, coarse64, refined64, large, mlarge):
+    """Response spectra on the card (f64, EC8 ground C, 0.2 g, three
+    directions, 1,100 t topside): ``response_spectrum`` at 126 DOF with
+    CQC against the CPU (1e-9) and SRSS / 100-40-40 on the CPU run's
+    shapes (1e-9); ``response_spectrum_condensed`` at 9,612 DOF (10 sweep
+    launches) against the CPU: at 14 chain modes periods, CQC demands and
+    clustered effective masses at 1e-9, at 12 chain modes (a cut that
+    splits degenerate chain-mode pairs) the periods at 1e-9 and
+    the rest reported; at 99,882 DOF its first 8 periods against
+    ``modal_analysis_condensed``'s."""
+    import math
+    import torch
+    from small_fem_solver_tpu_torch.ops import seismic as seismic_mod
+    from small_fem_solver_tpu_torch.ops.dynamics import _build_km
+    demands = ("U_peak", "F1_local", "F2_local", "utilization",
+               "base_shear_kN")
+    out = {}
+    c_cpu = pt.default_3leg_jacket(device="cpu")
+    dense, n, s = counted(hk, lambda: pt.response_spectrum(coarse64,
+                                                           **SEISMIC))
+    errs = spectrum_errs(dense, pt.response_spectrum(c_cpu, **SEISMIC))
+    err = max(errs.values())
+    check(err <= SEISMIC_TOL and same_counts(n, {}),
+          f"response_spectrum (CQC) at {coarse64.n_dof} DOF vs the CPU: "
+          f"{err:.2e} <= {SEISMIC_TOL:g}; launches {n}")
+    _, _, _, (K_local, T, _) = _build_km(coarse64, 210000.0, 0.3, TOPSIDE_T)
+    rules = {}
+    for comb, rule in (("srss", "srss"), ("cqc", "100-40-40"),
+                       ("srss", "100-40-40")):
+        cpu = pt.response_spectrum(c_cpu, combination=comb, dir_rule=rule,
+                                   **SEISMIC)
+        card = seismic_mod._spectrum_core(
+            coarse64.conn, coarse64.sections, coarse64.sect_id,
+            (2.0 * math.pi * cpu.frequencies_hz).to(dev),
+            cpu.mode_shapes.to(dev), cpu.participation.to(dev), K_local, T,
+            SEISMIC["pga_g"], "C", 0.05, cpu.directions, None, True, comb,
+            rule, 355.0, torch.float64)
+        rules[f"{comb}/{rule}"] = max(rel(getattr(card, f).cpu(),
+                                          getattr(cpu, f)) for f in demands)
+    check(max(rules.values()) <= SEISMIC_TOL,
+          f"SRSS and 100-40-40 on the card, on the CPU run's shapes: "
+          f"{rules}")
+    out.update(dense_err=err, rules=rules, dense_s=s)
+
+    def condensed(m=CHAIN_MODES):
+        return pt.response_spectrum_condensed(
+            coarse64, refined64, N_SEG, n_chain_modes=m, **SEISMIC)
+    cond, n, s = counted(hk, condensed)
+    check(same_counts(n, {"sweep": 10}), f"response_spectrum_condensed at "
+          f"{refined64.n_dof} DOF: launches {n}")
+    r_cpu = pt.refine_model(c_cpu, N_SEG)
+    cut = {}
+    for m in (CHAIN_MODES, CHAIN_MODES + 2):
+        cut[m] = spectrum_errs(
+            cond if m == CHAIN_MODES else condensed(m),
+            pt.response_spectrum_condensed(c_cpu, r_cpu, N_SEG,
+                                           n_chain_modes=m, **SEISMIC))
+    held = max(cut[CHAIN_MODES + 2].values())
+    check(held <= SEISMIC_TOL
+          and cut[CHAIN_MODES]["periods_s"] <= SEISMIC_TOL,
+          f"response_spectrum_condensed (CQC) at {refined64.n_dof} DOF vs "
+          f"the CPU: {CHAIN_MODES + 2} chain modes {held:.2e} <= "
+          f"{SEISMIC_TOL:g} ("
+          + ", ".join(f"{k} {v:.1e}" for k, v in cut[CHAIN_MODES + 2].items())
+          + f"); {CHAIN_MODES} chain modes periods "
+          f"{cut[CHAIN_MODES]['periods_s']:.2e} <= {SEISMIC_TOL:g}, the "
+          "rest (not held: the cut splits degenerate chain-mode pairs) "
+          + ", ".join(f"{k} {v:.1e}" for k, v in cut[CHAIN_MODES].items()))
+    out.update(cond_errs=cut, cond_launches=n, cond_s=s,
+               cond_umax=float(cond.utilization.max()),
+               base_shear=[float(v) for v in cond.base_shear_kN])
+    big, n, s = counted(hk, lambda: pt.response_spectrum_condensed(
+        coarse64, large["refined"], N_SEG_LARGE, n_chain_modes=CHAIN_MODES,
+        **SEISMIC))
+    perr = nrel(big.periods_s[:8], mlarge["periods"])
+    check(perr <= SEISMIC_TOL and same_counts(n, {"sweep": 10})
+          and bool(big.U_peak.isfinite().all()),
+          f"response_spectrum_condensed at {large['refined'].n_dof} DOF: "
+          f"first 8 periods vs modal_analysis_condensed's {perr:.2e} <= "
+          f"{SEISMIC_TOL:g}; launches {n}")
+    out.update(large_launches=n, large_s=s, large_perr=perr,
+               large_umax=float(big.utilization.max()))
+    out["rec"] = phase_record(condensed)
+    return out
+
+
+def pushover_phase(pt, hk, dev, d2):
+    """Pushover and its rose on the card (f64, the CLI's defaults: lambda
+    to 6 in 25 steps, 120 secant iterations): ``pushover`` against the
+    CPU (RSR, first yield, converged and yielded counts equal; curves
+    1e-9), there and past first yield (lambda to 18); ``pushover_rose`` at 16 headings (400 states a batched
+    iteration) against the CPU at 4 of them, in a single-rank NCCL group
+    (bit-equal to mesh=None), and in two gloo ranks (run in the two-rank
+    phase's spawn; RSR and first yield equal, curves 1e-9)."""
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from small_fem_solver_tpu_torch.parallel import multihost as mh
+    model, wave, case = storm_inputs(pt, dev)
+    c_cpu, w_cpu, _ = storm_inputs(pt, "cpu")
+    out = {}
+
+    def same_curve(a, b, what):
+        exact = (float(a.rsr) == float(b.rsr)
+                 and float(a.first_yield_lambda) == float(b.first_yield_lambda)
+                 and bit_equal(a.converged.cpu(), b.converged.cpu())
+                 and bit_equal(a.n_yielded.cpu(), b.n_yielded.cpu()))
+        err = max(rel(getattr(a, f).cpu(), getattr(b, f).cpu())
+                  for f in ("max_displacement_mm", "max_util", "axial_N"))
+        check(exact and err <= PUSH_TOL,
+              f"{what}: RSR {float(a.rsr):g} (vs {float(b.rsr):g}), first "
+              f"yield {float(a.first_yield_lambda):g} (vs "
+              f"{float(b.first_yield_lambda):g}), flags equal {exact}, "
+              f"curves {err:.2e} <= {PUSH_TOL:g}")
+        return err
+
+    one, n, s = counted(hk, lambda: pt.pushover(model, wave, case,
+                                                **PUSH_KW))
+    check(same_counts(n, {}), f"pushover launches no kernel: {n}")
+    out["single_err"] = same_curve(one, pt.pushover(c_cpu, w_cpu, case,
+                                                    **PUSH_KW),
+                                   "pushover card vs CPU")
+    out.update(single_s=s, rsr=float(one.rsr),
+               first_yield=float(one.first_yield_lambda),
+               n_yielded=int(one.n_yielded.max()))
+    far = pt.pushover(model, wave, case, **PUSH_YIELD_KW)
+    out["yield_err"] = same_curve(far, pt.pushover(c_cpu, w_cpu, case,
+                                                   **PUSH_YIELD_KW),
+                                  "pushover to lambda 18 card vs CPU")
+    out.update(yield_rsr=float(far.rsr),
+               yield_first=float(far.first_yield_lambda),
+               yield_n=int(far.n_yielded.max()))
+
+    def rose(mesh=None):
+        return pt.pushover_rose(model, wave, case, list(ROSE_HEADINGS),
+                                mesh=mesh, **PUSH_KW)
+    (hs, rsr, fy, per), n, s = counted(hk, rose)
+    out.update(rose_s=s, rose_rsr=rsr.tolist(), rose_fy=fy.tolist())
+    sub = list(range(0, 16, 4))
+    _, rsr_c, fy_c, per_c = pt.pushover_rose(
+        c_cpu, w_cpu, case, [ROSE_HEADINGS[i] for i in sub], **PUSH_KW)
+    out["rose_err"] = max(same_curve(per[i], per_c[k],
+                                     f"rose heading {ROSE_HEADINGS[i]:g} "
+                                     f"card vs CPU")
+                          for k, i in enumerate(sub))
+    store = tempfile.mkdtemp(prefix="chip_smoke_rose_")
+    check(mh.init_multihost(f"file://{store}/store", world_size=1, rank=0)
+          and dist.get_backend() == "nccl",
+          "single-rank NCCL group for the rose")
+    try:
+        mesh = mh.global_case_mesh("headings")
+        _, rsr1, fy1, curve = rose(mesh)
+    finally:
+        dist.destroy_process_group()
+    mine = tuple(torch.stack([getattr(r, f) for r in per])
+                 for f in ("converged", "max_displacement_mm", "n_yielded",
+                           "max_util", "axial_N"))
+    check(bit_equal(curve, mine) and np.array_equal(rsr1, rsr)
+          and np.array_equal(fy1, fy),
+          "pushover_rose with a one-rank NCCL mesh bit-equal to mesh=None")
+    h2, rsr2, fy2, curve2 = d2["rose"]
+    err2 = max(rel(a.double(), b.cpu().double())
+               for a, b in zip(curve2[1:], mine[1:]) if a.is_floating_point())
+    check(np.array_equal(rsr2, rsr) and np.array_equal(fy2, fy)
+          and bit_equal(curve2[0], mine[0].cpu())
+          and bit_equal(curve2[2], mine[2].cpu()) and err2 <= PUSH_TOL,
+          f"pushover_rose in two gloo ranks (8 headings each) vs mesh=None: "
+          f"RSR and first yield equal, curves {err2:.2e} <= {PUSH_TOL:g}")
+    out["two_rank_err"] = err2
+    out["rec"] = phase_record(rose)
+    return out
+
+
+def removal_phase(pt, hk, dev):
+    """``member_removal_screen`` on the card: all 51 removals of the storm
+    jacket in one batched factorization and solve, against the CPU
+    (stable, critical and governing member equal; utilizations and
+    displacements 1e-10)."""
+    import torch
+    model, wave, case = storm_inputs(pt, dev)
+    c_cpu, w_cpu, _ = storm_inputs(pt, "cpu")
+    scr, n, s = counted(hk, lambda: pt.member_removal_screen(model, wave,
+                                                             case))
+    ref = pt.member_removal_screen(c_cpu, w_cpu, case)
+    flags = all(bit_equal(getattr(scr, f).cpu(), getattr(ref, f))
+                for f in ("stable", "critical", "governing_member"))
+    live = ref.stable
+    err = max(rel(getattr(scr, f).cpu()[live], getattr(ref, f)[live])
+              for f in ("max_util", "max_displacement_mm"))
+    err = max(err, rel(scr.intact_util.cpu(), ref.intact_util))
+    check(flags and err <= REMOVAL_TOL and same_counts(n, {}),
+          f"member_removal_screen ({model.n_members} removals) card vs CPU: "
+          f"flags equal {flags}, utilizations {err:.2e} <= {REMOVAL_TOL:g}; "
+          f"{int(scr.critical.sum())} critical, {int((~scr.stable).sum())} "
+          f"unstable, worst damaged utilization "
+          f"{float(scr.max_util.max()):.4f} (intact "
+          f"{float(scr.intact_util):.4f})")
+    return {"err": err, "s": s, "critical": int(scr.critical.sum()),
+            "worst": float(scr.max_util.max()),
+            "intact": float(scr.intact_util),
+            "rec": phase_record(lambda: pt.member_removal_screen(
+                model, wave, case))}
+
+
+def checks_phase(pt, hk, dev):
+    """The code checks on the storm analysis on the card against the CPU
+    (1e-12; labels, flags and indices equal): API RP 2A and ISO 19902
+    member checks, the API joint check ('auto' load-path classes), the
+    VIV screen, the air gap under the Airy storm and its Stokes-5 wave,
+    and ``combo_envelope`` of three load cases (the storm, the topside
+    alone, the environment at a second heading)."""
+    import dataclasses
+    import numpy as np
+    import torch
+
+    def run(device):
+        model, wave, case = storm_inputs(pt, device)
+        stokes = pt.make_wave(*AIRY[:3], U_c=AIRY[3], model="stokes", N=5,
+                              device=device)
+        storm = pt.analyze(model, wave, case, solver="chol")
+        acts = {"E": storm,
+                "G": pt.analyze(model, wave, pt.LoadCase(
+                    F_axial_kN=25100.0, sw_mode="none"), solver="chol"),
+                "E2": pt.analyze(model, wave, dataclasses.replace(
+                    case, wave_dir_deg=128.0, current_dir_deg=128.0,
+                    custom_sw_tonnes=0.0), solver="chol")}
+        combos = {"iso_extreme": {"G": 1.1, "E": 1.35},
+                  "iso_operating": {"G": 1.3, "E": 0.9, "E2": 0.9},
+                  "wsd": {"G": 1.0, "E": 1.0, "E2": 1.0}}
+        combined, env = pt.combo_envelope(model, acts, combos)
+        return {"api": pt.member_code_check(model, storm),
+                "iso": pt.iso_member_check(model, storm),
+                "joint": pt.joint_code_check(model, storm,
+                                             joint_class="auto"),
+                "viv": pt.viv_screen(model, AIRY[3], AIRY[2],
+                                     current_alpha=1.0 / 7.0),
+                "airgap_airy": pt.air_gap_check(model, wave, 38.0),
+                "airgap_stokes5": pt.air_gap_check(model, stokes, 38.0),
+                "combo": tuple(combined["iso_extreme"][:7]),
+                "envelope": (env["member_envelope"],
+                             env["governing_combo"], env["governing"])}
+
+    card, n, s = counted(hk, lambda: run(dev))
+    cpu = run("cpu")
+    errs = {}
+    for k, v in card.items():
+        e = 0.0
+        for a, b in zip(v, cpu[k]):
+            if isinstance(a, torch.Tensor) and a.is_floating_point():
+                e = max(e, nrel(a, b))
+            elif isinstance(a, torch.Tensor):
+                check(bit_equal(a.cpu(), b), f"{k}: integer or flag field "
+                      "equal on the card and the CPU")
+            elif isinstance(a, np.ndarray) and a.dtype.kind == "f":
+                e = max(e, nrel(a, b))
+            elif isinstance(a, np.ndarray):
+                check(np.array_equal(a, b), f"{k}: labels and indices "
+                      "equal")
+            elif isinstance(a, float):
+                e = max(e, abs(a - b) / max(abs(b), 1e-300))
+            else:
+                check(a == b, f"{k}: {a} == {b}")
+        errs[k] = e
+    check(max(errs.values()) <= CHECK_TOL and same_counts(n, {}),
+          f"code checks and combinations card vs CPU: "
+          + ", ".join(f"{k} {e:.1e}" for k, e in errs.items())
+          + f" <= {CHECK_TOL:g}; launches {n}")
+    uc = {k: float(card[k].uc.max()) for k in ("api", "iso", "joint")}
+    return {"errs": errs, "s": s, "uc": uc,
+            "airgap": {k: float(card[k].air_gap_m)
+                       for k in ("airgap_airy", "airgap_stokes5")},
+            "viv_flags": int((card["viv"].flags != "ok").sum()),
+            "governing_combo": card["envelope"][2],
+            "rec": phase_record(lambda: run(dev))}
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4149,6 +4618,71 @@ def main() -> int:
           f"{pdl['buck_dense_s'] * 1e3:.1f} ms (host clock, one synchronised "
           "call each)", flush=True)
 
+    # ---- 29-33. the design tier ----
+    t0 = time.perf_counter()
+    soil = soil_phase(pt, hk, dev, coarse64, refined64, large)
+    print(f"[soil] phase {time.perf_counter() - t0:.2f} s wall; springs "
+          f"(N/mm, N*mm/rad) of support 0: "
+          + " ".join(f"{v:.4e}" for v in soil["springs"][0])
+          + f"; kz/ky {soil['kz_over_ky']:.1f}; SSI condensed max "
+          f"utilization 9,612 DOF {soil['condensed_9612']['umax']:.6f}, "
+          f"99,882 DOF {soil['condensed_99882']['umax']:.6f}", flush=True)
+    t0 = time.perf_counter()
+    seis = seismic_phase(pt, hk, dev, coarse64, refined64, large, mlarge)
+    print(f"[seismic] phase {time.perf_counter() - t0:.2f} s wall; "
+          f"9,612 DOF CQC base shear (kN, x y z) "
+          + " ".join(f"{v:.1f}" for v in seis["base_shear"])
+          + f", max utilization {seis['cond_umax']:.6f}; 99,882 DOF max "
+          f"utilization {seis['large_umax']:.6f}", flush=True)
+    t0 = time.perf_counter()
+    push = pushover_phase(pt, hk, dev, d2)
+    print(f"[pushover] phase {time.perf_counter() - t0:.2f} s wall; RSR "
+          f"{push['rsr']:g}, first yield {push['first_yield']:g}, "
+          f"{push['n_yielded']} members yielded at lambda 6; to lambda 18: "
+          f"RSR {push['yield_rsr']:g}, first yield {push['yield_first']:g},"
+          f" {push['yield_n']} yielded; rose RSR "
+          f"min {min(push['rose_rsr']):g} max {max(push['rose_rsr']):g}",
+          flush=True)
+    t0 = time.perf_counter()
+    removal = removal_phase(pt, hk, dev)
+    print(f"[removal] phase {time.perf_counter() - t0:.2f} s wall",
+          flush=True)
+    t0 = time.perf_counter()
+    checks = checks_phase(pt, hk, dev)
+    print(f"[checks] phase {time.perf_counter() - t0:.2f} s wall; max UC "
+          + ", ".join(f"{k} {v:.4f}" for k, v in checks["uc"].items())
+          + "; air gap (m) " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                         checks["airgap"].items())
+          + f"; {checks['viv_flags']} VIV flags; governing combination "
+          f"{checks['governing_combo']}", flush=True)
+    for label, r in (("pile_head_stiffness (support 0: 3 Newton solves)",
+                      soil["rec"]),
+                     ("response_spectrum_condensed 9,612 DOF", seis["rec"]),
+                     ("pushover_rose 16 headings x 25 lambdas",
+                      push["rec"]),
+                     ("member_removal_screen 51 removals", removal["rec"]),
+                     ("code checks and combinations", checks["rec"])):
+        print(f"[time] {smi}: {label}: {r['text']} (torch.profiler)",
+              flush=True)
+    print(f"[time] {smi}: design tier, host clock, one synchronised call "
+          f"each: soil springs {soil['springs_s'] * 1e3:.1f} ms; SSI "
+          f"analyze_condensed 9,612 DOF "
+          f"{soil['condensed_9612']['s'] * 1e3:.1f} ms, 99,882 DOF "
+          f"{soil['condensed_99882']['s'] * 1e3:.1f} ms; response_spectrum "
+          f"126 DOF {seis['dense_s'] * 1e3:.1f} ms, condensed 9,612 DOF "
+          f"{seis['cond_s'] * 1e3:.1f} ms, 99,882 DOF "
+          f"{seis['large_s'] * 1e3:.1f} ms; pushover "
+          f"{push['single_s'] * 1e3:.1f} ms, rose {push['rose_s'] * 1e3:.1f}"
+          f" ms; removal screen {removal['s'] * 1e3:.1f} ms; checks "
+          f"{checks['s'] * 1e3:.1f} ms", flush=True)
+
+    print(f"[time] {smi}: the whole script {time.perf_counter() - t_start:.1f}"
+          " s wall, the kernels' build included", flush=True)
+    design_launches = {
+        "ssi_condensed_9612": soil["condensed_9612"]["launches"],
+        "ssi_condensed_99882": soil["condensed_99882"]["launches"],
+        "spectrum_condensed_9612": seis["cond_launches"],
+        "spectrum_condensed_99882": seis["large_launches"]}
     l1 = sweep_ms["nested level 1"]
     print(json.dumps({"kernels": [{
         "name": "morison_phase_batch",
@@ -4175,7 +4709,9 @@ def main() -> int:
             "sharded_envelope_2ranks": [
                 n["k1"] for n in d2["launches"]["envelope"]],
             "sharded_dense_envelope_2ranks": [
-                n["f64"] for n in d2["launches"]["dense"]]},
+                n["f64"] for n in d2["launches"]["dense"]],
+            **{label: sum(v for k, v in n.items() if k != "sweep")
+               for label, n in design_launches.items()}},
         "instances": {"f32": ["scan", "envelope", "dense_envelope_f32_model",
                               "options_scan"],
                       "f64": ["dense_envelope", "dynamic_condensed",
@@ -4243,7 +4779,8 @@ def main() -> int:
             "sharded_envelope_2ranks": [
                 n["sweep"] for n in d2["launches"]["envelope"]],
             "pdelta_condensed_9612": pdl["cond_launches"]["sweep"],
-            "pdelta_condensed_99882": pdl["large_launches"]["sweep"]},
+            "pdelta_condensed_99882": pdl["large_launches"]["sweep"],
+            **{label: n["sweep"] for label, n in design_launches.items()}},
         "launches_per_scan": per_scan,
         "max_abs_err": sweep_err,
         "max_rel_err": sweep_rel,

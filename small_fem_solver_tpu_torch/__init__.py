@@ -20,8 +20,14 @@ sea-driven transients, second-order analysis (P-delta, dense and
 condensed) and buckling (linearized global, Craig-Bampton reduced, member
 Euler screen), and the case-, state- and row-sharded paths on
 ``torch.distributed`` (``mesh=``, ``parallel.multihost``,
-``parallel.pcg_dist``).  Waves: Airy, Stokes (orders 1-5) and Fenton with the
-reference's automatic selection.  The fused Morison kernel and the
+``parallel.pcg_dist``), and the design tier run after the storm
+envelope: API p-y / t-z pile springs from the soil
+(``soil_support_stiffness``), the response-spectrum seismic check (dense
+and Craig-Bampton), the pushover and its heading rose (RSR), the
+member-removal screen, the API RP 2A and ISO 19902 member checks, the API
+joint check, the VIV screen, the air gap and load combinations.  Waves:
+Airy, Stokes (orders 1-5) and Fenton with the reference's automatic
+selection.  The fused Morison kernel and the
 chain-sweep kernel (CUDA C++) have plain PyTorch versions beside them.
 The package imports no JAX; ``convert`` carries state over from the JAX
 package.  Entry points run on the CUDA card unless the caller passes
@@ -48,6 +54,9 @@ from .models.presets import DEFAULT_STORM, default_3leg_jacket
 from .ops.buckling import (BucklingResults, EulerScreen, buckling_analysis,
                            buckling_analysis_condensed,
                            element_geometric_stiffness, euler_member_screen)
+from .ops.airgap import AirGapResult, air_gap_check
+from .ops.codecheck import CodeCheck, member_code_check
+from .ops.codecheck_iso import ISOCheck, iso_member_check
 from .ops.dispersion import apparent_period, solve_dispersion
 from .ops.dynamics import (HarmonicResponse, ModalResults,
                            TransientResponse, dynamic_response,
@@ -60,18 +69,29 @@ from .ops.fatigue import FatigueScreen, fatigue_screen
 from .ops.fenton import fenton_wave, fenton_wave_batch
 from .ops.freqdomain import (FreqDomainResponse, LinearizedSeaLoads,
                              linearized_sea_loads, spectral_stats)
+from .ops.jointcheck import JointCheck, joint_code_check
 from .ops.morison import MorisonLoads, PhaseScan, morison_loads, phase_scan
+from .ops.pushover import PushoverResults, pushover, pushover_rose
+from .ops.robustness import RemovalScreen, member_removal_screen
 from .ops.sections import TubeSections, tube_sections
+from .ops.seismic import (SpectrumResults, cqc_correlation, ec8_spectrum,
+                          response_spectrum, response_spectrum_condensed,
+                          table_spectrum)
+from .ops.soil import (Pile, PileHeadStiffness, SoilLayer, axial_solve,
+                       lateral_solve, pile_head_stiffness,
+                       soil_support_stiffness)
 from .ops.spectrum import (SeaKinematics, SpectralFatigue, SpectralSea,
                            jonswap_shape, make_random_sea, morison_sea_batch,
                            pm_shape, sea_kinematics, sea_surface,
                            spectral_fatigue_screen)
 from .ops.stokes import stokes_wave
+from .ops.viv import VIVScreen, viv_screen
 from .ops.wave_models import airy_steepness, make_wave, validate_wave
 from .ops.waves import (FourierWave, airy_wave, kinematics,
                         surface_elevation, surface_velocity)
 from .ops.wind import wind_member_forces, wind_profile, wind_topside_force
 from .parallel.sweep import make_case_batch, make_wave_batch, stack_waves
+from .utils.combos import combine_results, combo_envelope
 from .utils.persist import (design_envelope_resumable, load_results,
                             save_results)
 

@@ -11,11 +11,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .api import CondensedPrepared, LoadCase
+from .api import AnalysisResults, CondensedPrepared, LoadCase
 from .device import resolve_device
 from .models.model import JacketModel
 from .ops.condense import ChainFactor, NestedChainFactor
+from .ops.morison import MorisonLoads
 from .ops.sections import TubeSections
+from .ops.soil import Pile, SoilLayer
 from .ops.solve import DenseFactor
 from .ops.spectrum import SpectralSea
 from .ops.waves import FourierWave
@@ -138,3 +140,35 @@ def prepared_from_numpy(coarse: JacketModel, refined: JacketModel, Kg, KT,
         free=_index(free, device), fixed=_index(fixed, device),
         E=_float(E, dtype, device), nu=_float(nu, dtype, device),
         n_seg=int(n_seg), chain_solver=str(chain_solver))
+
+
+def soil_from_fields(layers) -> list[SoilLayer]:
+    """The port's soil profile from a JAX profile's layers, each given as
+    a dict of its fields (``dataclasses.asdict``)."""
+    return [SoilLayer(**layer) for layer in layers]
+
+
+def pile_from_fields(**fields) -> Pile:
+    """The port's :class:`Pile` from a JAX pile's fields."""
+    return Pile(**fields)
+
+
+def results_from_numpy(fields: dict, device=None,
+                       dtype: torch.dtype = torch.float64) -> AnalysisResults:
+    """An :class:`AnalysisResults` from a JAX result's fields as numpy
+    arrays (``morison`` a dict of the ``MorisonLoads`` fields; ``None``
+    fields stay ``None``; the displacement node an index)."""
+    device = resolve_device(device)
+
+    def convert(name, v):
+        if v is None or (isinstance(v, np.ndarray) and v.dtype == object
+                         and v.item() is None):
+            return None
+        if name == "morison":
+            return MorisonLoads(**{k: _float(a, dtype, device)
+                                   for k, a in v.items()})
+        if name in ("max_displacement_node", "solver_iters"):
+            return _index(v, device)
+        return _float(v, dtype, device)
+    return AnalysisResults(**{name: convert(name, fields.get(name))
+                              for name in AnalysisResults._fields})

@@ -172,27 +172,34 @@ def cholesky_or_nan(A: torch.Tensor) -> torch.Tensor:
 
 def factor_dense(K: torch.Tensor, free_dofs) -> DenseFactor:
     """Cholesky-factor the Jacobi-scaled free-free block once (NaN when it
-    is not positive definite: :func:`cholesky_or_nan`)."""
+    is not positive definite: :func:`cholesky_or_nan`).  ``K`` may carry
+    leading batch axes [..., n_dof, n_dof]: one factor each, in one
+    batched factorization (the JAX package vmaps the single factor)."""
     free = torch.as_tensor(free_dofs, device=K.device)
-    K_ff = K[free][:, free]
-    d = 1.0 / torch.sqrt(torch.diagonal(K_ff))
-    L = cholesky_or_nan(K_ff * d[:, None] * d[None, :])
+    K_ff = K[..., free, :][..., free]
+    d = 1.0 / torch.sqrt(torch.diagonal(K_ff, dim1=-2, dim2=-1))
+    L = cholesky_or_nan(K_ff * d[..., :, None] * d[..., None, :])
     return DenseFactor(chol=L, scale=d, K_ff=K_ff, free_dofs=free,
-                       n_dof=K.shape[0])
+                       n_dof=K.shape[-1])
 
 
 def _solve_scaled(fac: DenseFactor, F_f: torch.Tensor) -> torch.Tensor:
-    """Solve K_ff X = F_f via the scaled factor; F_f is [n_free, B]."""
-    y = fac.scale[:, None] * F_f
+    """Solve K_ff X = F_f via the scaled factor; F_f is [..., n_free, B]
+    (the factor's batch axes leading)."""
+    y = fac.scale[..., :, None] * F_f
     y = torch.linalg.solve_triangular(fac.chol, y, upper=False)
     y = torch.linalg.solve_triangular(fac.chol.mT, y, upper=True)
-    return fac.scale[:, None] * y
+    return fac.scale[..., :, None] * y
 
 
 def solve_factored(fac: DenseFactor, F: torch.Tensor,
                    refine_steps: int = 1) -> torch.Tensor:
     """Solve for one RHS [n_dof] or a batch [B, n_dof] with one factor,
-    plus ``refine_steps`` rounds of iterative refinement."""
+    plus ``refine_steps`` rounds of iterative refinement.  A batch of
+    factors (:func:`factor_dense` of [..., n_dof, n_dof]) takes one
+    right-hand side each, [..., n_dof], or one [n_dof] shared by all."""
+    if fac.chol.ndim > 2:
+        return _solve_factored_batch(fac, F, refine_steps)
     Fb = F if F.ndim == 2 else F[None]
     F_f = Fb[:, fac.free_dofs].T                      # [n_free, B]
     U_f = _solve_scaled(fac, F_f)
@@ -201,6 +208,27 @@ def solve_factored(fac: DenseFactor, F: torch.Tensor,
     U = torch.zeros_like(Fb)
     U[:, fac.free_dofs] = U_f.T
     return U if F.ndim == 2 else U[0]
+
+
+def _solve_factored_batch(fac: DenseFactor, F: torch.Tensor,
+                          refine_steps: int) -> torch.Tensor:
+    """:func:`solve_factored` for a batch of factors, one right-hand side
+    each: the JAX package's vmap of the single solve."""
+    Fb = F.expand(*fac.scale.shape[:-1], fac.n_dof)
+    F_f = Fb[..., fac.free_dofs, None]                # [..., n_free, 1]
+    U_f = _solve_scaled(fac, F_f)
+    n = F_f.shape[-2]
+    K_ff = fac.K_ff.reshape(-1, n, n)
+    for _ in range(refine_steps):
+        # the residual product matrix by matrix, as the single solve forms
+        # it: a batched product rounds differently, and each solve of the
+        # batch is to equal its single-matrix solve bit for bit
+        KU = torch.stack([K @ u for K, u in zip(K_ff,
+                                                U_f.reshape(-1, n, 1))])
+        U_f = U_f + _solve_scaled(fac, F_f - KU.reshape(U_f.shape))
+    U = Fb.new_zeros(Fb.shape)
+    U[..., fac.free_dofs] = U_f[..., 0]
+    return U
 
 
 # ---------------------------------------------------------------------------

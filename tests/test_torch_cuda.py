@@ -888,3 +888,90 @@ def test_pcg_on_card_matches_cpu_9612(precond):
         <= 0.01 * int(cpu.solver_iters)
     assert _rel(card.U.cpu(), cpu.U) <= 1e-8
     assert _rel(card.utilization.cpu(), cpu.utilization) <= 1e-7
+
+
+# ---- the design tier: soil, seismic, pushover, removal, checks ----
+
+DESIGN_STORM = dict(STORM, t_analysis=0.34)
+
+
+def _storm(device):
+    return (pt.default_3leg_jacket(device=device),
+            pt.airy_wave(17.038, 9.4, 50.0, 1.7, device=device),
+            pt.LoadCase(**DESIGN_STORM))
+
+
+@pytest.mark.cuda
+def test_batched_factor_matches_single_on_card():
+    """``factor_dense`` / ``solve_factored`` of a [B, n, n] stack on the
+    card against the single-matrix calls on the card: cuSOLVER's batched
+    Cholesky rounds differently from its single-matrix one (on the CPU,
+    LAPACK factors each matrix alone and the two are bit-equal,
+    ``tests/test_torch_pushover.py``), so factors and solves at 1e-13."""
+    dev = _device()
+    from small_fem_solver_tpu_torch.ops import solve
+    model = pt.default_3leg_jacket(device=dev)
+    K = pt.api._dense_system(model, pt.LoadCase().cast(torch.float64,
+                                                       dev))[0]
+    scale = torch.linspace(0.5, 2.0, 7, dtype=torch.float64,
+                           device=dev)[:, None, None]
+    Ks = K * scale
+    free = solve.free_fixed_dofs(model.fixed_mask)[0]
+    F = torch.randn(7, model.n_dof, dtype=torch.float64, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    fac = solve.factor_dense(Ks, free)
+    U = solve.solve_factored(fac, F)
+    for b in range(7):
+        single = solve.factor_dense(Ks[b], free)
+        assert _rel(fac.chol[b], single.chol) <= 1e-13
+        assert _rel(U[b], solve.solve_factored(single, F[b])) <= 1e-13
+
+
+@pytest.mark.cuda
+def test_soil_newton_runs_on_card_and_matches_cpu():
+    """The pile's Newton solves run on the card (results there) and give
+    the CPU's springs (1e-10) with residuals below 1e-8."""
+    dev = _device()
+    soil = [pt.SoilLayer("clay", 0.0, 8.0, su_kPa=40.0, gamma_kN_m3=8.0,
+                         eps50=0.02),
+            pt.SoilLayer("sand", 8.0, 100.0, phi_deg=35.0, gamma_kN_m3=10.0)]
+    pile = pt.Pile(D_mm=2134.0, t_mm=50.0, L_m=60.0)
+    lat = pt.lateral_solve(pile, soil, 2e6, 3e6, device=dev)
+    assert lat.u.is_cuda and float(lat.residual) < 1e-8
+    card = pt.pile_head_stiffness(pile, soil, H_kN=2000.0, V_kN=15000.0,
+                                  device=dev)
+    cpu = pt.pile_head_stiffness(pile, soil, H_kN=2000.0, V_kN=15000.0,
+                                 device="cpu")
+    assert _rel(torch.tensor(card.support_stiffness),
+                torch.tensor(cpu.support_stiffness)) <= 1e-10
+    assert (card.residuals < 1e-8).all()
+
+
+@pytest.mark.cuda
+def test_design_tier_on_card_matches_cpu():
+    """Response spectrum (CQC), pushover, removal screen and the API member
+    check of the storm jacket on the card against the CPU: spectra and
+    curves 1e-9, RSR, first yield and flags equal, utilizations 1e-10,
+    checks 1e-12."""
+    dev = _device()
+    (m, w, c), (mc, wc, _) = _storm(dev), _storm("cpu")
+    kw = dict(pga_g=0.2, ground="C", topside_mass_t=1100.0)
+    a, b = pt.response_spectrum(m, **kw), pt.response_spectrum(mc, **kw)
+    for f in ("periods_s", "U_peak", "F1_local", "utilization"):
+        assert _rel(getattr(a, f).cpu(), getattr(b, f)) <= 1e-9, f
+    push = dict(lambda_max=18.0, n_lambda=7, n_iter=60)
+    a, b = pt.pushover(m, w, c, **push), pt.pushover(mc, wc, c, **push)
+    assert float(a.rsr) == float(b.rsr)
+    assert float(a.first_yield_lambda) == float(b.first_yield_lambda)
+    assert torch.equal(a.converged.cpu(), b.converged)
+    assert torch.equal(a.n_yielded.cpu(), b.n_yielded)
+    assert _rel(a.max_displacement_mm.cpu(), b.max_displacement_mm) <= 1e-9
+    a = pt.member_removal_screen(m, w, c)
+    b = pt.member_removal_screen(mc, wc, c)
+    assert torch.equal(a.critical.cpu(), b.critical)
+    assert torch.equal(a.stable.cpu(), b.stable)
+    assert _rel(a.max_util.cpu(), b.max_util) <= 1e-10
+    ra, rb = pt.analyze(m, w, c), pt.analyze(mc, wc, c)
+    a, b = pt.member_code_check(m, ra), pt.member_code_check(mc, rb)
+    assert _rel(a.uc.cpu(), b.uc) <= 1e-12
+    assert (a.governing == b.governing).all()

@@ -58,6 +58,9 @@ SCATTER_KW = dict(exposure_years=25.0, n_components=8)
 PCG_SEG = 3             # 123 nodes: 2 ranks pad one node, 3 ranks none
 CASES = mh.RankMesh("cases")
 DOF = mh.RankMesh("dof")
+HEADINGS = mh.RankMesh("headings")
+ROSE = [10.0, 130.0, 250.0, 70.0]
+ROSE_KW = dict(lambda_max=16.0, n_lambda=3, n_iter=10)
 F64 = torch.float64
 
 
@@ -105,6 +108,8 @@ def data(tmp_path_factory):
     d["pwave"] = sf.make_wave(9.5, 9.4, 50.0, U_c=1.2, model="stokes", N=5)
     d["pcase"] = sf.LoadCase(**{**BASE, "current_dir_deg": 120.0})
     d["tmp"] = tmp_path_factory.mktemp("distributed")
+    d["rose"] = (d["tm"], port_wave(sf.airy_wave(17.038, 9.4, 50.0, 1.7)),
+                 pt.LoadCase(**BASE, t_analysis=0.34), ROSE)
     return d
 
 
@@ -145,6 +150,8 @@ def _calls(d, world_size) -> dict:
                     (d["tm"], d["tw"], d["tc"],
                      d["tmp"] / f"resume{world_size}"),
                     dict(env, chunk_size=world_size, mesh=CASES)),
+        # 4 headings: 2 a rank at 2 ranks, refused at 3
+        "rose": (pt.pushover_rose, d["rose"], dict(ROSE_KW, mesh=HEADINGS)),
         # each rank's own block of a 7-case batch: uneven at 3 ranks
         "seven": (mh.shard_cases_from_local, (mh.PerRank(tuple(
             waves7.case(slice(*comm.block_range(7, r, world_size)))
@@ -344,6 +351,31 @@ def test_case_counts_and_uneven_blocks(request, data, world_size):
         assert isinstance(four, ValueError) and "divide" in str(four)
     for f in ("k", "omega", "H", "T", "E", "U"):
         assert torch.equal(getattr(seven, f), getattr(waves7, f)), f
+
+
+@pytest.mark.parametrize("world_size", [2, 3])
+def test_pushover_rose_sharded_matches_unsharded(request, data, world_size):
+    """``pushover_rose(mesh=)``: 4 headings in blocks of 2 over 2 ranks
+    give the unsharded rose's RSR and first yield exactly and its curves
+    (converged and yielded counts exactly, the rest 1e-12: a rank's batch
+    is half the states, and the batched products round with its size);
+    3 ranks refuse 4 headings (ValueError, as JAX's placement does)."""
+    out = request.getfixturevalue(f"ranks{world_size}")[0][0]["rose"]
+    if world_size == 3:
+        assert isinstance(out, ValueError) and "divide" in str(out)
+        return
+    headings, rsr, fy, per = pt.pushover_rose(*data["rose"], **ROSE_KW)
+    h, rsr_sh, fy_sh, curve = out
+    assert np.array_equal(h, headings)
+    assert np.array_equal(rsr_sh, rsr) and np.array_equal(fy_sh, fy)
+    conv, disp, ny, util, axial = curve
+    assert disp.shape == (4, ROSE_KW["n_lambda"])
+    for i, r in enumerate(per):
+        assert torch.equal(conv[i], r.converged)
+        assert torch.equal(ny[i], r.n_yielded)
+        for a, b in ((disp[i], r.max_displacement_mm),
+                     (util[i], r.max_util), (axial[i], r.axial_N)):
+            assert rel_err(a, b) < 1e-12
 
 
 def test_shard_bcsr_round_trip(data):

@@ -16,6 +16,7 @@ numpy-seeded loads and matrices) through the JAX function and the port's:
   the four eigen functions (``subspace_*`` at 1e-9: the JAX iterations
   stop at their convergence error) and ``fatigue_screen``.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -118,8 +119,10 @@ def test_modal_analysis_matches_jax(jacket, options):
 def test_modal_analysis_condensed_matches_jax(jacket, n_seg, n_chain_modes,
                                               options, tol):
     jc, jr, _, tc, tr, _ = jacket
-    ref = jd.modal_analysis_condensed(jc, jr[n_seg], n_seg, n_modes=8,
-                                      n_chain_modes=n_chain_modes, **options)
+    # jitted: op by op JAX's reduction costs ~10 s a configuration
+    ref = jax.jit(lambda: jd.modal_analysis_condensed(
+        jc, jr[n_seg], n_seg, n_modes=8, n_chain_modes=n_chain_modes,
+        **options))()
     out = pt.modal_analysis_condensed(tc, tr[n_seg], n_seg, n_modes=8,
                                       n_chain_modes=n_chain_modes, **options)
     assert_modal(out, ref, tol)

@@ -4,7 +4,9 @@
 ``euler_member_screen``).  Mirrors ``tests/test_pdelta.py`` and
 ``tests/test_buckling.py``: the cantilever's Euler load and amplification,
 the storm jacket (lambda_cr ~ 23), condensed against dense, and the port
-against JAX in f64 on the CPU (max |port - JAX| / max |JAX| <= 1e-10)."""
+against JAX in f64 on the CPU (max |port - JAX| / max |JAX| <= 1e-10).
+JAX's eigen references run jitted (op by op they cost seconds a call)."""
+import jax
 import numpy as np
 import pytest
 import torch
@@ -86,7 +88,7 @@ def test_cantilever_euler_load_and_amplification(column):
     np.testing.assert_allclose(tbuck.member_axial_forces(lin).numpy(),
                                1e6, rtol=1e-8)
     b = tbuck.buckling_analysis(tm, lin)
-    jb = jbuck.buckling_analysis(jm, jlin)
+    jb = jax.jit(lambda: jbuck.buckling_analysis(jm, jlin))()
     assert rel_err(b.load_factor, jb.load_factor) < TOL
     lam = float(b.load_factor[0])
     col = _column(pt.build_model, device="cpu")
@@ -132,15 +134,13 @@ def test_storm_jacket_matches_jax(jacket):
     jc, _, jw, jcase, tc, _, tw, tcase = jacket
     lin = pt.analyze(tc, tw, tcase, solver="chol")
     b = tbuck.buckling_analysis(tc, lin)
-    jb = jbuck.buckling_analysis(jc, sf.analyze(jc, jw, jcase,
-                                                solver="chol"))
+    jlin = jax.jit(lambda: sf.analyze(jc, jw, jcase, solver="chol"))()
+    jb = jax.jit(lambda: jbuck.buckling_analysis(jc, jlin))()
     assert rel_err(b.load_factor, jb.load_factor) < TOL
     assert 20.0 < float(b.load_factor[0]) < 26.0
     assert bool(torch.all(torch.diff(b.load_factor) >= -1e-9))
     scr = tbuck.euler_member_screen(tc, lin, k_factor=0.8)
-    jscr = jbuck.euler_member_screen(jc, sf.analyze(jc, jw, jcase,
-                                                    solver="chol"),
-                                     k_factor=0.8)
+    jscr = jbuck.euler_member_screen(jc, jlin, k_factor=0.8)
     for f in ("axial_N", "P_euler_N", "utilization"):
         assert rel_err(getattr(scr, f), getattr(jscr, f)) < TOL, f
     assert 0.0 < float(scr.utilization.max()) < 0.5
@@ -185,8 +185,8 @@ def test_condensed_matches_dense_and_jax(jacket):
                                               n_chain_modes=6)
     assert abs(float(trunc.load_factor[0])
                / float(dense_b.load_factor[0]) - 1.0) < 0.01
-    jexact = jbuck.buckling_analysis_condensed(jc, jr, N_SEG, jres,
-                                               n_modes=3, n_chain_modes=full)
+    jexact = jax.jit(lambda: jbuck.buckling_analysis_condensed(
+        jc, jr, N_SEG, jres, n_modes=3, n_chain_modes=full))()
     assert rel_err(exact.load_factor, jexact.load_factor) < TOL
     with pytest.raises(ValueError, match="refined"):
         tbuck.buckling_analysis_condensed(tc, tr, N_SEG,
