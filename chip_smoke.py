@@ -17,7 +17,10 @@ tier (``analyze(solver="pcg")`` at 9,612 and 99,882 DOF, the direct-write
 BCSR assembly at 99,882 DOF; plain PyTorch, no kernel), and the design
 tier after the envelope (pile springs and SSI, response spectra,
 pushover and its rose, the member-removal screen, the code checks and
-combinations, in float64) —
+combinations, in float64), and the long-term tier (member and
+environmental reliability under a fitted (Hs, Tp) climate, importance
+sampling, section sensitivities and gradient sizing through autograd,
+model I/O and reports) —
 through both hand-written kernels, the fused Morison kernel (K1) and the
 chain-sweep kernel, and checks them:
 
@@ -250,7 +253,29 @@ chain-sweep kernel, and checks them:
    check, the VIV screen, the air gap (Airy and Stokes-5) and
    ``combo_envelope`` of three load cases against the CPU (1e-12); each
    of phases 29-33 with its wall time, device operations, busy time and
-   peak memory.
+   peak memory;
+34. reliability phase (f64, the default jacket, the storm case, Airy
+   design waves, 12 phases, the synthetic climate of
+   tests/test_reliability.py): ``member_reliability`` on
+   ``member_utilization_response_batch`` at threshold 0.3 (K1's f64
+   launches = ``n_envelopes``, one a batch; K1 against its plain version
+   at the first batch, 1e-12; flags and envelope count equal to a CPU run,
+   beta and design storms 1e-8), ``importance_sample_batch`` at 1,000
+   samples (one K1 launch; pf and cov against the CPU on the same samples,
+   1e-10) and the scalar ``environmental_reliability`` (no launch; its
+   evaluations and beta against the CPU);
+35. design phase (f64, the Stokes-5 storm at t = 0.34 s):
+   ``section_sensitivities`` at 126 and 9,612 DOF (the backward of a
+   dense f64 Cholesky on the card) against the CPU f64 (1e-10) and
+   central differences at h = 1e-3 mm and 10h (1e-6 at 126 DOF; 4e-5 and
+   4e-6 at 9,612 DOF, the roundoff bound);
+   ``optimize_sections`` to 0.5 in 80 iterations against the CPU (1e-8);
+   no launch;
+36. I/O phase: a model JSON loaded onto the card, the member-force CSV
+   and the text reports of the card's storm analysis against the CPU's
+   (1e-9), ``validate_sections``; matplotlib not imported.  Each of phases
+   34-35 with its wall time, device operations, busy time and peak
+   memory.
 
 Every new path is run with the launch counts set to 0 just before it and
 read just after it; a mean or MPM stress is compared to one of its
@@ -3456,10 +3481,14 @@ def storm_inputs(pt, device):
 def phase_record(fn) -> dict:
     """:func:`call_record` of a phase's main call, as one line's text."""
     rec = call_record(fn)
+    k1 = rec["k1_us"]
     rec["text"] = (f"{rec['s'] * 1e3:.1f} ms host clock (one synchronised "
                    f"call), {rec['ops']} device operations, device busy "
                    f"{rec['busy_ms']:.3f} ms, peak device memory "
-                   f"{rec['peak_mib']:.0f} MiB; most time: {rec['top']}")
+                   f"{rec['peak_mib']:.0f} MiB"
+                   + (f", K1 f64 {k1:.1f} us a launch (records + fused)"
+                      if k1 == k1 else "")
+                   + f"; most time: {rec['top']}")
     return rec
 
 
@@ -3841,6 +3870,336 @@ def checks_phase(pt, hk, dev):
             "viv_flags": int((card["viv"].flags != "ok").sum()),
             "governing_combo": card["envelope"][2],
             "rec": phase_record(lambda: run(dev))}
+
+
+# ---- the long-term tier (reliability, design, model I/O and reports) ----
+RELI = dict(d=50.0, U_c=1.7, wave_model="airy", n_steps=12)
+RELI_THRESHOLD = 0.3  # member reliability (tests/test_reliability.py:246-282)
+IS_SAMPLES = 1000     # importance sampling (the CLI's --monte-carlo 1000)
+RELI_TOL = 1e-8       # beta and design storms, card vs CPU
+IS_TOL = 1e-10        # importance-sampling pf and cov, card vs CPU
+K1_PLAIN_TOL = 1e-12  # K1 f64 vs its plain version at a batch of the path
+SENS_TOL = 1e-10      # section sensitivities, card vs CPU (126, 9,612 DOF)
+FD_STEPS = (1e-3, 1e-2)  # central-difference steps h and 10h [mm]
+FD_RTOL = 1e-6        # ... vs central differences at 126 DOF (JAX's rtol)
+# ... at 9,612 DOF, at h and 10h: the smallest component (d util / d D_leg,
+# 6.8e-6 /mm) is roundoff-bound, d * u / (h |g|) with the forward's relative
+# roundoff d <= 1e-12 (card vs CPU 1.1e-12), u = 0.245: 3.6e-5 at h and
+# 3.6e-6 at 10h, plus the t_brace truncation 1.1e-7 (h^2) at 10h
+FD_RTOL_9612 = (4e-5, 4e-6)
+SIZING_ITERS = 80     # optimize_sections (the CLI's --n-iter 80)
+SIZING_TOL = 1e-8     # optimized thicknesses, card vs CPU
+TEXT_TOL = 1e-9       # report numbers, card vs CPU
+
+
+def reliability_climate(pt):
+    """The synthetic climate of tests/test_reliability.py: Hs ~
+    Weibull(1.5, 2.5), ln Tp | Hs ~ N(ln(5.5 + 1.4 sqrt Hs), 0.12), 30,000
+    states (seed 3) scaled to storm waves (2 Hs, Tp + 2), fitted."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    hs = 2.5 * rng.weibull(1.5, size=30_000)
+    tp = np.exp(np.log(5.5 + 1.4 * np.sqrt(hs))
+                + 0.12 * rng.standard_normal(hs.size))
+    return pt.fit_joint_hs_tp(2.0 * hs, tp + 2.0, n_bins=8, state_hours=3.0)
+
+
+def k1_batch_check(hk, model, hs, tp):
+    """K1's case-batched f64 instance against its plain version (1e-12) on
+    the operands of the reliability closures' envelope for the sea states
+    (hs, tp): their clipped Airy waves, 12 phases, the storm's heading."""
+    import torch
+    from small_fem_solver_tpu_torch.ops import reliability as rel_mod
+    from small_fem_solver_tpu_torch.ops.morison import (
+        morison_end_forces_batch)
+    h, t = rel_mod._breaking_clip(hs, tp, RELI["d"], 0.05, 0.75 * RELI["d"])
+    waves = rel_mod._batch_waves(model, h, t, RELI["d"], RELI["U_c"],
+                                 RELI["wave_model"], 5)
+    C, S = waves.E.shape[0], RELI["n_steps"]
+    ts = (torch.arange(S, dtype=model.dtype, device=model.device)[None, :]
+          * waves.T[:, None] / S)
+    dirs = torch.full((C,), 38.0, dtype=model.dtype, device=model.device)
+    D = model.sections.D_outer[model.sect_id] / 1000.0
+    args = (waves, model.coords, model.conn, D, dirs, dirs, 0.7, 2.0,
+            1025.0, ts)
+    out = hk.morison_end_forces_batch_cuda(*args)
+    err = max(rel(a, b) for a, b in zip(out, morison_end_forces_batch(*args)))
+    return err, C
+
+
+def reliability_phase(pt, hk, dev):
+    """Long-term reliability on the card (f64, the default jacket, the
+    storm case, Airy design waves, 12 phases; the climate of
+    :func:`reliability_climate`): ``member_reliability`` on
+    ``member_utilization_response_batch`` at threshold 0.3 (one launch of
+    K1's f64 instance per envelope, = ``n_envelopes``; K1 against its plain
+    version at the first batch's operands, 1e-12; flags and the envelope
+    count equal to a CPU run, beta and design storms 1e-8), the
+    importance-sampling check of the governing member's design point
+    through ``utilization_response_batch`` at 1,000 samples (one launch;
+    pf and cov against the CPU on the same samples, 1e-10), and the scalar
+    FORM ``environmental_reliability`` on ``utilization_response``
+    (pointwise ``analyze_phase_batch``: no launch; evaluations and beta
+    against the CPU)."""
+    import numpy as np
+    joint = reliability_climate(pt)
+    case = pt.LoadCase(**CASE)
+    model = pt.default_3leg_jacket(device=dev)
+    cpu = pt.default_3leg_jacket(device="cpu")
+    out = {}
+
+    first = []
+    resp = pt.member_utilization_response_batch(model, case, **RELI)
+
+    def recording(hs, tp):
+        if not first:
+            first.append((np.array(hs), np.array(tp)))
+        return resp(hs, tp)
+    mr, n, s = counted(hk, lambda: pt.member_reliability(recording, joint,
+                                                         RELI_THRESHOLD))
+    check(same_counts(n, {"f64": mr.n_envelopes}),
+          f"member_reliability: K1 f64 launches {n['f64']} == n_envelopes "
+          f"{mr.n_envelopes} (one a batch), no other launch: {n}")
+    err, C = k1_batch_check(hk, model, *first[0])
+    check(err <= K1_PLAIN_TOL, f"K1 f64 at member_reliability's first batch "
+          f"({C} sea states x {RELI['n_steps']} phases) vs plain {err:.2e} "
+          f"<= {K1_PLAIN_TOL:g}")
+    t0 = time.perf_counter()
+    ref = pt.member_reliability(pt.member_utilization_response_batch(
+        cpu, case, **RELI), joint, RELI_THRESHOLD)
+    out["cpu_s"] = time.perf_counter() - t0
+    flags = (np.array_equal(mr.reachable, ref.reachable)
+             and np.array_equal(mr.converged, ref.converged)
+             and mr.n_envelopes == ref.n_envelopes)
+    r = ref.reachable
+    berr = max(float(np.abs(getattr(mr, f)[r] / getattr(ref, f)[r]
+                            - 1.0).max())
+               for f in ("beta", "hs_star", "tp_star"))
+    check(flags and berr <= RELI_TOL and r.any() and (~r).any(),
+          f"member_reliability card vs CPU: reachable ({int(r.sum())} of "
+          f"{r.size}), converged and n_envelopes ({mr.n_envelopes}) equal "
+          f"{flags}; beta and design storms {berr:.2e} <= {RELI_TOL:g}")
+    gov = int(np.argmin(np.where(r, mr.beta, np.inf)))
+    launches = {"member_reliability": n}
+    out.update(launches=launches, s=s, n_envelopes=mr.n_envelopes,
+               reachable=int(r.sum()), err=berr, k1_err=err,
+               beta_min=float(mr.beta[gov]), governing=gov,
+               p_lower=mr.system.p_lower, p_upper=mr.system.p_upper,
+               hs_star=float(mr.hs_star[gov]),
+               tp_star=float(mr.tp_star[gov]))
+    out["rec"] = phase_record(lambda: pt.member_reliability(
+        resp, joint, RELI_THRESHOLD))
+
+    # importance sampling at the governing member's design point
+    u_star = mr.beta[gov] * mr.alpha[gov]
+    res = pt.FormResult(beta=float(mr.beta[gov]), pf=float(mr.pf[gov]),
+                        u_star=u_star, x_star=u_star, alpha=mr.alpha[gov],
+                        g_star=0.0, n_iter=0, n_evals=0, converged=True)
+    g_card = pt.hs_tp_limit_state_batch(pt.utilization_response_batch(
+        model, case, **RELI), joint, RELI_THRESHOLD)
+    (pf, cov), n, s = counted(hk, lambda: pt.importance_sample_batch(
+        g_card, res, n_samples=IS_SAMPLES, seed=0))
+    check(same_counts(n, {"f64": 1}), f"importance_sample_batch at "
+          f"{IS_SAMPLES} samples: one K1 f64 launch: {n}")
+    pf_c, cov_c = pt.importance_sample_batch(pt.hs_tp_limit_state_batch(
+        pt.utilization_response_batch(cpu, case, **RELI), joint,
+        RELI_THRESHOLD), res, n_samples=IS_SAMPLES, seed=0)
+    ierr = max(abs(pf / pf_c - 1.0), abs(cov / cov_c - 1.0))
+    check(pf_c > 0.0 and ierr <= IS_TOL,
+          f"importance_sample_batch card vs CPU (same samples): pf {pf:.6e} "
+          f"(CPU {pf_c:.6e}), cov {cov:.4f}; {ierr:.2e} <= {IS_TOL:g}; "
+          f"FORM pf of that member {float(mr.pf[gov]):.6e}")
+    launches["importance_sample_1000"] = n
+    out.update(is_s=s, pf=pf, cov=cov, is_err=ierr)
+    out["is_rec"] = phase_record(lambda: pt.importance_sample_batch(
+        g_card, res, n_samples=IS_SAMPLES, seed=0))
+    # the batch's K1 launch: S 12 phases, the 51 members' 15 Gauss points,
+    # one Airy mode, 1,000 cases
+    out["is_bound"] = harm64_bound(RELI["n_steps"], model.n_members,
+                                   N_GAUSS, 1, model.n_nodes, IS_SAMPLES)
+
+    # scalar FORM through the pointwise phase batch
+    response = pt.utilization_response(model, case, **RELI)
+    r1, r100 = (response(*map(float, pt.rosenblatt_hs_tp(
+        joint, pt.return_period_beta(joint, y), 0.0))) for y in (1.0, 100.0))
+    thr = 0.5 * (r1 + r100)
+    er, n, s = counted(hk, lambda: pt.environmental_reliability(
+        response, joint, thr, max_iter=25))
+    ec = pt.environmental_reliability(pt.utilization_response(
+        cpu, case, **RELI), joint, thr, max_iter=25)
+    same = (er.form.converged and ec.form.converged
+            and (er.form.n_iter, er.form.n_evals) == (ec.form.n_iter,
+                                                      ec.form.n_evals))
+    eerr = max(abs(er.form.beta / ec.form.beta - 1.0),
+               abs(er.hs_star / ec.hs_star - 1.0),
+               abs(er.tp_star / ec.tp_star - 1.0))
+    check(same_counts(n, {}) and same and eerr <= RELI_TOL,
+          f"environmental_reliability (threshold {thr:.4f}): no launch {n}; "
+          f"converged, {er.form.n_iter} iterations and {er.form.n_evals} "
+          f"evaluations as on the CPU {same}; beta {er.form.beta:.6f}, "
+          f"design storm Hs {er.hs_star:.3f} m Tp {er.tp_star:.3f} s vs CPU "
+          f"{eerr:.2e} <= {RELI_TOL:g}")
+    launches["environmental_reliability"] = n
+    out.update(form_s=s, form_evals=er.form.n_evals, form_iter=er.form.n_iter,
+               form_beta=er.form.beta, form_err=eerr,
+               form_ms_per_eval=s * 1e3 / er.form.n_evals)
+    return out
+
+
+def design_phase(pt, hk, dev, refined64):
+    """Differentiable design on the card (f64, the Stokes-5 storm at t =
+    0.34 s of tests/test_design.py): ``section_sensitivities`` at 126 DOF
+    and at 9,612 DOF (the backward of a dense f64 Cholesky on the card),
+    each against the CPU f64 (1e-10) and against central differences at
+    h = 1e-3 mm and 10h (1e-6 at 126 DOF; at 9,612 DOF the roundoff and
+    truncation bounds of ``FD_RTOL_9612``); ``optimize_sections`` to target
+    0.5 in 80 iterations against the CPU (thicknesses 1e-8), with its time
+    an iteration and peak memory.  No kernel: the dense pointwise path."""
+    import dataclasses
+    import numpy as np
+    import torch
+
+    def inputs(device):
+        return (pt.default_3leg_jacket(device=device),
+                pt.make_wave(*AIRY[:3], U_c=AIRY[3], model="stokes", N=5,
+                             device=device),
+                pt.LoadCase(**CASE, t_analysis=0.34))
+    model, wave, case = inputs(dev)
+    cm, cw, cc = inputs("cpu")
+    out = {"launches": {}}
+
+    def central(m, h):
+        p0 = torch.stack([m.sections.D_outer, m.sections.t],
+                         dim=-1).reshape(-1)
+
+        def util(p):
+            mm = dataclasses.replace(m, sections=pt.tube_sections(
+                p[0::2], p[1::2], 7850.0, device=m.device))
+            return float(pt.analyze(mm, wave, case, solver="chol",
+                                    accel="analytic").utilization.max())
+        fd = []
+        for i in range(p0.numel()):
+            e = torch.zeros_like(p0)
+            e[i] = h
+            fd.append((util(p0 + e) - util(p0 - e)) / (2.0 * h))
+        return np.array(fd)
+
+    for key, m, cpu_m, tols in (
+            ("", model, cm, (FD_RTOL, FD_RTOL)),
+            ("big_", refined64, pt.refine_model(cm, N_SEG), FD_RTOL_9612)):
+        sens, n, s = counted(hk, lambda m=m: pt.section_sensitivities(
+            m, wave, case))
+        ref = pt.section_sensitivities(cpu_m, cw, cc)
+        serr = max(rel(getattr(sens, f).cpu(), getattr(ref, f))
+                   for f in ("dutil", "dmass_t", "util_max", "mass_t"))
+        uerr = rel(sens.util_max.cpu(), ref.util_max)
+        g = sens.dutil.cpu().numpy()
+        fderr = [float(np.abs(g / central(m, h) - 1.0).max())
+                 for h in FD_STEPS]
+        check(same_counts(n, {}) and serr <= SENS_TOL
+              and all(e <= t for e, t in zip(fderr, tols))
+              and bool(sens.dutil.isfinite().all()),
+              f"section_sensitivities at {m.n_dof} DOF: no launch {n}; card "
+              f"vs CPU {serr:.2e} <= {SENS_TOL:g} (util_max {uerr:.2e}); "
+              f"vs central differences "
+              + ", ".join(f"h {h:g} mm {e:.2e} <= {t:g}"
+                          for h, e, t in zip(FD_STEPS, fderr, tols))
+              + "; d(util)/d(D, t) (1/mm) "
+              + " ".join(f"{v:.6e}" for v in g.tolist()))
+        out["launches"][f"section_sensitivities_{m.n_dof}"] = n
+        out.update({f"{key}s": s, f"{key}err": serr,
+                    f"{key}fd_err": fderr, f"{key}dutil": g.tolist(),
+                    f"{key}rec": phase_record(
+                        lambda m=m: pt.section_sensitivities(m, wave,
+                                                             case))})
+
+    opt, n, s = counted(hk, lambda: pt.optimize_sections(
+        model, wave, case, target_util=0.5, n_iter=SIZING_ITERS))
+    copt = pt.optimize_sections(cm, cw, cc, target_util=0.5,
+                                n_iter=SIZING_ITERS)
+    oerr = max(rel(opt.t.cpu(), copt.t),
+               float(np.abs(opt.history / copt.history - 1.0).max()))
+    check(same_counts(n, {}) and oerr <= SIZING_TOL
+          and 0.4 < float(opt.util_max) < 0.6,
+          f"optimize_sections (target 0.5, {SIZING_ITERS} iterations): no "
+          f"launch {n}; thicknesses {opt.t.tolist()} mm, utilization "
+          f"{float(opt.util_max):.4f}, mass {float(opt.mass_t):.1f} t; card "
+          f"vs CPU (thicknesses, history) {oerr:.2e} <= {SIZING_TOL:g}")
+    out["launches"]["optimize_sections"] = n
+    out.update(opt_s=s, opt_err=oerr, t=opt.t.tolist(),
+               opt_util=float(opt.util_max), opt_mass=float(opt.mass_t))
+    out["opt_rec"] = phase_record(lambda: pt.optimize_sections(
+        model, wave, case, target_util=0.5, n_iter=4))
+    return out
+
+
+def io_phase(pt, hk, dev):
+    """Model I/O and reports on the card's results: the model written to
+    JSON and loaded onto the card, the storm analysis's member-force table,
+    CSV and text reports (``render_report`` with the phase scan,
+    ``render_code_checks``) against the CPU's (labels equal, numbers
+    1e-9), ``validate_sections``; the package and these modules leave
+    matplotlib unimported (the plots need it; this host may lack it)."""
+    import csv
+    import re
+    import tempfile
+    import numpy as np
+    import torch
+    from small_fem_solver_tpu_torch.utils import io as tio
+    from small_fem_solver_tpu_torch.utils import report as treport
+    number = re.compile(r"[-+]?\d+\.?\d*(?:[eE][-+]?\d+)?")
+    check("matplotlib" not in sys.modules, "the package, utils.io and "
+          "utils.report import no matplotlib")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_io_")
+    _, wave_c, case = storm_inputs(pt, "cpu")
+    cpu_model = pt.default_3leg_jacket(device="cpu")
+    tio.save_model(f"{tmp}/jacket.json", cpu_model, params={"H": AIRY[0]})
+    model, params = tio.load_model(f"{tmp}/jacket.json")
+    check(model.device.type == "cuda" and params == {"H": AIRY[0]}
+          and bool(torch.equal(model.coords.cpu(), cpu_model.coords)),
+          "load_model without device: the model on the card, bit-equal "
+          "coordinates, parameters kept")
+    wave = pt.airy_wave(*AIRY, device=dev)
+    texts, tables = {}, {}
+    for label, m, w in (("card", model, wave), ("cpu", cpu_model, wave_c)):
+        res = pt.analyze(m, w, case, solver="chol")
+        D_m = m.sections.D_outer[m.sect_id] / 1000.0
+        scan = pt.phase_scan(w, m.coords, m.conn, D_m, 38.0, 38.0, 0.7, 2.0,
+                             1025.0, n_steps=36)
+        texts[label] = (treport.render_report(m, w, case, res,
+                                              phase_scan=scan)
+                        + treport.render_code_checks(m, res))
+        tio.export_csv(f"{tmp}/{label}.csv", m, res)
+        with open(f"{tmp}/{label}.csv") as f:
+            tables[label] = list(csv.reader(f))
+    a, b = texts["card"], texts["cpu"]
+    same = number.sub("#", a) == number.sub("#", b)
+    nums = [(float(x), float(y)) for x, y in zip(number.findall(a),
+                                                 number.findall(b))]
+    terr = max(abs(x - y) / max(abs(y), 1e-300) for x, y in nums)
+    ca, cb = tables["card"], tables["cpu"]
+    xa = np.array([r[4:] for r in ca[1:]], float)
+    xb = np.array([r[4:] for r in cb[1:]], float)
+    cerr = float((np.abs(xa - xb).max(axis=0)
+                  / np.abs(xb).max(axis=0).clip(1e-300)).max())
+    check(same and terr <= TEXT_TOL and ca[0] == tio.CSV_COLUMNS
+          and [r[:4] for r in ca] == [r[:4] for r in cb] and cerr <= TEXT_TOL,
+          f"reports and CSV of the card's analysis vs the CPU's: text equal "
+          f"{same}, {len(nums)} numbers {terr:.2e}, CSV {cerr:.2e} <= "
+          f"{TEXT_TOL:g}")
+    msgs = pt.validate_sections(pt.tube_sections([2000.0, 800.0],
+                                                 [75.0, 90.0], device=dev))
+    check(len(msgs) == 1 and "D/t" in msgs[0],
+          f"validate_sections on the card: {msgs}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"numbers": len(nums), "err": terr,
+            "matplotlib": _has_module("matplotlib")}
+
+
+def _has_module(name: str) -> bool:
+    """Whether ``name`` is installed on this host (found, not imported)."""
+    import importlib.util
+    return importlib.util.find_spec(name) is not None
 
 
 def main() -> int:
@@ -4676,13 +5035,59 @@ def main() -> int:
           f" ms; removal screen {removal['s'] * 1e3:.1f} ms; checks "
           f"{checks['s'] * 1e3:.1f} ms", flush=True)
 
+    # ---- 34-36. the long-term tier ----
+    t0 = time.perf_counter()
+    reli = reliability_phase(pt, hk, dev)
+    print(f"[reliability] phase {time.perf_counter() - t0:.2f} s wall; "
+          f"member_reliability: {reli['reachable']} members reachable, "
+          f"governing member {reli['governing']} beta "
+          f"{reli['beta_min']:.6f} at Hs {reli['hs_star']:.3f} m, Tp "
+          f"{reli['tp_star']:.3f} s, system pf in [{reli['p_lower']:.4e}, "
+          f"{reli['p_upper']:.4e}]; importance sampling pf {reli['pf']:.6e} "
+          f"(cov {reli['cov']:.4f}); environmental FORM beta "
+          f"{reli['form_beta']:.6f} in {reli['form_evals']} evaluations",
+          flush=True)
+    t0 = time.perf_counter()
+    dsgn = design_phase(pt, hk, dev, refined64)
+    print(f"[design] phase {time.perf_counter() - t0:.2f} s wall", flush=True)
+    t0 = time.perf_counter()
+    iores = io_phase(pt, hk, dev)
+    print(f"[io] phase {time.perf_counter() - t0:.2f} s wall; on this "
+          f"host matplotlib (the plots) is "
+          f"{'present' if iores['matplotlib'] else 'absent'}", flush=True)
+    for label, r in (
+            (f"member_reliability ({reli['n_envelopes']} envelopes)",
+             reli["rec"]),
+            (f"importance_sample_batch {IS_SAMPLES} samples", reli["is_rec"]),
+            ("section_sensitivities 126 DOF", dsgn["rec"]),
+            (f"section_sensitivities {refined64.n_dof} DOF", dsgn["big_rec"]),
+            ("optimize_sections 4 iterations + the final analysis",
+             dsgn["opt_rec"])):
+        print(f"[time] {smi}: {label}: {r['text']} (torch.profiler)",
+              flush=True)
+    print(f"[time] {smi}: long-term tier, host clock, one synchronised call "
+          f"each: member_reliability {reli['s'] * 1e3:.1f} ms (CPU "
+          f"{reli['cpu_s'] * 1e3:.1f} ms); importance_sample_batch "
+          f"{reli['is_s'] * 1e3:.1f} ms (its K1 launch "
+          f"{reli['is_rec']['k1_us']:.1f} us, records + fused, against "
+          f"harm64_bound {reli['is_bound']['us']:.2f} us by "
+          f"{reli['is_bound']['by']}); environmental_reliability "
+          f"{reli['form_s'] * 1e3:.1f} ms ({reli['form_ms_per_eval']:.2f} ms "
+          f"an evaluation); section_sensitivities 126 DOF "
+          f"{dsgn['s'] * 1e3:.1f} ms, {refined64.n_dof} DOF "
+          f"{dsgn['big_s'] * 1e3:.1f} ms; optimize_sections "
+          f"{SIZING_ITERS} iterations {dsgn['opt_s'] * 1e3:.1f} ms "
+          f"({dsgn['opt_s'] * 1e3 / SIZING_ITERS:.2f} ms an iteration)",
+          flush=True)
+
     print(f"[time] {smi}: the whole script {time.perf_counter() - t_start:.1f}"
           " s wall, the kernels' build included", flush=True)
     design_launches = {
         "ssi_condensed_9612": soil["condensed_9612"]["launches"],
         "ssi_condensed_99882": soil["condensed_99882"]["launches"],
         "spectrum_condensed_9612": seis["cond_launches"],
-        "spectrum_condensed_99882": seis["large_launches"]}
+        "spectrum_condensed_99882": seis["large_launches"],
+        **reli["launches"], **dsgn["launches"]}
     l1 = sweep_ms["nested level 1"]
     print(json.dumps({"kernels": [{
         "name": "morison_phase_batch",
@@ -4715,7 +5120,8 @@ def main() -> int:
         "instances": {"f32": ["scan", "envelope", "dense_envelope_f32_model",
                               "options_scan"],
                       "f64": ["dense_envelope", "dynamic_condensed",
-                              "transient"],
+                              "transient", "member_reliability",
+                              "importance_sample_1000"],
                       "sea_f32": [k for k, n in sea_launches.items()
                                   if n["sea_f32"]],
                       "sea_f64": [k for k, n in sea_launches.items()

@@ -25,7 +25,12 @@ envelope: API p-y / t-z pile springs from the soil
 (``soil_support_stiffness``), the response-spectrum seismic check (dense
 and Craig-Bampton), the pushover and its heading rose (RSR), the
 member-removal screen, the API RP 2A and ISO 19902 member checks, the API
-joint check, the VIV screen, the air gap and load combinations.  Waves:
+joint check, the VIV screen, the air gap and load combinations, and the
+long-term tier: joint (Hs, Tp) climates and IFORM contours, FORM / SORM /
+importance-sampling reliability of the system and of every member on
+batched design envelopes, section sensitivities and gradient sizing
+through autograd, and (in ``utils``) model JSON, CSV, text reports and
+plots (matplotlib, imported by ``utils.plotting`` only).  Waves:
 Airy, Stokes (orders 1-5) and Fenton with the reference's automatic
 selection.  The fused Morison kernel and the
 chain-sweep kernel (CUDA C++) have plain PyTorch versions beside them.
@@ -56,6 +61,8 @@ from .ops.buckling import (BucklingResults, EulerScreen, buckling_analysis,
                            element_geometric_stiffness, euler_member_screen)
 from .ops.airgap import AirGapResult, air_gap_check
 from .ops.codecheck import CodeCheck, member_code_check
+from .ops.design import (SectionSensitivities, SizingResult,
+                         optimize_sections, section_sensitivities)
 from .ops.codecheck_iso import ISOCheck, iso_member_check
 from .ops.dispersion import apparent_period, solve_dispersion
 from .ops.dynamics import (HarmonicResponse, ModalResults,
@@ -70,10 +77,23 @@ from .ops.fenton import fenton_wave, fenton_wave_batch
 from .ops.freqdomain import (FreqDomainResponse, LinearizedSeaLoads,
                              linearized_sea_loads, spectral_stats)
 from .ops.jointcheck import JointCheck, joint_code_check
+from .ops.metocean import (JointHsTp, fit_joint_hs_tp, fit_weibull,
+                           iform_contour, n_year_sea_states,
+                           return_period_beta, rosenblatt_hs_tp)
 from .ops.morison import MorisonLoads, PhaseScan, morison_loads, phase_scan
 from .ops.pushover import PushoverResults, pushover, pushover_rose
+from .ops.reliability import (EnvironmentalReliability, FormResult,
+                              MemberReliability, SystemReliability,
+                              bivariate_normal_cdf, ditlevsen_bounds,
+                              environmental_reliability, form,
+                              hs_tp_limit_state, hs_tp_limit_state_batch,
+                              importance_sample, importance_sample_batch,
+                              member_reliability,
+                              member_utilization_response_batch,
+                              sorm_correction, utilization_response,
+                              utilization_response_batch)
 from .ops.robustness import RemovalScreen, member_removal_screen
-from .ops.sections import TubeSections, tube_sections
+from .ops.sections import TubeSections, tube_sections, validate_sections
 from .ops.seismic import (SpectrumResults, cqc_correlation, ec8_spectrum,
                           response_spectrum, response_spectrum_condensed,
                           table_spectrum)

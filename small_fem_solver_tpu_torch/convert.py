@@ -15,6 +15,7 @@ from .api import AnalysisResults, CondensedPrepared, LoadCase
 from .device import resolve_device
 from .models.model import JacketModel
 from .ops.condense import ChainFactor, NestedChainFactor
+from .ops.metocean import JointHsTp
 from .ops.morison import MorisonLoads
 from .ops.sections import TubeSections
 from .ops.soil import Pile, SoilLayer
@@ -151,6 +152,15 @@ def soil_from_fields(layers) -> list[SoilLayer]:
 def pile_from_fields(**fields) -> Pile:
     """The port's :class:`Pile` from a JAX pile's fields."""
     return Pile(**fields)
+
+
+def joint_from_fields(**fields) -> JointHsTp:
+    """The port's :class:`JointHsTp` from a JAX joint (Hs, Tp) model's
+    fields (``_asdict()``): scalars as floats, the bin tables as float64
+    numpy arrays (the model is host numpy in both packages)."""
+    return JointHsTp(**{k: float(v) if np.ndim(v) == 0
+                        else np.array(v, np.float64)
+                        for k, v in fields.items()})
 
 
 def results_from_numpy(fields: dict, device=None,

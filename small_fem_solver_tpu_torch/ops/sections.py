@@ -113,8 +113,31 @@ def von_mises_8pt(sec: TubeSections, sect_id, Fx, Fy, Fz, Mx, My, Mz):
     """
     Ro = sec.R_outer[sect_id]
     sigma = normal_stress_8pt(sec, sect_id, Fx, My, Mz)
-    tau = torch.sqrt((Mx * Ro / sec.Ix[sect_id]) ** 2
+    tau = _safe_sqrt((Mx * Ro / sec.Ix[sect_id]) ** 2
                      + (Fy / sec.Ay[sect_id]) ** 2
                      + (Fz / sec.Az[sect_id]) ** 2)
-    vm = torch.sqrt(sigma**2 + 3.0 * tau[..., None] ** 2)
+    vm = _safe_sqrt(sigma**2 + 3.0 * tau[..., None] ** 2)
     return torch.amax(vm, dim=-1)
+
+
+def _safe_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """sqrt with a finite gradient at 0 (the JAX package's grad-safe
+    sqrt; the forward is unchanged for x >= 0): sqrt's gradient at an
+    exactly-zero argument is NaN, which would poison the design
+    gradients of any member with zero shear and torsion."""
+    pos = x > 0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
+
+
+def validate_sections(sec: TubeSections, strict: bool = False) -> list:
+    """Thin-wall validity check D/t > 10 (the reference documents the
+    limit but never enforces it).  Returns warning strings; raises
+    ``ValueError`` if ``strict``."""
+    Dt = sec.D_t_ratio.detach().cpu().numpy()
+    D = sec.D_outer.detach().cpu().numpy()
+    msgs = [f"section {i} (D={D[i]:.0f} mm): D/t = {Dt[i]:.1f} <= 10 — "
+            "thin-wall section formulas are inaccurate"
+            for i in range(Dt.shape[0]) if Dt[i] <= 10.0]
+    if strict and msgs:
+        raise ValueError("; ".join(msgs))
+    return msgs

@@ -164,10 +164,15 @@ def cholesky_or_nan(A: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor of each SPD matrix in ``A`` [..., n, n]; a
     matrix that is not positive definite gets an all-NaN factor, as
     ``jnp.linalg.cholesky`` gives (a second-order system past buckling),
-    instead of an error.  The factor is filled in place (no second n x n
-    buffer) and the host is not synchronised on the card."""
+    instead of an error.  The host is not synchronised on the card.  The
+    factor is filled in place (no second n x n buffer) unless autograd
+    records the call: ``cholesky_ex``'s backward reads its output, so a
+    differentiated factor is filled out of place."""
     L, info = torch.linalg.cholesky_ex(A)
-    return L.masked_fill_((info != 0)[..., None, None], float("nan"))
+    bad = (info != 0)[..., None, None]
+    if L.requires_grad:
+        return L.masked_fill(bad, float("nan"))
+    return L.masked_fill_(bad, float("nan"))
 
 
 def factor_dense(K: torch.Tensor, free_dofs) -> DenseFactor:

@@ -104,7 +104,9 @@ def airy_wave(H, T, d, U_c=0.0, n_modes: int = 1,
               dtype: torch.dtype = torch.float64, device=None) -> FourierWave:
     """First-order (linear) wave: eta = (H/2) cos(theta), canonical
     U_1 = (H/2) omega / tanh(k d); ``n_modes`` zero-pads the coefficients;
-    ``device=None`` is the CUDA card."""
+    ``device=None`` is the CUDA card.  ``H``, ``T``, ``d`` and ``U_c`` may
+    be arrays of one shape: a batch of waves with that leading shape, built
+    elementwise."""
     device = resolve_device(device)
 
     def scal(v):
@@ -114,9 +116,9 @@ def airy_wave(H, T, d, U_c=0.0, n_modes: int = 1,
     omega = 2.0 * math.pi / T
     k = solve_dispersion(omega, d)
     a = H / 2.0
-    pad = torch.zeros(n_modes - 1, dtype=dtype, device=device)
-    E = torch.cat([a[None], pad])
-    U = torch.cat([(a * omega / torch.tanh(k * d))[None], pad])
+    pad = torch.zeros(*a.shape, n_modes - 1, dtype=dtype, device=device)
+    E = torch.cat([a[..., None], pad], dim=-1)
+    U = torch.cat([(a * omega / torch.tanh(k * d))[..., None], pad], dim=-1)
     return FourierWave(k=k, omega=omega, c=omega / k, d=d, U_c=U_c, H=H,
                        T=T, E=E, U=U, clamp_z=False, model="airy", order=1)
 

@@ -33,17 +33,18 @@ def make_wave_batch(H, T, d, U_c=0.0, model: str = "stokes", N: int = 5,
                     device=None) -> FourierWave:
     """A batched FourierWave from arrays of (H, T) [and scalar d, U_c].
 
-    'airy' builds each case and stacks them; 'stokes' (order min(N, 5))
-    runs its elementwise float64 Newton once over all cases, and 'fenton'
-    one batched float64 Newton (:func:`..ops.fenton.fenton_wave_batch`),
-    both on the CPU.  ``device=None`` is the CUDA card.
+    'airy' runs its dispersion Newton once, elementwise over all cases on
+    ``device``; 'stokes' (order min(N, 5)) its elementwise float64 Newton
+    once over all cases, and 'fenton' one batched float64 Newton
+    (:func:`..ops.fenton.fenton_wave_batch`), both on the CPU.
+    ``device=None`` is the CUDA card.
     """
     H = np.atleast_1d(np.asarray(H, dtype=np.float64))
     T = np.broadcast_to(np.asarray(T, dtype=np.float64), H.shape)
-    if model == "airy":
-        return stack_waves(airy_wave(h, t, d, U_c, n_modes=n_modes,
-                                     dtype=dtype, device=device)
-                           for h, t in zip(H, T))
+    if model == "airy":     # elementwise: one build for the whole batch
+        return airy_wave(H, T.copy(), np.full(H.shape, np.float64(d)),
+                         np.full(H.shape, np.float64(U_c)), n_modes=n_modes,
+                         dtype=dtype, device=device)
     if model == "stokes":   # elementwise: one solve for the whole batch
         return stokes_wave(H, T.copy(), np.full(H.shape, np.float64(d)),
                            np.full(H.shape, np.float64(U_c)),

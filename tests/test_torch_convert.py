@@ -1,7 +1,12 @@
 """``small_fem_solver_tpu_torch.convert``: the JAX package's objects handed
 to the port as numpy leaves.  The helpers below are shared by the other
 ``test_torch_*`` files; the tests check that a converted object equals the
-port's own construction of the same thing."""
+port's own construction of the same thing.
+
+This module also holds the thread policy of the port's CPU tests: on
+import it sets torch to one intra-op thread, and every CPU
+``test_torch_*`` file imports it, so each test process runs torch on one
+thread whichever of those files it collects first."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -12,6 +17,12 @@ import torch
 import small_fem_solver_tpu as sf
 import small_fem_solver_tpu_torch as pt
 from small_fem_solver_tpu_torch import convert
+
+# The thread policy (module docstring): the CPU tests' tensors are small,
+# and a thread per core only contends with the other test processes and
+# with XLA's thread pool (a torch ``eigh`` just after a JAX call took 10 s
+# against 0.1 s alone).
+torch.set_num_threads(1)
 
 
 def rel_err(a, b) -> float:

@@ -975,3 +975,49 @@ def test_design_tier_on_card_matches_cpu():
     a, b = pt.member_code_check(m, ra), pt.member_code_check(mc, rb)
     assert _rel(a.uc.cpu(), b.uc) <= 1e-12
     assert (a.governing == b.governing).all()
+
+
+@pytest.mark.cuda
+def test_design_gradients_on_card_match_cpu():
+    """``section_sensitivities`` (the backward of the dense f64 Cholesky on
+    the card) and three ``optimize_sections`` steps on the card against
+    the CPU: gradients 1e-10, thicknesses and history 1e-8; no launch."""
+    dev = _device()
+
+    def inputs(device):
+        return (pt.default_3leg_jacket(device=device),
+                pt.make_wave(17.038, 9.4, 50.0, U_c=1.7, model="stokes", N=5,
+                             device=device),
+                pt.LoadCase(**STORM, t_analysis=0.34))
+    before = hk.launch_counts()
+    a = pt.section_sensitivities(*inputs(dev))
+    b = pt.section_sensitivities(*inputs("cpu"))
+    assert a.dutil.is_cuda
+    for f in ("dutil", "dmass_t", "util_max", "mass_t"):
+        assert _rel(getattr(a, f).cpu(), getattr(b, f)) <= 1e-10, f
+    a = pt.optimize_sections(*inputs(dev), target_util=0.5, n_iter=3)
+    b = pt.optimize_sections(*inputs("cpu"), target_util=0.5, n_iter=3)
+    assert _rel(a.t.cpu(), b.t) <= 1e-8
+    assert np.abs(a.history / b.history - 1.0).max() <= 1e-8
+    assert hk.launch_counts() == before
+
+
+@pytest.mark.cuda
+def test_reliability_batch_is_one_k1_launch():
+    """One batch of ``member_utilization_response_batch`` on an f64 model
+    on the card is one launch of K1's case-batched f64 instance, and equals
+    the CPU's plain run (1e-10)."""
+    dev = _device()
+    kw = dict(d=50.0, U_c=1.7, wave_model="airy", n_steps=12)
+    hs = np.array([6.0, 12.0, 17.0, 24.0, 36.0])
+    tp = np.array([9.0, 11.0, 9.4, 12.5, 6.0])
+    case = pt.LoadCase(**STORM)
+    resp = pt.member_utilization_response_batch(
+        pt.default_3leg_jacket(device=dev), case, **kw)
+    before = hk.morison_phase_batch_cuda.instance_launches["f64"]
+    card = resp(hs, tp)
+    assert hk.morison_phase_batch_cuda.instance_launches["f64"] == before + 1
+    cpu = pt.member_utilization_response_batch(
+        pt.default_3leg_jacket(device="cpu"), case, **kw)(hs, tp)
+    assert card.shape == (5, 51)
+    assert np.abs(card - cpu).max() / np.abs(cpu).max() <= 1e-10

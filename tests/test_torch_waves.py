@@ -7,19 +7,15 @@ import torch
 
 import small_fem_solver_tpu as sf
 import small_fem_solver_tpu_torch as pt
+from test_torch_convert import rel_err
 
 TOL = 1e-10
 WAVE_FIELDS = ("k", "omega", "c", "d", "U_c", "H", "T", "E", "U")
 
 
-def _rel(a, b):
-    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-    return np.abs(a - b).max() / max(np.abs(b).max(), 1e-300)
-
-
 def _assert_wave(tw, jw):
     for f in WAVE_FIELDS:
-        assert _rel(getattr(tw, f).numpy(), getattr(jw, f)) < TOL, f
+        assert rel_err(getattr(tw, f).numpy(), getattr(jw, f)) < TOL, f
     assert (tw.clamp_z, tw.model, tw.order) == (jw.clamp_z, jw.model,
                                                 jw.order)
 
@@ -29,7 +25,7 @@ def test_solve_dispersion_matches_jax():
     omega = rng.uniform(0.2, 3.0, size=64)
     d = rng.uniform(5.0, 300.0, size=64)
     k = pt.solve_dispersion(torch.tensor(omega), torch.tensor(d)).numpy()
-    assert _rel(k, sf.solve_dispersion(jnp.asarray(omega),
+    assert rel_err(k, sf.solve_dispersion(jnp.asarray(omega),
                                        jnp.asarray(d))) < TOL
 
 
