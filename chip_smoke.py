@@ -20,7 +20,8 @@ pushover and its rose, the member-removal screen, the code checks and
 combinations, in float64), and the long-term tier (member and
 environmental reliability under a fitted (Hs, Tp) climate, importance
 sampling, section sensitivities and gradient sizing through autograd,
-model I/O and reports) —
+model I/O and reports), and the command line (all 23 subcommands) and
+the GUI's headless core —
 through both hand-written kernels, the fused Morison kernel (K1) and the
 chain-sweep kernel, and checks them:
 
@@ -275,7 +276,29 @@ chain-sweep kernel, and checks them:
    and the text reports of the card's storm analysis against the CPU's
    (1e-9), ``validate_sections``; matplotlib not imported.  Each of phases
    34-35 with its wall time, device operations, busy time and peak
-   memory.
+   memory;
+37. CLI phase: all 23 subcommands of ``small_fem_solver_tpu_torch.cli``
+   through ``cli.main(argv)`` in this process, stdout captured, no
+   ``--device`` (the card), at the CLI's defaults (34 invocations: also
+   ``refined --f32``, ``pushover --rose 16``, ``pile --from-analysis
+   --analyze``, the four ``fatigue`` routes, both ``spectral`` and both
+   ``transient`` forms; ``contour`` and ``reliability`` on the seed-3
+   climate of phase 34 written to a file, ``reliability --monte-carlo
+   1000`` at phase 34's threshold and Airy waves): each exits cleanly;
+   both kernels' launches read around exactly that call; ``refined`` (f64
+   and f32) and the importance check with the same launches and result as
+   the script's own library call (f64 1e-9, f32 vs f64 1e-4, pf and cov
+   1e-10); the 24 invocations at 126 DOF print what the same argv with
+   ``--device cpu`` prints (``tests/cli_text.py``: numbers within one unit
+   of the last digit; the CPU runs in 3 spawned processes meanwhile);
+   ``run --wave-model airy --json-out`` against the default golden
+   (1e-8); ``python -m small_fem_solver_tpu_torch.cli`` once as a
+   subprocess (its JSON equal to the in-process one); K1 f64 launch
+   shapes with ``harm64_bound``; each invocation's host wall time;
+38. GUI phase: ``gui.run_analysis_core`` on the card against the default
+   golden (1e-8) and the CLI's run (1e-12), and ``show_damage_screen`` /
+   ``show_spectral_fatigue`` through stubs on the card's results against
+   the CPU's text; no tkinter imported.
 
 Every new path is run with the launch counts set to 0 just before it and
 read just after it; a mean or MPM stress is compared to one of its
@@ -3892,16 +3915,21 @@ SIZING_TOL = 1e-8     # optimized thicknesses, card vs CPU
 TEXT_TOL = 1e-9       # report numbers, card vs CPU
 
 
-def reliability_climate(pt):
-    """The synthetic climate of tests/test_reliability.py: Hs ~
+def climate_states():
+    """(Hs, Tp) of the synthetic climate of tests/test_reliability.py: Hs ~
     Weibull(1.5, 2.5), ln Tp | Hs ~ N(ln(5.5 + 1.4 sqrt Hs), 0.12), 30,000
-    states (seed 3) scaled to storm waves (2 Hs, Tp + 2), fitted."""
+    states (seed 3) scaled to storm waves (2 Hs, Tp + 2)."""
     import numpy as np
     rng = np.random.default_rng(3)
     hs = 2.5 * rng.weibull(1.5, size=30_000)
     tp = np.exp(np.log(5.5 + 1.4 * np.sqrt(hs))
                 + 0.12 * rng.standard_normal(hs.size))
-    return pt.fit_joint_hs_tp(2.0 * hs, tp + 2.0, n_bins=8, state_hours=3.0)
+    return 2.0 * hs, tp + 2.0
+
+
+def reliability_climate(pt):
+    """:func:`climate_states` fitted (8 bins, 3 h states)."""
+    return pt.fit_joint_hs_tp(*climate_states(), n_bins=8, state_hours=3.0)
 
 
 def k1_batch_check(hk, model, hs, tp):
@@ -3955,8 +3983,10 @@ def reliability_phase(pt, hk, dev):
         if not first:
             first.append((np.array(hs), np.array(tp)))
         return resp(hs, tp)
-    mr, n, s = counted(hk, lambda: pt.member_reliability(recording, joint,
-                                                         RELI_THRESHOLD))
+    with f64_shapes(hk) as shapes:
+        mr, n, s = counted(hk, lambda: pt.member_reliability(
+            recording, joint, RELI_THRESHOLD))
+    out["f64_bounds"] = shape_bounds(shapes)
     check(same_counts(n, {"f64": mr.n_envelopes}),
           f"member_reliability: K1 f64 launches {n['f64']} == n_envelopes "
           f"{mr.n_envelopes} (one a batch), no other launch: {n}")
@@ -4194,6 +4224,414 @@ def io_phase(pt, hk, dev):
     shutil.rmtree(tmp, ignore_errors=True)
     return {"numbers": len(nums), "err": terr,
             "matplotlib": _has_module("matplotlib")}
+
+
+# the CLI phase: every subcommand of small_fem_solver_tpu_torch.cli at its
+# defaults on the card (a climate file where one is required; the scatter
+# routes of fatigue on CLI_STATES)
+CLI_STATES = "[[4.0, 8.0, 0.5], [8.0, 9.4, 0.1], [6.0, 9.0, 0.2, 120.0]]"
+CLI_FLAGSHIP_TOL = 1e-9   # refined (f64) vs the script's own f64 scan
+CLI_GOLDEN_TOL = 1e-8     # run --wave-model airy --json-out vs the golden
+CLI_GUI_TOL = 1e-12       # gui.run_analysis_core vs the CLI's run JSON
+CLI_CPU_WORKERS = 3       # processes of the CPU references (spawn)
+CLI_CPU_THREADS = 2       # torch threads in each
+
+
+def cli_invocations(out: str, clim: str) -> list:
+    """(label, argv, compared with --device cpu) of the CLI phase: all 23
+    subcommands at the CLI's defaults, the second forms the phase needs,
+    and the 126-DOF invocations compared with their CPU runs.  ``out`` is
+    the directory of the output files."""
+    return [
+        ("run", ["run"], True),
+        ("run_airy_scan", ["run", "--phase-scan", "--wave-model", "airy",
+                           "--json-out", f"{out}/run.json"], True),
+        ("save_default", ["save-default", f"{out}/jacket.json"], True),
+        ("sweep", ["sweep"], True),
+        ("refined", ["refined"], False),
+        ("refined_f32", ["refined", "--f32"], False),
+        ("envelope", ["envelope"], False),
+        ("modes", ["modes"], True),
+        ("dynamic", ["dynamic"], True),
+        ("transient", ["transient"], False),
+        ("transient_spectrum", ["transient", "--spectrum", "jonswap"], False),
+        ("buckling", ["buckling"], True),
+        ("pdelta", ["pdelta"], True),
+        ("pushover", ["pushover"], True),
+        ("pushover_rose", ["pushover", "--rose", "16"], True),
+        ("robustness", ["robustness"], True),
+        ("code_check", ["code-check"], True),
+        ("joint_check", ["joint-check"], True),
+        ("viv", ["viv"], True),
+        ("air_gap", ["air-gap"], True),
+        ("pile", ["pile"], True),
+        ("pile_analysis", ["pile", "--from-analysis", "--analyze"], True),
+        ("seismic", ["seismic"], True),
+        ("fatigue", ["fatigue"], True),
+        ("fatigue_spectrum", ["fatigue", "--spectrum", "jonswap"], True),
+        ("fatigue_scatter", ["fatigue", "--scatter", CLI_STATES], False),
+        ("fatigue_freq_domain", ["fatigue", "--scatter", CLI_STATES,
+                                 "--freq-domain", "--dynamic"], False),
+        ("spectral", ["spectral"], False),
+        ("spectral_dynamic", ["spectral", "--dynamic"], False),
+        ("contour", ["contour", "--scatter", clim, "--envelope"], True),
+        ("contour_spectral", ["contour", "--scatter", clim, "--spectral"],
+         False),
+        ("reliability", ["reliability", "--scatter", clim], True),
+        # a threshold the climate reaches, on the reliability phase's Airy
+        # design waves, so FORM converges and the check runs
+        ("reliability_mc", ["reliability", "--scatter", clim,
+                            "--wave-model", "airy", "--threshold",
+                            str(RELI_THRESHOLD), "--monte-carlo",
+                            str(IS_SAMPLES)], True),
+        ("optimize", ["optimize"], True),
+    ]
+
+
+def cli_cpu_stdout(argv) -> str:
+    """stdout of the port's CLI with ``--device cpu`` (a worker of the CLI
+    phase's process pool)."""
+    import contextlib
+    import io
+    import torch
+    torch.set_num_threads(CLI_CPU_THREADS)
+    from small_fem_solver_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), \
+            contextlib.redirect_stderr(io.StringIO()):
+        cli.main([*argv, "--device", "cpu"])
+    return buf.getvalue()
+
+
+def cli_card_stdout(argv) -> tuple:
+    """(stdout, stderr) of the port's CLI in this process, on the card (no
+    ``--device``)."""
+    import contextlib
+    import io
+    from small_fem_solver_tpu_torch import cli
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        cli.main(list(argv))
+    return out.getvalue(), err.getvalue()
+
+
+class spy:
+    """Replace ``module.name`` by a wrapper that records each call's
+    arguments and result, for the duration of a ``with`` block."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        fn = self.orig = getattr(self.module, self.name)
+
+        def wrapped(*a, **k):
+            res = fn(*a, **k)
+            self.calls.append((a, k, res))
+            return res
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+class f64_shapes(spy):
+    """The shapes (C, S, M, Q, N, n_nodes, wheeler) of every launch call of
+    K1's case-batched f64 instance inside the block, as a list."""
+
+    def __init__(self, hk):
+        super().__init__(hk, "launch_morison_batch64")
+
+    def __enter__(self):
+        super().__enter__()
+        return self.calls
+
+    def __exit__(self, *exc):
+        super().__exit__(*exc)
+        self.calls[:] = [(k["C"], k["ts"].shape[1], k["conn"].shape[0],
+                          len(k["s"]), k["E"].shape[1], k["coords"].shape[0],
+                          bool(wheeler))
+                         for (k, wheeler), _, _ in self.calls]
+
+
+def shape_bounds(shapes) -> dict:
+    """``harm64_bound`` of each distinct K1 f64 launch shape, keyed by its
+    text, with the number of launch calls of that shape."""
+    out = {}
+    for C, S, M, Q, N, n_nodes, wheeler in shapes:
+        key = (f"C={C}, S={S}, M={M}, Q={Q}, N={N}"
+               + (", Wheeler" if wheeler else ""))
+        b = out.setdefault(key, dict(harm64_bound(S, M, Q, N, n_nodes, C,
+                                                  wheeler), calls=0))
+        b["calls"] += 1
+    return out
+
+
+def cli_library_counts(pt, hk, dev, label):
+    """(result, launch counts) of the script's own library call with the
+    arguments of a CLI invocation: the flagship scan of ``refined`` (f64 or
+    f32) at the CLI's defaults, or the FORM and the 1,000-sample
+    importance check of ``reliability --monte-carlo``."""
+    import torch
+    dtype = torch.float32 if label == "refined_f32" else torch.float64
+    case = pt.LoadCase(**CASE, wind_dir_deg=38.0)
+    coarse = pt.default_3leg_jacket(dtype=dtype, device=dev)
+    if label.startswith("refined"):
+        refined = pt.refine_model(coarse, N_SEG)
+        wave = pt.make_wave(*AIRY[:3], U_c=AIRY[3], model="auto", N=10,
+                            dtype=dtype, device=dev)
+
+        def call():
+            return pt.phase_scan_condensed(coarse, refined, N_SEG, wave, case,
+                                           n_steps=N_STEPS, accel="fd",
+                                           solve_dtype=dtype)
+    else:
+        joint = reliability_climate(pt)
+        kw = dict(d=AIRY[2], U_c=AIRY[3], wave_model="airy", N=10,
+                  n_steps=12)
+
+        def call():
+            rel = pt.environmental_reliability(
+                pt.utilization_response(coarse, case, **kw), joint,
+                RELI_THRESHOLD, max_iter=30)
+            return pt.importance_sample_batch(pt.hs_tp_limit_state_batch(
+                pt.utilization_response_batch(coarse, case, **kw), joint,
+                RELI_THRESHOLD), rel.form, n_samples=IS_SAMPLES)
+    hk.launch_counts(reset=True)
+    res = call()
+    torch.cuda.synchronize()
+    return res, hk.launch_counts()
+
+
+def cli_phase(pt, hk, dev):
+    """Every subcommand of the port's CLI on the card, in this process
+    through ``cli.main(argv)`` with stdout captured, at the CLI's defaults
+    (:func:`cli_invocations`): each exits cleanly; K1's and the sweep's
+    launches read around exactly that call (``hk.launch_counts``), and for
+    ``refined`` (f64 and f32) and ``reliability --monte-carlo`` equal to the
+    script's own library call with the same arguments
+    (:func:`cli_library_counts`); the f64 ``refined``'s critical
+    utilization within 1e-9 of that call's, the f32 one's within
+    MAX_UTIL_TOL; the importance check's pf and cov equal to it; the
+    126-DOF invocations' stdout equal to the same argv with ``--device
+    cpu`` (``tests/cli_text.py``: numbers within one unit of their last
+    digit; the CPU runs in a pool of spawned processes while the card
+    runs); ``run --wave-model airy --json-out`` against the default golden
+    at 1e-8; ``python -m small_fem_solver_tpu_torch.cli`` once as a
+    subprocess, its JSON equal to the in-process one; the shapes of K1's
+    f64 launches with their ``harm64_bound``; each invocation's host wall
+    time."""
+    import concurrent.futures
+    import contextlib
+    import functools
+    import multiprocessing
+    import tempfile
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from cli_text import text_diff
+    from small_fem_solver_tpu_torch import api
+    from small_fem_solver_tpu_torch.ops import reliability as rel_mod
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    card_dir, cpu_dir = f"{tmp}/card", f"{tmp}/cpu"
+    os.makedirs(card_dir)
+    os.makedirs(cpu_dir)
+    clim = f"{tmp}/climate.json"
+    with open(clim, "w") as f:
+        json.dump(np.stack(climate_states(), axis=1).tolist(), f)
+    inv = cli_invocations(card_dir, clim)
+    out = {"launches": {}, "wall_s": {}, "cpu_diff": {}, "f64_shapes": {}}
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(CLI_CPU_WORKERS,
+                                                mp_context=ctx) as pool:
+        cpu = {label: pool.submit(cli_cpu_stdout, [a.replace(card_dir,
+                                                             cpu_dir)
+                                                   for a in argv])
+               for label, argv, compare in inv if compare}
+        texts = {}
+        for label, argv, _ in inv:
+            watch = {"refined": spy(api, "phase_scan_condensed"),
+                     "refined_f32": spy(api, "phase_scan_condensed"),
+                     "reliability_mc": spy(rel_mod,
+                                           "importance_sample_batch")
+                     }.get(label, contextlib.nullcontext())
+            hk.launch_counts(reset=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with watch, f64_shapes(hk) as shapes:
+                texts[label], err = cli_card_stdout(argv)
+            torch.cuda.synchronize()
+            out["wall_s"][label] = time.perf_counter() - t0
+            n = hk.launch_counts()
+            out["launches"][label] = n
+            if shapes:
+                out["f64_shapes"][label] = shape_bounds(shapes)
+            check(bool(texts[label]), f"cli {' '.join(argv)}: exits cleanly "
+                  f"with output ({len(texts[label].splitlines())} lines)")
+            print(f"[cli] {label}: {out['wall_s'][label]:.2f} s wall; K1 "
+                  f"{n['k1']} (f32 {n['f32']}, f64 {n['f64']}, sea "
+                  f"{n['sea_f32'] + n['sea_f64']}), sweep {n['sweep']}",
+                  flush=True)
+            if label in ("refined", "refined_f32", "reliability_mc"):
+                got = watch.calls[-1][2]
+                ref, want = cli_library_counts(pt, hk, dev, label)
+                same = n == want
+                if label == "reliability_mc":
+                    err_v = max(abs(got[0] / ref[0] - 1.0),
+                                abs(got[1] / ref[1] - 1.0))
+                    tol = IS_TOL
+                else:
+                    ci, cr = int(got.critical_index), int(ref.critical_index)
+                    err_v = abs(float(got.utilization[ci].max())
+                                / float(ref.utilization[cr].max()) - 1.0)
+                    tol = CLI_FLAGSHIP_TOL
+                    if label == "refined_f32":
+                        f64 = out["refined_util"]
+                        err_v = abs(float(got.utilization[ci].max()) / f64
+                                    - 1.0)
+                        tol = MAX_UTIL_TOL
+                    else:
+                        out["refined_util"] = float(ref.utilization[cr].max())
+                check(same and err_v <= tol,
+                      f"cli {label}: launches {n} == the library call's "
+                      f"{want} {same}; result vs "
+                      + ("the f64 scan" if label == "refined_f32"
+                         else "the library call")
+                      + f" {err_v:.2e} <= {tol:g}")
+                out[f"{label}_err"] = err_v
+
+        # the module entry point, as a user runs it
+        sub_json = f"{card_dir}/sub.json"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "small_fem_solver_tpu_torch.cli", "run",
+             "--phase-scan", "--wave-model", "airy", "--json-out", sub_json],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=300)
+        out["subprocess_s"] = time.perf_counter() - t0
+        with open(f"{card_dir}/run.json") as f:
+            run_json = json.load(f)
+        same = proc.returncode == 0 and os.path.exists(sub_json)
+        if same:
+            with open(sub_json) as f:
+                same = json.load(f) == run_json
+        check(same, f"python -m small_fem_solver_tpu_torch.cli run "
+              f"--phase-scan --wave-model airy --json-out: exit "
+              f"{proc.returncode}, JSON equal to the in-process run {same} "
+              f"({out['subprocess_s']:.1f} s){proc.stderr[-1500:]}")
+
+        # the 126-DOF invocations against their CPU runs
+        t0 = time.perf_counter()
+        for label, fut in cpu.items():
+            bad = text_diff(texts[label],
+                            fut.result().replace(cpu_dir, card_dir))
+            out["cpu_diff"][label] = len(bad)
+            check(not bad, f"cli {label}: card stdout vs --device cpu: "
+                  + ("equal by the CLI rule" if not bad
+                     else "; ".join(bad[:5])))
+        out["cpu_wait_s"] = time.perf_counter() - t0
+
+    # run --wave-model airy --json-out against the default golden
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "golden", "default_case.json")) as f:
+        fem = json.load(f)["fem"]
+    disp = np.linalg.norm(np.asarray(fem["U"]).reshape(-1, 6)[:, :3], axis=1)
+    f64 = functools.partial(np.asarray, dtype=np.float64)
+    errs = {"utilization": allclose_err(
+                f64([m["utilization"] for m in run_json["member_forces"]]),
+                f64([m["utilization"] for m in fem["internal_forces"]])),
+            "reactions": allclose_err(
+                f64(list(run_json["reactions"].values())),
+                f64([fem["reactions"][k] for k in run_json["reactions"]])),
+            "max_displacement_mm": abs(run_json["max_displacement_mm"]
+                                       / disp.max() - 1.0)}
+    check(max(errs.values()) <= CLI_GOLDEN_TOL,
+          "cli run --wave-model airy --json-out vs the default golden: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" <= {CLI_GOLDEN_TOL:g}")
+    out.update(golden=errs, run_json=run_json, texts=texts)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+class _FakeText:
+    """A Text widget's insert/delete, for the GUI's handlers without Tk."""
+
+    def __init__(self):
+        self.buf = []
+
+    def delete(self, *a):
+        self.buf = []
+
+    def insert(self, where, txt):
+        self.buf.append(txt)
+
+
+def gui_handler_text(gui, out: dict, handler: str) -> str:
+    """The text a Results-tab handler of ``gui.JacketGUI`` writes for the
+    results ``out`` of ``run_analysis_core``, driven through a stub."""
+    class Stub:
+        analysis_results = out["res"]
+        analysis_model = out["model"]
+        analysis_wave = out["wave"]
+        analysis_case = out["case"]
+        results_text = _FakeText()
+    Stub.handler = getattr(gui.JacketGUI, handler)
+    s = Stub()
+    s.handler()
+    return "".join(s.results_text.buf)
+
+
+def gui_phase(pt, hk, dev, run_json: dict) -> dict:
+    """The GUI's headless core on the card: ``run_analysis_core`` of the
+    untouched GUI's storm on the Airy wave with its phase scan (no
+    ``device``) against the default golden (1e-8) and the CLI's ``run
+    --phase-scan --wave-model airy`` JSON (1e-12); ``show_damage_screen``
+    and ``show_spectral_fatigue`` driven through stubs on the card's
+    results, their text against the CPU's by the CLI rule; Tk is not
+    imported."""
+    import numpy as np
+    from small_fem_solver_tpu_torch import gui
+    from small_fem_solver_tpu_torch.models.presets import \
+        default_3leg_jacket_geometry
+    from cli_text import text_diff
+    p = gui.parse_params(dict(gui.DEFAULT_RAW_PARAMS, wave_model="airy"))
+    geo = default_3leg_jacket_geometry(47.0)
+    card, n, s = counted(hk, lambda: gui.run_analysis_core(p, *geo))
+    cpu = gui.run_analysis_core(p, *geo, device="cpu")
+    check(card["model"].device.type == "cuda",
+          f"run_analysis_core without device runs on {card['model'].device}")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "golden", "default_case.json")) as f:
+        g = json.load(f)
+    model, res = card["model"], card["res"]
+    gerr = max(golden_errors(res, model, g["fem"]).values())
+    cli_err = max(
+        nrel(res.utilization, [m["utilization"]
+                               for m in run_json["member_forces"]]),
+        nrel(res.reactions, list(run_json["reactions"].values())),
+        abs(float(res.max_displacement_mm)
+            / run_json["max_displacement_mm"] - 1.0))
+    check(gerr <= CLI_GOLDEN_TOL and cli_err <= CLI_GUI_TOL,
+          f"gui.run_analysis_core on the card vs the default golden "
+          f"{gerr:.2e} <= {CLI_GOLDEN_TOL:g}, vs the CLI's run JSON "
+          f"{cli_err:.2e} <= {CLI_GUI_TOL:g}; launches {n}")
+    out = {"s": s, "golden_err": gerr, "cli_err": cli_err, "launches": n}
+    for handler in ("show_damage_screen", "show_spectral_fatigue"):
+        t0 = time.perf_counter()
+        text = gui_handler_text(gui, card, handler)
+        out[f"{handler}_s"] = time.perf_counter() - t0
+        bad = text_diff(text, gui_handler_text(gui, cpu, handler))
+        check(len(text.splitlines()) > 10 and not bad,
+              f"gui {handler} through a stub on the card's results: "
+              f"{len(text.splitlines())} lines, vs the CPU's "
+              + ("equal by the CLI rule" if not bad else "; ".join(bad[:5])))
+    check("tkinter" not in sys.modules, "the GUI's headless core and "
+          "handlers import no tkinter")
+    out["util"] = float(np.asarray(res.utilization.cpu()).max())
+    return out
 
 
 def _has_module(name: str) -> bool:
@@ -5080,6 +5518,39 @@ def main() -> int:
           f"({dsgn['opt_s'] * 1e3 / SIZING_ITERS:.2f} ms an iteration)",
           flush=True)
 
+    # ---- 37-38. the command line and the GUI's headless core ----
+    t0 = time.perf_counter()
+    cli = cli_phase(pt, hk, dev)
+    cli_s = time.perf_counter() - t0
+    print(f"[cli] phase {cli_s:.2f} s wall ({len(cli['launches'])} "
+          f"invocations, {len(cli['cpu_diff'])} against their CPU runs in "
+          f"{CLI_CPU_WORKERS} processes, {cli['cpu_wait_s']:.2f} s waited "
+          f"for them after the card's; the module entry "
+          f"{cli['subprocess_s']:.2f} s); refined f64 vs the library "
+          f"{cli['refined_err']:.2e}, f32 vs f64 {cli['refined_f32_err']:.2e};"
+          f" importance check vs the library {cli['reliability_mc_err']:.2e};"
+          " golden " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                 cli["golden"].items()), flush=True)
+    print(f"[time] {smi}: CLI invocations, host wall, one call each: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in cli["wall_s"].items()),
+          flush=True)
+    for label, bounds in {"member_reliability": reli["f64_bounds"],
+                          **{f"cli_{k}": v for k, v in
+                             cli["f64_shapes"].items()}}.items():
+        print(f"[k1-f64] {label}: " + "; ".join(
+            f"{key} ({b['calls']} launch call(s)): harm64_bound "
+            f"{b['us']:.3f} us by {b['by']} ({b['sums_gflop']:.4f} + "
+            f"{b['epilogue_gflop']:.4f} GFLOP, {b['mb']:.3f} MB)"
+            for key, b in bounds.items()), flush=True)
+    t0 = time.perf_counter()
+    guir = gui_phase(pt, hk, dev, cli["run_json"])
+    print(f"[gui] phase {time.perf_counter() - t0:.2f} s wall; "
+          f"run_analysis_core {guir['s'] * 1e3:.1f} ms (max utilization "
+          f"{guir['util']:.6f}; golden {guir['golden_err']:.2e}, CLI run "
+          f"{guir['cli_err']:.2e}); damage screen "
+          f"{guir['show_damage_screen_s'] * 1e3:.1f} ms, spectral fatigue "
+          f"{guir['show_spectral_fatigue_s'] * 1e3:.1f} ms", flush=True)
+
     print(f"[time] {smi}: the whole script {time.perf_counter() - t_start:.1f}"
           " s wall, the kernels' build included", flush=True)
     design_launches = {
@@ -5116,7 +5587,18 @@ def main() -> int:
             "sharded_dense_envelope_2ranks": [
                 n["f64"] for n in d2["launches"]["dense"]],
             **{label: sum(v for k, v in n.items() if k != "sweep")
-               for label, n in design_launches.items()}},
+               for label, n in design_launches.items()},
+            **{f"cli_{label}": n["k1"]
+               for label, n in cli["launches"].items()},
+            "gui_run_analysis_core": sum(
+                v for k, v in guir["launches"].items() if k != "sweep")},
+        "cli_instances": {f"cli_{label}": {k: v for k, v in n.items()
+                                           if k not in ("k1", "sweep") and v}
+                          for label, n in cli["launches"].items()
+                          if n["k1"]},
+        "f64_bounds": {"member_reliability": reli["f64_bounds"],
+                       **{f"cli_{k}": v for k, v in
+                          cli["f64_shapes"].items()}},
         "instances": {"f32": ["scan", "envelope", "dense_envelope_f32_model",
                               "options_scan"],
                       "f64": ["dense_envelope", "dynamic_condensed",
@@ -5186,7 +5668,10 @@ def main() -> int:
                 n["sweep"] for n in d2["launches"]["envelope"]],
             "pdelta_condensed_9612": pdl["cond_launches"]["sweep"],
             "pdelta_condensed_99882": pdl["large_launches"]["sweep"],
-            **{label: n["sweep"] for label, n in design_launches.items()}},
+            **{label: n["sweep"] for label, n in design_launches.items()},
+            **{f"cli_{label}": n["sweep"]
+               for label, n in cli["launches"].items()},
+            "gui_run_analysis_core": guir["launches"]["sweep"]},
         "launches_per_scan": per_scan,
         "max_abs_err": sweep_err,
         "max_rel_err": sweep_rel,

@@ -30,7 +30,10 @@ long-term tier: joint (Hs, Tp) climates and IFORM contours, FORM / SORM /
 importance-sampling reliability of the system and of every member on
 batched design envelopes, section sensitivities and gradient sizing
 through autograd, and (in ``utils``) model JSON, CSV, text reports and
-plots (matplotlib, imported by ``utils.plotting`` only).  Waves:
+plots (matplotlib, imported by ``utils.plotting`` only), and the
+command line (``python -m small_fem_solver_tpu_torch.cli``, the JAX
+package's 23 subcommands) and the Tk GUI (``python -m
+small_fem_solver_tpu_torch.gui``; its headless core imports no Tk).  Waves:
 Airy, Stokes (orders 1-5) and Fenton with the reference's automatic
 selection.  The fused Morison kernel and the
 chain-sweep kernel (CUDA C++) have plain PyTorch versions beside them.

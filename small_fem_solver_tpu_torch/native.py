@@ -11,7 +11,12 @@ of the part of ``small_fem_solver_tpu/native.py`` it needs).
   to the numpy builder of ``ops/assembly.py::build_bcsr_pattern``);
 - ``aggregate_nodes``, the greedy BFS node aggregation of the two-level
   preconditioner (integer-equal to the Python BFS of
-  ``ops/coarse.py::aggregate_nodes``).
+  ``ops/coarse.py::aggregate_nodes``);
+- ``rcm_ordering``, a reverse Cuthill-McKee node permutation (with a
+  Python BFS when the library is absent), and ``refine_members``, the
+  chain refinement's coordinates and connectivity (``None`` when the
+  library is absent), the JAX package's two mesh helpers that no library
+  path calls.
 
 At first use the file is compiled with the host C++ compiler into
 ``small_fem_solver_tpu_torch/_build/`` (named by a hash of the source and
@@ -114,6 +119,11 @@ def _load():
                                       i32p, i64]
     lib.aggregate_nodes.restype = i64
     lib.aggregate_nodes.argtypes = [i32p, i64, i64, i64, i64p]
+    lib.rcm_ordering.restype = ctypes.c_int
+    lib.rcm_ordering.argtypes = [i32p, i64, i64, i32p]
+    lib.refine_members.restype = ctypes.c_int
+    lib.refine_members.argtypes = [f64p, i64, i32p, i64, i32p,
+                                   ctypes.c_int32, f64p, i32p, i32p]
     _lib = lib
     return _lib
 
@@ -171,3 +181,59 @@ def aggregate_nodes_native(edges, n_nodes: int, target_size: int):
                            out) < 0:
         raise RuntimeError("aggregate_nodes failed")
     return out
+
+
+def rcm_ordering(conn, n_nodes: int) -> np.ndarray:
+    """Reverse Cuthill-McKee permutation (``perm[new] = old``, int32) of
+    the node graph of ``conn`` [M, 2]: the native library's, else a BFS in
+    Python that gives the same permutation."""
+    lib = _load()
+    conn = np.ascontiguousarray(conn, dtype=np.int32).reshape(-1, 2)
+    if lib is not None:
+        perm = np.empty(n_nodes, np.int32)
+        if lib.rcm_ordering(conn, conn.shape[0], n_nodes, perm):
+            raise RuntimeError("rcm_ordering failed")
+        return perm
+    from collections import deque
+    adj = [[] for _ in range(n_nodes)]
+    for i, j in conn:
+        if i != j:
+            adj[i].append(int(j))
+            adj[j].append(int(i))
+    adj = [sorted(set(a)) for a in adj]
+    visited = np.zeros(n_nodes, bool)
+    order = []
+    while not visited.all():
+        unv = np.where(~visited)[0]
+        start = min(unv, key=lambda v: len(adj[v]))
+        q = deque([int(start)])
+        visited[start] = True
+        while q:
+            v = q.popleft()
+            order.append(v)
+            for u in sorted((u for u in adj[v] if not visited[u]),
+                            key=lambda u: len(adj[u])):
+                visited[u] = True
+                q.append(u)
+    return np.array(order[::-1], np.int32)
+
+
+def refine_members_native(coords, conn, sect, n_seg: int):
+    """``(new_coords, new_conn, new_sect)`` of every member of ``conn``
+    subdivided into ``n_seg`` elements (interior nodes appended member by
+    member, as ``models.model.refine_model`` lays them out), or None when
+    the library is absent."""
+    lib = _load()
+    if lib is None:
+        return None
+    coords = np.ascontiguousarray(coords, dtype=np.float64)
+    conn = np.ascontiguousarray(conn, dtype=np.int32)
+    sect = np.ascontiguousarray(sect, dtype=np.int32)
+    n, m = coords.shape[0], conn.shape[0]
+    new_coords = np.empty((n + m * (n_seg - 1), 3), np.float64)
+    new_conn = np.empty((m * n_seg, 2), np.int32)
+    new_sect = np.empty(m * n_seg, np.int32)
+    if lib.refine_members(coords, n, conn, m, sect, n_seg, new_coords,
+                          new_conn, new_sect):
+        raise RuntimeError("refine_members failed")
+    return new_coords, new_conn, new_sect

@@ -181,6 +181,29 @@ def test_library_imports_no_matplotlib_and_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+@pytest.mark.parametrize("tk", ["tk_present", "tk_absent"])
+def test_cli_and_gui_import_no_matplotlib_jax_or_tk(tk):
+    """The CLI and the GUI's headless core import neither matplotlib nor
+    JAX nor the JAX package, and the GUI module imports no tkinter (only
+    building a widget does), so both load where Tk is absent
+    (``sys.modules["tkinter"] = None`` makes any import of it fail)."""
+    block = "sys.modules['tkinter'] = None; " if tk == "tk_absent" else ""
+    code = ("import sys; " + block
+            + "import small_fem_solver_tpu_torch.cli as c; "
+            "import small_fem_solver_tpu_torch.gui as g; "
+            "from small_fem_solver_tpu_torch.gui import (INFO_TEXT, "
+            "DEFAULT_RAW_PARAMS, PARAM_KEYS_FLOAT, parse_params, "
+            "build_model_from_data, run_analysis_core, JacketGUI); "
+            "assert g.JacketGUI.show_damage_screen and c.main; "
+            "bad = {'matplotlib', 'jax', 'small_fem_solver_tpu', 'tkinter'} "
+            "& {m for m in sys.modules if sys.modules[m] is not None}; "
+            "assert not bad, bad")
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 @pytest.mark.parametrize("plot", ["structure", "utilization", "phase_scan",
                                   "mode", "pushover", "transfer"])
 def test_plots_write_png(storm, tmp_path, plot):
