@@ -108,10 +108,15 @@ chain-sweep kernel, and checks them:
    with pinned h-braces and two conductors, legs-flooded buoyancy, 40 m/s
    wind with an 800 m^2 topside, supports on springs [1e6]*3 + [1e12]*3:
    ``phase_scan_condensed(kinematics="fused")`` over the 360-phase storm
-   with both launch counts read around exactly that call (K1 once, the
-   sweep 4 times), against the separable f64 scan at the flagship limits,
-   equilibrium 1e-9, reactions == -k u_support 1e-8, and stiff springs
-   [1e13]*3 + [1e19]*3 within 1e-5 of the clamped scan;
+   with the launch counts read around exactly that call (K1's f64
+   instance once, its f32 one never, the sweep 4 times), against the
+   separable f64 scan at 1e-12 (utilization, its maximum, U: the same f64
+   loads), equilibrium 1e-9, reactions == -k u_support 1e-8, and stiff
+   springs [1e13]*3 + [1e19]*3 within 1e-5 of the clamped scan; then the
+   condensed envelope of the f64 model (3 Stokes-5 cases x 36 phases at
+   n_seg 8, f64 solve) with the default kinematics: K1 f64 once a case,
+   ``max_util_per_case``, ``member_envelope`` and ``max_util_per_phase``
+   equal to the separable envelope's at 1e-12;
 12. dense envelope phase: 1,000 cases (Stokes-5, H = linspace(2, 14, 50)
    m x 20 headings of wave and current, T = 9.4 s, d = 50 m, U_c = 1.7
    m/s) x 36 phases through ``design_envelope`` on the default jacket
@@ -285,8 +290,10 @@ chain-sweep kernel, and checks them:
    ``transient`` forms; ``contour`` and ``reliability`` on the seed-3
    climate of phase 34 written to a file, ``reliability --monte-carlo
    1000`` at phase 34's threshold and Airy waves): each exits cleanly;
-   both kernels' launches read around exactly that call; ``refined`` (f64
-   and f32) and the importance check with the same launches and result as
+   both kernels' launches read around exactly that call (``refined``: K1
+   f64 1, f32 0; ``refined --f32``: f32 1; ``envelope``: f64 8);
+   ``refined`` (f64 and f32) and the importance check with the same
+   launches and result as
    the script's own library call (f64 1e-9, f32 vs f64 1e-4, pf and cov
    1e-10); the 24 invocations at 126 DOF print what the same argv with
    ``--device cpu`` prints (``tests/cli_text.py``: numbers within one unit
@@ -294,7 +301,10 @@ chain-sweep kernel, and checks them:
    ``run --wave-model airy --json-out`` against the default golden
    (1e-8); ``python -m small_fem_solver_tpu_torch.cli`` once as a
    subprocess (its JSON equal to the in-process one); K1 f64 launch
-   shapes with ``harm64_bound``; each invocation's host wall time;
+   shapes with ``harm64_bound``, and the device time of each invocation's
+   first K1 f64 launch on its own operands beside that bound; the device
+   operations and busy time of ``refined``'s f64 scan; each invocation's
+   host wall time;
 38. GUI phase: ``gui.run_analysis_core`` on the card against the default
    golden (1e-8) and the CLI's run (1e-12), and ``show_damage_screen`` /
    ``show_spectral_fatigue`` through stubs on the card's results against
@@ -331,6 +341,11 @@ ENV_MEMBER_TOL = 2e-4 # ... member_envelope, relative to its maximum
 UTIL_TOL = 2e-4       # fused f32 scan vs separable f64: per-element utilization
 MAX_UTIL_TOL = 1e-4   # ... governing (max) utilization
 U_TOL = 1e-4          # ... displacements, relative to max |U|
+F64_LOADS_TOL = 1e-12 # an f64 model's fused scan and envelope (K1 f64 loads)
+                      # vs separable: the same f64 loads, summed in another
+                      # order
+F64_ENV_SEG = 8       # the f64 condensed envelope check: n_seg (the CLI's
+F64_ENV_HS = (8.0, 12.5, 17.0)  # envelope), Stokes-5 heights, 36 phases
 EQ_TOL_F32 = 1e-4     # reactions balance the applied loads (f32 solve)
 EQ_TOL_F64 = 1e-9     # ... (f64 solve)
 PREP_TOL = 1e-6       # prepared scan vs one-shot scan
@@ -1359,16 +1374,14 @@ def options_phase(pt, hk, dev, wave64):
         return pt.phase_scan_condensed(
             coarse, refined, N_SEG, wave64, case, n_steps=S,
             kinematics=kinematics, solve_dtype=f64, support_stiffness=springs)
-    hk.morison_phase_batch_cuda.launches = 0
-    hk.chain_sweep_cuda.launches = 0
-    fused = scan()
-    torch.cuda.synchronize()
-    out["k1_launches"] = hk.morison_phase_batch_cuda.launches
-    out["sweep_launches"] = hk.chain_sweep_cuda.launches
-    check(out["k1_launches"] == 1 and out["sweep_launches"] == 4,
-          f"options scan launched K1 {out['k1_launches']}x (1: M + A = "
-          f"{refined.n_members + 2} members, per-member Cd/Cm) and the chain "
-          f"sweep {out['sweep_launches']}x (4: two solves x two levels)")
+    fused, n, _ = counted(hk, scan)
+    out["k1_launches"] = n["f64"]
+    out["sweep_launches"] = n["sweep"]
+    check(same_counts(n, {"f64": 1, "sweep": 4}),
+          f"options scan launched {n}: K1's f64 instance once (M + A = "
+          f"{refined.n_members + 2} members, per-member Cd/Cm; the f64 "
+          f"model's loads in f64), the f32 instance never, the chain sweep "
+          f"4 times (two solves x two levels)")
     sep = scan("separable")
     check(all(torch.isfinite(t).all() for t in fused[1:6]),
           "options scan results finite")
@@ -1376,11 +1389,11 @@ def options_phase(pt, hk, dev, wave64):
     errs = {"utilization": float((u - u64).abs().max() / u64.max()),
             "max utilization": float((u.max() - u64.max()).abs() / u64.max()),
             "U": rel(fused.U, sep.U)}
-    check(errs["utilization"] < UTIL_TOL and errs["max utilization"]
-          < MAX_UTIL_TOL and errs["U"] < U_TOL, "options scan, fused (K1 "
-          "f32 loads) vs separable f64: " + ", ".join(
+    out["errs"] = errs
+    check(max(errs.values()) <= F64_LOADS_TOL, "options scan, fused (K1 "
+          "f64 loads) vs separable f64: " + ", ".join(
               f"{k} {v:.2e}" for k, v in errs.items())
-          + f" < {UTIL_TOL:g} / {MAX_UTIL_TOL:g} / {U_TOL:g}")
+          + f" <= {F64_LOADS_TOL:g}")
 
     # equilibrium: the separable scan against independently summed loads
     # (the steady ones through the dense path's assembly, with no wave),
@@ -1422,16 +1435,52 @@ def options_phase(pt, hk, dev, wave64):
     out["ms"] = cuda_ms(scan, n=10, warmup=2)
     events = device_events(scan)
     out["ops"], out["busy_ms"] = len(events), sum(t for _, t in events) / 1e3
-    out["k1_us"] = kernel_us(events, "morison_phase_batch_kernel")
+    out["k1_us"] = harm64_us(events)["total"]
     print(f"[options] {refined.n_dof} DOF x {S} phases on springs: max "
           f"utilization {float(u.max()):.6f} (f64 {float(u64.max()):.6f}; "
           f"clamped {float(clamped.utilization.max()):.6f}), max |U| "
           f"{float(fused.U.abs().max()):.2f} mm; fused scan "
           f"{out['ms']:.3f} ms (median of 10, CUDA events), "
           f"{out['ops']} device operations, device busy "
-          f"{out['busy_ms']:.3f} ms, K1 {out['k1_us']:.1f} us "
+          f"{out['busy_ms']:.3f} ms, K1 f64 {out['k1_us']:.1f} us "
           "(torch.profiler)", flush=True)
     return out
+
+
+def f64_envelope_phase(pt, hk, dev, coarse64):
+    """The condensed envelope of an f64 model (f64 solve) with the default
+    kinematics ("fused") against ``kinematics="separable"``: one launch of
+    K1's f64 instance a case, none of the f32 one, and the reductions at
+    F64_LOADS_TOL.  A few Stokes-5 cases at the CLI envelope's n_seg."""
+    import torch
+    f64 = torch.float64
+    refined = pt.refine_model(coarse64, F64_ENV_SEG)
+    waves = pt.make_wave_batch(list(F64_ENV_HS), 9.4, 50.0, U_c=1.7,
+                               model="stokes", N=5, n_modes=8, dtype=f64,
+                               device=dev)
+    C = len(F64_ENV_HS)
+    cases = pt.make_case_batch(pt.LoadCase(**CASE),
+                               wave_dir_deg=[0.0, 38.0, 120.0][:C])
+
+    def envelope(**kw):
+        return pt.design_envelope_condensed(
+            coarse64, refined, F64_ENV_SEG, waves, cases,
+            n_steps=DESIGN_STEPS, solve_dtype=f64, **kw)
+    env, n, s = counted(hk, envelope)
+    check(same_counts(n, {"f64": C, "sweep": 2 * C}),
+          f"f64 condensed envelope ({C} cases, n_seg {F64_ENV_SEG}) "
+          f"launched {n}: K1 f64 once a case, the sweep twice a case")
+    ref = envelope(kinematics="separable")
+    errs = {f: rel(getattr(env, f), getattr(ref, f))
+            for f in ("max_util_per_case", "member_envelope",
+                      "max_util_per_phase")}
+    check(max(errs.values()) <= F64_LOADS_TOL
+          and int(env.governing_case) == int(ref.governing_case),
+          "f64 condensed envelope, fused (K1 f64 loads) vs separable: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" <= {F64_LOADS_TOL:g}; governing case "
+          f"{int(env.governing_case)} == {int(ref.governing_case)}")
+    return {"launches": n, "errs": errs, "s": s}
 
 
 def design_batch(pt):
@@ -4234,6 +4283,10 @@ CLI_FLAGSHIP_TOL = 1e-9   # refined (f64) vs the script's own f64 scan
 CLI_GOLDEN_TOL = 1e-8     # run --wave-model airy --json-out vs the golden
 CLI_GUI_TOL = 1e-12       # gui.run_analysis_core vs the CLI's run JSON
 CLI_CPU_WORKERS = 3       # processes of the CPU references (spawn)
+# K1's launches by instance of the condensed invocations: an f64 model's
+# default (fused) scan and envelope launch the f64 instance
+CLI_K1 = {"refined": {"f64": 1}, "refined_f32": {"f32": 1},
+          "envelope": {"f64": 8}}
 CLI_CPU_THREADS = 2       # torch threads in each
 
 
@@ -4338,7 +4391,9 @@ class spy:
 
 class f64_shapes(spy):
     """The shapes (C, S, M, Q, N, n_nodes, wheeler) of every launch call of
-    K1's case-batched f64 instance inside the block, as a list."""
+    K1's case-batched f64 instance inside the block, as a list; ``args``
+    keeps each call's operands (kernel operands, wheeler) to time it
+    again."""
 
     def __init__(self, hk):
         super().__init__(hk, "launch_morison_batch64")
@@ -4349,6 +4404,7 @@ class f64_shapes(spy):
 
     def __exit__(self, *exc):
         super().__exit__(*exc)
+        self.args = [a for a, _, _ in self.calls]
         self.calls[:] = [(k["C"], k["ts"].shape[1], k["conn"].shape[0],
                           len(k["s"]), k["E"].shape[1], k["coords"].shape[0],
                           bool(wheeler))
@@ -4369,10 +4425,20 @@ def shape_bounds(shapes) -> dict:
 
 
 def cli_library_counts(pt, hk, dev, label):
-    """(result, launch counts) of the script's own library call with the
-    arguments of a CLI invocation: the flagship scan of ``refined`` (f64 or
-    f32) at the CLI's defaults, or the FORM and the 1,000-sample
-    importance check of ``reliability --monte-carlo``."""
+    """(result, launch counts) of :func:`cli_library_call`."""
+    import torch
+    call = cli_library_call(pt, dev, label)
+    hk.launch_counts(reset=True)
+    res = call()
+    torch.cuda.synchronize()
+    return res, hk.launch_counts()
+
+
+def cli_library_call(pt, dev, label):
+    """The script's own library call with the arguments of a CLI
+    invocation: the flagship scan of ``refined`` (f64 or f32) at the CLI's
+    defaults, or the FORM and the 1,000-sample importance check of
+    ``reliability --monte-carlo``."""
     import torch
     dtype = torch.float32 if label == "refined_f32" else torch.float64
     case = pt.LoadCase(**CASE, wind_dir_deg=38.0)
@@ -4398,10 +4464,7 @@ def cli_library_counts(pt, hk, dev, label):
             return pt.importance_sample_batch(pt.hs_tp_limit_state_batch(
                 pt.utilization_response_batch(coarse, case, **kw), joint,
                 RELI_THRESHOLD), rel.form, n_samples=IS_SAMPLES)
-    hk.launch_counts(reset=True)
-    res = call()
-    torch.cuda.synchronize()
-    return res, hk.launch_counts()
+    return call
 
 
 def cli_phase(pt, hk, dev):
@@ -4442,7 +4505,9 @@ def cli_phase(pt, hk, dev):
     with open(clim, "w") as f:
         json.dump(np.stack(climate_states(), axis=1).tolist(), f)
     inv = cli_invocations(card_dir, clim)
-    out = {"launches": {}, "wall_s": {}, "cpu_diff": {}, "f64_shapes": {}}
+    out = {"launches": {}, "wall_s": {}, "cpu_diff": {}, "f64_shapes": {},
+           "f64_times": {}}
+    f64_args = {}
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(CLI_CPU_WORKERS,
                                                 mp_context=ctx) as pool:
@@ -4460,7 +4525,8 @@ def cli_phase(pt, hk, dev):
             hk.launch_counts(reset=True)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with watch, f64_shapes(hk) as shapes:
+            spy64 = f64_shapes(hk)
+            with watch, spy64 as shapes:
                 texts[label], err = cli_card_stdout(argv)
             torch.cuda.synchronize()
             out["wall_s"][label] = time.perf_counter() - t0
@@ -4468,12 +4534,19 @@ def cli_phase(pt, hk, dev):
             out["launches"][label] = n
             if shapes:
                 out["f64_shapes"][label] = shape_bounds(shapes)
+                f64_args[label] = (shapes[0], spy64.args[0])
             check(bool(texts[label]), f"cli {' '.join(argv)}: exits cleanly "
                   f"with output ({len(texts[label].splitlines())} lines)")
             print(f"[cli] {label}: {out['wall_s'][label]:.2f} s wall; K1 "
                   f"{n['k1']} (f32 {n['f32']}, f64 {n['f64']}, sea "
                   f"{n['sea_f32'] + n['sea_f64']}), sweep {n['sweep']}",
                   flush=True)
+            if label in CLI_K1:
+                want = CLI_K1[label]
+                got = {k: n[k] for k in ("f32", "f64", "sea_f32", "sea_f64")}
+                check(got == {k: want.get(k, 0) for k in got}
+                      and n["k1"] == sum(want.values()),
+                      f"cli {label}: K1 launches by instance {got} == {want}")
             if label in ("refined", "refined_f32", "reliability_mc"):
                 got = watch.calls[-1][2]
                 ref, want = cli_library_counts(pt, hk, dev, label)
@@ -4532,6 +4605,29 @@ def cli_phase(pt, hk, dev):
                   + ("equal by the CLI rule" if not bad
                      else "; ".join(bad[:5])))
         out["cpu_wait_s"] = time.perf_counter() - t0
+
+    # K1 f64's device time at the first launch of each invocation that
+    # launched it, on that launch's own operands, beside its bound (these
+    # launches are outside every count window)
+    for label, (shape, (k, wheeler)) in f64_args.items():
+        def launch(k=k, wheeler=wheeler):
+            return hk.launch_morison_batch64(k, wheeler)
+        dev_us = harm64_us(device_events(launch, SHORT_REPS))
+        C, S, M, Q, N, n_nodes, _ = shape
+        bound = harm64_bound(S, M, Q, N, n_nodes, C, wheeler)
+        out["f64_times"][label] = {
+            "shape": f"C={C}, S={S}, M={M}, Q={Q}, N={N}"
+                     + (", Wheeler" if wheeler else ""),
+            "device_us": dev_us, "bound": bound,
+            "share": bound["us"] / dev_us["total"],
+            "ms": cuda_ms(launch, n=10)}
+    # the f64 refined scan at the CLI's defaults, through K1 f64
+    reps = 3
+    events = device_events(cli_library_call(pt, dev, "refined"), reps)
+    out["refined_busy"] = {
+        "ops": len(events) / reps,
+        "busy_ms": sum(t for _, t in events) / 1e3 / reps,
+        "k1_us": harm64_us(events)["total"], "top": top_device_ops(events)}
 
     # run --wave-model airy --json-out against the default golden
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -5181,6 +5277,10 @@ def main() -> int:
     t0 = time.perf_counter()
     options = options_phase(pt, hk, dev, wave64)
     print(f"[options] phase {time.perf_counter() - t0:.2f} s wall", flush=True)
+    t0 = time.perf_counter()
+    env64f = f64_envelope_phase(pt, hk, dev, coarse64)
+    print(f"[options] f64 condensed envelope check "
+          f"{time.perf_counter() - t0:.2f} s wall", flush=True)
 
     # ---- 12-14. dense design tier: 1,000 cases on the default jacket ----
     t0 = time.perf_counter()
@@ -5542,6 +5642,20 @@ def main() -> int:
             f"{b['us']:.3f} us by {b['by']} ({b['sums_gflop']:.4f} + "
             f"{b['epilogue_gflop']:.4f} GFLOP, {b['mb']:.3f} MB)"
             for key, b in bounds.items()), flush=True)
+    for label, r in cli["f64_times"].items():
+        d = r["device_us"]
+        print(f"[k1-f64] {smi}: cli_{label} ({r['shape']}): "
+              f"{d['total']:.3f} us on the device (records "
+              f"{d['records']:.3f} + fused {d['fused']:.3f} + totals "
+              f"{d['totals']:.3f}); bound {r['bound']['us']:.3f} us by "
+              f"{r['bound']['by']}: {r['share']:.1%} of the bound; launch "
+              f"{r['ms']:.3f} ms (torch.profiler, CUDA events)", flush=True)
+    rb = cli["refined_busy"]
+    print(f"[profile] {smi}: cli refined's f64 scan ({refined64.n_dof} DOF "
+          f"x {N_STEPS} phases, K1 f64 loads, f64 solve): {rb['ops']:.0f} "
+          f"device operations, device busy {rb['busy_ms']:.3f} ms, K1 f64 "
+          f"{rb['k1_us']:.1f} us; most time: {rb['top']} (torch.profiler, "
+          "3 calls)", flush=True)
     t0 = time.perf_counter()
     guir = gui_phase(pt, hk, dev, cli["run_json"])
     print(f"[gui] phase {time.perf_counter() - t0:.2f} s wall; "
@@ -5572,6 +5686,7 @@ def main() -> int:
             "dense_envelope": denv["launches"],
             "dense_envelope_f32_model": denv["launches_f32"],
             "options_scan": options["k1_launches"],
+            "f64_envelope_condensed": env64f["launches"]["f64"],
             "dynamic_condensed": dyn["launches"]["dynamic_condensed"]["f64"],
             "transient": dyn["launches"]["transient"]["f64"],
             **{label: n["sea_f32"] + n["sea_f64"]
@@ -5596,14 +5711,24 @@ def main() -> int:
                                            if k not in ("k1", "sweep") and v}
                           for label, n in cli["launches"].items()
                           if n["k1"]},
+        "cli_f64_times": {f"cli_{k}": {
+            "shape": r["shape"], "device_us": r["device_us"]["total"],
+            "bound_us": r["bound"]["us"], "bound_by": r["bound"]["by"],
+            "share": r["share"], "ms": r["ms"]}
+            for k, r in cli["f64_times"].items()},
+        "cli_refined_f64_busy_ms": cli["refined_busy"]["busy_ms"],
+        "f64_fused_vs_separable": {"options_scan": options["errs"],
+                                   "envelope_condensed": env64f["errs"]},
         "f64_bounds": {"member_reliability": reli["f64_bounds"],
                        **{f"cli_{k}": v for k, v in
                           cli["f64_shapes"].items()}},
         "instances": {"f32": ["scan", "envelope", "dense_envelope_f32_model",
-                              "options_scan"],
+                              "cli_refined_f32"],
                       "f64": ["dense_envelope", "dynamic_condensed",
                               "transient", "member_reliability",
-                              "importance_sample_1000"],
+                              "importance_sample_1000", "options_scan",
+                              "f64_envelope_condensed", "cli_refined",
+                              "cli_envelope"],
                       "sea_f32": [k for k, n in sea_launches.items()
                                   if n["sea_f32"]],
                       "sea_f64": [k for k, n in sea_launches.items()

@@ -30,12 +30,12 @@ counterpart of ``small_fem_solver_tpu/api.py``).
   them over a scatter diagram.
 
 ``kinematics='fused'`` (the default of the scan and the envelope; the
-JAX package's name ``'pallas'`` is an alias) evaluates the loads with the
-hand-written CUDA kernel (``ops/hopper_kernels.py``) in float32 on CUDA
-tensors, as the JAX package's ``'pallas'`` path does, and with its plain
-PyTorch version in the model's dtype on the CPU, where it equals
-``'separable'`` (the plain version everywhere, the JAX package's
-default); both build the loads directly in the chain layout.  Past the
+JAX package's name ``'pallas'`` is an alias) evaluates the loads in the
+model's dtype: with the hand-written CUDA kernel (``ops/hopper_kernels.py``,
+its float32 or float64 instance) on CUDA tensors, and with its plain
+PyTorch version on the CPU, where it equals ``'separable'`` (the plain
+version everywhere, the JAX package's default); both build the loads
+directly in the chain layout.  Past the
 kernel's limits (more than 32 wave modes or 16 Gauss points) ``'fused'``
 runs the plain version on the card too, as the JAX package's default
 does, while ``'pallas'`` raises there, as the JAX kernel path does.
@@ -640,19 +640,14 @@ def _scan_loads(prep: "CondensedPrepared", wave: FourierWave, case, n_steps,
         _check_no_slam(case_l, "the condensed phase scan")
         conn_h, D_m, Cd_h, Cm_h = hydro_members(
             refined, case_l.marine_growth_mm, case_l.Cd, case_l.Cm)
-        # the kernel gives the loads in float32 on the card (its f32
-        # instance), as the JAX package's "pallas" path does; the plain
-        # version computes in the model's dtype
-        kdt = torch.float32 if fused and device.type == "cuda" else ldtype
         wk, xyz, D_k, *per_member, ts_k, alpha = cast_operands(
-            kdt, device, wave, refined.coords, D_m, case_l.wave_dir_deg,
+            ldtype, device, wave, refined.coords, D_m, case_l.wave_dir_deg,
             case_l.current_dir_deg, Cd_h, Cm_h, case_l.rho_water, ts,
             current_alpha)
         F1, F2, drag, inertia = batch_fn(
             wk, xyz, conn_h, D_k, *per_member, ts_k, n_gauss=n_gauss,
             current_alpha=alpha, stretching=stretching)
-        F_I_nodes, g = _chain_layout_loads(coarse, refined, case_l,
-                                           F1.to(ldtype), F2.to(ldtype),
+        F_I_nodes, g = _chain_layout_loads(coarse, refined, case_l, F1, F2,
                                            L_m, prep.n_seg)
         total = drag + inertia
     return (ts, F_I_nodes.to(solve_dtype), g.to(solve_dtype),

@@ -20,6 +20,11 @@ import torch
 from ..device import resolve_device
 from ..ops.sections import TubeSections, tube_sections
 
+# Member type vocabulary of the reference GUI combo
+# (`JacketAnalysisGUI_v2.py:1163`); 'leg' binds the leg section, everything
+# else binds the brace section (`JacketAnalysisGUI_v2.py:329`).
+MEMBER_TYPES = ("leg", "h_brace", "x_brace", "brace")
+
 
 @dataclasses.dataclass(frozen=True)
 class JacketModel:

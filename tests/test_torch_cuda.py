@@ -438,6 +438,57 @@ def test_fused_envelope_matches_separable_f64():
 
 
 @pytest.mark.cuda
+def test_default_kinematics_give_f64_model_f64_loads():
+    """An f64 model's condensed scan and envelope with the default
+    kinematics ("fused") launch K1's f64 instance, once a scan and once a
+    case, and equal the separable f64 scan and envelope at 1e-12 (f32
+    loads would put them ~5e-7 apart); an f32 model's scan still launches
+    the f32 instance."""
+    dev = _device()
+    case = pt.LoadCase(**STORM)
+    runs = {}
+    for dtype, key, other in ((torch.float64, "f64", "f32"),
+                              (torch.float32, "f32", "f64")):
+        coarse = pt.default_3leg_jacket(dtype=dtype, device=dev)
+        refined = pt.refine_model(coarse, 4)
+        wave = pt.make_wave(17.038, 9.4, 50.0, U_c=1.7, model="fenton",
+                            N=12, dtype=dtype, device=dev)
+        hk.launch_counts(reset=True)
+        runs[dtype] = pt.phase_scan_condensed(coarse, refined, 4, wave,
+                                              case, n_steps=16,
+                                              solve_dtype=dtype)
+        torch.cuda.synchronize()
+        n = hk.launch_counts()
+        assert n[key] == n["k1"] == 1 and n[other] == 0, n
+    coarse = pt.default_3leg_jacket(device=dev)
+    refined = pt.refine_model(coarse, 4)
+    wave = pt.make_wave(17.038, 9.4, 50.0, U_c=1.7, model="fenton", N=12,
+                        device=dev)
+    sep = pt.phase_scan_condensed(coarse, refined, 4, wave, case, n_steps=16,
+                                  kinematics="separable")
+    fused = runs[torch.float64]
+    for f in ("U", "utilization", "reactions", "total_morison"):
+        assert _rel(getattr(fused, f), getattr(sep, f)) <= 1e-12, f
+
+    waves = pt.make_wave_batch([8.0, 12.5, 17.0], 9.4, 50.0, U_c=1.7,
+                               model="fenton", N=12, n_modes=12, device=dev)
+    cases = pt.make_case_batch(case, wave_dir_deg=[0.0, 38.0, 120.0])
+
+    def envelope(kinematics):
+        return pt.design_envelope_condensed(
+            coarse, refined, 4, waves, cases, n_steps=16,
+            solve_dtype=torch.float64, kinematics=kinematics)
+    hk.launch_counts(reset=True)
+    env = envelope("fused")
+    torch.cuda.synchronize()
+    n = hk.launch_counts()
+    assert n["f64"] == n["k1"] == 3 and n["f32"] == 0, n
+    ref = envelope("separable")
+    for f in ("max_util_per_case", "member_envelope", "max_util_per_phase"):
+        assert _rel(getattr(env, f), getattr(ref, f)) <= 1e-12, f
+
+
+@pytest.mark.cuda
 def test_chain_sweep_tiling_rule_matches_the_library():
     """The wrapper-side tile rule (used by the CPU emulation) is the
     launch's own."""
