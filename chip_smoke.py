@@ -46,11 +46,18 @@ chain-sweep kernel, and checks them:
    time against its bound; and the f32 instance at the dense envelope's
    shapes (its own 8-mode template instance) against the f64 plain
    version (1e-5) (the f64 and dense-shape checks run after phase 4's
-   wrapper checks, which stay the run's first profiler sessions);
+   wrapper checks, which stay the run's first profiler sessions); then
+   K1's case-batched f32 instance (its build report: no spill, no HMMA)
+   on the dense envelope's 1,000 cases in one launch, with and without
+   Wheeler, against the plain version in f64 on the same f32-rounded
+   inputs (1e-5), bit-repeatable, one case, a mid-batch block and the
+   last case launched alone bit-equal to the whole batch's; its device
+   time against its bound;
 4. sweep phase: ``chain_sweep_cuda`` in f32 and f64 against
    ``chain_sweep_plain`` in f64 on the flagship chain factors (nested
    level 1 and 2, thomas), on random loads for 360 and 37 right-hand sides
-   (contiguous, and in the scan's transposed chain layout) and on the
+   (the wide form) and 18 and 1 (the narrow form), contiguous and in the
+   scan's transposed chain layout, and on the
    flagship scan's own loads, which the kernel reads in place (the nested
    level-1 (m, q) view, the transposed thomas layout); bit-repeatable (the
    f64 reference runs below go through the same kernel, so this phase is
@@ -89,9 +96,11 @@ chain-sweep kernel, and checks them:
    within 5e-3 of n_seg = 8, total Morison within 5% of the coarse
    ``analyze``, 0.15 < max utilization < 0.35); ``analyze_prepared``
    against it (U, reactions, von Mises 1e-12, F2 1e-9); the f64 sweep
-   kernel (untiled at 108 levels) against the plain sweep on this
-   analysis's own factors and loads; the sweep's launch count around
-   exactly one call of each; times, peak memory, and under torch.profiler
+   kernel (its narrow form: every sweep here has B = 1) against the plain
+   sweep on this analysis's own factors and loads, each bit-equal to
+   column 0 of a wide launch of 40 columns; the sweep's launch counts
+   around exactly one call of each (``analyze_prepared``: 4, all narrow);
+   times, peak memory, and under torch.profiler
    the device operations and time of ``analyze_prepared`` and the sweep
    kernel's device time at both levels beside its bound;
 10. timing with CUDA events (median of 20 synchronised runs after warm-up):
@@ -125,9 +134,10 @@ chain-sweep kernel, and checks them:
    (the reductions, the full
    utilization [C, S, M] and the Morison totals), the governing case
    against ``analyze_phase_batch``; time, device operations and busy time,
-   peak memory; then an f32 copy of the model through the same call (1,000
-   launches of the f32 instance, its Morison totals at 1e-6, its full
-   utilization at 3e-5: the f32 solve and recovery as well);
+   peak memory; then an f32 copy of the model through the same call (one
+   launch of K1's case-batched f32 instance for the 1,000 cases, its
+   Morison totals at 1e-6, its full utilization at 3e-5: the f32 solve
+   and recovery as well), its time and its K1 device time;
 13. sweep phase: ``design_sweep`` of the same cases at t_analysis = 0 and
    ``critical_case``; the governing and 4 seeded random cases against a
    per-case ``analyze`` (1e-10); time;
@@ -154,8 +164,15 @@ chain-sweep kernel, and checks them:
    and a seeded ground-acceleration record; each call's host time, device
    operations, busy time and peak memory;
 16. large modal phase: ``modal_analysis_condensed`` at 99,882 DOF (10
-   sweep launches at depth 326), the first 8 frequencies within 2e-3 of
-   the 9,612-DOF ones; time and peak memory;
+   sweep launches at depth 326, all in the narrow form), the first 8
+   frequencies within 2e-3 of the 9,612-DOF ones; time and peak memory;
+   then the narrow sweep phase: the sweep's narrow form on the first
+   sweep of the 99,882-DOF ``analyze_prepared`` (B 1, 108 levels) and of
+   the chain-mode iteration at 9,612 and 99,882 DOF (B 18, 31 and 326
+   levels), f64 against the plain sweep (1e-12), f64 and an f32 copy
+   bit-equal to a wide launch's columns, bit-repeatable; device times
+   beside the bytes bound and the dependent-step floor (2 n_int steps x
+   one step's latency, the slope between the two chain-mode depths);
 17. K1-sea phase: K1's general-mode (random sea) instance on the flagship
    mesh with per-member Cd / Cm, f32 against the plain version in f64 on
    the same f32-rounded inputs (1e-5) and f64 against f64 (1e-12), one
@@ -385,6 +402,9 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 FP32_FLOP_PER_S = 67e12     # H100 SXM FP32 outside the tensor cores
 FP64_FLOP_PER_S = 34e12     # H100 SXM FP64 outside the tensor cores
 FP64_TC_FLOP_PER_S = 67e12  # ... on the tensor cores (DMMA: exact FP64)
+SWEEP_KERNEL = "chain_sweep"  # device records of both sweep forms' kernels
+F32_BATCH_KERNELS = ("morison_f32_batch_kernel",
+                     "morison_f32_batch_totals_kernel")
 EPILOGUE_FLOP = 60    # K1 per (phase, point): normal projection, drag,
                       # inertia, lever-rule sums
 CASE = dict(wave_dir_deg=38.0, current_dir_deg=38.0, F_axial_kN=25100.0,
@@ -591,6 +611,47 @@ def top_device_ops(events, k: int = 5) -> str:
         count[n] = count.get(n, 0) + 1
     top = sorted(total, key=total.get, reverse=True)[:k]
     return "; ".join(f"{n[:40]} {count[n]}x {total[n]:.1f} us" for n in top)
+
+
+def narrow_equals_wide(hk, fac, gs, split, got, width: int) -> bool:
+    """Whether ``got`` (a narrow launch's fI, fJ, v on ``gs``) is bit-equal
+    to the first columns of a wide launch on the same factors: ``gs``'s
+    B columns followed by seeded random ones up to ``width`` (>= the
+    narrow threshold)."""
+    import numpy as np
+    import torch
+    g = gs.reshape(*gs.shape[:-3], -1, 6) if split else gs
+    g = g.reshape(-1, *g.shape[-3:])
+    B = g.shape[0]
+    pad = torch.tensor(np.random.default_rng(width).normal(
+        size=(width - B, *g.shape[1:])), dtype=g.dtype, device=g.device)
+    wide = hk.chain_sweep_cuda(fac, torch.cat([g, pad * g.abs().max()]))
+    n_int, C = fac.Cprime.shape[:2]
+    fI, fJ, v = got
+    mine = (fI.reshape(B, C, 6), fJ.reshape(B, C, 6),
+            v.reshape(B, n_int, C, 6))
+    return (hk.sweep_narrow_rhs(width, n_int, g.element_size()) == 0
+            and all(torch.equal(a, b[:B]) for a, b in zip(mine, wide)))
+
+
+def first_sweep(condense_mod, hk, fn):
+    """The operands (fac, g, split) of the first chain sweep that ``fn()``
+    runs; ``fn`` is stopped there."""
+    class Stop(Exception):
+        pass
+    seen = []
+
+    def stopping_sweep(fac, g, split=False):
+        seen.append((fac, g, split))
+        raise Stop
+    condense_mod.chain_sweep_cuda = stopping_sweep
+    try:
+        fn()
+    except Stop:
+        pass
+    finally:
+        condense_mod.chain_sweep_cuda = hk.chain_sweep_cuda
+    return seen[0]
 
 
 def record_sweeps(condense_mod, hk, fn):
@@ -850,10 +911,11 @@ def large_phase(pt, hk, dev, coarse64, wave64):
     check(refined.n_dof == 99882, f"large model has {refined.n_dof} DOF")
     case = pt.LoadCase(**CASE, t_analysis=0.34)
     out = {}
-    hk.chain_sweep_cuda.launches = 0
+    hk.chain_sweep_cuda.launches = hk.chain_sweep_cuda.narrow_launches = 0
     res = pt.analyze_condensed(coarse64, refined, n_seg, wave64, case)
     torch.cuda.synchronize()
     out["analyze_condensed_launches"] = hk.chain_sweep_cuda.launches
+    out["analyze_condensed_narrow"] = hk.chain_sweep_cuda.narrow_launches
     print(f"[large] refine + first analyze_condensed: "
           f"{time.perf_counter() - t0:.2f} s wall", flush=True)
     check(out["analyze_condensed_launches"] >= 1, f"analyze_condensed "
@@ -900,12 +962,16 @@ def large_phase(pt, hk, dev, coarse64, wave64):
         prep.fac.fac1.Cprime.shape[:2]) == (108, 153) and tuple(
         prep.fac.fac2.Cprime.shape[:2]) == (2, 51),
         "nested split 327 = 3 x 109: level 1 108 x 153, level 2 2 x 51")
-    hk.chain_sweep_cuda.launches = 0
+    hk.chain_sweep_cuda.launches = hk.chain_sweep_cuda.narrow_launches = 0
     rp = pt.analyze_prepared(prep, wave64, case)
     torch.cuda.synchronize()
     out["analyze_prepared_launches"] = hk.chain_sweep_cuda.launches
-    check(out["analyze_prepared_launches"] >= 1, f"analyze_prepared launched "
-          f"the chain sweep ({out['analyze_prepared_launches']}x)")
+    out["analyze_prepared_narrow"] = hk.chain_sweep_cuda.narrow_launches
+    check(out["analyze_prepared_launches"] == 4
+          and out["analyze_prepared_narrow"] == 4, f"analyze_prepared "
+          f"launched the chain sweep {out['analyze_prepared_launches']}x, "
+          f"{out['analyze_prepared_narrow']}x in its narrow form (4, 4: two "
+          "solves x two levels, each at B = 1)")
     errs = {f: rel(getattr(rp, f), getattr(res, f))
             for f in ("U", "reactions", "von_mises")}
     f2 = rel(rp.F2_local, res.F2_local)
@@ -918,9 +984,14 @@ def large_phase(pt, hk, dev, coarse64, wave64):
     # solve and the refinement round, each nested level 1 then level 2
     sweeps = record_sweeps(condense_mod, hk,
                            lambda: pt.analyze_prepared(prep, wave64, case))
-    check(len(sweeps) == 4 and hk.sweep_chains_per_block(108, 8) == 0,
-          "analyze_prepared ran four sweeps (two solves x two levels); "
-          "level 1 (108 levels, f64) runs the untiled form")
+    check(len(sweeps) == 4 and all(
+        hk.sweep_narrow_rhs(hk.sweep_operand(gs, split)[1],
+                            fac.Cprime.shape[0], 8) == 1
+        for fac, gs, split in sweeps),
+          "analyze_prepared ran four sweeps (two solves x two levels), "
+          "each at B = 1: the narrow form (level 1: 108 levels x 153 chains, "
+          "f64)")
+    out["sweeps"] = sweeps
     # the path finds the 16 MB of level-1 factors cold in the 50 MB L2
     # cache: time each launch after overwriting a 128 MB buffer, and warm
     l2_flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
@@ -934,15 +1005,19 @@ def large_phase(pt, hk, dev, coarse64, wave64):
         check(err <= SWEEP_TOL_F64, f"sweep kernel f64 vs plain, 99,882 DOF "
               f"{level} ({'solve' if i < 2 else 'refinement round'}): "
               f"{err:.2e} <= {SWEEP_TOL_F64:g}")
+        check(narrow_equals_wide(hk, fac, gs, split, got, 40),
+              f"99,882 DOF {level} ({'solve' if i < 2 else 'refinement'}): "
+              "the narrow launch bit-equal to column 0 of a wide launch of "
+              "40 columns")
         if i >= 2:   # the refinement round repeats the solve's shapes
             continue
         (n_int, C), B = fac.Cprime.shape[:2], g_chain.shape[0]
         cold = kernel_us(device_events(lambda: (
             l2_flush.zero_(), hk.chain_sweep_cuda(fac, gs, split)),
-            SHORT_REPS), "chain_sweep_kernel")
+            SHORT_REPS), SWEEP_KERNEL)
         warm = kernel_us(device_events(
             lambda: hk.chain_sweep_cuda(fac, gs, split), SHORT_REPS),
-            "chain_sweep_kernel")
+            SWEEP_KERNEL)
         levels[level] = (
             cuda_ms(lambda: hk.chain_sweep_cuda(fac, gs, split)),
             cuda_ms(lambda: chain_sweep_plain(fac, g_chain), n=5),
@@ -961,7 +1036,7 @@ def large_phase(pt, hk, dev, coarse64, wave64):
     events = device_events(lambda: pt.analyze_prepared(prep, wave64, case))
     out["prepared_ops"] = len(events)
     out["prepared_busy_ms"] = sum(t for _, t in events) / 1e3
-    out["prepared_sweeps"] = sum("chain_sweep_kernel" in n for n, _ in events)
+    out["prepared_sweeps"] = sum(SWEEP_KERNEL in n for n, _ in events)
     out["prepared_top"] = top_device_ops(events)
     print(f"[large] {refined.n_dof} DOF f64: residual {resid:.2e}, "
           f"equilibrium {eq:.2e}, interface vs n_seg 8 {iface:.2e}, Morison "
@@ -1515,12 +1590,12 @@ ENV_FIELDS = ("ts", "utilization", "max_util_per_phase", "max_util_per_case",
 def dense_envelope_phase(pt, hk, dev, coarse64, waves_cpu, cases):
     """``design_envelope`` of the 1,000 cases x 36 phases on the default
     jacket in f64: exactly one launch of K1's case-batched f64 instance for
-    all the cases, every
-    case against the CPU f64 plain run (1e-10), the governing case against
-    ``analyze_phase_batch``; time, device operations and peak memory.  Then
-    an f32 copy of the model through the same call: one launch of the f32
-    instance per case, its Morison totals at K1's f32 limit, its full
-    utilization at the f32 model's limit."""
+    all the cases, every case against the CPU f64 plain run (1e-10), the
+    governing case against ``analyze_phase_batch``; time, device
+    operations and peak memory.  Then an f32 copy of the model through the
+    same call: one launch of K1's case-batched f32 instance for all the
+    cases, its Morison totals at K1's f32 limit, its full utilization at
+    the f32 model's limit; its time and its K1 device time."""
     import torch
     waves = waves_cpu.to(torch.float64, dev)
     C, out = waves.E.shape[0], {}
@@ -1561,12 +1636,16 @@ def dense_envelope_phase(pt, hk, dev, coarse64, waves_cpu, cases):
     # path's shapes, its totals against the f64 run at K1's f32 limit; the
     # utilization carries the f32 solve and recovery as well
     coarse32 = pt.default_3leg_jacket(dtype=torch.float32, device=dev)
-    env32, n, _ = counted(hk, lambda: pt.design_envelope(
-        coarse32, waves_cpu.to(torch.float32, dev), cases,
-        n_steps=DESIGN_STEPS))
-    out["launches_f32"] = n["f32"]
-    check(same_counts(n, {"f32": C}), f"design_envelope of the "
-          f"f32 model launched {n} (K1's f32 instance once per case: {C})")
+    waves32 = waves_cpu.to(torch.float32, dev)
+
+    def envelope32():
+        return pt.design_envelope(coarse32, waves32, cases,
+                                  n_steps=DESIGN_STEPS)
+    env32, n, _ = counted(hk, envelope32)
+    out["launches_f32"] = n["f32_batch"]
+    check(same_counts(n, {"f32_batch": 1}), f"design_envelope of the f32 "
+          f"model launched {n} (K1's case-batched f32 instance once for the "
+          f"{C} cases, no per-case f32 launch)")
     errs32 = {f: rel(getattr(env32, f).cpu(), getattr(ref, f))
               for f in ("max_util_per_case", "member_envelope", "utilization",
                         "total_morison")}
@@ -1586,6 +1665,10 @@ def dense_envelope_phase(pt, hk, dev, coarse64, waves_cpu, cases):
           f"member_envelope {errs32['member_envelope']:.2e} <= "
           f"{ENV_MEMBER_TOL:g}, governing case {gov32} == {gov_cpu}")
     out["errs32"] = errs32
+    out["ms_f32"] = cuda_ms(envelope32, n=5, warmup=1)
+    events = device_events(envelope32)
+    out["busy_f32_ms"] = sum(t for _, t in events) / 1e3
+    out["k1_f32_us"] = sum(kernel_us(events, n) for n in F32_BATCH_KERNELS)
     _, batch = pt.analyze_phase_batch(coarse64, waves.case(gov),
                                       cases.case(gov), n_steps=DESIGN_STEPS,
                                       accel="analytic")
@@ -1841,7 +1924,7 @@ def k1_f64_phase(pt, hk, dev, coarse64, refined64, wave64, waves_d, dirs_d):
                                       no_wheeler)
     names = ("F1", "F2", "total_drag", "total_inertia")
     out = {"abs": 0.0, "rel": 0.0, "args": flagship(N_STEPS),
-           "dense": dense, "build": build, "shapes": {}}
+           "dense": dense, "dense_b": dense_b, "build": build, "shapes": {}}
     for label, (args, Cb, stretchings) in shapes.items():
         wave, coords, conn = args[:3]
         S, Mk, N = args[-1].shape[-1], conn.shape[0], wave.n_modes
@@ -1969,9 +2052,12 @@ def freq_err(a, b) -> float:
 
 def counted(hk, fn):
     """(fn(), launch counts, host seconds): every kernel count set to 0
-    just before the call and read just after it."""
+    just before the call and read just after it (the sweep's narrow-form
+    count stays on ``hk.chain_sweep_cuda.narrow_launches``, read there
+    right after)."""
     import torch
     hk.chain_sweep_cuda.launches = 0
+    hk.chain_sweep_cuda.narrow_launches = 0
     hk.morison_phase_batch_cuda.launches = 0
     counts = hk.morison_phase_batch_cuda.instance_launches
     counts.update({k: 0 for k in counts})
@@ -2004,7 +2090,7 @@ def call_record(fn) -> dict:
            "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
     events = device_events(fn, host=False)
     rec["ops"], rec["busy_ms"] = len(events), sum(t for _, t in events) / 1e3
-    rec["sweep_us"] = kernel_us(events, "chain_sweep_kernel")
+    rec["sweep_us"] = kernel_us(events, SWEEP_KERNEL)
     # K1's f64 instance: its records pass and its fused pass
     rec["k1_us"] = sum(kernel_us(events, n) for n in HARM64_KERNELS[:2])
     # K1-sea: its records pass and its fused pass
@@ -2274,8 +2360,10 @@ def modal_large_phase(pt, hk, coarse64, freqs_9612):
                                            n_chain_modes=CHAIN_MODES,
                                            topside_mass_t=TOPSIDE_T)
     res, n, _ = counted(hk, modal)
-    check(same_counts(n, {"sweep": 10}), f"99,882-DOF modal: kernel "
-          f"launches {n}")
+    narrow = hk.chain_sweep_cuda.narrow_launches
+    check(same_counts(n, {"sweep": 10}) and narrow == 10, f"99,882-DOF "
+          f"modal: kernel launches {n}, {narrow} of the sweeps in its narrow "
+          "form (the chain-mode iteration, B = 18)")
     err = freq_err(res.frequencies_hz, freqs_9612[:8])
     check(res.mode_shapes.shape == (8, big.n_dof)
           and bool(torch.isfinite(res.mode_shapes).all())
@@ -2283,7 +2371,8 @@ def modal_large_phase(pt, hk, coarse64, freqs_9612):
           f"99,882-DOF modal: first 8 frequencies within {err:.2e} <= "
           f"{MESH_FREQ_TOL:g} of 9,612 DOF")
     rec = call_record(modal)
-    rec.update(launches=n, err=err, periods=[float(p) for p in res.periods_s])
+    rec.update(launches=n, narrow=narrow, err=err,
+               periods=[float(p) for p in res.periods_s])
     return rec
 
 
@@ -3020,6 +3109,209 @@ def k1_f32_bound(S: int, M: int, Q: int, N: int, n_nodes: int):
                   + M) + 8 * 2 * M
     flops = S * M * Q * (2 * 2 * N * 5 + EPILOGUE_FLOP)
     return (*bound_us(nbytes, flops), nbytes, flops)
+
+def k1_f32_batch_bound(C: int, S: int, M: int, Q: int, N: int,
+                       n_nodes: int):
+    """(bound us, by, bytes, FLOPs) of one launch of K1's case-batched f32
+    instance: :func:`k1_f32_bound`'s function for C cases (the FLOPs, the
+    outputs and the per-case inputs C times, the nodes and members once)."""
+    nbytes = 4 * (C * (2 * S * M * 3 + S * 6 + S + 2 * N + 4 + 3 * M)
+                  + n_nodes * 3) + 8 * 2 * M
+    flops = C * S * M * Q * (2 * 2 * N * 5 + EPILOGUE_FLOP)
+    return (*bound_us(nbytes, flops), nbytes, flops)
+
+
+def k1_f32_batch_phase(pt, hk, dev, dense_b, n_nodes: int) -> dict:
+    """K1's case-batched f32 instance at the dense envelope's shapes (the
+    1,000 design cases in ONE launch: 36 phases, 51 members, Stokes-5 with
+    8 modes, per-case headings, per-(case, member) Cd, per-case Cm), with
+    and without Wheeler, against the plain version in f64 on the same
+    (f32-rounded) inputs (1e-5 of each output's maximum; the plain version
+    100 cases at a time): one ``f32_batch`` launch a call, bit-repeatable,
+    blocks of cases launched alone (one case, a mid-batch block, the last
+    case) bit-equal to the whole batch's; the build report of its
+    instances (no spill, no HMMA); its device time (fused pass + totals)
+    beside its bound, the wrapper's time and the plain f32 version's."""
+    import torch
+    from small_fem_solver_tpu_torch.ops.morison import (
+        morison_end_forces_batch)
+    f32, f64 = torch.float32, torch.float64
+    build = build_report_check(
+        hk, "K1 f32 batch", r"morison_f32_batch_(kernel|totals_kernel)"
+        r"(?:ILi(\d+)ELb([01])E)?",
+        lambda m: (f"fused NMAX={m[2]} wheeler={m[3]}" if m[1] == "kernel"
+                   else "totals"), (16, 1), lambda lab: False)
+    a32 = (*hk.cast_operands(f32, dev, *dense_b[:2]), dense_b[2],
+           *hk.cast_operands(f32, dev, *dense_b[3:]))
+    a64 = (*hk.cast_operands(f64, dev, *a32[:2]), a32[2],
+           *hk.cast_operands(f64, dev, *a32[3:]))
+    C, S = a32[-1].shape
+    M, N = a32[2].shape[0], a32[0].n_modes
+
+    def cases(args, lo, hi):
+        return (args[0].case(slice(lo, hi)), *args[1:4],
+                *(x[lo:hi] if torch.is_tensor(x) and x.ndim
+                  and x.shape[0] == C else x for x in args[4:]))
+    names = ("F1", "F2", "total_drag", "total_inertia")
+    out = {"abs": 0.0, "rel": 0.0, "build": build, "shapes": {}}
+    for stretching in ("none", "wheeler"):
+        kw = dict(stretching=stretching, n_gauss=N_GAUSS)
+
+        def call():
+            return hk.morison_end_forces_batch_cuda(*a32, **kw)
+        before = hk.launch_counts()
+        res = call()
+        again = call()
+        torch.cuda.synchronize()
+        n = {k: v - before[k] for k, v in hk.launch_counts().items()}
+        ref = [torch.cat(x) for x in zip(*(
+            morison_end_forces_batch(*cases(a64, c0, min(C, c0 + 100)), **kw)
+            for c0 in range(0, C, 100)))]
+        errs = {f: rel(a, b) for f, a, b in zip(names, res, ref)}
+        tag = f"C={C} S={S} M={M} N={N}, {stretching}"
+        print(f"[kernel f32 batch] {tag}: max rel err "
+              + " ".join(f"{f}={e:.2e}" for f, e in errs.items()),
+              flush=True)
+        check(n["f32_batch"] == n["k1"] == 2 and n["f32"] == 0
+              and res[0].dtype == f32
+              and tuple(res[0].shape) == (C, S, M, 3), f"K1 f32 batch "
+              f"instance: {n['f32_batch']} launches for 2 calls, no per-case "
+              f"f32 launch ({tag})")
+        check(all(torch.isfinite(r).all() for r in res),
+              f"K1 f32 batch outputs finite ({tag})")
+        check(max(errs.values()) <= KERNEL_TOL, f"K1 f32 batch vs f64 plain "
+              f"({tag}): {max(errs.values()):.2e} <= {KERNEL_TOL:g}")
+        check(all(torch.equal(a, b) for a, b in zip(res, again)),
+              f"K1 f32 batch bit-repeatable ({tag})")
+        for lo, hi in ((0, 1), (517, 531), (C - 1, C)):
+            blk = hk.morison_end_forces_batch_cuda(*cases(a32, lo, hi), **kw)
+            check(all(torch.equal(a[lo:hi], b) for a, b in zip(res, blk)),
+                  f"K1 f32 batch: cases {lo}-{hi - 1} launched alone "
+                  f"bit-equal to the whole batch's ({tag})")
+        out["rel"] = max(out["rel"], max(errs.values()))
+        out["abs"] = max(out["abs"], *(float((a.double() - b).abs().max())
+                                       for a, b in zip(res[:2], ref[:2])))
+        ev = device_events(call, 10)
+        us = {k: kernel_median_us(ev, k) for k in F32_BATCH_KERNELS}
+        bound = k1_f32_batch_bound(C, S, M, N_GAUSS, N, n_nodes)
+        rec = {"device_us": us, "total_us": sum(us.values()),
+               "bound_us": bound[0], "bound_by": bound[1],
+               "gflop": bound[3] / 1e9, "mb": bound[2] / 1e6,
+               "ms": cuda_ms(call, n=10), "max_rel_err": max(errs.values())}
+        rec["share"] = bound[0] / rec["total_us"]
+        if stretching == "none":
+            rec["plain_ms"] = cuda_ms(
+                lambda: morison_end_forces_batch(*a32, **kw), n=3, warmup=1)
+        out["shapes"][stretching] = rec
+        print(f"[bound] {SMI}: K1 f32 batch {tag}: "
+              f"{us[F32_BATCH_KERNELS[0]]:.1f} + "
+              f"{us[F32_BATCH_KERNELS[1]]:.1f} us on the device (fused + "
+              f"totals); bound {bound[0]:.1f} us by {bound[1]} "
+              f"({bound[3] / 1e9:.2f} GFLOP at 67 TFLOP/s, "
+              f"{bound[2] / 1e6:.1f} MB): {rec['share']:.1%} of the bound; "
+              f"wrapper {rec['ms']:.3f} ms"
+              + (f", plain f32 {rec['plain_ms']:.3f} ms"
+                 if "plain_ms" in rec else "")
+              + " (torch.profiler, CUDA events)", flush=True)
+    return out
+
+
+def narrow_sweep_phase(pt, hk, dev, coarse64, refined64, large) -> dict:
+    """The sweep kernel's narrow form on its paths' own operands: the
+    99,882-DOF nested level 1 (B 1, 108 levels, 153 chains: the first
+    sweep of ``analyze_prepared``) and the first sweep of the
+    Craig-Bampton chain-mode iteration at 9,612 and 99,882 DOF (B 18, 31
+    and 326 levels, 51 chains).  Each in f64 (the paths' dtype) against the
+    plain sweep (1e-12); in f64 and on an f32 copy bit-equal column by
+    column to a wide launch of 40 columns holding its own; bit-repeatable;
+    its device time (warm, and with a cold L2 for level 1) beside
+    ``sweep_bound`` and the dependent-step floor: 2 n_int steps x the
+    latency of one step, measured here as the slope of the chain-mode
+    sweep's device time between its two depths."""
+    import torch
+    from small_fem_solver_tpu_torch.ops import condense as condense_mod
+    from small_fem_solver_tpu_torch.ops.condense import (ChainFactor,
+                                                         chain_sweep_plain)
+    f32, f64 = torch.float32, torch.float64
+
+    def modal(refined, n_seg):
+        return lambda: pt.modal_analysis_condensed(
+            coarse64, refined, n_seg, n_modes=8, n_chain_modes=CHAIN_MODES,
+            topside_mass_t=TOPSIDE_T)
+    ops = {"99,882 DOF nested level 1": large["sweeps"][0],
+           f"chain modes, n_int={N_SEG - 1}": first_sweep(
+               condense_mod, hk, modal(refined64, N_SEG)),
+           f"chain modes, n_int={N_SEG_LARGE - 1}": first_sweep(
+               condense_mod, hk, modal(large["refined"], N_SEG_LARGE))}
+    l2_flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    out = {"abs": 0.0, "shapes": {}}
+    for label, (fac, gs, split) in ops.items():
+        g = gs.reshape(*gs.shape[:-3], -1, 6) if split else gs
+        (n_int, C), B = fac.Cprime.shape[:2], hk.sweep_operand(gs, split)[1]
+        tag = f"{label} (B={B}, n_int={n_int}, chains={C})"
+        check(hk.sweep_narrow_rhs(B, n_int, 8) > 0 and fac.Dinv.dtype == f64,
+              f"{tag}: f64, the narrow form "
+              f"({hk.sweep_narrow_rhs(B, n_int, 8)} right-hand sides a warp)")
+        ref = chain_sweep_plain(fac, g)
+        got = hk.chain_sweep_cuda(fac, gs, split)
+        again = hk.chain_sweep_cuda(fac, gs, split)
+        err = max(rel(a, b) for a, b in zip(got, ref))
+        # an f32 copy (these paths run in f64; the f32 narrow form is held
+        # against the plain sweep on the flagship's f32 factors in phase 4)
+        fac32 = ChainFactor(*(t.to(f32).contiguous() for t in fac))
+        gs32 = gs.to(f32)
+        got32 = hk.chain_sweep_cuda(fac32, gs32, split)
+        torch.cuda.synchronize()
+        check(err <= SWEEP_TOL_F64, f"narrow sweep {tag} vs the plain "
+              f"sweep: f64 {err:.2e} <= {SWEEP_TOL_F64:g}")
+        check(narrow_equals_wide(hk, fac, gs, split, got, 40)
+              and narrow_equals_wide(hk, fac32, gs32, split, got32, 40),
+              f"narrow sweep {tag}: bit-equal to the first {B} columns of a "
+              "wide launch of 40, f64 and f32")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"narrow sweep bit-repeatable ({tag})")
+        out["abs"] = max(out["abs"], *(float((a - b).abs().max())
+                                       for a, b in zip(got, ref)))
+
+        def call():
+            return hk.chain_sweep_cuda(fac, gs, split)
+        rec = {"B": B, "n_int": n_int, "chains": C, "max_rel_err": err,
+               "device_us": kernel_us(device_events(call, SHORT_REPS),
+                                      "chain_sweep_narrow"),
+               "device_us_f32": kernel_us(device_events(
+                   lambda: hk.chain_sweep_cuda(fac32, gs32, split),
+                   SHORT_REPS), "chain_sweep_narrow"),
+               "ms": cuda_ms(call),
+               "plain_ms": cuda_ms(lambda: chain_sweep_plain(fac, g), n=5)}
+        if B == 1:
+            rec["device_us_cold"] = kernel_us(device_events(
+                lambda: (l2_flush.zero_(), call()), SHORT_REPS),
+                "chain_sweep_narrow")
+        rec["bound_us"], rec["bound_by"], rec["bytes"] = sweep_bound(
+            8, B, n_int, C)
+        out["shapes"][label] = rec
+    del l2_flush
+    d31, d326 = (out["shapes"][f"chain modes, n_int={n}"]
+                 for n in (N_SEG - 1, N_SEG_LARGE - 1))
+    out["step_us"] = ((d326["device_us"] - d31["device_us"])
+                      / (2 * (d326["n_int"] - d31["n_int"])))
+    for label, rec in out["shapes"].items():
+        rec["floor_us"] = 2 * rec["n_int"] * out["step_us"]
+        print(f"[bound] {SMI}: narrow sweep f64 {label} (B={rec['B']}, "
+              f"n_int={rec['n_int']}, chains={rec['chains']}): "
+              f"{rec['device_us']:.2f} us on the device"
+              + (f" ({rec['device_us_cold']:.2f} us with a cold L2)"
+                 if "device_us_cold" in rec else "")
+              + f", f32 {rec['device_us_f32']:.2f} us; bytes bound "
+              f"{rec['bound_us']:.2f} us by {rec['bound_by']} "
+              f"({rec['bytes'] / 1e6:.2f} MB): "
+              f"{rec['bound_us'] / rec['device_us']:.1%}; dependent-step "
+              f"floor {rec['floor_us']:.2f} us (2 x {rec['n_int']} steps x "
+              f"{out['step_us'] * 1e3:.1f} ns, the chain-mode slope): "
+              f"{rec['floor_us'] / rec['device_us']:.0%}; wrapper "
+              f"{rec['ms']:.4f} ms, plain loop {rec['plain_ms']:.4f} ms "
+              "(torch.profiler, CUDA events)", flush=True)
+    return out
 
 
 def host_us(fn, n: int = 300) -> float:
@@ -4885,10 +5177,11 @@ def main() -> int:
     check(len(scan_sweeps) == 2, "the nested condensation ran two sweeps")
     check(scan_sweeps[0][3] and not scan_sweeps[0][2].is_contiguous(),
           "level 1 reads the (m, q) view of the scan's loads in place")
+    # B = 360 and 37 take the wide form, 18 and 1 the narrow one
     sweep_inputs = [(f"{label}, random 1e5 loads{', transposed' * tr}", fac,
                      sweep_loads(fac, B, seed, tr), False)
                     for seed, (label, fac) in enumerate(sweep_facs.items())
-                    for B in (N_STEPS, 37) for tr in (False, True)]
+                    for B in (N_STEPS, 37, 18, 1) for tr in (False, True)]
     sweep_inputs += scan_sweeps + [("flagship scan loads, thomas",
                                     prep_th.fac, g_scan, False)]
 
@@ -4909,8 +5202,11 @@ def main() -> int:
         torch.cuda.synchronize()
         B, n_int, Mc = g.shape[0], *fac.Cprime.shape[:2]
         label = f"{label}, B={B}"
-        print(f"[sweep] {label}: n_int={n_int} chains={Mc} tile "
-              f"{hk.SWEEP_LANES}x{hk.sweep_chains_per_block(n_int, 4)} "
+        rg = hk.sweep_narrow_rhs(B, n_int, 4)
+        form = (f"narrow, {rg} right-hand sides a warp" if rg else
+                f"wide, tile {hk.SWEEP_LANES}x"
+                f"{hk.sweep_chains_per_block(n_int, 4)}")
+        print(f"[sweep] {label}: n_int={n_int} chains={Mc} {form} "
               f"max|v|={float(ref[2].abs().max()):.3e}; max "
               f"rel err (fI, fJ, v) kernel f32 "
               + " ".join(f"{e:.2e}" for e in errs)
@@ -5003,6 +5299,12 @@ def main() -> int:
           f"{k1d_bound[0] / k1d_us:.1%} of the bound (torch.profiler)",
           flush=True)
     kernel_rel = max(kernel_rel, max(errs.values()))
+    # K1's case-batched f32 instance: the 1,000 cases of an f32 model's
+    # dense envelope in one launch
+    t0 = time.perf_counter()
+    kb32 = k1_f32_batch_phase(pt, hk, dev, k64["dense_b"], coarse64.n_nodes)
+    print(f"[kernel f32 batch] phase {time.perf_counter() - t0:.2f} s wall",
+          flush=True)
 
     # ---- 5. scan phase: the flagship scan, with the launch counts ----
     hk.morison_phase_batch_cuda.launches = 0
@@ -5235,7 +5537,7 @@ def main() -> int:
         g_chain = (g.reshape(*g.shape[:-3], -1, 6) if split else g)
         us = kernel_us(device_events(
             lambda: hk.chain_sweep_cuda(fac, g, split), SHORT_REPS),
-            "chain_sweep_kernel")
+            SWEEP_KERNEL)
         sweep_ms[label] = (
             cuda_ms(lambda: hk.chain_sweep_cuda(fac, g, split)),
             cuda_ms(lambda: chain_sweep_plain(fac, g_chain)),
@@ -5263,12 +5565,12 @@ def main() -> int:
                             envelope32, C)):
         events = device_events(fn)
         busy = sum(t for _, t in events) / 1e3
-        n_sweep = sum("chain_sweep_kernel" in n for n, _ in events)
+        n_sweep = sum(SWEEP_KERNEL in n for n, _ in events)
         print(f"[profile] {smi}: {label}: {len(events)} device operations "
               f"({len(events) / per:.0f} per scan; {n_sweep} chain-sweep "
               f"kernels), device busy {busy:.3f} ms ({busy / per:.3f} ms "
               f"per scan); K1 {kernel_us(events, 'morison_phase_batch'):.1f}"
-              f" us, sweep {kernel_us(events, 'chain_sweep_kernel'):.1f} us "
+              f" us, sweep {kernel_us(events, SWEEP_KERNEL):.1f} us "
               f"per launch (torch.profiler)" if events else
               f"[profile] {label}: torch.profiler recorded no device "
               "events: not measured", flush=True)
@@ -5310,6 +5612,11 @@ def main() -> int:
           f"s); resumable envelope, {RESUME_CHUNK}-case chunks, bounded "
           f"call then resume {resume_s:.2f} s (medians, CUDA events; host "
           "clock for first calls and the resume)", flush=True)
+    print(f"[time] {smi}: design_envelope of the f32 model, {n_design} "
+          f"cases x {DESIGN_STEPS} phases: {denv['ms_f32']:.2f} ms (median "
+          f"of 5, CUDA events), device busy {denv['busy_f32_ms']:.3f} ms, "
+          f"K1 f32 batch {denv['k1_f32_us']:.1f} us in its one launch "
+          "(torch.profiler)", flush=True)
     print(f"[profile] {smi}: design_envelope ({n_design} cases): "
           f"{denv['ops']} device operations ({denv['ops'] / n_design:.1f} "
           f"per case), device busy {denv['busy_ms']:.3f} ms, K1 "
@@ -5349,6 +5656,10 @@ def main() -> int:
           f"n_int={n_int9} {dyn['rec']['modal']['sweep_us']:.1f} us vs bound "
           f"{b9:.2f} us by {by9}; n_int={n_int99} {mlarge['sweep_us']:.1f} us "
           f"vs bound {b99:.2f} us by {by99} (torch.profiler)", flush=True)
+    t0 = time.perf_counter()
+    nsw = narrow_sweep_phase(pt, hk, dev, coarse64, refined64, large)
+    print(f"[narrow sweep] phase {time.perf_counter() - t0:.2f} s wall",
+          flush=True)
 
     # ---- 17-21. irregular seas and the frequency domain ----
     t0 = time.perf_counter()
@@ -5674,6 +5985,7 @@ def main() -> int:
         "spectrum_condensed_99882": seis["large_launches"],
         **reli["launches"], **dsgn["launches"]}
     l1 = sweep_ms["nested level 1"]
+    nl1 = nsw["shapes"]["99,882 DOF nested level 1"]
     print(json.dumps({"kernels": [{
         "name": "morison_phase_batch",
         "route": "cuda",
@@ -5722,8 +6034,8 @@ def main() -> int:
         "f64_bounds": {"member_reliability": reli["f64_bounds"],
                        **{f"cli_{k}": v for k, v in
                           cli["f64_shapes"].items()}},
-        "instances": {"f32": ["scan", "envelope", "dense_envelope_f32_model",
-                              "cli_refined_f32"],
+        "instances": {"f32": ["scan", "envelope", "cli_refined_f32"],
+                      "f32_batch": ["dense_envelope_f32_model"],
                       "f64": ["dense_envelope", "dynamic_condensed",
                               "transient", "member_reliability",
                               "importance_sample_1000", "options_scan",
@@ -5824,6 +6136,52 @@ def main() -> int:
                for n, us, bd, by in (
                    (n_int9, dyn["rec"]["modal"]["sweep_us"], b9, by9),
                    (n_int99, mlarge["sweep_us"], b99, by99))}},
+    }, {
+        "name": "morison_f32_batch",
+        "route": "cuda",
+        "source": "small_fem_solver_tpu_torch/csrc/morison_phase_batch.cu",
+        "replaces": "small_fem_solver_tpu/ops/pallas_kernels.py:229",
+        "launches": denv["launches_f32"],
+        "launches_by_path": {"dense_envelope_f32_model": denv["launches_f32"]},
+        "max_abs_err": kb32["abs"],
+        "max_rel_err": kb32["rel"],
+        "ms": kb32["shapes"]["none"]["ms"],
+        "plain_ms": kb32["shapes"]["none"]["plain_ms"],
+        "device_us": kb32["shapes"]["none"]["total_us"],
+        "bound_ms": kb32["shapes"]["none"]["bound_us"] / 1e3,
+        "bound_by": kb32["shapes"]["none"]["bound_by"],
+        "library_ms": None,
+        "shapes": {k: {"device_us": r["total_us"], "bound_us": r["bound_us"],
+                       "share": r["share"], "ms": r["ms"]}
+                   for k, r in kb32["shapes"].items()},
+        "dense_envelope_f32_model_ms": denv["ms_f32"],
+        "build": kb32["build"]["instances"],
+    }, {
+        "name": "chain_sweep_narrow",
+        "route": "cuda",
+        "source": "small_fem_solver_tpu_torch/csrc/chain_sweep.cu",
+        "replaces": "benchmarks/ab_pallas_sweep.py:106 and "
+                    "benchmarks/ab_pallas_sweep.py:114",
+        "launches": large["analyze_prepared_narrow"],
+        "launches_by_path": {
+            "analyze_prepared": large["analyze_prepared_narrow"],
+            "analyze_condensed": large["analyze_condensed_narrow"],
+            "modal_large": mlarge["narrow"]},
+        "max_abs_err": nsw["abs"],
+        "ms": nl1["ms"],
+        "plain_ms": nl1["plain_ms"],
+        "device_us": nl1["device_us"],
+        "bound_ms": nl1["bound_us"] / 1e3,
+        "bound_by": nl1["bound_by"],
+        "step_floor_ms": nl1["floor_us"] / 1e3,
+        "step_us": nsw["step_us"],
+        "library_ms": None,
+        "shapes": {k: {f: r[f] for f in (
+            "B", "n_int", "chains", "device_us", "device_us_f32", "bound_us",
+            "bound_by", "floor_us", "ms", "plain_ms", "max_rel_err")}
+            | ({"device_us_cold": r["device_us_cold"]}
+               if "device_us_cold" in r else {})
+            for k, r in nsw["shapes"].items()},
     }]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

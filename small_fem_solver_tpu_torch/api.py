@@ -1412,10 +1412,10 @@ def design_envelope(model: JacketModel, waves: FourierWave, cases: LoadCase,
     through ``support_stiffness`` springs, see :func:`analyze_ssi`).  The
     phase loads of all cases come from the separable Morison engine in the
     model's dtype, as in the JAX package (``jax.vmap`` there): on CUDA
-    tensors of a float64 model one launch of the Morison kernel's
-    case-batched float64 instance for the whole batch (a float32 model:
-    one launch of its float32 instance per case), on the CPU its plain
-    version (``torch.func.vmap`` over the cases); waves of more than 32
+    tensors one launch of the Morison kernel's case-batched instance of
+    the model's dtype for the whole batch (float64, or the case-batched
+    float32 instance), on the CPU its plain version (``torch.func.vmap``
+    over the cases); waves of more than 32
     modes or ``n_gauss`` > 16 run the plain version on the card too (no
     launch; one ``morison_phase_batch_cuda.plain_routes``).  Everything
     else runs once for the batch: the hydrodynamic set, the nodal sums
@@ -1426,8 +1426,8 @@ def design_envelope(model: JacketModel, waves: FourierWave, cases: LoadCase,
     With ``mesh`` (a 1-D DeviceMesh, axis 'cases'; every rank of its group
     makes the same call) the case batch is split into equal contiguous
     rank blocks: each rank factors K and runs its block (one launch of
-    K1's f64 instance on its slice of the batch), and the blocks are
-    all-gathered, so every rank returns the whole envelope.
+    K1's case-batched instance on its slice of the batch), and the blocks
+    are all-gathered, so every rank returns the whole envelope.
     """
     _check_no_slam(cases, "design_envelope")
     dtype, dev = model.dtype, model.device

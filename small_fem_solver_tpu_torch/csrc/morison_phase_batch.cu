@@ -72,6 +72,12 @@
 // then the mode sums on the FP64 tensor cores.  The float32 kernel above
 // is not touched by it.
 //
+// Float32 case batches.  morison_f32_batch_kernel (after the float64
+// instance) runs the float32 kernel's arithmetic for C cases in one launch,
+// a tile of 384 (case, phase) slots filled from several cases (the dense
+// envelope of an f32 model: 1,000 cases x 36 phases); the one-case float32
+// kernel above serves the scans and is not touched by it.
+//
 // Random seas.  morison_sea_kernel (float32 and float64, at the end of the
 // file) computes the function for a general mode set (independent k_i,
 // omega_i, phi_i, optional per-mode headings, any N), reading the phase
@@ -149,37 +155,43 @@ struct SeaParamsT {
   T* totals;               // [S, 6] drag xyz | inertia xyz
 };
 
-// A coefficient of the case-batched float64 instance: element (case c,
-// member m) at ptr[sc * c + sm * m] (stride 0 along an axis it does not
-// have), or, when ptr is null, by value.
-struct HOperand {
-  const double* ptr;
+// A coefficient of a case-batched instance: element (case c, member m) at
+// ptr[sc * c + sm * m] (stride 0 along an axis it does not have), or, when
+// ptr is null, by value.
+template <typename T>
+struct HOperandT {
+  const T* ptr;
   long long sc, sm;
-  double value;
+  T value;
 };
+using HOperand = HOperandT<double>;
 
-// The case-batched float64 harmonic instance's operands: C cases (waves,
-// phase times, headings, current, coefficients) on one model's members.
-struct Harm64Params {
-  const double* coords;    // [n_nodes, 3]
+// The case-batched harmonic instances' operands (float64, float32): C cases
+// (waves, phase times, headings, current, coefficients) on one model's
+// members.
+template <typename T>
+struct BatchParamsT {
+  const T* coords;         // [n_nodes, 3]
   const long long* conn;   // [M, 2]
-  HOperand D, Cd, Cm;      // [C, M], [C, 1], [M] or scalar
-  HOperand wave_dir, current_dir, rho, alpha;   // [C] or scalar
-  const double* E;         // [C, N]
-  const double* U;         // [C, N]
-  const double* k;         // [C]
-  const double* omega;     // [C]
-  const double* d;         // [C]
-  const double* Uc;        // [C]
-  const double* ts;        // [C, S]
-  double s[MAX_GAUSS];     // Gauss abscissae on [0, 1]
-  double w[MAX_GAUSS];     // Gauss weights (sum 1)
+  HOperandT<T> D, Cd, Cm;  // [C, M], [C, 1], [M] or scalar
+  HOperandT<T> wave_dir, current_dir, rho, alpha;   // [C] or scalar
+  const T* E;              // [C, N]
+  const T* U;              // [C, N]
+  const T* k;              // [C]
+  const T* omega;          // [C]
+  const T* d;              // [C]
+  const T* Uc;             // [C]
+  const T* ts;             // [C, S]
+  T s[MAX_GAUSS];          // Gauss abscissae on [0, 1]
+  T w[MAX_GAUSS];          // Gauss weights (sum 1)
   int C, M, S, N, n_gauss, power_law;
-  double* F1;              // [C, S, M, 3]
-  double* F2;              // [C, S, M, 3]
-  double* partials;        // [C, G, S, 6]
-  double* totals;          // [C, S, 6] drag xyz | inertia xyz
+  T* F1;                   // [C, S, M, 3]
+  T* F2;                   // [C, S, M, 3]
+  T* partials;             // [C, G, S, 6]
+  T* totals;               // [C, S, 6] drag xyz | inertia xyz
 };
+using Harm64Params = BatchParamsT<double>;
+using Batch32Params = BatchParamsT<float>;
 
 using Operand = OperandT<float>;
 using MorisonParams = ParamsT<float>;
@@ -1438,7 +1450,8 @@ constexpr int HARM_XCH = 9;                  // a phase's member sums:
                                              // drag, inertia, F2 (xyz each)
 constexpr int HARM_SLOT_RING = 3;            // member tiles of slot data
 
-__device__ __forceinline__ double hop(const HOperand& o, int c, int m) {
+template <typename T>
+__device__ __forceinline__ T hop(const HOperandT<T>& o, int c, int m) {
   return o.ptr ? __ldg(o.ptr + o.sc * c + o.sm * m) : o.value;
 }
 
@@ -1864,7 +1877,8 @@ cudaError_t launch_harm64(const Harm64Params& p, int G, double* scratch,
   return cudaSuccess;
 }
 
-bool valid_harm64(const Harm64Params* p) {
+template <typename T>
+bool valid_batch(const BatchParamsT<T>* p) {
   return p->C > 0 && p->M > 0 && p->S > 0 && p->N > 0 && p->N <= 32 &&
          p->n_gauss > 0 && p->n_gauss <= MAX_GAUSS;
 }
@@ -1873,6 +1887,308 @@ HarmTiles harm_tiles(const Harm64Params& p, int wheeler) {
   return HarmTiles(p.S, p.M, p.n_gauss, p.N,
                    wheeler ? SeaLayout<true, false>::F
                            : SeaLayout<false, false>::F);
+}
+
+// ---------------------------------------------------------------------------
+// Case-batched float32 instance
+// ---------------------------------------------------------------------------
+//
+// morison_f32_batch_kernel computes the float32 kernel's function for C
+// cases in one launch (the dense design envelope of an f32 model: 1,000
+// cases x 36 phases on the 51-member jacket), where the instance above
+// takes one case a launch and fills 36 of its 384 phase slots.  It keeps
+// that instance's phases-on-lanes arithmetic (add_mode, add_point, the
+// angle addition, the register lever sums; FP32 FMAs only, no tensor cores,
+// no TF32) and fills a tile of 2 THREADS = 384 (case, phase) slots from
+// several cases: a case group of K = min(384 / S2, what shared memory
+// holds) cases, S2 = S rounded up to even, each case's phases on S2
+// consecutive slots.  Thread t owns the slot pair (2 t, 2 t + 1), two
+// phases of one case, so one record read feeds both as before.  A case
+// longer than 384 slots takes K = 1 and ceil(S2 / 384) phase tiles.
+//
+// A work item is (case group or phase tile, member).  The block builds,
+// per case of its group, the mode factors (once), and per member the
+// point data and the spatial records cos / sin (j k x), U_j C_j, U_j S_j
+// in shared memory, as the one-case prologue does; a case's records start
+// one float4 past the previous case's (Q NMAX + 1 apart), so a quarter
+// warp that straddles two cases reads two addresses on different banks.
+// At S 36 a warp's 64 slots touch at most three cases.
+//
+// Totals and bit-equality.  Grid (groups x phase tiles, rows): row g walks
+// the members g, g + rows, ... with rows = min(ceil(M / 4), 264), fixed by
+// M alone.  A thread keeps its two slots' drag / inertia totals over its
+// members in order and writes them once to partials [C, rows, S, 6]; the
+// second kernel adds the rows in order.  Nothing a case computes depends
+// on the other cases of the launch, on K or on chunking: case i of a
+// batch is bit-equal to case i launched alone.
+//
+// Bounds.  The same FLOP as the one-case instance, per case: at the dense
+// envelope's shapes (C 1,000, S 36, M 51, Q 15, N 8) 6.06 GFLOP, 90.4 us
+// at 67 TFLOP/s of FP32; 44 MB of F1 / F2 written (13 us).  Per member and
+// group the prologue adds K Q NMAX records (a sincos, three exp each).  On
+// an H100 (700 W) that launch takes ~385 us (~23% of its bound, issue
+// bound at 12 warps an SM; chip_smoke.py), against 1,000 one-case launches
+// of 13-14 us each; three or four blocks an SM spill and run slower.
+
+constexpr int F32B_SLOTS = 2 * THREADS;        // (case, phase) slots a tile
+constexpr int F32B_MIN_MEMBERS = 4;            // members a grid row walks
+constexpr int F32B_ROWS = 264;                 // most grid rows (2 an SM)
+constexpr int F32B_SMEM = 110 * 1024;          // shared memory of a block
+
+// The case-packed tiling for S phases, M members, Q points and NMAX modes
+// (padded): slots a case S2, cases a group K, phase tiles a case n_pt,
+// grid rows, a case's record stride RST (float4), and the offsets of the
+// shared memory regions (bytes): records [K][RST] float4, point data
+// [K][Q][2] float4, mode factors [K][NMAX] float2, j k [K][NMAX] float.
+struct F32BatchTiles {
+  int S2, K, n_pt, rows, RST, pt_at, md_at, jk_at, bytes;
+  __host__ __device__ F32BatchTiles(int S, int M, int Q, int nmax) {
+    S2 = S + (S & 1);
+    RST = Q * nmax + 1;
+    const int per_case = 16 * RST + 32 * Q + 12 * nmax;
+    const int fit = F32B_SMEM / per_case;
+    if (S2 <= F32B_SLOTS) {
+      K = F32B_SLOTS / S2 < fit ? F32B_SLOTS / S2 : fit;
+      n_pt = 1;
+    } else {
+      K = 1;
+      n_pt = (S2 + F32B_SLOTS - 1) / F32B_SLOTS;
+    }
+    const int by_members = (M + F32B_MIN_MEMBERS - 1) / F32B_MIN_MEMBERS;
+    rows = by_members < F32B_ROWS ? by_members : F32B_ROWS;
+    pt_at = 16 * K * RST;
+    md_at = pt_at + 32 * K * Q;
+    jk_at = md_at + 8 * K * nmax;
+    bytes = jk_at + 4 * K * nmax;
+  }
+};
+
+template <int NMAX, bool WHEELER>
+__global__ void __launch_bounds__(THREADS, 2)
+morison_f32_batch_kernel(const Batch32Params p) {
+  // the mode loop unrolled whole where its records' registers fit beside
+  // the per-case state (168 a thread, two blocks an SM), else 4 modes a
+  // step, which keeps every instance free of spills
+  constexpr int F32B_UNROLL = NMAX <= (WHEELER ? 12 : 20) ? NMAX : 4;
+  extern __shared__ float4 smem4[];
+  const int N = p.N, Q = p.n_gauss, M = p.M, S = p.S, C = p.C;
+  const F32BatchTiles tl(S, M, Q, NMAX);
+  unsigned char* const base = reinterpret_cast<unsigned char*>(smem4);
+  float4* const rec = smem4;                                  // [K][RST]
+  float4* const pt = reinterpret_cast<float4*>(base + tl.pt_at);
+  float2* const modes = reinterpret_cast<float2*>(base + tl.md_at);
+  float* const jks = reinterpret_cast<float*>(base + tl.jk_at);
+  const int tid = threadIdx.x, K = tl.K;
+  const int grp = blockIdx.x / tl.n_pt, tile = blockIdx.x - grp * tl.n_pt;
+  const int row = blockIdx.y, rows = gridDim.y;
+  const int c_first = grp * K;
+
+  // this thread's slot pair: case kk of the group, phases s0, s0 + 1
+  const int slot = 2 * tid;
+  const int kk = tl.n_pt == 1 ? slot / tl.S2 : 0;
+  const int s0 = tl.n_pt == 1 ? slot - kk * tl.S2 : tile * F32B_SLOTS + slot;
+  const int kc = kk < K ? kk : K - 1;          // dead slots read case K - 1
+  const int c_me = c_first + kc < C ? c_first + kc : C - 1;
+  bool live[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    live[h] = kk < K && c_first + kk < C && s0 + h < S;
+
+  // per case of the group: E_j, j omega and j k (zeros past N)
+  for (int i = tid; i < K * NMAX; i += THREADS) {
+    const int k = i / NMAX, j = i - k * NMAX, c = c_first + k;
+    const bool ok = c < C && j < N;
+    modes[i] = ok ? make_float2(__ldg(p.E + (size_t)c * N + j),
+                                (j + 1) * __ldg(p.omega + c))
+                  : make_float2(0.f, 0.f);
+    jks[i] = ok ? (j + 1) * __ldg(p.k + c) : 0.f;
+  }
+  // this thread's case: depth, heading and the phase factors of its pair
+  const float d = __ldg(p.d + c_me), omega = __ldg(p.omega + c_me);
+  float sin_w, cos_w;
+  sincospif((90.f - hop(p.wave_dir, c_me, 0)) / 180.f, &sin_w, &cos_w);
+  float c1[2], s1[2], tot[2][6];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float t = live[h] ? __ldg(p.ts + (size_t)c_me * S + s0 + h) : 0.f;
+    sincosf(omega * t, &s1[h], &c1[h]);
+#pragma unroll
+    for (int c = 0; c < 6; ++c) tot[h][c] = 0.f;
+  }
+  const float4* const my_rec = rec + kc * tl.RST;
+  const float4* const my_pt = pt + kc * Q * 2;
+  const float2* const my_modes = modes + kc * NMAX;
+  const float* const my_jks = jks + kc * NMAX;
+
+  for (int m = row; m < M; m += rows) {
+    __syncthreads();   // the previous member's records are read
+    // ---- prologue 1: per case, the member's points, current, cd / ci ----
+    const long long n1 = p.conn[2 * m], n2 = p.conn[2 * m + 1];
+    const float x1 = p.coords[3 * n1], y1 = p.coords[3 * n1 + 1],
+                z1 = p.coords[3 * n1 + 2];
+    const float dx = p.coords[3 * n2] - x1, dy = p.coords[3 * n2 + 1] - y1,
+                dz = p.coords[3 * n2 + 2] - z1;
+    const float L = sqrtf(dx * dx + dy * dy + dz * dz);
+    const float4 e = make_float4(dx / L, dy / L, dz / L, 0.f);
+    for (int i = tid; i < K * Q; i += THREADS) {
+      const int k = i / Q, q = i - k * Q, c = c_first + k;
+      if (c >= C) continue;
+      float sw, cw, sc, cc;
+      sincospif((90.f - hop(p.wave_dir, c, 0)) / 180.f, &sw, &cw);
+      sincospif((90.f - hop(p.current_dir, c, 0)) / 180.f, &sc, &cc);
+      const float dc = __ldg(p.d + c);
+      const float s = p.s[q];
+      const float x = x1 + s * dx, y = y1 + s * dy, z = z1 + s * dz;
+      float uc = __ldg(p.Uc + c);
+      if (p.power_law) {
+        const float frac = fminf(fmaxf((z + dc) / dc, 0.f), 1.f);
+        uc *= powf(frac, hop(p.alpha, c, 0));
+      }
+      const float D = hop(p.D, c, m), rho = hop(p.rho, c, 0),
+                  Lw = L * p.w[q];
+      const float cd = 0.5f * rho * hop(p.Cd, c, m) * D * Lw;
+      const float ci = rho * hop(p.Cm, c, m) * (kPi * D * D / 4.f) * Lw;
+      pt[(k * Q + q) * 2] = make_float4(z, x * cw + y * sw, uc * cc,
+                                        uc * sc);
+      pt[(k * Q + q) * 2 + 1] = make_float4(cd, ci, s, 0.f);
+    }
+    __syncthreads();
+
+    // ---- prologue 2: per case, the spatial factors of every (point, mode)
+    for (int i = tid; i < K * Q * NMAX; i += THREADS) {
+      const int k = i / (Q * NMAX), qj = i - k * Q * NMAX;
+      const int q = qj / NMAX, j = qj - q * NMAX, c = c_first + k;
+      if (c >= C) continue;
+      float4* const o = rec + k * tl.RST + qj;
+      if (j >= N) {   // padding: adds exact zeros
+        *o = make_float4(0.f, 0.f, 0.f, 0.f);
+        continue;
+      }
+      const float4 a = pt[(k * Q + q) * 2];
+      const float z = a.x, xw = a.y, jk = jks[k * NMAX + j];
+      const float dc = __ldg(p.d + c);
+      const float U = __ldg(p.U + (size_t)c * N + j);
+      float sjx, cjx;
+      sincosf(jk * xw, &sjx, &cjx);
+      // overflow-safe cosh(A)/cosh(B), sinh(A)/cosh(B), A = jk (z + d)
+      const float A = jk * (z + dc), B = jk * dc, Aa = fabsf(A);
+      const float scale = expf(Aa - B) / (1.f + expf(-2.f * B));
+      const float e2 = expf(-2.f * Aa);
+      const float sgn = (A > 0.f) ? 1.f : ((A < 0.f) ? -1.f : 0.f);
+      *o = make_float4(cjx, sjx, U * scale * (1.f + e2),
+                       U * sgn * scale * (1.f - e2));
+    }
+    __syncthreads();
+
+    // ---- main loop: both phases of this thread over points and modes ----
+    MemberSums acc[2];
+    for (int q = 0; q < Q; ++q) {
+      const float4* r = my_rec + q * NMAX;
+      Fields<WHEELER> f[2];
+      float cj[2] = {c1[0], c1[1]}, sj[2] = {s1[0], s1[1]};
+#pragma unroll F32B_UNROLL
+      for (int j = 0; j < NMAX; ++j) {
+        const float4 a = r[j];
+        const float2 mj = my_modes[j];
+        const float jk = WHEELER ? my_jks[j] : 0.f;
+        const float ucw = mj.y * a.z, nusw = -mj.y * a.w;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          add_mode(f[h], a, mj.x, ucw, nusw, jk, cj[h], sj[h]);
+          // cos / sin ((j + 2) omega t) by angle addition
+          const float cn = fmaf(cj[h], c1[h], -sj[h] * s1[h]);
+          sj[h] = fmaf(sj[h], c1[h], cj[h] * s1[h]);
+          cj[h] = cn;
+        }
+      }
+      const float4 pa = my_pt[2 * q], pb = my_pt[2 * q + 1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        add_point(acc[h], f[h], pa, pb, e, cos_w, sin_w, d);
+    }
+    // F1 = sum f - F2; each phase's 3 + 3 values go straight out
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const MemberSums& a = acc[h];
+      if (live[h]) {
+        const size_t o = (((size_t)c_me * S + s0 + h) * M + m) * 3;
+        p.F1[o] = (a.fdx + a.fix) - a.f2x;
+        p.F1[o + 1] = (a.fdy + a.fiy) - a.f2y;
+        p.F1[o + 2] = (a.fdz + a.fiz) - a.f2z;
+        p.F2[o] = a.f2x; p.F2[o + 1] = a.f2y; p.F2[o + 2] = a.f2z;
+      }
+      tot[h][0] += a.fdx; tot[h][1] += a.fdy; tot[h][2] += a.fdz;
+      tot[h][3] += a.fix; tot[h][4] += a.fiy; tot[h][5] += a.fiz;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (live[h]) {
+      float* o = p.partials + (((size_t)c_me * rows + row) * S + s0 + h) * 6;
+#pragma unroll
+      for (int c = 0; c < 6; ++c) o[c] = tot[h][c];
+    }
+}
+
+// The totals of case c0 + blockIdx.y: its partials [G, S, 6] summed over
+// the rows g in order.
+__global__ void morison_f32_batch_totals_kernel(
+    const float* __restrict__ part, int G, int S, int c0,
+    float* __restrict__ totals) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= S * 6) return;
+  const size_t c = (size_t)c0 + blockIdx.y;
+  float acc = 0.f;
+  for (int g = 0; g < G; ++g) acc += __ldg(part + (c * G + g) * S * 6 + i);
+  totals[c * S * 6 + i] = acc;
+}
+
+template <int NMAX, bool WHEELER>
+cudaError_t launch_f32_batch(const Batch32Params& p, int G,
+                             cudaStream_t stream) {
+  const F32BatchTiles tl(p.S, p.M, p.n_gauss, NMAX);
+  if (G != tl.rows) return cudaErrorInvalidValue;
+  auto kernel = morison_f32_batch_kernel<NMAX, WHEELER>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tl.bytes);
+  if (err != cudaSuccess) return err;
+  const long long groups = ((long long)p.C + tl.K - 1) / tl.K;
+  kernel<<<dim3((unsigned)(groups * tl.n_pt), G), THREADS, tl.bytes,
+           stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // the cases on grid.y, at most 65,535 a launch
+  for (int c0 = 0; c0 < p.C; c0 += 65535) {
+    const int nc = p.C - c0 < 65535 ? p.C - c0 : 65535;
+    morison_f32_batch_totals_kernel
+        <<<dim3((p.S * 6 + 255) / 256, nc), 256, 0, stream>>>(
+            p.partials, G, p.S, c0, p.totals);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// The case-batched float32 instance for N modes (NMAX = 4, 8, ..., 32) and
+// stretching.
+using F32BatchLaunch = cudaError_t (*)(const Batch32Params&, int,
+                                       cudaStream_t);
+
+F32BatchLaunch pick_f32_batch(int N, bool wheeler) {
+  static const F32BatchLaunch table[2][8] = {
+      {launch_f32_batch<4, false>, launch_f32_batch<8, false>,
+       launch_f32_batch<12, false>, launch_f32_batch<16, false>,
+       launch_f32_batch<20, false>, launch_f32_batch<24, false>,
+       launch_f32_batch<28, false>, launch_f32_batch<32, false>},
+      {launch_f32_batch<4, true>, launch_f32_batch<8, true>,
+       launch_f32_batch<12, true>, launch_f32_batch<16, true>,
+       launch_f32_batch<20, true>, launch_f32_batch<24, true>,
+       launch_f32_batch<28, true>, launch_f32_batch<32, true>}};
+  return table[wheeler ? 1 : 0][(N + 3) / 4 - 1];
+}
+
+F32BatchTiles f32_batch_tiles(const Batch32Params& p) {
+  return F32BatchTiles(p.S, p.M, p.n_gauss, (p.N + 3) / 4 * 4);
 }
 
 }  // namespace
@@ -1944,7 +2260,7 @@ int morison_sea_launch_f64(const SeaParamsT<double>* p, int wheeler, int G,
 // fills; and the launch (records pass, fused pass, fixed-order totals).
 int morison_harm64_params_size() { return (int)sizeof(Harm64Params); }
 int morison_harm64_tiles(const Harm64Params* p, int wheeler, int* out) {
-  if (!valid_harm64(p)) return (int)cudaErrorInvalidValue;
+  if (!valid_batch(p)) return (int)cudaErrorInvalidValue;
   const HarmTiles tl = harm_tiles(*p, wheeler);
   if (tl.NB < 1) return (int)cudaErrorInvalidValue;
   out[0] = tl.MT;
@@ -1956,17 +2272,39 @@ int morison_harm64_tiles(const Harm64Params* p, int wheeler, int* out) {
   return 0;
 }
 long long morison_harm64_scratch(const Harm64Params* p) {
-  return valid_harm64(p) ? HarmScratch::elems(*p) : -1;
+  return valid_batch(p) ? HarmScratch::elems(*p) : -1;
 }
 int morison_harm64_launch(const Harm64Params* p, int wheeler, int G,
                           void* scratch, void* stream) {
-  if (!valid_harm64(p) || !scratch) return (int)cudaErrorInvalidValue;
+  if (!valid_batch(p) || !scratch) return (int)cudaErrorInvalidValue;
   const HarmTiles tl = harm_tiles(*p, wheeler);
   if (tl.NB < 1 || G != tl.rows) return (int)cudaErrorInvalidValue;
   double* sc = static_cast<double*>(scratch);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(wheeler ? launch_harm64<true>(*p, G, sc, st)
                        : launch_harm64<false>(*p, G, sc, st));
+}
+
+// The case-batched float32 instance: sizeof(Batch32Params) for the ctypes
+// mirror; its tiling for these shapes (out: cases a group K, phase tiles a
+// case, grid rows G (the rows of the partial sums [C, G, S, 6]), dynamic
+// shared memory in bytes; returns a CUDA error code); and the launch
+// (fused pass and fixed-order totals) on ``stream``.
+int morison_f32_batch_params_size() { return (int)sizeof(Batch32Params); }
+int morison_f32_batch_tiles(const Batch32Params* p, int* out) {
+  if (!valid_batch(p)) return (int)cudaErrorInvalidValue;
+  const F32BatchTiles tl = f32_batch_tiles(*p);
+  out[0] = tl.K;
+  out[1] = tl.n_pt;
+  out[2] = tl.rows;
+  out[3] = tl.bytes;
+  return 0;
+}
+int morison_f32_batch_launch(const Batch32Params* p, int wheeler, int G,
+                             void* stream) {
+  if (!valid_batch(p) || G <= 0) return (int)cudaErrorInvalidValue;
+  return (int)pick_f32_batch(p->N, wheeler != 0)(
+      *p, G, static_cast<cudaStream_t>(stream));
 }
 
 const char* morison_error_string(int code) {

@@ -9,9 +9,10 @@
   morison_phase_batch_pallas``.  Its plain PyTorch versions are
   ``ops/morison.py::morison_end_forces`` / ``morison_phase_batch``.
   ``morison_end_forces_batch_cuda`` takes a batch of C cases: the float64
-  instance has a case axis, so the batch is one launch (the two wrappers
-  above launch it at C = 1); its plain version is
-  ``ops/morison.py::morison_end_forces_batch``.
+  instance and the case-batched float32 instance have a case axis, so the
+  batch is one launch (the two wrappers above launch the float64 one at
+  C = 1; a float32 single case keeps the float32 instance); its plain
+  version is ``ops/morison.py::morison_end_forces_batch``.
   ``morison_sea_end_forces_cuda`` / ``morison_sea_batch_cuda`` launch the
   same file's general-mode instance (float32 and float64) for the
   independent components of a random sea; its plain version is
@@ -84,6 +85,9 @@ _SIGNATURES = {
         "morison_harm64_tiles": ([_PTR, _I32, _PTR], _I32),
         "morison_harm64_scratch": ([_PTR], _I64),
         "morison_harm64_params_size": ([], _I32),
+        "morison_f32_batch_params_size": ([], _I32),
+        "morison_f32_batch_tiles": ([_PTR, _PTR], _I32),
+        "morison_f32_batch_launch": ([_PTR, _I32, _I32, _PTR], _I32),
         "morison_sea_launch_f32": ([_PTR, _I32, _I32, _PTR, _PTR], _I32),
         "morison_sea_launch_f64": ([_PTR, _I32, _I32, _PTR, _PTR], _I32),
         "morison_sea_grid_blocks_f32": ([_PTR], _I32),
@@ -99,6 +103,7 @@ _SIGNATURES = {
         "chain_sweep_launch_f64": ([_PTR] * 6 + [_I64] * 4 + [_I32] * 5
                                    + [_PTR] * 4, _I32),
         "chain_sweep_chains_per_block": ([_I32, _I32], _I32),
+        "chain_sweep_narrow_rhs": ([_I32, _I32, _I32], _I32),
         "chain_sweep_error_string": ([_I32], ctypes.c_char_p),
     },
 }
@@ -147,11 +152,13 @@ def build_all(names=KERNELS) -> dict:
                 lib.morison_params_size() != ctypes.sizeof(_MorisonParams)
                 or lib.morison_harm64_params_size()
                 != ctypes.sizeof(_Harm64Params)
+                or lib.morison_f32_batch_params_size()
+                != ctypes.sizeof(_Batch32Params)
                 or lib.morison_sea_params_size_f32()
                 != ctypes.sizeof(_SeaParams)
                 or lib.morison_sea_params_size_f64()
                 != ctypes.sizeof(_SeaParams64)):
-            raise RuntimeError("MorisonParams / SeaParamsT / Harm64Params in "
+            raise RuntimeError("MorisonParams / SeaParamsT / BatchParamsT in "
                                "morison_phase_batch.cu and their ctypes "
                                "mirrors differ in size")
         _libs[name] = lib
@@ -261,27 +268,35 @@ class _MorisonParams(ctypes.Structure):
                                                   "totals")])
 
 
-class _HOperand(ctypes.Structure):
-    """ctypes mirror of ``HOperand``: element (case c, member m) at ptr[sc c
-    + sm m], or ``value`` when ptr is null."""
-    _fields_ = [("ptr", ctypes.c_void_p), ("sc", ctypes.c_longlong),
-                ("sm", ctypes.c_longlong), ("value", ctypes.c_double)]
+def _batch_params_struct(scalar):
+    """ctypes mirrors of ``HOperandT<T>`` (element (case c, member m) at
+    ptr[sc c + sm m], or ``value`` when ptr is null) and ``BatchParamsT<T>``,
+    a case-batched instance's operands, for ``scalar`` (c_double or c_float;
+    checked against the library's ``sizeof`` at build)."""
+    class HOperand(ctypes.Structure):
+        _fields_ = [("ptr", ctypes.c_void_p), ("sc", ctypes.c_longlong),
+                    ("sm", ctypes.c_longlong), ("value", scalar)]
+
+    class BatchParams(ctypes.Structure):
+        _fields_ = ([(n, ctypes.c_void_p) for n in ("coords", "conn")]
+                    + [(n, HOperand) for n in ("D", "Cd", "Cm", "wave_dir",
+                                               "current_dir", "rho", "alpha")]
+                    + [(n, ctypes.c_void_p) for n in ("E", "U", "k", "omega",
+                                                      "d", "Uc", "ts")]
+                    + [("s", scalar * MAX_GAUSS), ("w", scalar * MAX_GAUSS)]
+                    + [(n, ctypes.c_int) for n in ("C", "M", "S", "N",
+                                                   "n_gauss", "power_law")]
+                    + [(n, ctypes.c_void_p) for n in ("F1", "F2", "partials",
+                                                      "totals")])
+    return HOperand, BatchParams
 
 
-class _Harm64Params(ctypes.Structure):
-    """ctypes mirror of ``Harm64Params``, the case-batched float64
-    instance's operands (checked against the library's ``sizeof``)."""
-    _fields_ = ([(n, ctypes.c_void_p) for n in ("coords", "conn")]
-                + [(n, _HOperand) for n in ("D", "Cd", "Cm", "wave_dir",
-                                            "current_dir", "rho", "alpha")]
-                + [(n, ctypes.c_void_p) for n in ("E", "U", "k", "omega", "d",
-                                                  "Uc", "ts")]
-                + [("s", ctypes.c_double * MAX_GAUSS),
-                   ("w", ctypes.c_double * MAX_GAUSS)]
-                + [(n, ctypes.c_int) for n in ("C", "M", "S", "N", "n_gauss",
-                                               "power_law")]
-                + [(n, ctypes.c_void_p) for n in ("F1", "F2", "partials",
-                                                  "totals")])
+_HOperand, _Harm64Params = _batch_params_struct(ctypes.c_double)
+_HOperand32, _Batch32Params = _batch_params_struct(ctypes.c_float)
+# the case-batched instance's ctypes types by operand dtype
+_BATCH_STRUCTS = {torch.float64: (_HOperand, _Harm64Params, ctypes.c_double),
+                  torch.float32: (_HOperand32, _Batch32Params,
+                                  ctypes.c_float)}
 
 
 def _sea_params_struct(scalar, operand):
@@ -461,13 +476,15 @@ def launch_morison(k: dict, wheeler: bool):
     return F1, F2, totals
 
 
-def _hoperand(v, C: int, M: int, name: str, per_member: bool) -> _HOperand:
-    """An operand of the case-batched instance as an ``HOperand``: a number
-    or 0-d tensor (shared), [C] per case (``per_member=False``), or (with
+def _hoperand(v, C: int, M: int, name: str, per_member: bool,
+              cls=_HOperand):
+    """An operand of a case-batched instance as an ``HOperand`` (``cls``:
+    its ctypes mirror for the instance's dtype): a number or 0-d tensor
+    (shared), [C] per case (``per_member=False``), or (with
     ``per_member``) [M] per member, [C, M] per case and member, [C, 1] per
     case."""
     if not isinstance(v, torch.Tensor):
-        return _HOperand(None, 0, 0, v)
+        return cls(None, 0, 0, v)
     shape = tuple(v.shape)
     strides = {(): (0, 0)}
     strides.update({(M,): (0, 1), (C, M): (M, 1), (C, 1): (1, 0)}
@@ -476,7 +493,7 @@ def _hoperand(v, C: int, M: int, name: str, per_member: bool) -> _HOperand:
         want = "[M], [C, M] or [C, 1]" if per_member else "[C]"
         raise ValueError(f"{name} must be a scalar or {want} with C = {C}, "
                          f"M = {M}; got shape {shape}")
-    return _HOperand(v.data_ptr(), *strides[shape], 0.0)
+    return cls(v.data_ptr(), *strides[shape], 0.0)
 
 
 _MEMBER_OPERANDS = ("D", "Cd", "Cm")
@@ -486,9 +503,10 @@ _CASE_OPERANDS = ("wave_dir", "current_dir", "rho", "alpha")
 def batch_kernel_operands(waves: FourierWave, coords, conn, D_m,
                           wave_dir_deg, current_dir_deg, Cd, Cm, rho_water,
                           ts, n_gauss: int, current_alpha) -> dict:
-    """The case-batched float64 instance's operands for C cases, under
-    :func:`kernel_operands`' dtype and device rules (mixed dtypes raise
-    ``TypeError``; no device operation): ``waves`` a batch
+    """The case-batched instances' operands for C cases (float64 or
+    float32: the instance), under :func:`kernel_operands`' dtype and device
+    rules (mixed dtypes raise ``TypeError``; no device operation): ``waves``
+    a batch
     (``waves.stack_waves``: ``E``, ``U`` [C, N], ``k``, ``omega``, ``d``,
     ``U_c`` [C]), ``ts`` [C, S]; ``D``, ``Cd``, ``Cm`` [C, M] (per case and
     member), [C, 1] (per case), [M] (per member) or a scalar;
@@ -516,19 +534,20 @@ def batch_kernel_operands(waves: FourierWave, coords, conn, D_m,
     return k
 
 
-def _batch64_params(k: dict) -> _Harm64Params:
-    """The ``Harm64Params`` of operands ``k`` (outputs unset)."""
+def _batch_params(k: dict):
+    """The ``BatchParamsT`` of operands ``k`` (outputs unset), in their
+    dtype: ``Harm64Params`` or ``Batch32Params``."""
     C, M = k["C"], k["conn"].shape[0]
-    return _Harm64Params(
+    hop, params, scalar = _BATCH_STRUCTS[k["coords"].dtype]
+    return params(
         k["coords"].data_ptr(), k["conn"].data_ptr(),
-        *(_hoperand(k[n], C, M, n, True) for n in _MEMBER_OPERANDS),
-        *(_hoperand(k[n], C, M, n, False) for n in _CASE_OPERANDS[:3]),
+        *(_hoperand(k[n], C, M, n, True, hop) for n in _MEMBER_OPERANDS),
+        *(_hoperand(k[n], C, M, n, False, hop) for n in _CASE_OPERANDS[:3]),
         _hoperand(0.0 if k["alpha"] is None else k["alpha"], C, M, "alpha",
-                  False),
+                  False, hop),
         *(k[n].data_ptr() for n in ("E", "U", "k", "omega", "d", "Uc",
                                     "ts")),
-        (ctypes.c_double * MAX_GAUSS)(*k["s"]),
-        (ctypes.c_double * MAX_GAUSS)(*k["w"]),
+        (scalar * MAX_GAUSS)(*k["s"]), (scalar * MAX_GAUSS)(*k["w"]),
         C, M, k["ts"].shape[1], k["E"].shape[1], len(k["s"]),
         int(k["alpha"] is not None), None, None, None, None)
 
@@ -564,7 +583,7 @@ def harm64_tiles(k: dict, wheeler: bool) -> dict:
     scratch doubles of one case.  Raises ``ValueError`` where the library
     refuses the shapes (no layout fits shared memory)."""
     lib = build("morison_phase_batch")
-    p = _batch64_params(case_slice(k, 0, 1))
+    p = _batch_params(case_slice(k, 0, 1))
     tiles = (ctypes.c_int * 6)()
     err = lib.morison_harm64_tiles(ctypes.byref(p), int(wheeler), tiles)
     if err != 0:
@@ -609,7 +628,7 @@ def launch_morison_batch64(k: dict, wheeler: bool):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for c0 in range(0, C, chunk):
             c1 = min(C, c0 + chunk)
-            p = _batch64_params(case_slice(k, c0, c1))
+            p = _batch_params(case_slice(k, c0, c1))
             p.F1, p.F2 = F1[c0:c1].data_ptr(), F2[c0:c1].data_ptr()
             p.totals, p.partials = totals[c0:c1].data_ptr(), \
                 partials.data_ptr()
@@ -623,16 +642,88 @@ def launch_morison_batch64(k: dict, wheeler: bool):
     return F1, F2, totals
 
 
-def _case_operand(v, i: int, per_member: bool = False):
-    """Case ``i``'s value of a batch operand (:func:`batch_kernel_operands`'
-    shapes) as :func:`kernel_operands` takes it."""
-    if isinstance(v, np.ndarray):
-        v = torch.as_tensor(v)
-    if not isinstance(v, torch.Tensor) or v.ndim == 0:
-        return v
-    if per_member:
-        return v if v.ndim == 1 else (v[i, 0] if v.shape[1] == 1 else v[i])
-    return v[i]
+# The case-batched float32 instance's case-packed tile (its library's
+# rule, csrc/morison_phase_batch.cu::F32BatchTiles): (case, phase) slots a
+# tile, members a grid row walks, most grid rows, shared memory a block.
+F32B_SLOTS = 384
+F32B_MIN_MEMBERS = 4
+F32B_ROWS = 264
+F32B_SMEM = 110 * 1024
+# The most bytes of partial totals ([chunk, rows, S, 6] floats) one launch
+# of the case-batched float32 instance writes: a larger batch is launched
+# in chunks of cases, which changes no bit.
+F32_BATCH_PARTIALS_BYTES = 1 << 28
+
+
+def f32_batch_tiles(S: int, M: int, Q: int, N: int) -> dict:
+    """The case-packed tiling of the case-batched float32 instance for S
+    phases, M members, Q points and N modes (the library's rule, which
+    :func:`launch_morison_batch32` reads from the library): ``S2`` (S
+    rounded up to even: the slots of a case), ``K`` cases a group,
+    ``n_pt`` phase tiles a case, ``rows`` (grid rows, the rows of the
+    partial totals), ``RST`` (a case's record stride in float4, Q NMAX + 1)
+    and ``bytes`` of shared memory.  Thread t of a tile owns slots 2 t and
+    2 t + 1: case 2 t // S2 of the group at phases 2 t % S2 and + 1 (one
+    tile), or phases tile * 384 + 2 t and + 1 of the group's one case."""
+    nmax = (N + 3) // 4 * 4
+    S2, RST = S + (S & 1), Q * nmax + 1
+    per_case = 16 * RST + 32 * Q + 12 * nmax
+    fit = F32B_SMEM // per_case
+    if S2 <= F32B_SLOTS:
+        K, n_pt = min(F32B_SLOTS // S2, fit), 1
+    else:
+        K, n_pt = 1, -(-S2 // F32B_SLOTS)
+    rows = min(-(-M // F32B_MIN_MEMBERS), F32B_ROWS)
+    return dict(S2=S2, K=K, n_pt=n_pt, rows=rows, RST=RST,
+                bytes=per_case * K)
+
+
+def launch_morison_batch32(k: dict, wheeler: bool):
+    """Launch the case-batched float32 instance on float32 operands from
+    :func:`batch_kernel_operands` (all on one CUDA device): its fused pass
+    and the fixed-order totals, one launch for the C cases, or one a chunk
+    of cases where their partial totals would pass
+    ``F32_BATCH_PARTIALS_BYTES``.  Returns (F1 [C, S, M, 3], F2 [C, S, M,
+    3], totals [C, S, 6] = drag xyz | inertia xyz).  Raises for CPU
+    tensors."""
+    dev, dtype = k["coords"].device, k["coords"].dtype
+    if dev.type != "cuda":
+        raise RuntimeError("the Morison kernel needs CUDA tensors (got "
+                           f"{dev}); the plain version is "
+                           "ops.morison.morison_end_forces_batch")
+    if dtype != torch.float32:
+        raise TypeError("launch_morison_batch32 takes float32 operands, got "
+                        f"{dtype}")
+    lib = build("morison_phase_batch")
+    C, M, S = k["C"], k["conn"].shape[0], k["ts"].shape[1]
+    F1 = torch.empty(C, S, M, 3, dtype=dtype, device=dev)
+    F2 = torch.empty(C, S, M, 3, dtype=dtype, device=dev)
+    totals = torch.empty(C, S, 6, dtype=dtype, device=dev)
+    tiles = (ctypes.c_int * 4)()
+    err = lib.morison_f32_batch_tiles(ctypes.byref(_batch_params(
+        case_slice(k, 0, 1))), tiles)
+    if err != 0:
+        raise ValueError("morison_f32_batch tiling refused these operands: "
+                         + lib.morison_error_string(err).decode())
+    G = tiles[2]
+    chunk = max(1, min(C, F32_BATCH_PARTIALS_BYTES // (4 * G * S * 6)))
+    with torch.cuda.device(dev):
+        partials = torch.empty(chunk, G, S, 6, dtype=dtype, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for c0 in range(0, C, chunk):
+            c1 = min(C, c0 + chunk)
+            p = _batch_params(case_slice(k, c0, c1))
+            p.F1, p.F2 = F1[c0:c1].data_ptr(), F2[c0:c1].data_ptr()
+            p.totals, p.partials = totals[c0:c1].data_ptr(), \
+                partials.data_ptr()
+            err = lib.morison_f32_batch_launch(ctypes.byref(p), int(wheeler),
+                                               G, stream)
+            if err != 0:
+                raise RuntimeError("morison_f32_batch kernel launch failed: "
+                                   + lib.morison_error_string(err).decode())
+            morison_phase_batch_cuda.launches += 1
+            morison_phase_batch_cuda.instance_launches["f32_batch"] += 1
+    return F1, F2, totals
 
 
 def morison_end_forces_batch_cuda(waves: FourierWave, coords: torch.Tensor,
@@ -645,13 +736,14 @@ def morison_end_forces_batch_cuda(waves: FourierWave, coords: torch.Tensor,
     (the operand shapes of :func:`batch_kernel_operands`): (F1, F2 [C, S,
     M, 3], total_drag, total_inertia [C, S, 3]).
 
-    Float64 CUDA tensors launch the case-batched float64 instance once for
-    the whole batch, or raise; float32 ones launch the float32 instance
-    once a case (it has no case axis); CPU tensors run the plain version.
-    Launches count on ``morison_phase_batch_cuda.launches`` and
-    ``.instance_launches``.  On CUDA tensors ``n_gauss`` > ``MAX_GAUSS``
-    or more than ``MAX_MODES`` modes raise (:func:`kernel_route` picks
-    the plain version for such shapes first)."""
+    CUDA tensors launch the case-batched instance of their dtype once for
+    the whole batch (float64: :func:`launch_morison_batch64`; float32:
+    :func:`launch_morison_batch32`), or raise; CPU tensors run the plain
+    version.  Launches count on ``morison_phase_batch_cuda.launches`` and
+    ``.instance_launches`` ("f64", "f32_batch").  On CUDA tensors
+    ``n_gauss`` > ``MAX_GAUSS`` or more than ``MAX_MODES`` modes raise
+    (:func:`kernel_route` picks the plain version for such shapes
+    first)."""
     if stretching not in ("none", "wheeler"):
         raise ValueError(f"unknown stretching mode {stretching!r}")
     if coords.device.type != "cuda":
@@ -659,19 +751,12 @@ def morison_end_forces_batch_cuda(waves: FourierWave, coords: torch.Tensor,
             waves, coords, conn, D_m, wave_dir_deg, current_dir_deg, Cd, Cm,
             rho_water, ts, n_gauss, current_alpha, stretching)
     _check_limits(n_gauss, waves.n_modes)
-    if coords.dtype == torch.float32:
-        ends = [morison_end_forces_cuda(
-            waves.case(i), coords, conn, _case_operand(D_m, i, True),
-            _case_operand(wave_dir_deg, i), _case_operand(current_dir_deg, i),
-            _case_operand(Cd, i, True), _case_operand(Cm, i, True),
-            _case_operand(rho_water, i), ts[i], n_gauss,
-            _case_operand(current_alpha, i), stretching)
-            for i in range(ts.shape[0])]
-        return tuple(torch.stack(x) for x in zip(*ends))
     k = batch_kernel_operands(waves, coords, conn, D_m, wave_dir_deg,
                               current_dir_deg, Cd, Cm, rho_water, ts,
                               n_gauss, current_alpha)
-    F1, F2, totals = launch_morison_batch64(k, stretching == "wheeler")
+    launch = (launch_morison_batch32 if coords.dtype == torch.float32
+              else launch_morison_batch64)
+    F1, F2, totals = launch(k, stretching == "wheeler")
     return F1, F2, totals[..., :3], totals[..., 3:]
 
 
@@ -724,8 +809,8 @@ def morison_phase_batch_cuda(wave: FourierWave, coords: torch.Tensor,
     on a CUDA device; CPU tensors run the plain version).
     ``morison_phase_batch_cuda.launches`` counts the K1 launches of the
     wrappers and ``.instance_launches`` those of each instance ("f32",
-    "f64" (case-batched), "sea_f32", "sea_f64"); each launcher adds one
-    per launch."""
+    "f32_batch" and "f64" (case-batched), "sea_f32", "sea_f64"); each
+    launcher adds one per launch."""
     F1, F2, total_drag, total_inertia = morison_end_forces_cuda(
         wave, coords, conn, D_m, wave_dir_deg, current_dir_deg, Cd, Cm,
         rho_water, ts, n_gauss, current_alpha, stretching)
@@ -736,8 +821,9 @@ def morison_phase_batch_cuda(wave: FourierWave, coords: torch.Tensor,
 
 
 morison_phase_batch_cuda.launches = 0
-morison_phase_batch_cuda.instance_launches = {"f32": 0, "f64": 0,
-                                              "sea_f32": 0, "sea_f64": 0}
+morison_phase_batch_cuda.instance_launches = {"f32": 0, "f32_batch": 0,
+                                              "f64": 0, "sea_f32": 0,
+                                              "sea_f64": 0}
 morison_phase_batch_cuda.plain_routes = 0
 
 
@@ -929,6 +1015,11 @@ SWEEP_LANES = 32            # right-hand sides per sweep block (one a lane)
 SWEEP_MAX_CHAINS = 8        # chains per sweep block (one a warp)
 SWEEP_TILE_BUDGET = 80 * 1024
 H100_SMEM_OPTIN = 232448    # shared memory a block may opt in to (sm_90)
+SWEEP_NARROW_B = 32         # batches narrower than this take the narrow form
+SWEEP_NARROW_RHS = 5        # right-hand sides a narrow warp (6 lanes each)
+SWEEP_RING = 32             # levels in flight in the narrow form's ring
+SWEEP_NARROW_UNROLL = 8     # levels a group of the narrow form's ring
+SWEEP_NARROW_BUDGET = 111 * 1024   # shared memory of a narrow block
 
 
 def sweep_chains_per_block(n_int: int, itemsize: int,
@@ -944,6 +1035,31 @@ def sweep_chains_per_block(n_int: int, itemsize: int,
     while ct > 1 and tile_bytes(ct) > SWEEP_TILE_BUDGET:
         ct //= 2
     return ct if tile_bytes(ct) <= smem_optin else 0
+
+
+def sweep_stage_elems(rg: int, itemsize: int) -> int:
+    """Elements of one stage of the narrow form's ring: a forward level's
+    Dinv and DinvL (36 each) and g of ``rg`` right-hand sides (6 each),
+    padded to 16 bytes; a backward level's C' takes DinvL's place."""
+    per = 16 // itemsize
+    return -(-(72 + 6 * rg) // per) * per
+
+
+def sweep_narrow_rhs(B: int, n_int: int, itemsize: int) -> int:
+    """Right-hand sides a warp of the sweep kernel's narrow form takes (its
+    launch's form rule, ``csrc/chain_sweep.cu``): for B < ``SWEEP_NARROW_B``
+    the most of min(5, B), 4, ..., 1 whose ring, y store (n_int x 6 rg
+    values) and the ring groups' two mbarriers fit
+    ``SWEEP_NARROW_BUDGET``; 0 means the wide form."""
+    if B >= SWEEP_NARROW_B:
+        return 0
+    barriers = 2 * 8 * (SWEEP_RING // SWEEP_NARROW_UNROLL)
+    rg = min(SWEEP_NARROW_RHS, B)
+    while rg > 0 and itemsize * (SWEEP_RING * sweep_stage_elems(rg, itemsize)
+                                 + n_int * 6 * rg) + barriers \
+            > SWEEP_NARROW_BUDGET:
+        rg -= 1
+    return rg
 
 
 def sweep_operand(g: torch.Tensor, split: bool = False):
@@ -988,8 +1104,11 @@ def chain_sweep_cuda(fac, g: torch.Tensor, split: bool = False):
     on the same CUDA device, in any strided layout (see
     :func:`sweep_operand`).  Returns (fI [..., C, 6], fJ [..., C, 6],
     v [..., n_int, C, 6]), contiguous.  Raises for CPU tensors, mismatched
-    operands and any CUDA error.  ``chain_sweep_cuda.launches`` counts
-    kernel launches.
+    operands and any CUDA error.  The launch runs the narrow form for B <
+    ``SWEEP_NARROW_B`` right-hand sides (:func:`sweep_narrow_rhs`), else the
+    wide form; each column is bit-equal in either.
+    ``chain_sweep_cuda.launches`` counts kernel launches and
+    ``.narrow_launches`` those of the narrow form.
     """
     if not g.is_cuda:
         raise RuntimeError("chain_sweep_cuda needs CUDA tensors (got "
@@ -1036,23 +1155,29 @@ def chain_sweep_cuda(fac, g: torch.Tensor, split: bool = False):
         raise RuntimeError("chain_sweep kernel launch failed: "
                            + lib.chain_sweep_error_string(err).decode())
     chain_sweep_cuda.launches += 1
+    if lib.chain_sweep_narrow_rhs(B, n_int, g.element_size()) > 0:
+        chain_sweep_cuda.narrow_launches += 1
     return (fI.reshape(*batch, C, 6), fJ.reshape(*batch, C, 6),
             v.reshape(*batch, n_int, C, 6))
 
 
 chain_sweep_cuda.launches = 0
+chain_sweep_cuda.narrow_launches = 0
 
 
 def launch_counts(reset: bool = False) -> dict:
     """The kernel launch counters of this process: ``sweep`` (the chain
-    sweep), ``k1`` (every Morison kernel launch) and one per K1 instance;
-    with ``reset`` every counter is set to 0 after it is read (a rank of a
-    process group reads its own counters this way)."""
+    sweep, both forms), ``sweep_narrow`` (its narrow form), ``k1`` (every
+    Morison kernel launch) and one per K1 instance; with ``reset`` every
+    counter is set to 0 after it is read (a rank of a process group reads
+    its own counters this way)."""
     counts = {"sweep": chain_sweep_cuda.launches,
+              "sweep_narrow": chain_sweep_cuda.narrow_launches,
               "k1": morison_phase_batch_cuda.launches,
               **morison_phase_batch_cuda.instance_launches}
     if reset:
         chain_sweep_cuda.launches = 0
+        chain_sweep_cuda.narrow_launches = 0
         morison_phase_batch_cuda.launches = 0
         inst = morison_phase_batch_cuda.instance_launches
         inst.update({k: 0 for k in inst})

@@ -260,3 +260,150 @@ def test_sweep_kernel_index_arithmetic(layout, B, n_int, C):
     plain = tcond.condense_loads(fac, g, split=split)
     for a, b in zip(plain, tcond.chain_sweep_plain(fac, g_chain)):
         assert torch.equal(a, b)
+
+
+def _emulate_narrow_sweep(fac, g, split):
+    """The index arithmetic of csrc/chain_sweep.cu's narrow form in
+    PyTorch: one warp a (chain, group of rg right-hand sides) block, lane
+    6 bb + r owning row r of right-hand side bb, the RING-deep ring of
+    stages (a forward level's Dinv, DinvL and g_l, a backward level's C'
+    in DinvL's place) filled in groups of NARROW_UNROLL levels, RING -
+    NARROW_UNROLL levels ahead, and read two stages ahead of their use,
+    the carry gathered from the right-hand side's six lanes through the
+    exchange row, y_l in
+    its store, and the v / fI / fJ stores at the kernel's offsets.  Every
+    output starts as NaN, so an element no lane writes shows."""
+    g3, B, (sb, sl, sm, sq), Q, _ = hk.sweep_operand(g, split)
+    n_int, C = fac.Cprime.shape[:2]
+    size = g.element_size()
+    rg = hk.sweep_narrow_rhs(B, n_int, size)
+    assert rg >= 1
+    SW, RING = hk.sweep_stage_elems(rg, size), hk.SWEEP_RING
+    U, YW, stages = hk.SWEEP_NARROW_UNROLL, 6 * rg, 2 * n_int
+    span = (B - 1) * sb + (n_int - 1) * sl + (C // Q - 1) * sm \
+        + (Q - 1) * sq + 6
+    flat = g3.as_strided((span,), (1,), g3.storage_offset())
+    Dinv, DinvL, Cp, B0, Cn = (t.reshape(-1) for t in (
+        fac.Dinv, fac.DinvL, fac.Cprime, fac.B0, fac.Cn))
+    nan = float("nan")
+    v = torch.full((B * n_int * C * 6,), nan, dtype=g.dtype)
+    fI = torch.full((B * C * 6,), nan, dtype=g.dtype)
+    fJ = torch.full((B * C * 6,), nan, dtype=g.dtype)
+    lane = torch.arange(32)
+    r, bb, k = lane % 6, lane // 6, torch.arange(6)
+    # the exchange row's entries each lane reads (dead lanes: the last group)
+    src = 6 * torch.clamp(bb, max=rg - 1)[:, None] + k[None, :]
+    ylanes, yl = lane < YW, torch.clamp(lane, max=YW - 1)
+
+    def matrow(A, x):       # row r of A x, FMAs in matvec6's order
+        acc = torch.zeros(32, dtype=g.dtype)
+        for kk in range(6):
+            acc = acc + A[:, kk] * x[:, kk]
+        return acc
+    for c in range(C):
+        for b0 in range(0, B, rg):
+            nb = min(rg, B - b0)
+            live = bb < nb
+            bc = torch.clamp(bb, max=rg - 1)
+            goff = ((b0 + bc) * sb + (c // Q) * sm + (c % Q) * sq + r)
+            ring = torch.full((RING * SW,), nan, dtype=g.dtype)
+            ys = torch.full((n_int * YW,), nan, dtype=g.dtype)
+
+            def issue(t):
+                if t >= stages:
+                    return
+                st = (t % RING) * SW
+                if t < n_int:
+                    o = (t * C + c) * 36
+                    ring[st:st + 36] = Dinv[o:o + 36]
+                    ring[st + 36:st + 72] = DinvL[o:o + 36]
+                    ring[st + 72 + lane[live]] = flat[goff[live] + t * sl]
+                else:
+                    o = ((stages - 1 - t) * C + c) * 36
+                    ring[st + 36:st + 72] = Cp[o:o + 36]
+
+            def fetch(t):
+                st = (t % RING) * SW
+                row = ring[st + 36 + r[:, None] * 6 + k[None, :]]
+                av = matrow(ring[st + r[:, None] * 6 + k[None, :]],
+                            ring[st + 72 + 6 * bc[:, None] + k[None, :]])
+                return av, row
+            for t in range(0, RING - U, U):
+                for u in range(U):
+                    issue(t + u)
+            nxt = [fetch(0), fetch(1)]
+            x = torch.zeros(32, dtype=g.dtype)
+            for t0 in range(0, stages, U):
+                for u in range(U):
+                    issue(t0 + RING - U + u)
+                for t in range(t0, t0 + U):
+                    (a_t, R), nxt = nxt[0], [nxt[1], fetch(t + 2)]
+                    fwd = t < n_int
+                    lv = t if fwd else max(stages - 1 - t, 0)
+                    base = a_t if fwd else ys[lv * YW + yl]
+                    if t == n_int:
+                        x = torch.zeros(32, dtype=g.dtype)
+                    x = base - matrow(R, x[src])
+                    if fwd:
+                        ys[lv * YW + lane[ylanes]] = x[ylanes]
+                    elif t < stages:
+                        v[(((b0 + bb[live]) * n_int + lv) * C + c) * 6
+                          + r[live]] = x[live]
+                        if t == n_int:
+                            v_last = x
+                        if t == stages - 1:
+                            v0 = x
+            e0 = B0[c * 36 + r[:, None] * 6 + k[None, :]]
+            e1 = Cn[c * 36 + r[:, None] * 6 + k[None, :]]
+            fi, fj = matrow(e0, v0[src]), matrow(e1, v_last[src])
+            o = ((b0 + bb[live]) * C + c) * 6 + r[live]
+            fI[o], fJ[o] = -fi[live], -fj[live]
+    return fI.reshape(B, C, 6), fJ.reshape(B, C, 6), v.reshape(B, n_int, C, 6)
+
+
+@pytest.mark.parametrize("layout,B,n_int,C,dtype", [
+    ("contiguous", 1, 3, 13, torch.float64),    # one lane group a chain
+    ("contiguous", 18, 31, 5, torch.float64),   # groups 5, 5, 5, 3; the
+                                                # ring wraps
+    ("contiguous", 18, 31, 5, torch.float32),   # 16-byte stages of floats
+    ("transposed", 5, 16, 3, torch.float64),    # the scan's chain layout
+    ("nested level 1", 7, 3, 12, torch.float64),  # the (m, q) view, Q = 4
+    ("deep", 5, 400, 1, torch.float64),         # y of 5 does not fit: rg 4
+])
+def test_narrow_sweep_index_arithmetic(layout, B, n_int, C, dtype):
+    """The sweep kernel's narrow form, emulated on the CPU, equals the
+    plain sweep (1e-12 in f64, 1e-5 of the largest value in f32) for
+    ragged right-hand-side groups, a ring that wraps, strided layouts,
+    the nested level-1 view and a depth whose y store forces fewer
+    right-hand sides a warp, and writes every output element; the form
+    rule takes these batches narrow and B >= 32 wide."""
+    rng = np.random.default_rng(B * 1000 + n_int)
+    fac = _random_factor(rng, n_int, C)
+    fac = tcond.ChainFactor(*(t.to(dtype) for t in fac))
+    split = False
+    if layout == "transposed":
+        g = torch.tensor(rng.normal(size=(B, C, n_int, 6)),
+                         dtype=dtype).transpose(1, 2)
+    elif layout == "nested level 1":
+        Q, n_sub = 4, n_int + 1
+        gpos = torch.tensor(rng.normal(size=(B, Q * n_sub - 1, C // Q, 6)),
+                            dtype=dtype)
+        sP, sM, sK = gpos.stride()[-3:]
+        g = gpos.as_strided((B, n_sub - 1, C // Q, Q, 6),
+                            (gpos.stride(0), sP, sM, n_sub * sP, sK))
+        split = True
+    else:
+        g = torch.tensor(rng.normal(size=(B, n_int, C, 6)), dtype=dtype)
+    size = g.element_size()
+    assert hk.sweep_narrow_rhs(B, n_int, size) == (4 if layout == "deep"
+                                                   else min(5, B))
+    assert hk.sweep_narrow_rhs(hk.SWEEP_NARROW_B, n_int, size) == 0
+    g_chain = (g.reshape(*g.shape[:-3], C, 6) if split else g)
+    out = _emulate_narrow_sweep(fac, g, split)
+    ref = tcond.chain_sweep_plain(
+        tcond.ChainFactor(*(t.double() for t in fac)),
+        g_chain.double().reshape(-1, n_int, C, 6))
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for a, b in zip(out, ref):
+        assert not torch.isnan(a).any()
+        assert rel_err(a, b) < tol

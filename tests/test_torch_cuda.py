@@ -4,6 +4,7 @@ without a CUDA device).
 This file imports no JAX, so it also runs on a GPU host without JAX:
 ``python3 -m pytest --noconftest -q -p no:cacheprovider tests/test_torch_cuda.py``.
 """
+import ctypes
 import dataclasses
 import json
 import pathlib
@@ -275,6 +276,144 @@ def test_f64_case_slice_mid_batch_is_bit_equal(lo, hi):
     assert max(_rel(a, b) for a, b in zip(block, plain)) <= KERNEL_TOL_F64
 
 
+def _batch32_args(dev, C, S, N=8):
+    """A C-case f32 batch on the default jacket: Stokes-5 waves of N modes,
+    per-case headings, current headings and rho, per-(case, member) Cd,
+    per-member Cm; and the same f32-rounded inputs in f64."""
+    m = pt.default_3leg_jacket(device=dev)
+    waves = pt.make_wave_batch(np.linspace(4.0, 14.0, C), 9.4, 50.0,
+                               U_c=1.7, model="stokes", N=5, n_modes=N,
+                               dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(C * 1000 + S)
+    f32 = dict(dtype=torch.float32, device=dev)
+    ts = (torch.arange(S, **f32)[None, :] * waves.T[:, None] / S
+          + torch.tensor(rng.uniform(0.0, 1.0, (C, 1)), **f32))
+    a32 = (waves, m.coords.float(), m.conn,
+           (m.sections.D_outer[m.sect_id] / 1000.0).float(),
+           torch.tensor(rng.uniform(0.0, 360.0, C), **f32),
+           torch.tensor(rng.uniform(0.0, 360.0, C), **f32),
+           torch.tensor(rng.uniform(0.6, 1.1, (C, m.n_members)), **f32),
+           torch.tensor(rng.uniform(1.6, 2.1, m.n_members), **f32),
+           torch.tensor(rng.uniform(1020.0, 1030.0, C), **f32), ts)
+    a64 = (waves.to(torch.float64, dev),) + tuple(
+        x.double() if x.is_floating_point() else x for x in a32[1:])
+    return a32, a64
+
+
+def _cases(args, lo, hi):
+    """Cases lo:hi of a batch's arguments (the per-case ones sliced)."""
+    C = args[-1].shape[0]
+    return (args[0].case(slice(lo, hi)), *args[1:4],
+            *(x[lo:hi] if x.ndim and x.shape[0] == C else x
+              for x in args[4:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 7, 1000])
+@pytest.mark.parametrize("S", [12, 36, 360])
+def test_f32_batch_matches_plain_f64(C, S):
+    """K1's case-batched f32 instance against the batched plain version in
+    f64 on the same (f32-rounded) inputs, with Wheeler stretching, a
+    power-law current, per-(case, member) Cd and per-member Cm: one
+    ``f32_batch`` launch for the batch, within 1e-5 of the largest value
+    (the plain version runs 25 cases at a time)."""
+    dev = _device()
+    a32, a64 = _batch32_args(dev, C, S)
+    kw = dict(current_alpha=1.0 / 7.0, stretching="wheeler")
+    hk.launch_counts(reset=True)
+    out = hk.morison_end_forces_batch_cuda(*a32, **kw)
+    torch.cuda.synchronize()
+    n = hk.launch_counts()
+    assert n["f32_batch"] == n["k1"] == 1 and n["f32"] == 0, n
+    refs = [morison_end_forces_batch(*_cases(a64, c0, min(C, c0 + 25)),
+                                     **kw) for c0 in range(0, C, 25)]
+    for a, b in zip(out, (torch.cat(x) for x in zip(*refs))):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        assert _rel(a, b) < KERNEL_TOL
+
+
+@pytest.mark.cuda
+def test_f32_batch_cases_are_independent(monkeypatch):
+    """A case's F1 / F2 / totals from K1's case-batched f32 instance do not
+    depend on the rest of the launch: a mid-batch block of cases, one case
+    alone and the ``case_slice`` operands give the whole batch's bits, as
+    do two launches of the same batch and a batch launched in chunks."""
+    dev = _device()
+    a32, _ = _batch32_args(dev, 40, 36)
+    kw = dict(stretching="wheeler")
+    whole = hk.morison_end_forces_batch_cuda(*a32, **kw)
+    again = hk.morison_end_forces_batch_cuda(*a32, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(whole, again))
+    for lo, hi in ((13, 29), (17, 18), (39, 40)):
+        block = hk.morison_end_forces_batch_cuda(*_cases(a32, lo, hi), **kw)
+        assert all(torch.equal(a[lo:hi], b) for a, b in zip(whole, block))
+    k = hk.batch_kernel_operands(*a32, n_gauss=15, current_alpha=None)
+    F1, F2, totals = hk.launch_morison_batch32(hk.case_slice(k, 5, 11), True)
+    assert torch.equal(F1, whole[0][5:11]) and torch.equal(F2, whole[1][5:11])
+    assert torch.equal(totals[..., 3:], whole[3][5:11])
+    rows = hk.f32_batch_tiles(36, 51, 15, 8)["rows"]
+    monkeypatch.setattr(hk, "F32_BATCH_PARTIALS_BYTES", 4 * rows * 36 * 6 * 7)
+    before = hk.morison_phase_batch_cuda.instance_launches["f32_batch"]
+    chunked = hk.morison_end_forces_batch_cuda(*a32, **kw)
+    torch.cuda.synchronize()
+    assert hk.morison_phase_batch_cuda.instance_launches["f32_batch"] \
+        == before + 6
+    assert all(torch.equal(a, b) for a, b in zip(whole, chunked))
+
+
+@pytest.mark.cuda
+def test_f32_batch_tiling_matches_the_library():
+    """The wrapper-side tile rule of the case-batched f32 instance (the CPU
+    emulation's) is the library's, for phase counts within and past one
+    tile, member counts around a row's four, and every mode count."""
+    dev = _device()
+    lib = hk.build("morison_phase_batch")
+    a32, _ = _batch32_args(dev, 1, 36)
+    k = hk.batch_kernel_operands(*a32, n_gauss=15, current_alpha=None)
+    out = (ctypes.c_int * 4)()
+    for S in (1, 12, 13, 36, 360, 385, 1536):
+        for M in (1, 5, 51, 1632):
+            for N in (1, 5, 8, 18, 32):
+                for Q in (6, 15):
+                    # shared per-member operands: M is the members' count
+                    kn = dict(k, conn=k["conn"][:1].expand(M, 2), D=1.0,
+                              Cd=0.7, Cm=2.0,
+                              E=torch.zeros(1, N, device=dev),
+                              U=torch.zeros(1, N, device=dev),
+                              ts=torch.zeros(1, S, device=dev),
+                              s=k["s"][:Q], w=k["w"][:Q])
+                    assert lib.morison_f32_batch_tiles(
+                        ctypes.byref(hk._batch_params(kn)), out) == 0
+                    t = hk.f32_batch_tiles(S, M, Q, N)
+                    assert list(out) == [t["K"], t["n_pt"], t["rows"],
+                                         t["bytes"]], (S, M, N, Q)
+
+
+@pytest.mark.cuda
+def test_f32_model_envelope_is_one_batch_launch():
+    """``design_envelope`` of an f32 model on the card: one launch of K1's
+    case-batched f32 instance for all the cases (no per-case f32 launch),
+    its Morison totals within 1e-5 of the f64 model's."""
+    dev = _device()
+    waves = pt.make_wave_batch(np.linspace(4.0, 14.0, 50), 9.4, 50.0,
+                               U_c=1.7, model="stokes", N=5, n_modes=8,
+                               dtype=torch.float64, device=dev)
+    dirs = np.linspace(0.0, 340.0, 50)
+    cases = pt.make_case_batch(pt.LoadCase(**STORM), wave_dir_deg=dirs,
+                               current_dir_deg=dirs, t_analysis=np.zeros(50))
+    m32 = pt.default_3leg_jacket(dtype=torch.float32, device=dev)
+    hk.launch_counts(reset=True)
+    env = pt.design_envelope(m32, waves.to(torch.float32, dev), cases,
+                             n_steps=36)
+    torch.cuda.synchronize()
+    n = hk.launch_counts()
+    assert n["f32_batch"] == n["k1"] == 1 and n["f32"] == 0, n
+    ref = pt.design_envelope(pt.default_3leg_jacket(device=dev), waves,
+                             cases, n_steps=36)
+    assert _rel(env.total_morison, ref.total_morison) <= KERNEL_TOL
+    assert int(env.governing_case) == int(ref.governing_case)
+
+
 @pytest.mark.cuda
 def test_single_rank_nccl_envelope_is_bit_equal(tmp_path):
     """A case-sharded dense envelope in a single-rank NCCL group on the
@@ -370,11 +509,12 @@ def _as(fac, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("solver,level", [("thomas", 0), ("nested", 1),
                                           ("nested", 2)])
-@pytest.mark.parametrize("B", [1, 37])
+@pytest.mark.parametrize("B", [1, 5, 18, 37])
 def test_chain_sweep_matches_plain_f64(solver, level, B):
     """The sweep kernel in f32 and f64 against the plain sweep in f64 on
-    the same (f32-rounded) factors and loads; B * Mc is not a multiple of
-    the kernel's block."""
+    the same (f32-rounded) factors and loads: the narrow form at B = 1, 5,
+    18 (one launch counted narrow), the wide form at 37; B * Mc is not a
+    multiple of the kernel's block."""
     dev = _device()
     fac = _sweep_factor(dev, solver, level)
     n_int, Mc = fac.Cprime.shape[:2]
@@ -383,10 +523,12 @@ def test_chain_sweep_matches_plain_f64(solver, level, B):
     ref = chain_sweep_plain(_as(fac, torch.float64), g.double())
     for dtype, tol in ((torch.float32, KERNEL_TOL),
                       (torch.float64, SWEEP_TOL_F64)):
-        before = hk.chain_sweep_cuda.launches
+        before = hk.launch_counts()
         out = hk.chain_sweep_cuda(_as(fac, dtype), g.to(dtype))
         torch.cuda.synchronize()
-        assert hk.chain_sweep_cuda.launches == before + 1
+        n = hk.launch_counts()
+        assert n["sweep"] == before["sweep"] + 1
+        assert n["sweep_narrow"] == before["sweep_narrow"] + (B < 32)
         for a, b in zip(out, ref):
             assert a.dtype == dtype and a.shape == b.shape
             assert _rel(a, b) < tol, (dtype, _rel(a, b))
@@ -490,14 +632,44 @@ def test_default_kinematics_give_f64_model_f64_loads():
 
 @pytest.mark.cuda
 def test_chain_sweep_tiling_rule_matches_the_library():
-    """The wrapper-side tile rule (used by the CPU emulation) is the
-    launch's own."""
+    """The wrapper-side tile and form rules (used by the CPU emulations)
+    are the launch's own: the wide form's chains a block by depth, and
+    the narrow form's right-hand sides a warp by batch and depth (0: the
+    wide form)."""
     _device()
     lib = hk.build("chain_sweep")
-    for n_int in (1, 3, 7, 31, 100, 200):
+    for n_int in (1, 3, 7, 31, 100, 108, 200, 326, 400, 2000):
         for size in (4, 8):
             assert lib.chain_sweep_chains_per_block(n_int, size) == \
                 hk.sweep_chains_per_block(n_int, size), (n_int, size)
+            for B in (1, 2, 5, 6, 18, 31, 32, 37, 360):
+                assert lib.chain_sweep_narrow_rhs(B, n_int, size) == \
+                    hk.sweep_narrow_rhs(B, n_int, size), (B, n_int, size)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver,level", [("thomas", 0), ("nested", 1)])
+def test_chain_sweep_narrow_is_bit_equal_to_wide(solver, level):
+    """Column b of a narrow launch is column b of a wide launch on the same
+    factors, bit for bit: a batch of B = 40 (wide) against its first 1 and
+    18 columns (narrow), in f32 and f64, at the thomas depth 31 and the
+    nested level 1."""
+    dev = _device()
+    fac = _sweep_factor(dev, solver, level)
+    n_int, Mc = fac.Cprime.shape[:2]
+    g = torch.tensor(np.random.default_rng(40).normal(
+        size=(40, n_int, Mc, 6)) * 1e5, dtype=torch.float32, device=dev)
+    for dtype in (torch.float32, torch.float64):
+        fd, gd = _as(fac, dtype), g.to(dtype)
+        assert hk.sweep_narrow_rhs(40, n_int, gd.element_size()) == 0
+        wide = hk.chain_sweep_cuda(fd, gd)
+        for B in (1, 18):
+            before = hk.chain_sweep_cuda.narrow_launches
+            narrow = hk.chain_sweep_cuda(fd, gd[:B].contiguous())
+            torch.cuda.synchronize()
+            assert hk.chain_sweep_cuda.narrow_launches == before + 1
+            for a, b in zip(narrow, wide):
+                assert torch.equal(a, b[:B]), (dtype, B)
 
 
 @pytest.mark.cuda

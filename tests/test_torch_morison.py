@@ -101,12 +101,14 @@ def test_plain_f32_matches_pallas_kernel(model_name, N, n_members,
                                    err_msg=name)
 
 
-def _emulate_kernel(k, wheeler):
+def _emulate_kernel(k, wheeler, members=False):
     """The arithmetic of csrc/morison_phase_batch.cu on its operands, in
     PyTorch in the operands' dtype (the kernel instance): the prologue's
     member -> point expansion (geometry, current, cd / ci), the spatial
     records of every (member, point, mode), the phase factors, the same
-    mode-sum formulas and F1 = sum f - F2."""
+    mode-sum formulas and F1 = sum f - F2.  Returns F1, F2 [S, M, 3] and
+    the drag and inertia totals [S, 3], or with ``members`` each member's
+    drag and inertia sums [S, M, 3] (what a thread adds to its totals)."""
     coords, conn, D = k["coords"], k["conn"], k["D"]
 
     def val(v):
@@ -188,6 +190,8 @@ def _emulate_kernel(k, wheeler):
                                       Az - Ae * ez], -1)
     F2 = (s[:, None] * (fd + fi)).sum(2)
     F1 = fd.sum(2) + fi.sum(2) - F2
+    if members:
+        return F1, F2, fd.sum(2), fi.sum(2)
     return F1, F2, fd.sum((1, 2)), fi.sum((1, 2))
 
 
@@ -325,6 +329,18 @@ def test_cuda_wrapper_refuses_cpu_tensors_and_bad_sizes():
 
 
 # ---- the case-batched float64 instance ----
+
+def _case_operand(v, i: int, per_member: bool = False):
+    """Case ``i``'s value of a batch operand (``batch_kernel_operands``'
+    shapes) as ``kernel_operands`` takes it."""
+    if isinstance(v, np.ndarray):
+        v = torch.as_tensor(v)
+    if not isinstance(v, torch.Tensor) or v.ndim == 0:
+        return v
+    if per_member:
+        return v if v.ndim == 1 else (v[i, 0] if v.shape[1] == 1 else v[i])
+    return v[i]
+
 
 def _batch_value(v, C, M, per_member):
     """A batch operand (number, 0-d, [C], [M], [C, M] or [C, 1]) as the
@@ -572,7 +588,7 @@ def test_batch64_operand_packing():
             elif v is None:
                 assert got is None, name
             else:
-                case_i = hk._case_operand(got, i, name in member)
+                case_i = _case_operand(got, i, name in member)
                 assert torch.equal(torch.as_tensor(case_i),
                                    torch.as_tensor(v)), name
     bad = dict(D=D[:5], Cd=Cd[:, :5], wave_dir_deg=wd[:2])
@@ -659,3 +675,118 @@ def test_batch_wrapper_on_cpu_tensors():
     ref = morison_end_forces_batch(*args, n_gauss=17)
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
     assert hk.morison_phase_batch_cuda.instance_launches == before
+
+
+# ---- the case-batched float32 instance ----
+
+def _batch32_args(C, S, M, N):
+    """A C-case batch on the first M members of the default jacket (f64):
+    Stokes-5 waves of C heights with N modes, per-case headings, current
+    headings, rho and phase times, per-(case, member) Cd, per-case Cm."""
+    m = pt.default_3leg_jacket(device="cpu")
+    waves = pt.make_wave_batch(np.linspace(5.0, 13.0, C), 9.4, 50.0,
+                               U_c=1.2, model="stokes", N=5, n_modes=N,
+                               dtype=torch.float64, device="cpu")
+    rng = np.random.default_rng(C * 100 + S)
+    ts = (torch.arange(S, dtype=torch.float64)[None, :] * waves.T[:, None]
+          / S + torch.tensor(rng.uniform(0.0, 1.0, (C, 1))))
+
+    def f64(v):
+        return torch.tensor(v, dtype=torch.float64)
+    return (waves, m.coords, m.conn[:M],
+            (m.sections.D_outer[m.sect_id] / 1000.0)[:M],
+            f64(rng.uniform(0.0, 360.0, C)), f64(rng.uniform(0.0, 360.0, C)),
+            f64(rng.uniform(0.6, 1.1, (C, M))),
+            f64(rng.uniform(1.6, 2.1, (C, 1))),
+            f64(rng.uniform(1020.0, 1030.0, C)), ts)
+
+
+def _emulate_batch32(k, wheeler):
+    """The case-packed tile of csrc/morison_phase_batch.cu's case-batched
+    float32 instance in PyTorch (in the operands' dtype): blocks (case
+    group or phase tile, grid row) of 192 threads, thread t owning slots
+    2 t and 2 t + 1 (case 2 t // S2 of the group at phases 2 t % S2 and
+    + 1, or phases 384 tile + 2 t and + 1 of a long case), the record
+    region of each case of the group at k RST + q NMAX + j (each thread's
+    reads checked to be its own case's records), a thread's arithmetic
+    (``_emulate_kernel`` of its case), F1 / F2 at the kernel's offsets, the
+    per-thread totals over the row's members in order into partials [C,
+    rows, S, 6], and the rows added in order.  Every output starts as
+    NaN, so an element no thread writes shows."""
+    C, M = k["C"], k["conn"].shape[0]
+    S, N, Q = k["ts"].shape[1], k["E"].shape[1], len(k["s"])
+    tl = hk.f32_batch_tiles(S, M, Q, N)
+    S2, K, n_pt, rows, RST = (tl[n] for n in ("S2", "K", "n_pt", "rows",
+                                              "RST"))
+    QN = Q * ((N + 3) // 4 * 4)
+    member = ("D", "Cd", "Cm")
+    cases = []
+    for i in range(C):
+        ki = {n: v if n in ("coords", "conn", "s", "w", "alpha")
+              else _case_operand(v, i, n in member) for n, v in k.items()
+              if n != "C"}
+        cases.append(_emulate_kernel(ki, wheeler, members=True))
+    F1c, F2c, FDc, FIc = (torch.stack(x) for x in zip(*cases))   # [C,S,M,3]
+    nan, dtype = float("nan"), k["coords"].dtype
+    F1 = torch.full((C * S * M * 3,), nan, dtype=dtype)
+    F2 = torch.full((C * S * M * 3,), nan, dtype=dtype)
+    part = torch.full((C * rows * S * 6,), nan, dtype=dtype)
+    slot = 2 * torch.arange(hk.F32B_SLOTS // 2)
+    three, six, qj = torch.arange(3), torch.arange(6), torch.arange(QN)
+    for blk in range(-(-C // K) * n_pt):
+        grp, tile = divmod(blk, n_pt)
+        kk = slot // S2 if n_pt == 1 else torch.zeros_like(slot)
+        s0 = slot - kk * S2 if n_pt == 1 else tile * hk.F32B_SLOTS + slot
+        kc = torch.clamp(kk, max=K - 1)
+        c_me = torch.clamp(grp * K + kc, max=C - 1)
+        live = [(kk < K) & (grp * K + kk < C) & (s0 + h < S)
+                for h in range(2)]
+        tag = torch.full((K * RST,), -1)
+        for kq in range(K):
+            if grp * K + kq < C:
+                tag[kq * RST + qj] = (grp * K + kq) * QN + qj
+        reads = tag[kc[:, None] * RST + qj[None, :]]
+        lv = live[0] | live[1]
+        assert torch.equal(reads[lv], c_me[lv, None] * QN + qj[None, :])
+        for row in range(rows):
+            tot = torch.zeros(2, len(slot), 6, dtype=dtype)
+            for m in range(row, M, rows):
+                for h in range(2):
+                    L, c, s = live[h], c_me[live[h]], s0[live[h]] + h
+                    o = (((c * S + s) * M + m) * 3)[:, None] + three
+                    F1[o], F2[o] = F1c[c, s, m], F2c[c, s, m]
+                    tot[h, L] += torch.cat([FDc[c, s, m], FIc[c, s, m]], 1)
+            for h in range(2):
+                L, c, s = live[h], c_me[live[h]], s0[live[h]] + h
+                part[(((c * rows + row) * S + s) * 6)[:, None] + six] = \
+                    tot[h, L]
+    part = part.reshape(C, rows, S, 6)
+    tot = part[:, 0]
+    for g in range(1, rows):
+        tot = tot + part[:, g]
+    return (F1.reshape(C, S, M, 3), F2.reshape(C, S, M, 3), tot[..., :3],
+            tot[..., 3:])
+
+
+@pytest.mark.parametrize("C,S,M,N,stretching,K,n_pt", [
+    (7, 75, 9, 8, "wheeler", 5, 1),   # groups of 5 and 2 cases, 3 rows
+    (3, 13, 6, 5, "none", 27, 1),     # odd S: S2 = 14; one ragged group
+    (2, 401, 5, 5, "none", 1, 2),     # a case past one tile: 2 phase tiles
+])
+def test_batch32_tile_emulation(C, S, M, N, stretching, K, n_pt):
+    """The case-batched float32 instance's tile (which (case, phase) a
+    thread owns, the per-case record offsets, the F1 / F2 and partial
+    totals offsets, the rows' fixed-order sum), emulated on the CPU at
+    ragged C and S, equals the batched plain version at 1e-12 and writes
+    every output element."""
+    args = _batch32_args(C, S, M, N)
+    k = hk.batch_kernel_operands(*args, n_gauss=15, current_alpha=1.0 / 7.0)
+    tl = hk.f32_batch_tiles(S, M, 15, N)
+    assert (tl["K"], tl["n_pt"], tl["rows"]) == (K, n_pt, -(-M // 4))
+    assert tl["bytes"] <= hk.F32B_SMEM
+    out = _emulate_batch32(k, stretching == "wheeler")
+    ref = morison_end_forces_batch(*args, current_alpha=1.0 / 7.0,
+                                   stretching=stretching)
+    for a, b in zip(out, ref):
+        assert a.shape == b.shape and not torch.isnan(a).any()
+        assert rel_err(a, b) < 1e-12
