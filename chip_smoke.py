@@ -586,8 +586,11 @@ def device_events(fn, reps: int = 1, host: bool = True):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    # the device-side mirrors of record_function spans (the port's fem.*
+    # layer spans) are not device operations
     return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def kernel_us(events, name):

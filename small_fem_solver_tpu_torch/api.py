@@ -92,6 +92,7 @@ from .ops.waves import FourierWave
 from .ops.wind import (wind_member_ends, wind_member_forces,
                        wind_topside_force)
 from .parallel import comm
+from .utils import spans
 from .utils.persist import _case_slice
 
 @dataclasses.dataclass(frozen=True)
@@ -608,6 +609,7 @@ def _chain_to_global(U_In: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
                      dim=1)
 
 
+@spans.spanned(spans.LOADS)
 def _scan_loads(prep: "CondensedPrepared", wave: FourierWave, case, n_steps,
                 n_gauss, kinematics, stretching, current_alpha,
                 accel="analytic"):
@@ -654,6 +656,7 @@ def _scan_loads(prep: "CondensedPrepared", wave: FourierWave, case, n_steps,
             total.to(ldtype))
 
 
+@spans.spanned(spans.CONDENSE)
 def _condensed_solution(prep: "CondensedPrepared", F_I_nodes, g,
                         refine_steps: int):
     """Condensed multi-RHS solve plus ``refine_steps`` refinement rounds.
@@ -698,6 +701,7 @@ def _von_mises(prep: "CondensedPrepared", U_In, v) -> torch.Tensor:
                          refined.sect_id, *(F1[..., c] for c in range(6)))
 
 
+@spans.spanned(spans.PREPARE)
 def prepare_condensed(coarse: JacketModel, refined: JacketModel, n_seg: int,
                       E=210000.0, nu=0.3, chain_solver: str = "auto",
                       solve_dtype: torch.dtype = torch.float64,
@@ -755,14 +759,15 @@ def _prepared_results(prep: CondensedPrepared, case: LoadCase, ts,
     U_In, v, F_cond_flat, U_I = _condensed_solution(prep, F_I_nodes, g,
                                                     refine_steps)
     S = ts.shape[0]
-    vm = _von_mises(prep, U_In, v)
-    util = vm / case.fy
-    R = U_I @ prep.K_I.T - F_cond_flat                     # [S, 6 nc]
-    return CondensedScanResults(
-        ts=ts, U=_chain_to_global(U_In, v), von_mises=vm, utilization=util,
-        reactions=R[:, prep.fixed].reshape(S, -1, 6),
-        total_morison=total_morison,
-        critical_index=torch.argmax(torch.amax(util, dim=1)))
+    with spans.span(spans.RECOVER):
+        vm = _von_mises(prep, U_In, v)
+        util = vm / case.fy
+        R = U_I @ prep.K_I.T - F_cond_flat                 # [S, 6 nc]
+        return CondensedScanResults(
+            ts=ts, U=_chain_to_global(U_In, v), von_mises=vm,
+            utilization=util, reactions=R[:, prep.fixed].reshape(S, -1, 6),
+            total_morison=total_morison,
+            critical_index=torch.argmax(torch.amax(util, dim=1)))
 
 
 def _check_material(prep: CondensedPrepared, case: LoadCase) -> None:
@@ -779,6 +784,7 @@ def _check_material(prep: CondensedPrepared, case: LoadCase) -> None:
                 "prepare_condensed for a new material")
 
 
+@spans.spanned(spans.ENTRY)
 def phase_scan_prepared(prep: CondensedPrepared, wave, case: LoadCase,
                         n_steps: int = 360, n_gauss: int = 15,
                         accel: str = "analytic", kinematics: str = "fused",
@@ -1363,6 +1369,7 @@ def _case_batch(waves: FourierWave, cases: LoadCase, dtype, device):
         if f.name not in LoadCase._STATIC_FIELDS})
 
 
+@spans.spanned(spans.PREPARE)
 def _dense_batch(model: JacketModel, waves: FourierWave, cases: LoadCase,
                  support_stiffness):
     """The set-up of the dense design tier (:func:`design_envelope`,
@@ -1399,6 +1406,7 @@ def _tensor_fields(obj) -> list:
             if torch.is_tensor(getattr(obj, f.name))]
 
 
+@spans.spanned(spans.ENTRY)
 def design_envelope(model: JacketModel, waves: FourierWave, cases: LoadCase,
                     n_steps: int = 36, n_gauss: int = 15, mesh=None,
                     current_alpha=None, support_stiffness=None,
@@ -1440,38 +1448,42 @@ def design_envelope(model: JacketModel, waves: FourierWave, cases: LoadCase,
                                                                   block)
             C = sizes[0]
         fields = _tensor_fields(cases)
-        ts = (torch.arange(n_steps, dtype=dtype, device=dev)
-              * waves.T.to(dtype)[:, None] / n_steps)          # [C, S]
-        conn_h = hydro_members(model, 0.0, 1.0, 1.0)[0]
-        D_h, Cd_h, Cm_h = torch.func.vmap(
-            lambda mg, cd, cm: hydro_members(model, mg, cd, cm)[1:])(
-                cases.marine_growth_mm, cases.Cd, cases.Cm)
-        wk, = cast_operands(dtype, dev, waves)
-        # Cd / Cm per case [C, 1] or per case and member [C, M']
-        # past the kernel's limits on the card: the plain version in the
-        # model's dtype (kernel_route counts the route)
-        batch_fn = (morison_end_forces_batch_cuda
-                    if kernel_route(dev, n_gauss, waves.n_modes)
-                    else morison_end_forces_batch)
-        F1, F2, drag, inertia = batch_fn(
-            wk, model.coords, conn_h, D_h, cases.wave_dir_deg,
-            cases.current_dir_deg, Cd_h.reshape(C, -1), Cm_h.reshape(C, -1),
-            cases.rho_water, ts, n_gauss=n_gauss,
-            current_alpha=current_alpha, stretching=stretching)
-        F12 = torch.cat([F1, F2], dim=2)                   # [C, S, 2M', 3]
-        tot = drag + inertia
-        table = node_gather_table(torch.cat([conn_h[:, 0], conn_h[:, 1]]),
-                                  model.n_nodes)
-        nodal = node_sum_ordered(F12, table)               # [C, S, n, 3]
-        F = torch.func.vmap(lambda c, nodal_c: assemble_loads(
-            model, dataclasses.replace(cases, **dict(zip(fields, c))),
-            nodal_c, L_m))(tuple(getattr(cases, n) for n in fields), nodal)
-        U = solve_mod.solve_factored(fac, F.reshape(C * n_steps, -1))
-        F1 = matvec12(-(K_local @ T)[:, :6, :],
-                      U[:, element_dof_indices(model.conn)])
-        vm = von_mises_8pt(model.sections, model.sect_id,
-                           *(F1[..., c] for c in range(6)))
-        util = vm.reshape(C, n_steps, -1) / cases.fy[:, None, None]
+        with spans.span(spans.LOADS):
+            ts = (torch.arange(n_steps, dtype=dtype, device=dev)
+                  * waves.T.to(dtype)[:, None] / n_steps)      # [C, S]
+            conn_h = hydro_members(model, 0.0, 1.0, 1.0)[0]
+            D_h, Cd_h, Cm_h = torch.func.vmap(
+                lambda mg, cd, cm: hydro_members(model, mg, cd, cm)[1:])(
+                    cases.marine_growth_mm, cases.Cd, cases.Cm)
+            wk, = cast_operands(dtype, dev, waves)
+            # Cd / Cm per case [C, 1] or per case and member [C, M']
+            # past the kernel's limits on the card: the plain version in
+            # the model's dtype (kernel_route counts the route)
+            batch_fn = (morison_end_forces_batch_cuda
+                        if kernel_route(dev, n_gauss, waves.n_modes)
+                        else morison_end_forces_batch)
+            F1, F2, drag, inertia = batch_fn(
+                wk, model.coords, conn_h, D_h, cases.wave_dir_deg,
+                cases.current_dir_deg, Cd_h.reshape(C, -1),
+                Cm_h.reshape(C, -1), cases.rho_water, ts, n_gauss=n_gauss,
+                current_alpha=current_alpha, stretching=stretching)
+            F12 = torch.cat([F1, F2], dim=2)               # [C, S, 2M', 3]
+            tot = drag + inertia
+            table = node_gather_table(
+                torch.cat([conn_h[:, 0], conn_h[:, 1]]), model.n_nodes)
+            nodal = node_sum_ordered(F12, table)           # [C, S, n, 3]
+            F = torch.func.vmap(lambda c, nodal_c: assemble_loads(
+                model, dataclasses.replace(cases, **dict(zip(fields, c))),
+                nodal_c, L_m))(tuple(getattr(cases, n) for n in fields),
+                               nodal)
+        with spans.span(spans.DENSE_SOLVE):
+            U = solve_mod.solve_factored(fac, F.reshape(C * n_steps, -1))
+        with spans.span(spans.RECOVER):
+            F1 = matvec12(-(K_local @ T)[:, :6, :],
+                          U[:, element_dof_indices(model.conn)])
+            vm = von_mises_8pt(model.sections, model.sect_id,
+                               *(F1[..., c] for c in range(6)))
+            util = vm.reshape(C, n_steps, -1) / cases.fy[:, None, None]
     if mesh is not None:
         ts, util, tot = comm.gather_tree((ts, util, tot), mesh, sizes)
     return _envelope_from_reductions(
@@ -1534,6 +1546,7 @@ def design_sweep(model: JacketModel, waves: FourierWave, cases: LoadCase,
     return res if mesh is None else comm.gather_tree(res, mesh, sizes)
 
 
+@spans.spanned(spans.RECOVER)
 def _envelope_from_reductions(ts, per_phase, member_envelope, tot):
     max_per_case = torch.amax(per_phase, dim=-1)
     return EnvelopeResults(
@@ -1560,12 +1573,14 @@ def _condensed_envelope_chunk(prep: CondensedPrepared, waves: FourierWave,
         for i in range(lo, hi)))
     U_In, v, _, _ = _condensed_solution(prep, torch.cat(F_I_nodes),
                                         torch.cat(g), refine_steps=1)
-    vm = _von_mises(prep, U_In, v).reshape(hi - lo, n_steps, -1)
-    util = vm / cases.fy[lo:hi, None, None]
-    return (torch.stack(ts), torch.amax(util, dim=2), torch.amax(util, dim=1),
-            torch.stack(tot).to(prep.K_I.dtype))
+    with spans.span(spans.RECOVER):
+        vm = _von_mises(prep, U_In, v).reshape(hi - lo, n_steps, -1)
+        util = vm / cases.fy[lo:hi, None, None]
+        return (torch.stack(ts), torch.amax(util, dim=2),
+                torch.amax(util, dim=1), torch.stack(tot).to(prep.K_I.dtype))
 
 
+@spans.spanned(spans.ENTRY)
 def design_envelope_condensed(coarse: JacketModel, refined: JacketModel,
                               n_seg: int, waves: FourierWave,
                               cases: LoadCase, n_steps: int = 36,

@@ -23,6 +23,7 @@ from ..api import AnalysisResults, LoadCase, design_sweep
 from ..ops.fenton import fenton_wave_batch
 from ..ops.stokes import stokes_wave
 from ..ops.waves import FourierWave, airy_wave, stack_waves
+from ..utils import spans
 
 __all__ = ["critical_case", "design_sweep", "make_case_batch",
            "make_wave_batch", "stack_waves"]
@@ -56,6 +57,7 @@ def make_wave_batch(H, T, d, U_c=0.0, model: str = "stokes", N: int = 5,
     raise ValueError(f"unknown wave model {model!r}")
 
 
+@spans.spanned(spans.ENTRY)
 def make_case_batch(base: LoadCase, **overrides) -> LoadCase:
     """Broadcast a LoadCase to a batch, overriding per-case fields.
 

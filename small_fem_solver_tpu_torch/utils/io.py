@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..models.model import JacketModel, add_appurtenances, build_model
+from . import spans
 
 SCHEMA_VERSION = 1
 
@@ -30,6 +31,7 @@ CSV_COLUMNS = ["member", "type", "node1", "node2", "length_m",
 _RELEASES = ("none", "pinned1", "pinned2", "pinned")
 
 
+@spans.spanned(spans.HOST_COPY)
 def _np(x) -> np.ndarray:
     """A tensor (any device) or array as a host numpy array."""
     return (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
