@@ -52,7 +52,15 @@ chain-sweep kernel, and checks them:
    Wheeler, against the plain version in f64 on the same f32-rounded
    inputs (1e-5), bit-repeatable, one case, a mid-batch block and the
    last case launched alone bit-equal to the whole batch's; its device
-   time against its bound;
+   time against its bound; then the pointwise Morison kernel
+   (``csrc/morison_pointwise.cu``, no tensor-core instruction) at the
+   slam scan's shapes (360 phases, 1,632 members, Fenton N 18, exact
+   acceleration, slamming), both instances against the plain version in
+   f64 (f32 1e-5 off the pairs with a point within 1e-4 m of a jump, f64
+   1e-12), one launch a call, bit-repeatable, each instance's device time
+   against its bound and the plain version's time, and the slam scan
+   (``phase_scan_prepared``, f32, 360 phases, Cs 5.15) with its launch
+   counts read from a reset: one pointwise launch, no K1 launch;
 4. sweep phase: ``chain_sweep_cuda`` in f32 and f64 against
    ``chain_sweep_plain`` in f64 on the flagship chain factors (nested
    level 1 and 2, thomas), on random loads for 360 and 37 right-hand sides
@@ -85,7 +93,8 @@ chain-sweep kernel, and checks them:
 8. dense-at-size phase (9,612 DOF, f64; K is 739 MB): ``analyze``
    Cholesky against LU and against ``analyze_condensed`` (cuSOLVER against
    the chain-sweep kernel, 1e-9); ``analyze_phase_batch`` against
-   ``phase_scan_condensed(kinematics="pointwise")`` at 36 phases (1e-9);
+   ``phase_scan_condensed(kinematics="pointwise")`` at 36 phases (1e-9;
+   the scan's loads through the pointwise kernel's f64 instance);
    the pointwise 360-phase f64 scan against the separable f64 scan of
    phase 5 (2e-6 of max |U| and of the Morison totals: the 1 cm clamp
    band), with the sweep's launch count read around exactly that scan;
@@ -407,6 +416,9 @@ F32_BATCH_KERNELS = ("morison_f32_batch_kernel",
                      "morison_f32_batch_totals_kernel")
 EPILOGUE_FLOP = 60    # K1 per (phase, point): normal projection, drag,
                       # inertia, lever-rule sums
+POINTWISE_MODE_FLOP = 18    # pointwise kernel per (phase, point, mode)
+POINTWISE_POINT_FLOP = 100  # ... per (phase, point): sincos, forces, slam,
+                            # lever-rule sums
 CASE = dict(wave_dir_deg=38.0, current_dir_deg=38.0, F_axial_kN=25100.0,
             F_shear_kN=2900.0, custom_sw_tonnes=1100.0, sw_mode="custom")
 # options phase: two conductors between leg nodes (tests/test_appurtenances.py
@@ -829,7 +841,8 @@ def dense_phase(pt, hk, dev, coarse64, refined64, wave64, sep_scan):
     against ``analyze_condensed``), ``analyze_phase_batch`` against the
     pointwise condensed scan, and the 360-phase pointwise scan against the
     separable scan ``sep_scan``.  Returns times (ms), peaks (MiB) and the
-    pointwise scan's sweep launches."""
+    pointwise scan's sweep and pointwise-kernel launches, read from
+    counters reset to 0 before it."""
     import torch
     case_t = pt.LoadCase(**CASE, t_analysis=0.34)
     out = {}
@@ -862,12 +875,16 @@ def dense_phase(pt, hk, dev, coarse64, refined64, wave64, sep_scan):
         return pt.phase_scan_condensed(
             coarse64, refined64, N_SEG, wave64, pt.LoadCase(**CASE),
             n_steps=N_STEPS, kinematics="pointwise", accel="analytic")
-    hk.chain_sweep_cuda.launches = 0
+    hk.launch_counts(reset=True)
     pw = pointwise()
     torch.cuda.synchronize()
-    out["pointwise_launches"] = hk.chain_sweep_cuda.launches
+    n = hk.launch_counts()
+    out["pointwise_launches"] = n["sweep"]
+    out["pointwise_kernel_launches"] = n["pointwise"]
     check(out["pointwise_launches"] >= 1, f"pointwise scan launched the "
           f"chain sweep ({out['pointwise_launches']}x)")
+    check(n["pointwise"] == 1 and n["k1"] == 0, f"pointwise f64 scan: "
+          f"{n['pointwise']} pointwise launch, {n['k1']} K1 launches")
     errs = {f: rel(getattr(pw, f), getattr(sep_scan, f))
             for f in ("U", "total_morison")}
     check(max(errs.values()) <= POINTWISE_TOL, f"pointwise vs separable f64 "
@@ -3219,6 +3236,146 @@ def k1_f32_batch_phase(pt, hk, dev, dense_b, n_nodes: int) -> dict:
     return out
 
 
+def pointwise_bound(itemsize: int, S: int, M: int, Q: int, N: int,
+                    n_nodes: int):
+    """(bound us, by, bytes, FLOPs) of one launch of the pointwise Morison
+    kernel (the slam scan's options: exact acceleration, no stretching,
+    slamming): its outputs (end forces, totals) written once and its
+    inputs (phases, wave modes, nodes, members) read once; per (phase,
+    point) ``POINTWISE_MODE_FLOP`` a mode (the harmonics by angle
+    addition, the surface, its rise, u, w, du, dw) and
+    ``POINTWISE_POINT_FLOP`` (its sincos, the forces, the slam term, the
+    lever-rule sums) at the FP32 (FP64) rate of the instance."""
+    nbytes = (itemsize * (2 * S * M * 3 + S * 6 + S + 2 * N + 4
+                          + n_nodes * 3 + M) + 8 * 2 * M)
+    flops = S * M * Q * (POINTWISE_MODE_FLOP * N + POINTWISE_POINT_FLOP)
+    return (*bound_us(nbytes, flops, FP32_FLOP_PER_S if itemsize == 4
+                      else FP64_FLOP_PER_S), nbytes, flops)
+
+
+def pointwise_phase(pt, hk, dev, prep32) -> dict:
+    """The pointwise Morison kernel at the slam scan's shapes (S 360, the
+    9,612-DOF mesh's 1,632 members of the f32 handle ``prep32``, Q 15,
+    Fenton N 18; exact acceleration, slamming Cs 5.15; scalars as 0-d
+    tensors): its build (no tensor-core instruction), both instances
+    against the plain version in f64 on the same f32-rounded operands (f32
+    at ``KERNEL_TOL`` of the largest value off the pairs with a point
+    within ``SURFACE_BAND`` of a jump, f64 at ``F64_LOADS_TOL``), one
+    launch a call, bit-repeatable; each instance's device time (kernel +
+    totals) beside its bound, the wrapper's time and the plain version's;
+    then the slam scan itself (``phase_scan_prepared``, pointwise, on
+    ``prep32``) with the launch counters reset to 0 before it: one
+    pointwise launch, no K1 launch, and its time."""
+    import re
+    import torch
+    from small_fem_solver_tpu_torch.ops.morison import (
+        morison_pointwise_end_forces)
+    f32, f64 = torch.float32, torch.float64
+    refined32 = prep32.refined
+    out = {"build": {}, "instances": {}}
+    for name, r in hk.build_report("morison_pointwise").items():
+        m = re.search(r"pointwise_loads_(kernel|totals_kernel)I([fd])"
+                      r"(?:Lb([01])ELb([01])E)?", name)
+        if m is None:
+            continue
+        lab = f"{m[1]} {'f32' if m[2] == 'f' else 'f64'}" + (
+            f" fd={m[3]} wheeler={m[4]}" if m[3] else "")
+        out["build"][lab] = {k: r.get(k) for k in (
+            "registers", "stack", "spill_stores", "spill_loads", "DMMA",
+            "HMMA")}
+        print(f"[build] pointwise {lab}: {out['build'][lab]}", flush=True)
+    check(len(out["build"]) == 10, f"pointwise library: 8 kernel instances "
+          f"and 2 totals passes ({len(out['build'])})")
+    check(all(v["DMMA"] == 0 and v["HMMA"] == 0
+              for v in out["build"].values()),
+          "no pointwise kernel issues a tensor-core instruction")
+    S, M, N = N_STEPS, refined32.n_members, 18
+    wave = pt.make_wave(17.038, 9.4, 50.0, U_c=1.7, model="fenton", N=N,
+                        dtype=f32, device=dev)
+    D = refined32.sections.D_outer[refined32.sect_id] / 1000.0
+    ts = torch.arange(S, dtype=f32, device=dev) * wave.T / S
+
+    def args(dtype):
+        nums = tuple(torch.tensor(v, dtype=dtype, device=dev)
+                     for v in (38.0, 38.0, 0.7, 2.0, 1025.0))
+        return (wave.to(dtype, dev), refined32.coords.to(dtype),
+                refined32.conn, D.to(dtype), *nums, ts.to(dtype))
+    kw = dict(n_gauss=N_GAUSS, accel="analytic", stretching="none",
+              slam_cs=5.15)
+    ref = morison_pointwise_end_forces(*args(f64), **kw)
+    far = ~hk.pointwise_band(wave, refined32.coords, refined32.conn, D,
+                             38.0, ts, slam=True)
+    names = ("F1", "F2", "total_drag", "total_inertia")
+    for dtype, tol in ((f32, KERNEL_TOL), (f64, F64_LOADS_TOL)):
+        a = args(dtype)
+        tag = f"{str(dtype)[6:]} S={S} M={M} Q={N_GAUSS} N={N}"
+
+        def call():
+            return hk.morison_pointwise_end_forces_cuda(*a, **kw)
+        hk.launch_counts(reset=True)
+        res, again = call(), call()
+        torch.cuda.synchronize()
+        n = hk.launch_counts()
+        errs = {}
+        for f, x, y in zip(names, res, ref):
+            if dtype == f32:
+                keep = far if x.dim() == 3 else far.all(dim=1)
+                x, y = x[keep], y[keep]
+            errs[f] = rel(x, y)
+        print(f"[pointwise] {tag}: max rel err " + " ".join(
+            f"{f}={e:.2e}" for f, e in errs.items())
+            + f" ({float(far.float().mean()):.1%} of the pairs off the "
+            f"jumps)", flush=True)
+        check(n["pointwise"] == 2 and n["k1"] == 0, f"pointwise kernel: "
+              f"{n['pointwise']} launches for 2 calls, no K1 launch ({tag})")
+        check(max(errs.values()) <= tol, f"pointwise kernel vs f64 plain "
+              f"({tag}): {max(errs.values()):.2e} <= {tol:g}")
+        check(all(torch.equal(x, y) for x, y in zip(res, again)),
+              f"pointwise kernel bit-repeatable ({tag})")
+        ev = device_events(call, 10)
+        us = {k: kernel_median_us(ev, k) for k in (
+            "pointwise_loads_kernel", "pointwise_loads_totals_kernel")}
+        bound = pointwise_bound(a[1].element_size(), S, M, N_GAUSS, N,
+                                refined32.n_nodes)
+        rec = {"device_us": us, "total_us": sum(us.values()),
+               "bound_us": bound[0], "bound_by": bound[1],
+               "gflop": bound[3] / 1e9, "mb": bound[2] / 1e6,
+               "ms": cuda_ms(call, n=10), "max_rel_err": max(errs.values()),
+               "plain_ms": cuda_ms(lambda: morison_pointwise_end_forces(
+                   *a, **kw), n=3, warmup=1)}
+        rec["share"] = bound[0] / rec["total_us"]
+        out["instances"][str(dtype)[6:]] = rec
+        print(f"[bound] {SMI}: pointwise {tag}: "
+              f"{us['pointwise_loads_kernel']:.1f} + "
+              f"{us['pointwise_loads_totals_kernel']:.1f} us on the device "
+              f"(kernel + totals); bound {bound[0]:.1f} us by {bound[1]} "
+              f"({bound[3] / 1e9:.2f} GFLOP, {bound[2] / 1e6:.1f} MB): "
+              f"{rec['share']:.1%} of the bound; wrapper {rec['ms']:.3f} ms, "
+              f"plain {str(dtype)[6:]} {rec['plain_ms']:.3f} ms "
+              f"(torch.profiler, CUDA events)", flush=True)
+
+    # the slam scan on the main path, its launches read from a reset
+    case = pt.LoadCase(**CASE, slam_cs=5.15)
+
+    def scan():
+        return pt.phase_scan_prepared(prep32, wave, case, S,
+                                      kinematics="pointwise")
+    scan()
+    hk.launch_counts(reset=True)
+    scan()
+    torch.cuda.synchronize()
+    n = hk.launch_counts()
+    out["scan_launches"] = {k: n[k] for k in ("pointwise", "k1", "sweep")}
+    check(n["pointwise"] == 1 and n["k1"] == 0, f"slam scan (f32, {S} "
+          f"phases, Cs 5.15): {n['pointwise']} pointwise launch, "
+          f"{n['k1']} K1 launches")
+    out["scan_ms"] = cuda_ms(scan, n=10)
+    print(f"[pointwise] {SMI}: slam scan {S} phases at {refined32.n_dof} "
+          f"DOF (f32): launches {out['scan_launches']}, "
+          f"{out['scan_ms']:.3f} ms a call (CUDA events)", flush=True)
+    return out
+
+
 def narrow_sweep_phase(pt, hk, dev, coarse64, refined64, large) -> dict:
     """The sweep kernel's narrow form on its paths' own operands: the
     99,882-DOF nested level 1 (B 1, 108 levels, 153 chains: the first
@@ -5308,6 +5465,11 @@ def main() -> int:
     kb32 = k1_f32_batch_phase(pt, hk, dev, k64["dense_b"], coarse64.n_nodes)
     print(f"[kernel f32 batch] phase {time.perf_counter() - t0:.2f} s wall",
           flush=True)
+    # the pointwise kernel at the slam scan's shapes
+    t0 = time.perf_counter()
+    pw = pointwise_phase(pt, hk, dev, prep)
+    print(f"[pointwise] phase {time.perf_counter() - t0:.2f} s wall",
+          flush=True)
 
     # ---- 5. scan phase: the flagship scan, with the launch counts ----
     hk.morison_phase_batch_cuda.launches = 0
@@ -6159,6 +6321,29 @@ def main() -> int:
                    for k, r in kb32["shapes"].items()},
         "dense_envelope_f32_model_ms": denv["ms_f32"],
         "build": kb32["build"]["instances"],
+    }, {
+        "name": "morison_pointwise",
+        "route": "cuda",
+        "source": "small_fem_solver_tpu_torch/csrc/morison_pointwise.cu",
+        "replaces": None,
+        "launches": pw["scan_launches"]["pointwise"],
+        "launches_by_path": {
+            "slam_scan": pw["scan_launches"]["pointwise"],
+            "pointwise_scan_f64": dense["pointwise_kernel_launches"]},
+        "scan_ms": pw["scan_ms"],
+        "max_rel_err": max(r["max_rel_err"]
+                           for r in pw["instances"].values()),
+        "ms": pw["instances"]["float32"]["ms"],
+        "plain_ms": pw["instances"]["float32"]["plain_ms"],
+        "device_us": pw["instances"]["float32"]["total_us"],
+        "bound_ms": pw["instances"]["float32"]["bound_us"] / 1e3,
+        "bound_by": pw["instances"]["float32"]["bound_by"],
+        "library_ms": None,
+        "instances": {k: {"device_us": r["total_us"],
+                          "bound_us": r["bound_us"], "share": r["share"],
+                          "ms": r["ms"], "plain_ms": r["plain_ms"]}
+                      for k, r in pw["instances"].items()},
+        "build": pw["build"],
     }, {
         "name": "chain_sweep_narrow",
         "route": "cuda",

@@ -41,8 +41,10 @@ runs the plain version on the card too, as the JAX package's default
 does, while ``'pallas'`` raises there, as the JAX kernel path does.
 ``'pointwise'`` evaluates the kinematics per phase with the reference's
 exact semantics (``accel``, the evaluation-height clamp, slamming), as
-:func:`analyze` does.  On CUDA tensors the condensed solves always run the
-chain-sweep kernel.
+:func:`analyze` does, as member end forces in the chain layout: with the
+pointwise CUDA kernel on CUDA tensors (any number of Gauss points and
+modes) and its plain version on the CPU.  On CUDA tensors the condensed
+solves always run the chain-sweep kernel.
 
 Load application: topside interface loads split equally over the top
 nodes (shear along the wave heading, axial as -Z, torsion and overturning
@@ -81,6 +83,7 @@ from .ops.fatigue import SECONDS_PER_YEAR
 from .ops.hopper_kernels import (cast_operands, kernel_route,
                                  morison_end_forces_batch_cuda,
                                  morison_end_forces_cuda,
+                                 morison_pointwise_end_forces_cuda,
                                  morison_sea_end_forces_cuda)
 from .ops.morison import (POINTWISE_CHUNK_ELEMS, MorisonLoads, hydro_members,
                           morison_end_forces, morison_end_forces_batch,
@@ -626,32 +629,30 @@ def _scan_loads(prep: "CondensedPrepared", wave: FourierWave, case, n_steps,
           * wave.T.to(ldtype) / n_steps)
     case_l = case.cast(ldtype, device)
     L_m = prep.L_m.to(ldtype)
-    if kinematics == "pointwise":
-        # the reference's pointwise kinematics: global nodal loads of every
-        # phase, read in the chain layout through strided views
-        mor = _pointwise_morison(refined, wave, case_l, ts, n_gauss, accel,
-                                 stretching, current_alpha)
-        F_I_nodes, g = _global_to_chain(
-            assemble_loads(refined, case_l, mor.nodal_forces, L_m), coarse,
-            prep.n_seg)
-        total = mor.total_morison
-    else:
+    if kinematics != "pointwise":
         _check_batch_kinematics(kinematics)
+        _check_no_slam(case_l, "the condensed phase scan")
+    conn_h, D_m, Cd_h, Cm_h = hydro_members(
+        refined, case_l.marine_growth_mm, case_l.Cd, case_l.Cm)
+    wk, xyz, D_k, *per_member, ts_k, alpha = cast_operands(
+        ldtype, device, wave, refined.coords, D_m, case_l.wave_dir_deg,
+        case_l.current_dir_deg, Cd_h, Cm_h, case_l.rho_water, ts,
+        current_alpha)
+    if kinematics == "pointwise":
+        # the reference's pointwise kinematics with the slam term, as
+        # member end forces (the pointwise kernel on the card)
+        F1, F2, drag, inertia = morison_pointwise_end_forces_cuda(
+            wk, xyz, conn_h, D_k, *per_member, ts_k, n_gauss, accel,
+            stretching, alpha, case_l.slam_cs)
+    else:
         fused = _fused_loads(kinematics, device, n_gauss, wave.n_modes)
         batch_fn = morison_end_forces_cuda if fused else morison_end_forces
-        _check_no_slam(case_l, "the condensed phase scan")
-        conn_h, D_m, Cd_h, Cm_h = hydro_members(
-            refined, case_l.marine_growth_mm, case_l.Cd, case_l.Cm)
-        wk, xyz, D_k, *per_member, ts_k, alpha = cast_operands(
-            ldtype, device, wave, refined.coords, D_m, case_l.wave_dir_deg,
-            case_l.current_dir_deg, Cd_h, Cm_h, case_l.rho_water, ts,
-            current_alpha)
         F1, F2, drag, inertia = batch_fn(
             wk, xyz, conn_h, D_k, *per_member, ts_k, n_gauss=n_gauss,
             current_alpha=alpha, stretching=stretching)
-        F_I_nodes, g = _chain_layout_loads(coarse, refined, case_l, F1, F2,
-                                           L_m, prep.n_seg)
-        total = drag + inertia
+    F_I_nodes, g = _chain_layout_loads(coarse, refined, case_l, F1, F2, L_m,
+                                       prep.n_seg)
+    total = drag + inertia
     return (ts, F_I_nodes.to(solve_dtype), g.to(solve_dtype),
             total.to(ldtype))
 

@@ -17,6 +17,14 @@
   same file's general-mode instance (float32 and float64) for the
   independent components of a random sea; its plain version is
   ``ops/spectrum.py::morison_sea_end_forces``.
+- ``morison_pointwise_end_forces_cuda`` launches the pointwise Morison
+  kernel in ``csrc/morison_pointwise.cu`` (float32 and float64): the
+  reference's pointwise kinematics (clamp, Wheeler stretching, the
+  forward-difference or exact acceleration) and the slam term for every
+  phase and Gauss point of a scan, summed to the member end forces.  It
+  replaces no TPU kernel (the JAX package evaluates this path in plain
+  jnp); its plain version is
+  ``ops/morison.py::morison_pointwise_end_forces``.
 - ``chain_sweep_cuda`` launches the chain-sweep kernel in
   ``csrc/chain_sweep.cu`` (forward RHS sweep + backward substitution), the
   port of the two Pallas TPU kernels of
@@ -47,6 +55,7 @@ launch counters.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -59,11 +68,12 @@ import numpy as np
 import torch
 
 from ..native import build_lock
-from .morison import (MorisonPhaseBatch, _mode_spatial_coeffs,
-                      gauss_legendre_01, morison_end_forces,
-                      morison_end_forces_batch, nodal_scatter)
+from .morison import (POINTWISE_CHUNK_ELEMS, MorisonPhaseBatch,
+                      _mode_spatial_coeffs, gauss_legendre_01,
+                      morison_end_forces, morison_end_forces_batch,
+                      morison_pointwise_end_forces, nodal_scatter)
 from .spectrum import SpectralSea, morison_sea_end_forces
-from .waves import FourierWave
+from .waves import FourierWave, surface_elevation
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -96,6 +106,13 @@ _SIGNATURES = {
         "morison_sea_scratch_f64": ([_PTR], _I64),
         "morison_sea_params_size_f32": ([], _I32),
         "morison_sea_params_size_f64": ([], _I32),
+    },
+    "morison_pointwise": {
+        "morison_pointwise_launch_f32": ([_PTR, _I32, _I32, _PTR], _I32),
+        "morison_pointwise_launch_f64": ([_PTR, _I32, _I32, _PTR], _I32),
+        "morison_pointwise_params_size_f32": ([], _I32),
+        "morison_pointwise_params_size_f64": ([], _I32),
+        "morison_pointwise_error_string": ([_I32], ctypes.c_char_p),
     },
     "chain_sweep": {
         "chain_sweep_launch_f32": ([_PTR] * 6 + [_I64] * 4 + [_I32] * 5
@@ -161,6 +178,12 @@ def build_all(names=KERNELS) -> dict:
             raise RuntimeError("MorisonParams / SeaParamsT / BatchParamsT in "
                                "morison_phase_batch.cu and their ctypes "
                                "mirrors differ in size")
+        if name == "morison_pointwise" and any(
+                getattr(lib, f"morison_pointwise_params_size_{n}")()
+                != ctypes.sizeof(params)
+                for n, params, _ in _POINTWISE_INSTANCES.values()):
+            raise RuntimeError("PointwiseParamsT in morison_pointwise.cu and "
+                               "its ctypes mirrors differ in size")
         _libs[name] = lib
     return {n: _libs[n] for n in names}
 
@@ -892,6 +915,42 @@ def surface_band(sea: SpectralSea, coords, conn, wave_dir, ts,
     return near.reshape(ts.shape[0], conn.shape[0], -1).any(dim=-1)
 
 
+def pointwise_band(wave: FourierWave, coords, conn, D_m, wave_dir_deg, ts,
+                   n_gauss: int = 15, band: float = SURFACE_BAND,
+                   slam: bool = False, fd: bool = False):
+    """[S, M] mask of the (phase, member) pairs with a Gauss point within
+    ``band`` m of a jump of the pointwise loads (f64, in chunks of
+    phases): the free surface (the wet / dry mask), also at t + dt_fd
+    with ``fd`` (the forward difference's mask), and with ``slam`` the
+    slam band's edges |z - eta| = D / 2.  A float32 evaluation may put a
+    point there on the other side of the jump."""
+    f64 = torch.float64
+    wave = wave.to(f64, coords.device)
+    coords, D = coords.to(f64), D_m.to(f64)[:, None]
+    th = torch.deg2rad(torch.as_tensor(90.0 - wave_dir_deg, dtype=f64,
+                                       device=coords.device))
+    s = torch.as_tensor(gauss_legendre_01(n_gauss)[0], device=coords.device)
+    c1 = coords[conn[:, 0]]
+    pos = c1[:, None, :] + s[None, :, None] * (coords[conn[:, 1]] - c1)[
+        :, None, :]
+    xw = pos[..., 0] * torch.cos(th) + pos[..., 1] * torch.sin(th)
+    z = pos[..., 2]
+    out = []
+    step = max(1, POINTWISE_CHUNK_ELEMS // (conn.shape[0] * n_gauss
+                                            * wave.n_modes))
+    for tc in ts.to(f64).split(step):
+        tb = tc[:, None, None]
+        gap = (z - surface_elevation(wave, xw, tb)).abs()
+        near = gap < band
+        if slam:
+            near |= (gap - D / 2.0).abs() < band
+        if fd:
+            near |= (z - surface_elevation(wave, xw, tb + wave.dt_fd)
+                     ).abs() < band
+        out.append(near.any(dim=-1))
+    return torch.cat(out)
+
+
 def sea_kernel_operands(sea: SpectralSea, coords, conn, D_m, wave_dir_deg,
                         current_dir_deg, Cd, Cm, rho_water, ts, n_gauss: int,
                         current_alpha) -> dict:
@@ -1009,6 +1068,133 @@ def morison_sea_batch_cuda(sea: SpectralSea, coords: torch.Tensor,
         nodal_forces=nodal_scatter(F1, F2, conn, coords.shape[0]),
         total_drag=total_drag, total_inertia=total_inertia,
         total_morison=total_drag + total_inertia, F1=F1, F2=F2)
+
+
+def _pointwise_params_struct(scalar, operand):
+    """ctypes mirror of ``PointwiseParamsT<T>`` in
+    ``csrc/morison_pointwise.cu`` (checked against the library's
+    ``sizeof`` at build)."""
+    class PointwiseParams(ctypes.Structure):
+        _fields_ = ([(n, ctypes.c_void_p) for n in ("coords", "conn", "D")]
+                    + [(n, operand) for n in ("Cd", "Cm", "wave_dir",
+                                              "current_dir", "rho", "alpha")]
+                    + [(n, ctypes.c_void_p) for n in ("E", "U", "k", "omega",
+                                                      "d", "Uc", "ts",
+                                                      "gauss")]
+                    + [("dt_fd", ctypes.c_double), ("slam_cs", scalar)]
+                    + [(n, ctypes.c_int) for n in ("M", "S", "N", "n_gauss",
+                                                   "power_law", "clamp_z")]
+                    + [(n, ctypes.c_void_p) for n in ("F1", "F2", "partials",
+                                                      "totals")])
+    return PointwiseParams
+
+
+# the pointwise kernel's instances by operand dtype: (name, params,
+# operand)
+_POINTWISE_INSTANCES = {
+    torch.float32: ("f32", _pointwise_params_struct(ctypes.c_float, _Operand),
+                    _Operand),
+    torch.float64: ("f64",
+                    _pointwise_params_struct(ctypes.c_double, _Operand64),
+                    _Operand64),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _gauss_rule(n_gauss: int, dtype: torch.dtype, device: torch.device):
+    """The n_gauss-point Gauss rule on [0, 1] as the pointwise kernel reads
+    it: [2, n_gauss] (abscissae, weights) in ``dtype`` on ``device``, made
+    once (one host-to-device copy) and then reused."""
+    rule = gauss_legendre_01(n_gauss, np.float32 if dtype == torch.float32
+                             else np.float64)
+    return torch.as_tensor(np.stack(rule), device=device)
+
+
+def morison_pointwise_cuda(k: dict, accel: str, stretching: str,
+                           dt_fd: float, clamp_z: bool, slam_cs: float):
+    """Launch the pointwise kernel's instance of the operands' dtype
+    (float32 or float64) on operands from :func:`kernel_operands` (all on
+    one CUDA device): the kernel over M blocks, then the fixed-order
+    totals over the members' partial sums [M, S, 6] (allocated here).
+    ``dt_fd``, ``clamp_z``: the wave's forward-difference step and
+    evaluation-height clamp.  Any number of Gauss points and modes runs;
+    a wave whose 6 N mode words overflow a block's shared memory (some
+    4,800 modes in float64 on the H100) fails at the launch and raises.
+    Returns (F1 [S, M, 3], F2 [S, M, 3], totals [S, 6] = drag xyz |
+    inertia xyz).  Raises for CPU tensors; launches count on
+    ``morison_pointwise_cuda.launches``."""
+    dev, dtype = k["coords"].device, k["coords"].dtype
+    if dev.type != "cuda":
+        raise RuntimeError("the pointwise Morison kernel needs CUDA tensors "
+                           f"(got {dev}); the plain version is "
+                           "ops.morison.morison_pointwise_end_forces")
+    if accel not in ("fd", "analytic"):
+        raise ValueError(f"unknown accel mode {accel!r}")
+    name, params, operand = _POINTWISE_INSTANCES[dtype]
+    lib = build("morison_pointwise")
+    M, S, N = k["conn"].shape[0], k["ts"].shape[0], k["E"].shape[0]
+    gauss = _gauss_rule(len(k["s"]), dtype, dev)
+    F1 = torch.empty(S, M, 3, dtype=dtype, device=dev)
+    F2 = torch.empty(S, M, 3, dtype=dtype, device=dev)
+    totals = torch.empty(S, 6, dtype=dtype, device=dev)
+    partials = torch.empty(M, S, 6, dtype=dtype, device=dev)
+    p = params(
+        *(k[n].data_ptr() for n in ("coords", "conn", "D")),
+        *(_operand(k[n], M, n, operand) for n in ("Cd", "Cm", "wave_dir",
+                                                   "current_dir", "rho")),
+        _operand(0.0 if k["alpha"] is None else k["alpha"], M, "alpha",
+                 operand),
+        *(k[n].data_ptr() for n in ("E", "U", "k", "omega", "d", "Uc",
+                                    "ts")),
+        gauss.data_ptr(), float(dt_fd), float(slam_cs),
+        M, S, N, len(k["s"]), int(k["alpha"] is not None), int(clamp_z),
+        F1.data_ptr(), F2.data_ptr(), partials.data_ptr(),
+        totals.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, f"morison_pointwise_launch_{name}")(
+            ctypes.byref(p), int(accel == "fd"), int(stretching == "wheeler"),
+            stream)
+    if err != 0:
+        raise RuntimeError("morison_pointwise kernel launch failed: "
+                           + lib.morison_pointwise_error_string(err).decode())
+    morison_pointwise_cuda.launches += 1
+    return F1, F2, totals
+
+
+morison_pointwise_cuda.launches = 0
+
+
+def morison_pointwise_end_forces_cuda(wave: FourierWave, coords: torch.Tensor,
+                                      conn: torch.Tensor, D_m: torch.Tensor,
+                                      wave_dir_deg, current_dir_deg, Cd, Cm,
+                                      rho_water, ts: torch.Tensor,
+                                      n_gauss: int = 15, accel: str = "fd",
+                                      stretching: str = "none",
+                                      current_alpha=None,
+                                      slam_cs: float = 0.0):
+    """Kernel :func:`..morison.morison_pointwise_end_forces` (the
+    reference's pointwise kinematics with the slam term): (F1, F2,
+    total_drag, total_inertia) in the operands' dtype, the same tuple as
+    :func:`morison_end_forces_cuda`.
+
+    CUDA tensors launch the pointwise kernel's instance of their dtype
+    (float32 or float64; mixed dtypes raise ``TypeError``, nothing is
+    cast), at any ``n_gauss`` and number of modes, or raise; CPU tensors
+    run the plain version."""
+    if stretching not in ("none", "wheeler"):
+        raise ValueError(f"unknown stretching mode {stretching!r}")
+    if coords.device.type != "cuda":
+        return morison_pointwise_end_forces(
+            wave, coords, conn, D_m, wave_dir_deg, current_dir_deg, Cd, Cm,
+            rho_water, ts, n_gauss, accel, stretching, current_alpha,
+            slam_cs)
+    k = kernel_operands(wave, coords, conn, D_m, wave_dir_deg,
+                        current_dir_deg, Cd, Cm, rho_water, ts, n_gauss,
+                        current_alpha)
+    F1, F2, totals = morison_pointwise_cuda(k, accel, stretching, wave.dt_fd,
+                                            wave.clamp_z, slam_cs)
+    return F1, F2, totals[:, :3], totals[:, 3:]
 
 
 SWEEP_LANES = 32            # right-hand sides per sweep block (one a lane)
@@ -1168,16 +1354,19 @@ chain_sweep_cuda.narrow_launches = 0
 def launch_counts(reset: bool = False) -> dict:
     """The kernel launch counters of this process: ``sweep`` (the chain
     sweep, both forms), ``sweep_narrow`` (its narrow form), ``k1`` (every
-    Morison kernel launch) and one per K1 instance; with ``reset`` every
-    counter is set to 0 after it is read (a rank of a process group reads
-    its own counters this way)."""
+    phase-batch Morison kernel launch) and one per K1 instance, and
+    ``pointwise`` (the pointwise Morison kernel's launches); with
+    ``reset`` every counter is set to 0 after it is read (a rank of a
+    process group reads its own counters this way)."""
     counts = {"sweep": chain_sweep_cuda.launches,
               "sweep_narrow": chain_sweep_cuda.narrow_launches,
               "k1": morison_phase_batch_cuda.launches,
-              **morison_phase_batch_cuda.instance_launches}
+              **morison_phase_batch_cuda.instance_launches,
+              "pointwise": morison_pointwise_cuda.launches}
     if reset:
         chain_sweep_cuda.launches = 0
         chain_sweep_cuda.narrow_launches = 0
+        morison_pointwise_cuda.launches = 0
         morison_phase_batch_cuda.launches = 0
         inst = morison_phase_batch_cuda.instance_launches
         inst.update({k: 0 for k in inst})

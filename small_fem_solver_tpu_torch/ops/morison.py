@@ -7,6 +7,9 @@
   difference or analytic acceleration, the evaluation-height clamp,
   Wheeler stretching) and carries the optional slamming term; a batch of
   times rides one evaluation, in chunks of phases;
+  :func:`morison_pointwise_end_forces` is the same evaluation stopped at
+  the member end forces (what the condensed scans read), the plain
+  version of the pointwise CUDA kernel in ``ops/hopper_kernels.py``;
 - :func:`morison_phase_batch` evaluates all phases through the separable
   harmonic contraction: with theta = k x - omega t every Fourier harmonic
   factorizes, cos(j theta) = cos(jkx) cos(jwt) + sin(jkx) sin(jwt), so the
@@ -135,6 +138,37 @@ def _morison_loads(wave, coords, conn, D_m, wave_dir_deg, current_dir_deg,
                    current_alpha, slam_cs, table) -> MorisonLoads:
     """:func:`morison_loads` of one time or one chunk of times, the nodal
     sums in ``table``'s order."""
+    f, F_drag, F_inertia, s, Lw, subf = _point_forces(
+        wave, coords, conn, D_m, wave_dir_deg, current_dir_deg, Cd, Cm,
+        rho_water, t, n_gauss, accel, stretching, current_alpha, slam_cs)
+    F1, F2 = _lever_split(f, s)
+    member_drag = torch.sum(F_drag, dim=-2)
+    member_inertia = torch.sum(F_inertia, dim=-2)
+    nodal = node_sum_ordered(torch.cat([F1, F2], dim=-2), table)
+    total_drag = torch.sum(member_drag, dim=-2)
+    total_inertia = torch.sum(member_inertia, dim=-2)
+    return MorisonLoads(
+        nodal_forces=nodal, total_drag=total_drag,
+        total_inertia=total_inertia,
+        total_morison=total_drag + total_inertia,
+        member_drag=member_drag, member_inertia=member_inertia,
+        member_submerged_length=torch.sum(Lw * subf, dim=-1))
+
+
+def _lever_split(f, s):
+    """Lever-rule end split of point forces [..., M, Q, 3]: (F1, F2)
+    [..., M, 3], F1 = sum (1 - s) f, F2 = sum s f."""
+    return (torch.sum((1.0 - s)[:, None] * f, dim=-2),
+            torch.sum(s[:, None] * f, dim=-2))
+
+
+def _point_forces(wave, coords, conn, D_m, wave_dir_deg, current_dir_deg, Cd,
+                  Cm, rho_water, t, n_gauss, accel, stretching, current_alpha,
+                  slam_cs):
+    """The pointwise Morison forces of one time or one chunk of times at
+    every Gauss point: (f, F_drag, F_inertia) [..., M, Q, 3] (the slam
+    term folded into f and F_drag), the abscissae s [Q], the weights L w
+    [M, Q] and the submergence [..., M, Q] in ``coords``' dtype."""
     dtype = coords.dtype
     theta_w = torch.deg2rad(_as(90.0 - wave_dir_deg, coords))
     theta_c = torch.deg2rad(_as(90.0 - current_dir_deg, coords))
@@ -213,20 +247,39 @@ def _morison_loads(wave, coords, conn, D_m, wave_dir_deg, current_dir_deg,
         F_drag = F_drag + F_slam
         f = f + F_slam
 
-    # lever-rule end split
-    F1 = torch.sum((1.0 - s)[:, None] * f, dim=-2)        # [..., M, 3]
-    F2 = torch.sum(s[:, None] * f, dim=-2)
-    member_drag = torch.sum(F_drag, dim=-2)
-    member_inertia = torch.sum(F_inertia, dim=-2)
-    nodal = node_sum_ordered(torch.cat([F1, F2], dim=-2), table)
-    total_drag = torch.sum(member_drag, dim=-2)
-    total_inertia = torch.sum(member_inertia, dim=-2)
-    return MorisonLoads(
-        nodal_forces=nodal, total_drag=total_drag,
-        total_inertia=total_inertia,
-        total_morison=total_drag + total_inertia,
-        member_drag=member_drag, member_inertia=member_inertia,
-        member_submerged_length=torch.sum(Lw * subf, dim=-1))
+    return f, F_drag, F_inertia, s, Lw, subf
+
+
+def morison_pointwise_end_forces(wave: FourierWave, coords: torch.Tensor,
+                                 conn: torch.Tensor, D_m: torch.Tensor,
+                                 wave_dir_deg, current_dir_deg, Cd, Cm,
+                                 rho_water, ts: torch.Tensor,
+                                 n_gauss: int = 15, accel: str = "fd",
+                                 stretching: str = "none",
+                                 current_alpha=None, slam_cs: float = 0.0):
+    """:func:`morison_loads` of the times ``ts`` [S] without the nodal
+    sums, for the condensed scans (they read the member end forces in their
+    chain layout): (F1 [S, M, 3], F2 [S, M, 3], total_drag [S, 3],
+    total_inertia [S, 3]), each equal to what :func:`morison_loads`
+    computes on its way to the nodal sums.  The plain version of the
+    pointwise Morison kernel (``ops/hopper_kernels.py::
+    morison_pointwise_end_forces_cuda``)."""
+    wave = wave.to(coords.dtype, coords.device)
+    ts = _as(ts, coords)
+    if ts.ndim != 1:
+        raise ValueError(f"ts must be a 1-D tensor of times, got shape "
+                         f"{tuple(ts.shape)}")
+    per_phase = conn.shape[0] * n_gauss * wave.n_modes
+    parts = []
+    for tc in ts.split(max(1, POINTWISE_CHUNK_ELEMS // per_phase)):
+        f, F_drag, F_inertia, s, _, _ = _point_forces(
+            wave, coords, conn, D_m, wave_dir_deg, current_dir_deg, Cd, Cm,
+            rho_water, tc, n_gauss, accel, stretching, current_alpha,
+            slam_cs)
+        parts.append((*_lever_split(f, s),
+                      torch.sum(torch.sum(F_drag, dim=-2), dim=-2),
+                      torch.sum(torch.sum(F_inertia, dim=-2), dim=-2)))
+    return tuple(torch.cat(x) for x in zip(*parts))
 
 
 class PhaseScan(NamedTuple):

@@ -18,8 +18,9 @@ import small_fem_solver_tpu_torch as pt
 from small_fem_solver_tpu_torch.ops import hopper_kernels as hk
 from small_fem_solver_tpu_torch.ops.condense import (
     ChainFactor, chain_sweep_plain, condense_loads, condense_loads_nested)
-from small_fem_solver_tpu_torch.ops.morison import (morison_end_forces_batch,
-                                                    morison_phase_batch)
+from small_fem_solver_tpu_torch.ops.morison import (
+    morison_end_forces_batch, morison_phase_batch,
+    morison_pointwise_end_forces)
 
 FIELDS = ("nodal_forces", "total_drag", "total_inertia", "total_morison",
           "F1", "F2")
@@ -1244,3 +1245,163 @@ def test_reliability_batch_is_one_k1_launch():
         pt.default_3leg_jacket(device="cpu"), case, **kw)(hs, tp)
     assert card.shape == (5, 51)
     assert np.abs(card - cpu).max() / np.abs(cpu).max() <= 1e-10
+
+
+# ---- the pointwise Morison kernel (csrc/morison_pointwise.cu) ----
+
+# (accel, stretching, current_alpha, per-member Cd, slam_cs); the first is
+# the slam scan's
+POINTWISE_OPTIONS = [
+    ("analytic", "none", None, False, 5.15),
+    ("fd", "none", None, False, 0.0),
+    ("analytic", "wheeler", 1.0 / 7.0, True, 0.0),
+    ("fd", "wheeler", 0.2, False, 5.15),
+    ("fd", "none", None, True, float(np.pi)),
+]
+
+
+def _slam_scan_operands(dev, per_member=False):
+    """The slam scan's shapes in float32 on the card: the 9,612-DOF mesh's
+    1,632 members, a Fenton N 18 storm, 360 phases; scalars as 0-d tensors
+    (as the scan passes them), Cd per member or a tensor."""
+    f32 = torch.float32
+    refined = pt.refine_model(pt.default_3leg_jacket(dtype=f32, device=dev),
+                              32)
+    wave = pt.make_wave(17.038, 9.4, 50.0, U_c=1.7, model="fenton", N=18,
+                        dtype=f32, device=dev)
+    M = refined.n_members
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    Cd = ((0.6 + 0.5 * torch.rand(M, generator=gen)).to(dev) if per_member
+          else torch.tensor(0.7, device=dev))
+    D = refined.sections.D_outer[refined.sect_id] / 1000.0
+    ts = torch.arange(360, dtype=f32, device=dev) * wave.T / 360
+
+    def scalar(v):
+        return torch.tensor(v, dtype=f32, device=dev)
+    return (wave, refined.coords, refined.conn, D, scalar(38.0),
+            scalar(120.0), Cd.to(f32), scalar(2.0), scalar(1025.0), ts)
+
+
+def _cast_pointwise(args, dtype):
+    """``_slam_scan_operands`` in ``dtype`` (``conn`` as it is)."""
+    dev = args[1].device
+    return (*hk.cast_operands(dtype, dev, *args[:2]), args[2],
+            *hk.cast_operands(dtype, dev, *args[3:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accel,stretching,alpha,per_member,slam",
+                         POINTWISE_OPTIONS)
+def test_pointwise_kernel_matches_plain_f64(accel, stretching, alpha,
+                                            per_member, slam):
+    """Both instances of the pointwise kernel against the plain version in
+    f64 on the same (f32-rounded) operands at the slam scan's shapes (M
+    1,632, Q 15, N 18, S 360): f32 at 1e-5 of the largest value off the
+    (phase, member) pairs with a point within 1e-4 m of a jump (the
+    surface, at t + dt too under fd, the slam band's edges), f64 at 1e-12
+    everywhere; one launch a call."""
+    dev = _device()
+    args = _slam_scan_operands(dev, per_member)
+    kw = dict(n_gauss=15, accel=accel, stretching=stretching,
+              current_alpha=alpha, slam_cs=slam)
+    ref = morison_pointwise_end_forces(*_cast_pointwise(args, torch.float64),
+                                       **kw)
+    far = ~hk.pointwise_band(args[0], args[1], args[2], args[3], 38.0,
+                             args[9], slam=slam > 0, fd=accel == "fd")
+    assert far.float().mean() > 0.5
+    phases = far.all(dim=1)
+    for dtype, tol in ((torch.float32, KERNEL_TOL),
+                       (torch.float64, KERNEL_TOL_F64)):
+        before = hk.launch_counts()
+        out = hk.morison_pointwise_end_forces_cuda(
+            *_cast_pointwise(args, dtype), **kw)
+        torch.cuda.synchronize()
+        n = hk.launch_counts()
+        assert n["pointwise"] == before["pointwise"] + 1
+        assert n["k1"] == before["k1"]
+        for name, a, b in zip(("F1", "F2", "drag", "inertia"), out, ref):
+            assert a.dtype == dtype and a.shape == b.shape, name
+            if dtype == torch.float32:
+                keep = far if a.dim() == 3 else phases
+                a, b = a[keep], b[keep]
+            assert _rel(a, b) <= tol, (name, dtype, _rel(a, b))
+
+
+@pytest.mark.cuda
+def test_pointwise_kernel_is_bit_repeatable():
+    """No float atomics: two launches of either instance give identical
+    bits."""
+    dev = _device()
+    args = _slam_scan_operands(dev)
+    for dtype in (torch.float32, torch.float64):
+        cast = _cast_pointwise(args, dtype)
+        kw = dict(accel="fd", stretching="wheeler", slam_cs=5.15)
+        a = hk.morison_pointwise_end_forces_cuda(*cast, **kw)
+        b = hk.morison_pointwise_end_forces_cuda(*cast, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), dtype
+
+
+@pytest.mark.cuda
+def test_pointwise_scan_is_one_pointwise_launch():
+    """``phase_scan_prepared(kinematics='pointwise')`` on the card (the
+    slam scan's f32 model and options): one pointwise launch, no K1
+    launch; at n_seg 4 in f64 the card equals the CPU at 1e-12."""
+    dev = _device()
+    case = pt.LoadCase(**STORM, slam_cs=5.15)
+    f32 = torch.float32
+    coarse = pt.default_3leg_jacket(dtype=f32, device=dev)
+    prep = pt.prepare_condensed(coarse, pt.refine_model(coarse, 32), 32,
+                                solve_dtype=f32)
+    wave = pt.make_wave(17.038, 9.4, 50.0, U_c=1.7, model="fenton", N=18,
+                        dtype=f32, device=dev)
+    hk.launch_counts(reset=True)
+    pt.phase_scan_prepared(prep, wave, case, 360, kinematics="pointwise")
+    torch.cuda.synchronize()
+    n = hk.launch_counts()
+    assert (n["pointwise"], n["k1"]) == (1, 0), n
+    runs = {}
+    for d in ("cpu", dev):
+        c = pt.default_3leg_jacket(device=d)
+        w = pt.make_wave(17.038, 9.4, 50.0, U_c=1.7, model="fenton", N=12,
+                         device=d)
+        runs[str(d)] = pt.phase_scan_condensed(
+            c, pt.refine_model(c, 4), 4, w, case, n_steps=36,
+            kinematics="pointwise", accel="fd", stretching="wheeler")
+    errs = _rel_fields(runs[str(dev)], runs["cpu"],
+                       ("U", "utilization", "reactions", "total_morison"))
+    assert max(errs.values()) <= 1e-12, errs
+
+
+@pytest.mark.cuda
+def test_pointwise_kernel_past_16_points_and_32_modes():
+    """The pointwise kernel takes any number of Gauss points (passes of 16
+    lanes) and modes (shared memory sized by N): a Fenton N 40 scan with
+    17 Gauss points on the card is one pointwise launch and no K1 launch,
+    and equals the CPU at 1e-12 (f64); 33 points (three passes) of the
+    f64 instance equal the plain version at 1e-12."""
+    dev = _device()
+    runs = {}
+    for d in ("cpu", dev):
+        c = pt.default_3leg_jacket(device=d)
+        w = pt.make_wave(12.0, 9.4, 50.0, U_c=1.2, model="fenton", N=40,
+                         device=d)
+        hk.launch_counts(reset=True)
+        runs[str(d)] = pt.phase_scan_condensed(
+            c, pt.refine_model(c, 4), 4, w,
+            pt.LoadCase(**STORM, slam_cs=5.15), n_steps=24, n_gauss=17,
+            kinematics="pointwise", accel="fd", stretching="wheeler")
+        torch.cuda.synchronize()
+        counts = hk.launch_counts()
+    assert (counts["pointwise"], counts["k1"]) == (1, 0), counts
+    errs = _rel_fields(runs[str(dev)], runs["cpu"],
+                       ("U", "utilization", "reactions", "total_morison"))
+    assert max(errs.values()) <= 1e-12, errs
+    m = pt.refine_model(pt.default_3leg_jacket(device=dev), 4)
+    D = m.sections.D_outer[m.sect_id] / 1000.0
+    ts = torch.arange(24, dtype=torch.float64, device=dev) * w.T / 24
+    args = (w, m.coords, m.conn, D, 38.0, 120.0, 0.7, 2.0, 1025.0, ts)
+    kw = dict(n_gauss=33, accel="analytic", slam_cs=5.15)
+    out = hk.morison_pointwise_end_forces_cuda(*args, **kw)
+    ref = morison_pointwise_end_forces(*args, **kw)
+    for name, a, b in zip(("F1", "F2", "drag", "inertia"), out, ref):
+        assert _rel(a, b) <= KERNEL_TOL_F64, (name, _rel(a, b))

@@ -191,6 +191,44 @@ def test_morison_loads_matches_jax(jax_waves, members, name, accel,
         assert not torch.allclose(batch.total_drag, no_slam.total_drag)
 
 
+@pytest.mark.parametrize("name,accel,stretching,alpha,per_member,slam", [
+    ("airy", "fd", "none", None, False, 0.0),
+    ("fenton", "fd", "none", None, False, 0.0),
+    ("stokes", "analytic", "wheeler", 1.0 / 7.0, True, 0.0),
+    ("fenton", "analytic", "none", None, True, float(np.pi)),
+    ("fenton", "fd", "wheeler", 0.2, False, 5.15),
+])
+def test_pointwise_end_forces_match_morison_loads(jax_waves, members, name,
+                                                  accel, stretching, alpha,
+                                                  per_member, slam):
+    """The member end forces of the pointwise kernel's plain version,
+    scattered onto the nodes, and its totals equal ``morison_loads``' at
+    1e-15 (f64; 12 times, in chunks of 5 phases)."""
+    jm, tm, D = members
+    tw = port_wave(jax_waves[name])
+    M = jm.n_members
+    Cd = (torch.tensor(np.random.default_rng(1).uniform(0.6, 1.1, M))
+          if per_member else 0.7)
+    ts = torch.arange(12, dtype=torch.float64) * tw.T / 12
+    args = (tw, tm.coords, tm.conn, torch.tensor(D), 38.0, 120.0, Cd, 2.0,
+            1025.0, ts)
+    kw = dict(n_gauss=15, accel=accel, stretching=stretching,
+              current_alpha=alpha, slam_cs=slam)
+    ref = pt.morison_loads(*args, **kw)
+    old = pt.ops.morison.POINTWISE_CHUNK_ELEMS
+    pt.ops.morison.POINTWISE_CHUNK_ELEMS = 5 * M * 15 * tw.n_modes
+    try:
+        F1, F2, drag, inertia = pt.ops.morison.morison_pointwise_end_forces(
+            *args, **kw)
+    finally:
+        pt.ops.morison.POINTWISE_CHUNK_ELEMS = old
+    assert F1.shape == F2.shape == (12, M, 3)
+    nodal = pt.ops.morison.nodal_scatter(F1, F2, tm.conn, tm.n_nodes)
+    assert rel_err(nodal, ref.nodal_forces) <= 1e-15
+    assert rel_err(drag, ref.total_drag) <= 1e-15
+    assert rel_err(inertia, ref.total_inertia) <= 1e-15
+
+
 def test_phase_scan_matches_jax(jax_waves, members):
     jm, tm, D = members
     jw = jax_waves["fenton"]

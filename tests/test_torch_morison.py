@@ -17,6 +17,7 @@
 """
 import dataclasses
 import functools
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -790,3 +791,358 @@ def test_batch32_tile_emulation(C, S, M, N, stretching, K, n_pt):
     for a, b in zip(out, ref):
         assert a.shape == b.shape and not torch.isnan(a).any()
         assert rel_err(a, b) < 1e-12
+
+
+# ---- the pointwise kernel (csrc/morison_pointwise.cu) ----
+
+LANES = 16   # a group of the pointwise kernel: one (phase, member)
+
+
+def _lane_tree(x):
+    """The pointwise kernel's sum over the points of dim -2: in each pass
+    of 16 lanes the xor-shuffle tree (lane i adds lane i ^ 8, then i ^ 4,
+    i ^ 2, i ^ 1), then the passes added in turn."""
+    total = None
+    for p in x.split(LANES, dim=-2):
+        for h in (8, 4, 2, 1):
+            p = p[..., :h, :] + p[..., h:2 * h, :]
+        total = p[..., 0, :] if total is None else total + p[..., 0, :]
+    return total
+
+
+def _emulate_pointwise(k, accel, stretching, dt_fd, clamp_z, slam_cs):
+    """csrc/morison_pointwise.cu in PyTorch (in the operands' dtype, the
+    heights and the difference's angle step in float64 as the kernel
+    forms them) on operands from ``kernel_operands``: a group per (phase,
+    member), a lane per Gauss point of a pass of 16 (lanes past Q add
+    zeros); one sincos a (phase, point) and the harmonics by angle
+    addition; the first mode loop for the surface, its rise and its step
+    to t + dt (alpha_j = cos j delta - 1, beta_j = sin j delta); the
+    second at wet points with the profiles at the evaluation height
+    (Wheeler, the clamp; the difference by expm1 of the height step); the
+    point forces, the lane tree of each pass, the passes added in turn,
+    and the members' partial totals in the totals pass's order.  Returns
+    (F1, F2 [S, M, 3], total_drag, total_inertia [S, 3])."""
+    T, f64 = k["coords"].dtype, torch.float64
+    fd, wheeler = accel == "fd", stretching == "wheeler"
+    coords, conn = k["coords"], k["conn"]
+    M, N, Q = conn.shape[0], k["E"].shape[0], len(k["s"])
+    P = -(-Q // LANES) * LANES                  # lanes of all passes
+
+    def val(v, per_member=False):
+        v = torch.as_tensor(v, dtype=T)
+        return v[:, None] if per_member and v.ndim == 1 else v
+
+    d, kk, om, Uc = k["d"], k["k"], k["omega"], k["Uc"]
+    rho, Cd, Cm = val(k["rho"]), val(k["Cd"], True), val(k["Cm"], True)
+    thw = (90.0 - val(k["wave_dir"])) * (math.pi / 180.0)
+    thc = (90.0 - val(k["current_dir"])) * (math.pi / 180.0)
+    cos_w, sin_w = torch.cos(thw), torch.sin(thw)
+    cos_c, sin_c = torch.cos(thc), torch.sin(thc)
+    live = torch.arange(P) < Q
+    s, w = torch.zeros(P, dtype=T), torch.zeros(P, dtype=T)
+    s[:Q], w[:Q] = torch.as_tensor(k["s"]), torch.as_tensor(k["w"])
+
+    # the member and its points (a lane's registers)
+    c1 = coords[conn[:, 0]]
+    dL = coords[conn[:, 1]] - c1
+    L = torch.sqrt((dL * dL).sum(-1))
+    e = dL / L[:, None]
+    x, y, z = (c1[:, None, c] + s * dL[:, None, c] for c in range(3))
+    xw = x * cos_w + y * sin_w                               # [M, P]
+    D = k["D"][:, None]
+    Lw = L[:, None] * w
+    cd = 0.5 * rho * Cd * D * Lw
+    ci = rho * Cm * (math.pi * D * D / 4.0) * Lw
+    ucp = (Uc if k["alpha"] is None else
+           Uc * torch.clip((z + d) / d, 0.0, 1.0) ** val(k["alpha"]))
+    ez = e[:, 2:3]
+    zp_sq = torch.clamp(1.0 - ez * ez, min=0.0)
+    zp = torch.stack([-ez * e[:, :1], -ez * e[:, 1:2], zp_sq], -1)
+    slam_c = 0.5 * rho * slam_cs * D * Lw * torch.sqrt(zp_sq)
+
+    j = torch.arange(1, N + 1, dtype=T)
+    jk, jw = j * kk, j * om
+    E, U, Ejw = k["E"], k["U"], k["E"] * j * om
+    den = 1.0 + torch.exp(-2.0 * (jk * d))
+
+    def profile(zz):   # C, S, P, Mn [..., N]
+        A = jk * (zz[..., None] + d)
+        Aa = torch.abs(A)
+        scale = torch.exp(Aa - jk * d) / den
+        e2 = torch.exp(-2.0 * Aa)
+        pos = A >= 0
+        return (scale * (1.0 + e2), torch.sign(A) * scale * (1.0 - e2),
+                torch.where(pos, scale, scale * e2),
+                torch.where(pos, scale * e2, scale))
+
+    # a (phase, point): one sincos, the difference's angle step in f64
+    ts = k["ts"][:, None, None]
+    c1_, s1_ = torch.cos(kk * xw - om * ts), torch.sin(kk * xw - om * ts)
+    zero = torch.zeros_like(c1_)
+    a1 = b1 = zero
+    if fd:
+        kx, td = kk.to(f64) * xw.to(f64), ts.to(f64)
+        dl = ((kx - om.to(f64) * (td + dt_fd)) - (kx - om.to(f64) * td)
+              ).to(T)
+        sh, ch = torch.sin(0.5 * dl), torch.cos(0.5 * dl)
+        a1, b1 = -2.0 * sh * sh, 2.0 * sh * ch
+
+    def modes(coef):
+        """Walk the modes by angle addition: coef(i, c, s, dc, ds) adds
+        mode i's terms."""
+        c, sn, a, b = c1_, s1_, a1, b1
+        for i in range(N):
+            coef(i, c, sn, a * c - b * sn, a * sn + b * c)
+            c, sn = c * c1_ - sn * s1_, sn * c1_ + c * s1_
+            a, b = a + a1 + a * a1 - b * b1, b + b1 + b * a1 + a * b1
+
+    acc = dict.fromkeys(("eta", "etad", "deta"), zero)
+
+    def surface(i, c, sn, dc, ds):
+        acc["eta"] = acc["eta"] + E[i] * c
+        acc["etad"] = acc["etad"] + Ejw[i] * sn
+        acc["deta"] = acc["deta"] + E[i] * dc
+    modes(surface)
+    eta, etad, deta = acc["eta"], acc["etad"], acc["deta"]
+    wet0 = z <= eta
+    wet1 = z <= eta + deta if fd else wet0
+
+    def height(et):   # float64 evaluation height
+        zd, dd = z.to(f64), d.to(f64)
+        zs = (zd + dd) * dd / (dd + et) - dd if wheeler else zd
+        if not clamp_z:
+            return zs
+        return torch.minimum(torch.clamp(zs + dd, min=0.01),
+                             dd + et - 0.01) - dd
+    ze0 = height(eta.to(f64))
+    hdz = (height(eta.to(f64) + deta.to(f64)) - ze0).to(T) if fd else zero
+    Cm0, Sm0, Ph, Mn = profile(ze0.to(T))
+    accb = dict.fromkeys(("u", "w", "du", "dw"), zero)
+
+    def loop_b(i, c, sn, dc, ds):
+        uc, us = U[i] * Cm0[..., i], U[i] * Sm0[..., i]
+        accb["u"] = accb["u"] + uc * c
+        accb["w"] = accb["w"] + us * sn
+        if fd:
+            e1, em = torch.expm1(jk[i] * hdz), torch.expm1(-(jk[i] * hdz))
+            dC = Ph[..., i] * e1 + Mn[..., i] * em
+            dS = Ph[..., i] * e1 - Mn[..., i] * em
+            accb["du"] = accb["du"] + U[i] * (Cm0[..., i] * dc
+                                              + dC * (c + dc))
+            accb["dw"] = accb["dw"] + U[i] * (Sm0[..., i] * ds
+                                              + dS * (sn + ds))
+        else:
+            accb["du"] = accb["du"] + uc * jw[i] * sn
+            accb["dw"] = accb["dw"] - us * jw[i] * c
+    modes(loop_b)
+    u, wv, du, dw = (torch.where(wet0 & live, accb[n], zero)
+                     for n in ("u", "w", "du", "dw"))
+    if fd:   # dry at t + dt: the difference to a zero velocity
+        du = torch.where(wet1, du / dt_fd, -(u + Uc) / dt_fd)
+        dw = torch.where(wet1, dw / dt_fd, -wv / dt_fd)
+
+    # the point's forces, the lane tree, the members' totals in order
+    Uv = torch.stack([u * cos_w + ucp * cos_c, u * sin_w + ucp * sin_c,
+                      wv], -1)
+    Av = torch.stack([du * cos_w, du * sin_w, dw], -1)
+    eb = e[:, None, :]
+    Up = Uv - (Uv * eb).sum(-1, keepdim=True) * eb
+    Ap = Av - (Av * eb).sum(-1, keepdim=True) * eb
+    Um = torch.sqrt((Up * Up).sum(-1))
+    on = wet0 & live
+    fdrag = torch.where((on & (Um > 1e-10))[..., None],
+                        (cd * Um)[..., None] * Up, 0.0)
+    fin = torch.where(on[..., None], ci[..., None] * Ap, 0.0)
+    slam = live & (torch.abs(z - eta) <= D / 2.0) & (etad > 0.0)
+    fdrag = fdrag + torch.where(slam, slam_c * etad * etad, 0.0)[
+        ..., None] * zp
+    f = fdrag + fin
+    part = torch.cat([_lane_tree(fdrag), _lane_tree(fin)], -1)  # [S, M, 6]
+    # the totals pass: run y adds members y, y + 8, ... in turn, then the
+    # 8 runs meet in a fixed tree
+    runs = []
+    for y in range(8):
+        acc = torch.zeros_like(part[:, 0])
+        for m in range(y, M, 8):
+            acc = acc + part[:, m]
+        runs.append(acc)
+    tot = (((runs[0] + runs[1]) + (runs[2] + runs[3]))
+           + ((runs[4] + runs[5]) + (runs[6] + runs[7])))
+    return (_lane_tree((1.0 - s)[:, None] * f), _lane_tree(s[:, None] * f),
+            tot[:, :3], tot[:, 3:])
+
+
+def _points(coords, conn, wave_dir, n_gauss=15):
+    """x along the heading and z [M, n_gauss] of every Gauss point
+    (f64)."""
+    s = torch.as_tensor(pt.ops.morison.gauss_legendre_01(n_gauss)[0])
+    c1 = coords[conn[:, 0]]
+    pos = c1[:, None, :] + s[None, :, None] * (coords[conn[:, 1]]
+                                                - c1)[:, None, :]
+    th = math.radians(90.0 - wave_dir)
+    return (pos[..., 0] * math.cos(th) + pos[..., 1] * math.sin(th),
+            pos[..., 2])
+
+
+def _band_times(wave, coords, conn, wave_dir, n_points: int = 4,
+                n_gauss: int = 15):
+    """Times at which ``n_points`` Gauss points (of distinct members, the
+    nearest the mean water level) lie 5 mm below the surface, inside the
+    1 cm clamp band: the first crossing of eta = z + 5 mm in a period,
+    bisected in f64."""
+    xw, z = _points(coords, conn, wave_dir, n_gauss)
+    out = []
+    for m in torch.argsort(z.abs().amin(dim=1))[:n_points].tolist():
+        q = int(torch.argmin(z[m].abs()))
+
+        def gap(t):
+            return float(pt.surface_elevation(wave, xw[m, q], t)
+                         - z[m, q] - 0.005)
+        grid = np.linspace(0.0, float(wave.T), 257)
+        vals = [gap(t) for t in grid]
+        i = next(i for i in range(256) if vals[i] * vals[i + 1] < 0)
+        lo, hi = grid[i], grid[i + 1]
+        for _ in range(60):
+            mid = 0.5 * (lo + hi)
+            if gap(mid) * vals[i] > 0:
+                lo = mid
+            else:
+                hi = mid
+        out.append(0.5 * (lo + hi))
+    return out
+
+
+POINTWISE_WAVES = {   # (H, T, d, U_c, model, N)
+    "airy": (9.5, 9.4, 50.0, 1.2, "airy", 1),
+    "stokes": (12.0, 9.4, 50.0, 1.2, "stokes", 5),
+    "fenton": (17.038, 9.4, 50.0, 1.7, "fenton", 12),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _pointwise_wave(name):
+    H, T, d, U_c, model, N = POINTWISE_WAVES[name]
+    return pt.make_wave(H, T, d, U_c=U_c, model=model, N=N, device="cpu")
+
+
+@pytest.mark.parametrize("name,accel,stretching,alpha,per_member,slam,q", [
+    ("airy", "fd", "none", None, False, 0.0, 15),
+    ("fenton", "fd", "none", None, False, 0.0, 15),
+    ("stokes", "analytic", "wheeler", 1.0 / 7.0, True, 0.0, 15),
+    ("fenton", "analytic", "none", None, True, float(np.pi), 15),
+    ("fenton", "fd", "wheeler", 0.2, False, 5.15, 15),
+    ("stokes", "analytic", "none", None, False, 5.15, 15),
+    ("fenton", "fd", "none", None, True, 5.15, 20),
+])
+def test_pointwise_kernel_emulation(name, accel, stretching, alpha,
+                                    per_member, slam, q):
+    """The pointwise kernel's arithmetic, emulated on the CPU (102 members,
+    ``q`` Gauss points: 20 takes two passes of 16 lanes; 24 phases of a
+    period and 4 times that put a point inside the 1 cm clamp band),
+    against ``morison_loads`` in f64 at 1e-12 (nodal sums and totals), and
+    its f32 copy against the plain f64 version on the same f32-rounded
+    operands at 1e-5 of the largest value, off the (phase, member) pairs
+    with a point within 1e-4 m of a jump."""
+    m = pt.refine_model(pt.default_3leg_jacket(device="cpu"), 2)
+    wave = _pointwise_wave(name)
+    M = m.n_members
+    D = m.sections.D_outer[m.sect_id] / 1000.0
+    Cd = (torch.tensor(np.random.default_rng(1).uniform(0.6, 1.1, M))
+          if per_member else 0.7)
+    ts = torch.cat([torch.arange(24, dtype=torch.float64) * wave.T / 24,
+                    torch.tensor(_band_times(wave, m.coords, m.conn, 38.0,
+                                             n_gauss=q))])
+    args = (wave, m.coords, m.conn, D, 38.0, 120.0, Cd, 2.0, 1025.0, ts)
+    kw = dict(n_gauss=q, accel=accel, stretching=stretching,
+              current_alpha=alpha, slam_cs=slam)
+    # wet points inside the clamp band, and inside the slam band
+    xw, z = _points(m.coords, m.conn, 38.0, q)
+    gap = z - pt.surface_elevation(wave, xw, ts[:, None, None])
+    assert int(((gap > -0.01) & (gap <= 0.0)).sum()) >= 4
+    assert int((gap.abs() <= D[:, None] / 2.0).sum()) > 100
+    ref = pt.morison_loads(*args, **kw)
+    k = hk.kernel_operands(*args[:10], q, alpha)
+    out = _emulate_pointwise(k, accel, stretching, wave.dt_fd, wave.clamp_z,
+                             slam)
+    nodal = pt.ops.morison.nodal_scatter(out[0], out[1], m.conn, m.n_nodes)
+    assert rel_err(nodal, ref.nodal_forces) <= 1e-12
+    assert rel_err(out[2], ref.total_drag) <= 1e-12
+    assert rel_err(out[3], ref.total_inertia) <= 1e-12
+
+    f32 = hk.cast_operands(torch.float32, "cpu", args[0], args[1], *args[3:])
+    a32 = (*f32[:2], m.conn, *f32[2:])
+    a64 = hk.cast_operands(torch.float64, "cpu", *a32[:2]) + (
+        m.conn,) + hk.cast_operands(torch.float64, "cpu", *a32[3:])
+    ref64 = pt.ops.morison.morison_pointwise_end_forces(*a64, **kw)
+    out32 = _emulate_pointwise(hk.kernel_operands(*a32, q, alpha), accel,
+                               stretching, wave.dt_fd, wave.clamp_z, slam)
+    far = ~hk.pointwise_band(wave, m.coords, m.conn, D, 38.0, a64[9], q,
+                             slam=slam > 0, fd=accel == "fd")
+    assert far.float().mean() > 0.8
+    for a, b in zip(out32, ref64):
+        keep = far if a.dim() == 3 else far.all(dim=1)
+        assert a.dtype == torch.float32
+        assert rel_err(a[keep], b[keep]) <= 1e-5
+
+
+@pytest.mark.parametrize("accel,stretching,alpha,slam", [
+    ("analytic", "none", None, 5.15),
+    ("fd", "wheeler", 0.2, 5.15),
+])
+def test_pointwise_scan_route_matches_assembled_loads(accel, stretching,
+                                                      alpha, slam):
+    """``phase_scan_prepared(kinematics='pointwise')`` on the CPU, whose
+    loads go through the pointwise wrapper's plain version into the chain
+    layout, equals the route through the global load vector
+    (``morison_loads``, ``assemble_loads``, read in the chain layout) at
+    1e-12 (f64, n_seg 4, a Fenton storm, 36 phases, buoyancy and the
+    custom self-weight)."""
+    api = pt.api
+    coarse = pt.default_3leg_jacket(device="cpu")
+    refined = pt.refine_model(coarse, 4)
+    prep = pt.prepare_condensed(coarse, refined, 4)
+    wave = _pointwise_wave("fenton")
+    case = pt.LoadCase(wave_dir_deg=38.0, current_dir_deg=38.0,
+                       F_axial_kN=25100.0, F_shear_kN=2900.0,
+                       custom_sw_tonnes=1100.0, buoyancy="sealed",
+                       slam_cs=slam)
+    kw = dict(accel=accel, stretching=stretching, current_alpha=alpha)
+    new = pt.phase_scan_prepared(prep, wave, case, 36,
+                                 kinematics="pointwise", **kw)
+    case_l = case.cast(torch.float64, "cpu")
+    ts = torch.arange(36, dtype=torch.float64) * wave.T / 36
+    mor = api._pointwise_morison(refined, wave, case_l, ts, 15, accel,
+                                 stretching, alpha)
+    F_I, g = api._global_to_chain(
+        api.assemble_loads(refined, case_l, mor.nodal_forces, prep.L_m),
+        coarse, 4)
+    old = api._prepared_results(prep, case_l, ts, F_I, g, mor.total_morison,
+                                1)
+    for f in ("U", "utilization", "reactions", "total_morison"):
+        assert rel_err(getattr(new, f), getattr(old, f)) <= 1e-12, f
+
+
+def test_pointwise_counters_on_cpu():
+    """``launch_counts`` reports the pointwise kernel's launches and resets
+    them; the wrapper on CPU tensors (the plain version) and the CPU scan
+    leave them at 0; the launcher refuses CPU tensors."""
+    m = pt.default_3leg_jacket(device="cpu")
+    wave = _pointwise_wave("stokes")
+    D = m.sections.D_outer[m.sect_id] / 1000.0
+    ts = torch.arange(6, dtype=torch.float64) * wave.T / 6
+    args = (wave, m.coords, m.conn, D, 38.0, 38.0, 0.7, 2.0, 1025.0, ts)
+    hk.morison_pointwise_cuda.launches = 3
+    n = hk.launch_counts(reset=True)
+    assert n["pointwise"] == 3
+    out = hk.morison_pointwise_end_forces_cuda(*args, slam_cs=5.15)
+    ref = pt.ops.morison.morison_pointwise_end_forces(*args, slam_cs=5.15)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    pt.phase_scan_condensed(m, pt.refine_model(m, 2), 2, wave,
+                            pt.LoadCase(slam_cs=5.15), n_steps=4,
+                            n_gauss=17, kinematics="pointwise")
+    n = hk.launch_counts()
+    assert (n["pointwise"], n["k1"]) == (0, 0)
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        hk.morison_pointwise_cuda(hk.kernel_operands(*args, 15, None),
+                                  "fd", "none", 1e-3, True, 0.0)
